@@ -1,0 +1,260 @@
+"""Config dataclasses and the ``hulc`` / ``hulc_debug`` presets.
+
+A copy of the JAX package's config (hulc_tpu/config.py) for the port: the
+same frozen dataclasses, field names and defaults, the same ``resolve()``
+size inference, so a preset means the same model in both packages. Only
+``HulcConfig.dtype`` differs: it maps ``compute_dtype`` to a torch dtype.
+
+The other presets (mcil, gcbc, depth, tactile, CLIP, state-only) and the
+dotted-path overrides wait for the slices that port their modules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionEncoderConfig:
+    """Per-camera CNN encoder: "spatial_softmax" (static cam) or
+    "nature_cnn" (gripper cam)."""
+
+    kind: str = "spatial_softmax"  # | "nature_cnn" | "clip" | "tactile"
+    input_size: int = 200
+    num_channels: int = 3
+    visual_features: int = 64
+    dropout: float = 0.0
+    l2_normalize_output: bool = False
+    use_sinusoid: bool = False
+    spatial_softmax_temp: Optional[float] = 1.0  # None -> learnable
+    activation: str = "relu"
+    shift_pad: int = 10  # random-shift augmentation padding (train only)
+    clip_model: str = "RN50"
+
+
+@dataclasses.dataclass(frozen=True)
+class ProprioConfig:
+    """Proprioception passthrough; ``keep_indices`` slice the state vector."""
+
+    n_state_obs: int = 8
+    keep_indices: Tuple[Tuple[int, int], ...] = ((0, 7), (14, 15))
+    normalize: bool = True
+    include_scene: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PerceptualEncoderConfig:
+    rgb_static: Optional[VisionEncoderConfig] = VisionEncoderConfig()
+    rgb_gripper: Optional[VisionEncoderConfig] = VisionEncoderConfig(
+        kind="nature_cnn", input_size=84, shift_pad=4
+    )
+    depth_static: Optional[VisionEncoderConfig] = None
+    depth_gripper: Optional[VisionEncoderConfig] = None
+    tactile: Optional[VisionEncoderConfig] = None
+    proprio: Optional[ProprioConfig] = None  # HULC default: no proprio
+    use_state_decoder: bool = False
+    remat: bool = False
+
+    @property
+    def cameras(self) -> Tuple[Optional[VisionEncoderConfig], ...]:
+        return (self.rgb_static, self.rgb_gripper, self.depth_static,
+                self.depth_gripper, self.tactile)
+
+    @property
+    def latent_size(self) -> int:
+        size = sum(enc.visual_features for enc in self.cameras if enc is not None)
+        if self.proprio is not None:
+            size += self.proprio.n_state_obs
+        if size == 0:
+            raise ValueError("perceptual encoder needs at least one camera or proprio")
+        return size
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributionConfig:
+    kind: str = "discrete"  # "discrete" | "continuous"
+    category_size: int = 32
+    class_size: int = 32
+    plan_features: int = 256  # continuous only
+
+    @property
+    def plan_dim(self) -> int:
+        return (
+            self.category_size * self.class_size if self.kind == "discrete" else self.plan_features
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanProposalConfig:
+    hidden_size: int = 2048
+    num_layers: int = 4
+    activation: str = "relu"
+    perceptual_features: int = -1  # resolved
+    latent_goal_features: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanRecognitionConfig:
+    """Posterior net (training only; kept so presets compare field by field)."""
+
+    kind: str = "transformer"  # "transformer" | "birnn"
+    num_heads: int = 8
+    num_layers: int = 2
+    encoder_hidden_size: int = 2048
+    fc_hidden_size: int = 4096
+    dropout: float = 0.1
+    encoder_normalize: bool = False
+    positional_normalize: bool = False
+    position_embedding: bool = True
+    max_position_embeddings: int = 32
+    birnn_hidden_size: int = 2048
+    birnn_num_layers: int = 2
+    birnn_dropout: float = 0.0
+    birnn_cell: str = "rnn_tanh"
+    in_features: int = -1  # resolved
+
+
+@dataclasses.dataclass(frozen=True)
+class GoalEncoderConfig:
+    """``kind="goal"``: MLP capped by LayerNorm; ``kind="mlp"``: the plain
+    three-Linear language head without LayerNorm."""
+
+    kind: str = "goal"  # "goal" | "mlp"
+    in_features: int = 384
+    hidden_size: int = 2048
+    latent_goal_features: int = 32
+    l2_normalize: bool = False
+    word_dropout: float = 0.0  # language only
+    activation: str = "relu"
+
+
+@dataclasses.dataclass(frozen=True)
+class ActionDecoderConfig:
+    kind: str = "logistic"  # "logistic" | "deterministic"
+    n_mixtures: int = 10
+    hidden_size: int = 2048
+    out_features: int = 7
+    log_scale_min: float = -7.0
+    act_max_bound: Tuple[float, ...] = (1.0,) * 7
+    act_min_bound: Tuple[float, ...] = (-1.0,) * 7
+    num_classes: int = 10
+    gripper_alpha: float = 1.0
+    num_layers: int = 2
+    rnn_cell: str = "rnn"  # "rnn" | "gru" | "lstm" | "mlp"
+    rnn_dropout: float = 0.0
+    gripper_control: bool = True  # TCP-frame actions
+    discrete_gripper: bool = True
+    perceptual_emb_slice: Optional[Tuple[int, int]] = (64, 128)
+    plan_features: int = -1  # resolved
+    perceptual_features: int = -1  # resolved
+    latent_goal_features: int = 32
+    criterion: str = "huber"
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    kl_beta: float = 0.01
+    kl_balancing_mix: float = 0.8
+    state_recon_beta: float = 0.5
+    bc_z_auxiliary_loss_beta: float = 1.0
+    mia_auxiliary_loss_beta: float = 1.0
+    clip_auxiliary_loss_beta: float = 3.0
+
+
+@dataclasses.dataclass(frozen=True)
+class HulcConfig:
+    model_kind: str = "hulc"  # "hulc" | "gcbc"
+    perceptual_encoder: PerceptualEncoderConfig = PerceptualEncoderConfig()
+    plan_proposal: PlanProposalConfig = PlanProposalConfig()
+    plan_recognition: PlanRecognitionConfig = PlanRecognitionConfig()
+    distribution: DistributionConfig = DistributionConfig()
+    visual_goal: GoalEncoderConfig = GoalEncoderConfig()
+    language_goal: Optional[GoalEncoderConfig] = GoalEncoderConfig()
+    action_decoder: ActionDecoderConfig = ActionDecoderConfig()
+    loss: LossConfig = LossConfig()
+    use_clip_auxiliary_loss: bool = True
+    use_bc_z_auxiliary_loss: bool = False
+    use_mia_auxiliary_loss: bool = False
+    state_recons: bool = False
+    replan_freq: int = 30
+    lang_dim: int = 384
+    proj_vis_lang_dim: int = 32
+    compute_dtype: str = "float32"  # "float32" | "bfloat16" for conv/matmul
+    fuse_modalities: bool = False
+
+    def resolve(self) -> "HulcConfig":
+        """Propagate inferred feature sizes (reference setup_input_sizes)."""
+        latent = self.perceptual_encoder.latent_size
+        plan_dim = self.distribution.plan_dim
+        decoder_plan = 0 if self.model_kind == "gcbc" else plan_dim
+        return dataclasses.replace(
+            self,
+            plan_proposal=dataclasses.replace(self.plan_proposal, perceptual_features=latent),
+            plan_recognition=dataclasses.replace(self.plan_recognition, in_features=latent),
+            visual_goal=dataclasses.replace(self.visual_goal, in_features=latent),
+            action_decoder=dataclasses.replace(
+                self.action_decoder,
+                perceptual_features=latent,
+                plan_features=decoder_plan,
+            ),
+        )
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+
+def hulc_config(**overrides) -> HulcConfig:
+    return dataclasses.replace(HulcConfig(), **overrides).resolve()
+
+
+def _debug(cfg: HulcConfig) -> HulcConfig:
+    """Tiny sizes for fast tests: small cams, small hidden dims (the JAX
+    package's ``_debug``, for the camera-based, discrete-plan presets)."""
+    cfg = dataclasses.replace(
+        cfg,
+        perceptual_encoder=PerceptualEncoderConfig(
+            rgb_static=VisionEncoderConfig(input_size=64, visual_features=16, shift_pad=3),
+            rgb_gripper=VisionEncoderConfig(
+                kind="nature_cnn", input_size=48, visual_features=16, shift_pad=2
+            ),
+        ),
+        plan_proposal=PlanProposalConfig(hidden_size=64, latent_goal_features=8),
+        plan_recognition=dataclasses.replace(
+            cfg.plan_recognition,
+            num_heads=4,
+            encoder_hidden_size=64,
+            fc_hidden_size=64,
+            birnn_hidden_size=32,
+            max_position_embeddings=8,
+        ),
+        distribution=DistributionConfig(kind="discrete", category_size=4, class_size=4),
+        visual_goal=GoalEncoderConfig(hidden_size=32, latent_goal_features=8),
+        language_goal=dataclasses.replace(cfg.language_goal, hidden_size=32, latent_goal_features=8),
+        action_decoder=dataclasses.replace(
+            cfg.action_decoder,
+            hidden_size=64,
+            latent_goal_features=8,
+            perceptual_emb_slice=(16, 32),
+        ),
+        proj_vis_lang_dim=8,
+    )
+    return cfg.resolve()
+
+
+CONFIGS: Dict[str, Callable[[], HulcConfig]] = {
+    "hulc": hulc_config,
+    "hulc_debug": lambda: _debug(hulc_config()),
+}
+
+
+def get_config(name: str, **overrides) -> HulcConfig:
+    if name not in CONFIGS:
+        raise KeyError(f"unknown config {name!r}; have {sorted(CONFIGS)}")
+    cfg = CONFIGS[name]()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides).resolve()
+    return cfg

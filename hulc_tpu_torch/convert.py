@@ -1,0 +1,128 @@
+"""JAX parameter tree (as numpy arrays) -> the port's state_dict.
+
+The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
+
+* Dense kernels (in, out) transpose to Linear weights (out, in);
+* conv kernels go from HWIO to OIHW;
+* ``ScanRNN``'s ``ih_k`` / ``hh_k`` / ``bhh_k`` become ``weight_ih_lk`` /
+  ``bias_ih_lk`` / ``weight_hh_lk`` / ``bias_hh_lk``;
+* the nature-CNN's first dense kernel is re-permuted from the NHWC flatten
+  (y, x, c) to the NCHW flatten (c, y, x);
+* LayerNorm ``scale`` becomes ``weight``.
+
+Subtrees the port has no module for (the training-only ``plan_recognition``,
+``proj_vis_lang``, ``logit_scale``, and anything else) are returned as a
+list of unused '/'-joined paths, never dropped silently.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from hulc_tpu_torch.config import HulcConfig
+
+
+class _Reader:
+    """Reads leaves from the nested JAX tree and records which were used."""
+
+    def __init__(self, params: Mapping[str, Any]):
+        self.params = params
+        self.used = set()
+
+    def get(self, path: str) -> np.ndarray:
+        node = self.params
+        for key in path.split("/"):
+            node = node[key]
+        self.used.add(path)
+        return np.asarray(node, np.float32)
+
+    def has(self, path: str) -> bool:
+        node = self.params
+        for key in path.split("/"):
+            if not isinstance(node, Mapping) or key not in node:
+                return False
+            node = node[key]
+        return True
+
+
+def _leaf_paths(tree: Mapping[str, Any], prefix: str = "") -> List[str]:
+    out = []
+    for key, node in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        out.extend(_leaf_paths(node, path) if isinstance(node, Mapping) else [path])
+    return out
+
+
+def params_from_jax(
+    params_np: Mapping[str, Any], cfg: HulcConfig
+) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Return (state_dict for ``HulcModel(cfg)``, unused JAX leaf paths)."""
+    r = _Reader(params_np)
+    sd: Dict[str, np.ndarray] = {}
+
+    def linear(src: str, dst: str):
+        sd[f"{dst}.weight"] = r.get(f"{src}/kernel").T
+        sd[f"{dst}.bias"] = r.get(f"{src}/bias")
+
+    def conv(src: str, dst: str):
+        sd[f"{dst}.weight"] = r.get(f"{src}/kernel").transpose(3, 2, 0, 1)
+        sd[f"{dst}.bias"] = r.get(f"{src}/bias")
+
+    def layernorm(src: str, dst: str):
+        sd[f"{dst}.weight"] = r.get(f"{src}/scale")
+        sd[f"{dst}.bias"] = r.get(f"{src}/bias")
+
+    def conv_tower(src: str, dst: str):
+        for i, name in enumerate(("conv0", "conv1", "conv2")):
+            conv(f"{src}/{name}", f"{dst}.conv_model.{2 * i}")
+
+    pe = cfg.perceptual_encoder
+    if pe.rgb_static is not None:
+        src, dst = "perceptual_encoder/rgb_static", "perceptual_encoder.rgb_static_encoder"
+        conv_tower(src, dst)
+        if pe.rgb_static.spatial_softmax_temp is None:
+            sd[f"{dst}.spatial_softmax.temperature"] = r.get(f"{src}/spatial_softmax/temperature").reshape(1)
+        linear(f"{src}/fc1", f"{dst}.fc1.0")
+        linear(f"{src}/fc2", f"{dst}.fc2")
+        layernorm(f"{src}/ln", f"{dst}.ln")
+    if pe.rgb_gripper is not None:
+        src, dst = "perceptual_encoder/rgb_gripper", "perceptual_encoder.rgb_gripper_encoder"
+        conv_tower(src, dst)
+        k = r.get(f"{src}/fc0/kernel")  # (side * side * c, out), NHWC flatten
+        c = sd[f"{dst}.conv_model.4.weight"].shape[0]
+        side = int(round((k.shape[0] // c) ** 0.5))
+        sd[f"{dst}.conv_model.7.weight"] = (
+            k.reshape(side, side, c, -1).transpose(3, 2, 0, 1).reshape(k.shape[1], -1)
+        )
+        sd[f"{dst}.conv_model.7.bias"] = r.get(f"{src}/fc0/bias")
+        linear(f"{src}/fc1", f"{dst}.fc1.0")
+        linear(f"{src}/fc2", f"{dst}.fc2")
+        layernorm(f"{src}/ln", f"{dst}.ln")
+
+    for i in range(cfg.plan_proposal.num_layers):
+        linear(f"plan_proposal/fc_{i}", f"plan_proposal.fc_model.{2 * i}")
+    linear("plan_proposal/fc_state", "plan_proposal.fc_state.0")
+
+    for name, offset in (("visual_goal", 0), ("language_goal", 1)):
+        if name == "language_goal" and cfg.language_goal is None:
+            continue
+        for i in range(3):
+            linear(f"{name}/fc{i}", f"{name}.mlp.{offset + 2 * i}")
+        if r.has(f"{name}/ln"):
+            layernorm(f"{name}/ln", f"{name}.ln")
+
+    ad = cfg.action_decoder
+    for k in range(ad.num_layers):
+        sd[f"action_decoder.rnn.weight_ih_l{k}"] = r.get(f"action_decoder/rnn/ih_{k}/kernel").T
+        sd[f"action_decoder.rnn.bias_ih_l{k}"] = r.get(f"action_decoder/rnn/ih_{k}/bias")
+        sd[f"action_decoder.rnn.weight_hh_l{k}"] = r.get(f"action_decoder/rnn/hh_{k}").T
+        sd[f"action_decoder.rnn.bias_hh_l{k}"] = r.get(f"action_decoder/rnn/bhh_{k}")
+    for head in ("mean_fc", "log_scale_fc", "prob_fc") + (("gripper_fc",) if ad.discrete_gripper else ()):
+        linear(f"action_decoder/{head}", f"action_decoder.{head}")
+
+    unused = sorted(set(_leaf_paths(params_np)) - r.used)
+    state_dict = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    return state_dict, unused

@@ -1,0 +1,207 @@
+"""Closed-loop inference policy (port of hulc_tpu/evaluation/policy.py).
+
+``build_policy_fns`` returns the three device functions that the JAX
+package jits and its serving exporter wraps:
+
+* ``replan_lang``: encode the current frame and a language embedding,
+  sample a plan from the proposal prior;
+* ``replan_vision``: the same with a goal frame stacked on the seq axis;
+* ``act``: encode the frame, one decoder step with carry, world-frame
+  action.
+
+``HulcPolicy`` drives them through ``reset()`` / ``step(obs, goal)``,
+replanning every ``replan_freq`` steps, with its state in an explicit
+:class:`PolicyState` and its noise from one seeded ``torch.Generator`` on
+the model's device. Every random draw can instead be passed in
+(``gumbel``, ``u_mix``, ``u_inv``), which is how the tests feed the noise
+JAX drew.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from hulc_tpu_torch.config import HulcConfig
+from hulc_tpu_torch.data.statistics import DatasetStatistics
+from hulc_tpu_torch.models.hulc import HulcModel
+from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
+
+
+class PolicyState(NamedTuple):
+    plan: torch.Tensor
+    latent_goal: torch.Tensor
+    carry: torch.Tensor
+    step_count: int
+
+
+def _keep_indices(robot_obs, keep=((0, 7), (14, 15))):
+    return np.concatenate([robot_obs[..., a:b] for a, b in keep], axis=-1)
+
+
+def proprio_settings(cfg: HulcConfig):
+    """(keep_indices, normalize) matching the training loader."""
+    p = cfg.perceptual_encoder.proprio
+    if p is not None:
+        return tuple(p.keep_indices), p.normalize
+    return ((0, 7), (14, 15)), True
+
+
+class StateObsNormalizer:
+    """obs -> the proprio vector the training loader feeds: keep_indices
+    slicing, normalization with dataset statistics, and the robot_scene
+    layout ([robot_obs(15); scene_obs(24)] before slicing)."""
+
+    def __init__(self, cfg: HulcConfig, statistics: Optional[DatasetStatistics]):
+        p = cfg.perceptual_encoder.proprio
+        self.keep, self.normalize = proprio_settings(cfg)
+        self.include_scene = bool(p.include_scene) if p is not None else False
+        stats = statistics
+        self.rob_mean = stats.robot_obs_mean if stats else np.zeros(15, np.float32)
+        self.rob_std = stats.robot_obs_std if stats else np.ones(15, np.float32)
+        self.scene_mean = stats.scene_obs_mean if stats else np.zeros(24, np.float32)
+        self.scene_std = stats.scene_obs_std if stats else np.ones(24, np.float32)
+
+    def __call__(self, rob_raw: np.ndarray, scene_raw=None) -> np.ndarray:
+        """rob_raw (..., 15), scene_raw (..., 24) -> kept proprio (..., k)."""
+
+        def norm(x, mean, std):
+            return (x - mean) / np.maximum(std, 1e-6) if self.normalize else x
+
+        state = norm(rob_raw, self.rob_mean, self.rob_std)
+        if self.include_scene:
+            if scene_raw is None:
+                raise ValueError("proprio.include_scene=True needs scene_obs in the env obs")
+            state = np.concatenate([state, norm(scene_raw, self.scene_mean, self.scene_std)], axis=-1)
+        return _keep_indices(state, self.keep).astype(np.float32)
+
+
+def build_policy_fns(model: HulcModel, cfg: HulcConfig):
+    """The closed-loop device functions, batch-size parametric on the
+    leading dim of ``robot_obs_norm`` (single-lane inference passes 1).
+
+    Frames are (E, S, H, W, 3) uint8 on the model's device; embeddings,
+    plans, goals and carries are fp32 tensors there.
+    """
+    preprocess = preprocess_rgb_seq if model.use_kernels else preprocess_rgb_seq_plain
+
+    def _encode_frame(rgb_static, rgb_gripper, robot_obs_norm):
+        rgb_obs = {}
+        if rgb_static is not None:
+            rgb_obs["rgb_static"] = preprocess(rgb_static)
+        if rgb_gripper is not None:
+            rgb_obs["rgb_gripper"] = preprocess(rgb_gripper)
+        emb, _ = model.encode(rgb_obs, robot_obs_norm)
+        return emb
+
+    @torch.no_grad()
+    def replan_lang(rgb_static, rgb_gripper, robot_obs_norm, lang_emb, *, generator=None, gumbel=None):
+        emb = _encode_frame(rgb_static, rgb_gripper, robot_obs_norm)
+        latent_goal = model.encode_language_goal(lang_emb)
+        plan = model.propose_plan(emb, latent_goal, generator=generator, gumbel=gumbel)
+        return plan, latent_goal
+
+    @torch.no_grad()
+    def replan_vision(rgb_static2, rgb_gripper2, robot_obs_norm2, *, generator=None, gumbel=None):
+        """Current + goal frame stacked on the seq axis."""
+        emb = _encode_frame(rgb_static2, rgb_gripper2, robot_obs_norm2)
+        latent_goal = model.encode_visual_goal(emb[:, -1])
+        plan = model.propose_plan(emb[:, :1], latent_goal, generator=generator, gumbel=gumbel)
+        return plan, latent_goal
+
+    @torch.no_grad()
+    def act(plan, latent_goal, rgb_static, rgb_gripper, robot_obs_norm, robot_obs_raw, carry, *,
+            generator=None, u_mix=None, u_inv=None):
+        emb = _encode_frame(rgb_static, rgb_gripper, robot_obs_norm)
+        action, new_carry = model.decoder_act(
+            plan, emb, latent_goal, robot_obs_raw, carry,
+            generator=generator, u_mix=u_mix, u_inv=u_inv,
+        )
+        return action[:, 0], new_carry
+
+    return replan_lang, replan_vision, act
+
+
+class HulcPolicy:
+    """reset()/step(obs, goal) driving the model on its device."""
+
+    def __init__(
+        self,
+        cfg: HulcConfig,
+        model: HulcModel,
+        statistics: Optional[DatasetStatistics] = None,
+        lang_embeddings: Optional[Dict[str, np.ndarray]] = None,
+        seed: int = 0,
+    ):
+        self.cfg = cfg
+        self.model = model.eval()
+        self.device = model.device
+        self.replan_freq = cfg.replan_freq
+        self.lang_embeddings = lang_embeddings or {}
+        self._state_norm = StateObsNormalizer(cfg, statistics)
+        self._state: Optional[PolicyState] = None
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._replan_lang, self._replan_vision, self._act = build_policy_fns(model, cfg)
+
+    def reset(self) -> None:
+        self._state = None
+
+    def step(self, obs: Dict, goal) -> np.ndarray:
+        """One env step. goal: instruction str, embedding array, or goal-obs dict."""
+        rgb_static, rgb_gripper, rob_norm, rob_raw = self._split_obs(obs)
+        state = self._state
+        if state is None or state.step_count % self.replan_freq == 0:
+            if isinstance(goal, (str, np.ndarray, torch.Tensor)):
+                emb = self.lang_embeddings[goal] if isinstance(goal, str) else goal
+                emb = torch.as_tensor(np.asarray(emb, np.float32).reshape(1, -1), device=self.device)
+                plan, latent_goal = self._replan_lang(
+                    rgb_static, rgb_gripper, rob_norm, emb, generator=self.generator
+                )
+            else:
+                g_static, g_gripper, g_norm, _ = self._split_obs(goal)
+
+                def _cat_seq(a, b):
+                    return torch.cat([a, b], dim=1) if a is not None else None
+
+                plan, latent_goal = self._replan_vision(
+                    _cat_seq(rgb_static, g_static),
+                    _cat_seq(rgb_gripper, g_gripper),
+                    torch.cat([rob_norm, g_norm], dim=1),
+                    generator=self.generator,
+                )
+            carry = self.model.init_decoder_carry(1)
+            state = PolicyState(plan, latent_goal, carry, state.step_count if state else 0)
+
+        action, carry = self._act(
+            state.plan, state.latent_goal, rgb_static, rgb_gripper, rob_norm, rob_raw, state.carry,
+            generator=self.generator,
+        )
+        self._state = PolicyState(state.plan, state.latent_goal, carry, state.step_count + 1)
+        return action[0].cpu().numpy()
+
+    def _split_obs(self, obs: Dict):
+        """env obs -> (1, 1, ...) tensors on the device; cameras the config
+        does not consume stay on the host."""
+        pe = self.cfg.perceptual_encoder
+        rgb = obs.get("rgb_obs", {})
+
+        def frame(key, enc):
+            if enc is None:
+                return None
+            return torch.as_tensor(np.asarray(rgb[key], np.uint8)[None, None], device=self.device)
+
+        rob_raw = np.asarray(obs["robot_obs"], np.float32).reshape(1, 1, 15)
+        scene_raw = (
+            np.asarray(obs["scene_obs"], np.float32).reshape(1, 1, -1)
+            if self._state_norm.include_scene and "scene_obs" in obs
+            else None
+        )
+        rob_norm = self._state_norm(rob_raw, scene_raw)
+        return (
+            frame("rgb_static", pe.rgb_static),
+            frame("rgb_gripper", pe.rgb_gripper),
+            torch.as_tensor(rob_norm, device=self.device),
+            torch.as_tensor(rob_raw, device=self.device),
+        )

@@ -1,0 +1,151 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/*.cu``.
+
+At first use every source is compiled for Hopper (``sm_90a``) by its own
+``nvcc`` process, all started together, and the objects are linked into
+one shared library under ``build/`` at the repository root, named by a
+hash of the sources and flags so a changed source is rebuilt. The library
+has a plain C interface and is loaded with ``ctypes``: no PyTorch headers,
+so a build takes seconds.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :class:`Kernel` raises on a non-zero code and
+counts successful launches in ``Kernel.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from typing import Sequence
+
+import torch
+
+CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def _run(cmd: Sequence[str]) -> str:
+    proc = subprocess.run(list(cmd), capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build() -> pathlib.Path:
+    """Compile ``csrc/*.cu`` into ``build/libhulc_kernels-<hash>.so`` (a no-op
+    when that file exists) and return its path. The compiler's register and
+    spill report is kept beside it as ``.log``."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.name.encode() + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:16]
+    lib = BUILD_DIR / f"libhulc_kernels-{tag}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.{os.getpid()}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(sources, objs)]
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        logs = list(pool.map(_run, cmds))
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    logs.append(_run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                      *map(str, objs), "-o", str(tmp)]))
+    for obj in objs:
+        obj.unlink()
+    lib.with_suffix(".log").write_text("\n".join(logs))
+    os.replace(tmp, lib)  # atomic: another process never loads a partial file
+    return lib
+
+
+# C signature of each entry point, without the trailing stream argument.
+_SIGNATURES = {
+    "hulc_preprocess_rgb": (_P, _P, _I64, _I32, _I32, _I32, _F32, _F32),
+    "hulc_spatial_softmax": (_P, _P, _I64, _I32, _I32, _I32, _P, _F32),
+    "hulc_logistic_mixture_sample": (_P, _P, _P, _P, _P, _P, _I64, _I32),
+}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [*args, _P]
+        fn.restype = ctypes.c_int
+    lib.hulc_error_string.argtypes = [ctypes.c_int]
+    lib.hulc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class Kernel:
+    """One C entry point of the library and the count of its launches."""
+
+    def __init__(self, symbol: str):
+        if symbol not in _SIGNATURES:
+            raise KeyError(symbol)
+        self.symbol = symbol
+        self.launches = 0
+
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; raise if the launch failed."""
+        lib = library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, self.symbol)(*args, stream)
+        if err != 0:
+            msg = lib.hulc_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+PREPROCESS_RGB = Kernel("hulc_preprocess_rgb")
+SPATIAL_SOFTMAX = Kernel("hulc_spatial_softmax")
+LOGISTIC_MIXTURE_SAMPLE = Kernel("hulc_logistic_mixture_sample")
+ALL_KERNELS = (PREPROCESS_RGB, SPATIAL_SOFTMAX, LOGISTIC_MIXTURE_SAMPLE)
+
+
+def reset_launch_counts() -> None:
+    for kernel in ALL_KERNELS:
+        kernel.launches = 0
+
+
+def require_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int | None = None) -> None:
+    """Validate what a kernel is handed before its pointer is passed."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,132 @@
+"""Logistic-mixture action decoder (port of hulc_tpu/models/decoders.py:41-214).
+
+A relu RNN with an explicit carry over concat(plan, a slice of the
+perceptual embedding, latent goal), three heads for the mixture's logits,
+log scales (clamped at ``log_scale_min``) and means, and a two-way gripper
+head. ``act`` samples one action per step through the mixture sampler
+(a hand-written kernel on CUDA tensors), picks the gripper by argmax, and
+rotates the action from the TCP frame back to the world frame. The loss
+waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from hulc_tpu_torch.config import ActionDecoderConfig
+from hulc_tpu_torch.models.layers import ScanRNN
+from hulc_tpu_torch.ops.frame_transforms import tcp_to_world_frame
+from hulc_tpu_torch.ops.logistic_mixture import (
+    draw_uniforms,
+    logistic_mixture_sample,
+    logistic_mixture_sample_plain,
+)
+
+
+class DecoderOutputs(NamedTuple):
+    logit_probs: torch.Tensor  # (B, S, A, K)
+    log_scales: torch.Tensor  # (B, S, A, K)
+    means: torch.Tensor  # (B, S, A, K)
+    gripper_logits: Optional[torch.Tensor]  # (B, S, 2) when discrete_gripper
+    carry: torch.Tensor  # (num_layers, B, H)
+
+
+def decoder_carry(cfg: ActionDecoderConfig, batch_size: int, device) -> torch.Tensor:
+    """Zero RNN carry for closed-loop inference."""
+    return torch.zeros(cfg.num_layers, batch_size, cfg.hidden_size, device=device)
+
+
+class LogisticPolicyDecoder(nn.Module):
+    """RNN + discretized logistic-mixture head (+ discrete gripper head).
+
+    ``use_kernels=False`` samples with the plain version on any device; it
+    exists to hold the kernel against it on the card.
+    """
+
+    def __init__(self, cfg: ActionDecoderConfig, use_kernels: bool = True):
+        super().__init__()
+        if cfg.kind != "logistic":
+            raise ValueError(f"action decoder {cfg.kind!r} is not ported yet")
+        self.cfg = cfg
+        self.use_kernels = use_kernels
+        emb = cfg.perceptual_features
+        if cfg.perceptual_emb_slice is not None:
+            emb = cfg.perceptual_emb_slice[1] - cfg.perceptual_emb_slice[0]
+        in_features = cfg.plan_features + emb + cfg.latent_goal_features
+        self.rnn = ScanRNN(in_features, cfg.hidden_size, cfg.num_layers, cfg.rnn_cell)
+        a = self.cont_dims
+        self.mean_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)
+        self.log_scale_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)
+        self.prob_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)
+        if cfg.discrete_gripper:
+            self.gripper_fc = nn.Linear(cfg.hidden_size, 2)
+
+    @property
+    def cont_dims(self) -> int:
+        """Continuous action dims (the gripper is discrete if configured)."""
+        return self.cfg.out_features - 1 if self.cfg.discrete_gripper else self.cfg.out_features
+
+    def forward(
+        self,
+        latent_plan: torch.Tensor,
+        perceptual_emb: torch.Tensor,
+        latent_goal: torch.Tensor,
+        carry: Optional[torch.Tensor] = None,
+    ) -> DecoderOutputs:
+        c = self.cfg
+        if c.perceptual_emb_slice is not None:
+            perceptual_emb = perceptual_emb[..., c.perceptual_emb_slice[0] : c.perceptual_emb_slice[1]]
+        b, s, _ = perceptual_emb.shape
+        parts = [
+            latent_plan[:, None].expand(b, s, latent_plan.shape[-1]),
+            perceptual_emb,
+            latent_goal[:, None].expand(b, s, latent_goal.shape[-1]),
+        ]
+        y, new_carry = self.rnn(torch.cat([p.float() for p in parts], dim=-1), carry)
+        a, k = self.cont_dims, c.n_mixtures
+        logit_probs = self.prob_fc(y).reshape(b, s, a, k)
+        means = self.mean_fc(y).reshape(b, s, a, k)
+        log_scales = torch.clamp_min(self.log_scale_fc(y).reshape(b, s, a, k), c.log_scale_min)
+        gripper_logits = self.gripper_fc(y) if c.discrete_gripper else None
+        return DecoderOutputs(logit_probs, log_scales, means, gripper_logits, new_carry)
+
+    def _sample_from_outputs(
+        self,
+        out: DecoderOutputs,
+        generator: Optional[torch.Generator],
+        u_mix: Optional[torch.Tensor],
+        u_inv: Optional[torch.Tensor],
+    ) -> torch.Tensor:
+        if (u_mix is None) != (u_inv is None):
+            raise ValueError("pass both u_mix and u_inv, or neither")
+        if u_mix is None:
+            u_mix, u_inv = draw_uniforms(tuple(out.logit_probs.shape), generator, out.logit_probs.device)
+        sample = logistic_mixture_sample if self.use_kernels else logistic_mixture_sample_plain
+        actions = sample(out.logit_probs, out.log_scales, out.means, u_mix=u_mix, u_inv=u_inv)
+        if self.cfg.discrete_gripper:
+            open_ = torch.argmax(out.gripper_logits, dim=-1) == 1
+            gripper = torch.where(open_, self.cfg.act_max_bound[-1], self.cfg.act_min_bound[-1])
+            actions = torch.cat([actions, gripper[..., None].to(actions.dtype)], dim=-1)
+        return actions
+
+    def act(
+        self,
+        latent_plan: torch.Tensor,
+        perceptual_emb: torch.Tensor,
+        latent_goal: torch.Tensor,
+        robot_obs: torch.Tensor,
+        carry: torch.Tensor,
+        *,
+        generator: Optional[torch.Generator] = None,
+        u_mix: Optional[torch.Tensor] = None,
+        u_inv: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One closed-loop step: (B, S, 7) world-frame actions and the new carry."""
+        out = self(latent_plan, perceptual_emb, latent_goal, carry)
+        pred = self._sample_from_outputs(out, generator, u_mix, u_inv)
+        if self.cfg.gripper_control:
+            pred = tcp_to_world_frame(pred, robot_obs)
+        return pred, out.carry

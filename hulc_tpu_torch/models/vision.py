@@ -1,0 +1,154 @@
+"""Per-camera CNN encoders (port of hulc_tpu/models/vision.py:28-191), NCHW.
+
+* ``VisionNetworkStatic`` (static camera): three convolutions (8/4, 4/2,
+  3/1, VALID), SpatialSoftmax keypoints, FC 512 -> visual_features,
+  LayerNorm.
+* ``NatureCNN`` (gripper camera): the same convolutions, an NCHW flatten,
+  FC -> 128 -> 512 -> visual_features, LayerNorm.
+
+The JAX package's first convolution is a space-to-depth rewrite for the
+TPU's matrix unit; here it is a plain 8x8 stride-4 ``nn.Conv2d``, the same
+math. SpatialSoftmax's forward is the hand-written kernel
+``csrc/spatial_softmax.cu`` on CUDA tensors and the plain version below on
+CPU tensors. Dropout is left out: the port runs these encoders for
+inference only in this slice. The sinusoid and L2-normalized outputs no
+preset uses wait too.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+import torch.nn as nn
+
+from hulc_tpu_torch import kernels
+from hulc_tpu_torch.config import VisionEncoderConfig
+from hulc_tpu_torch.models.layers import ACTIVATIONS
+
+
+def spatial_softmax_plain(x: torch.Tensor, temperature: Union[float, torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch SpatialSoftmax: (N, C, H, W) -> (N, 2C) interleaved
+    (x_0, y_0, x_1, y_1, ...); x is weighted by the row index, y by the
+    column index (the reference's square-grid quirk)."""
+    n, c, h, w = x.shape
+    z = x.float() / temperature
+    e = torch.exp(z - z.amax(dim=(2, 3), keepdim=True))
+    s = e.sum(dim=(2, 3))
+    lin_h = torch.linspace(-1.0, 1.0, h, device=x.device)
+    lin_w = torch.linspace(-1.0, 1.0, w, device=x.device)
+    expected_x = (e * lin_h[:, None]).sum(dim=(2, 3)) / s
+    expected_y = (e * lin_w[None, :]).sum(dim=(2, 3)) / s
+    return torch.stack([expected_x, expected_y], dim=-1).reshape(n, 2 * c)
+
+
+def spatial_softmax(x: torch.Tensor, temperature: Union[float, torch.Tensor]) -> torch.Tensor:
+    """SpatialSoftmax forward; ``temperature`` is a float or a learnable
+    one-element tensor on x's device."""
+    n, c, h, w = x.shape
+    if h != w:
+        raise ValueError(f"SpatialSoftmax requires a square feature map (got {h}x{w})")
+    if x.device.type == "cpu":
+        return spatial_softmax_plain(x, temperature)
+    kernels.require_cuda_tensor("x", x, torch.float32, 4)
+    if isinstance(temperature, torch.Tensor):
+        kernels.require_cuda_tensor("temperature", temperature, torch.float32)
+        temp_ptr, temp_value = temperature.data_ptr(), 1.0
+    else:
+        temp_ptr, temp_value = None, float(temperature)
+    out = torch.empty((n, 2 * c), dtype=torch.float32, device=x.device)
+    kernels.SPATIAL_SOFTMAX(x.device, x.data_ptr(), out.data_ptr(), n, c, h, w, temp_ptr, temp_value)
+    return out
+
+
+class SpatialSoftmax(nn.Module):
+    """Expected (x, y) keypoint coordinates per channel.
+
+    ``temperature=None`` makes it a learnable parameter (initialized to 1).
+    ``use_kernels=False`` runs the plain version on any device; it exists
+    to hold the kernel against it on the card.
+    """
+
+    def __init__(self, temperature: Optional[float] = 1.0, use_kernels: bool = True):
+        super().__init__()
+        self.use_kernels = use_kernels
+        self.fixed_temperature = temperature
+        if temperature is None:
+            self.temperature = nn.Parameter(torch.ones(1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        temp = self.temperature if self.fixed_temperature is None else self.fixed_temperature
+        if self.use_kernels:
+            return spatial_softmax(x, temp)
+        return spatial_softmax_plain(x, temp)
+
+
+def conv_tower(in_channels: int, activation: str) -> nn.Sequential:
+    """The three VALID convolutions shared by both encoders, as the
+    reference's ``conv_model.{0,2,4}``."""
+    act = ACTIVATIONS[activation]
+    return nn.Sequential(
+        nn.Conv2d(in_channels, 32, 8, stride=4), act(),
+        nn.Conv2d(32, 64, 4, stride=2), act(),
+        nn.Conv2d(64, 64, 3, stride=1), act(),
+    )
+
+
+def conv_tower_size(input_size: int) -> int:
+    """Side of the conv tower's output map for a square input."""
+    s = (input_size - 8) // 4 + 1
+    s = (s - 4) // 2 + 1
+    return s - 2
+
+
+def _check_ported(cfg: VisionEncoderConfig) -> None:
+    if cfg.use_sinusoid or cfg.l2_normalize_output:
+        raise ValueError("use_sinusoid and l2_normalize_output are not ported yet")
+
+
+class VisionNetworkStatic(nn.Module):
+    """Static-camera encoder: convs + SpatialSoftmax + FC head."""
+
+    def __init__(self, cfg: VisionEncoderConfig, use_kernels: bool = True):
+        super().__init__()
+        _check_ported(cfg)
+        act = ACTIVATIONS[cfg.activation]
+        self.conv_model = conv_tower(cfg.num_channels, cfg.activation)
+        self.spatial_softmax = SpatialSoftmax(cfg.spatial_softmax_temp, use_kernels)
+        self.fc1 = nn.Sequential(nn.Linear(2 * 64, 512), act())
+        self.fc2 = nn.Linear(512, cfg.visual_features)
+        self.ln = nn.LayerNorm(cfg.visual_features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, C, H, W) preprocessed frames -> (N, visual_features)."""
+        return self.ln(self.fc2(self.fc1(self.spatial_softmax(self.conv_model(x)))))
+
+
+class NatureCNN(nn.Module):
+    """Gripper-camera encoder: nature_cnn convs + NCHW flatten + FC head."""
+
+    def __init__(self, cfg: VisionEncoderConfig):
+        super().__init__()
+        _check_ported(cfg)
+        act = ACTIVATIONS[cfg.activation]
+        side = conv_tower_size(cfg.input_size)
+        self.conv_model = nn.Sequential(
+            *conv_tower(cfg.num_channels, cfg.activation),
+            nn.Flatten(),
+            nn.Linear(64 * side * side, 128),
+            act(),
+        )
+        self.fc1 = nn.Sequential(nn.Linear(128, 512), act())
+        self.fc2 = nn.Linear(512, cfg.visual_features)
+        self.ln = nn.LayerNorm(cfg.visual_features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ln(self.fc2(self.fc1(self.conv_model(x))))
+
+
+def make_vision_encoder(cfg: VisionEncoderConfig, use_kernels: bool = True) -> nn.Module:
+    if cfg.kind == "spatial_softmax":
+        return VisionNetworkStatic(cfg, use_kernels)
+    if cfg.kind == "nature_cnn":
+        return NatureCNN(cfg)
+    raise ValueError(f"vision encoder kind {cfg.kind!r} is not ported yet")

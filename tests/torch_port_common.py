@@ -1,0 +1,55 @@
+"""Helpers shared by the tests/test_torch_port_*.py files: weights made by
+the JAX package and carried into the port."""
+
+import jax
+import numpy as np
+import torch
+
+from hulc_tpu.models import example_batch, init_params
+from hulc_tpu.models import make_model as jax_make_model
+
+from hulc_tpu_torch.convert import params_from_jax
+from hulc_tpu_torch.models import make_model
+
+
+def to_torch(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def _example_batch(cfg):
+    return {"vis": example_batch(cfg, 1, 2), "lang": example_batch(cfg, 1, 2, lang=True)}
+
+
+def jax_init(cfg):
+    """(JAX model, numpy params) from ``hulc_tpu.models.init_params``."""
+    model = jax_make_model(cfg)
+    batch = _example_batch(cfg)
+    params = jax.jit(lambda k: init_params(model, k, batch))(jax.random.key(0))
+    return model, jax.tree.map(np.asarray, params)
+
+
+def jax_random_params(cfg, seed):
+    """(JAX model, numpy params) with the tree of ``init_params`` but values
+    drawn by numpy at torch's default scales; no JAX compile, so it is
+    cheap at full width."""
+    model = jax_make_model(cfg)
+    batch = _example_batch(cfg)
+    shapes = jax.eval_shape(lambda: init_params(model, jax.random.key(0), batch))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        if jax.tree_util.keystr(path).endswith("['scale']"):
+            return np.ones(leaf.shape, np.float32)
+        fan_in = int(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else int(np.prod(leaf.shape))
+        bound = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
+
+    return model, jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def port_model_from_jax(params, port_cfg):
+    """(port model on the CPU holding the JAX weights, unused JAX paths)."""
+    state_dict, unused = params_from_jax(params, port_cfg)
+    model = make_model(port_cfg, device="cpu")
+    model.load_state_dict(state_dict, strict=True)
+    return model, unused
