@@ -1,32 +1,45 @@
 """Drive the PyTorch/CUDA port of hulc on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 0] [--steps 35] [--lanes 64]
+    python3 chip_smoke.py [--seed 0] [--steps 35] [--lanes 64] [--train-steps 5]
 
 Run from the repository root. Phases, each of which exits non-zero when
 it fails:
 
 1. device: requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit`` gives them. TF32 is turned
-   off for cuDNN convolutions and cuBLAS matmuls: the policy computes in
+   off for cuDNN convolutions and cuBLAS matmuls: the port computes in
    fp32, and TF32 convolutions would break parity with the plain path.
 2. build: compiles ``hulc_tpu_torch/csrc/*.cu`` for sm_90a (kernels.build).
-3. kernels: each hand-written kernel against its plain PyTorch version at
-   the policy's shapes, one lane and ``--lanes`` lanes.
-4. main path, single lane: the full-width ``hulc`` HulcPolicy (random
-   weights from ``--seed``, synthetic uint8 frames, 15-d robot_obs, 384-d
-   language embedding) for ``--steps`` steps, across the replan at
-   replan_freq=30.
-5. main path, batched: BatchedHulcPolicy with ``--lanes`` lanes and
-   staggered per-lane replans.
+3. kernels: each serving kernel against its plain PyTorch version at the
+   policy's shapes, one lane and ``--lanes`` lanes; each training kernel
+   against its plain version (its backward against autograd through the
+   plain forward) at the training step's shapes.
+4. serving main path, single lane: the full-width ``hulc`` HulcPolicy
+   (random weights from ``--seed``, synthetic uint8 frames, 15-d
+   robot_obs, 384-d language embedding) for ``--steps`` steps, across the
+   replan at replan_freq=30.
+5. serving main path, batched: BatchedHulcPolicy with ``--lanes`` lanes
+   and staggered per-lane replans.
    Launch counts are zeroed just before phase 4 and read just after
-   phase 5; every kernel must have launched.
-6. plain path: the same steps through a model built with
+   phase 5; every serving kernel must have launched.
+6. serving plain path: the same steps through a model built with
    use_kernels=False on the card, fed each step the state the kernel path
    had and the same noise (same generator seed); the actions must agree.
-7. timing: policy step times through the entry points, and each kernel
-   against its plain version: device time (the CUDA activity
-   torch.profiler records) and time per call (CUDA events around
+7. serving timing: policy step times through the entry points, and each
+   serving kernel against its plain version: device time (the CUDA
+   activity torch.profiler records) and time per call (CUDA events around
    back-to-back calls, so the host's launch cost is included).
+8. training main path: a full-width ``hulc`` Trainer (random init from
+   ``--seed``) takes ``--train-steps`` steps on a synthetic loader-fused
+   uint8 batch (32 vision + 32 language windows of 32 frames). Launch
+   counts are zeroed just before and read just after; every training
+   kernel must have launched and every loss must be finite. Step time:
+   median after two warm-up steps, CUDA events and the host clock.
+9. training plain path: one step from the same params, batch, shifts and
+   plan noise through use_kernels=False (recognition dropout 0 in both
+   runs, cuDNN deterministic); every loss and every gradient must agree.
+10. training timing: each training kernel against its plain version at
+   the step's shapes, and fused fp32 Adam as the optimizer's yardstick.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +48,8 @@ Prints a ``{"kernels": [...]}`` JSON line and, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -51,6 +66,21 @@ FP32_FLOP_PER_S = 67e12
 
 ACTION_ATOL = 1e-4  # kernel path vs plain path, per action entry
 PLAN_TIE_BUDGET = 1e-3  # share of replanned plan categories allowed to differ
+
+# Training tolerances, kernel against plain version on the same inputs:
+# fp32 sums taken in another order, so relative errors of a few ulp; each
+# backward kernel's gradient is held, as a whole tensor, to its norm
+# (relative L2), since an entry that sums terms of both signs can lose its
+# relative precision while the tensor keeps it.
+SS_BWD_RTOL, SS_BWD_ATOL = 1e-5, 1e-7  # SpatialSoftmax dx, per entry
+LOSS_RTOL = 1e-5  # mixture NLL and plan KL forward, per entry
+GRAD_REL = 1e-5  # backward kernels, relative L2 per gradient tensor
+ONE_ULP = 2.0**-23  # the straight-through value (1 + p) - p rounds at 1's ulp
+STEP_LOSS_RTOL = 1e-5  # train step, kernel path vs plain path, per loss key
+STEP_GRAD_REL = 1e-4  # train step, relative L2 per parameter's gradient, or:
+NOISE_FACTOR = 2.0  # times the step's measured sensitivity (compare_train_plain)
+PLAN_TIE_MARGIN = 1e-3  # plan noise margin that float noise cannot cross (separate_plan_ties)
+ZERO_GRAD = 1e-7  # share of the gradient's norm below which a leaf's is rounding noise
 
 
 def fail(msg: str) -> None:
@@ -108,7 +138,18 @@ def host_ms(fn, iters: int) -> float:
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b.double()).abs().max())
+    return float((a.detach().double() - b.detach().double()).abs().max())
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # --------------------------------------------------------------------------
@@ -317,10 +358,6 @@ def time_kernels(model, cfg, lanes, rng):
     lp, ls, mu = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
     u_mix, u_inv = draw_uniforms(shape, gen, dev)
 
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
     n_px = imgs.numel()
     n_logits = conv_map.numel()
     rows = lp.numel() // ad.n_mixtures
@@ -384,6 +421,412 @@ def time_policy(cfg, model, rng, lanes):
 
 
 # --------------------------------------------------------------------------
+# training: kernels against their plain versions, at the step's shapes
+# --------------------------------------------------------------------------
+
+
+class TrainInputs:
+    """What each training kernel is given on the main path, at its shapes:
+    the synthetic batch's frames and shifts, the static camera's conv map,
+    decoder-shaped mixture parameters and actions (some at the edge bins,
+    some log scales below the clamp), plan logits and their Gumbel noise,
+    and the model's parameters with random gradients."""
+
+    def __init__(self, cfg, model, batch, seed):
+        from hulc_tpu_torch.ops.image_ops import draw_shifts, preprocess_rgb_seq_plain
+        from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
+
+        dev = model.device
+        gen = torch.Generator(device=dev).manual_seed(seed + 7)
+        pe, ad, d = cfg.perceptual_encoder, cfg.action_decoder, cfg.distribution
+        fused = batch["fused"]
+        n, s = fused.actions.shape[:2]
+        self.frames = {"rgb_static": fused.rgb_static, "rgb_gripper": fused.rgb_gripper}
+        self.pads = {"rgb_static": pe.rgb_static.shift_pad, "rgb_gripper": pe.rgb_gripper.shift_pad}
+        self.shifts = {cam: draw_shifts(n * s, pad, gen, dev) for cam, pad in self.pads.items()}
+        with torch.no_grad():
+            frames = preprocess_rgb_seq_plain(fused.rgb_static).flatten(0, 1)
+            self.conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(frames).contiguous()
+            del frames
+        self.ss_grad = torch.randn(self.conv_map.shape[0], 2 * self.conv_map.shape[1], generator=gen, device=dev)
+        a, k = ad.out_features - 1, ad.n_mixtures
+        shape = (n, s, a, k)
+        self.mixture = [
+            torch.randn(shape, generator=gen, device=dev),
+            2.0 * torch.randn(shape, generator=gen, device=dev) - 3.0,
+            0.5 * torch.randn(shape, generator=gen, device=dev),
+            torch.randn((n, s, 2), generator=gen, device=dev),
+        ]
+        actions = torch.tanh(torch.randn((n, s, a + 1), generator=gen, device=dev))
+        actions[:, 0, 0], actions[:, 1, 1] = -1.0, 1.0
+        actions[..., a] = torch.where(actions[..., a] > 0, 1.0, -1.0)
+        self.actions = actions
+        self.nll_weight = torch.randn((n, s), generator=gen, device=dev)
+        self.mixture_args = (ad.act_min_bound[:-1], ad.act_max_bound[:-1], ad.num_classes,
+                             ad.log_scale_min, ad.gripper_alpha)
+        self.post = 2.0 * torch.randn((n, d.plan_dim), generator=gen, device=dev)
+        self.prior = 2.0 * torch.randn((n, d.plan_dim), generator=gen, device=dev)
+        self.gumbel = gumbel_noise((n, d.category_size, d.class_size), gen, dev)
+        self.st_weight = torch.randn((n, d.plan_dim), generator=gen, device=dev)
+        self.kl_weight = torch.randn((n,), generator=gen, device=dev)
+        self.alpha = cfg.loss.kl_balancing_mix
+        self.dist = model.dist
+        self.params = [p.detach() for p in model.parameters()]
+        self.adam_grads = [1e-3 * torch.randn(p.shape, generator=gen, device=dev) for p in self.params]
+
+
+def mixture_graph(inp, use_kernel):
+    """(per-frame loss, its inputs as leaves) through the kernel or the plain version."""
+    from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain
+
+    leaves = [t.clone().requires_grad_() for t in inp.mixture]
+    fn = mixture_nll if use_kernel else mixture_nll_plain
+    out = fn(*leaves[:3], inp.actions, leaves[3], *inp.mixture_args)
+    return out, leaves
+
+
+def plan_graph(inp, use_kernel):
+    from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState
+
+    post, prior = inp.post.clone().requires_grad_(), inp.prior.clone().requires_grad_()
+    st, kl = inp.dist.rsample_balanced_kl(
+        DiscretePlanState(post), DiscretePlanState(prior), inp.alpha, gumbel=inp.gumbel, use_kernels=use_kernel
+    )
+    return (st, kl), [post, prior]
+
+
+def check_grads(name, got, want):
+    errs = [rel_l2(g, w) for g, w in zip(got, want)]
+    if not max(errs) <= GRAD_REL:
+        fail(f"{name}: gradients differ from autograd through the plain version, relative L2 {errs}")
+    return max(max_abs(g, w) for g, w in zip(got, want))
+
+
+def check_train_kernels(inp):
+    """Each training kernel against its plain version on ``inp``; returns
+    the largest absolute error of each."""
+    from hulc_tpu_torch.models.vision import spatial_softmax_bwd, spatial_softmax_plain
+    from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
+    from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_lowp_update_plain
+
+    errs = {}
+    # B.1': a gather on uint8 and the intrinsic normalize, so bit-equal
+    for cam, imgs in inp.frames.items():
+        got = preprocess_rgb_seq_shift(imgs, inp.shifts[cam], inp.pads[cam])
+        want = preprocess_rgb_seq_shift_plain(imgs, inp.shifts[cam], inp.pads[cam])
+        if not torch.equal(got, want):
+            fail(f"shift kernel at {tuple(imgs.shape)} is not bit-equal: max abs err {max_abs(got, want)}")
+        del got, want
+    errs["preprocess_rgb_shift"] = 0.0
+
+    # B.2': against autograd through the plain forward
+    x = inp.conv_map.clone().requires_grad_()
+    (want,) = torch.autograd.grad(spatial_softmax_plain(x, 1.0), x, inp.ss_grad)
+    got = spatial_softmax_bwd(inp.conv_map, inp.ss_grad, 1.0)
+    if not torch.allclose(got, want, rtol=SS_BWD_RTOL, atol=SS_BWD_ATOL):
+        fail(f"SpatialSoftmax backward kernel at {tuple(x.shape)}: max abs err {max_abs(got, want)}")
+    errs["spatial_softmax_bwd"] = max_abs(got, want)
+    del x, got, want
+
+    # B.3': forward per entry, each gradient as a tensor
+    (k_out, k_leaves), (p_out, p_leaves) = mixture_graph(inp, True), mixture_graph(inp, False)
+    if not torch.allclose(k_out, p_out, rtol=LOSS_RTOL, atol=0):
+        fail(f"mixture NLL kernel: max abs err {max_abs(k_out, p_out)}")
+    errs["mixture_nll_fwd"] = max_abs(k_out, p_out)
+    got = torch.autograd.grad(k_out, k_leaves, inp.nll_weight)
+    want = torch.autograd.grad(p_out, p_leaves, inp.nll_weight)
+    errs["mixture_nll_bwd"] = check_grads("mixture NLL backward kernel", got, want)
+
+    # B.4: identical picks, the straight-through value within 1's ulp, KL per entry
+    (k_st, k_kl), k_leaves = plan_graph(inp, True)
+    (p_st, p_kl), p_leaves = plan_graph(inp, False)
+    grid = inp.gumbel.shape
+    if not torch.equal(k_st.reshape(grid).argmax(-1), p_st.reshape(grid).argmax(-1)):
+        fail("plan kernel picked other classes than the plain version")
+    if not (torch.allclose(k_st, p_st, rtol=0, atol=ONE_ULP) and torch.allclose(k_kl, p_kl, rtol=LOSS_RTOL, atol=0)):
+        fail(f"plan kernel: sample err {max_abs(k_st, p_st)}, KL err {max_abs(k_kl, p_kl)}")
+    errs["plan_st_kl_fwd"] = max(max_abs(k_st, p_st), max_abs(k_kl, p_kl))
+    got = torch.autograd.grad((k_st * inp.st_weight).sum() + (k_kl * inp.kl_weight).sum(), k_leaves)
+    want = torch.autograd.grad((p_st * inp.st_weight).sum() + (p_kl * inp.kl_weight).sum(), p_leaves)
+    errs["plan_st_kl_bwd"] = check_grads("plan backward kernel", got, want)
+
+    # B.5: two steps on copies of the model's params, bit-equal (the second
+    # reads nonzero bf16 moments)
+    sides = []
+    for update in (adam_lowp_update, adam_lowp_update_plain):
+        ps = [p.clone() for p in inp.params]
+        ms = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+        vs = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+        for count, lr in ((1, 2e-4), (2, 1e-4)):
+            c1, c2 = bias_corrections(count)
+            if update is adam_lowp_update:
+                update(ps, inp.adam_grads, ms, vs, 0.9, 0.999, 1e-8, -lr, c1, c2)
+            else:
+                for p, g, m, v in zip(ps, inp.adam_grads, ms, vs):
+                    update(p, g, m, v, 0.9, 0.999, 1e-8, -lr, c1, c2)
+        sides.append((ps, ms, vs))
+    for what, got, want in zip(("params", "exp_avg", "exp_avg_sq"), sides[0], sides[1]):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"adam kernel: {what} not bit-equal to the plain version")
+    errs["adam_lowp"] = 0.0
+    return errs
+
+
+def bias_corrections(count):
+    from hulc_tpu_torch.training.optimizers import bias_corrections as bc
+
+    return bc(0.9, 0.999, count)
+
+
+def time_train_kernels(inp):
+    """Device ms of each training kernel and of its plain version on the
+    same inputs, the bound, and fused fp32 Adam as the optimizer's yardstick."""
+    from hulc_tpu_torch.models.vision import spatial_softmax_bwd, spatial_softmax_plain
+    from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
+    from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain
+    from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_lowp_update_plain
+
+    def shift(fn):
+        return lambda: [fn(imgs, inp.shifts[cam], inp.pads[cam]) for cam, imgs in inp.frames.items()]
+
+    x = inp.conv_map.clone().requires_grad_()
+    ss_out = spatial_softmax_plain(x, 1.0)
+    k_nll, k_nll_leaves = mixture_graph(inp, True)
+    p_nll, p_nll_leaves = mixture_graph(inp, False)
+    (k_st, k_kl), k_plan_leaves = plan_graph(inp, True)
+    (p_st, p_kl), p_plan_leaves = plan_graph(inp, False)
+    k_plan_loss = (k_st * inp.st_weight).sum() + (k_kl * inp.kl_weight).sum()
+    p_plan_loss = (p_st * inp.st_weight).sum() + (p_kl * inp.kl_weight).sum()
+
+    def nll_fwd(fn):
+        def run():
+            with torch.no_grad():
+                fn(*inp.mixture[:3], inp.actions, inp.mixture[3], *inp.mixture_args)
+        return run
+
+    def plan_fwd(use_kernel):
+        def run():
+            with torch.no_grad():
+                plan_graph(inp, use_kernel)
+        return run
+
+    ps = [p.clone() for p in inp.params]
+    ms = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+    vs = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+    c1, c2 = bias_corrections(1)
+
+    def adam_plain():
+        for p, g, m, v in zip(ps, inp.adam_grads, ms, vs):
+            adam_lowp_update_plain(p, g, m, v, 0.9, 0.999, 1e-8, -2e-4, c1, c2)
+
+    fused_params = [torch.nn.Parameter(p.clone()) for p in inp.params]
+    for p, g in zip(fused_params, inp.adam_grads):
+        p.grad = g
+    fused_adam = torch.optim.Adam(fused_params, lr=2e-4, fused=True)
+
+    n_px = sum(t.numel() for t in inp.frames.values())
+    n_frames = sum(t.shape[0] * t.shape[1] for t in inp.frames.values())
+    n_map = inp.conv_map.numel()
+    n_comp = inp.mixture[0].numel()
+    rows = inp.actions.shape[0] * inp.actions.shape[1]
+    small = 4 * (inp.actions.numel() + inp.mixture[3].numel() + rows)
+    n_plan = inp.post.numel()
+    n_params = sum(p.numel() for p in inp.params)
+    cases = {
+        # u8 in, fp32 out, the shifts; mul, sub, div per element
+        "preprocess_rgb_shift": (shift(preprocess_rgb_seq_shift), shift(preprocess_rgb_seq_shift_plain),
+                                 bound(5 * n_px + 8 * n_frames, 3 * n_px), None),
+        # map in, dx out, grad_out in; ~12 flops per entry (exp, divides, the product)
+        "spatial_softmax_bwd": (lambda: spatial_softmax_bwd(inp.conv_map, inp.ss_grad, 1.0),
+                                lambda: torch.autograd.grad(ss_out, x, inp.ss_grad, retain_graph=True),
+                                bound(8 * n_map + 4 * inp.ss_grad.numel(), 12 * n_map), None),
+        # three (…, A, K) tensors, actions, gripper logits, the loss; ~30 flops a component
+        "mixture_nll_fwd": (nll_fwd(mixture_nll), nll_fwd(mixture_nll_plain),
+                            bound(12 * n_comp + small, 30 * n_comp), None),
+        # the inputs and three gradients of their size; ~40 flops a component
+        "mixture_nll_bwd": (lambda: torch.autograd.grad(k_nll, k_nll_leaves, inp.nll_weight, retain_graph=True),
+                            lambda: torch.autograd.grad(p_nll, p_nll_leaves, inp.nll_weight, retain_graph=True),
+                            bound(24 * n_comp + small + 8 * rows, 40 * n_comp), None),
+        # post, prior, gumbel in, sample out; ~10 flops a logit
+        "plan_st_kl_fwd": (plan_fwd(True), plan_fwd(False), bound(16 * n_plan, 10 * n_plan), None),
+        # post, prior, d_sample in, two gradients out; ~15 flops a logit
+        "plan_st_kl_bwd": (lambda: torch.autograd.grad(k_plan_loss, k_plan_leaves, retain_graph=True),
+                           lambda: torch.autograd.grad(p_plan_loss, p_plan_leaves, retain_graph=True),
+                           bound(20 * n_plan, 15 * n_plan), None),
+        # p, g, p' fp32 and m, v, m', v' bf16: 20 bytes; ~12 flops a param
+        "adam_lowp": (lambda: adam_lowp_update(ps, inp.adam_grads, ms, vs, 0.9, 0.999, 1e-8, -2e-4, c1, c2),
+                      adam_plain, bound(20 * n_params, 12 * n_params), fused_adam.step),
+    }
+    out = {}
+    for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn) in cases.items():
+        iters = 20
+        ms_ = [device_ms(plain_fn, iters), device_ms(kernel_fn, iters),
+               device_ms(kernel_fn, iters), device_ms(plain_fn, iters)]
+        out[name] = {
+            "ms": min(ms_[1], ms_[2]), "plain_ms": min(ms_[0], ms_[3]),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": device_ms(library_fn, iters) if library_fn is not None else None,
+            "call_ms": call_ms(kernel_fn, iters), "plain_call_ms": call_ms(plain_fn, iters),
+        }
+    return out
+
+
+# --------------------------------------------------------------------------
+# training: the main path and the plain path
+# --------------------------------------------------------------------------
+
+
+TRAIN_KERNELS = (
+    "hulc_preprocess_rgb_shift", "hulc_spatial_softmax", "hulc_spatial_softmax_bwd", "hulc_mixture_nll_fwd",
+    "hulc_mixture_nll_bwd", "hulc_plan_st_kl_fwd", "hulc_plan_st_kl_bwd", "hulc_adam_lowp",
+)
+
+
+def drive_training(trainer, batch, kl_beta, steps):
+    """``steps`` Trainer.train_step calls; returns (losses per step, host ms
+    per step, device-event ms per step), each step ended by a sync."""
+    losses, host, events = [], [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = trainer.train_step(batch, kl_beta)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+        losses.append({k: float(v) for k, v in out.items()})
+    return losses, host, events
+
+
+def train_step_grads(cfg, seed, device, state_dict, batch, shifts, gumbel, use_kernels, benchmark=False):
+    """(losses, gradients by name) of one step from ``state_dict``, with
+    cuDNN deterministic or, with ``benchmark``, on the algorithms it times
+    fastest."""
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = not benchmark, benchmark
+    trainer = Trainer(cfg, TrainerConfig(seed=seed), device, use_kernels=use_kernels)
+    trainer.model.load_state_dict(state_dict)
+    trainer.init_state(1)
+    losses = trainer.train_step(batch, cfg.loss.kl_beta, shifts=shifts, gumbel=gumbel)
+    grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    return losses, grads
+
+
+@contextlib.contextmanager
+def spatial_softmax_ulp_noise(seed):
+    """The plain SpatialSoftmax with each output moved one ulp up or down at
+    random: an ulp-level change of the forward at the point where the
+    kernel's forward differs from the plain one (by up to ~1 ulp)."""
+    from hulc_tpu_torch.models import vision
+
+    plain = vision.spatial_softmax_plain
+
+    def noisy(x, temperature):
+        out = plain(x, temperature)
+        gen = torch.Generator(device=out.device).manual_seed(seed)
+        up = torch.rand(out.shape, generator=gen, device=out.device) < 0.5
+        away = torch.where(up, torch.full_like(out, float("inf")), torch.full_like(out, float("-inf")))
+        return out + (torch.nextafter(out.detach(), away) - out.detach())
+
+    vision.spatial_softmax_plain = noisy
+    try:
+        yield
+    finally:
+        vision.spatial_softmax_plain = plain
+
+
+def separate_plan_ties(model, cfg, batch, shifts, gumbel):
+    """The plan noise with every near tie of the posterior's pick pulled
+    apart: where the top two of gumbel + logits are closer than
+    PLAN_TIE_MARGIN, the leader's noise grows by the margin. Float noise
+    between the two paths (~1e-6 in the logits) then cannot flip a pick, and
+    a flipped pick would change that window's decoder input and its
+    gradients outright. Returns (noise, number of ties pulled apart)."""
+    from hulc_tpu_torch.training.preprocess import preprocess_batch
+
+    with torch.no_grad():
+        prep = preprocess_batch(cfg, batch, train=True, shifts=shifts)["fused"]
+        emb, _ = model.encode(prep.rgb_obs(), prep.robot_obs)
+        state, _ = model.plan_recognition(emb)
+        top = (gumbel + state.logit.reshape(gumbel.shape)).topk(2, dim=-1)
+    near = (top.values[..., 0] - top.values[..., 1]) < PLAN_TIE_MARGIN
+    gumbel = gumbel.clone()
+    gumbel.scatter_add_(-1, top.indices[..., :1], PLAN_TIE_MARGIN * near[..., None].to(gumbel.dtype))
+    return gumbel, int(near.sum())
+
+
+def compare_train_plain(cfg, model, batch, seed, device="cuda"):
+    """One step from the same params, batch, shifts and plan noise through
+    the kernel path and the plain path (recognition dropout 0, cuDNN
+    deterministic, plan ties pulled apart); losses per key and gradients per
+    parameter must agree.
+
+    Each gradient is held to STEP_GRAD_REL (relative L2), or to NOISE_FACTOR
+    times the step's sensitivity to the SpatialSoftmax forward, whichever is
+    larger. The kernel's keypoints differ from the plain ones by up to about
+    an ulp, and relu units downstream that sit within an ulp of zero then
+    switch: that moves some gradients by a few 1e-4 (the backward kernels
+    alone move them by about 1e-5). The sensitivity is measured in the run,
+    as the plain path's own gradient change when each keypoint moves one ulp
+    at random (spatial_softmax_ulp_noise); the largest change over the
+    parameters sets the limit."""
+    from hulc_tpu_torch.ops.image_ops import draw_shifts
+    from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
+
+    cfg0 = dataclasses.replace(cfg, plan_recognition=dataclasses.replace(cfg.plan_recognition, dropout=0.0))
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    fused = batch["fused"]
+    n, s = fused.actions.shape[:2]
+    pe, d = cfg.perceptual_encoder, cfg.distribution
+    shifts = {"fused": {cam: draw_shifts(n * s, getattr(pe, cam).shift_pad, gen, device)
+                        for cam in ("rgb_static", "rgb_gripper")}}
+    gumbel, ties = separate_plan_ties(
+        model, cfg, batch, shifts, gumbel_noise((n, d.category_size, d.class_size), gen, device)
+    )
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    args = (cfg0, seed, device, state, batch, shifts, gumbel)
+    lk, gk = train_step_grads(*args, use_kernels=True)
+    lp, gp = train_step_grads(*args, use_kernels=False)
+    with spatial_softmax_ulp_noise(seed + 13):
+        _, gu = train_step_grads(*args, use_kernels=False)
+
+    loss_err = 0.0
+    for k in lp:
+        if not torch.allclose(lk[k], lp[k], rtol=STEP_LOSS_RTOL, atol=1e-7):
+            fail(f"train step: {k} differs between kernel path {float(lk[k])} and plain path {float(lp[k])}")
+        loss_err = max(loss_err, abs(float(lk[k]) - float(lp[k])) / max(abs(float(lp[k])), 1e-30))
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gp.values())))
+    live = []
+    for k in gp:
+        if float(gp[k].norm()) > ZERO_GRAD * total:
+            live.append(k)
+        elif not float(gk[k].norm()) <= ZERO_GRAD * total:
+            # zero in exact arithmetic (the attention's key bias: a constant
+            # added to every key of a query cancels in its softmax)
+            fail(f"train step: {k}'s gradient should be rounding noise on both paths")
+    errs = {k: rel_l2(gk[k], gp[k]) for k in live}
+    sens = {k: rel_l2(gu[k], gp[k]) for k in live}
+    worst, most_sensitive = max(live, key=errs.get), max(live, key=sens.get)
+    limit = max(STEP_GRAD_REL, NOISE_FACTOR * sens[most_sensitive])
+    if not errs[worst] <= limit:
+        fail(f"train step: {worst}'s gradient differs from the plain path's by relative L2 {errs[worst]}, "
+             f"limit {limit} (sensitivity to one ulp of the keypoints up to {sens[most_sensitive]})")
+    print(f"[train plain path] one step agrees with use_kernels=False on the card ({ties} plan ties of "
+          f"{n * d.category_size} pulled apart by {PLAN_TIE_MARGIN}): losses within relative {loss_err:.3g} "
+          f"(rtol {STEP_LOSS_RTOL}); gradients of {len(live)} tensors within relative L2 {errs[worst]:.3g} "
+          f"({worst}), {sum(e > STEP_GRAD_REL for e in errs.values())} above {STEP_GRAD_REL}; the plain "
+          f"path moves by up to {sens[most_sensitive]:.3g} ({most_sensitive}) when each keypoint moves one "
+          f"ulp; limit {limit:.3g}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "ulp_sensitivity": sens[most_sensitive],
+            "grad_limit": limit, "plan_ties": ties}
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -393,6 +836,27 @@ KERNEL_INFO = {
         "hulc_logistic_mixture_sample", "hulc_tpu_torch/csrc/logistic_mixture.cu",
         "hulc_tpu/ops/logistic_mixture.py:114",
     ),
+    "preprocess_rgb_shift": (
+        "hulc_preprocess_rgb_shift", "hulc_tpu_torch/csrc/preprocess.cu", "hulc_tpu/ops/image_ops.py:27",
+    ),
+    "spatial_softmax_bwd": (
+        "hulc_spatial_softmax_bwd", "hulc_tpu_torch/csrc/spatial_softmax.cu", "hulc_tpu/models/vision.py:38",
+    ),
+    "mixture_nll_fwd": (
+        "hulc_mixture_nll_fwd", "hulc_tpu_torch/csrc/logistic_mixture_loss.cu",
+        "hulc_tpu/ops/logistic_mixture.py:23",
+    ),
+    "mixture_nll_bwd": (
+        "hulc_mixture_nll_bwd", "hulc_tpu_torch/csrc/logistic_mixture_loss.cu",
+        "hulc_tpu/ops/logistic_mixture.py:23",
+    ),
+    "plan_st_kl_fwd": (
+        "hulc_plan_st_kl_fwd", "hulc_tpu_torch/csrc/plan_kl.cu", "hulc_tpu/ops/plan_distributions.py:102",
+    ),
+    "plan_st_kl_bwd": (
+        "hulc_plan_st_kl_bwd", "hulc_tpu_torch/csrc/plan_kl.cu", "hulc_tpu/ops/plan_distributions.py:102",
+    ),
+    "adam_lowp": ("hulc_adam_lowp", "hulc_tpu_torch/csrc/adam_lowp.cu", "hulc_tpu/training/optimizers.py:24"),
 }
 
 
@@ -401,7 +865,10 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps", type=int, default=35)
     p.add_argument("--lanes", type=int, default=64)
+    p.add_argument("--train-steps", type=int, default=5)
     args = p.parse_args(argv)
+    if args.train_steps < 3:
+        fail("--train-steps must be at least 3: two warm-up steps and one timed")
 
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -417,6 +884,8 @@ def main(argv=None) -> int:
     from hulc_tpu_torch import kernels
     from hulc_tpu_torch.config import get_config
     from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -434,13 +903,19 @@ def main(argv=None) -> int:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[model] hulc preset, {n_params} parameters, random init from seed {args.seed}")
     rng = np.random.default_rng(args.seed)
+    train_batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, args.seed, "cuda")
 
     # ---- 3. kernels against plain versions ---------------------------------
     errs = check_kernels(model, cfg, (1, args.lanes), rng)
-    print(f"[kernels] agree with their plain versions at 1 and {args.lanes} lanes: "
+    print(f"[kernels] serving kernels agree with their plain versions at 1 and {args.lanes} lanes: "
           + ", ".join(f"{k} max abs err {v:.3g}" for k, v in errs.items()))
+    train_inputs = TrainInputs(cfg, model, train_batch, args.seed)
+    train_errs = check_train_kernels(train_inputs)
+    errs.update(train_errs)
+    print(f"[kernels] training kernels agree with their plain versions at the step's shapes: "
+          + ", ".join(f"{k} max abs err {v:.3g}" for k, v in train_errs.items()))
 
-    # ---- 4-5. main path ------------------------------------------------------
+    # ---- 4-5. serving main path ------------------------------------------------
     lang = rng.normal(size=384).astype(np.float32)
     single_obs = make_obs(rng, cfg, args.steps)
     langs = rng.normal(size=(args.lanes, 384)).astype(np.float32)
@@ -450,14 +925,15 @@ def main(argv=None) -> int:
     single_actions, single_states = drive_single(cfg, model, single_obs, lang, args.seed)
     batched_actions, batched_states = drive_batched(cfg, model, batched_obs, langs, args.seed)
     torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
-    print(f"[main path] launches: {launches}")
-    if not all(n > 0 for n in launches.values()):
-        fail(f"a kernel of the main path was never launched: {launches}")
+    serve_launches = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
+    print(f"[serving main path] launches: {serve_launches}")
+    serving = [KERNEL_INFO[n][0] for n in ("preprocess_rgb", "spatial_softmax", "logistic_mixture_sample")]
+    if not all(serve_launches[k] > 0 for k in serving):
+        fail(f"a kernel of the serving path was never launched: {serve_launches}")
     check_actions("single lane", single_actions, 1)
     check_actions("batched", batched_actions, args.lanes)
 
-    # ---- 6. plain path -------------------------------------------------------
+    # ---- 6. serving plain path -------------------------------------------------
     p_actions, p_plans = plain_single(cfg, plain_model, single_obs, lang, args.seed, single_states)
     k_plans = np.stack([s.plan[0].cpu().numpy() for s in single_states[1:]])
     replanned = np.array([t % cfg.replan_freq == 0 for t in range(args.steps)])
@@ -467,24 +943,66 @@ def main(argv=None) -> int:
     replanned = np.stack([replan_mask(t, args.lanes, cfg.replan_freq) for t in range(args.steps)])
     compare_plain("batched", batched_actions, p_actions, k_plans, p_plans, replanned, cfg)
 
-    # ---- 7. timing -------------------------------------------------------------
+    # ---- 7. serving timing -------------------------------------------------------
     single_ms, batched_ms = time_policy(cfg, model, rng, args.lanes)
     print(f"[timing] policy step (entry point, host clock, median): 1 lane {single_ms:.4f} ms, "
           f"{args.lanes} lanes {batched_ms:.4f} ms ({card})")
     timing = time_kernels(model, cfg, args.lanes, rng)
+    for t in timing.values():
+        t["library_ms"] = None  # no one PyTorch call computes these functions
+    del plain_model
+
+    # ---- 8. training main path ---------------------------------------------------
+    trainer = Trainer(cfg, TrainerConfig(seed=args.seed), "cuda")
+    trainer.init_state(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_losses, host, events = drive_training(trainer, train_batch, cfg.loss.kl_beta, args.train_steps)
+    train_launches = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
+    print(f"[training main path] launches: {train_launches}")
+    if not all(train_launches[k] > 0 for k in TRAIN_KERNELS):
+        fail(f"a kernel of the training path was never launched: {train_launches}")
+    for i, losses in enumerate(step_losses):
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"training step {i}: a loss is not finite: {losses}")
+    print("[training main path] " + "; ".join(
+        f"step {i}: total {l['total_loss']:.5f} action {l['action_loss']:.5f} kl {l['kl_loss']:.6f} "
+        f"clip {l['lang_clip_loss']:.5f} grad_norm {l['grad_norm']:.5f}" for i, l in enumerate(step_losses)))
+    step_ms, event_ms = statistics.median(host[2:]), statistics.median(events[2:])
+    batch_windows = 2 * BATCH_PER_MOD
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[timing] train step (2B={batch_windows}, S={SEQ}, median of {len(host) - 2} after 2 warm-ups): "
+          f"host clock {step_ms:.4f} ms, CUDA events {event_ms:.4f} ms, {batch_windows / step_ms * 1e3:.2f} seq/s; "
+          f"all steps host {[round(t, 4) for t in host]} ms; peak memory {peak_gb:.2f} GB ({card})")
+    del trainer
+
+    # ---- 9. training plain path --------------------------------------------------
+    train_check = compare_train_plain(cfg, model, train_batch, args.seed)
+
+    # ---- 10. training timing -----------------------------------------------------
+    timing.update(time_train_kernels(train_inputs))
     for name, t in timing.items():
-        print(f"[timing] {name} at {t['shape']}: device time kernel {t['ms']:.5f} ms, plain "
-              f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}); per call "
-              f"with the host's launch cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms")
+        lib = "" if t["library_ms"] is None else f", library call {t['library_ms']:.5f} ms"
+        print(f"[timing] {name}: device time kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}){lib}; per call with the host's launch "
+              f"cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms")
 
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[symbol], "max_abs_err": errs[name], **timing[name],
-            "library_ms": None,
+            "launches": serve_launches[symbol] + train_launches[symbol],
+            "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
+            "max_abs_err": errs[name], **timing[name],
         })
-    print(json.dumps({"policy_step_ms": {"1": single_ms, str(args.lanes): batched_ms}, "card": card}))
+    print(json.dumps({
+        "policy_step_ms": {"1": single_ms, str(args.lanes): batched_ms},
+        "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,
+                       "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
+                       "peak_memory_gb": peak_gb, "plain_path": train_check},
+        "card": card,
+    }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

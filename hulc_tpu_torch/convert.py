@@ -8,11 +8,14 @@ The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
   ``bias_ih_lk`` / ``weight_hh_lk`` / ``bias_hh_lk``;
 * the nature-CNN's first dense kernel is re-permuted from the NHWC flatten
   (y, x, c) to the NCHW flatten (c, y, x);
-* LayerNorm ``scale`` becomes ``weight``.
+* LayerNorm ``scale`` becomes ``weight``;
+* flax attention's per-head ``query`` / ``key`` / ``value`` kernels
+  (d, heads, d / heads) and ``out`` kernel (heads, d / heads, d) become
+  torch's ``in_proj_weight`` (3d, d), ``in_proj_bias`` and ``out_proj``.
 
-Subtrees the port has no module for (the training-only ``plan_recognition``,
-``proj_vis_lang``, ``logit_scale``, and anything else) are returned as a
-list of unused '/'-joined paths, never dropped silently.
+Subtrees the port has no module for are returned as a list of unused
+'/'-joined paths, never dropped silently; for the ``hulc`` presets the
+list is empty.
 """
 
 from __future__ import annotations
@@ -122,6 +125,33 @@ def params_from_jax(
         sd[f"action_decoder.rnn.bias_hh_l{k}"] = r.get(f"action_decoder/rnn/bhh_{k}")
     for head in ("mean_fc", "log_scale_fc", "prob_fc") + (("gripper_fc",) if ad.discrete_gripper else ()):
         linear(f"action_decoder/{head}", f"action_decoder.{head}")
+
+    pr = cfg.plan_recognition
+    sd["plan_recognition.position_embeddings.weight"] = r.get("plan_recognition/position_embeddings")
+    for i in range(pr.num_layers):
+        src, dst = f"plan_recognition/encoder/layer_{i}", f"plan_recognition.transformer_encoder.layers.{i}"
+        attn = f"{src}/self_attn"
+        d_model = r.get(f"{attn}/query/kernel").shape[0]
+        sd[f"{dst}.self_attn.in_proj_weight"] = np.concatenate(
+            [r.get(f"{attn}/{n}/kernel").reshape(d_model, d_model).T for n in ("query", "key", "value")]
+        )
+        sd[f"{dst}.self_attn.in_proj_bias"] = np.concatenate(
+            [r.get(f"{attn}/{n}/bias").reshape(d_model) for n in ("query", "key", "value")]
+        )
+        sd[f"{dst}.self_attn.out_proj.weight"] = r.get(f"{attn}/out/kernel").reshape(d_model, d_model).T
+        sd[f"{dst}.self_attn.out_proj.bias"] = r.get(f"{attn}/out/bias")
+        linear(f"{src}/linear1", f"{dst}.linear1")
+        linear(f"{src}/linear2", f"{dst}.linear2")
+        layernorm(f"{src}/norm1", f"{dst}.norm1")
+        layernorm(f"{src}/norm2", f"{dst}.norm2")
+    linear("plan_recognition/fc", "plan_recognition.fc")
+    linear("plan_recognition/fc_state", "plan_recognition.fc_state.0")
+
+    if cfg.use_clip_auxiliary_loss:
+        for src, dst in (("im_fc0", "mlp_im.0"), ("im_fc1", "mlp_im.2"),
+                         ("lang_fc0", "mlp_lang.0"), ("lang_fc1", "mlp_lang.2")):
+            linear(f"proj_vis_lang/{src}", f"proj_vis_lang.{dst}")
+        sd["logit_scale"] = r.get("logit_scale").reshape(())
 
     unused = sorted(set(_leaf_paths(params_np)) - r.used)
     state_dict = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

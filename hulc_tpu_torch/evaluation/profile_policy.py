@@ -67,7 +67,11 @@ def profile_calls(fn, iters: int, trace_path=None):
     return wall_ms / iters, device_ms / iters, device
 
 
-HAND_KERNELS = ("preprocess_rgb_kernel", "spatial_softmax_kernel", "logistic_mixture_sample_kernel")
+HAND_KERNELS = (
+    "preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
+    "spatial_softmax_bwd_kernel", "logistic_mixture_sample_kernel", "mixture_nll_fwd_kernel",
+    "mixture_nll_bwd_kernel", "plan_st_kl_fwd_kernel", "plan_st_kl_bwd_kernel", "adam_lowp_kernel",
+)
 
 
 def kind_of(name: str) -> str:

@@ -89,8 +89,17 @@ def build() -> pathlib.Path:
 # C signature of each entry point, without the trailing stream argument.
 _SIGNATURES = {
     "hulc_preprocess_rgb": (_P, _P, _I64, _I32, _I32, _I32, _F32, _F32),
+    "hulc_preprocess_rgb_shift": (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F32, _F32),
     "hulc_spatial_softmax": (_P, _P, _I64, _I32, _I32, _I32, _P, _F32),
+    "hulc_spatial_softmax_bwd": (_P, _P, _P, _I64, _I32, _I32, _I32, _F32),
     "hulc_logistic_mixture_sample": (_P, _P, _P, _P, _P, _P, _I64, _I32),
+    "hulc_mixture_nll_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F32, _F32),
+    "hulc_mixture_nll_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F32, _F32,
+    ),
+    "hulc_plan_st_kl_fwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
+    "hulc_plan_st_kl_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
+    "hulc_adam_lowp": (_P, _I32, _I64, _I64, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32),
 }
 
 
@@ -129,9 +138,20 @@ class Kernel:
 
 
 PREPROCESS_RGB = Kernel("hulc_preprocess_rgb")
+PREPROCESS_RGB_SHIFT = Kernel("hulc_preprocess_rgb_shift")
 SPATIAL_SOFTMAX = Kernel("hulc_spatial_softmax")
+SPATIAL_SOFTMAX_BWD = Kernel("hulc_spatial_softmax_bwd")
 LOGISTIC_MIXTURE_SAMPLE = Kernel("hulc_logistic_mixture_sample")
-ALL_KERNELS = (PREPROCESS_RGB, SPATIAL_SOFTMAX, LOGISTIC_MIXTURE_SAMPLE)
+MIXTURE_NLL_FWD = Kernel("hulc_mixture_nll_fwd")
+MIXTURE_NLL_BWD = Kernel("hulc_mixture_nll_bwd")
+PLAN_ST_KL_FWD = Kernel("hulc_plan_st_kl_fwd")
+PLAN_ST_KL_BWD = Kernel("hulc_plan_st_kl_bwd")
+ADAM_LOWP = Kernel("hulc_adam_lowp")
+ALL_KERNELS = (
+    PREPROCESS_RGB, PREPROCESS_RGB_SHIFT, SPATIAL_SOFTMAX, SPATIAL_SOFTMAX_BWD,
+    LOGISTIC_MIXTURE_SAMPLE, MIXTURE_NLL_FWD, MIXTURE_NLL_BWD, PLAN_ST_KL_FWD, PLAN_ST_KL_BWD,
+    ADAM_LOWP,
+)
 
 
 def reset_launch_counts() -> None:

@@ -5,8 +5,11 @@ perceptual embedding, latent goal), three heads for the mixture's logits,
 log scales (clamped at ``log_scale_min``) and means, and a two-way gripper
 head. ``act`` samples one action per step through the mixture sampler
 (a hand-written kernel on CUDA tensors), picks the gripper by argmax, and
-rotates the action from the TCP frame back to the world frame. The loss
-waits for the training slice.
+rotates the action from the TCP frame back to the world frame. ``loss``
+rotates the ground-truth actions into the TCP frame and takes the mixture
+NLL plus ``gripper_alpha`` times the gripper cross-entropy
+(``ops.logistic_mixture.mixture_nll``, a forward and a backward kernel on
+CUDA tensors). ``loss_and_act`` waits for the validation slice.
 """
 
 from __future__ import annotations
@@ -18,11 +21,14 @@ import torch.nn as nn
 
 from hulc_tpu_torch.config import ActionDecoderConfig
 from hulc_tpu_torch.models.layers import ScanRNN
-from hulc_tpu_torch.ops.frame_transforms import tcp_to_world_frame
+from hulc_tpu_torch.ops.frame_transforms import tcp_to_world_frame, world_to_tcp_frame
 from hulc_tpu_torch.ops.logistic_mixture import (
+    cross_entropy_gripper,
     draw_uniforms,
     logistic_mixture_sample,
     logistic_mixture_sample_plain,
+    mixture_nll,
+    mixture_nll_plain,
 )
 
 
@@ -32,6 +38,15 @@ class DecoderOutputs(NamedTuple):
     means: torch.Tensor  # (B, S, A, K)
     gripper_logits: Optional[torch.Tensor]  # (B, S, 2) when discrete_gripper
     carry: torch.Tensor  # (num_layers, B, H)
+
+
+def _cross_entropy_gripper(
+    gripper_logits: torch.Tensor, gripper_gt: torch.Tensor, per_sample: bool = False
+) -> torch.Tensor:
+    """2-way CE on the discrete gripper channel, mean over all frames, or over
+    all but the batch dim with ``per_sample``."""
+    nll = cross_entropy_gripper(gripper_logits, gripper_gt)
+    return nll.flatten(1).mean(dim=1) if per_sample else nll.mean()
 
 
 def decoder_carry(cfg: ActionDecoderConfig, batch_size: int, device) -> torch.Tensor:
@@ -50,6 +65,8 @@ class LogisticPolicyDecoder(nn.Module):
         super().__init__()
         if cfg.kind != "logistic":
             raise ValueError(f"action decoder {cfg.kind!r} is not ported yet")
+        if cfg.rnn_dropout > 0.0:
+            raise ValueError("the decoder RNN's dropout is not ported yet")
         self.cfg = cfg
         self.use_kernels = use_kernels
         emb = cfg.perceptual_features
@@ -92,6 +109,43 @@ class LogisticPolicyDecoder(nn.Module):
         log_scales = torch.clamp_min(self.log_scale_fc(y).reshape(b, s, a, k), c.log_scale_min)
         gripper_logits = self.gripper_fc(y) if c.discrete_gripper else None
         return DecoderOutputs(logit_probs, log_scales, means, gripper_logits, new_carry)
+
+    def _bounds(self):
+        c = self.cfg
+        if c.discrete_gripper:
+            return c.act_min_bound[:-1], c.act_max_bound[:-1]
+        return c.act_min_bound, c.act_max_bound
+
+    def _loss_from_outputs(
+        self, out: DecoderOutputs, actions: torch.Tensor, per_sample: bool = False
+    ) -> torch.Tensor:
+        """Mixture NLL (+ gripper_alpha x gripper CE) of TCP-frame ``actions``:
+        the mean over frames, or (B,) means over time with ``per_sample``."""
+        c = self.cfg
+        amin, amax = self._bounds()
+        nll = mixture_nll if self.use_kernels else mixture_nll_plain
+        per_frame = nll(
+            out.logit_probs, out.log_scales, out.means, actions,
+            out.gripper_logits if c.discrete_gripper else None,
+            amin, amax, c.num_classes, c.log_scale_min, c.gripper_alpha,
+        )
+        return per_frame.flatten(1).mean(dim=1) if per_sample else per_frame.mean()
+
+    def loss(
+        self,
+        latent_plan: torch.Tensor,
+        perceptual_emb: torch.Tensor,
+        latent_goal: torch.Tensor,
+        actions: torch.Tensor,
+        robot_obs: torch.Tensor,
+        *,
+        per_sample: bool = False,
+    ) -> torch.Tensor:
+        """Teacher-forced training loss over a window, from a zero carry."""
+        out = self(latent_plan, perceptual_emb, latent_goal)
+        if self.cfg.gripper_control:
+            actions = world_to_tcp_frame(actions, robot_obs)
+        return self._loss_from_outputs(out, actions, per_sample=per_sample)
 
     def _sample_from_outputs(
         self,

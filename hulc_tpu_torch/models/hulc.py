@@ -1,37 +1,124 @@
-"""HULC inference surface (port of hulc_tpu/models/hulc.py:138-190, 644-662).
+"""HULC model (port of hulc_tpu/models/hulc.py:44-136, 138-556, 644-662).
 
-``HulcModel`` holds the modules the closed-loop policy runs, under the
-reference's state_dict names (``perceptual_encoder``, ``plan_proposal``,
-``visual_goal``, ``language_goal``, ``action_decoder``), and exposes
-``encode``, ``encode_visual_goal``, ``encode_language_goal``,
-``propose_plan`` and ``decoder_act``. Closed-loop state (plan, goal,
-decoder carry) is passed in and out explicitly. The training losses, the
-plan recognition network and the CLIP auxiliary heads wait for the
-training slice; GCBC (plan-free) waits too.
+``HulcModel`` holds the reference's modules under its state_dict names
+(``perceptual_encoder``, ``plan_proposal``, ``plan_recognition``,
+``visual_goal``, ``language_goal``, ``action_decoder``, ``proj_vis_lang``,
+``logit_scale``).
+
+* Inference: ``encode``, ``encode_visual_goal``, ``encode_language_goal``,
+  ``propose_plan`` and ``decoder_act``; closed-loop state (plan, goal,
+  decoder carry) is passed in and out explicitly.
+* Training: ``train_losses`` over a ``{"vis": B, "lang": B}`` batch (a pass
+  per modality) or over a loader-fused ``{"fused": 2B}`` batch (one pass,
+  ``_fused_train_losses``), with every loss key the JAX package returns.
+  The plan's Gumbel noise comes from ``generator`` unless passed as
+  ``gumbel`` (a tensor for the fused pass, a dict by scope otherwise), and
+  dropout draws from the generator ``layers.set_dropout_generator`` gave it.
+
+Images arrive preprocessed, (B, S, C, H, W) fp32 (``training.preprocess``).
+GCBC (plan-free), the continuous plan, state reconstruction and the BC-Z
+and MIA auxiliary losses wait for later slices; a config that asks for one
+is refused.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.device import resolve_device
+from hulc_tpu_torch.models.aux_heads import ProjVisLang
 from hulc_tpu_torch.models.decoders import LogisticPolicyDecoder, decoder_carry
 from hulc_tpu_torch.models.goal_encoders import GoalEncoder, make_language_goal_encoder
-from hulc_tpu_torch.models.layers import ScanRNN
+from hulc_tpu_torch.models.layers import MultiheadSelfAttention, ScanRNN
 from hulc_tpu_torch.models.perceptual import ConcatEncoders
-from hulc_tpu_torch.models.plan_nets import PlanProposalNetwork, make_plan_distribution
+from hulc_tpu_torch.models.plan_nets import (
+    PlanProposalNetwork,
+    PlanRecognitionTransformer,
+    make_plan_distribution,
+)
 from hulc_tpu_torch.models.vision import SpatialSoftmax
+from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState
+
+
+class ModalityBatch(NamedTuple):
+    """One modality's training batch (the JAX package's schema)."""
+
+    rgb_static: Optional[torch.Tensor]  # (B, S, H, W, 3) u8 raw, (B, S, 3, H, W) fp32 preprocessed
+    rgb_gripper: Optional[torch.Tensor]
+    robot_obs: torch.Tensor  # (B, S, n_state) normalized proprio
+    actions: torch.Tensor  # (B, S, 7)
+    state_info_robot_obs: torch.Tensor  # (B, S, 15) unnormalized (TCP frame math)
+    lang: Optional[torch.Tensor] = None  # (B, 384)
+    use_for_aux_lang_loss: Optional[torch.Tensor] = None  # (B,) bool
+    idx: Optional[torch.Tensor] = None  # (B,)
+    depth_static: Optional[torch.Tensor] = None
+    depth_gripper: Optional[torch.Tensor] = None
+    rgb_tactile: Optional[torch.Tensor] = None
+
+    # Fields that describe the language half only when [vis; lang] are
+    # fused into one 2B batch; every other field is per-frame data.
+    LANG_ONLY_FIELDS = ("lang", "use_for_aux_lang_loss", "idx")
+
+    def rgb_obs(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in ("rgb_static", "rgb_gripper") if getattr(self, k) is not None}
+
+
+def fuse_modalities(vis: ModalityBatch, lang: ModalityBatch) -> ModalityBatch:
+    """[vis; lang] row-stacked into one 2B batch; the language-only fields
+    come from ``lang``."""
+
+    def cat(f):
+        a, c = getattr(vis, f), getattr(lang, f)
+        return torch.cat([a, c], dim=0) if a is not None and c is not None else None
+
+    return ModalityBatch(**{
+        f: getattr(lang, f) if f in ModalityBatch.LANG_ONLY_FIELDS else cat(f) for f in ModalityBatch._fields
+    })
+
+
+def masked_clip_loss(
+    image_features: torch.Tensor,
+    text_features: torch.Tensor,
+    logit_scale: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Symmetric CLIP loss over the masked subset, with static shapes:
+    masked columns get a -1e9 logit, masked rows leave the mean; an
+    all-false mask gives 0."""
+    img = image_features.float()
+    txt = text_features.float()
+    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+    logits = logit_scale * img @ txt.T
+    b = logits.shape[0]
+    mask = torch.ones(b, dtype=torch.bool, device=logits.device) if mask is None else mask.bool()
+    neg = torch.tensor(-1e9, dtype=torch.float32, device=logits.device)
+    logits_i = torch.where(mask[None, :], logits, neg)
+    logits_t = torch.where(mask[None, :], logits.T, neg)
+    logp_i = torch.diagonal(torch.log_softmax(logits_i, dim=-1))
+    logp_t = torch.diagonal(torch.log_softmax(logits_t, dim=-1))
+    count = mask.sum().clamp_min(1)
+    zero = torch.zeros((), device=logits.device)
+    loss_i = -torch.where(mask, logp_i, zero).sum() / count
+    loss_t = -torch.where(mask, logp_t, zero).sum() / count
+    return torch.where(mask.any(), (loss_i + loss_t) / 2.0, zero)
+
+
+LOSS_KEYS = (
+    "kl_loss", "action_loss", "total_loss", "proprio_loss", "lang_pred_loss",
+    "lang_contrastive_loss", "lang_clip_loss",
+)
 
 
 class HulcModel(nn.Module):
-    """The policy's modules. ``use_kernels=False`` runs every hand-written
-    kernel's plain version instead, on any device; it exists to hold the
-    kernels against their plain versions on the card."""
+    """The model. ``use_kernels=False`` runs every hand-written kernel's
+    plain version instead, on any device; it exists to hold the kernels
+    against their plain versions on the card."""
 
     def __init__(self, cfg: HulcConfig, use_kernels: bool = True):
         super().__init__()
@@ -39,16 +126,28 @@ class HulcModel(nn.Module):
             raise ValueError(f"model_kind {cfg.model_kind!r} is not ported yet")
         if cfg.compute_dtype != "float32":
             raise ValueError("the port computes in float32 only so far")
+        if cfg.state_recons or cfg.use_bc_z_auxiliary_loss or cfg.use_mia_auxiliary_loss:
+            raise ValueError("state_recons and the BC-Z / MIA auxiliary losses are not ported yet")
         self.cfg = cfg
         self.use_kernels = use_kernels
         self.perceptual_encoder = ConcatEncoders(cfg.perceptual_encoder, use_kernels)
         self.dist = make_plan_distribution(cfg.distribution)
         self.plan_proposal = PlanProposalNetwork(cfg.plan_proposal, self.dist)
+        self.plan_recognition = PlanRecognitionTransformer(cfg.plan_recognition, self.dist)
         self.visual_goal = GoalEncoder(cfg.visual_goal)
         self.language_goal = (
             make_language_goal_encoder(cfg.language_goal) if cfg.language_goal else None
         )
         self.action_decoder = LogisticPolicyDecoder(cfg.action_decoder, use_kernels)
+        if cfg.use_clip_auxiliary_loss:
+            self.proj_vis_lang = ProjVisLang(
+                cfg.plan_recognition.fc_hidden_size, cfg.visual_goal.latent_goal_features, cfg.proj_vis_lang_dim
+            )
+            self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    # ------------------------------------------------------------------
+    # inference
+    # ------------------------------------------------------------------
 
     def encode(
         self, rgb_obs: Dict[str, torch.Tensor], robot_obs: Optional[torch.Tensor] = None
@@ -98,11 +197,162 @@ class HulcModel(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def _plan_and_kl(
+        self, pp_state: DiscretePlanState, pr_state: DiscretePlanState,
+        generator: Optional[torch.Generator], gumbel: Optional[torch.Tensor],
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The posterior's straight-through plan and the per-sample balanced KL."""
+        return self.dist.rsample_balanced_kl(
+            pr_state, pp_state, self.cfg.loss.kl_balancing_mix,
+            generator=generator, gumbel=gumbel, use_kernels=self.use_kernels,
+        )
+
+    def lmp_train(
+        self,
+        perceptual_emb: torch.Tensor,
+        latent_goal: torch.Tensor,
+        actions: torch.Tensor,
+        robot_obs: torch.Tensor,
+        *,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,
+    ) -> Dict[str, Any]:
+        """Posterior plan -> action loss and the (unscaled) balanced KL."""
+        pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
+        pr_state, seq_feat = self.plan_recognition(perceptual_emb)
+        sampled_plan, kl_ps = self._plan_and_kl(pp_state, pr_state, generator, gumbel)
+        action_loss = self.action_decoder.loss(sampled_plan, perceptual_emb, latent_goal, actions, robot_obs)
+        return {
+            "action_loss": action_loss,
+            "kl_loss": kl_ps.mean(),
+            "pp_state": pp_state,
+            "pr_state": pr_state,
+            "seq_feat": seq_feat,
+        }
+
+    def clip_loss(self, seq_feat: torch.Tensor, latent_goal: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        img_f, txt_f = self.proj_vis_lang(seq_feat, latent_goal)
+        return masked_clip_loss(img_f, txt_f, torch.exp(self.logit_scale), mask)
+
+    def _add_aux(self, totals: Dict[str, torch.Tensor]) -> None:
+        if self.cfg.use_clip_auxiliary_loss:
+            totals["total_loss"] = totals["total_loss"] + self.cfg.loss.clip_auxiliary_loss_beta * totals["lang_clip_loss"]
+
+    def _fused_train_losses(
+        self,
+        batch: Dict[str, ModalityBatch],
+        kl_beta: float,
+        *,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """One 2B-batch pass over [vis; lang]: {"fused": 2B} as the loader
+        stacked it, or {"vis", "lang"} stacked here. ``gumbel`` is the plan's
+        (2B, category_size, class_size) noise."""
+        cfg = self.cfg
+        if "fused" in batch:
+            fused = batch["fused"]
+            b = fused.actions.shape[0] // 2
+        else:
+            fused = fuse_modalities(batch["vis"], batch["lang"])
+            b = batch["vis"].actions.shape[0]
+        lang_emb, aux_mask = fused.lang, fused.use_for_aux_lang_loss
+        perceptual_emb, _ = self.encode(fused.rgb_obs(), fused.robot_obs)
+        latent_goal = torch.cat([
+            self.encode_visual_goal(perceptual_emb[:b, -1]), self.encode_language_goal(lang_emb)
+        ], dim=0)
+
+        pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
+        pr_state, seq_feat = self.plan_recognition(perceptual_emb)
+        sampled_plan, kl_ps = self._plan_and_kl(pp_state, pr_state, generator, gumbel)
+        act_ps = self.action_decoder.loss(
+            sampled_plan, perceptual_emb, latent_goal, fused.actions, fused.state_info_robot_obs, per_sample=True
+        )
+        kl_ps = kl_beta * kl_ps
+
+        zero = torch.zeros((), device=act_ps.device)
+        totals = {k: zero for k in LOSS_KEYS}
+        if cfg.use_clip_auxiliary_loss:
+            totals["lang_clip_loss"] = self.clip_loss(seq_feat[b:], latent_goal[b:], aux_mask)
+        per_mod = {}
+        for scope, sl in (("vis", slice(0, b)), ("lang", slice(b, None))):
+            act, kl = act_ps[sl].mean(), kl_ps[sl].mean()
+            per_mod[f"action_loss_{scope}"] = act
+            per_mod[f"kl_loss_scaled_{scope}"] = kl
+            per_mod[f"total_loss_{scope}"] = act + kl
+        totals["action_loss"] = act_ps.mean()
+        totals["kl_loss"] = kl_ps.mean()
+        totals["total_loss"] = totals["action_loss"] + totals["kl_loss"]
+        self._add_aux(totals)
+        totals.update(per_mod)
+        return totals
+
+    def train_losses(
+        self,
+        batch: Dict[str, ModalityBatch],
+        kl_beta: float,
+        *,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Union[None, torch.Tensor, Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """One optimizer step's losses. ``{"fused": 2B}`` (and, with
+        ``cfg.fuse_modalities``, equal-shaped ``{"vis", "lang"}``) takes the
+        fused pass; otherwise one pass per modality, each with its own
+        ``gumbel[scope]``."""
+        cfg = self.cfg
+        if "fused" in batch or (
+            cfg.fuse_modalities
+            and set(batch) == {"vis", "lang"}
+            and batch["vis"].actions.shape == batch["lang"].actions.shape
+            and _same_shape(batch["vis"].rgb_static, batch["lang"].rgb_static)
+        ):
+            return self._fused_train_losses(batch, kl_beta, generator=generator, gumbel=gumbel)
+        zero = torch.zeros((), device=self.device)
+        totals = {k: zero for k in LOSS_KEYS}
+        per_mod = {}
+        for scope, mod in batch.items():
+            perceptual_emb, _ = self.encode(mod.rgb_obs(), mod.robot_obs)
+            if "lang" in scope:
+                latent_goal = self.encode_language_goal(mod.lang)
+            else:
+                latent_goal = self.encode_visual_goal(perceptual_emb[:, -1])
+            out = self.lmp_train(
+                perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs,
+                generator=generator, gumbel=None if gumbel is None else gumbel[scope],
+            )
+            act_loss, kl = out["action_loss"], out["kl_loss"] * kl_beta
+            if "lang" in scope and cfg.use_clip_auxiliary_loss:
+                totals["lang_clip_loss"] = totals["lang_clip_loss"] + self.clip_loss(
+                    out["seq_feat"], latent_goal, mod.use_for_aux_lang_loss
+                )
+            totals["kl_loss"] = totals["kl_loss"] + kl
+            totals["action_loss"] = totals["action_loss"] + act_loss
+            totals["total_loss"] = totals["total_loss"] + act_loss + kl
+            per_mod[f"action_loss_{scope}"] = act_loss
+            per_mod[f"kl_loss_scaled_{scope}"] = kl
+            per_mod[f"total_loss_{scope}"] = act_loss + kl
+        n = float(len(batch))
+        for key in ("kl_loss", "action_loss", "total_loss"):
+            totals[key] = totals[key] / n
+        self._add_aux(totals)
+        totals.update(per_mod)
+        return totals
+
+
+def _same_shape(a, b) -> bool:
+    return (a is None and b is None) or (a is not None and b is not None and a.shape == b.shape)
+
 
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Random init from ``generator``, at torch's default scales: Linear and
-    Conv2d U(+-1/sqrt(fan_in)), RNN U(+-1/sqrt(H)), LayerNorm (1, 0)."""
+    Conv2d U(+-1/sqrt(fan_in)), RNN U(+-1/sqrt(H)), attention in-projection
+    U(+-1/sqrt(d)) with zero bias, position embeddings N(0, 0.02), LayerNorm
+    (1, 0), the CLIP logit scale log(1/0.07)."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
@@ -112,11 +362,19 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
             bound = 1.0 / math.sqrt(m.hidden_size)
             for p in m.parameters():
                 p.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, MultiheadSelfAttention):
+            bound = 1.0 / math.sqrt(m.in_proj_weight.shape[1])
+            m.in_proj_weight.uniform_(-bound, bound, generator=generator)
+            m.in_proj_bias.fill_(0.0)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
         elif isinstance(m, SpatialSoftmax) and m.fixed_temperature is None:
             m.temperature.fill_(1.0)
+    if isinstance(model, HulcModel) and model.cfg.use_clip_auxiliary_loss:
+        model.logit_scale.fill_(math.log(1 / 0.07))
 
 
 def make_model(cfg: HulcConfig, device="cuda", seed: int = 0, use_kernels: bool = True) -> HulcModel:

@@ -1,4 +1,4 @@
-"""Shared building blocks (port of hulc_tpu/models/layers.py:25-85, 161-281).
+"""Shared building blocks (port of hulc_tpu/models/layers.py:25-142, 161-281).
 
 ``MLP`` builds the Linear/activation stacks under the reference's
 ``nn.Sequential`` indices, so state_dict keys such as ``mlp.0`` or
@@ -6,12 +6,20 @@
 decoder's multi-layer relu RNN with an explicit (num_layers, B, H) carry:
 the input projection of every time step runs as one matmul before the
 loop, and the recurrence ``relu(x_t W_ih + b_ih + h W_hh + b_hh)`` is one
-fp32 ``addmm`` per step and layer. The transformer and the other cells
-wait for the training slice.
+fp32 ``addmm`` per step and layer; autograd differentiates the loop.
+``TransformerEncoder`` is the plan recognition network's post-LN encoder,
+under torch ``nn.TransformerEncoder``'s parameter names.
+
+``Dropout`` draws its mask from an explicit ``torch.Generator`` (set with
+``set_dropout_generator``), as every random draw of the port does, and
+keeps flax's semantics: ``where(keep, x / keep_prob, 0)``, with a mask of
+``x``'s shape unless ``broadcast_dims`` names axes that share it. The other
+rnn cells wait for a later slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -26,6 +34,38 @@ ACTIVATIONS = {
 }
 
 
+class Dropout(nn.Module):
+    """Dropout with an explicit generator; a no-op in eval mode or at p=0."""
+
+    def __init__(self, p: float, broadcast_dims: Tuple[int, ...] = ()):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {p}")
+        self.p = p
+        self.broadcast_dims = broadcast_dims
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("training-mode dropout needs a generator: call set_dropout_generator")
+        shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
+        keep_prob = 1.0 - self.p
+        keep = torch.empty(shape, device=x.device).bernoulli_(keep_prob, generator=self.generator)
+        return torch.where(keep.bool(), x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Give every ``Dropout`` under ``module`` the generator it draws from."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 def MLP(
     in_features: int,
     features: Sequence[int],
@@ -36,7 +76,7 @@ def MLP(
     """Linear layers with an activation after each but the last (unless
     ``final_activation``); ``input_dropout`` puts a Dropout at index 0, as
     the reference's language heads have."""
-    layers = [] if input_dropout is None else [nn.Dropout(input_dropout)]
+    layers = [] if input_dropout is None else [Dropout(input_dropout)]
     for i, feat in enumerate(features):
         layers.append(nn.Linear(in_features, feat))
         if i < len(features) - 1 or final_activation:
@@ -85,3 +125,68 @@ class ScanRNN(nn.Module):
             out = torch.stack(steps, dim=1)
             finals.append(h)
         return out, torch.stack(finals)
+
+
+class MultiheadSelfAttention(nn.Module):
+    """Self-attention under torch ``nn.MultiheadAttention``'s parameter names
+    (``in_proj_weight`` (3d, d), ``in_proj_bias``, ``out_proj``), computed as
+    flax's ``MultiHeadDotProductAttention``: queries scaled by 1/sqrt(head
+    dim), an fp32 softmax, and dropout on the attention weights with one mask
+    shared over the batch and the heads (flax's ``broadcast_dropout``)."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} is not a multiple of num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+        self.dropout = Dropout(dropout, broadcast_dims=(0, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        h = self.num_heads
+        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
+        q, k, v = (t.reshape(b, s, h, d // h).transpose(1, 2) for t in (q, k, v))
+        scores = (q / math.sqrt(d // h)) @ k.transpose(-1, -2)  # (B, h, S, S)
+        weights = self.dropout(torch.softmax(scores.float(), dim=-1))
+        out = (weights @ v).transpose(1, 2).reshape(b, s, d)
+        return self.out_proj(out)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN encoder layer (torch ``nn.TransformerEncoderLayer``):
+    x -> LN(x + Dropout(SelfAttn(x))) -> LN(x + Dropout(FF(x))), relu FF with
+    dropout after the activation, LayerNorm eps 1e-5."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int, dropout: float = 0.1):
+        super().__init__()
+        self.self_attn = MultiheadSelfAttention(d_model, num_heads, dropout)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.dropout = Dropout(dropout)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm1(x + self.dropout1(self.self_attn(x)))
+        ff = self.linear2(self.dropout(torch.relu(self.linear1(x))))
+        return self.norm2(x + self.dropout2(ff))
+
+
+class TransformerEncoder(nn.Module):
+    """A stack of post-LN encoder layers under the key ``layers.{i}``."""
+
+    def __init__(self, num_layers: int, d_model: int, num_heads: int, dim_feedforward: int, dropout: float = 0.1):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dropout) for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x

@@ -8,11 +8,14 @@
 
 The JAX package's first convolution is a space-to-depth rewrite for the
 TPU's matrix unit; here it is a plain 8x8 stride-4 ``nn.Conv2d``, the same
-math. SpatialSoftmax's forward is the hand-written kernel
-``csrc/spatial_softmax.cu`` on CUDA tensors and the plain version below on
-CPU tensors. Dropout is left out: the port runs these encoders for
-inference only in this slice. The sinusoid and L2-normalized outputs no
-preset uses wait too.
+math. On CUDA tensors SpatialSoftmax is a ``torch.autograd.Function``
+whose forward and backward are the hand-written kernels of
+``csrc/spatial_softmax.cu``; on CPU tensors it is the plain version below,
+differentiated by autograd. Only a fixed temperature has a backward kernel
+(the ``hulc`` presets fix it at 1.0); a learnable one on CUDA runs forward
+only, under ``torch.no_grad``. The encoders' dropout, the sinusoid and the
+L2-normalized outputs, which no ported preset uses, wait too: a config
+that sets them is refused.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def spatial_softmax_plain(x: torch.Tensor, temperature: Union[float, torch.Tenso
     column index (the reference's square-grid quirk)."""
     n, c, h, w = x.shape
     z = x.float() / temperature
-    e = torch.exp(z - z.amax(dim=(2, 3), keepdim=True))
+    e = torch.exp(z - z.amax(dim=(2, 3), keepdim=True).detach())
     s = e.sum(dim=(2, 3))
     lin_h = torch.linspace(-1.0, 1.0, h, device=x.device)
     lin_w = torch.linspace(-1.0, 1.0, w, device=x.device)
@@ -42,15 +45,8 @@ def spatial_softmax_plain(x: torch.Tensor, temperature: Union[float, torch.Tenso
     return torch.stack([expected_x, expected_y], dim=-1).reshape(n, 2 * c)
 
 
-def spatial_softmax(x: torch.Tensor, temperature: Union[float, torch.Tensor]) -> torch.Tensor:
-    """SpatialSoftmax forward; ``temperature`` is a float or a learnable
-    one-element tensor on x's device."""
+def _spatial_softmax_fwd(x: torch.Tensor, temperature: Union[float, torch.Tensor]) -> torch.Tensor:
     n, c, h, w = x.shape
-    if h != w:
-        raise ValueError(f"SpatialSoftmax requires a square feature map (got {h}x{w})")
-    if x.device.type == "cpu":
-        return spatial_softmax_plain(x, temperature)
-    kernels.require_cuda_tensor("x", x, torch.float32, 4)
     if isinstance(temperature, torch.Tensor):
         kernels.require_cuda_tensor("temperature", temperature, torch.float32)
         temp_ptr, temp_value = temperature.data_ptr(), 1.0
@@ -59,6 +55,53 @@ def spatial_softmax(x: torch.Tensor, temperature: Union[float, torch.Tensor]) ->
     out = torch.empty((n, 2 * c), dtype=torch.float32, device=x.device)
     kernels.SPATIAL_SOFTMAX(x.device, x.data_ptr(), out.data_ptr(), n, c, h, w, temp_ptr, temp_value)
     return out
+
+
+def spatial_softmax_bwd(x: torch.Tensor, grad_out: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The backward kernel: d(out)/dx contracted with ``grad_out`` (N, 2C)."""
+    n, c, h, w = x.shape
+    grad_out = grad_out.float().contiguous()
+    kernels.require_cuda_tensor("grad_out", grad_out, torch.float32, 2)
+    if grad_out.shape != (n, 2 * c):
+        raise ValueError(f"grad_out has shape {tuple(grad_out.shape)}, expected {(n, 2 * c)}")
+    dx = torch.empty_like(x)
+    kernels.SPATIAL_SOFTMAX_BWD(
+        x.device, x.data_ptr(), grad_out.data_ptr(), dx.data_ptr(), n, c, h, w, float(temperature)
+    )
+    return dx
+
+
+class _SpatialSoftmax(torch.autograd.Function):
+    """Forward and backward kernels of csrc/spatial_softmax.cu, fixed temperature."""
+
+    @staticmethod
+    def forward(ctx, x, temperature):
+        ctx.save_for_backward(x)
+        ctx.temperature = temperature
+        return _spatial_softmax_fwd(x, temperature)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (x,) = ctx.saved_tensors
+        return spatial_softmax_bwd(x, grad_out, ctx.temperature), None
+
+
+def spatial_softmax(x: torch.Tensor, temperature: Union[float, torch.Tensor]) -> torch.Tensor:
+    """SpatialSoftmax; ``temperature`` is a float or a learnable one-element
+    tensor on x's device."""
+    n, c, h, w = x.shape
+    if h != w:
+        raise ValueError(f"SpatialSoftmax requires a square feature map (got {h}x{w})")
+    if x.device.type == "cpu":
+        return spatial_softmax_plain(x, temperature)
+    kernels.require_cuda_tensor("x", x, torch.float32, 4)
+    if isinstance(temperature, torch.Tensor):
+        if torch.is_grad_enabled() and (x.requires_grad or temperature.requires_grad):
+            raise NotImplementedError(
+                "the SpatialSoftmax backward with a learnable temperature is not ported yet"
+            )
+        return _spatial_softmax_fwd(x, temperature)
+    return _SpatialSoftmax.apply(x, float(temperature))
 
 
 class SpatialSoftmax(nn.Module):
@@ -102,8 +145,8 @@ def conv_tower_size(input_size: int) -> int:
 
 
 def _check_ported(cfg: VisionEncoderConfig) -> None:
-    if cfg.use_sinusoid or cfg.l2_normalize_output:
-        raise ValueError("use_sinusoid and l2_normalize_output are not ported yet")
+    if cfg.use_sinusoid or cfg.l2_normalize_output or cfg.dropout > 0.0:
+        raise ValueError("use_sinusoid, l2_normalize_output and encoder dropout are not ported yet")
 
 
 class VisionNetworkStatic(nn.Module):

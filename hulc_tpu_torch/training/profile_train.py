@@ -1,0 +1,106 @@
+"""Where the training step spends its time on the GPU.
+
+    python -m hulc_tpu_torch.training.profile_train [--steps 5] [--seed 0] [--out DIR]
+
+Builds a full-width ``hulc`` ``Trainer`` (random weights from ``--seed``)
+and a synthetic loader-fused uint8 batch of 32 vision and 32 language
+windows of 32 frames (the JAX package's bench shape), takes warm-up steps,
+then runs ``--steps`` steps of ``Trainer.train_step`` under
+``torch.profiler`` and prints one JSON line: host-clock ms per step under
+the profiler and, from ``--steps`` steps just before it, without it;
+device ms per step (the CUDA activity the profiler recorded); the device's
+idle share against either step time (the profiler's own host work
+lengthens the profiled step); device time by kind (hand kernels, matmuls,
+convolutions, copies and fills, other); and the ten CUDA operations that
+take the most device time. With ``--out`` it also writes the Chrome trace there. Needs a
+CUDA device; TF32 is off, as in the fp32 reference.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from hulc_tpu_torch.config import HulcConfig, get_config
+from hulc_tpu_torch.evaluation.profile_policy import profile_steps
+from hulc_tpu_torch.models.hulc import ModalityBatch
+from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+BATCH_PER_MOD, SEQ = 32, 32  # windows per modality, frames per window
+
+
+def synthetic_fused_batch(
+    cfg: HulcConfig, batch_per_mod: int, seq_len: int, seed: int, device
+) -> Dict[str, ModalityBatch]:
+    """A loader-fused ``{"fused": 2B}`` uint8 batch, [vis; lang] rows, built
+    as the JAX package's ``__graft_entry__._make_raw_batch``: uniform frames,
+    ``tanh(normal)`` actions, normal 15-d ``state_info_robot_obs``, normal
+    384-d language embeddings; every third language window is left out of
+    the auxiliary (CLIP) loss."""
+    rng = np.random.default_rng(seed)
+    pe = cfg.perceptual_encoder
+    n = 2 * batch_per_mod
+
+    def frames(px):
+        return rng.integers(0, 255, (n, seq_len, px, px, 3), dtype=np.uint8)
+
+    batch = ModalityBatch(
+        rgb_static=frames(pe.rgb_static.input_size),
+        rgb_gripper=frames(pe.rgb_gripper.input_size) if pe.rgb_gripper is not None else None,
+        robot_obs=rng.normal(size=(n, seq_len, 8)).astype(np.float32),
+        actions=np.tanh(rng.normal(size=(n, seq_len, 7))).astype(np.float32),
+        state_info_robot_obs=rng.normal(size=(n, seq_len, 15)).astype(np.float32),
+        lang=rng.normal(size=(batch_per_mod, cfg.lang_dim)).astype(np.float32),
+        use_for_aux_lang_loss=np.arange(batch_per_mod) % 3 != 2,
+        idx=np.arange(batch_per_mod),
+    )
+    return {"fused": ModalityBatch(*(None if x is None else torch.as_tensor(x, device=device) for x in batch))}
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", type=pathlib.Path, default=None)
+    args = p.parse_args(argv)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hulc")
+    trainer = Trainer(cfg, TrainerConfig(seed=args.seed), device="cuda")
+    trainer.init_state(1)
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, args.seed, "cuda")
+    kl_beta = cfg.loss.kl_beta
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+    trace = None if args.out is None else args.out / "train_step.json"
+
+    def step():
+        trainer.train_step(batch, kl_beta)
+
+    for _ in range(3):
+        step()
+    host = []
+    for _ in range(args.steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    unprofiled_ms = statistics.median(host)
+    result = profile_steps(step, args.steps, trace)
+    print(json.dumps({
+        "step": "Trainer.train_step", "batch": 2 * BATCH_PER_MOD, "seq": SEQ,
+        "card": torch.cuda.get_device_name(0), "unprofiled_step_ms": unprofiled_ms,
+        "unprofiled_idle_share": 1.0 - result["device_ms_per_step"] / unprofiled_ms, **result,
+    }))
+
+
+if __name__ == "__main__":
+    main()

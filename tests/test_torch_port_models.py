@@ -23,7 +23,6 @@ torch.set_num_threads(1)
 CFG_NAME = "hulc_debug"
 JAX_CFG = jax_config.get_config(CFG_NAME)
 PORT_CFG = port_config.get_config(CFG_NAME)
-TRAINING_ONLY = ("plan_recognition/", "proj_vis_lang/", "logit_scale")
 
 
 @pytest.fixture(scope="module")
@@ -71,11 +70,10 @@ def test_config_presets_match_jax_field_by_field(name):
 
 
 def test_params_from_jax_leaves_only_training_subtrees_unused(port_model):
+    """The port now holds the training-only subtrees too (the recognition
+    transformer, the CLIP heads, logit_scale), so nothing is left unused."""
     _, unused = port_model
-    assert unused, "the training-only subtrees must be listed"
-    assert all(p.startswith(TRAINING_ONLY) for p in unused)
-    assert any(p.startswith("plan_recognition/") for p in unused)
-    assert "logit_scale" in unused
+    assert unused == []
 
 
 def _frames(rng, e, s):
@@ -112,7 +110,7 @@ def test_perceptual_encoder_matches_jax(jax_side, port_model):
 def test_perceptual_encoder_with_proprio_matches_jax():
     jax_side = jax_random_params(_with_proprio(jax_config), seed=6)
     model, unused = port_model_from_jax(jax_side[1], _with_proprio(port_config))
-    assert all(p.startswith(TRAINING_ONLY) for p in unused)
+    assert unused == []
     _check_encode(jax_side, model, seed=7)
 
 
@@ -131,7 +129,7 @@ def test_mlp_language_head_matches_jax():
     """The plain three-Linear language head (GoalEncoderConfig kind="mlp")."""
     jax_side = jax_random_params(_with_mlp_language_head(jax_config), seed=8)
     model, unused = port_model_from_jax(jax_side[1], _with_mlp_language_head(port_config))
-    assert all(p.startswith(TRAINING_ONLY) for p in unused)
+    assert unused == []
     x = np.random.default_rng(9).normal(size=(4, 384)).astype(np.float32)
     want = _apply(jax_side, jnp.asarray(x), method="encode_language_goal")
     with torch.no_grad():
@@ -183,16 +181,17 @@ def test_decoder_forward_with_carry_matches_jax(jax_side, port_model):
 
 
 def test_state_dict_round_trips_through_jax_converter():
-    """convert_state_dict(port.state_dict()) gives back the JAX subtrees the
-    port holds, leaf for leaf, with no unused keys. The gripper camera is
-    84 px here because torch_convert's flatten-size table maps the debug
-    preset's 48 px to a 3x3 map, while its conv tower gives 2x2."""
+    """convert_state_dict(port.state_dict()) gives back the whole JAX tree,
+    leaf for leaf, with no unused keys. The gripper camera is 84 px here
+    because torch_convert's flatten-size table maps the debug preset's
+    48 px to a 3x3 map, while its conv tower gives 2x2."""
     jax_cfg = _with_84px_gripper(jax_config)
     _, params = jax_random_params(jax_cfg, seed=5)
-    model, _ = port_model_from_jax(params, _with_84px_gripper(port_config))
-    back, unused = convert_state_dict(model.state_dict(), jax_cfg)
+    model, unused = port_model_from_jax(params, _with_84px_gripper(port_config))
     assert unused == []
-    expected = {k: v for k, v in params.items() if k not in ("plan_recognition", "proj_vis_lang", "logit_scale")}
+    back, unused = convert_state_dict({k: v.numpy() for k, v in model.state_dict().items()}, jax_cfg)
+    assert unused == []
+    expected = params
     got_leaves = jax.tree_util.tree_flatten_with_path(back)[0]
     want_leaves = jax.tree_util.tree_flatten_with_path(expected)[0]
     assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
