@@ -13,7 +13,12 @@ it fails:
 3. kernels: each serving kernel against its plain PyTorch version at the
    policy's shapes, one lane and ``--lanes`` lanes; each training kernel
    against its plain version (its backward against autograd through the
-   plain forward) at the training step's shapes.
+   plain forward) at the training step's shapes, the SpatialSoftmax
+   backward with a fixed and with a learnable temperature (a CUDA tensor,
+   whose gradient the kernel gives too). Then ``hulc_debug``: the shift
+   and the SpatialSoftmax backward at its shapes and at odd ones (an
+   unaligned frame, widths that are not a multiple of 4, a row count that
+   is not a multiple of 8).
 4. serving main path, single lane: the full-width ``hulc`` HulcPolicy
    (random weights from ``--seed``, synthetic uint8 frames, 15-d
    robot_obs, 384-d language embedding) for ``--steps`` steps, across the
@@ -38,8 +43,12 @@ it fails:
 9. training plain path: one step from the same params, batch, shifts and
    plan noise through use_kernels=False (recognition dropout 0 in both
    runs, cuDNN deterministic); every loss and every gradient must agree.
+   Then the same with a learnable SpatialSoftmax temperature, set to 0.7.
 10. training timing: each training kernel against its plain version at
-   the step's shapes, and fused fp32 Adam as the optimizer's yardstick.
+   the step's shapes (the SpatialSoftmax backward also with a learnable
+   temperature), its bound and its share of the bound, and fused fp32 Adam
+   as the optimizer's yardstick; each kernel's registers, shared memory
+   and spills from the build log.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +82,7 @@ PLAN_TIE_BUDGET = 1e-3  # share of replanned plan categories allowed to differ
 # (relative L2), since an entry that sums terms of both signs can lose its
 # relative precision while the tensor keeps it.
 SS_BWD_RTOL, SS_BWD_ATOL = 1e-5, 1e-7  # SpatialSoftmax dx, per entry
+SS_DTEMP_RTOL = 1e-5  # SpatialSoftmax temperature gradient, relative (a sum over the whole map)
 LOSS_RTOL = 1e-5  # mixture NLL and plan KL forward, per entry
 GRAD_REL = 1e-5  # backward kernels, relative L2 per gradient tensor
 ONE_ULP = 2.0**-23  # the straight-through value (1 + p) - p rounds at 1's ulp
@@ -502,31 +512,58 @@ def check_grads(name, got, want):
     return max(max_abs(g, w) for g, w in zip(got, want))
 
 
+def check_ss_bwd(conv_map, grad, where):
+    """The SpatialSoftmax backward on ``conv_map``: dx against autograd
+    through the plain forward at a fixed T = 1 (the wrapper) and at a
+    learnable T = 0.7 (through the autograd Function, the temperature a
+    CUDA tensor), and dT against autograd's within SS_DTEMP_RTOL. Returns
+    (largest dx error, dT relative error)."""
+    from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_bwd, spatial_softmax_plain
+
+    x = conv_map.clone().requires_grad_()
+    (want,) = torch.autograd.grad(spatial_softmax_plain(x, 1.0), x, grad)
+    got, _ = spatial_softmax_bwd(conv_map, grad, 1.0)
+    if not torch.allclose(got, want, rtol=SS_BWD_RTOL, atol=SS_BWD_ATOL):
+        fail(f"SpatialSoftmax backward kernel at {where} {tuple(x.shape)}: max abs err {max_abs(got, want)}")
+    dx_err = max_abs(got, want)
+    del got, want
+    temp = torch.tensor([0.7], device=conv_map.device, requires_grad=True)
+    want, want_t = torch.autograd.grad(spatial_softmax_plain(x, temp), (x, temp), grad)
+    x_k, temp_k = conv_map.clone().requires_grad_(), temp.detach().clone().requires_grad_()
+    got, got_t = torch.autograd.grad(spatial_softmax(x_k, temp_k), (x_k, temp_k), grad)
+    if not torch.allclose(got, want, rtol=SS_BWD_RTOL, atol=SS_BWD_ATOL):
+        fail(f"SpatialSoftmax backward kernel, learnable T, at {where} {tuple(x.shape)}: "
+             f"max abs err {max_abs(got, want)}")
+    dt_err = float((got_t - want_t).abs() / want_t.abs())
+    if not (got_t.shape == temp.shape and dt_err <= SS_DTEMP_RTOL):
+        fail(f"SpatialSoftmax temperature gradient at {where}: {float(got_t)} vs {float(want_t)} (relative {dt_err})")
+    return max(dx_err, max_abs(got, want)), dt_err
+
+
+def check_shift(imgs, shifts, pad, where):
+    from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
+
+    got = preprocess_rgb_seq_shift(imgs, shifts, pad)
+    want = preprocess_rgb_seq_shift_plain(imgs, shifts, pad)
+    if not torch.equal(got, want):
+        fail(f"shift kernel at {where} {tuple(imgs.shape)} is not bit-equal: max abs err {max_abs(got, want)}")
+
+
 def check_train_kernels(inp):
     """Each training kernel against its plain version on ``inp``; returns
     the largest absolute error of each."""
-    from hulc_tpu_torch.models.vision import spatial_softmax_bwd, spatial_softmax_plain
-    from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
     from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_lowp_update_plain
 
     errs = {}
-    # B.1': a gather on uint8 and the intrinsic normalize, so bit-equal
+    # B.1': a gather on uint8 and the plain version's normalize table, so bit-equal
     for cam, imgs in inp.frames.items():
-        got = preprocess_rgb_seq_shift(imgs, inp.shifts[cam], inp.pads[cam])
-        want = preprocess_rgb_seq_shift_plain(imgs, inp.shifts[cam], inp.pads[cam])
-        if not torch.equal(got, want):
-            fail(f"shift kernel at {tuple(imgs.shape)} is not bit-equal: max abs err {max_abs(got, want)}")
-        del got, want
+        check_shift(imgs, inp.shifts[cam], inp.pads[cam], "the step's shape")
     errs["preprocess_rgb_shift"] = 0.0
 
-    # B.2': against autograd through the plain forward
-    x = inp.conv_map.clone().requires_grad_()
-    (want,) = torch.autograd.grad(spatial_softmax_plain(x, 1.0), x, inp.ss_grad)
-    got = spatial_softmax_bwd(inp.conv_map, inp.ss_grad, 1.0)
-    if not torch.allclose(got, want, rtol=SS_BWD_RTOL, atol=SS_BWD_ATOL):
-        fail(f"SpatialSoftmax backward kernel at {tuple(x.shape)}: max abs err {max_abs(got, want)}")
-    errs["spatial_softmax_bwd"] = max_abs(got, want)
-    del x, got, want
+    # B.2' and B.2'': against autograd through the plain forward
+    errs["spatial_softmax_bwd"], errs["spatial_softmax_bwd_dtemp_rel"] = check_ss_bwd(
+        inp.conv_map, inp.ss_grad, "the step's shape"
+    )
 
     # B.3': forward per entry, each gradient as a tensor
     (k_out, k_leaves), (p_out, p_leaves) = mixture_graph(inp, True), mixture_graph(inp, False)
@@ -578,6 +615,49 @@ def bias_corrections(count):
     return bc(0.9, 0.999, count)
 
 
+def with_learnable_temperature(cfg):
+    pe = cfg.perceptual_encoder
+    learnable = dataclasses.replace(pe.rgb_static, spatial_softmax_temp=None)
+    return dataclasses.replace(cfg, perceptual_encoder=dataclasses.replace(pe, rgb_static=learnable)).resolve()
+
+
+def check_debug(seed):
+    """``hulc_debug`` (its 64 px and 48 px frames, 4x4 maps): the shift
+    kernel and the SpatialSoftmax backward at its shapes, and both again at
+    odd shapes (a frame view one byte off alignment with w = 37, a
+    (5, 3, 7, 7) map: unaligned heads, scalar stores, a partial block).
+    Returns the largest dx error and dT relative error."""
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.ops.image_ops import draw_shifts, preprocess_rgb_seq_plain
+    from hulc_tpu_torch.training.profile_train import synthetic_fused_batch
+
+    cfg = get_config("hulc_debug")
+    pe = cfg.perceptual_encoder
+    model = make_model(cfg, "cuda", seed=seed)
+    batch = synthetic_fused_batch(cfg, 4, 8, seed, "cuda")
+    fused = batch["fused"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    for cam in ("rgb_static", "rgb_gripper"):
+        imgs, pad = getattr(fused, cam), getattr(pe, cam).shift_pad
+        check_shift(imgs, draw_shifts(imgs.shape[0] * imgs.shape[1], pad, gen, "cuda"), pad, "hulc_debug")
+    raw = torch.randint(0, 256, (6 * 37 * 37 * 3 + 1,), generator=gen, device="cuda", dtype=torch.uint8)
+    check_shift(raw[1:].view(3, 2, 37, 37, 3), draw_shifts(6, 5, gen, "cuda"), 5, "an odd shape")
+    with torch.no_grad():
+        frames = preprocess_rgb_seq_plain(fused.rgb_static).flatten(0, 1)
+        conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(frames).contiguous()
+    errs = [check_ss_bwd(conv_map, torch.randn(conv_map.shape[0], 2 * conv_map.shape[1], generator=gen,
+                                               device="cuda"), "hulc_debug")]
+    odd = torch.randn((5, 3, 7, 7), generator=gen, device="cuda")
+    errs.append(check_ss_bwd(odd, torch.randn((5, 6), generator=gen, device="cuda"), "an odd shape"))
+    print(f"[kernels] shift bit-equal and SpatialSoftmax backward (fixed and learnable T) within tolerance "
+          f"at hulc_debug's shapes ({tuple(fused.rgb_static.shape)}, {tuple(fused.rgb_gripper.shape)}, "
+          f"{tuple(conv_map.shape)}) and odd ones: dx max abs err {max(e[0] for e in errs):.3g}, "
+          f"dT relative err {max(e[1] for e in errs):.3g}")
+    del model
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
 def time_train_kernels(inp):
     """Device ms of each training kernel and of its plain version on the
     same inputs, the bound, and fused fp32 Adam as the optimizer's yardstick."""
@@ -591,6 +671,8 @@ def time_train_kernels(inp):
 
     x = inp.conv_map.clone().requires_grad_()
     ss_out = spatial_softmax_plain(x, 1.0)
+    temp = torch.tensor([0.7], device=x.device, requires_grad=True)
+    ss_out_t = spatial_softmax_plain(x, temp)
     k_nll, k_nll_leaves = mixture_graph(inp, True)
     p_nll, p_nll_leaves = mixture_graph(inp, False)
     (k_st, k_kl), k_plan_leaves = plan_graph(inp, True)
@@ -640,6 +722,12 @@ def time_train_kernels(inp):
         "spatial_softmax_bwd": (lambda: spatial_softmax_bwd(inp.conv_map, inp.ss_grad, 1.0),
                                 lambda: torch.autograd.grad(ss_out, x, inp.ss_grad, retain_graph=True),
                                 bound(8 * n_map + 4 * inp.ss_grad.numel(), 12 * n_map), None),
+        # the same and T in, dT out; two more flops an entry (x * dx, its sum)
+        "spatial_softmax_bwd_learnable_t": (
+            lambda: spatial_softmax_bwd(inp.conv_map, inp.ss_grad, temp.detach()),
+            lambda: torch.autograd.grad(ss_out_t, (x, temp), inp.ss_grad, retain_graph=True),
+            bound(8 * n_map + 4 * inp.ss_grad.numel() + 8, 14 * n_map), None,
+        ),
         # three (…, A, K) tensors, actions, gripper logits, the loss; ~30 flops a component
         "mixture_nll_fwd": (nll_fwd(mixture_nll), nll_fwd(mixture_nll_plain),
                             bound(12 * n_comp + small, 30 * n_comp), None),
@@ -758,7 +846,7 @@ def separate_plan_ties(model, cfg, batch, shifts, gumbel):
     return gumbel, int(near.sum())
 
 
-def compare_train_plain(cfg, model, batch, seed, device="cuda"):
+def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train plain path"):
     """One step from the same params, batch, shifts and plan noise through
     the kernel path and the plain path (recognition dropout 0, cuDNN
     deterministic, plan ties pulled apart); losses per key and gradients per
@@ -814,7 +902,7 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda"):
     if not errs[worst] <= limit:
         fail(f"train step: {worst}'s gradient differs from the plain path's by relative L2 {errs[worst]}, "
              f"limit {limit} (sensitivity to one ulp of the keypoints up to {sens[most_sensitive]})")
-    print(f"[train plain path] one step agrees with use_kernels=False on the card ({ties} plan ties of "
+    print(f"[{label}] one step agrees with use_kernels=False on the card ({ties} plan ties of "
           f"{n * d.category_size} pulled apart by {PLAN_TIE_MARGIN}): losses within relative {loss_err:.3g} "
           f"(rtol {STEP_LOSS_RTOL}); gradients of {len(live)} tensors within relative L2 {errs[worst]:.3g} "
           f"({worst}), {sum(e > STEP_GRAD_REL for e in errs.values())} above {STEP_GRAD_REL}; the plain "
@@ -892,9 +980,10 @@ def main(argv=None) -> int:
     lib_path = kernels.build()
     kernels.library()
     print(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    resources = kernels.ptxas_report(lib_path.with_suffix(".log").read_text())
+    for fn, r in resources.items():
+        print(f"[build] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory, "
+              f"{r['stack_bytes']} B stack, spills {r['spill_store_bytes']} B stored / {r['spill_load_bytes']} B loaded")
 
     cfg = get_config("hulc")
     model = make_model(cfg, "cuda", seed=args.seed)
@@ -912,8 +1001,13 @@ def main(argv=None) -> int:
     train_inputs = TrainInputs(cfg, model, train_batch, args.seed)
     train_errs = check_train_kernels(train_inputs)
     errs.update(train_errs)
+    dtemp_rel = train_errs.pop("spatial_softmax_bwd_dtemp_rel")
     print(f"[kernels] training kernels agree with their plain versions at the step's shapes: "
-          + ", ".join(f"{k} max abs err {v:.3g}" for k, v in train_errs.items()))
+          + ", ".join(f"{k} max abs err {v:.3g}" for k, v in train_errs.items())
+          + f"; SpatialSoftmax temperature gradient (T = 0.7) relative err {dtemp_rel:.3g}")
+    debug_dx, debug_dt = check_debug(args.seed)
+    errs["spatial_softmax_bwd"] = max(errs["spatial_softmax_bwd"], debug_dx)
+    errs["spatial_softmax_bwd_dtemp_rel"] = max(dtemp_rel, debug_dt)
 
     # ---- 4-5. serving main path ------------------------------------------------
     lang = rng.normal(size=384).astype(np.float32)
@@ -980,13 +1074,33 @@ def main(argv=None) -> int:
     # ---- 9. training plain path --------------------------------------------------
     train_check = compare_train_plain(cfg, model, train_batch, args.seed)
 
+    # the same check with a learnable SpatialSoftmax temperature (at 0.7):
+    # the backward kernel then also gives the temperature's gradient
+    learn_cfg = with_learnable_temperature(cfg)
+    learn_model = make_model(learn_cfg, "cuda", seed=args.seed)
+    with torch.no_grad():
+        learn_model.perceptual_encoder.rgb_static_encoder.spatial_softmax.temperature.fill_(0.7)
+    kernels.reset_launch_counts()
+    train_check["learnable_t"] = compare_train_plain(
+        learn_cfg, learn_model, train_batch, args.seed, label="train plain path, learnable T = 0.7"
+    )
+    if not kernels.SPATIAL_SOFTMAX_BWD.launches > 0:
+        fail("the train step with a learnable temperature never launched the backward kernel")
+    del learn_model
+
     # ---- 10. training timing -----------------------------------------------------
     timing.update(time_train_kernels(train_inputs))
     for name, t in timing.items():
         lib = "" if t["library_ms"] is None else f", library call {t['library_ms']:.5f} ms"
-        print(f"[timing] {name}: device time kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
-              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}){lib}; per call with the host's launch "
-              f"cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms")
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        print(f"[timing] {name}: device time kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms "
+              f"(kernel / plain {t['ms'] / t['plain_ms']:.4f}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
+              f"{100 * t['bound_share']:.1f}% of the bound{lib}; per call with the host's launch "
+              f"cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms ({card})")
+    for fn in ("preprocess_rgb_shift_kernel", "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel"):
+        r = resources[fn]
+        print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
+              f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")
 
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
@@ -996,6 +1110,9 @@ def main(argv=None) -> int:
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "max_abs_err": errs[name], **timing[name],
         })
+        if name == "spatial_softmax_bwd":  # B.2'': the same entry point with a learnable temperature
+            rows[-1]["learnable_t"] = {**timing["spatial_softmax_bwd_learnable_t"],
+                                       "dtemp_rel_err": errs["spatial_softmax_bwd_dtemp_rel"]}
     print(json.dumps({
         "policy_step_ms": {"1": single_ms, str(args.lanes): batched_ms},
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,

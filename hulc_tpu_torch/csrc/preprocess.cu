@@ -21,13 +21,30 @@
 // package computes as two one-hot selection matmuls on the TPU's matrix
 // unit. Here it is what it is, a clamped gather: output pixel (y, x) of
 // frame n reads source pixel (clip(s_r + y - pad), clip(s_c + x - pad)),
-// with (s_r, s_c) = shifts[n] in [0, 2 * pad]. The gather is exact on
-// uint8, and the normalize that follows is the same intrinsic sequence as
-// above, so the result is bit-equal to the plain version. Bound: bytes, as
-// above (the training batch, 2048 frames of 200 px and 84 px, is about
-// 1.45 GB of u8 in and fp32 out, 0.43 ms at 3.35 TB/s). Design: one thread
-// per output element, as above; the shifted reads of a warp stay within
-// one or two source rows.
+// with (s_r, s_c) = shifts[n] in [0, 2 * pad], then the normalize.
+//
+// Bound on the H100: bytes. The training batch, 2048 frames of 200 px and
+// 2048 of 84 px, is 1.4456 GB of u8 in and fp32 out, 0.4315 ms at
+// 3.35 TB/s. The first design (one thread per output element on a flat
+// grid, six 64-bit div/mod per element to recover (n, ch, y, x), one
+// strided byte load and one 4-byte store per thread) reached a quarter of
+// that. This design:
+//   * grid: one block per frame, 32-bit index arithmetic, no division per
+//     element. The block walks the frame in bands of kBand output rows, one
+//     warp per row;
+//   * loads: a band needs a contiguous, clamped range of source rows. The
+//     block copies it into shared memory with 16-byte cp.async, double
+//     buffered, so the next band's loads are in flight while this band is
+//     stored. A frame of 200 px (120,000 B) or 84 px (21,168 B) starts
+//     16-byte aligned, but a source row (600 B, 252 B) does not: the
+//     range's unaligned head and tail are copied byte by byte;
+//   * stores: each lane writes 4 consecutive x of one channel as one
+//     16-byte streaming store (an output row is a multiple of 16 bytes when
+//     w % 4 == 0; other widths store element by element). The channel
+//     de-interleave happens in shared memory;
+//   * normalize: a 256-entry table, built on the host by the plain
+//     version's own ops on every byte value, so the result is bit-equal to
+//     preprocess_rgb_seq_shift_plain.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,21 +71,111 @@ __global__ void preprocess_rgb_kernel(const uint8_t* __restrict__ src, float* __
   dst[o] = normalize(src[((n * h + y) * w + x) * c + ch], mean, std);
 }
 
-__global__ void preprocess_rgb_shift_kernel(const uint8_t* __restrict__ src,
-                                            const int* __restrict__ shifts,
-                                            float* __restrict__ dst, long long total, int h,
-                                            int w, int c, int pad, float mean, float std) {
-  long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  int x = static_cast<int>(o % w);
-  long long t = o / w;
-  int y = static_cast<int>(t % h);
-  t /= h;
-  int ch = static_cast<int>(t % c);
-  long long n = t / c;
-  int sy = min(max(shifts[2 * n] + y - pad, 0), h - 1);
-  int sx = min(max(shifts[2 * n + 1] + x - pad, 0), w - 1);
-  dst[o] = normalize(src[((n * h + sy) * w + sx) * c + ch], mean, std);
+constexpr int kBand = 8;  // output rows per band, one warp each
+constexpr int kShiftThreads = 32 * kBand;
+
+__device__ __forceinline__ int clamp_index(int v, int hi) { return min(max(v, 0), hi); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
+}
+
+// Copy the bytes [lo, hi) into buf so that the byte at address a lands at
+// buf[a - align16(lo)], with 16-byte cp.async for the aligned body and
+// byte copies for the unaligned head and tail; commits one cp.async group.
+// Returns lo's offset in buf.
+__device__ __forceinline__ int stage_bytes(uint8_t* buf, const uint8_t* lo, const uint8_t* hi) {
+  using u64 = unsigned long long;
+  const u64 a = reinterpret_cast<u64>(lo), b = reinterpret_cast<u64>(hi);
+  const u64 base = a & ~15ull;
+  const u64 up = (a + 15) & ~15ull;
+  const u64 body_lo = up < b ? up : b;
+  const u64 down = b & ~15ull;
+  const u64 body_hi = down > body_lo ? down : body_lo;
+  for (u64 p = a + threadIdx.x; p < body_lo; p += kShiftThreads)
+    buf[p - base] = *reinterpret_cast<const uint8_t*>(p);
+  const int chunks = static_cast<int>((body_hi - body_lo) >> 4);
+  uint8_t* body = buf + (body_lo - base);
+  for (int i = threadIdx.x; i < chunks; i += kShiftThreads)
+    cp_async16(body + 16 * i, reinterpret_cast<const void*>(body_lo + 16ull * i));
+  for (u64 p = body_hi + threadIdx.x; p < b; p += kShiftThreads)
+    buf[p - base] = *reinterpret_cast<const uint8_t*>(p);
+  cp_async_commit();
+  return static_cast<int>(a - base);
+}
+
+// Stage the source rows of output rows [y0, y0 + kBand) of a frame shifted
+// by s_r; sets row_lo to the first of them and returns its offset in buf.
+__device__ __forceinline__ int stage_band(uint8_t* buf, const uint8_t* frame, int y0, int h,
+                                          int row_bytes, int s_r, int& row_lo) {
+  row_lo = clamp_index(s_r + y0, h - 1);
+  const int row_hi = clamp_index(s_r + min(y0 + kBand, h) - 1, h - 1);
+  return stage_bytes(buf, frame + row_lo * row_bytes, frame + (row_hi + 1) * row_bytes);
+}
+
+// One block per frame; shared memory: the 256-entry table, then two band
+// buffers of buf_bytes each.
+__global__ void __launch_bounds__(kShiftThreads)
+    preprocess_rgb_shift_kernel(const uint8_t* __restrict__ src, const int* __restrict__ shifts,
+                                const float* __restrict__ table, float* __restrict__ dst, int h,
+                                int w, int c, int pad, int buf_bytes) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* lut = reinterpret_cast<float*>(smem);
+  uint8_t* const bufs = smem + 256 * sizeof(float);
+  const int n = blockIdx.x;
+  const int row_bytes = w * c;
+  const int plane = h * w;
+  const uint8_t* frame = src + static_cast<long long>(n) * h * row_bytes;
+  float* out = dst + static_cast<long long>(n) * c * plane;
+  const int s_r = shifts[2 * n] - pad, s_c = shifts[2 * n + 1] - pad;
+  for (int i = threadIdx.x; i < 256; i += kShiftThreads) lut[i] = table[i];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool vec4 = (w & 3) == 0;  // rows of 16-byte multiples: float4 stores
+  int lo = 0, lo_next = 0, off_next = 0;
+  int off = stage_band(bufs, frame, 0, h, row_bytes, s_r, lo);
+  for (int y0 = 0, k = 0; y0 < h; y0 += kBand, k ^= 1) {
+    if (y0 + kBand < h) {
+      off_next = stage_band(bufs + (k ^ 1) * buf_bytes, frame, y0 + kBand, h, row_bytes, s_r, lo_next);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int y = y0 + warp;
+    if (y < h) {
+      const uint8_t* srow = bufs + k * buf_bytes + off + (clamp_index(s_r + y, h - 1) - lo) * row_bytes;
+      for (int ch = 0; ch < c; ++ch) {
+        float* orow = out + ch * plane + y * w;
+        for (int x0 = 4 * lane; x0 < w; x0 += 128) {
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int sx = clamp_index(s_c + x0 + j, w - 1);
+            v[j] = lut[srow[sx * c + ch]];
+          }
+          if (vec4) {
+            __stcs(reinterpret_cast<float4*>(orow + x0), make_float4(v[0], v[1], v[2], v[3]));
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (x0 + j < w) __stcs(orow + x0 + j, v[j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer is staged again two bands on
+    lo = lo_next;
+    off = off_next;
+  }
 }
 
 }  // namespace
@@ -86,18 +193,23 @@ extern "C" int hulc_preprocess_rgb(const void* src, void* dst, long long n, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hulc_preprocess_rgb_shift(const void* src, const void* shifts, void* dst,
-                                         long long n, int h, int w, int c, int pad, float mean,
-                                         float std, void* stream) {
-  long long total = n * h * w * c;
-  if (total > 0) {
-    const int threads = 256;
-    long long blocks = (total + threads - 1) / threads;
-    preprocess_rgb_shift_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(src), static_cast<const int*>(shifts),
-        static_cast<float*>(dst), total, h, w, c, pad, mean, std);
+extern "C" int hulc_preprocess_rgb_shift(const void* src, const void* shifts, const void* table,
+                                         void* dst, long long n, int h, int w, int c, int pad,
+                                         void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (n > 0x7fffffffLL || static_cast<long long>(c) * h * w > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int buf_bytes = (kBand * w * c + 16 + 15) & ~15;  // a band's rows and the 16-byte slack
+  const int smem = static_cast<int>(256 * sizeof(float)) + 2 * buf_bytes;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(preprocess_rgb_shift_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  preprocess_rgb_shift_kernel<<<static_cast<unsigned int>(n), kShiftThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<const int*>(shifts),
+      static_cast<const float*>(table), static_cast<float*>(dst), h, w, c, pad, buf_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -86,12 +87,46 @@ def build() -> pathlib.Path:
     return lib
 
 
+def _entry_name(mangled: str) -> str:
+    """``preprocess_rgb_shift_kernel`` out of its mangled name: the
+    length-prefixed identifier that ends in ``_kernel``."""
+    for m in re.finditer(r"\d+", mangled):
+        for cut in range(len(m.group())):
+            k = int(m.group()[cut:])
+            name = mangled[m.end():m.end() + k]
+            if len(name) == k and name.endswith("_kernel") and mangled[m.end() + k:m.end() + k + 1] == "E":
+                return name
+    return mangled
+
+
+def ptxas_report(log: str) -> dict:
+    """Per ``__global__`` function of the build log (``-Xptxas -v``):
+    registers, static shared memory, stack frame and spill bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = _entry_name(entry.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if frame:
+            out[name].update(zip(("stack_bytes", "spill_store_bytes", "spill_load_bytes"), map(int, frame.groups())))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(regs.group(1)), static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
+
+
 # C signature of each entry point, without the trailing stream argument.
 _SIGNATURES = {
     "hulc_preprocess_rgb": (_P, _P, _I64, _I32, _I32, _I32, _F32, _F32),
-    "hulc_preprocess_rgb_shift": (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F32, _F32),
+    "hulc_preprocess_rgb_shift": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32),
     "hulc_spatial_softmax": (_P, _P, _I64, _I32, _I32, _I32, _P, _F32),
-    "hulc_spatial_softmax_bwd": (_P, _P, _P, _I64, _I32, _I32, _I32, _F32),
+    "hulc_spatial_softmax_bwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _F32),
     "hulc_logistic_mixture_sample": (_P, _P, _P, _P, _P, _P, _I64, _I32),
     "hulc_mixture_nll_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F32, _F32),
     "hulc_mixture_nll_bwd": (

@@ -10,17 +10,18 @@ The JAX package's first convolution is a space-to-depth rewrite for the
 TPU's matrix unit; here it is a plain 8x8 stride-4 ``nn.Conv2d``, the same
 math. On CUDA tensors SpatialSoftmax is a ``torch.autograd.Function``
 whose forward and backward are the hand-written kernels of
-``csrc/spatial_softmax.cu``; on CPU tensors it is the plain version below,
-differentiated by autograd. Only a fixed temperature has a backward kernel
-(the ``hulc`` presets fix it at 1.0); a learnable one on CUDA runs forward
-only, under ``torch.no_grad``. The encoders' dropout, the sinusoid and the
-L2-normalized outputs, which no ported preset uses, wait too: a config
-that sets them is refused.
+``csrc/spatial_softmax.cu``, for a fixed or a learnable temperature (the
+backward then also gives the temperature's gradient); on CPU tensors it is
+the plain version below, differentiated by autograd.
+``spatial_softmax_bwd_plain`` is the closed form the backward kernel
+computes. The encoders' dropout, the sinusoid and the L2-normalized
+outputs, which no ported preset uses, are not ported yet: a config that
+sets them is refused.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -57,33 +58,79 @@ def _spatial_softmax_fwd(x: torch.Tensor, temperature: Union[float, torch.Tensor
     return out
 
 
-def spatial_softmax_bwd(x: torch.Tensor, grad_out: torch.Tensor, temperature: float) -> torch.Tensor:
-    """The backward kernel: d(out)/dx contracted with ``grad_out`` (N, 2C)."""
+def spatial_softmax_bwd_plain(
+    x: torch.Tensor, grad_out: torch.Tensor, temperature: Union[float, torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The closed form the backward kernel computes: with p the row's
+    softmax and (E_x, E_y) its expectations,
+    dx = p / T * (g_x * (lin_h[i] - E_x) + g_y * (lin_w[j] - E_y)) and
+    dT = -(1/T) * sum(x * dx). Returns (dx, dT of shape (1,))."""
     n, c, h, w = x.shape
+    x = x.detach().float()
+    z = x / temperature
+    e = torch.exp(z - z.amax(dim=(2, 3), keepdim=True))
+    s = e.sum(dim=(2, 3), keepdim=True)
+    lin_h = torch.linspace(-1.0, 1.0, h, device=x.device)[:, None]
+    lin_w = torch.linspace(-1.0, 1.0, w, device=x.device)[None, :]
+    ex = (e * lin_h).sum(dim=(2, 3), keepdim=True) / s
+    ey = (e * lin_w).sum(dim=(2, 3), keepdim=True) / s
+    g = grad_out.detach().float().reshape(n, c, 2, 1, 1)
+    dx = e / s * (g[:, :, 0] * (lin_h - ex) + g[:, :, 1] * (lin_w - ey)) / temperature
+    dtemp = -(x * dx).sum().reshape(1) / temperature
+    return dx, dtemp
+
+
+def spatial_softmax_bwd(
+    x: torch.Tensor, grad_out: torch.Tensor, temperature: Union[float, torch.Tensor]
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The backward kernel: d(out)/dx contracted with ``grad_out`` (N, 2C),
+    and, for a tensor ``temperature``, the temperature's gradient as a (1,)
+    tensor (None for a float). The temperature is passed by its device
+    pointer: no host sync."""
+    n, c, h, w = x.shape
+    kernels.require_cuda_tensor("x", x, torch.float32, 4)
+    if x.data_ptr() % 16:
+        raise ValueError("x must start 16-byte aligned")
     grad_out = grad_out.float().contiguous()
     kernels.require_cuda_tensor("grad_out", grad_out, torch.float32, 2)
     if grad_out.shape != (n, 2 * c):
         raise ValueError(f"grad_out has shape {tuple(grad_out.shape)}, expected {(n, 2 * c)}")
     dx = torch.empty_like(x)
+    row_xdx = dtemp = None
+    if isinstance(temperature, torch.Tensor):
+        kernels.require_cuda_tensor("temperature", temperature, torch.float32)
+        temp_ptr, temp_value = temperature.data_ptr(), 1.0
+        row_xdx = torch.empty(n * c, dtype=torch.float32, device=x.device)
+        dtemp = torch.empty(1, dtype=torch.float32, device=x.device)
+    else:
+        temp_ptr, temp_value = None, float(temperature)
     kernels.SPATIAL_SOFTMAX_BWD(
-        x.device, x.data_ptr(), grad_out.data_ptr(), dx.data_ptr(), n, c, h, w, float(temperature)
+        x.device, x.data_ptr(), grad_out.data_ptr(), dx.data_ptr(),
+        None if row_xdx is None else row_xdx.data_ptr(), None if dtemp is None else dtemp.data_ptr(),
+        n, c, h, w, temp_ptr, temp_value,
     )
-    return dx
+    return dx, dtemp
 
 
 class _SpatialSoftmax(torch.autograd.Function):
-    """Forward and backward kernels of csrc/spatial_softmax.cu, fixed temperature."""
+    """Forward and backward kernels of csrc/spatial_softmax.cu; a tensor
+    temperature gets its gradient too."""
 
     @staticmethod
     def forward(ctx, x, temperature):
-        ctx.save_for_backward(x)
-        ctx.temperature = temperature
+        is_tensor = isinstance(temperature, torch.Tensor)
+        ctx.save_for_backward(x, temperature if is_tensor else None)
+        ctx.temperature = None if is_tensor else temperature
         return _spatial_softmax_fwd(x, temperature)
 
     @staticmethod
     def backward(ctx, grad_out):
-        (x,) = ctx.saved_tensors
-        return spatial_softmax_bwd(x, grad_out, ctx.temperature), None
+        x, temp_tensor = ctx.saved_tensors
+        temperature = ctx.temperature if temp_tensor is None else temp_tensor
+        dx, dtemp = spatial_softmax_bwd(x, grad_out, temperature)
+        if dtemp is not None:
+            dtemp = dtemp.reshape(temp_tensor.shape)
+        return dx, dtemp
 
 
 def spatial_softmax(x: torch.Tensor, temperature: Union[float, torch.Tensor]) -> torch.Tensor:
@@ -95,13 +142,9 @@ def spatial_softmax(x: torch.Tensor, temperature: Union[float, torch.Tensor]) ->
     if x.device.type == "cpu":
         return spatial_softmax_plain(x, temperature)
     kernels.require_cuda_tensor("x", x, torch.float32, 4)
-    if isinstance(temperature, torch.Tensor):
-        if torch.is_grad_enabled() and (x.requires_grad or temperature.requires_grad):
-            raise NotImplementedError(
-                "the SpatialSoftmax backward with a learnable temperature is not ported yet"
-            )
-        return _spatial_softmax_fwd(x, temperature)
-    return _SpatialSoftmax.apply(x, float(temperature))
+    if not isinstance(temperature, torch.Tensor):
+        temperature = float(temperature)
+    return _SpatialSoftmax.apply(x, temperature)
 
 
 class SpatialSoftmax(nn.Module):

@@ -11,10 +11,13 @@ JAX package draws them (``randint((B*S, 2), 0, 2*pad + 1)``), and tests
 pass the shifts JAX drew. On a CUDA tensor each function launches its
 hand-written kernel in ``csrc/preprocess.cu`` (which fuses the NHWC -> NCHW
 transpose into the same pass); on a CPU tensor it runs the plain version.
+The shift kernel normalizes through ``normalize_table``, the plain
+version's own result for each of the 256 byte values.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -22,11 +25,22 @@ import torch
 from hulc_tpu_torch import kernels
 
 
+def _normalize_plain(imgs: torch.Tensor, mean: float, std: float) -> torch.Tensor:
+    x = imgs.to(torch.float32) * (1.0 / 255.0)
+    return (x - mean) / std
+
+
 def preprocess_rgb_seq_plain(imgs: torch.Tensor, mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
     """Plain PyTorch version: the JAX order of operations, then NCHW."""
-    x = imgs.to(torch.float32) * (1.0 / 255.0)
-    x = (x - mean) / std
-    return x.permute(0, 1, 4, 2, 3).contiguous()
+    return _normalize_plain(imgs, mean, std).permute(0, 1, 4, 2, 3).contiguous()
+
+
+@functools.cache
+def normalize_table(mean: float, std: float, device: torch.device) -> torch.Tensor:
+    """(256,) fp32 on ``device``: the plain normalize of every byte value,
+    computed on the CPU, where the divide by ``std`` is a true divide (on
+    CUDA a divide by a Python scalar runs as a multiply by its reciprocal)."""
+    return _normalize_plain(torch.arange(256, dtype=torch.uint8), mean, std).to(device)
 
 
 def preprocess_rgb_seq(imgs: torch.Tensor, mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
@@ -80,9 +94,10 @@ def preprocess_rgb_seq_shift(
         return preprocess_rgb_seq_shift_plain(imgs, shifts, pad, mean, std)
     kernels.require_cuda_tensor("imgs", imgs, torch.uint8, 5)
     shifts = shifts.to(device=imgs.device, dtype=torch.int32).contiguous()
+    table = normalize_table(float(mean), float(std), imgs.device)
     out = torch.empty((b, s, c, h, w), dtype=torch.float32, device=imgs.device)
     kernels.PREPROCESS_RGB_SHIFT(
-        imgs.device, imgs.data_ptr(), shifts.data_ptr(), out.data_ptr(), b * s, h, w, c, int(pad),
-        float(mean), float(std),
+        imgs.device, imgs.data_ptr(), shifts.data_ptr(), table.data_ptr(), out.data_ptr(), b * s, h, w, c,
+        int(pad),
     )
     return out

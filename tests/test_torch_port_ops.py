@@ -163,6 +163,27 @@ def test_cpu_wrappers_run_plain_versions_and_launch_nothing():
         spatial_softmax(torch.zeros(1, 2, 4, 5), 1.0)
 
 
+def test_ptxas_report_reads_registers_shared_memory_and_spills():
+    """The build log's per-kernel resources, keyed by the kernel's own name
+    (a hex hash in the mangled name ends in digits too)."""
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN46_GLOBAL__N__fc65a1cc_13_preprocess_cu_4f95cdf927preprocess_rgb_shift_kernelEPKhPKiPKfPfiiiii' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN46_GLOBAL__N__fc65a1cc_13_preprocess_cu_4f95cdf9\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 42 registers, used 1 barriers, 128 bytes smem, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122spatial_softmax_kernelEPKf' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 31 registers, used 0 barriers\n"
+    )
+    assert kernels.ptxas_report(log) == {
+        "preprocess_rgb_shift_kernel": {"stack_bytes": 0, "spill_store_bytes": 8, "spill_load_bytes": 4,
+                                        "registers": 42, "static_smem_bytes": 128},
+        "spatial_softmax_kernel": {"stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+                                   "registers": 31, "static_smem_bytes": 0},
+    }
+
+
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 

@@ -33,9 +33,10 @@ from hulc_tpu_torch.models.decoders import _cross_entropy_gripper
 from hulc_tpu_torch.models.hulc import init_weights_, masked_clip_loss
 from hulc_tpu_torch.models.layers import Dropout, TransformerEncoder, set_dropout_generator
 from hulc_tpu_torch.models.plan_nets import PlanRecognitionTransformer, make_plan_distribution
-from hulc_tpu_torch.models.vision import spatial_softmax
+from hulc_tpu_torch.models.vision import SpatialSoftmax, spatial_softmax, spatial_softmax_bwd_plain, spatial_softmax_plain
 from hulc_tpu_torch.ops.image_ops import (
     draw_shifts,
+    normalize_table,
     preprocess_rgb_seq_shift,
     preprocess_rgb_seq_shift_plain,
     random_shift_plain,
@@ -65,6 +66,14 @@ def assert_grad_close(got, want, rtol=1e-5, err_msg=""):
     np.testing.assert_allclose(_np(got), want, rtol=rtol, atol=rtol * float(np.abs(want).max()), err_msg=err_msg)
 
 
+def assert_sum_close(got, want, terms_abs_sum, rtol=1e-5, err_msg=""):
+    """assert_grad_close's rule for a gradient that is one sum, such as a
+    temperature's: its rounding error scales with the sum of its terms'
+    magnitudes, not with what is left of them (with random incoming
+    gradients the terms cancel by a factor of up to a few thousand)."""
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=rtol, atol=rtol * terms_abs_sum, err_msg=err_msg)
+
+
 # ---------------------------------------------------------------------------
 # random shift and the train-time preprocess
 # ---------------------------------------------------------------------------
@@ -92,6 +101,21 @@ def test_train_preprocess_matches_jax(shape, pad):
     got = preprocess_rgb_seq_shift(_t(imgs), _t(shifts), pad)
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=2.4e-7, rtol=0)
+
+
+@pytest.mark.parametrize("mean,std", [(0.5, 0.5), (0.45, 0.27)])
+def test_normalize_table_is_bit_equal_to_the_plain_preprocess(mean, std):
+    """The shift kernel's 256-entry table, gathered at the shifted bytes, is
+    the plain train preprocess bit for bit, for every byte value."""
+    rng = np.random.default_rng(24)
+    imgs = rng.permutation(np.tile(np.arange(256, dtype=np.uint8), 6)).reshape(1, 2, 16, 16, 3)
+    shifts = torch.tensor([[0, 5], [3, 1]], dtype=torch.int32)
+    table = normalize_table(mean, std, torch.device("cpu"))
+    assert table.shape == (256,) and table.dtype == torch.float32
+    shifted = random_shift_plain(_t(imgs).reshape(2, 16, 16, 3), shifts, 2).reshape(imgs.shape)
+    got = table[shifted.long()].permute(0, 1, 4, 2, 3)
+    want = preprocess_rgb_seq_shift_plain(_t(imgs), shifts, 2, mean, std)
+    assert torch.equal(got, want)
 
 
 def test_draw_shifts_is_seeded_and_in_range():
@@ -262,6 +286,59 @@ def test_spatial_softmax_grad_matches_jax():
     xt = _t(x.transpose(0, 3, 1, 2), True)
     (spatial_softmax(xt, 1.0) * _t(g)).sum().backward()
     np.testing.assert_allclose(_np(xt.grad), np.asarray(want).transpose(0, 3, 1, 2), atol=1e-6, rtol=0)
+
+
+def _jax_spatial_softmax_grads(x_nhwc, g, temp):
+    """jax.grad of the learnable-temperature JaxSpatialSoftmax at T = temp,
+    with respect to x (returned NCHW) and params["temperature"]."""
+    mod = JaxSpatialSoftmax(temperature=None)
+    params = {"params": {"temperature": jnp.full((1,), temp, jnp.float32)}}
+
+    def obj(p, v):
+        return jnp.sum(mod.apply(p, v) * g)
+
+    dp, dx = jax.grad(obj, argnums=(0, 1))(params, jnp.asarray(x_nhwc))
+    return np.asarray(dx).transpose(0, 3, 1, 2), np.asarray(dp["params"]["temperature"])
+
+
+@pytest.mark.parametrize("shape", [(3, 21, 21, 64), (3, 4, 4, 64), (2, 7, 7, 5)])  # full, hulc_debug, odd
+@pytest.mark.parametrize("temp", [1.0, 0.7])
+def test_spatial_softmax_bwd_plain_matches_jax_and_autograd(shape, temp):
+    """The closed form the backward kernel computes: dx and dT against
+    jax.grad of the JAX module and against autograd through the plain forward."""
+    rng = np.random.default_rng(25)
+    x = (3.0 * rng.normal(size=shape)).astype(np.float32)
+    g = rng.normal(size=(shape[0], 2 * shape[3])).astype(np.float32)
+    want_dx, want_dt = _jax_spatial_softmax_grads(x, g, temp)
+    xt = _t(x.transpose(0, 3, 1, 2))
+    dx, dt = spatial_softmax_bwd_plain(xt, _t(g), torch.tensor([temp]))
+    assert dx.shape == xt.shape and dt.shape == (1,)
+    terms = float((xt * dx).abs().sum()) / temp  # dT = -(1/T) * sum(x * dx)
+    assert_grad_close(dx, want_dx, err_msg="dx vs jax")
+    assert_sum_close(dt, want_dt, terms, err_msg="dT vs jax")
+    xa, ta = xt.clone().requires_grad_(), torch.tensor([temp], requires_grad=True)
+    auto_dx, auto_dt = torch.autograd.grad(spatial_softmax_plain(xa, ta), (xa, ta), _t(g))
+    assert_grad_close(dx, auto_dx.numpy(), err_msg="dx vs autograd")
+    assert_sum_close(dt, auto_dt.numpy(), terms, err_msg="dT vs autograd")
+    fixed_dx, _ = spatial_softmax_bwd_plain(xt, _t(g), temp)  # a float temperature: the same dx
+    assert_grad_close(fixed_dx, want_dx, err_msg="dx, float T, vs jax")
+
+
+def test_spatial_softmax_learnable_temperature_grad_matches_jax():
+    """The port's CPU path (SpatialSoftmax with temperature=None, autograd
+    through the plain version) gives the gradients JAX gives."""
+    rng = np.random.default_rng(26)
+    x = (3.0 * rng.normal(size=(3, 21, 21, 64))).astype(np.float32)
+    g = rng.normal(size=(3, 128)).astype(np.float32)
+    want_dx, want_dt = _jax_spatial_softmax_grads(x, g, 0.7)
+    mod = SpatialSoftmax(temperature=None)
+    with torch.no_grad():
+        mod.temperature.fill_(0.7)
+    xt = _t(x.transpose(0, 3, 1, 2), True)
+    (mod(xt) * _t(g)).sum().backward()
+    assert_grad_close(xt.grad, want_dx, err_msg="dx")
+    terms = float((xt.detach() * xt.grad).abs().sum()) / 0.7
+    assert_sum_close(mod.temperature.grad, want_dt, terms, err_msg="dT")
 
 
 # ---------------------------------------------------------------------------
