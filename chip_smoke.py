@@ -18,7 +18,12 @@ it fails:
    whose gradient the kernel gives too). Then ``hulc_debug``: the shift
    and the SpatialSoftmax backward at its shapes and at odd ones (an
    unaligned frame, widths that are not a multiple of 4, a row count that
-   is not a multiple of 8).
+   is not a multiple of 8). The mixture NLL (B.3') at the step's, at
+   ``hulc_debug``'s and at odd shapes (37 frames, A = 5, K = 7 and 33, with
+   and without a gripper): the inputs must reach every branch (both edge
+   bins, interior, density fallback, clamp active); the forward must keep
+   its gradients for the backward under autograd and keep and allocate
+   none under no_grad.
 4. serving main path, single lane: the full-width ``hulc`` HulcPolicy
    (random weights from ``--seed``, synthetic uint8 frames, 15-d
    robot_obs, 384-d language embedding) for ``--steps`` steps, across the
@@ -46,8 +51,10 @@ it fails:
    Then the same with a learnable SpatialSoftmax temperature, set to 0.7.
 10. training timing: each training kernel against its plain version at
    the step's shapes (the SpatialSoftmax backward also with a learnable
-   temperature), its bound and its share of the bound, and fused fp32 Adam
-   as the optimizer's yardstick; each kernel's registers, shared memory
+   temperature, the mixture NLL forward also under no_grad), its bound and
+   its share of the bound, and fused fp32 Adam as the optimizer's
+   yardstick; the device time of an empty launch (``csrc/launch_floor.cu``),
+   the floor under every kernel's; each kernel's registers, shared memory
    and spills from the build log.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last,
@@ -124,14 +131,18 @@ def call_ms(fn, iters: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, launches_per_call: int | None = None) -> float:
     """Device time per call: the CUDA activity torch.profiler records over
-    ``iters`` calls (every kernel the call launches), after a warm-up."""
+    ``iters`` calls (every kernel the call launches), after a warm-up. With
+    ``launches_per_call``, fails unless the profiler recorded every launch."""
     from hulc_tpu_torch.evaluation.profile_policy import profile_calls
 
-    _, ms, _ = profile_calls(fn, iters)
+    _, ms, device = profile_calls(fn, iters)
+    name = getattr(fn, "__qualname__", repr(fn))
     if not ms > 0:
-        fail("the profiler recorded no device time")
+        fail(f"the profiler recorded no device time for {name}")
+    if launches_per_call is not None and sum(e.count for e in device) != launches_per_call * iters:
+        fail(f"the profiler recorded {sum(e.count for e in device)} of {launches_per_call * iters} launches of {name}")
     return ms
 
 
@@ -459,18 +470,7 @@ class TrainInputs:
             self.conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(frames).contiguous()
             del frames
         self.ss_grad = torch.randn(self.conv_map.shape[0], 2 * self.conv_map.shape[1], generator=gen, device=dev)
-        a, k = ad.out_features - 1, ad.n_mixtures
-        shape = (n, s, a, k)
-        self.mixture = [
-            torch.randn(shape, generator=gen, device=dev),
-            2.0 * torch.randn(shape, generator=gen, device=dev) - 3.0,
-            0.5 * torch.randn(shape, generator=gen, device=dev),
-            torch.randn((n, s, 2), generator=gen, device=dev),
-        ]
-        actions = torch.tanh(torch.randn((n, s, a + 1), generator=gen, device=dev))
-        actions[:, 0, 0], actions[:, 1, 1] = -1.0, 1.0
-        actions[..., a] = torch.where(actions[..., a] > 0, 1.0, -1.0)
-        self.actions = actions
+        self.mixture, self.actions = mixture_inputs((n, s), ad.out_features - 1, ad.n_mixtures, True, gen)
         self.nll_weight = torch.randn((n, s), generator=gen, device=dev)
         self.mixture_args = (ad.act_min_bound[:-1], ad.act_max_bound[:-1], ad.num_classes,
                              ad.log_scale_min, ad.gripper_alpha)
@@ -485,14 +485,115 @@ class TrainInputs:
         self.adam_grads = [1e-3 * torch.randn(p.shape, generator=gen, device=dev) for p in self.params]
 
 
-def mixture_graph(inp, use_kernel):
+def mixture_inputs(lead, a, k, gripper, gen):
+    """Decoder-shaped mixture parameters ([logits, log scales, means,
+    gripper logits or None]) and actions (the A dims, then the gripper's in
+    {-1, 1} when there is one) that reach every branch: the lowest and the
+    highest bin (actions at -1 and 1), interior bins, the density fallback
+    (every seventh frame has one dimension whose components all sit far
+    from its action at a small scale) and the clamp (log scales below
+    log_scale_min = -7, drawn from 2 * N(0, 1) - 3)."""
+    dev = gen.device
+    shape = (*lead, a, k)
+    mixture = [
+        torch.randn(shape, generator=gen, device=dev),
+        2.0 * torch.randn(shape, generator=gen, device=dev) - 3.0,
+        0.5 * torch.randn(shape, generator=gen, device=dev),
+        torch.randn((*lead, 2), generator=gen, device=dev) if gripper else None,
+    ]
+    actions = torch.tanh(torch.randn((*lead, a + 1), generator=gen, device=dev))
+    frames, means, log_scales = actions.view(-1, a + 1), mixture[2].view(-1, a, k), mixture[1].view(-1, a, k)
+    frames[0, 0], frames[1 % len(frames), a - 1] = -1.0, 1.0
+    far = min(2, a - 1)
+    frames[2::7, far], means[2::7, far], log_scales[2::7, far] = 0.3, 3.0, -3.0
+    actions[..., a] = torch.where(actions[..., a] > 0, 1.0, -1.0)
+    return mixture, (actions if gripper else actions[..., :a].contiguous())
+
+
+def branch_counts(mixture, actions, bounds, num_classes, log_scale_min):
+    """How many components of these inputs take each branch of the bin's
+    log mass, and how many log scales the clamp changes."""
+    _, log_scales, means, _ = mixture
+    a = means.shape[-2]
+    x = actions[..., :a, None]
+    lo, hi = (torch.tensor(b, dtype=torch.float32, device=means.device)[:, None] for b in bounds)
+    half = ((hi - lo) / 2.0) / (num_classes - 1)
+    inv_stdv = torch.exp(-torch.clamp_min(log_scales, log_scale_min))
+    centered = x - means
+    cdf_delta = torch.sigmoid(inv_stdv * (centered + half)) - torch.sigmoid(inv_stdv * (centered - half))
+    lower = (x < lo + 1e-3).expand_as(means)
+    upper = (x > hi - 1e-3).expand_as(means) & ~lower
+    inner = ~(lower | upper)
+    return {"lowest bin": int(lower.sum()), "highest bin": int(upper.sum()),
+            "interior": int((inner & (cdf_delta > 1e-5)).sum()),
+            "density fallback": int((inner & (cdf_delta <= 1e-5)).sum()),
+            "clamp active": int((log_scales < log_scale_min).sum())}
+
+
+def mixture_graph(mixture, actions, consts, use_kernel):
     """(per-frame loss, its inputs as leaves) through the kernel or the plain version."""
     from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain
 
-    leaves = [t.clone().requires_grad_() for t in inp.mixture]
+    leaves = [t.clone().requires_grad_() for t in mixture if t is not None]
     fn = mixture_nll if use_kernel else mixture_nll_plain
-    out = fn(*leaves[:3], inp.actions, leaves[3], *inp.mixture_args)
+    out = fn(*leaves[:3], actions, leaves[3] if len(leaves) == 4 else None, *consts)
     return out, leaves
+
+
+def check_mixture(mixture, actions, consts, upstream, where):
+    """B.3': the forward kernel against the plain version per entry
+    (LOSS_RTOL), each gradient of the backward kernel within GRAD_REL
+    (relative L2) of autograd through the plain forward; every branch must
+    occur in the inputs. The forward keeps its gradients for the backward,
+    and under no_grad it keeps and allocates none. Returns the largest
+    absolute errors of the forward and of the gradients."""
+    from hulc_tpu_torch.ops.logistic_mixture import mixture_nll
+
+    counts = branch_counts(mixture, actions, consts[:2], *consts[2:4])
+    if not all(counts.values()):
+        fail(f"mixture NLL inputs at {where} miss a branch: {counts}")
+    (k_out, k_leaves), (p_out, p_leaves) = (mixture_graph(mixture, actions, consts, use) for use in (True, False))
+    shape = tuple(mixture[0].shape)
+    if not torch.allclose(k_out, p_out, rtol=LOSS_RTOL, atol=0):
+        fail(f"mixture NLL kernel at {where} {shape}: max abs err {max_abs(k_out, p_out)}")
+    saved = [t for t in k_out.grad_fn.saved_tensors if t is not None]
+    if [t.shape for t in saved] != [t.shape for t in k_leaves]:
+        fail(f"mixture NLL forward at {where} kept {[tuple(t.shape) for t in saved]} for the backward")
+    got = torch.autograd.grad(k_out, k_leaves, upstream)
+    want = torch.autograd.grad(p_out, p_leaves, upstream)
+    bwd_err = check_grads(f"mixture NLL backward kernel at {where} {shape}", got, want)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = mixture_nll(*k_leaves[:3], actions, k_leaves[3] if len(k_leaves) == 4 else None, *consts)
+    extra = torch.cuda.max_memory_allocated() - base
+    if out.grad_fn is not None or extra > -(-4 * out.numel() // 512) * 512:
+        fail(f"mixture NLL forward under no_grad at {where}: grad_fn {out.grad_fn}, {extra} B allocated")
+    if not torch.allclose(out, k_out.detach(), rtol=LOSS_RTOL, atol=0):
+        fail(f"mixture NLL forward at {where} gives another loss under no_grad: {max_abs(out, k_out)}")
+    print(f"[kernels] mixture NLL at {where} {shape} ({'with' if len(k_leaves) == 4 else 'no'} gripper; "
+          f"branches {counts}): forward max abs err {max_abs(k_out, p_out):.3g}, gradients max abs err "
+          f"{bwd_err:.3g}; no gradient kept or allocated under no_grad")
+    return max_abs(k_out, p_out), bwd_err
+
+
+def check_mixture_shapes(seed):
+    """B.3' at hulc_debug's shape and at odd ones: 37 frames (not a
+    multiple of 8 or of a tile), A = 5, K = 7 and K = 33 (a segment longer
+    than a warp), with and without a gripper. Returns the largest errors."""
+    from hulc_tpu_torch.config import get_config
+
+    ad = get_config("hulc_debug").action_decoder
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    cases = [((8, 8), ad.out_features - 1, ad.n_mixtures, True, "hulc_debug")]
+    cases += [((37, 1), 5, k, grip, "an odd shape") for k in (7, 33) for grip in (True, False)]
+    errs = []
+    for lead, a, k, grip, where in cases:
+        mixture, actions = mixture_inputs(lead, a, k, grip, gen)
+        consts = ((-1.0,) * a, (1.0,) * a, ad.num_classes, ad.log_scale_min, 0.7)
+        errs.append(check_mixture(mixture, actions, consts, torch.randn(lead, generator=gen, device="cuda"), where))
+    return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def plan_graph(inp, use_kernel):
@@ -565,14 +666,10 @@ def check_train_kernels(inp):
         inp.conv_map, inp.ss_grad, "the step's shape"
     )
 
-    # B.3': forward per entry, each gradient as a tensor
-    (k_out, k_leaves), (p_out, p_leaves) = mixture_graph(inp, True), mixture_graph(inp, False)
-    if not torch.allclose(k_out, p_out, rtol=LOSS_RTOL, atol=0):
-        fail(f"mixture NLL kernel: max abs err {max_abs(k_out, p_out)}")
-    errs["mixture_nll_fwd"] = max_abs(k_out, p_out)
-    got = torch.autograd.grad(k_out, k_leaves, inp.nll_weight)
-    want = torch.autograd.grad(p_out, p_leaves, inp.nll_weight)
-    errs["mixture_nll_bwd"] = check_grads("mixture NLL backward kernel", got, want)
+    # B.3': forward per entry, each gradient as a tensor, every branch present
+    errs["mixture_nll_fwd"], errs["mixture_nll_bwd"] = check_mixture(
+        inp.mixture, inp.actions, inp.mixture_args, inp.nll_weight, "the step's shape"
+    )
 
     # B.4: identical picks, the straight-through value within 1's ulp, KL per entry
     (k_st, k_kl), k_leaves = plan_graph(inp, True)
@@ -661,6 +758,7 @@ def check_debug(seed):
 def time_train_kernels(inp):
     """Device ms of each training kernel and of its plain version on the
     same inputs, the bound, and fused fp32 Adam as the optimizer's yardstick."""
+    from hulc_tpu_torch import kernels
     from hulc_tpu_torch.models.vision import spatial_softmax_bwd, spatial_softmax_plain
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
     from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain
@@ -673,17 +771,19 @@ def time_train_kernels(inp):
     ss_out = spatial_softmax_plain(x, 1.0)
     temp = torch.tensor([0.7], device=x.device, requires_grad=True)
     ss_out_t = spatial_softmax_plain(x, temp)
-    k_nll, k_nll_leaves = mixture_graph(inp, True)
-    p_nll, p_nll_leaves = mixture_graph(inp, False)
+    k_nll, k_nll_leaves = mixture_graph(inp.mixture, inp.actions, inp.mixture_args, True)
+    p_nll, p_nll_leaves = mixture_graph(inp.mixture, inp.actions, inp.mixture_args, False)
     (k_st, k_kl), k_plan_leaves = plan_graph(inp, True)
     (p_st, p_kl), p_plan_leaves = plan_graph(inp, False)
     k_plan_loss = (k_st * inp.st_weight).sum() + (k_kl * inp.kl_weight).sum()
     p_plan_loss = (p_st * inp.st_weight).sum() + (p_kl * inp.kl_weight).sum()
 
-    def nll_fwd(fn):
+    def nll_fwd(fn, grad):
+        """The forward as the train step runs it (inputs that require grad:
+        the kernel also writes the gradients), or under no_grad."""
         def run():
-            with torch.no_grad():
-                fn(*inp.mixture[:3], inp.actions, inp.mixture[3], *inp.mixture_args)
+            with torch.set_grad_enabled(grad):
+                fn(*k_nll_leaves[:3], inp.actions, k_nll_leaves[3], *inp.mixture_args)
         return run
 
     def plan_fwd(use_kernel):
@@ -729,8 +829,11 @@ def time_train_kernels(inp):
             bound(8 * n_map + 4 * inp.ss_grad.numel() + 8, 14 * n_map), None,
         ),
         # three (…, A, K) tensors, actions, gripper logits, the loss; ~30 flops a component
-        "mixture_nll_fwd": (nll_fwd(mixture_nll), nll_fwd(mixture_nll_plain),
+        # (the function's bound: the gradients the kernel also writes are the backward's work)
+        "mixture_nll_fwd": (nll_fwd(mixture_nll, True), nll_fwd(mixture_nll_plain, True),
                             bound(12 * n_comp + small, 30 * n_comp), None),
+        "mixture_nll_fwd_no_grad": (nll_fwd(mixture_nll, False), nll_fwd(mixture_nll_plain, False),
+                                    bound(12 * n_comp + small, 30 * n_comp), None),
         # the inputs and three gradients of their size; ~40 flops a component
         "mixture_nll_bwd": (lambda: torch.autograd.grad(k_nll, k_nll_leaves, inp.nll_weight, retain_graph=True),
                             lambda: torch.autograd.grad(p_nll, p_nll_leaves, inp.nll_weight, retain_graph=True),
@@ -745,11 +848,13 @@ def time_train_kernels(inp):
         "adam_lowp": (lambda: adam_lowp_update(ps, inp.adam_grads, ms, vs, 0.9, 0.999, 1e-8, -2e-4, c1, c2),
                       adam_plain, bound(20 * n_params, 12 * n_params), fused_adam.step),
     }
-    out = {}
+    # the B.3' kernels' timed calls launch nothing else; hold the profiler to every launch
+    one_launch = {"mixture_nll_fwd", "mixture_nll_fwd_no_grad", "mixture_nll_bwd"}
+    out = {"launch_floor": {"ms": device_ms(lambda: kernels.EMPTY_LAUNCH(inp.actions.device), 100, 1)}}
     for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn) in cases.items():
-        iters = 20
-        ms_ = [device_ms(plain_fn, iters), device_ms(kernel_fn, iters),
-               device_ms(kernel_fn, iters), device_ms(plain_fn, iters)]
+        iters, launches = 20, 1 if name in one_launch else None
+        ms_ = [device_ms(plain_fn, iters), device_ms(kernel_fn, iters, launches),
+               device_ms(kernel_fn, iters, launches), device_ms(plain_fn, iters)]
         out[name] = {
             "ms": min(ms_[1], ms_[2]), "plain_ms": min(ms_[0], ms_[3]),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1008,6 +1113,9 @@ def main(argv=None) -> int:
     debug_dx, debug_dt = check_debug(args.seed)
     errs["spatial_softmax_bwd"] = max(errs["spatial_softmax_bwd"], debug_dx)
     errs["spatial_softmax_bwd_dtemp_rel"] = max(dtemp_rel, debug_dt)
+    nll_fwd_err, nll_bwd_err = check_mixture_shapes(args.seed)
+    errs["mixture_nll_fwd"] = max(errs["mixture_nll_fwd"], nll_fwd_err)
+    errs["mixture_nll_bwd"] = max(errs["mixture_nll_bwd"], nll_bwd_err)
 
     # ---- 4-5. serving main path ------------------------------------------------
     lang = rng.normal(size=384).astype(np.float32)
@@ -1090,6 +1198,9 @@ def main(argv=None) -> int:
 
     # ---- 10. training timing -----------------------------------------------------
     timing.update(time_train_kernels(train_inputs))
+    launch_floor_ms = timing.pop("launch_floor")["ms"]
+    print(f"[timing] empty launch (csrc/launch_floor.cu): device time {launch_floor_ms:.6f} ms, the floor "
+          f"under every kernel's device time ({card})")
     for name, t in timing.items():
         lib = "" if t["library_ms"] is None else f", library call {t['library_ms']:.5f} ms"
         t["bound_share"] = t["bound_ms"] / t["ms"]
@@ -1097,7 +1208,8 @@ def main(argv=None) -> int:
               f"(kernel / plain {t['ms'] / t['plain_ms']:.4f}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
               f"{100 * t['bound_share']:.1f}% of the bound{lib}; per call with the host's launch "
               f"cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms ({card})")
-    for fn in ("preprocess_rgb_shift_kernel", "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel"):
+    for fn in ("preprocess_rgb_shift_kernel", "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel",
+               "mixture_nll_fwd_kernel", "mixture_nll_bwd_kernel"):
         r = resources[fn]
         print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
               f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")
@@ -1113,12 +1225,14 @@ def main(argv=None) -> int:
         if name == "spatial_softmax_bwd":  # B.2'': the same entry point with a learnable temperature
             rows[-1]["learnable_t"] = {**timing["spatial_softmax_bwd_learnable_t"],
                                        "dtemp_rel_err": errs["spatial_softmax_bwd_dtemp_rel"]}
+        if name == "mixture_nll_fwd":  # the main path's forward also writes the gradients; without them:
+            rows[-1]["no_grad"] = timing["mixture_nll_fwd_no_grad"]
     print(json.dumps({
         "policy_step_ms": {"1": single_ms, str(args.lanes): batched_ms},
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "plain_path": train_check},
-        "card": card,
+        "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -47,19 +47,28 @@ def _device_us(event) -> float:
     return float(getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0.0)))
 
 
+WINDOW_PAD_S = 0.01  # idle host time at each end of a profiled window
+
+
 def profile_calls(fn, iters: int, trace_path=None):
     """Run ``fn`` ``iters`` times under torch.profiler after a warm-up.
     Returns (host-clock ms per call, device ms per call, the CUDA
-    operations with device time, by name)."""
+    operations with device time, by name). The window is padded with
+    ``WINDOW_PAD_S`` of idle host time at each end: the profiler drops
+    device activity whose timestamps fall outside it, and the device's
+    clock, as the profiler maps it, can run tens of microseconds or more
+    ahead of the host's, enough to lose every launch of a short window."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAD_S)
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(WINDOW_PAD_S)
     if trace_path is not None:
         prof.export_chrome_trace(str(trace_path))
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0]

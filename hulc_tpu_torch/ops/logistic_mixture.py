@@ -15,12 +15,18 @@ tensor the plain version.
 ``mixture_nll`` is the training loss the decoder takes: per (b, s) frame,
 the NLL summed over action dims plus ``gripper_alpha`` times the gripper
 cross-entropy. On CUDA tensors it is a ``torch.autograd.Function`` whose
-forward and backward are the kernels of ``csrc/logistic_mixture_loss.cu``;
-on CPU tensors it is the plain version, differentiated by autograd.
+forward and backward are the kernels of ``csrc/logistic_mixture_loss.cu``:
+when autograd will need the inputs' gradients, the forward kernel also
+writes each frame's per-component derivatives, and the backward kernel
+scales them by the incoming gradient (``mixture_nll_grad_plain`` is that
+closed form in plain PyTorch). The action bounds come from a per-device
+cache (``action_bounds``), so a call uploads nothing. On CPU tensors it is
+the plain version, differentiated by autograd.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -36,19 +42,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def logistic_mixture_log_prob(
-    logit_probs: torch.Tensor,
-    log_scales: torch.Tensor,
-    means: torch.Tensor,
-    actions: torch.Tensor,
-    act_min_bound: Sequence[float],
-    act_max_bound: Sequence[float],
-    num_classes: int,
-    log_scale_min: float = -7.0,
-) -> torch.Tensor:
-    """(..., A, K) mixture parameters and (..., A) actions -> (..., A)
-    log-likelihood of each action's bin, mixture-reduced."""
-    logit_probs = logit_probs.float()
+def _bin_log_prob(log_scales, means, actions, act_min_bound, act_max_bound, num_classes, log_scale_min,
+                  derivatives=False):
+    """(..., A, K) log mass of each (..., A) action's bin under each
+    component: the three ``where`` branches of the JAX function. With
+    ``derivatives`` also its closed-form derivatives with respect to the
+    mean and to the clamped log scale, each branch's own (no autograd)."""
     log_scales = torch.clamp_min(log_scales.float(), log_scale_min)
     actions = actions.float()[..., None]
     act_max = torch.as_tensor(act_max_bound, dtype=torch.float32, device=actions.device)[:, None]
@@ -65,20 +64,52 @@ def logistic_mixture_log_prob(
     mid_in = inv_stdv * centered
     log_pdf_mid = mid_in - log_scales - 2.0 * _softplus(mid_in)
 
+    lower, upper, interior = actions < act_min + 1e-3, actions > act_max - 1e-3, cdf_delta > 1e-5
     log_probs = torch.where(
-        actions < act_min + 1e-3,
+        lower,
         log_cdf_plus,
         torch.where(
-            actions > act_max - 1e-3,
+            upper,
             log_one_minus_cdf_min,
             torch.where(
-                cdf_delta > 1e-5,
+                interior,
                 torch.log(torch.clamp_min(cdf_delta, 1e-12)),
                 log_pdf_mid - math.log((num_classes - 1) / 2.0),
             ),
         ),
     )
-    log_probs = log_probs + torch.log_softmax(logit_probs, dim=-1)
+    if not derivatives:
+        return log_probs
+    # each branch as a function of its argument u (plus_in, min_in or
+    # mid_in): d/d mean = -f'(u) * inv_stdv, d/d log_scale = -f'(u) * u
+    s_plus, s_min = torch.sigmoid(plus_in), torch.sigmoid(min_in)
+    d_plus = s_plus * (1.0 - s_plus) / cdf_delta
+    d_min = -s_min * (1.0 - s_min) / cdf_delta
+    d_mid = 1.0 - 2.0 * torch.sigmoid(mid_in)
+
+    def pick(at_lower, at_upper, at_interior, at_mid):
+        return torch.where(lower, at_lower, torch.where(upper, at_upper, torch.where(interior, at_interior, at_mid)))
+
+    d_mean = pick(-(1.0 - s_plus) * inv_stdv, s_min * inv_stdv, -(d_plus + d_min) * inv_stdv, -d_mid * inv_stdv)
+    d_log_scale = pick(-(1.0 - s_plus) * plus_in, s_min * min_in, -(d_plus * plus_in + d_min * min_in),
+                       -d_mid * mid_in - 1.0)
+    return log_probs, d_mean, d_log_scale
+
+
+def logistic_mixture_log_prob(
+    logit_probs: torch.Tensor,
+    log_scales: torch.Tensor,
+    means: torch.Tensor,
+    actions: torch.Tensor,
+    act_min_bound: Sequence[float],
+    act_max_bound: Sequence[float],
+    num_classes: int,
+    log_scale_min: float = -7.0,
+) -> torch.Tensor:
+    """(..., A, K) mixture parameters and (..., A) actions -> (..., A)
+    log-likelihood of each action's bin, mixture-reduced."""
+    log_probs = _bin_log_prob(log_scales, means, actions, act_min_bound, act_max_bound, num_classes, log_scale_min)
+    log_probs = log_probs + torch.log_softmax(logit_probs.float(), dim=-1)
     return torch.logsumexp(log_probs, dim=-1)
 
 
@@ -120,41 +151,80 @@ def mixture_nll_plain(
     return loss
 
 
+def mixture_nll_grad_plain(
+    logit_probs, log_scales, means, actions, gripper_logits, act_min_bound, act_max_bound,
+    num_classes, log_scale_min, gripper_alpha, grad,
+):
+    """The gradients of ``sum(grad * mixture_nll(...))`` with respect to
+    (logit_probs, log_scales, means, gripper_logits) in closed form, as the
+    kernels compute them: per component, with pi the mixture softmax and w
+    the weight in its dimension's logsumexp, d_logit = pi - w, d_mean =
+    -w * d branch / d mean, d_log_scale = -w * d branch / d log_scale (zero
+    where the clamp is active), and for the gripper alpha * (softmax -
+    onehot); each frame's scaled by its ``grad``. The gripper's is None
+    without gripper logits."""
+    a = logit_probs.shape[-2]
+    branch, d_mean, d_log_scale = _bin_log_prob(
+        log_scales, means, actions[..., :a], act_min_bound, act_max_bound, num_classes, log_scale_min,
+        derivatives=True,
+    )
+    log_pi = torch.log_softmax(logit_probs.float(), dim=-1)
+    comp = branch + log_pi
+    w = torch.exp(comp - torch.logsumexp(comp, dim=-1, keepdim=True))
+    g = grad.float()[..., None, None]
+    d_log_scale = torch.where(log_scales.float() < log_scale_min, 0.0, d_log_scale)
+    d_grip = None
+    if gripper_logits is not None:
+        onehot = torch.nn.functional.one_hot((actions[..., a] > 0).long(), 2).float()
+        d_grip = grad.float()[..., None] * (gripper_alpha * (torch.softmax(gripper_logits.float(), -1) - onehot))
+    return g * (torch.exp(log_pi) - w), g * (-w * d_log_scale), g * (-w * d_mean), d_grip
+
+
+@functools.cache
+def action_bounds(
+    act_min_bound: Tuple[float, ...], act_max_bound: Tuple[float, ...], device: torch.device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (A,) fp32 bounds on ``device``, made once for each set of bounds
+    and device: a call of ``mixture_nll`` then copies nothing to the device
+    (a copy from pageable host memory would wait for the stream to drain)."""
+    return tuple(torch.tensor(b, dtype=torch.float32, device=device) for b in (act_min_bound, act_max_bound))
+
+
 class _MixtureNLL(torch.autograd.Function):
-    """The kernels of csrc/logistic_mixture_loss.cu, forward and backward."""
+    """The kernels of csrc/logistic_mixture_loss.cu: the forward, which with
+    ``need_grad`` also writes the per-frame derivatives, and the backward,
+    which scales them by the incoming gradient."""
 
     @staticmethod
     def forward(ctx, logit_probs, log_scales, means, gripper_logits, actions, act_min, act_max, consts):
-        num_classes, log_scale_min, gripper_alpha = consts
+        num_classes, log_scale_min, gripper_alpha, need_grad = consts
         *lead, a, k = logit_probs.shape
-        rows = logit_probs.numel() // (a * k)
         out = torch.empty(lead, dtype=torch.float32, device=logit_probs.device)
-        grip_ptr = gripper_logits.data_ptr() if gripper_logits is not None else None
+        derivs = [None] * 4
+        if need_grad:
+            derivs = [torch.empty_like(logit_probs) for _ in range(3)]
+            derivs.append(torch.empty_like(gripper_logits) if gripper_logits is not None else None)
+        ptr = [None if t is None else t.data_ptr() for t in (gripper_logits, *derivs)]
         kernels.MIXTURE_NLL_FWD(
             logit_probs.device, logit_probs.data_ptr(), log_scales.data_ptr(), means.data_ptr(),
-            actions.data_ptr(), grip_ptr, act_min.data_ptr(), act_max.data_ptr(), out.data_ptr(),
-            rows, a, k, actions.shape[-1], num_classes, log_scale_min, gripper_alpha,
+            actions.data_ptr(), ptr[0], act_min.data_ptr(), act_max.data_ptr(), out.data_ptr(), *ptr[1:],
+            out.numel(), a, k, actions.shape[-1], num_classes, log_scale_min, gripper_alpha,
         )
-        ctx.save_for_backward(logit_probs, log_scales, means, gripper_logits, actions, act_min, act_max)
-        ctx.consts = consts
+        if need_grad:
+            ctx.save_for_backward(*derivs)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        logit_probs, log_scales, means, gripper_logits, actions, act_min, act_max = ctx.saved_tensors
-        num_classes, log_scale_min, gripper_alpha = ctx.consts
-        a, k = logit_probs.shape[-2:]
+        derivs = ctx.saved_tensors
         grad = grad.float().contiguous()
-        d_lp, d_ls, d_mu = (torch.empty_like(logit_probs) for _ in range(3))
-        d_grip = torch.empty_like(gripper_logits) if gripper_logits is not None else None
+        grads = [None if d is None else torch.empty_like(d) for d in derivs]
+        a, k = derivs[0].shape[-2:]
         kernels.MIXTURE_NLL_BWD(
-            logit_probs.device, logit_probs.data_ptr(), log_scales.data_ptr(), means.data_ptr(),
-            actions.data_ptr(), gripper_logits.data_ptr() if d_grip is not None else None,
-            act_min.data_ptr(), act_max.data_ptr(), grad.data_ptr(), d_lp.data_ptr(), d_ls.data_ptr(),
-            d_mu.data_ptr(), d_grip.data_ptr() if d_grip is not None else None,
-            grad.numel(), a, k, actions.shape[-1], num_classes, log_scale_min, gripper_alpha,
+            grad.device, grad.data_ptr(), *(None if t is None else t.data_ptr() for t in (*derivs, *grads)),
+            grad.numel(), a * k,
         )
-        return d_lp, d_ls, d_mu, d_grip, None, None, None, None
+        return (*grads, None, None, None, None)
 
 
 def mixture_nll(
@@ -191,11 +261,13 @@ def mixture_nll(
         kernels.require_cuda_tensor("gripper_logits", gripper_logits, torch.float32)
         if gripper_logits.shape != logit_probs.shape[:-2] + (2,):
             raise ValueError(f"gripper_logits has shape {tuple(gripper_logits.shape)}")
-    act_min = torch.as_tensor(act_min_bound, dtype=torch.float32, device=actions.device)
-    act_max = torch.as_tensor(act_max_bound, dtype=torch.float32, device=actions.device)
+    act_min, act_max = action_bounds(tuple(act_min_bound), tuple(act_max_bound), actions.device)
     if act_min.shape != (a,) or act_max.shape != (a,):
         raise ValueError(f"action bounds must have {a} entries")
-    consts = (int(num_classes), float(log_scale_min), float(gripper_alpha))
+    need_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (*params, gripper_logits)
+    )
+    consts = (int(num_classes), float(log_scale_min), float(gripper_alpha), need_grad)
     return _MixtureNLL.apply(*params, gripper_logits, actions, act_min, act_max, consts)
 
 

@@ -11,25 +11,31 @@ the profiler and, from ``--steps`` steps just before it, without it;
 device ms per step (the CUDA activity the profiler recorded); the device's
 idle share against either step time (the profiler's own host work
 lengthens the profiled step); device time by kind (hand kernels, matmuls,
-convolutions, copies and fills, other); and the ten CUDA operations that
-take the most device time. With ``--out`` it also writes the Chrome trace there. Needs a
+convolutions, copies and fills, other); the ten CUDA operations that
+take the most device time; and, from ``--steps`` more steps profiled with
+Python stacks, the host-to-device copies per step by the function of the
+port that issued them (a copy from pageable memory blocks the host until
+the stream drains). With ``--out`` it also writes the Chrome trace there. Needs a
 CUDA device; TF32 is off, as in the fp32 reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import pathlib
 import statistics
+import tempfile
 import time
 from typing import Dict
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from hulc_tpu_torch.config import HulcConfig, get_config
-from hulc_tpu_torch.evaluation.profile_policy import profile_steps
+from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, profile_steps
 from hulc_tpu_torch.models.hulc import ModalityBatch
 from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
@@ -62,6 +68,37 @@ def synthetic_fused_batch(
         idx=np.arange(batch_per_mod),
     )
     return {"fused": ModalityBatch(*(None if x is None else torch.as_tensor(x, device=device) for x in batch))}
+
+
+def h2d_copy_sites(step, steps: int) -> Dict[str, float]:
+    """Host-to-device copies per step of ``step``, by the function of the
+    port that issued them: from torch.profiler's trace with Python stacks,
+    each copy's runtime call (matched by correlation id) and the innermost
+    Python function of ``hulc_tpu_torch`` around it on its thread
+    ("unknown" where none is, e.g. on autograd's backward thread)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True) as prof:
+        time.sleep(WINDOW_PAD_S)
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        time.sleep(WINDOW_PAD_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    copies = {e["args"].get("correlation") for e in events
+              if e.get("cat") == "gpu_memcpy" and e.get("name", "").startswith("Memcpy HtoD")}
+    python = [e for e in events if e.get("cat") == "python_function" and "hulc_tpu_torch/" in e.get("name", "")
+              and "profile_train" not in e["name"]]
+    sites = collections.Counter()
+    for call in events:
+        if call.get("cat") != "cuda_runtime" or call.get("args", {}).get("correlation") not in copies:
+            continue
+        around = [p for p in python if p["tid"] == call["tid"] and p["ts"] <= call["ts"] <= p["ts"] + p.get("dur", 0)]
+        name = min(around, key=lambda p: p.get("dur", 0))["name"] if around else "unknown"
+        sites[name[name.find("hulc_tpu_torch/"):]] += 1 / steps
+    return dict(sites)
 
 
 def main(argv=None) -> None:
@@ -99,6 +136,7 @@ def main(argv=None) -> None:
         "step": "Trainer.train_step", "batch": 2 * BATCH_PER_MOD, "seq": SEQ,
         "card": torch.cuda.get_device_name(0), "unprofiled_step_ms": unprofiled_ms,
         "unprofiled_idle_share": 1.0 - result["device_ms_per_step"] / unprofiled_ms, **result,
+        "h2d_copies_per_step": h2d_copy_sites(step, args.steps),
     }))
 
 

@@ -41,7 +41,14 @@ from hulc_tpu_torch.ops.image_ops import (
     preprocess_rgb_seq_shift_plain,
     random_shift_plain,
 )
-from hulc_tpu_torch.ops.logistic_mixture import logistic_mixture_log_prob, logistic_mixture_loss, mixture_nll
+from hulc_tpu_torch.ops.logistic_mixture import (
+    action_bounds,
+    logistic_mixture_log_prob,
+    logistic_mixture_loss,
+    mixture_nll,
+    mixture_nll_grad_plain,
+    mixture_nll_plain,
+)
 from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution
 from hulc_tpu_torch.training import schedules
 from hulc_tpu_torch.training.optimizers import AdamLowp
@@ -133,12 +140,12 @@ A, K = 6, 10
 AMIN, AMAX = (-1.0,) * A, (1.0,) * A
 
 
-def _mixture_inputs(seed, b=4, s=5):
+def _mixture_inputs(seed, b=4, s=5, k=K):
     """Mixture parameters and TCP-frame actions; the actions go through all
     three branches: the edge bins (+-1), interior bins, and, where the
     means sit far from the action at a small scale, cdf_delta < 1e-5."""
     rng = np.random.default_rng(seed)
-    shape = (b, s, A, K)
+    shape = (b, s, A, k)
     logits = rng.normal(size=shape).astype(np.float32)
     log_scales = (rng.normal(size=shape) - 2.0).astype(np.float32)
     means = rng.uniform(-1, 1, shape).astype(np.float32)
@@ -219,6 +226,59 @@ def test_mixture_nll_with_gripper_and_grads_match_jax():
     for name, p, g in zip(("logit_probs", "log_scales", "means", "gripper_logits"), params, jgrads):
         assert_grad_close(p.grad, g, err_msg=name)
     assert float(params[1].grad[..., 0].abs().max()) == 0.0  # clamped log scales get no gradient
+
+
+@pytest.mark.parametrize("k", [7, 10, 33])
+@pytest.mark.parametrize("with_gripper", [True, False])
+def test_mixture_nll_grad_plain_matches_jax_and_autograd(with_gripper, k):
+    """The closed-form gradients the kernels compute, on 15 frames (not a
+    multiple of 8), against jax.grad of the JAX decoder's loss terms and
+    against autograd through the plain forward."""
+    logits, log_scales, means, actions, gripper = _mixture_inputs(30, b=3, s=5, k=k)
+    if not with_gripper:
+        actions, gripper = actions[..., :A], None
+    alpha = 0.7
+    b, s = actions.shape[:2]
+    w = np.random.default_rng(31).normal(size=(b,)).astype(np.float32)
+
+    def jax_obj(lp, ls, mu, gl):
+        out = jax_mixture_loss(lp, ls, mu, actions[..., :A], jnp.asarray(AMIN), jnp.asarray(AMAX), 10, -7.0,
+                               per_sample=True)
+        if with_gripper:
+            out = out + alpha * jax_gripper_ce(gl, actions[..., A], per_sample=True)
+        return jnp.sum(out * w)
+
+    jgrads = jax.grad(jax_obj, argnums=(0, 1, 2, 3))(logits, log_scales, means, gripper if with_gripper else 0.0)
+    inputs = [_t(logits), _t(log_scales), _t(means), _t(actions), None if gripper is None else _t(gripper)]
+    consts = (AMIN, AMAX, 10, -7.0, alpha)
+    frame_grad = torch.from_numpy(np.repeat(w[:, None] / s, s, axis=1))  # d mean-over-time / d frame
+    got = mixture_nll_grad_plain(*inputs, *consts, frame_grad)
+    names = ("logit_probs", "log_scales", "means", "gripper_logits")
+    assert (got[3] is None) == (not with_gripper)
+    for name, g, want in zip(names, got, jgrads[:4] if with_gripper else jgrads[:3]):
+        assert g.shape == np.shape(want)
+        assert_grad_close(g, want, err_msg=f"{name} vs jax")
+    assert float(got[1][..., 0].abs().max()) == 0.0  # clamped log scales get no gradient
+
+    leaves = [x.clone().requires_grad_() for x in inputs if x is not None and x.dim() == 4]
+    if with_gripper:
+        leaves.append(inputs[4].clone().requires_grad_())
+    out = mixture_nll_plain(*leaves[:3], inputs[3], leaves[3] if with_gripper else None, *consts)
+    upstream = torch.from_numpy(np.random.default_rng(32).normal(size=(b, s)).astype(np.float32))
+    want = torch.autograd.grad(out, leaves, upstream)
+    got = mixture_nll_grad_plain(*inputs, *consts, upstream)
+    for name, g, wnt in zip(names, got, want):
+        assert_grad_close(g, wnt.numpy(), err_msg=f"{name} vs autograd")
+
+
+def test_action_bounds_cache_hands_back_the_same_tensors():
+    cpu = torch.device("cpu")
+    lo, hi = action_bounds(AMIN, AMAX, cpu)
+    again = action_bounds(tuple(AMIN), tuple(AMAX), cpu)
+    assert again[0] is lo and again[1] is hi
+    assert lo.dtype == torch.float32 and lo.tolist() == list(AMIN) and hi.tolist() == list(AMAX)
+    other = action_bounds(AMIN[:-1] + (-0.5,), AMAX, cpu)
+    assert other[0] is not lo and other[0].tolist()[-1] == -0.5
 
 
 def test_gripper_cross_entropy_matches_jax():
