@@ -11,14 +11,17 @@ it fails:
    fp32, and TF32 convolutions would break parity with the plain path.
 2. build: compiles ``hulc_tpu_torch/csrc/*.cu`` for sm_90a (kernels.build).
 3. kernels: each serving kernel against its plain PyTorch version at the
-   policy's shapes, one lane and ``--lanes`` lanes; each training kernel
+   policy's shapes, one lane and ``--lanes`` lanes (the eval preprocess
+   bit-equal for both cameras; the SpatialSoftmax forward, here and below,
+   with a fixed and with a learnable temperature); each training kernel
    against its plain version (its backward against autograd through the
    plain forward) at the training step's shapes, the SpatialSoftmax
-   backward with a fixed and with a learnable temperature (a CUDA tensor,
-   whose gradient the kernel gives too). Then ``hulc_debug``: the shift
-   and the SpatialSoftmax backward at its shapes and at odd ones (an
-   unaligned frame, widths that are not a multiple of 4, a row count that
-   is not a multiple of 8). The mixture NLL (B.3') at the step's, at
+   forward and backward with a fixed and with a learnable temperature (a
+   CUDA tensor, whose gradient the backward gives too). Then
+   ``hulc_debug``: the shift, the eval preprocess and the SpatialSoftmax
+   forward and backward at its shapes and at odd ones (an unaligned frame,
+   widths that are not a multiple of 4, a row count that is not a multiple
+   of 8). The mixture NLL (B.3') at the step's, at
    ``hulc_debug``'s and at odd shapes (37 frames, A = 5, K = 7 and 33, with
    and without a gripper): the inputs must reach every branch (both edge
    bins, interior, density fallback, clamp active); the forward must keep
@@ -36,7 +39,8 @@ it fails:
    use_kernels=False on the card, fed each step the state the kernel path
    had and the same noise (same generator seed); the actions must agree.
 7. serving timing: policy step times through the entry points, and each
-   serving kernel against its plain version: device time (the CUDA
+   serving kernel against its plain version at ``--lanes`` lanes and at
+   one lane (the preprocess for both cameras): device time (the CUDA
    activity torch.profiler records) and time per call (CUDA events around
    back-to-back calls, so the host's launch cost is included).
 8. training main path: a full-width ``hulc`` Trainer (random init from
@@ -50,8 +54,8 @@ it fails:
    runs, cuDNN deterministic); every loss and every gradient must agree.
    Then the same with a learnable SpatialSoftmax temperature, set to 0.7.
 10. training timing: each training kernel against its plain version at
-   the step's shapes (the SpatialSoftmax backward also with a learnable
-   temperature, the mixture NLL forward also under no_grad), its bound and
+   the step's shapes (the SpatialSoftmax forward, the backward also with a
+   learnable temperature, the mixture NLL forward also under no_grad), its bound and
    its share of the bound, and fused fp32 Adam as the optimizer's
    yardstick; the device time of an empty launch (``csrc/launch_floor.cu``),
    the floor under every kernel's; each kernel's registers, shared memory
@@ -88,6 +92,7 @@ PLAN_TIE_BUDGET = 1e-3  # share of replanned plan categories allowed to differ
 # backward kernel's gradient is held, as a whole tensor, to its norm
 # (relative L2), since an entry that sums terms of both signs can lose its
 # relative precision while the tensor keeps it.
+SS_FWD_RTOL, SS_FWD_ATOL = 1e-5, 1e-6  # SpatialSoftmax keypoints, per entry (reduction order)
 SS_BWD_RTOL, SS_BWD_ATOL = 1e-5, 1e-7  # SpatialSoftmax dx, per entry
 SS_DTEMP_RTOL = 1e-5  # SpatialSoftmax temperature gradient, relative (a sum over the whole map)
 LOSS_RTOL = 1e-5  # mixture NLL and plan KL forward, per entry
@@ -206,9 +211,33 @@ def replan_mask(t: int, lanes: int, freq: int) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 
-def check_kernels(model, cfg, lane_counts, rng):
-    from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_plain
+def check_preprocess(imgs, where):
+    """B.1: bit-equal to the plain version (both normalize as the CPU does)."""
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
+
+    got, want = preprocess_rgb_seq(imgs), preprocess_rgb_seq_plain(imgs)
+    if got.shape != want.shape or not torch.equal(got, want):
+        fail(f"preprocess kernel at {where} {tuple(imgs.shape)} is not bit-equal: max abs err {max_abs(got, want)}")
+
+
+def check_ss_fwd(conv_map, where):
+    """B.2 on ``conv_map`` against the plain version at a fixed T = 1 and a
+    learnable T = 0.7 (a CUDA tensor), within SS_FWD_RTOL / SS_FWD_ATOL;
+    returns the largest absolute error."""
+    from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_plain
+
+    err = 0.0
+    for temp in (1.0, torch.tensor([0.7], device=conv_map.device)):
+        got, want = spatial_softmax(conv_map, temp), spatial_softmax_plain(conv_map, temp)
+        if not torch.allclose(got, want, rtol=SS_FWD_RTOL, atol=SS_FWD_ATOL):
+            fail(f"spatial_softmax kernel at {where} {tuple(conv_map.shape)}, T = {float(temp)}: "
+                 f"max abs err {max_abs(got, want)}")
+        err = max(err, max_abs(got, want))
+    return err
+
+
+def check_kernels(model, cfg, lane_counts, rng):
+    from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_plain
     from hulc_tpu_torch.ops.logistic_mixture import (
         draw_uniforms,
         logistic_mixture_sample,
@@ -221,12 +250,8 @@ def check_kernels(model, cfg, lane_counts, rng):
     gen = torch.Generator(device=dev).manual_seed(1)
     for e in lane_counts:
         for size in (pe.rgb_static.input_size, pe.rgb_gripper.input_size):
-            imgs = torch.as_tensor(rng.integers(0, 256, (e, 1, size, size, 3), np.uint8), device=dev)
-            got, want = preprocess_rgb_seq(imgs), preprocess_rgb_seq_plain(imgs)
-            err = max_abs(got, want)
-            if got.shape != want.shape or not err <= 2.4e-7:  # 2 ulp near 1.0
-                fail(f"preprocess kernel at {tuple(imgs.shape)}: max abs err {err}")
-            errs["preprocess_rgb"] = max(errs["preprocess_rgb"], err)
+            check_preprocess(torch.as_tensor(rng.integers(0, 256, (e, 1, size, size, 3), np.uint8), device=dev),
+                             f"{e} lane(s)")
 
         s = pe.rgb_static.input_size
         frames = preprocess_rgb_seq_plain(
@@ -234,11 +259,7 @@ def check_kernels(model, cfg, lane_counts, rng):
         )[:, 0]
         with torch.no_grad():
             conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(frames).contiguous()
-        for temp in (1.0, torch.tensor([0.7], device=dev)):
-            got, want = spatial_softmax(conv_map, temp), spatial_softmax_plain(conv_map, temp)
-            if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):  # reduction order
-                fail(f"spatial_softmax kernel at {tuple(conv_map.shape)}: max abs err {max_abs(got, want)}")
-            errs["spatial_softmax"] = max(errs["spatial_softmax"], max_abs(got, want))
+        errs["spatial_softmax"] = max(errs["spatial_softmax"], check_ss_fwd(conv_map, f"{e} lane(s)"))
 
         shape = (e, 1, ad.out_features - 1, ad.n_mixtures)
         logits, means = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
@@ -357,7 +378,8 @@ def plain_batched(cfg, plain_model, obs_steps, langs, seed, kern_states):
 
 def time_kernels(model, cfg, lanes, rng):
     """Per-launch ms of each kernel and of its plain version on the same
-    inputs, at ``lanes`` lanes; and the least time the card could take."""
+    inputs, at ``lanes`` lanes (the preprocess for both cameras); and the
+    least time the card could take."""
     from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_plain
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
     from hulc_tpu_torch.ops.logistic_mixture import (
@@ -368,8 +390,9 @@ def time_kernels(model, cfg, lanes, rng):
 
     dev = model.device
     pe, ad = cfg.perceptual_encoder, cfg.action_decoder
-    s = pe.rgb_static.input_size
+    s, g = pe.rgb_static.input_size, pe.rgb_gripper.input_size
     imgs = torch.as_tensor(rng.integers(0, 256, (lanes, 1, s, s, 3), np.uint8), device=dev)
+    grip = torch.as_tensor(rng.integers(0, 256, (lanes, 1, g, g, 3), np.uint8), device=dev)
     with torch.no_grad():
         conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(
             preprocess_rgb_seq_plain(imgs)[:, 0]
@@ -387,6 +410,10 @@ def time_kernels(model, cfg, lanes, rng):
         "preprocess_rgb": (
             lambda: preprocess_rgb_seq(imgs), lambda: preprocess_rgb_seq_plain(imgs),
             bound(n_px * (1 + 4), 3 * n_px), tuple(imgs.shape),
+        ),
+        "preprocess_rgb_gripper": (
+            lambda: preprocess_rgb_seq(grip), lambda: preprocess_rgb_seq_plain(grip),
+            bound(grip.numel() * (1 + 4), 3 * grip.numel()), tuple(grip.shape),
         ),
         # fp32 map read once, (N, 2C) written once; ~9 flops per logit
         "spatial_softmax": (
@@ -661,6 +688,9 @@ def check_train_kernels(inp):
         check_shift(imgs, inp.shifts[cam], inp.pads[cam], "the step's shape")
     errs["preprocess_rgb_shift"] = 0.0
 
+    # B.2 at the step's shape, fixed and learnable T
+    errs["spatial_softmax_train"] = check_ss_fwd(inp.conv_map, "the step's shape")
+
     # B.2' and B.2'': against autograd through the plain forward
     errs["spatial_softmax_bwd"], errs["spatial_softmax_bwd_dtemp_rel"] = check_ss_bwd(
         inp.conv_map, inp.ss_grad, "the step's shape"
@@ -720,10 +750,11 @@ def with_learnable_temperature(cfg):
 
 def check_debug(seed):
     """``hulc_debug`` (its 64 px and 48 px frames, 4x4 maps): the shift
-    kernel and the SpatialSoftmax backward at its shapes, and both again at
-    odd shapes (a frame view one byte off alignment with w = 37, a
-    (5, 3, 7, 7) map: unaligned heads, scalar stores, a partial block).
-    Returns the largest dx error and dT relative error."""
+    kernel, the SpatialSoftmax forward and backward at its shapes, and
+    those and the eval preprocess again at odd shapes (a frame view one byte
+    off alignment with w = 37, a (5, 3, 7, 7) map: unaligned heads, scalar
+    stores, a partial block). Returns the largest forward error, dx error
+    and dT relative error."""
     from hulc_tpu_torch.config import get_config
     from hulc_tpu_torch.models import make_model
     from hulc_tpu_torch.ops.image_ops import draw_shifts, preprocess_rgb_seq_plain
@@ -739,27 +770,33 @@ def check_debug(seed):
         imgs, pad = getattr(fused, cam), getattr(pe, cam).shift_pad
         check_shift(imgs, draw_shifts(imgs.shape[0] * imgs.shape[1], pad, gen, "cuda"), pad, "hulc_debug")
     raw = torch.randint(0, 256, (6 * 37 * 37 * 3 + 1,), generator=gen, device="cuda", dtype=torch.uint8)
-    check_shift(raw[1:].view(3, 2, 37, 37, 3), draw_shifts(6, 5, gen, "cuda"), 5, "an odd shape")
+    odd_frames = raw[1:].view(3, 2, 37, 37, 3)
+    check_shift(odd_frames, draw_shifts(6, 5, gen, "cuda"), 5, "an odd shape")
+    check_preprocess(odd_frames, "an odd shape")
+    for cam in ("rgb_static", "rgb_gripper"):
+        check_preprocess(getattr(fused, cam), "hulc_debug")
     with torch.no_grad():
         frames = preprocess_rgb_seq_plain(fused.rgb_static).flatten(0, 1)
         conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(frames).contiguous()
+    odd = torch.randn((5, 3, 7, 7), generator=gen, device="cuda")
+    fwd_err = max(check_ss_fwd(conv_map, "hulc_debug"), check_ss_fwd(odd, "an odd shape"))
     errs = [check_ss_bwd(conv_map, torch.randn(conv_map.shape[0], 2 * conv_map.shape[1], generator=gen,
                                                device="cuda"), "hulc_debug")]
-    odd = torch.randn((5, 3, 7, 7), generator=gen, device="cuda")
     errs.append(check_ss_bwd(odd, torch.randn((5, 6), generator=gen, device="cuda"), "an odd shape"))
-    print(f"[kernels] shift bit-equal and SpatialSoftmax backward (fixed and learnable T) within tolerance "
-          f"at hulc_debug's shapes ({tuple(fused.rgb_static.shape)}, {tuple(fused.rgb_gripper.shape)}, "
-          f"{tuple(conv_map.shape)}) and odd ones: dx max abs err {max(e[0] for e in errs):.3g}, "
-          f"dT relative err {max(e[1] for e in errs):.3g}")
+    print(f"[kernels] shift and eval preprocess bit-equal, SpatialSoftmax forward and backward (fixed and "
+          f"learnable T) within tolerance at hulc_debug's shapes ({tuple(fused.rgb_static.shape)}, "
+          f"{tuple(fused.rgb_gripper.shape)}, {tuple(conv_map.shape)}) and odd ones: forward max abs err "
+          f"{fwd_err:.3g}, dx max abs err {max(e[0] for e in errs):.3g}, dT relative err "
+          f"{max(e[1] for e in errs):.3g}")
     del model
-    return max(e[0] for e in errs), max(e[1] for e in errs)
+    return fwd_err, max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def time_train_kernels(inp):
     """Device ms of each training kernel and of its plain version on the
     same inputs, the bound, and fused fp32 Adam as the optimizer's yardstick."""
     from hulc_tpu_torch import kernels
-    from hulc_tpu_torch.models.vision import spatial_softmax_bwd, spatial_softmax_plain
+    from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_bwd, spatial_softmax_plain
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
     from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain
     from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_lowp_update_plain
@@ -815,6 +852,10 @@ def time_train_kernels(inp):
     n_plan = inp.post.numel()
     n_params = sum(p.numel() for p in inp.params)
     cases = {
+        # B.2 as the step runs it: the map read once, (N, 2C) written once; ~9 flops per logit
+        "spatial_softmax_train": (lambda: spatial_softmax(inp.conv_map, 1.0),
+                                  lambda: spatial_softmax_plain(inp.conv_map, 1.0),
+                                  bound(4 * n_map + 4 * inp.ss_grad.numel(), 9 * n_map), None),
         # u8 in, fp32 out, the shifts; mul, sub, div per element
         "preprocess_rgb_shift": (shift(preprocess_rgb_seq_shift), shift(preprocess_rgb_seq_shift_plain),
                                  bound(5 * n_px + 8 * n_frames, 3 * n_px), None),
@@ -848,8 +889,8 @@ def time_train_kernels(inp):
         "adam_lowp": (lambda: adam_lowp_update(ps, inp.adam_grads, ms, vs, 0.9, 0.999, 1e-8, -2e-4, c1, c2),
                       adam_plain, bound(20 * n_params, 12 * n_params), fused_adam.step),
     }
-    # the B.3' kernels' timed calls launch nothing else; hold the profiler to every launch
-    one_launch = {"mixture_nll_fwd", "mixture_nll_fwd_no_grad", "mixture_nll_bwd"}
+    # these timed calls launch nothing else; hold the profiler to every launch
+    one_launch = {"spatial_softmax_train", "mixture_nll_fwd", "mixture_nll_fwd_no_grad", "mixture_nll_bwd"}
     out = {"launch_floor": {"ms": device_ms(lambda: kernels.EMPTY_LAUNCH(inp.actions.device), 100, 1)}}
     for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn) in cases.items():
         iters, launches = 20, 1 if name in one_launch else None
@@ -861,6 +902,7 @@ def time_train_kernels(inp):
             "library_ms": device_ms(library_fn, iters) if library_fn is not None else None,
             "call_ms": call_ms(kernel_fn, iters), "plain_call_ms": call_ms(plain_fn, iters),
         }
+    out["spatial_softmax_train"]["shape"] = list(inp.conv_map.shape)
     return out
 
 
@@ -1053,6 +1095,21 @@ KERNEL_INFO = {
 }
 
 
+# Each kernel's other timed calls, under its row of the kernels line: the
+# serving kernels at one lane, the preprocess of the gripper camera, B.2 at
+# the training step's shape, B.2'' (the backward with a learnable
+# temperature) and the mixture NLL forward under no_grad (the main path's
+# also writes the gradients).
+EXTRA_TIMINGS = {
+    "preprocess_rgb": {"at_1_lane": "preprocess_rgb_1_lane", "gripper": "preprocess_rgb_gripper",
+                       "gripper_at_1_lane": "preprocess_rgb_gripper_1_lane"},
+    "spatial_softmax": {"at_1_lane": "spatial_softmax_1_lane", "train_shape": "spatial_softmax_train"},
+    "logistic_mixture_sample": {"at_1_lane": "logistic_mixture_sample_1_lane"},
+    "spatial_softmax_bwd": {"learnable_t": "spatial_softmax_bwd_learnable_t"},
+    "mixture_nll_fwd": {"no_grad": "mixture_nll_fwd_no_grad"},
+}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1110,7 +1167,8 @@ def main(argv=None) -> int:
     print(f"[kernels] training kernels agree with their plain versions at the step's shapes: "
           + ", ".join(f"{k} max abs err {v:.3g}" for k, v in train_errs.items())
           + f"; SpatialSoftmax temperature gradient (T = 0.7) relative err {dtemp_rel:.3g}")
-    debug_dx, debug_dt = check_debug(args.seed)
+    debug_fwd, debug_dx, debug_dt = check_debug(args.seed)
+    errs["spatial_softmax"] = max(errs["spatial_softmax"], errs.pop("spatial_softmax_train"), debug_fwd)
     errs["spatial_softmax_bwd"] = max(errs["spatial_softmax_bwd"], debug_dx)
     errs["spatial_softmax_bwd_dtemp_rel"] = max(dtemp_rel, debug_dt)
     nll_fwd_err, nll_bwd_err = check_mixture_shapes(args.seed)
@@ -1150,6 +1208,7 @@ def main(argv=None) -> int:
     print(f"[timing] policy step (entry point, host clock, median): 1 lane {single_ms:.4f} ms, "
           f"{args.lanes} lanes {batched_ms:.4f} ms ({card})")
     timing = time_kernels(model, cfg, args.lanes, rng)
+    timing.update({f"{k}_1_lane": t for k, t in time_kernels(model, cfg, 1, rng).items()})
     for t in timing.values():
         t["library_ms"] = None  # no one PyTorch call computes these functions
     del plain_model
@@ -1204,12 +1263,14 @@ def main(argv=None) -> int:
     for name, t in timing.items():
         lib = "" if t["library_ms"] is None else f", library call {t['library_ms']:.5f} ms"
         t["bound_share"] = t["bound_ms"] / t["ms"]
-        print(f"[timing] {name}: device time kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms "
+        shape = f" at {tuple(t['shape'])}" if "shape" in t else ""
+        print(f"[timing] {name}{shape}: device time kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms "
               f"(kernel / plain {t['ms'] / t['plain_ms']:.4f}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
               f"{100 * t['bound_share']:.1f}% of the bound{lib}; per call with the host's launch "
               f"cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms ({card})")
-    for fn in ("preprocess_rgb_shift_kernel", "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel",
-               "mixture_nll_fwd_kernel", "mixture_nll_bwd_kernel"):
+    for fn in ("preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
+               "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "mixture_nll_fwd_kernel",
+               "mixture_nll_bwd_kernel"):
         r = resources[fn]
         print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
               f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")
@@ -1222,11 +1283,9 @@ def main(argv=None) -> int:
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "max_abs_err": errs[name], **timing[name],
         })
-        if name == "spatial_softmax_bwd":  # B.2'': the same entry point with a learnable temperature
-            rows[-1]["learnable_t"] = {**timing["spatial_softmax_bwd_learnable_t"],
-                                       "dtemp_rel_err": errs["spatial_softmax_bwd_dtemp_rel"]}
-        if name == "mixture_nll_fwd":  # the main path's forward also writes the gradients; without them:
-            rows[-1]["no_grad"] = timing["mixture_nll_fwd_no_grad"]
+        rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
+        if name == "spatial_softmax_bwd":
+            rows[-1]["learnable_t"]["dtemp_rel_err"] = errs["spatial_softmax_bwd_dtemp_rel"]
     print(json.dumps({
         "policy_step_ms": {"1": single_ms, str(args.lanes): batched_ms},
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,

@@ -6,14 +6,30 @@
 // channel axis, reading NHWC (what the camera gives) and writing NCHW (what
 // the first convolution reads), so the transpose costs no extra pass.
 //
-// Bound on the H100: bytes. Each element is one byte read and four written
-// for three flops, so at 3.35 TB/s the policy's 64-lane static frame
-// (64x200x200x3) needs about 11.5 us; at one lane the launch latency (a few
-// us) is the bound. Design: one thread per output element in NCHW order,
-// so the fp32 stores of a warp are contiguous and its byte loads fall in
-// one 96-byte span. The arithmetic uses the round-to-nearest intrinsics so
-// nvcc does not contract it into an FMA: the result is bit-equal to the
-// plain PyTorch version's separate multiply, subtract and divide.
+// Bound on the H100: bytes. Each element is one byte read and four written,
+// so at 3.35 TB/s the policy's 64-lane static frame (64x200x200x3) needs
+// 0.0115 ms; at one lane (0.6 MB) the launch latency is the bound, and the
+// time is the latency of one thread's chain of loads and stores. The first
+// design (one thread per output element on a flat grid, six 64-bit div/mod
+// per element to recover (n, ch, y, x), one byte load and one 4-byte store
+// per thread, an IEEE divide per element) reached a quarter of the bound at
+// 64 lanes. This design:
+//   * grid: one thread per quad of 4 consecutive pixels of a frame, counted
+//     over the frame's H * W pixels: the NCHW planes are contiguous, so a
+//     quad is 4 consecutive floats of each channel's plane whatever row it
+//     is in, and no index is divided. Blocks of kEvalThreads = 128 cover a
+//     frame (79 for 200 px, 14 for 84 px) and grid.y walks the frames, so
+//     one lane already spreads over as many SMs (smaller blocks measured
+//     slower at one lane, larger ones no faster);
+//   * loads: a quad is 12 consecutive bytes, three 4-byte loads where the
+//     frames start 4-byte aligned (neighbouring threads on neighbouring
+//     words), byte loads otherwise;
+//   * stores: one 16-byte streaming store per channel where H * W % 4 == 0
+//     (then every quad of every plane is 16-byte aligned), else element by
+//     element;
+//   * normalize: the 256-entry table the shift kernel reads (built on the
+//     host by the plain version's own ops), in shared memory, so the result
+//     is bit-equal to the plain version for every (mean, std).
 //
 // hulc_preprocess_rgb_shift is the train-time variant. It replaces
 // hulc_tpu/ops/image_ops.py random_shift / _shift_matmul (lines 27-82): a
@@ -51,24 +67,68 @@
 
 namespace {
 
-__device__ __forceinline__ float normalize(uint8_t v, float mean, float std) {
-  float scaled = __fmul_rn(static_cast<float>(v), 1.0f / 255.0f);
-  return __fdiv_rn(__fsub_rn(scaled, mean), std);
+constexpr int kEvalThreads = 128;  // quads per block
+constexpr int kMaxFrameBlocks = 65535;  // grid.y; a block walks frames beyond it
+
+// The 12 bytes of pixels [p, p + count) of an RGB frame (count <= 4), as
+// three little-endian words; four-byte loads when the frame is word aligned.
+__device__ __forceinline__ void load_quad(unsigned (&q)[3], const uint8_t* frame, int p, int count,
+                                          bool words) {
+  const uint8_t* b = frame + 3 * p;
+  if (words && count == 4) {
+    const unsigned* w = reinterpret_cast<const unsigned*>(b);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) q[i] = __ldg(w + i);
+    return;
+  }
+  q[0] = q[1] = q[2] = 0;
+  for (int i = 0; i < 3 * count; ++i) q[i >> 2] |= static_cast<unsigned>(b[i]) << (8 * (i & 3));
 }
 
-__global__ void preprocess_rgb_kernel(const uint8_t* __restrict__ src, float* __restrict__ dst,
-                                      long long total, int h, int w, int c, float mean,
-                                      float std) {
-  long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  // o indexes (n, ch, y, x) in NCHW order
-  int x = static_cast<int>(o % w);
-  long long t = o / w;
-  int y = static_cast<int>(t % h);
-  t /= h;
-  int ch = static_cast<int>(t % c);
-  long long n = t / c;
-  dst[o] = normalize(src[((n * h + y) * w + x) * c + ch], mean, std);
+// Pixels [p, p + count) of the frame's three planes from their bytes.
+__device__ __forceinline__ void store_quad(float* out, int plane, int p, int count, const unsigned (&q)[3],
+                                           const float* lut, bool vec4) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 3 * j + ch;
+      v[j] = lut[(q[i >> 2] >> (8 * (i & 3))) & 0xffu];
+    }
+    float* o = out + ch * plane + p;
+    if (vec4) {
+      __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < count) __stcs(o + j, v[j]);
+    }
+  }
+}
+
+// grid (quads of a frame / kEvalThreads, min(frames, kMaxFrameBlocks));
+// table 16-byte aligned, read as 64 float4 (one load each for 64 threads:
+// at one lane a thread's chain of loads is the kernel's time).
+__global__ void __launch_bounds__(kEvalThreads)
+    preprocess_rgb_kernel(const uint8_t* __restrict__ src, const float4* __restrict__ table,
+                          float* __restrict__ dst, long long frames, int plane, bool words, bool vec4) {
+  __shared__ __align__(16) float lut[256];
+  if (threadIdx.x < 64) reinterpret_cast<float4*>(lut)[threadIdx.x] = table[threadIdx.x];
+  const int p = 4 * (blockIdx.x * kEvalThreads + threadIdx.x);
+  const int count = min(4, plane - p);
+  const long long frame_elems = 3ll * plane;
+  long long n = blockIdx.y;
+  unsigned q[3];
+  if (count > 0) load_quad(q, src + n * frame_elems, p, count, words);
+  __syncthreads();
+  if (count <= 0) return;
+  for (;;) {
+    store_quad(dst + n * frame_elems, plane, p, count, q, lut, vec4);
+    n += gridDim.y;
+    if (n >= frames) return;
+    load_quad(q, src + n * frame_elems, p, count, words);
+  }
 }
 
 constexpr int kBand = 8;  // output rows per band, one warp each
@@ -180,16 +240,19 @@ __global__ void __launch_bounds__(kShiftThreads)
 
 }  // namespace
 
-extern "C" int hulc_preprocess_rgb(const void* src, void* dst, long long n, int h, int w, int c,
-                                   float mean, float std, void* stream) {
-  long long total = n * h * w * c;
-  if (total > 0) {
-    const int threads = 256;
-    long long blocks = (total + threads - 1) / threads;
-    preprocess_rgb_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(src), static_cast<float*>(dst), total, h, w, c, mean, std);
-  }
+// RGB frames only (c == 3); table and dst 16-byte aligned.
+extern "C" int hulc_preprocess_rgb(const void* src, const void* table, void* dst, long long n, int h, int w,
+                                   int c, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
+  if (c != 3 || static_cast<long long>(h) * w > 0x7fffffffLL - 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int plane = h * w;
+  const long long quads = (plane + 3) / 4;
+  const dim3 grid(static_cast<unsigned int>((quads + kEvalThreads - 1) / kEvalThreads),
+                  static_cast<unsigned int>(n < kMaxFrameBlocks ? n : kMaxFrameBlocks));
+  const bool words = reinterpret_cast<unsigned long long>(src) % 4 == 0 && plane % 4 == 0;
+  preprocess_rgb_kernel<<<grid, kEvalThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<const float4*>(table), static_cast<float*>(dst), n, plane,
+      words, plane % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,16 +6,32 @@
 // softmax, then the expectation of a linspace(-1, 1) grid. As in the
 // reference, x is weighted by the ROW index and y by the COLUMN index (the
 // grid quirk of vision_network.py; square maps only), and the output is
-// interleaved: out[n, 2c] = x, out[n, 2c + 1] = y.
+// interleaved: out[n, 2c] = x, out[n, 2c + 1] = y, i.e. out[2 * row] and
+// out[2 * row + 1] for row = n * C + c.
 //
-// Bound on the H100: bytes (each logit is read once and costs ~9 flops),
-// 64 lanes x 64 channels x 21 x 21 fp32 = 7.2 MB, about 2.2 us at 3.35 TB/s;
-// at that size and below, launch latency dominates. Design: one warp per
-// row, lanes striding over the 441 logits so each load instruction of the
-// warp is contiguous; pass one finds the max, pass two (reading the row
-// again, from L1) accumulates sum(e), sum(e * row_coord) and
-// sum(e * col_coord) in fp32, and warp shuffles reduce both passes. The
-// temperature is read from device memory when it is a learnable parameter.
+// Bound on the H100: bytes, the map read once; at the training step's
+// (2048, 64, 21, 21) fp32 that is 231 MB, 0.0693 ms at 3.35 TB/s, and at
+// the 64-lane policy's (64, 64, 21, 21) 7.2 MB, 0.0022 ms, where launch
+// latency weighs as much. The first design (one warp per 441-float row,
+// lanes striding 4-byte loads, a second pass over global memory that
+// counted on L1, two IEEE divides and an integer division per element,
+// coordinates -1 + r * step that differ by an ulp from torch.linspace's for
+// the second half of the grid) reached a fifth of that at the step's shape.
+// This design shares the backward's row handling (the helpers below):
+//   * loads: a block takes kRowsPerBlock = 8 consecutive rows. Row r starts
+//     at r * hw * 4 bytes, so every group of 4 rows, and so every block,
+//     starts 16-byte aligned whatever hw is; the block stages its rows in
+//     shared memory once with 16-byte cp.async (a tail of fewer than four
+//     floats, where rows * hw is not a multiple of 4, element by element);
+//     each logit is read from device memory once;
+//   * per element: one warp per row; the max over raw x, scaled by 1/T
+//     (exact for T > 0: rounding is monotone); e = exp(x * (1/T) - max);
+//     the two coordinates from a per-block table of torch.linspace's values,
+//     built without integer division; no divide. The forward and the
+//     backward compute e and the coordinates by the same code
+//     (softmax_moments), so the p the backward recomputes is the p the
+//     forward used;
+//   * stores: one float2 per row.
 //
 // hulc_spatial_softmax_bwd is its backward, which the JAX package leaves to
 // XLA's autodiff of the same reduces. With p the row's softmax, E_x and E_y
@@ -30,15 +46,8 @@
 // loads, three passes that counted on L1 to keep the row, and per element
 // two expf, five IEEE divides, two integer divisions and branchy linspace
 // calls) reached a fifth of that. This design:
-//   * loads: a block takes kRowsPerBlock = 8 consecutive rows. Row r starts
-//     at r * hw * 4 bytes, so every group of 4 rows, and so every block,
-//     starts 16-byte aligned whatever hw is; the block stages its rows in
-//     shared memory once with 16-byte cp.async (a tail of fewer than four
-//     floats, where rows * hw is not a multiple of 4, element by element);
-//   * per element: one warp per row; e = exp(x * (1/T) - max) once, kept
-//     in shared memory; each element's two coordinates from a shared table
-//     of the same torch.linspace values, built per block without integer
-//     division; dx = e * (1/s * 1/T) * g;
+//   * loads and per element: as the forward's, with e kept in shared memory;
+//     dx = e * (1/s * 1/T) * g;
 //   * stores: dx goes back through shared memory as 16-byte stores;
 //   * temperature: read from a device pointer when it is learnable, so the
 //     caller needs no host sync. Then each warp also writes its row's
@@ -50,6 +59,10 @@
 
 namespace {
 
+constexpr int kRowsPerBlock = 8;  // two 4-row groups, so a block starts 16-byte aligned
+constexpr int kThreads = 32 * kRowsPerBlock;  // one warp per row
+constexpr int kReduceThreads = 1024;
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int offset = 16; offset > 0; offset >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, offset));
@@ -59,42 +72,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int offset = 16; offset > 0; offset >>= 1) v += __shfl_xor_sync(0xffffffffu, v, offset);
   return v;
-}
-
-__global__ void spatial_softmax_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                       long long rows, int c, int h, int w,
-                                       const float* __restrict__ temp_ptr, float temp_value) {
-  long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // whole warps leave together: rows are warp-uniform
-  const float temp = temp_ptr ? *temp_ptr : temp_value;
-  const int hw = h * w;
-  const float* z = x + row * hw;
-
-  float m = -INFINITY;
-  for (int i = lane; i < hw; i += 32) m = fmaxf(m, z[i] / temp);
-  m = warp_max(m);
-
-  const float step_r = h > 1 ? 2.0f / (h - 1) : 0.0f;
-  const float step_c = w > 1 ? 2.0f / (w - 1) : 0.0f;
-  float s = 0.0f, sx = 0.0f, sy = 0.0f;
-  for (int i = lane; i < hw; i += 32) {
-    float e = expf(z[i] / temp - m);
-    int r = i / w;
-    int col = i - r * w;
-    s += e;
-    sx += e * (-1.0f + r * step_r);
-    sy += e * (-1.0f + col * step_c);
-  }
-  s = warp_sum(s);
-  sx = warp_sum(sx);
-  sy = warp_sum(sy);
-  if (lane == 0) {
-    long long n = row / c;
-    int ch = static_cast<int>(row - n * c);
-    out[n * 2 * c + 2 * ch] = sx / s;
-    out[n * 2 * c + 2 * ch + 1] = sy / s;
-  }
 }
 
 // torch.linspace(-1, 1, n)[i]: the first half counts up from -1, the second
@@ -111,14 +88,85 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
 
-constexpr int kRowsPerBlock = 8;  // two 4-row groups, so a block starts 16-byte aligned
-constexpr int kBwdThreads = 32 * kRowsPerBlock;
-constexpr int kReduceThreads = 1024;
+// Copy the block's rows [row0, row0 + kRowsPerBlock) of x (fewer at the
+// end) into xs: 16-byte cp.async for the body, committed as one group, the
+// last count % 4 floats element by element. Returns the number of floats.
+__device__ __forceinline__ int stage_rows(float* xs, const float* __restrict__ x, int row0, int rows,
+                                          int hw) {
+  const int count = min(kRowsPerBlock, rows - row0) * hw;
+  const float* src = x + static_cast<long long>(row0) * hw;
+  const int vecs = count >> 2;
+  for (int i = threadIdx.x; i < vecs; i += kThreads) cp_async16(xs + 4 * i, src + 4 * i);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int i = 4 * vecs + threadIdx.x; i < count; i += kThreads) xs[i] = src[i];
+  return count;
+}
 
-// Shared memory, in floats: xs and es (kRowsPerBlock * hw each), then the
-// coordinate of every element of a map, lin_r[i] = lin_h[i / w] and
-// lin_c[i] = lin_w[i % w] (hw each).
-__global__ void __launch_bounds__(kBwdThreads)
+// The coordinate of every element of a map: lin_r[i] = lin_h[i / w] and
+// lin_c[i] = lin_w[i % w], walked by row and column (no integer division).
+__device__ __forceinline__ void coordinate_tables(float* lin_r, float* lin_c, int h, int w) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < h; r += kRowsPerBlock) {
+    const float lh = linspace_pm1(r, h);
+    for (int col = lane; col < w; col += 32) {
+      lin_r[r * w + col] = lh;
+      lin_c[r * w + col] = linspace_pm1(col, w);
+    }
+  }
+}
+
+struct Moments {
+  float s, sx, sy;  // sum(e), sum(e * lin_r), sum(e * lin_c) over the row
+};
+
+// One warp's row xr: e_i = exp(x_i * (1/T) - max(x) * (1/T)) and its
+// moments, reduced over the warp; with kKeep, e is also written to er.
+template <bool kKeep>
+__device__ __forceinline__ Moments softmax_moments(const float* xr, float* er, const float* lin_r,
+                                                   const float* lin_c, int hw, float inv_t, int lane) {
+  // max(x * inv_t) = max(x) * inv_t: rounding is monotone and inv_t > 0
+  float m = -INFINITY;
+  for (int i = lane; i < hw; i += 32) m = fmaxf(m, xr[i]);
+  m = warp_max(m) * inv_t;
+
+  float s = 0.0f, sx = 0.0f, sy = 0.0f;
+  for (int i = lane; i < hw; i += 32) {
+    const float e = expf(fmaf(xr[i], inv_t, -m));
+    if (kKeep) er[i] = e;
+    s += e;
+    sx += e * lin_r[i];
+    sy += e * lin_c[i];
+  }
+  return {warp_sum(s), warp_sum(sx), warp_sum(sy)};
+}
+
+// Shared memory, in floats: xs (kRowsPerBlock * hw), lin_r and lin_c (hw each).
+__global__ void __launch_bounds__(kThreads)
+    spatial_softmax_kernel(const float* __restrict__ x, float2* __restrict__ out, int rows, int h, int w,
+                           const float* __restrict__ temp_ptr, float temp_value) {
+  extern __shared__ __align__(16) float smem[];
+  const int hw = h * w;
+  float* xs = smem;
+  float* lin_r = xs + kRowsPerBlock * hw;
+  float* lin_c = lin_r + hw;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  stage_rows(xs, x, row0, rows, hw);
+  coordinate_tables(lin_r, lin_c, h, w);
+  const float inv_t = 1.0f / (temp_ptr ? *temp_ptr : temp_value);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = row0 + warp;
+  if (row < rows) {
+    const Moments mo = softmax_moments<false>(xs + warp * hw, nullptr, lin_r, lin_c, hw, inv_t, lane);
+    if (lane == 0) out[row] = make_float2(mo.sx / mo.s, mo.sy / mo.s);
+  }
+}
+
+// Shared memory, in floats: xs and es (kRowsPerBlock * hw each), then lin_r
+// and lin_c (hw each).
+__global__ void __launch_bounds__(kThreads)
     spatial_softmax_bwd_kernel(const float* __restrict__ x, const float* __restrict__ grad_out,
                                float* __restrict__ dx, float* __restrict__ row_xdx, int rows,
                                int h, int w, const float* __restrict__ temp_ptr, float temp_value) {
@@ -129,50 +177,24 @@ __global__ void __launch_bounds__(kBwdThreads)
   float* lin_r = es + kRowsPerBlock * hw;
   float* lin_c = lin_r + hw;
   const int row0 = blockIdx.x * kRowsPerBlock;
-  const int count = min(kRowsPerBlock, rows - row0) * hw;
-  const long long first = static_cast<long long>(row0) * hw;
-  const float* src = x + first;
-
-  const int vecs = count >> 2;
-  for (int i = threadIdx.x; i < vecs; i += kBwdThreads) cp_async16(xs + 4 * i, src + 4 * i);
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int i = 4 * vecs + threadIdx.x; i < count; i += kBwdThreads) xs[i] = src[i];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < h; r += kRowsPerBlock) {
-    const float lh = linspace_pm1(r, h);
-    for (int col = lane; col < w; col += 32) {
-      lin_r[r * w + col] = lh;
-      lin_c[r * w + col] = linspace_pm1(col, w);
-    }
-  }
+  const int count = stage_rows(xs, x, row0, rows, hw);
+  coordinate_tables(lin_r, lin_c, h, w);
   const float temp = temp_ptr ? *temp_ptr : temp_value;
   const float inv_t = 1.0f / temp;
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = row0 + warp;
   if (row < rows) {
     const float* xr = xs + warp * hw;
     float* er = es + warp * hw;
-    // max(x * inv_t) = max(x) * inv_t: rounding is monotone and inv_t > 0
-    float m = -INFINITY;
-    for (int i = lane; i < hw; i += 32) m = fmaxf(m, xr[i]);
-    m = warp_max(m) * inv_t;
-
-    float s = 0.0f, sx = 0.0f, sy = 0.0f;
-    for (int i = lane; i < hw; i += 32) {
-      const float e = expf(fmaf(xr[i], inv_t, -m));
-      er[i] = e;
-      s += e;
-      sx += e * lin_r[i];
-      sy += e * lin_c[i];
-    }
-    s = warp_sum(s);
-    const float ex = warp_sum(sx) / s;
-    const float ey = warp_sum(sy) / s;
+    const Moments mo = softmax_moments<true>(xr, er, lin_r, lin_c, hw, inv_t, lane);
+    const float ex = mo.sx / mo.s;
+    const float ey = mo.sy / mo.s;
     const float gx = grad_out[2 * static_cast<long long>(row)];
     const float gy = grad_out[2 * static_cast<long long>(row) + 1];
-    const float scale = (1.0f / s) * inv_t;
+    const float scale = (1.0f / mo.s) * inv_t;
 
     float xdx = 0.0f;
     for (int i = lane; i < hw; i += 32) {
@@ -188,10 +210,11 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
   __syncthreads();
 
-  float* dst = dx + first;
-  for (int i = threadIdx.x; i < vecs; i += kBwdThreads)
+  const int vecs = count >> 2;
+  float* dst = dx + static_cast<long long>(row0) * hw;
+  for (int i = threadIdx.x; i < vecs; i += kThreads)
     reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(es)[i];
-  for (int i = 4 * vecs + threadIdx.x; i < count; i += kBwdThreads) dst[i] = es[i];
+  for (int i = 4 * vecs + threadIdx.x; i < count; i += kThreads) dst[i] = es[i];
 }
 
 // dT = -(1/T) * sum of the rows' partials, in a fixed order: each thread
@@ -212,6 +235,13 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (threadIdx.x == 0) dtemp[0] = static_cast<float>(-part[0] / static_cast<double>(*temp_ptr));
 }
 
+// Dynamic shared memory above 48 KB must be asked for; returns the error.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 }  // namespace
 
 // With a learnable temperature (temp_ptr), row_xdx (rows floats of
@@ -226,34 +256,33 @@ extern "C" int hulc_spatial_softmax_bwd(const void* x, const void* grad_out, voi
     return static_cast<int>(cudaErrorInvalidValue);
   const int hw = h * w;
   const int smem = static_cast<int>(sizeof(float)) * (2 * kRowsPerBlock + 2) * hw;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(spatial_softmax_bwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err = allow_smem(spatial_softmax_bwd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* temp = static_cast<const float*>(temp_ptr);
   const unsigned int blocks = static_cast<unsigned int>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  spatial_softmax_bwd_kernel<<<blocks, kBwdThreads, smem, s>>>(
+  spatial_softmax_bwd_kernel<<<blocks, kThreads, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(grad_out), static_cast<float*>(dx),
       temp ? static_cast<float*>(row_xdx) : nullptr, static_cast<int>(rows), h, w, temp, temp_value);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess || !temp) return static_cast<int>(err);
   spatial_softmax_temperature_grad_kernel<<<1, kReduceThreads, 0, s>>>(
       static_cast<const float*>(row_xdx), static_cast<int>(rows), temp, static_cast<float*>(dtemp));
   return static_cast<int>(cudaGetLastError());
 }
 
+// x must start 16-byte aligned and out 8-byte aligned (the wrapper checks).
 extern "C" int hulc_spatial_softmax(const void* x, void* out, long long n, int c, int h, int w,
                                     const void* temp_ptr, float temp_value, void* stream) {
-  long long rows = n * c;
-  if (rows > 0) {
-    const int threads = 256;  // 8 rows per block
-    long long blocks = (rows * 32 + threads - 1) / threads;
-    spatial_softmax_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), rows, c, h, w,
-        static_cast<const float*>(temp_ptr), temp_value);
-  }
+  const long long rows = n * c;
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (rows > 0x7fffffffLL - kRowsPerBlock) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(float)) * (kRowsPerBlock + 2) * h * w;
+  const cudaError_t err = allow_smem(spatial_softmax_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned int blocks = static_cast<unsigned int>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  spatial_softmax_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float2*>(out), static_cast<int>(rows), h, w,
+      static_cast<const float*>(temp_ptr), temp_value);
   return static_cast<int>(cudaGetLastError());
 }

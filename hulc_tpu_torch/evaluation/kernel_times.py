@@ -1,0 +1,162 @@
+"""Device times of the image and SpatialSoftmax kernels, and the policy
+step's host-clock time, of one tree of this repository: for comparing two
+trees (a parent commit unpacked beside the working tree) on one card.
+
+    python hulc_tpu_torch/evaluation/kernel_times.py --tree DIR
+
+Imports ``hulc_tpu_torch`` from ``DIR`` (run as a file, not with ``-m``, so
+that the package comes from ``DIR``), builds that tree's kernels, and times,
+through the wrappers a caller uses: the eval preprocess (B.1) on one and 64
+frames of the static (200 px) and the gripper (84 px) camera; the
+SpatialSoftmax forward (B.2) at one lane, 64 lanes and the training step's
+(2048, 64, 21, 21); the training shift (B.1') on the step's two cameras and
+the SpatialSoftmax backward (B.2') at the step's shape. Device time is the
+CUDA activity torch.profiler records per call (the window padded with idle
+host time, as ``profile_policy.profile_calls`` does). It also gives a
+digest of each kernel's output on fixed inputs from seed 0 (equal digests:
+bit-equal results) and the full-width ``hulc`` policy step's median
+host-clock ms at 1 and 64 lanes. Prints one JSON line, with the card's
+name and power limit. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+PAD_S = 0.01
+ITERS, LANES, SEED = 50, 64, 0
+
+
+def device_ms(fn, iters: int) -> float:
+    """CUDA activity per call of ``fn`` over ``iters`` calls, after a warm-up."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PAD_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def host_ms(fn, iters: int) -> float:
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def policy_times(cfg, seed: int, lanes: int) -> dict:
+    """Median host-clock ms of an acting step at 1 lane and at ``lanes``."""
+    from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
+    from hulc_tpu_torch.evaluation.policy import HulcPolicy
+    from hulc_tpu_torch.models import make_model
+
+    rng = np.random.default_rng(seed)
+    pe = cfg.perceptual_encoder
+    model = make_model(cfg, "cuda", seed=seed)
+
+    def obs():
+        s, g = pe.rgb_static.input_size, pe.rgb_gripper.input_size
+        return {"rgb_obs": {"rgb_static": rng.integers(0, 256, (s, s, 3), np.uint8),
+                            "rgb_gripper": rng.integers(0, 256, (g, g, 3), np.uint8)},
+                "robot_obs": rng.normal(size=15).astype(np.float32)}
+
+    single = HulcPolicy(cfg, model, seed=seed)
+    one, lang = obs(), rng.normal(size=384).astype(np.float32)
+    single.step(one, lang)  # plan once; the timed steps act
+    single.replan_freq = 10**9
+    out = {"1": host_ms(lambda: single.step(one, lang), 50)}
+    batched = BatchedHulcPolicy(cfg, model, lanes, seed=seed)
+    many, langs = [obs() for _ in range(lanes)], rng.normal(size=(lanes, 384)).astype(np.float32)
+    state, mask = [batched.initial_state()], np.zeros(lanes, bool)
+
+    def step():
+        _, state[0] = batched.step(many, langs, state[0], mask)
+
+    out[str(lanes)] = host_ms(step, 30)
+    return out
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--tree", type=pathlib.Path, required=True)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    sys.path.insert(0, str(args.tree.resolve()))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_bwd
+    from hulc_tpu_torch.ops.image_ops import draw_shifts, preprocess_rgb_seq, preprocess_rgb_seq_shift
+
+    kernels.library()
+    cfg = get_config("hulc")
+    pe = cfg.perceptual_encoder
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def frames(n, s, px):
+        return torch.randint(0, 256, (n, s, px, px, 3), generator=gen, device="cuda", dtype=torch.uint8)
+
+    cases = {}
+    for lanes in (1, LANES):
+        for cam in ("rgb_static", "rgb_gripper"):
+            imgs = frames(lanes, 1, getattr(pe, cam).input_size)
+            cases[f"preprocess_rgb {cam} {lanes}"] = lambda imgs=imgs: preprocess_rgb_seq(imgs)
+    for rows in (1, LANES, 2048):
+        x = torch.randn((rows, 64, 21, 21), generator=gen, device="cuda").relu_()
+        cases[f"spatial_softmax {rows}"] = lambda x=x: spatial_softmax(x, 1.0)
+    conv_map = x  # the step's shape
+    train = {cam: frames(64, 32, getattr(pe, cam).input_size) for cam in ("rgb_static", "rgb_gripper")}
+    shifts = {cam: draw_shifts(64 * 32, getattr(pe, cam).shift_pad, gen, "cuda") for cam in train}
+    cases["preprocess_rgb_shift train"] = lambda: [
+        preprocess_rgb_seq_shift(imgs, shifts[cam], getattr(pe, cam).shift_pad) for cam, imgs in train.items()
+    ]
+    grad = torch.randn((2048, 128), generator=gen, device="cuda")
+    cases["spatial_softmax_bwd train"] = lambda: spatial_softmax_bwd(conv_map, grad, 1.0)[0]
+
+    out = {"tree": str(args.tree), "card": card(), "device_ms": {}, "digest": {}}
+    for name, fn in cases.items():
+        out["device_ms"][name] = device_ms(fn, ITERS)
+        result = fn()
+        out["digest"][name] = digest(torch.cat([r.flatten() for r in result]) if isinstance(result, list) else result)
+    del train, shifts
+    out["policy_step_host_ms"] = policy_times(cfg, SEED, LANES)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -123,7 +123,7 @@ def ptxas_report(log: str) -> dict:
 
 # C signature of each entry point, without the trailing stream argument.
 _SIGNATURES = {
-    "hulc_preprocess_rgb": (_P, _P, _I64, _I32, _I32, _I32, _F32, _F32),
+    "hulc_preprocess_rgb": (_P, _P, _P, _I64, _I32, _I32, _I32),
     "hulc_preprocess_rgb_shift": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32),
     "hulc_spatial_softmax": (_P, _P, _I64, _I32, _I32, _I32, _P, _F32),
     "hulc_spatial_softmax_bwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _F32),

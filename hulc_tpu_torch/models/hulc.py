@@ -97,9 +97,8 @@ def masked_clip_loss(
     logits = logit_scale * img @ txt.T
     b = logits.shape[0]
     mask = torch.ones(b, dtype=torch.bool, device=logits.device) if mask is None else mask.bool()
-    neg = torch.tensor(-1e9, dtype=torch.float32, device=logits.device)
-    logits_i = torch.where(mask[None, :], logits, neg)
-    logits_t = torch.where(mask[None, :], logits.T, neg)
+    logits_i = torch.where(mask[None, :], logits, -1e9)  # a Python scalar: no host-to-device copy
+    logits_t = torch.where(mask[None, :], logits.T, -1e9)
     logp_i = torch.diagonal(torch.log_softmax(logits_i, dim=-1))
     logp_t = torch.diagonal(torch.log_softmax(logits_t, dim=-1))
     count = mask.sum().clamp_min(1)

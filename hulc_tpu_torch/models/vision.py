@@ -48,6 +48,8 @@ def spatial_softmax_plain(x: torch.Tensor, temperature: Union[float, torch.Tenso
 
 def _spatial_softmax_fwd(x: torch.Tensor, temperature: Union[float, torch.Tensor]) -> torch.Tensor:
     n, c, h, w = x.shape
+    if x.data_ptr() % 16:
+        raise ValueError("x must start 16-byte aligned")
     if isinstance(temperature, torch.Tensor):
         kernels.require_cuda_tensor("temperature", temperature, torch.float32)
         temp_ptr, temp_value = temperature.data_ptr(), 1.0

@@ -11,8 +11,8 @@ JAX package draws them (``randint((B*S, 2), 0, 2*pad + 1)``), and tests
 pass the shifts JAX drew. On a CUDA tensor each function launches its
 hand-written kernel in ``csrc/preprocess.cu`` (which fuses the NHWC -> NCHW
 transpose into the same pass); on a CPU tensor it runs the plain version.
-The shift kernel normalizes through ``normalize_table``, the plain
-version's own result for each of the 256 byte values.
+Both kernels normalize through ``normalize_table``, the plain version's own
+result for each of the 256 byte values, so they are bit-equal to it.
 """
 
 from __future__ import annotations
@@ -49,10 +49,11 @@ def preprocess_rgb_seq(imgs: torch.Tensor, mean: float = 0.5, std: float = 0.5) 
         return preprocess_rgb_seq_plain(imgs, mean, std)
     kernels.require_cuda_tensor("imgs", imgs, torch.uint8, 5)
     b, s, h, w, c = imgs.shape
+    if c != 3:
+        raise ValueError(f"the eval preprocess kernel takes RGB frames (C = 3), got C = {c}")
+    table = normalize_table(float(mean), float(std), imgs.device)
     out = torch.empty((b, s, c, h, w), dtype=torch.float32, device=imgs.device)
-    kernels.PREPROCESS_RGB(
-        imgs.device, imgs.data_ptr(), out.data_ptr(), b * s, h, w, c, float(mean), float(std)
-    )
+    kernels.PREPROCESS_RGB(imgs.device, imgs.data_ptr(), table.data_ptr(), out.data_ptr(), b * s, h, w, c)
     return out
 
 

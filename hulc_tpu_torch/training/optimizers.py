@@ -10,9 +10,10 @@ bfloat16 while every update is computed in fp32, in the optax order
 with c1 = 1 - b1^t, c2 = 1 - b2^t at step t (from 1) and lr the schedule's
 value at t - 1; m' and v' are rounded to bf16 on write-back. On CUDA
 parameters one launch of the hand-written kernel ``csrc/adam_lowp.cu``
-updates every tensor of a parameter group; on CPU parameters (or with
-``use_kernels=False``) the plain version below runs tensor by tensor. A
-parameter without a gradient is updated with a zero gradient, as optax
+updates every tensor of a parameter group, through a device table of the
+tensors' addresses uploaded from pinned memory; on CPU parameters (or
+with ``use_kernels=False``) the plain version below runs tensor by tensor.
+A parameter without a gradient is updated with a zero gradient, as optax
 updates every leaf.
 """
 
@@ -57,6 +58,19 @@ def adam_lowp_update_plain(
     v.copy_(v32.to(v.dtype))
 
 
+def pointer_table_rows(
+    params: List[torch.Tensor], grads: List[torch.Tensor], ms: List[torch.Tensor], vs: List[torch.Tensor]
+) -> Tuple[List[List[int]], int]:
+    """The kernel's table, one row per tensor, (p, g, m, v addresses, numel,
+    first chunk), where the first chunk counts the ``CHUNK``-element chunks
+    of the tensors before it; and the number of chunks of all of them."""
+    rows, first_chunk = [], 0
+    for p, g, m, v in zip(params, grads, ms, vs):
+        rows.append([p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(), first_chunk])
+        first_chunk += -(-p.numel() // CHUNK)
+    return rows, first_chunk
+
+
 def adam_lowp_update(
     params: List[torch.Tensor], grads: List[torch.Tensor], ms: List[torch.Tensor], vs: List[torch.Tensor],
     b1: float, b2: float, eps: float, neg_lr: float, c1: float, c2: float,
@@ -64,7 +78,6 @@ def adam_lowp_update(
     """One kernel launch over all the tensors (CUDA, fp32 params and grads,
     bf16 moments, each contiguous)."""
     dev = params[0].device
-    rows, first_chunk = [], 0
     for p, g, m, v in zip(params, grads, ms, vs):
         kernels.require_cuda_tensor("param", p, torch.float32)
         kernels.require_cuda_tensor("grad", g, torch.float32)
@@ -72,11 +85,12 @@ def adam_lowp_update(
         kernels.require_cuda_tensor("exp_avg_sq", v, torch.bfloat16)
         if not p.shape == g.shape == m.shape == v.shape or p.device != dev:
             raise ValueError("param, grad and moments must share a shape and a device")
-        rows.append([p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(), first_chunk])
-        first_chunk += -(-p.numel() // CHUNK)
-    table = torch.tensor(rows, dtype=torch.int64).to(dev)
+    rows, n_chunks = pointer_table_rows(params, grads, ms, vs)
+    # from pinned memory, so the host does not wait for the stream; PyTorch's
+    # pinned-memory allocator keeps the source until the copy has run
+    table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
     kernels.ADAM_LOWP(
-        dev, table.data_ptr(), len(rows), first_chunk, CHUNK, b1, 1.0 - b1, b2, 1.0 - b2, eps, neg_lr, c1, c2
+        dev, table.data_ptr(), len(rows), n_chunks, CHUNK, b1, 1.0 - b1, b2, 1.0 - b2, eps, neg_lr, c1, c2
     )
 
 

@@ -11,17 +11,21 @@ the profiler and, from ``--steps`` steps just before it, without it;
 device ms per step (the CUDA activity the profiler recorded); the device's
 idle share against either step time (the profiler's own host work
 lengthens the profiled step); device time by kind (hand kernels, matmuls,
-convolutions, copies and fills, other); the ten CUDA operations that
-take the most device time; and, from ``--steps`` more steps profiled with
-Python stacks, the host-to-device copies per step by the function of the
-port that issued them (a copy from pageable memory blocks the host until
-the stream drains). With ``--out`` it also writes the Chrome trace there. Needs a
-CUDA device; TF32 is off, as in the fp32 reference.
+convolutions, copies and fills, other) and each hand kernel's; the ten
+CUDA operations that take the most device time; and, from ``--steps`` more
+steps profiled with shapes and Python stacks, the host-to-device copies
+per step, from pageable memory (each blocks the host until the stream
+drains) and from pinned memory, by the function of the port that issued
+them, and the device time of the decoder RNN's recurrent ``addmm`` and of
+its backward, apart from the other matmuls. With ``--out`` it also writes
+the Chrome trace there. Needs a CUDA device; TF32 is off, as in the fp32
+reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import json
 import pathlib
@@ -35,7 +39,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from hulc_tpu_torch.config import HulcConfig, get_config
-from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, profile_steps
+from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, kind_of, profile_steps
 from hulc_tpu_torch.models.hulc import ModalityBatch
 from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
@@ -70,14 +74,110 @@ def synthetic_fused_batch(
     return {"fused": ModalityBatch(*(None if x is None else torch.as_tensor(x, device=device) for x in batch))}
 
 
-def h2d_copy_sites(step, steps: int) -> Dict[str, float]:
-    """Host-to-device copies per step of ``step``, by the function of the
-    port that issued them: from torch.profiler's trace with Python stacks,
-    each copy's runtime call (matched by correlation id) and the innermost
-    Python function of ``hulc_tpu_torch`` around it on its thread
+def _span_index(spans) -> Dict[int, list]:
+    """(start, end) of each span by thread, sorted; the spans of one thread
+    must not nest."""
+    index = collections.defaultdict(list)
+    for e in spans:
+        index[e["tid"]].append((e["ts"], e["ts"] + e.get("dur", 0)))
+    for v in index.values():
+        v.sort()
+    return index
+
+
+def _inside(event, index) -> bool:
+    """Whether ``event`` starts inside one of the indexed spans of its thread."""
+    spans = index.get(event["tid"], ())
+    i = bisect.bisect_right(spans, (event["ts"], float("inf"))) - 1
+    return i >= 0 and event["ts"] <= spans[i][1]
+
+
+def h2d_sites(events, steps: int) -> Dict[str, Dict[str, float]]:
+    """Host-to-device copies per step in a Chrome trace with Python stacks,
+    by source memory (``"pageable"``: the host waits for the stream;
+    ``"pinned"``: it does not) and by the function of the port that issued
+    them: each copy's runtime call (matched by correlation id) and the
+    innermost Python function of ``hulc_tpu_torch`` around it on its thread
     ("unknown" where none is, e.g. on autograd's backward thread)."""
+    kinds = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "gpu_memcpy" and name.startswith("Memcpy HtoD"):
+            kinds[e["args"].get("correlation")] = (
+                "pinned" if "Pinned" in name else "pageable" if "Pageable" in name else name
+            )
+    python = [e for e in events if e.get("cat") == "python_function" and "hulc_tpu_torch/" in e.get("name", "")
+              and "profile_train" not in e["name"]]
+    sites = {"pageable": collections.Counter(), "pinned": collections.Counter()}
+    for call in events:
+        kind = kinds.get(call.get("args", {}).get("correlation")) if call.get("cat") == "cuda_runtime" else None
+        if kind is None:
+            continue
+        around = [p for p in python if p["tid"] == call["tid"] and p["ts"] <= call["ts"] <= p["ts"] + p.get("dur", 0)]
+        site = "unknown"
+        if around:
+            name = min(around, key=lambda p: p.get("dur", 0))["name"]
+            site = name[name.find("hulc_tpu_torch/"):]
+        sites.setdefault(kind, collections.Counter())[site] += 1 / steps
+    return {kind: dict(counts) for kind, counts in sites.items()}
+
+
+def _device_events(events, ops):
+    """The device activity (kernels, copies, fills) launched by runtime or
+    driver calls (cuBLAS launches through the driver) inside the spans of
+    ``ops``, on the op's thread."""
+    device = {e["args"].get("correlation"): e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    index = _span_index(ops)
+    return [device[e["args"]["correlation"]] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("args", {}).get("correlation") in device
+            and _inside(e, index)]
+
+
+def recurrence_split(events, steps: int) -> dict:
+    """The decoder RNN's recurrent ``addmm`` (``ScanRNN``: h W_hh^T + b_hh,
+    one per time step and layer) and its backward, apart from the other
+    matmuls, in a Chrome trace recorded with shapes and Python stacks. The
+    forward ops are the ``aten::addmm`` inside an ``nn.Module: ScanRNN``
+    span that no ``aten::linear`` encloses (the input projection's does);
+    their backward is the ``AddmmBackward0`` of the same sequence number.
+    Per step: calls, the input shapes, and the device ms of what each
+    launched, all of it and its matmul kernels; and the matmul kernels' ms
+    in the whole window, with the recurrence's share of it."""
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    modules = _span_index(e for e in events if e.get("cat") == "python_function"
+                          and e.get("name", "").startswith("nn.Module: ScanRNN"))
+    linear = _span_index(e for e in ops if e["name"] == "aten::linear")
+    forward = [e for e in ops if e["name"] == "aten::addmm" and _inside(e, modules) and not _inside(e, linear)]
+    seq = {e["args"].get("Sequence number") for e in forward}
+    backward = [e for e in ops if e["name"] == "autograd::engine::evaluate_function: AddmmBackward0"
+                and e["args"].get("Sequence number") in seq]
+    matmul_us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel" and kind_of(e["name"]) == "matmuls")
+
+    def part(group, with_dims):
+        launched = _device_events(events, group)
+        out = {
+            "calls_per_step": len(group) / steps,
+            "device_ms_per_step": sum(e.get("dur", 0) for e in launched) / 1e3 / steps,
+            "matmul_ms_per_step": sum(e.get("dur", 0) for e in launched if kind_of(e["name"]) == "matmuls") / 1e3 / steps,
+        }
+        if with_dims:
+            out["input_dims"] = sorted({json.dumps(e["args"].get("Input Dims")) for e in group})
+        return out
+
+    fwd, bwd = part(forward, True), part(backward, False)
+    total = matmul_us / 1e3 / steps
+    return {"forward": fwd, "backward": bwd, "matmul_ms_per_step": total,
+            "share_of_matmuls": (fwd["matmul_ms_per_step"] + bwd["matmul_ms_per_step"]) / total if total else None}
+
+
+def trace_breakdown(step, steps: int) -> dict:
+    """``steps`` calls of ``step`` under torch.profiler with shapes and Python
+    stacks; returns the host-to-device copies per step (``h2d_sites``) and
+    the recurrence's device time (``recurrence_split``)."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 with_stack=True) as prof:
         time.sleep(WINDOW_PAD_S)
         for _ in range(steps):
             step()
@@ -87,18 +187,7 @@ def h2d_copy_sites(step, steps: int) -> Dict[str, float]:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    copies = {e["args"].get("correlation") for e in events
-              if e.get("cat") == "gpu_memcpy" and e.get("name", "").startswith("Memcpy HtoD")}
-    python = [e for e in events if e.get("cat") == "python_function" and "hulc_tpu_torch/" in e.get("name", "")
-              and "profile_train" not in e["name"]]
-    sites = collections.Counter()
-    for call in events:
-        if call.get("cat") != "cuda_runtime" or call.get("args", {}).get("correlation") not in copies:
-            continue
-        around = [p for p in python if p["tid"] == call["tid"] and p["ts"] <= call["ts"] <= p["ts"] + p.get("dur", 0)]
-        name = min(around, key=lambda p: p.get("dur", 0))["name"] if around else "unknown"
-        sites[name[name.find("hulc_tpu_torch/"):]] += 1 / steps
-    return dict(sites)
+    return {"h2d_copies_per_step": h2d_sites(events, steps), "recurrence": recurrence_split(events, steps)}
 
 
 def main(argv=None) -> None:
@@ -136,7 +225,7 @@ def main(argv=None) -> None:
         "step": "Trainer.train_step", "batch": 2 * BATCH_PER_MOD, "seq": SEQ,
         "card": torch.cuda.get_device_name(0), "unprofiled_step_ms": unprofiled_ms,
         "unprofiled_idle_share": 1.0 - result["device_ms_per_step"] / unprofiled_ms, **result,
-        "h2d_copies_per_step": h2d_copy_sites(step, args.steps),
+        **trace_breakdown(step, args.steps),
     }))
 
 

@@ -26,7 +26,7 @@ from hulc_tpu.ops.plan_distributions import PlanDistribution as JaxPlanDistribut
 from hulc_tpu_torch import kernels
 from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_plain
 from hulc_tpu_torch.ops import frame_transforms, rotations
-from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
+from hulc_tpu_torch.ops.image_ops import normalize_table, preprocess_rgb_seq, preprocess_rgb_seq_plain
 from hulc_tpu_torch.ops.logistic_mixture import U_MAX, U_MIN, draw_uniforms, logistic_mixture_sample
 from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution
 
@@ -59,10 +59,25 @@ def test_preprocess_matches_jax(shape):
     np.testing.assert_allclose(got.numpy(), want, atol=2.4e-7, rtol=0)
 
 
+# The eval preprocess kernel normalizes through the 256-entry table: that
+# formulation must be the plain version bit for bit, for any (mean, std),
+# and agree with JAX as the plain version does (2.4e-7, two ulp near 1.0).
+@pytest.mark.parametrize("shape", [(1, 1, 37, 37, 3), (2, 1, 84, 84, 3)])
+@pytest.mark.parametrize("mean,std", [(0.5, 0.5), (0.45, 0.27)])
+def test_eval_preprocess_through_the_normalize_table_is_bit_equal(shape, mean, std):
+    imgs = np.random.default_rng(9).integers(0, 256, shape, np.uint8)
+    table = normalize_table(mean, std, torch.device("cpu"))
+    got = table[_t(imgs).long()].permute(0, 1, 4, 2, 3)
+    assert torch.equal(got, preprocess_rgb_seq_plain(_t(imgs), mean, std))
+    want = np.asarray(jax_preprocess(jnp.asarray(imgs), mean=mean, std=std)).transpose(0, 1, 4, 2, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=2.4e-7, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 21, 21, 64), (3, 4, 4, 64), (2, 7, 7, 5)])  # full, hulc_debug, odd
 @pytest.mark.parametrize("temperature", [1.0, 0.5, None])
-def test_spatial_softmax_matches_jax(temperature):
+def test_spatial_softmax_matches_jax(temperature, shape):
     rng = np.random.default_rng(1)
-    x = (3.0 * rng.normal(size=(3, 21, 21, 64))).astype(np.float32)
+    x = (3.0 * rng.normal(size=shape)).astype(np.float32)
     mod = JaxSpatialSoftmax(temperature=temperature)
     params = mod.init(jax.random.key(0), jnp.asarray(x))
     temp = 1.0 if temperature is None else temperature
@@ -72,7 +87,7 @@ def test_spatial_softmax_matches_jax(temperature):
     want = np.asarray(mod.apply(params, jnp.asarray(x)))
     temp_arg = torch.tensor([temp]) if temperature is None else temp
     got = spatial_softmax(_t(x.transpose(0, 3, 1, 2)), temp_arg)
-    assert got.shape == (3, 128)
+    assert got.shape == (shape[0], 2 * shape[3])
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 

@@ -51,7 +51,7 @@ from hulc_tpu_torch.ops.logistic_mixture import (
 )
 from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution
 from hulc_tpu_torch.training import schedules
-from hulc_tpu_torch.training.optimizers import AdamLowp
+from hulc_tpu_torch.training.optimizers import CHUNK, AdamLowp, pointer_table_rows
 from tests.torch_port_common import jax_random_params, port_model_from_jax
 
 torch.set_num_threads(1)
@@ -432,6 +432,20 @@ def test_adam_lowp_matches_optax_for_three_steps():
         np.testing.assert_array_equal(st["exp_avg"].float().numpy(), np.asarray(adam.mu[k], np.float32))
         np.testing.assert_array_equal(st["exp_avg_sq"].float().numpy(), np.asarray(adam.nu[k], np.float32))
         np.testing.assert_allclose(_np(p), np.asarray(j_params[k]), atol=1e-7, rtol=0)
+
+
+def test_adam_pointer_table_rows():
+    """One row per tensor: the four addresses, numel, and the index of the
+    tensor's first CHUNK-element chunk over the tensors before it; and the
+    number of chunks in all."""
+    sizes = (3, CHUNK, CHUNK + 1, 1)
+    ts = [[torch.zeros(n) for n in sizes] for _ in range(4)]
+    rows, n_chunks = pointer_table_rows(*ts)
+    assert rows == [
+        [ts[0][i].data_ptr(), ts[1][i].data_ptr(), ts[2][i].data_ptr(), ts[3][i].data_ptr(), n, first]
+        for i, (n, first) in enumerate(zip(sizes, (0, 1, 2, 4)))
+    ]
+    assert n_chunks == 5
 
 
 @pytest.mark.parametrize("kind", ["constant", "cosine_with_warmup", "linear_with_warmup"])
