@@ -26,7 +26,14 @@ it fails:
    and without a gripper): the inputs must reach every branch (both edge
    bins, interior, density fallback, clamp active); the forward must keep
    its gradients for the backward under autograd and keep and allocate
-   none under no_grad.
+   none under no_grad. The SpatialSoftmax kernels also on ``[1:]`` of the
+   (5, 3, 7, 7) map, a view 12 bytes off 16-byte alignment. The decoder
+   RNN's recurrence (B.6): the forward kernel against the plain loop, and
+   the autograd Function's four gradients (backward kernel, dW product,
+   bias sum) against the closed form and against autograd through the
+   loop, each within REC_REL relative L2, at the train step's (64, 32,
+   2048) through both layers, one and 64 serving lanes (S = 1, nonzero
+   carry), ``hulc_debug``'s H = 64 and an odd (3, 5, 37).
 4. serving main path, single lane: the full-width ``hulc`` HulcPolicy
    (random weights from ``--seed``, synthetic uint8 frames, 15-d
    robot_obs, 384-d language embedding) for ``--steps`` steps, across the
@@ -34,7 +41,8 @@ it fails:
 5. serving main path, batched: BatchedHulcPolicy with ``--lanes`` lanes
    and staggered per-lane replans.
    Launch counts are zeroed just before phase 4 and read just after
-   phase 5; every serving kernel must have launched.
+   phase 5; every serving kernel, the recurrence's forward among them,
+   must have launched.
 6. serving plain path: the same steps through a model built with
    use_kernels=False on the card, fed each step the state the kernel path
    had and the same noise (same generator seed); the actions must agree.
@@ -57,7 +65,10 @@ it fails:
    the step's shapes (the SpatialSoftmax forward, the backward also with a
    learnable temperature, the mixture NLL forward also under no_grad), its bound and
    its share of the bound, and fused fp32 Adam as the optimizer's
-   yardstick; the device time of an empty launch (``csrc/launch_floor.cu``),
+   yardstick; the recurrence's kernels at the step's shape (the forward
+   also at 1 and 64 lanes, the backward also with the dW product and the
+   bias sum) against the plain loop and cuDNN's relu RNN (W_ih = I) as
+   the library yardstick; the device time of an empty launch (``csrc/launch_floor.cu``),
    the floor under every kernel's; each kernel's registers, shared memory
    and spills from the build log.
 
@@ -103,6 +114,11 @@ STEP_GRAD_REL = 1e-4  # train step, relative L2 per parameter's gradient, or:
 NOISE_FACTOR = 2.0  # times the step's measured sensitivity (compare_train_plain)
 PLAN_TIE_MARGIN = 1e-3  # plan noise margin that float noise cannot cross (separate_plan_ties)
 ZERO_GRAD = 1e-7  # share of the gradient's norm below which a leaf's is rounding noise
+# B.6, the recurrence: y and each gradient against the plain version, as
+# whole tensors (fp32 sums in another order through up to 32 relu steps; a
+# unit within rounding of relu's edge may switch, so not per entry)
+REC_REL = 1e-5
+DECODER_ROWS, DECODER_SEQ = 64, 32  # the train step's decoder input: 2B = 64 windows of S = 32 frames
 
 
 def fail(msg: str) -> None:
@@ -136,18 +152,26 @@ def call_ms(fn, iters: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int, launches_per_call: int | None = None) -> float:
+def device_ms(fn, iters: int, launches_per_call: int | None = None, per_recorded: bool = False) -> float:
     """Device time per call: the CUDA activity torch.profiler records over
     ``iters`` calls (every kernel the call launches), after a warm-up. With
-    ``launches_per_call``, fails unless the profiler recorded every launch."""
+    ``launches_per_call``, fails unless the profiler recorded every launch;
+    with ``per_recorded`` too, the time is per recorded call instead (the
+    profiler drops some launches of the short cooperative kernels)."""
     from hulc_tpu_torch.evaluation.profile_policy import profile_calls
 
     _, ms, device = profile_calls(fn, iters)
     name = getattr(fn, "__qualname__", repr(fn))
     if not ms > 0:
         fail(f"the profiler recorded no device time for {name}")
-    if launches_per_call is not None and sum(e.count for e in device) != launches_per_call * iters:
-        fail(f"the profiler recorded {sum(e.count for e in device)} of {launches_per_call * iters} launches of {name}")
+    recorded = sum(e.count for e in device)
+    if per_recorded and launches_per_call:
+        if recorded < launches_per_call * iters:
+            print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}; "
+                  f"its time is per recorded launch")
+        return ms * iters * launches_per_call / recorded
+    if launches_per_call is not None and recorded != launches_per_call * iters:
+        fail(f"the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}")
     return ms
 
 
@@ -657,7 +681,8 @@ def check_ss_bwd(conv_map, grad, where):
     del got, want
     temp = torch.tensor([0.7], device=conv_map.device, requires_grad=True)
     want, want_t = torch.autograd.grad(spatial_softmax_plain(x, temp), (x, temp), grad)
-    x_k, temp_k = conv_map.clone().requires_grad_(), temp.detach().clone().requires_grad_()
+    # a leaf on conv_map's own memory: a misaligned view reaches the kernels as it is
+    x_k, temp_k = conv_map.detach().requires_grad_(), temp.detach().clone().requires_grad_()
     got, got_t = torch.autograd.grad(spatial_softmax(x_k, temp_k), (x_k, temp_k), grad)
     if not torch.allclose(got, want, rtol=SS_BWD_RTOL, atol=SS_BWD_ATOL):
         fail(f"SpatialSoftmax backward kernel, learnable T, at {where} {tuple(x.shape)}: "
@@ -753,8 +778,9 @@ def check_debug(seed):
     kernel, the SpatialSoftmax forward and backward at its shapes, and
     those and the eval preprocess again at odd shapes (a frame view one byte
     off alignment with w = 37, a (5, 3, 7, 7) map: unaligned heads, scalar
-    stores, a partial block). Returns the largest forward error, dx error
-    and dT relative error."""
+    stores, a partial block; and its view ``[1:]``, which starts 12 bytes
+    off 16-byte alignment, fixed and learnable T). Returns the largest
+    forward error, dx error and dT relative error."""
     from hulc_tpu_torch.config import get_config
     from hulc_tpu_torch.models import make_model
     from hulc_tpu_torch.ops.image_ops import draw_shifts, preprocess_rgb_seq_plain
@@ -779,10 +805,15 @@ def check_debug(seed):
         frames = preprocess_rgb_seq_plain(fused.rgb_static).flatten(0, 1)
         conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(frames).contiguous()
     odd = torch.randn((5, 3, 7, 7), generator=gen, device="cuda")
-    fwd_err = max(check_ss_fwd(conv_map, "hulc_debug"), check_ss_fwd(odd, "an odd shape"))
+    misaligned = odd[1:]  # starts 588 bytes in, 12 mod 16: the wrappers copy it to an aligned buffer
+    if misaligned.data_ptr() % 16 == 0:
+        fail("the misaligned SpatialSoftmax map starts 16-byte aligned")
+    fwd_err = max(check_ss_fwd(conv_map, "hulc_debug"), check_ss_fwd(odd, "an odd shape"),
+                  check_ss_fwd(misaligned, "a misaligned view"))
     errs = [check_ss_bwd(conv_map, torch.randn(conv_map.shape[0], 2 * conv_map.shape[1], generator=gen,
                                                device="cuda"), "hulc_debug")]
     errs.append(check_ss_bwd(odd, torch.randn((5, 6), generator=gen, device="cuda"), "an odd shape"))
+    errs.append(check_ss_bwd(misaligned, torch.randn((4, 6), generator=gen, device="cuda"), "a misaligned view"))
     print(f"[kernels] shift and eval preprocess bit-equal, SpatialSoftmax forward and backward (fixed and "
           f"learnable T) within tolerance at hulc_debug's shapes ({tuple(fused.rgb_static.shape)}, "
           f"{tuple(fused.rgb_gripper.shape)}, {tuple(conv_map.shape)}) and odd ones: forward max abs err "
@@ -790,6 +821,166 @@ def check_debug(seed):
           f"{max(e[1] for e in errs):.3g}")
     del model
     return fwd_err, max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def recurrence_case(b, s, h, gen, w=None, bias=None, xp=None, carry=True):
+    """One layer's inputs for B.6 and cotangents: W and b_hh at torch's
+    U(-1/sqrt(H), 1/sqrt(H)) unless given, xp ~ N(0, 1) unless given (about
+    half the units active), h0 and dcarry nonzero with ``carry`` (h0 a relu
+    of N(0, 1), as a carry is) or zeros and None, dy ~ N(0, 1)."""
+    dev = gen.device
+
+    def uniform(*shape):
+        return (2.0 * torch.rand(shape, generator=gen, device=dev) - 1.0) / h**0.5
+
+    w = uniform(h, h) if w is None else w.detach()
+    bias = uniform(h) if bias is None else bias.detach()
+    xp = torch.randn((b, s, h), generator=gen, device=dev) if xp is None else xp.detach()
+    h0 = torch.relu(torch.randn((b, h), generator=gen, device=dev)) if carry else torch.zeros((b, h), device=dev)
+    dcarry = torch.randn((b, h), generator=gen, device=dev) if carry else None
+    return xp, h0, w, bias, torch.randn((b, s, h), generator=gen, device=dev), dcarry
+
+
+def check_recurrence_case(xp, h0, w, bias, dy, dcarry, where):
+    """B.6 on one layer: the forward kernel's y (and its final state)
+    against the plain loop, and the autograd Function's four gradients (its
+    backward kernel, then the dW product and the bias sum) against
+    ``rnn_relu_bwd_plain`` on the plain y and against autograd through the
+    plain loop, each within REC_REL (relative L2). Returns (plain y, largest
+    absolute error of y, of the gradients)."""
+    from hulc_tpu_torch.ops.recurrence import rnn_relu, rnn_relu_bwd_plain, rnn_relu_fwd, rnn_relu_fwd_plain
+
+    shape = tuple(xp.shape)
+    got, got_last = rnn_relu_fwd(xp, h0, w, bias)
+    want = rnn_relu_fwd_plain(xp, h0, w, bias)
+    if not (rel_l2(got, want) <= REC_REL and torch.equal(got_last, got[:, -1])):
+        fail(f"recurrence forward kernel at {where} {shape}: relative L2 {rel_l2(got, want)}, "
+             f"final state equal to y[:, -1]: {torch.equal(got_last, got[:, -1])}")
+    outs = [dy] if dcarry is None else [dy, dcarry]
+    leaves = [t.clone().requires_grad_() for t in (xp, h0, w, bias)]
+    k_grads = torch.autograd.grad(rnn_relu(*leaves)[:len(outs)], leaves, outs)
+    closed = rnn_relu_bwd_plain(dy, want, dcarry, h0, w)
+    leaves = [t.clone().requires_grad_() for t in (xp, h0, w, bias)]
+    y = rnn_relu_fwd_plain(*leaves)
+    auto = torch.autograd.grad([y, y[:, -1]][:len(outs)], leaves, outs)
+    names = ("dxp", "dh0", "dW_hh", "db_hh")
+    errs = {f"{n} vs {ref}": rel_l2(g, r) for ref, wants in (("closed form", closed), ("autograd", auto))
+            for n, g, r in zip(names, k_grads, wants)}
+    if not max(errs.values()) <= REC_REL:
+        fail(f"recurrence backward at {where} {shape}: relative L2 {errs}")
+    bwd_err = max(max_abs(g, r) for g, r in zip(k_grads, auto))
+    print(f"[kernels] recurrence at {where} {shape} ({'nonzero' if dcarry is not None else 'zero'} carry): "
+          f"y relative L2 {rel_l2(got, want):.3g}, max abs err {max_abs(got, want):.3g}; gradients relative L2 "
+          f"up to {max(errs.values()):.3g}, max abs err {bwd_err:.3g}")
+    return want, max_abs(got, want), bwd_err
+
+
+def check_recurrence(model, seed):
+    """B.6 at every shape it runs at: the train step's (64, 32, 2048) through
+    both decoder layers (the model's weights; zero carry, no carry gradient,
+    as the step has), one and 64 serving lanes at S = 1 with a nonzero
+    carry, ``hulc_debug``'s H = 64 and an odd (3, 5, 37). Returns the
+    largest forward and gradient errors."""
+    import torch.nn.functional as F
+
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.models import make_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    rnn = model.action_decoder.rnn
+    h = rnn.hidden_size
+    params = [{n: getattr(rnn, f"{n}_l{k}") for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+              for k in range(rnn.num_layers)]
+    errs = []
+    for k, p in enumerate(params):
+        # layer 0's xp ~ N(0, 1); layer k > 0's is layer k - 1's plain output through W_ih
+        with torch.no_grad():
+            xp = None if k == 0 else F.linear(y, p["weight_ih"], p["bias_ih"])
+        case = recurrence_case(DECODER_ROWS, DECODER_SEQ, h, gen, p["weight_hh"], p["bias_hh"], xp, carry=False)
+        y, *e = check_recurrence_case(*case, f"the train step, layer {k}")
+        errs.append(e)
+    for lanes in (1, 64):
+        case = recurrence_case(lanes, 1, h, gen, params[0]["weight_hh"], params[0]["bias_hh"])
+        errs.append(check_recurrence_case(*case, f"{lanes} serving lane(s)")[1:])
+    debug = make_model(get_config("hulc_debug"), "cuda", seed=seed).action_decoder.rnn
+    case = recurrence_case(8, 8, debug.hidden_size, gen, debug.weight_hh_l0, debug.bias_hh_l0)
+    errs.append(check_recurrence_case(*case, "hulc_debug")[1:])
+    errs.append(check_recurrence_case(*recurrence_case(3, 5, 37, gen), "an odd shape")[1:])
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def time_recurrence(model, seed):
+    """Device ms of the B.6 kernels at the train step's (64, 32, 2048) (the
+    forward also at one and 64 serving lanes), of their plain versions on
+    the same inputs, and of cuDNN's relu RNN as the library yardstick: one
+    ``torch.nn.RNN`` layer with W_ih = I and b_ih = 0, so it computes the
+    same function of xp (plus one product by I), forward, and the backward of
+    its graph; the port never calls it. Also the whole recurrence backward
+    (kernel, dW product, bias sum) against autograd through the loop."""
+    from hulc_tpu_torch.ops.recurrence import (
+        dh_chain_plain, rnn_relu, rnn_relu_bwd, rnn_relu_fwd, rnn_relu_fwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    rnn = model.action_decoder.rnn
+    h = rnn.hidden_size
+    w, bias = rnn.weight_hh_l0.detach(), rnn.bias_hh_l0.detach()
+    cudnn = torch.nn.RNN(h, h, nonlinearity="relu", batch_first=True, device="cuda")
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(torch.eye(h, device="cuda"))
+        cudnn.bias_ih_l0.zero_()
+        cudnn.weight_hh_l0.copy_(w)
+        cudnn.bias_hh_l0.copy_(bias)
+    out = {}
+
+    def fwd_case(b, s):
+        xp, h0, *_ = recurrence_case(b, s, h, gen, w, bias, carry=s == 1)
+        with torch.no_grad():
+            lib_y, _ = cudnn(xp, h0[None])
+            if rel_l2(lib_y, rnn_relu_fwd_plain(xp, h0, w, bias)) > 1e-4:
+                fail(f"cuDNN's relu RNN does not compute the recurrence at {(b, s, h)}")
+        # W and y read or written once: (B S H) in and out, W, b_hh, h0
+        return (lambda: rnn_relu_fwd(xp, h0, w, bias), lambda: rnn_relu_fwd_plain(xp, h0, w, bias),
+                bound(4 * (2 * b * s * h + h * h + h + b * h), 2 * b * s * h * h), lambda: cudnn(xp, h0[None]))
+
+    xp, h0, _, _, dy, _ = recurrence_case(DECODER_ROWS, DECODER_SEQ, h, gen, w, bias, carry=False)
+    y, _ = rnn_relu_fwd(xp, h0, w, bias)
+    leaves_k = [t.clone().requires_grad_() for t in (xp, h0, w, bias)]
+    y_k, _ = rnn_relu(*leaves_k)
+    leaves_p = [t.clone().requires_grad_() for t in (xp, h0, w, bias)]
+    y_p = rnn_relu_fwd_plain(*leaves_p)
+    lib_xp, lib_h0 = xp.clone().requires_grad_(), h0[None].clone().requires_grad_()
+    lib_y, _ = cudnn(lib_xp, lib_h0)
+    lib_leaves = [lib_xp, lib_h0, *cudnn.parameters()]
+    b, s = xp.shape[:2]
+    cases = {
+        "rnn_relu_fwd": fwd_case(b, s),
+        "rnn_relu_fwd_64_lanes": fwd_case(64, 1),
+        "rnn_relu_fwd_1_lane": fwd_case(1, 1),
+        # dy, y in; dpre out; W; h0 out: the dh chain's 2 B S H^2 FLOP
+        "rnn_relu_bwd": (lambda: rnn_relu_bwd(dy, y, None, w), lambda: dh_chain_plain(dy, y, None, w),
+                         bound(4 * (3 * b * s * h + h * h + b * h), 2 * b * s * h * h),
+                         lambda: torch.autograd.grad(lib_y, lib_leaves, dy, retain_graph=True)),
+        # the Function's whole backward (dh chain, dW product, bias sum) against
+        # autograd through the loop: twice the FLOP, dW written too
+        "rnn_relu_backward_all": (
+            lambda: torch.autograd.grad(y_k, leaves_k, dy, retain_graph=True),
+            lambda: torch.autograd.grad(y_p, leaves_p, dy, retain_graph=True),
+            bound(4 * (4 * b * s * h + 2 * h * h + b * h), 4 * b * s * h * h),
+            lambda: torch.autograd.grad(lib_y, lib_leaves, dy, retain_graph=True),
+        ),
+    }
+    for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn) in cases.items():
+        launches = None if name == "rnn_relu_backward_all" else 1
+        ms_ = [device_ms(plain_fn, 20), device_ms(kernel_fn, 20, launches, per_recorded=True),
+               device_ms(kernel_fn, 20, launches, per_recorded=True), device_ms(plain_fn, 20)]
+        out[name] = {
+            "ms": min(ms_[1], ms_[2]), "plain_ms": min(ms_[0], ms_[3]), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": device_ms(library_fn, 20), "call_ms": call_ms(kernel_fn, 20),
+            "plain_call_ms": call_ms(plain_fn, 20),
+        }
+    out["rnn_relu_fwd"]["shape"] = out["rnn_relu_bwd"]["shape"] = [b, s, h]
+    return out
 
 
 def time_train_kernels(inp):
@@ -913,7 +1104,8 @@ def time_train_kernels(inp):
 
 TRAIN_KERNELS = (
     "hulc_preprocess_rgb_shift", "hulc_spatial_softmax", "hulc_spatial_softmax_bwd", "hulc_mixture_nll_fwd",
-    "hulc_mixture_nll_bwd", "hulc_plan_st_kl_fwd", "hulc_plan_st_kl_bwd", "hulc_adam_lowp",
+    "hulc_mixture_nll_bwd", "hulc_plan_st_kl_fwd", "hulc_plan_st_kl_bwd", "hulc_adam_lowp", "hulc_rnn_relu_fwd",
+    "hulc_rnn_relu_bwd",
 )
 
 
@@ -1092,6 +1284,8 @@ KERNEL_INFO = {
         "hulc_plan_st_kl_bwd", "hulc_tpu_torch/csrc/plan_kl.cu", "hulc_tpu/ops/plan_distributions.py:102",
     ),
     "adam_lowp": ("hulc_adam_lowp", "hulc_tpu_torch/csrc/adam_lowp.cu", "hulc_tpu/training/optimizers.py:24"),
+    "rnn_relu_fwd": ("hulc_rnn_relu_fwd", "hulc_tpu_torch/csrc/rnn_relu.cu", "hulc_tpu/models/layers.py:233"),
+    "rnn_relu_bwd": ("hulc_rnn_relu_bwd", "hulc_tpu_torch/csrc/rnn_relu.cu", "hulc_tpu/models/layers.py:265"),
 }
 
 
@@ -1107,6 +1301,8 @@ EXTRA_TIMINGS = {
     "logistic_mixture_sample": {"at_1_lane": "logistic_mixture_sample_1_lane"},
     "spatial_softmax_bwd": {"learnable_t": "spatial_softmax_bwd_learnable_t"},
     "mixture_nll_fwd": {"no_grad": "mixture_nll_fwd_no_grad"},
+    "rnn_relu_fwd": {"at_64_lanes": "rnn_relu_fwd_64_lanes", "at_1_lane": "rnn_relu_fwd_1_lane"},
+    "rnn_relu_bwd": {"with_weight_grads": "rnn_relu_backward_all"},
 }
 
 
@@ -1174,6 +1370,9 @@ def main(argv=None) -> int:
     nll_fwd_err, nll_bwd_err = check_mixture_shapes(args.seed)
     errs["mixture_nll_fwd"] = max(errs["mixture_nll_fwd"], nll_fwd_err)
     errs["mixture_nll_bwd"] = max(errs["mixture_nll_bwd"], nll_bwd_err)
+    if (DECODER_ROWS, DECODER_SEQ) != (2 * BATCH_PER_MOD, SEQ):
+        fail(f"the recurrence's step shape {(DECODER_ROWS, DECODER_SEQ)} is not the train step's")
+    errs["rnn_relu_fwd"], errs["rnn_relu_bwd"] = check_recurrence(model, args.seed)
 
     # ---- 4-5. serving main path ------------------------------------------------
     lang = rng.normal(size=384).astype(np.float32)
@@ -1187,7 +1386,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     serve_launches = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
     print(f"[serving main path] launches: {serve_launches}")
-    serving = [KERNEL_INFO[n][0] for n in ("preprocess_rgb", "spatial_softmax", "logistic_mixture_sample")]
+    serving = [KERNEL_INFO[n][0] for n in ("preprocess_rgb", "spatial_softmax", "logistic_mixture_sample",
+                                           "rnn_relu_fwd")]
     if not all(serve_launches[k] > 0 for k in serving):
         fail(f"a kernel of the serving path was never launched: {serve_launches}")
     check_actions("single lane", single_actions, 1)
@@ -1257,6 +1457,7 @@ def main(argv=None) -> int:
 
     # ---- 10. training timing -----------------------------------------------------
     timing.update(time_train_kernels(train_inputs))
+    timing.update(time_recurrence(model, args.seed))
     launch_floor_ms = timing.pop("launch_floor")["ms"]
     print(f"[timing] empty launch (csrc/launch_floor.cu): device time {launch_floor_ms:.6f} ms, the floor "
           f"under every kernel's device time ({card})")
@@ -1270,10 +1471,14 @@ def main(argv=None) -> int:
               f"cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms ({card})")
     for fn in ("preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
                "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "mixture_nll_fwd_kernel",
-               "mixture_nll_bwd_kernel"):
+               "mixture_nll_bwd_kernel", "rnn_relu_fwd_kernel", "rnn_relu_bwd_kernel"):
         r = resources[fn]
         print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
               f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")
+    hidden = cfg.action_decoder.hidden_size
+    rec_smem = 4 * (16 * ((hidden + 31) // 32 * 32 + 4) + 2 * 64 * 132)  # csrc/rnn_relu.cu smem_bytes
+    print(f"[timing] rnn_relu kernels at H = {hidden}: {rec_smem} B dynamic shared memory per block (the W "
+          f"slice and two chunk buffers), one block per SM, {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():

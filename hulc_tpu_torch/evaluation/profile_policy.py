@@ -72,7 +72,10 @@ def profile_calls(fn, iters: int, trace_path=None):
         time.sleep(WINDOW_PAD_S)
     if trace_path is not None:
         prof.export_chrome_trace(str(trace_path))
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    # a record_function span also shows on the device timeline, over the
+    # kernels it launched: count each kernel once
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(_device_us(e) for e in device) / 1e3
     return wall_ms / iters, device_ms / iters, device
 
@@ -81,6 +84,7 @@ HAND_KERNELS = (
     "preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
     "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "logistic_mixture_sample_kernel", "mixture_nll_fwd_kernel",
     "mixture_nll_bwd_kernel", "plan_st_kl_fwd_kernel", "plan_st_kl_bwd_kernel", "adam_lowp_kernel",
+    "rnn_relu_fwd_kernel", "rnn_relu_bwd_kernel",
 )
 
 

@@ -1,7 +1,8 @@
 """Logistic-mixture action decoder (port of hulc_tpu/models/decoders.py:41-214).
 
 A relu RNN with an explicit carry over concat(plan, a slice of the
-perceptual embedding, latent goal), three heads for the mixture's logits,
+perceptual embedding, latent goal; its recurrence a hand-written kernel
+per layer on CUDA tensors, forward and backward), three heads for the mixture's logits,
 log scales (clamped at ``log_scale_min``) and means, and a two-way gripper
 head. ``act`` samples one action per step through the mixture sampler
 (a hand-written kernel on CUDA tensors), picks the gripper by argmax, and
@@ -57,8 +58,9 @@ def decoder_carry(cfg: ActionDecoderConfig, batch_size: int, device) -> torch.Te
 class LogisticPolicyDecoder(nn.Module):
     """RNN + discretized logistic-mixture head (+ discrete gripper head).
 
-    ``use_kernels=False`` samples with the plain version on any device; it
-    exists to hold the kernel against it on the card.
+    ``use_kernels=False`` runs the RNN's recurrence and the sampler as
+    their plain versions on any device; it exists to hold the kernels
+    against them on the card.
     """
 
     def __init__(self, cfg: ActionDecoderConfig, use_kernels: bool = True):
@@ -73,7 +75,7 @@ class LogisticPolicyDecoder(nn.Module):
         if cfg.perceptual_emb_slice is not None:
             emb = cfg.perceptual_emb_slice[1] - cfg.perceptual_emb_slice[0]
         in_features = cfg.plan_features + emb + cfg.latent_goal_features
-        self.rnn = ScanRNN(in_features, cfg.hidden_size, cfg.num_layers, cfg.rnn_cell)
+        self.rnn = ScanRNN(in_features, cfg.hidden_size, cfg.num_layers, cfg.rnn_cell, use_kernels)
         a = self.cont_dims
         self.mean_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)
         self.log_scale_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)

@@ -5,8 +5,11 @@
 ``fc_model.2`` line up with the reference checkpoints. ``ScanRNN`` is the
 decoder's multi-layer relu RNN with an explicit (num_layers, B, H) carry:
 the input projection of every time step runs as one matmul before the
-loop, and the recurrence ``relu(x_t W_ih + b_ih + h W_hh + b_hh)`` is one
-fp32 ``addmm`` per step and layer; autograd differentiates the loop.
+recurrence ``relu(x_t W_ih + b_ih + h W_hh + b_hh)``. On CUDA tensors
+each layer's recurrence is one launch of a hand-written kernel, forward
+and backward (``ops.recurrence.rnn_relu``); on CPU tensors, or with
+``use_kernels=False``, it is the plain loop of one fp32 ``addmm`` per step,
+differentiated by autograd.
 ``TransformerEncoder`` is the plan recognition network's post-LN encoder,
 under torch ``nn.TransformerEncoder``'s parameter names.
 
@@ -25,6 +28,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from hulc_tpu_torch.ops.recurrence import rnn_relu, rnn_relu_fwd_plain
 
 ACTIVATIONS = {
     "relu": nn.ReLU,
@@ -90,12 +95,17 @@ class ScanRNN(nn.Module):
 
     Parameters carry torch ``nn.RNN``'s names (``weight_ih_l{k}``,
     ``weight_hh_l{k}``, ``bias_ih_l{k}``, ``bias_hh_l{k}``).
+    ``use_kernels=False`` runs the plain loop on any device; it exists to
+    hold the kernels against it on the card.
     """
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn"):
+    def __init__(
+        self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn", use_kernels: bool = True
+    ):
         super().__init__()
         if cell != "rnn":
             raise ValueError(f"rnn cell {cell!r} is not ported yet; only 'rnn' (relu) is")
+        self.use_kernels = use_kernels
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         for k in range(num_layers):
@@ -117,12 +127,11 @@ class ScanRNN(nn.Module):
             w_hh = getattr(self, f"weight_hh_l{k}")
             b_hh = getattr(self, f"bias_hh_l{k}")
             x_proj = F.linear(out, getattr(self, f"weight_ih_l{k}"), getattr(self, f"bias_ih_l{k}"))
-            h = carry[k]
-            steps = []
-            for t in range(x_proj.shape[1]):
-                h = torch.relu(x_proj[:, t] + torch.addmm(b_hh, h, w_hh.t()))
-                steps.append(h)
-            out = torch.stack(steps, dim=1)
+            if self.use_kernels and x_proj.device.type == "cuda":
+                out, h = rnn_relu(x_proj, carry[k].contiguous(), w_hh, b_hh)
+            else:
+                out = rnn_relu_fwd_plain(x_proj, carry[k], w_hh, b_hh)
+                h = out[:, -1]
             finals.append(h)
         return out, torch.stack(finals)
 

@@ -46,10 +46,16 @@ def spatial_softmax_plain(x: torch.Tensor, temperature: Union[float, torch.Tenso
     return torch.stack([expected_x, expected_y], dim=-1).reshape(n, 2 * c)
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when it starts 16-byte aligned, as the kernels' 16-byte
+    loads need, else a copy in a fresh buffer (the caching allocator aligns
+    it); ``.contiguous()`` would hand back a contiguous view unchanged."""
+    return x if x.data_ptr() % 16 == 0 else x.clone(memory_format=torch.contiguous_format)
+
+
 def _spatial_softmax_fwd(x: torch.Tensor, temperature: Union[float, torch.Tensor]) -> torch.Tensor:
     n, c, h, w = x.shape
-    if x.data_ptr() % 16:
-        raise ValueError("x must start 16-byte aligned")
+    x = _aligned(x)
     if isinstance(temperature, torch.Tensor):
         kernels.require_cuda_tensor("temperature", temperature, torch.float32)
         temp_ptr, temp_value = temperature.data_ptr(), 1.0
@@ -91,8 +97,7 @@ def spatial_softmax_bwd(
     pointer: no host sync."""
     n, c, h, w = x.shape
     kernels.require_cuda_tensor("x", x, torch.float32, 4)
-    if x.data_ptr() % 16:
-        raise ValueError("x must start 16-byte aligned")
+    x = _aligned(x)
     grad_out = grad_out.float().contiguous()
     kernels.require_cuda_tensor("grad_out", grad_out, torch.float32, 2)
     if grad_out.shape != (n, 2 * c):

@@ -16,8 +16,8 @@ CUDA operations that take the most device time; and, from ``--steps`` more
 steps profiled with shapes and Python stacks, the host-to-device copies
 per step, from pageable memory (each blocks the host until the stream
 drains) and from pinned memory, by the function of the port that issued
-them, and the device time of the decoder RNN's recurrent ``addmm`` and of
-its backward, apart from the other matmuls. With ``--out`` it also writes
+them, and the device time of the decoder RNN's recurrence by part (its
+forward and backward kernels, the dW product, the bias sum). With ``--out`` it also writes
 the Chrome trace there. Needs a CUDA device; TF32 is off, as in the fp32
 reference.
 """
@@ -39,8 +39,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from hulc_tpu_torch.config import HulcConfig, get_config
-from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, kind_of, profile_steps
+from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, profile_steps
 from hulc_tpu_torch.models.hulc import ModalityBatch
+from hulc_tpu_torch.ops.recurrence import SPANS
 from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
 BATCH_PER_MOD, SEQ = 32, 32  # windows per modality, frames per window
@@ -135,46 +136,37 @@ def _device_events(events, ops):
 
 
 def recurrence_split(events, steps: int) -> dict:
-    """The decoder RNN's recurrent ``addmm`` (``ScanRNN``: h W_hh^T + b_hh,
-    one per time step and layer) and its backward, apart from the other
-    matmuls, in a Chrome trace recorded with shapes and Python stacks. The
-    forward ops are the ``aten::addmm`` inside an ``nn.Module: ScanRNN``
-    span that no ``aten::linear`` encloses (the input projection's does);
-    their backward is the ``AddmmBackward0`` of the same sequence number.
-    Per step: calls, the input shapes, and the device ms of what each
-    launched, all of it and its matmul kernels; and the matmul kernels' ms
-    in the whole window, with the recurrence's share of it."""
+    """The decoder RNN's recurrence by part, in a Chrome trace: what was
+    launched inside each ``record_function`` span of
+    ``ops.recurrence.SPANS`` (the forward kernel, the backward kernel, the
+    one dW product, the bias sum). Per part and step: spans, device ms and
+    the names of the device operations; per span, the CPU ops inside it.
+    Then the recurrence's device ms per step and its share of all the
+    device time in the window."""
     ops = [e for e in events if e.get("cat") == "cpu_op"]
-    modules = _span_index(e for e in events if e.get("cat") == "python_function"
-                          and e.get("name", "").startswith("nn.Module: ScanRNN"))
-    linear = _span_index(e for e in ops if e["name"] == "aten::linear")
-    forward = [e for e in ops if e["name"] == "aten::addmm" and _inside(e, modules) and not _inside(e, linear)]
-    seq = {e["args"].get("Sequence number") for e in forward}
-    backward = [e for e in ops if e["name"] == "autograd::engine::evaluate_function: AddmmBackward0"
-                and e["args"].get("Sequence number") in seq]
-    matmul_us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel" and kind_of(e["name"]) == "matmuls")
+    device_us = sum(e.get("dur", 0) for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
 
-    def part(group, with_dims):
-        launched = _device_events(events, group)
-        out = {
-            "calls_per_step": len(group) / steps,
+    def part(name):
+        spans = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == name]
+        launched = _device_events(events, spans)
+        index = _span_index(spans)
+        inner = collections.Counter(e["name"] for e in ops if _inside(e, index))
+        return {
+            "calls_per_step": len(spans) / steps,
             "device_ms_per_step": sum(e.get("dur", 0) for e in launched) / 1e3 / steps,
-            "matmul_ms_per_step": sum(e.get("dur", 0) for e in launched if kind_of(e["name"]) == "matmuls") / 1e3 / steps,
+            "device_ops": sorted({e["name"][:80] for e in launched}),
+            "ops_per_call": {k: v / len(spans) for k, v in sorted(inner.items())} if spans else {},
         }
-        if with_dims:
-            out["input_dims"] = sorted({json.dumps(e["args"].get("Input Dims")) for e in group})
-        return out
 
-    fwd, bwd = part(forward, True), part(backward, False)
-    total = matmul_us / 1e3 / steps
-    return {"forward": fwd, "backward": bwd, "matmul_ms_per_step": total,
-            "share_of_matmuls": (fwd["matmul_ms_per_step"] + bwd["matmul_ms_per_step"]) / total if total else None}
+    parts = {key: part(name) for key, name in SPANS.items()}
+    total = sum(p["device_ms_per_step"] for p in parts.values())
+    return {**parts, "device_ms_per_step": total, "share_of_device": total * 1e3 * steps / device_us if device_us else None}
 
 
 def trace_breakdown(step, steps: int) -> dict:
     """``steps`` calls of ``step`` under torch.profiler with shapes and Python
     stacks; returns the host-to-device copies per step (``h2d_sites``) and
-    the recurrence's device time (``recurrence_split``)."""
+    the recurrence's device time by part (``recurrence_split``)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
                  with_stack=True) as prof:

@@ -1,6 +1,7 @@
 """The trace readers of hulc_tpu_torch.training.profile_train, on the CPU:
 host-to-device copies split by source memory and by issuing function, and
-the decoder RNN's recurrent addmm told apart from the other matmuls."""
+the decoder RNN's recurrence split by part (forward and backward kernels,
+the dW product, the bias sum) from the spans its autograd Function opens."""
 
 import json
 import pathlib
@@ -10,6 +11,7 @@ import torch.nn as nn
 from torch.profiler import ProfilerActivity, profile
 
 from hulc_tpu_torch.models.layers import MLP, ScanRNN
+from hulc_tpu_torch.ops.recurrence import SPANS, rnn_relu
 from hulc_tpu_torch.training.profile_train import h2d_sites, recurrence_split
 
 torch.set_num_threads(1)
@@ -45,9 +47,11 @@ def test_h2d_sites_split_pageable_and_pinned_copies_by_function():
 
 
 def test_recurrence_split_finds_the_recurrent_addmm_and_its_backward(tmp_path: pathlib.Path):
-    """A 2-layer ScanRNN over 3 steps between two Linear stacks: 6 recurrent
-    addmm (batch 4, hidden 8) and their 6 backward nodes, none of the
-    input projections' or the MLPs'. The CPU runs no device kernel."""
+    """Two recurrence layers through ``rnn_relu`` (the autograd Function the
+    CUDA path runs; on the CPU its plain versions) between Linear stacks:
+    two forward and two backward spans, each backward with ONE dW product
+    and one bias sum, and no CPU op of the MLPs inside a span. The CPU runs
+    no device kernel."""
     gen = torch.Generator().manual_seed(0)
     rnn, head = ScanRNN(6, 8, 2), MLP(8, [8, 8])
     mlp_in = MLP(5, [6])
@@ -55,15 +59,21 @@ def test_recurrence_split_finds_the_recurrent_addmm_and_its_backward(tmp_path: p
         nn.init.normal_(p, std=0.1, generator=gen)
     x = torch.randn(4, 3, 5, generator=gen)
     with profile(activities=[ProfilerActivity.CPU], record_shapes=True, with_stack=True) as prof:
-        y, _ = rnn(mlp_in(x))
-        head(y).sum().backward()
+        out = mlp_in(x)
+        for k in range(2):
+            xp = nn.functional.linear(out, getattr(rnn, f"weight_ih_l{k}"), getattr(rnn, f"bias_ih_l{k}"))
+            out, _ = rnn_relu(xp, torch.zeros(4, 8), getattr(rnn, f"weight_hh_l{k}"), getattr(rnn, f"bias_hh_l{k}"))
+        head(out).sum().backward()
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     split = recurrence_split(json.loads(path.read_text())["traceEvents"], 1)
-    assert split["forward"]["calls_per_step"] == 6 and split["backward"]["calls_per_step"] == 6
-    assert split["forward"]["input_dims"] == [json.dumps([[8], [4, 8], [8, 8], [], []])]
-    assert split["forward"]["device_ms_per_step"] == 0 and split["backward"]["matmul_ms_per_step"] == 0
-    assert split["matmul_ms_per_step"] == 0 and split["share_of_matmuls"] is None
+    assert [split[k]["calls_per_step"] for k in SPANS] == [2, 2, 2, 2]
+    assert split["weight_grad"]["ops_per_call"]["aten::mm"] == 1
+    assert split["bias_grad"]["ops_per_call"]["aten::sum"] == 1
+    assert "aten::addmm" in split["forward"]["ops_per_call"]  # the plain loop, on the CPU
+    assert "aten::linear" not in split["forward"]["ops_per_call"]
+    assert split["forward"]["device_ms_per_step"] == 0 and split["weight_grad"]["device_ops"] == []
+    assert split["device_ms_per_step"] == 0 and split["share_of_device"] is None
 
 
 def _launch(cat, corr, tid, ts, kernel, dur):
@@ -75,29 +85,30 @@ def _launch(cat, corr, tid, ts, kernel, dur):
 
 
 def test_recurrence_split_times_what_the_ops_launched():
-    """Device time goes to the op whose span holds the launch, through the
-    runtime or the driver (cuBLAS); only gemm kernels count as matmuls."""
-    def op(name, ts, dur, tid=1, seq=None):
-        return {"cat": "cpu_op", "name": name, "ts": ts, "dur": dur, "tid": tid,
-                "args": {"Sequence number": seq, "Input Dims": [[8], [4, 8], [8, 8], [], []]}}
+    """Device time goes to the span that holds the launch, through the
+    runtime or the driver (cuBLAS), on the span's thread; the share is of
+    all device time in the window."""
+    def span(name, ts, dur, tid=1):
+        return {"cat": "user_annotation", "name": name, "ts": ts, "dur": dur, "tid": tid}
 
     events = [
-        {"cat": "python_function", "name": "nn.Module: ScanRNN_0", "ts": 0, "dur": 100, "tid": 1},
-        op("aten::linear", 5, 20), op("aten::addmm", 6, 18, seq=1),  # the input projection
-        *_launch("cuda_driver", 1, 1, 8, "sm90_xmma_gemm_f32f32_proj", 40),
-        op("aten::addmm", 40, 10, seq=2),  # a recurrent step
-        *_launch("cuda_driver", 2, 1, 42, "sm90_xmma_gemm_f32f32_rec", 30),
-        *_launch("cuda_runtime", 3, 1, 45, "elementwise_copy_bias", 5),
-        op("aten::addmm", 200, 10, seq=3),  # outside the RNN
-        *_launch("cuda_driver", 4, 1, 202, "sm90_xmma_gemm_f32f32_head", 50),
-        op("autograd::engine::evaluate_function: AddmmBackward0", 300, 30, tid=2, seq=2),
-        *_launch("cuda_driver", 5, 2, 305, "sm90_xmma_gemm_f32f32_grad_input", 60),
-        *_launch("cuda_runtime", 6, 2, 310, "reduce_bias_grad", 8),
-        op("autograd::engine::evaluate_function: AddmmBackward0", 400, 30, tid=2, seq=3),
-        *_launch("cuda_driver", 7, 2, 405, "sm90_xmma_gemm_f32f32_other", 70),
+        span(SPANS["forward"], 0, 20),
+        *_launch("cuda_runtime", 1, 1, 5, "rnn_relu_fwd_kernel", 300),
+        *_launch("cuda_driver", 2, 1, 30, "sm90_xmma_gemm_f32f32_head", 50),  # outside every span
+        span(SPANS["backward"], 100, 20, tid=2),
+        *_launch("cuda_runtime", 3, 2, 105, "rnn_relu_bwd_kernel", 310),
+        *_launch("cuda_runtime", 4, 1, 110, "unrelated_on_another_thread", 5),
+        span(SPANS["weight_grad"], 130, 20, tid=2),
+        *_launch("cuda_runtime", 5, 2, 132, "CatArrayBatchedCopy", 10),
+        *_launch("cuda_driver", 6, 2, 135, "sm90_xmma_gemm_f32f32_dw", 120),
+        span(SPANS["bias_grad"], 160, 10, tid=2),
+        *_launch("cuda_runtime", 7, 2, 162, "reduce_kernel", 15),
     ]
     split = recurrence_split(events, 1)
-    assert split["forward"]["calls_per_step"] == 1 and split["backward"]["calls_per_step"] == 1
-    assert split["forward"]["device_ms_per_step"] == 35 / 1e3 and split["forward"]["matmul_ms_per_step"] == 30 / 1e3
-    assert split["backward"]["device_ms_per_step"] == 68 / 1e3 and split["backward"]["matmul_ms_per_step"] == 60 / 1e3
-    assert split["matmul_ms_per_step"] == 250 / 1e3 and split["share_of_matmuls"] == 90 / 250
+    assert split["forward"]["calls_per_step"] == 1 and split["forward"]["device_ms_per_step"] == 300 / 1e3
+    assert split["forward"]["device_ops"] == ["rnn_relu_fwd_kernel"]
+    assert split["backward"]["device_ms_per_step"] == 310 / 1e3
+    assert split["weight_grad"]["device_ms_per_step"] == 130 / 1e3
+    assert split["weight_grad"]["device_ops"] == ["CatArrayBatchedCopy", "sm90_xmma_gemm_f32f32_dw"]
+    assert split["bias_grad"]["device_ms_per_step"] == 15 / 1e3
+    assert split["device_ms_per_step"] == 755 / 1e3 and split["share_of_device"] == 755 / 810
