@@ -32,8 +32,10 @@ it fails:
    the autograd Function's four gradients (backward kernel, dW product,
    bias sum) against the closed form and against autograd through the
    loop, each within REC_REL relative L2, at the train step's (64, 32,
-   2048) through both layers, one and 64 serving lanes (S = 1, nonzero
-   carry), ``hulc_debug``'s H = 64 and an odd (3, 5, 37).
+   2048) through both layers, one, eight and 64 serving lanes (S = 1,
+   nonzero carry: the one-step GEMV launch up to eight rows, a one-step
+   cluster launch above), 96 rows (two row tiles) at (96, 3, 2048),
+   ``hulc_debug``'s H = 64, an odd (3, 5, 37) and a tiny (3, 5, 5).
 4. serving main path, single lane: the full-width ``hulc`` HulcPolicy
    (random weights from ``--seed``, synthetic uint8 frames, 15-d
    robot_obs, 384-d language embedding) for ``--steps`` steps, across the
@@ -68,7 +70,8 @@ it fails:
    yardstick; the recurrence's kernels at the step's shape (the forward
    also at 1 and 64 lanes, the backward also with the dW product and the
    bias sum) against the plain loop and cuDNN's relu RNN (W_ih = I) as
-   the library yardstick; the device time of an empty launch (``csrc/launch_floor.cu``),
+   the library yardstick, all by CUDA events (the profiler drops some of
+   the cooperative launches), with each launch's plan; the device time of an empty launch (``csrc/launch_floor.cu``),
    the floor under every kernel's; each kernel's registers, shared memory
    and spills from the build log.
 
@@ -878,9 +881,11 @@ def check_recurrence_case(xp, h0, w, bias, dy, dcarry, where):
 def check_recurrence(model, seed):
     """B.6 at every shape it runs at: the train step's (64, 32, 2048) through
     both decoder layers (the model's weights; zero carry, no carry gradient,
-    as the step has), one and 64 serving lanes at S = 1 with a nonzero
-    carry, ``hulc_debug``'s H = 64 and an odd (3, 5, 37). Returns the
-    largest forward and gradient errors."""
+    as the step has), one, eight and 64 serving lanes at S = 1 with a
+    nonzero carry (the one-step GEMV launch at one and eight, a one-step
+    cluster launch at 64), 96 rows at (96, 3, 2048), ``hulc_debug``'s H =
+    64, an odd (3, 5, 37) and a (3, 5, 5) that one block a cluster takes.
+    Returns the largest forward and gradient errors."""
     import torch.nn.functional as F
 
     from hulc_tpu_torch.config import get_config
@@ -899,14 +904,26 @@ def check_recurrence(model, seed):
         case = recurrence_case(DECODER_ROWS, DECODER_SEQ, h, gen, p["weight_hh"], p["bias_hh"], xp, carry=False)
         y, *e = check_recurrence_case(*case, f"the train step, layer {k}")
         errs.append(e)
-    for lanes in (1, 64):
+    for lanes, launch in ((1, "step"), (8, "step"), (64, "sequence")):
+        if recurrence_plan_for(lanes, 1, h, backward=False).launch != launch:
+            fail(f"the recurrence's forward at {lanes} lanes is not a {launch} launch")
         case = recurrence_case(lanes, 1, h, gen, params[0]["weight_hh"], params[0]["bias_hh"])
         errs.append(check_recurrence_case(*case, f"{lanes} serving lane(s)")[1:])
+    case = recurrence_case(96, 3, h, gen, params[0]["weight_hh"], params[0]["bias_hh"])
+    errs.append(check_recurrence_case(*case, "two row tiles")[1:])
     debug = make_model(get_config("hulc_debug"), "cuda", seed=seed).action_decoder.rnn
     case = recurrence_case(8, 8, debug.hidden_size, gen, debug.weight_hh_l0, debug.bias_hh_l0)
     errs.append(check_recurrence_case(*case, "hulc_debug")[1:])
     errs.append(check_recurrence_case(*recurrence_case(3, 5, 37, gen), "an odd shape")[1:])
+    errs.append(check_recurrence_case(*recurrence_case(3, 5, 5, gen), "a hidden size too small to split")[1:])
     return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def recurrence_plan_for(b, s, h, backward):
+    """The launch plan ``ops.recurrence`` makes for one layer on this card."""
+    from hulc_tpu_torch.ops.recurrence import device_plan
+
+    return device_plan(h, b, s, torch.cuda.current_device(), backward)
 
 
 def time_recurrence(model, seed):
@@ -916,7 +933,11 @@ def time_recurrence(model, seed):
     ``torch.nn.RNN`` layer with W_ih = I and b_ih = 0, so it computes the
     same function of xp (plus one product by I), forward, and the backward of
     its graph; the port never calls it. Also the whole recurrence backward
-    (kernel, dW product, bias sum) against autograd through the loop."""
+    (kernel, dW product, bias sum) against autograd through the loop. All
+    by CUDA events (``kernel_times.event_ms``: each window queued behind a
+    spin of the device, so the host's launch cost does not enter), in turns
+    plain, kernel, kernel, plain."""
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
     from hulc_tpu_torch.ops.recurrence import (
         dh_chain_plain, rnn_relu, rnn_relu_bwd, rnn_relu_fwd, rnn_relu_fwd_plain,
     )
@@ -970,15 +991,17 @@ def time_recurrence(model, seed):
             lambda: torch.autograd.grad(lib_y, lib_leaves, dy, retain_graph=True),
         ),
     }
+    plans = {"rnn_relu_fwd": (b, s, False), "rnn_relu_fwd_64_lanes": (64, 1, False),
+             "rnn_relu_fwd_1_lane": (1, 1, False), "rnn_relu_bwd": (b, s, True)}
     for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn) in cases.items():
-        launches = None if name == "rnn_relu_backward_all" else 1
-        ms_ = [device_ms(plain_fn, 20), device_ms(kernel_fn, 20, launches, per_recorded=True),
-               device_ms(kernel_fn, 20, launches, per_recorded=True), device_ms(plain_fn, 20)]
+        ms_ = [event_ms(plain_fn, 10), event_ms(kernel_fn), event_ms(kernel_fn), event_ms(plain_fn, 10)]
         out[name] = {
             "ms": min(ms_[1], ms_[2]), "plain_ms": min(ms_[0], ms_[3]), "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": device_ms(library_fn, 20), "call_ms": call_ms(kernel_fn, 20),
-            "plain_call_ms": call_ms(plain_fn, 20),
+            "library_ms": event_ms(library_fn, 10), "call_ms": call_ms(kernel_fn, 20),
+            "plain_call_ms": call_ms(plain_fn, 20), "timed_by": "CUDA events",
         }
+        if name in plans:
+            out[name]["plan"] = dataclasses.asdict(recurrence_plan_for(*plans[name][:2], h, plans[name][2]))
     out["rnn_relu_fwd"]["shape"] = out["rnn_relu_bwd"]["shape"] = [b, s, h]
     return out
 
@@ -1469,16 +1492,19 @@ def main(argv=None) -> int:
               f"(kernel / plain {t['ms'] / t['plain_ms']:.4f}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
               f"{100 * t['bound_share']:.1f}% of the bound{lib}; per call with the host's launch "
               f"cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms ({card})")
+    hidden = cfg.action_decoder.hidden_size
+    rec_plans = {d: recurrence_plan_for(DECODER_ROWS, DECODER_SEQ, hidden, d) for d in (False, True)}
     for fn in ("preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
                "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "mixture_nll_fwd_kernel",
-               "mixture_nll_bwd_kernel", "rnn_relu_fwd_kernel", "rnn_relu_bwd_kernel"):
+               "mixture_nll_bwd_kernel", "rnn_relu_fwd_kernel", "rnn_relu_bwd_kernel", "rnn_relu_step_kernel"):
         r = resources[fn]
         print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
               f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")
-    hidden = cfg.action_decoder.hidden_size
-    rec_smem = 4 * (16 * ((hidden + 31) // 32 * 32 + 4) + 2 * 64 * 132)  # csrc/rnn_relu.cu smem_bytes
-    print(f"[timing] rnn_relu kernels at H = {hidden}: {rec_smem} B dynamic shared memory per block (the W "
-          f"slice and two chunk buffers), one block per SM, {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    for backward, plan in rec_plans.items():
+        print(f"[timing] rnn_relu {'backward' if backward else 'forward'} at {(DECODER_ROWS, DECODER_SEQ, hidden)}: "
+              f"{-(-hidden // plan.cols)} clusters of {plan.cluster} blocks, {plan.cols} columns a cluster, "
+              f"k-slice {plan.k_slice}, {plan.smem_bytes} B dynamic shared memory per block, one block per SM, "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():

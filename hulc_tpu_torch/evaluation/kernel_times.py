@@ -12,11 +12,15 @@ SpatialSoftmax forward (B.2) at one lane, 64 lanes and the training step's
 (2048, 64, 21, 21); the training shift (B.1') on the step's two cameras and
 the SpatialSoftmax backward (B.2') at the step's shape. Device time is the
 CUDA activity torch.profiler records per call (the window padded with idle
-host time, as ``profile_policy.profile_calls`` does). It also gives a
+host time, as ``profile_policy.profile_calls`` does). The decoder RNN's
+recurrence (B.6), forward and dh chain at (64, 32, 2048), (64, 1, 2048)
+and (1, 1, 2048), is timed by CUDA events instead (``event_ms``: the
+profiler drops some of its cooperative launches). It also gives a
 digest of each kernel's output on fixed inputs from seed 0 (equal digests:
 bit-equal results) and the full-width ``hulc`` policy step's median
 host-clock ms at 1 and 64 lanes. Prints one JSON line, with the card's
-name and power limit. Needs a CUDA device.
+name and power limit. Needs a CUDA device. ``--only rnn_relu`` times only
+the cases whose names start so, and skips the policy.
 """
 
 from __future__ import annotations
@@ -53,6 +57,36 @@ def device_ms(fn, iters: int) -> float:
     us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
     return us / 1e3 / iters
+
+
+def event_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+    """Device ms per call of ``fn`` by CUDA events around ``iters``
+    back-to-back calls, median of ``repeats``. Each window is queued behind
+    a spin of the device (``torch.cuda._sleep``) that outlasts the host's
+    queueing of the calls, so the host's launch cost does not enter."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0  # an upper bound on queueing one call
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    cycles_per_s = 1e6 / (start.elapsed_time(end) / 1e3)
+    times = []
+    for _ in range(repeats):
+        torch.cuda._sleep(int(cycles_per_s * (iters * host_s + 2e-3)))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
 
 
 def card() -> str:
@@ -112,6 +146,7 @@ def policy_times(cfg, seed: int, lanes: int) -> dict:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--tree", type=pathlib.Path, required=True)
+    p.add_argument("--only", default="", help="time only the cases whose names start with this")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -122,6 +157,7 @@ def main(argv=None) -> None:
     from hulc_tpu_torch.config import get_config
     from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_bwd
     from hulc_tpu_torch.ops.image_ops import draw_shifts, preprocess_rgb_seq, preprocess_rgb_seq_shift
+    from hulc_tpu_torch.ops.recurrence import rnn_relu_bwd, rnn_relu_fwd
 
     kernels.library()
     cfg = get_config("hulc")
@@ -148,13 +184,34 @@ def main(argv=None) -> None:
     grad = torch.randn((2048, 128), generator=gen, device="cuda")
     cases["spatial_softmax_bwd train"] = lambda: spatial_softmax_bwd(conv_map, grad, 1.0)[0]
 
-    out = {"tree": str(args.tree), "card": card(), "device_ms": {}, "digest": {}}
+    # B.6 at the train step's shape and the serving shapes: W and b_hh at
+    # torch's U(-1/sqrt(H), 1/sqrt(H)), xp and dy ~ N(0, 1), a relu'd carry
+    hidden = cfg.action_decoder.hidden_size
+    w = (2.0 * torch.rand(hidden, hidden, generator=gen, device="cuda") - 1.0) / hidden**0.5
+    bias = (2.0 * torch.rand(hidden, generator=gen, device="cuda") - 1.0) / hidden**0.5
+    rnn_cases = {}
+    for b, s in ((64, 32), (64, 1), (1, 1)):
+        xp = torch.randn((b, s, hidden), generator=gen, device="cuda")
+        h0 = torch.randn((b, hidden), generator=gen, device="cuda").relu_()
+        dy = torch.randn((b, s, hidden), generator=gen, device="cuda")
+        y = rnn_relu_fwd(xp, h0, w, bias)[0]
+        rnn_cases[f"rnn_relu_fwd {b} {s}"] = lambda xp=xp, h0=h0: rnn_relu_fwd(xp, h0, w, bias)[0]
+        rnn_cases[f"rnn_relu_bwd {b} {s}"] = lambda dy=dy, y=y, h0=h0: rnn_relu_bwd(dy, y, h0, w)[0]
+
+    out = {"tree": str(args.tree), "card": card(), "device_ms": {}, "event_ms": {}, "digest": {}}
     for name, fn in cases.items():
+        if not name.startswith(args.only):
+            continue
         out["device_ms"][name] = device_ms(fn, ITERS)
         result = fn()
         out["digest"][name] = digest(torch.cat([r.flatten() for r in result]) if isinstance(result, list) else result)
+    for name, fn in rnn_cases.items():
+        if name.startswith(args.only):
+            out["event_ms"][name] = event_ms(fn)
+            out["digest"][name] = digest(fn())
     del train, shifts
-    out["policy_step_host_ms"] = policy_times(cfg, SEED, LANES)
+    if not args.only:
+        out["policy_step_host_ms"] = policy_times(cfg, SEED, LANES)
     print(json.dumps(out))
 
 

@@ -135,8 +135,9 @@ _SIGNATURES = {
     "hulc_plan_st_kl_fwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
     "hulc_plan_st_kl_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
     "hulc_adam_lowp": (_P, _I32, _I64, _I64, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32),
-    "hulc_rnn_relu_fwd": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32),
-    "hulc_rnn_relu_bwd": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32),
+    # the sizes, then ops.recurrence.RecurrencePlan's five fields
+    "hulc_rnn_relu_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 8),
+    "hulc_rnn_relu_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 8),
     "hulc_empty_launch": (),
 }
 
@@ -151,7 +152,52 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.hulc_error_string.argtypes = [ctypes.c_int]
     lib.hulc_error_string.restype = ctypes.c_char_p
+    lib.hulc_device_limits.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.hulc_device_limits.restype = ctypes.c_int
+    lib.hulc_rnn_cluster_limit.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.hulc_rnn_cluster_limit.restype = ctypes.c_int
+    lib.hulc_rnn_relu_check.argtypes = [ctypes.c_int] * 9
+    lib.hulc_rnn_relu_check.restype = ctypes.c_int
     return lib
+
+
+def _raise_if(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({library().hulc_error_string(err).decode()})")
+
+
+@functools.cache
+def device_limits(index: int) -> tuple[int, int]:
+    """(SM count, shared memory a block may opt in to, bytes) of CUDA device
+    ``index``, as the runtime reports them."""
+    lib = library()
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    _raise_if(lib.hulc_device_limits(index, ctypes.byref(sms), ctypes.byref(smem)), "hulc_device_limits")
+    return sms.value, smem.value
+
+
+@functools.cache
+def cluster_limits(index: int, sizes: tuple[int, ...]) -> dict[int, int]:
+    """{cluster size: clusters CUDA device ``index`` holds at once at one
+    block per SM}, for each of ``sizes``, as the runtime reports them."""
+    lib = library()
+    out = {}
+    with torch.cuda.device(index):
+        for size in sizes:
+            n = ctypes.c_int()
+            _raise_if(lib.hulc_rnn_cluster_limit(size, ctypes.byref(n)), "hulc_rnn_cluster_limit")
+            out[size] = n.value
+    return out
+
+
+def check_rnn_relu_plan(index: int, backward: bool, batch: int, seq: int, hidden: int,
+                        plan: tuple[int, ...]) -> None:
+    """``hulc_rnn_relu_check`` of a launch plan (``RecurrencePlan.c_args()``)
+    on CUDA device ``index``: raises if it refuses the plan. A sequence
+    kernel launches only after this."""
+    with torch.cuda.device(index):
+        err = library().hulc_rnn_relu_check(int(backward), batch, seq, hidden, *plan)
+    _raise_if(err, f"hulc_rnn_relu_check of the plan {plan} at {(batch, seq, hidden)}")
 
 
 class Kernel:

@@ -7,10 +7,14 @@ relu's gradient is the JAX package's custom VJP, ``g * (y > 0)``: 0 at
 exactly 0.
 
 On CUDA tensors ``rnn_relu`` is a ``torch.autograd.Function`` whose forward
-is ``csrc/rnn_relu.cu``'s persistent forward kernel (one launch a layer) and
-whose backward is that file's dh-chain kernel, then dW_hh as ONE matrix
-product over all S * B rows, ``dpre^T [h0, y_{:-1}]``, and db_hh as dpre's
-sum (``recurrence_weight_grads``). Each part runs inside a
+is ``csrc/rnn_relu.cu``'s forward (one launch a layer: the split-K cluster
+kernel over the sequence, or the one-step GEMV at a serving lane) and whose
+backward is that file's dh-chain kernel, then dW_hh as ONE matrix product
+over all S * B rows, ``dpre^T [h0, y_{:-1}]``, and db_hh as dpre's sum
+(``recurrence_weight_grads``). ``recurrence_plan`` chooses each launch's
+kernel, cluster size, k-split, columns and shared memory, once per shape
+(``device_plan``, cached), and csrc/rnn_relu.cu checks it against the card
+then. Each part runs inside a
 ``record_function`` span (``SPANS``) so a profile can find it. On CPU
 tensors the wrappers take the plain versions below: ``rnn_relu_fwd_plain``
 is the loop, ``rnn_relu_bwd_plain`` the closed form the backward computes.
@@ -18,14 +22,103 @@ is the loop, ``rnn_relu_bwd_plain`` the closed form the backward computes.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from hulc_tpu_torch import kernels
 
-MAX_COLS_PER_SM = 16  # csrc/rnn_relu.cu kCols: each block owns at most 16 columns of W
+# csrc/rnn_relu.cu's geometry
+ROWS = 64  # kRows: batch rows per tile of the sequence kernels
+CHUNK = 64  # kChunk: k values staged at a time
+SKEW = 4  # kSkew: floats of bank skew per shared-memory row
+COLS = 144  # kCols: output columns of a cluster of the sequence kernels
+STEP_ROWS = 8  # kStepRows: most rows of the one-step launch
+STEP_COLS = 8  # kStepWarps: columns per block of the one-step launch, one a warp
+# The cluster sizes (= k-splits) the sequence launch tries, in order: 8
+# (H = 2048 on an H100: 15 clusters, k-slice 256, on 120 SMs); 4 for an H
+# too small to give each of 8 blocks some k; 1 for one too small for 4.
+CLUSTERS = (8, 4, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecurrencePlan:
+    """One launch of ``csrc/rnn_relu.cu``, in the order its entry points take
+    the fields. ``launch`` "sequence": ceil(H / ``cols``) clusters of
+    ``cluster`` blocks of eight warps; cluster c owns the ``cols`` output
+    columns from c * ``cols``, its block of rank j the k-slice [j *
+    ``k_slice``, (j + 1) * ``k_slice``) and the reduce slice of ``cols //
+    cluster`` columns from c * ``cols`` + j * ``cols // cluster``; ``smem``
+    bytes of shared memory a block; cooperative (every cluster resident, one
+    grid barrier a step) unless it is a forward of one step. "step":
+    ceil(H / ``cols``) blocks of ``cols`` warps, one output column a warp,
+    over the whole k (``k_slice`` = H) for at most STEP_ROWS rows."""
+
+    launch: str
+    cluster: int
+    k_slice: int
+    cols: int
+    smem_bytes: int
+
+    def c_args(self) -> Tuple[int, ...]:
+        return 0 if self.launch == "sequence" else 1, self.cluster, self.k_slice, self.cols, self.smem_bytes
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def sequence_smem_bytes(k_slice: int, cluster: int, backward: bool) -> int:
+    """csrc/rnn_relu.cu ``sequence_smem_bytes``: the W slice (whole chunks
+    plus the skew per column), two chunk buffers, the partial product, and
+    the epilogue's inputs for the reduce slice (xp; or dy and y)."""
+    w_stride = _ceil(k_slice, CHUNK) * CHUNK + SKEW
+    return 4 * (COLS * w_stride + 2 * ROWS * (CHUNK + SKEW) + ROWS * (COLS + SKEW)
+                + (2 if backward else 1) * ROWS * (COLS // cluster))
+
+
+def recurrence_plan(hidden: int, batch: int, seq: int, sms: int, smem_optin: int, cluster_limits: Dict[int, int],
+                    backward: bool = False) -> RecurrencePlan:
+    """The launch for one layer at (batch, seq, hidden) on a card with
+    ``sms`` SMs, ``smem_optin`` bytes of shared memory a block and room for
+    ``cluster_limits[n]`` clusters of n blocks at once at one block per SM
+    (a cluster stays inside one GPC). The one-step GEMV for a forward
+    of one time step and at most STEP_ROWS rows; else the sequence launch
+    with the first of CLUSTERS whose blocks all hold k, whose shared memory
+    fits and whose clusters all fit at once. Raises ValueError when none
+    fits."""
+    if min(hidden, batch, seq) <= 0:
+        raise ValueError(f"recurrence_plan: hidden {hidden}, batch {batch}, seq {seq} must be positive")
+    if not backward and seq == 1 and batch <= STEP_ROWS:
+        return RecurrencePlan("step", 1, hidden, STEP_COLS, 0)
+    clusters = _ceil(hidden, COLS)
+    for cluster in CLUSTERS:
+        k_slice = _ceil(_ceil(hidden, cluster), 4) * 4
+        smem = sequence_smem_bytes(k_slice, cluster, backward)
+        if ((cluster - 1) * k_slice < hidden and smem <= smem_optin and clusters * cluster <= sms
+                and clusters <= cluster_limits[cluster]):
+            return RecurrencePlan("sequence", cluster, k_slice, COLS, smem)
+    raise ValueError(f"hidden size {hidden} is too large for the recurrence kernels on this card ({sms} SMs, "
+                     f"{smem_optin} B of shared memory a block, clusters at once {cluster_limits})")
+
+
+@functools.cache
+def device_plan(hidden: int, batch: int, seq: int, index: int, backward: bool) -> RecurrencePlan:
+    """``recurrence_plan`` for CUDA device ``index``, from what the runtime
+    reports, checked by csrc/rnn_relu.cu against the card. Made once per
+    shape: a launch only looks it up."""
+    plan = recurrence_plan(hidden, batch, seq, *kernels.device_limits(index),
+                           kernels.cluster_limits(index, CLUSTERS), backward)
+    kernels.check_rnn_relu_plan(index, backward, batch, seq, hidden, plan.c_args())
+    return plan
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
 
 # record_function span of each part of the recurrence, by the name
 # profile_train's recurrence_split reports it under
@@ -83,13 +176,6 @@ def rnn_relu_bwd_plain(
     return (dpre, dh0, *recurrence_weight_grads(dpre, h0, y))
 
 
-def _check_hidden(hidden: int, device: torch.device) -> None:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if hidden > MAX_COLS_PER_SM * sms:
-        raise ValueError(f"hidden size {hidden} is too large for the recurrence kernels' shared-memory "
-                         f"slice: at most {MAX_COLS_PER_SM * sms} on this card ({sms} SMs)")
-
-
 def rnn_relu_fwd(
     xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,11 +192,11 @@ def rnn_relu_fwd(
     if h0.shape != (b, h) or w_hh.shape != (h, h) or b_hh.shape != (h,):
         raise ValueError(f"rnn_relu_fwd: xp {tuple(xp.shape)}, h0 {tuple(h0.shape)}, w_hh {tuple(w_hh.shape)}, "
                          f"b_hh {tuple(b_hh.shape)} do not fit together")
-    _check_hidden(h, xp.device)
+    plan = device_plan(h, b, s, _index(xp.device), False)
     y = torch.empty_like(xp)
     h_last = torch.empty_like(h0)
     kernels.RNN_RELU_FWD(xp.device, xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                         y.data_ptr(), h_last.data_ptr(), b, s, h)
+                         y.data_ptr(), h_last.data_ptr(), b, s, h, *plan.c_args())
     return y, h_last
 
 
@@ -132,11 +218,11 @@ def rnn_relu_bwd(
     if dy.shape != y.shape or w_hh.shape != (h, h) or (dcarry is not None and dcarry.shape != (b, h)):
         raise ValueError(f"rnn_relu_bwd: dy {tuple(dy.shape)}, y {tuple(y.shape)}, w_hh {tuple(w_hh.shape)}, "
                          f"dcarry {None if dcarry is None else tuple(dcarry.shape)} do not fit together")
-    _check_hidden(h, y.device)
+    plan = device_plan(h, b, s, _index(y.device), True)
     dpre = torch.empty_like(y)
     dh0 = torch.empty((b, h), dtype=y.dtype, device=y.device)
     kernels.RNN_RELU_BWD(y.device, dy.data_ptr(), y.data_ptr(), None if dcarry is None else dcarry.data_ptr(),
-                         w_hh.data_ptr(), dpre.data_ptr(), dh0.data_ptr(), b, s, h)
+                         w_hh.data_ptr(), dpre.data_ptr(), dh0.data_ptr(), b, s, h, *plan.c_args())
     return dpre, dh0
 
 

@@ -12,9 +12,11 @@ import torch
 
 from hulc_tpu.models.layers import ScanRNN as JaxScanRNN
 
+from hulc_tpu_torch import kernels
 from hulc_tpu_torch.models.layers import ScanRNN
 from hulc_tpu_torch.models.vision import _aligned
-from hulc_tpu_torch.ops.recurrence import rnn_relu, rnn_relu_bwd_plain, rnn_relu_fwd_plain
+from hulc_tpu_torch.ops import recurrence
+from hulc_tpu_torch.ops.recurrence import rnn_relu, rnn_relu_bwd_plain, rnn_relu_fwd_plain, recurrence_plan
 
 torch.set_num_threads(1)
 
@@ -95,9 +97,18 @@ def _one_layer(hidden, seed):
     return params, xp, h0, dy, dcarry
 
 
-@pytest.mark.parametrize("hidden", [64, 37])
-def test_rnn_relu_fwd_plain_matches_jax(hidden):
+@pytest.mark.parametrize("hidden,batch,seq", [
+    pytest.param(64, B, S, id="64"),
+    pytest.param(37, B, S, id="37"),
+    # the serving shapes: one time step, one lane or a few (the one-step launch)
+    pytest.param(64, 1, 1, id="64-one-step-1-lane"),
+    pytest.param(64, 3, 1, id="64-one-step-3-lanes"),
+    pytest.param(37, 1, 1, id="37-one-step-1-lane"),
+    pytest.param(37, 3, 1, id="37-one-step-3-lanes"),
+])
+def test_rnn_relu_fwd_plain_matches_jax(hidden, batch, seq):
     params, xp, h0, _, _ = _one_layer(hidden, seed=hidden)
+    xp, h0 = xp[:batch, :seq], h0[:batch]
     want, _ = JaxScanRNN(hidden_size=hidden, num_layers=1, cell="rnn").apply(
         {"params": params}, jnp.asarray(xp), jnp.asarray(h0[None])
     )
@@ -186,3 +197,108 @@ def test_aligned_copies_a_misaligned_view():
     got = _aligned(view)
     assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, view)
     assert _aligned(x) is x
+
+
+# what this H100 (NVIDIA H100 80GB HBM3) reports: SMs, shared memory a block
+# may opt in to, and clusters it holds at once at one block per SM, by size
+H100_SMS, H100_SMEM_OPTIN = 132, 232_448
+H100_CLUSTERS = {8: 15, 4: 30, 1: 132}
+
+
+def _covered_once(ranges, n):
+    counts = np.zeros(n, int)
+    for lo, hi in ranges:
+        counts[lo:min(hi, n)] += 1
+    return bool(np.all(counts == 1))
+
+
+@pytest.mark.parametrize("seq", [1, 32])
+@pytest.mark.parametrize("batch", [1, 64, 96])
+@pytest.mark.parametrize("hidden", [37, 64, 2048, 5])
+def test_recurrence_plan_covers_every_column_and_k_once_and_fits(hidden, batch, seq):
+    """The launch plan of the forward and the backward (at the widths the
+    issue names, and a tiny H = 5 that only one block a cluster can split):
+    every output column and every k of W covered exactly once (columns by clusters and, within a
+    cluster, by reduce slices; k by the blocks of a cluster, none empty),
+    shared memory within the card's, every cluster resident at once, the
+    one-step GEMV only for a forward of one step at a few lanes."""
+    for backward in (False, True):
+        plan = recurrence_plan(hidden, batch, seq, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS, backward)
+        assert len(plan.c_args()) == 5
+        if plan.launch == "step":
+            assert not backward and seq == 1 and batch <= recurrence.STEP_ROWS
+            assert plan.k_slice == hidden and plan.smem_bytes == 0 and plan.cluster == 1
+            assert plan.cols == recurrence.STEP_COLS
+            blocks = -(-hidden // plan.cols)
+            assert _covered_once([(b * plan.cols, (b + 1) * plan.cols) for b in range(blocks)], hidden)
+            continue
+        assert plan.launch == "sequence"
+        assert (backward or seq > 1 or batch > recurrence.STEP_ROWS)
+        cl, cols, ks = plan.cluster, plan.cols, plan.k_slice
+        clusters = -(-hidden // cols)
+        assert cols == recurrence.COLS and cols % cl == 0 and ks % 4 == 0
+        assert _covered_once([(c * cols, (c + 1) * cols) for c in range(clusters)], hidden)
+        nred = cols // cl
+        assert _covered_once([(c * cols + j * nred, c * cols + (j + 1) * nred)
+                              for c in range(clusters) for j in range(cl)], hidden)
+        assert _covered_once([(j * ks, (j + 1) * ks) for j in range(cl)], hidden)
+        assert all(j * ks < hidden for j in range(cl))  # no block without k
+        assert 4 * cols * ks <= plan.smem_bytes <= H100_SMEM_OPTIN
+        assert clusters * cl <= H100_SMS and clusters <= H100_CLUSTERS[cl]
+
+
+def test_recurrence_plan_at_h2048_on_the_h100():
+    """H = 2048 on this H100: 15 clusters of 8 (not the 16 of 128 columns
+    it does not hold at once) of 144 columns, k-slice 256, on 120 SMs; the
+    smaller widths the smoke holds take clusters of 8, 4 and 1; one serving
+    lane takes the one-step launch."""
+    for backward in (False, True):
+        plan = recurrence_plan(2048, 64, 32, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS, backward)
+        assert (plan.launch, plan.cluster, plan.cols, plan.k_slice) == ("sequence", 8, 144, 256)
+    for hidden, cluster in ((64, 8), (37, 4), (5, 1)):
+        assert recurrence_plan(hidden, 3, 5, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS).cluster == cluster
+    assert recurrence_plan(2048, 1, 1, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS).launch == "step"
+
+
+@pytest.mark.parametrize("hidden,batch,seq,backward", [
+    (4096, 64, 32, False), (4096, 64, 32, True), (4096, 64, 1, False), (2048, 64, 32, True),
+])
+def test_recurrence_plan_raises_when_the_card_cannot_hold_it(hidden, batch, seq, backward):
+    """An H too large for the card's shared memory and SMs raises; so does
+    H = 2048 on a card that holds too few clusters of any size at once."""
+    limits = H100_CLUSTERS if hidden != 2048 else {8: 8, 4: 16, 1: 64}
+    with pytest.raises(ValueError, match="too large"):
+        recurrence_plan(hidden, batch, seq, H100_SMS, H100_SMEM_OPTIN, limits, backward)
+
+
+def test_recurrence_plan_matches_the_cuda_source():
+    """The plan's geometry is csrc/rnn_relu.cu's: its constants, and the
+    entry points' argument counts in kernels.py (the sizes, then the plan's
+    five fields)."""
+    import re
+
+    src = (kernels.CSRC_DIR / "rnn_relu.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kRows") == recurrence.ROWS and const("kChunk") == recurrence.CHUNK
+    assert const("kSkew") == recurrence.SKEW and const("kStepRows") == recurrence.STEP_ROWS
+    assert const("kStepThreads") // 32 == recurrence.STEP_COLS and const("kCols") == recurrence.COLS
+    assert const("kMaxCluster") >= max(recurrence.CLUSTERS)
+    for symbol in ("hulc_rnn_relu_fwd", "hulc_rnn_relu_bwd"):
+        assert len(kernels._SIGNATURES[symbol]) == 6 + 3 + 5
+
+
+def test_ptxas_report_names_each_entry_function():
+    """The build log's report is keyed by each kernel's own name."""
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119rnn_relu_fwd_kernelEPKfS1_S1_S1_PfS2_iiiiii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 254 registers, used 1 barriers\n"
+    )
+    assert kernels.ptxas_report(log) == {
+        "rnn_relu_fwd_kernel": {"stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+                                "registers": 254, "static_smem_bytes": 0},
+    }
