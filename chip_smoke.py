@@ -35,7 +35,17 @@ it fails:
    2048) through both layers, one, eight and 64 serving lanes (S = 1,
    nonzero carry: the one-step GEMV launch up to eight rows, a one-step
    cluster launch above), 96 rows (two row tiles) at (96, 3, 2048),
-   ``hulc_debug``'s H = 64, an odd (3, 5, 37) and a tiny (3, 5, 5).
+   ``hulc_debug``'s H = 64, an odd (3, 5, 37) and a tiny (3, 5, 5). Adam
+   (B.5) bit-equal to its plain version over two steps on the model's
+   parameters and at numel 1, 3, 4, 5, 16,383, 16,385 and 4,194,304, a
+   parameter without a gradient, a view of all four arrays and 500 small
+   tensors (two launches), and the wrapper refuses a p view 4 bytes off
+   its moments' 16-byte phase; the
+   gradient norm (B.7) the same pass
+   gives: its block partials within PARTIALS_RTOL of the plain sums of
+   their ranges and bit-equal on a second launch, the finish launch
+   bit-equal to its plain mirror, the norm within GRAD_NORM_RTOL of an
+   fp64 sum and of the plain ``global_norm``.
 4. serving main path, single lane: the full-width ``hulc`` HulcPolicy
    (random weights from ``--seed``, synthetic uint8 frames, 15-d
    robot_obs, 384-d language embedding) for ``--steps`` steps, across the
@@ -61,13 +71,19 @@ it fails:
    median after two warm-up steps, CUDA events and the host clock.
 9. training plain path: one step from the same params, batch, shifts and
    plan noise through use_kernels=False (recognition dropout 0 in both
-   runs, cuDNN deterministic); every loss and every gradient must agree.
-   Then the same with a learnable SpatialSoftmax temperature, set to 0.7.
+   runs, cuDNN deterministic); every loss (``grad_norm`` among them, from
+   the Adam pass against the plain ``global_norm``) and every gradient
+   must agree. Then the same with a learnable SpatialSoftmax temperature,
+   set to 0.7.
 10. training timing: each training kernel against its plain version at
    the step's shapes (the SpatialSoftmax forward, the backward also with a
    learnable temperature, the mixture NLL forward also under no_grad), its bound and
-   its share of the bound, and fused fp32 Adam as the optimizer's
-   yardstick; the recurrence's kernels at the step's shape (the forward
+   its share of the bound; the optimizer tail (Adam with the norm's
+   partials and the finish launch) against the plain tail (the eager norm,
+   then the plain update) and the library's (``get_total_norm`` and fused
+   fp32 Adam); the finish launch (B.7) against a plain sum of its
+   partials, its bound its own bytes, and beside it the whole norm's
+   bound, the eager norm and ``get_total_norm``; the recurrence's kernels at the step's shape (the forward
    also at 1 and 64 lanes, the backward also with the dW product and the
    bias sum) against the plain loop and cuDNN's relu RNN (W_ih = I) as
    the library yardstick, all by CUDA events (the profiler drops some of
@@ -117,6 +133,11 @@ STEP_GRAD_REL = 1e-4  # train step, relative L2 per parameter's gradient, or:
 NOISE_FACTOR = 2.0  # times the step's measured sensitivity (compare_train_plain)
 PLAN_TIE_MARGIN = 1e-3  # plan noise margin that float noise cannot cross (separate_plan_ties)
 ZERO_GRAD = 1e-7  # share of the gradient's norm below which a leaf's is rounding noise
+# B.7, the global gradient norm: fp64 partial sums of exact squares, so
+# within a few fp32 roundings of an fp64 sum; the plain fp32 global_norm
+# chains 106 fp32 sums, each within about 1e-7
+GRAD_NORM_RTOL = 1e-6
+PARTIALS_RTOL = 1e-12  # each block's fp64 sum against the plain fp64 sum of its range (another order)
 # B.6, the recurrence: y and each gradient against the plain version, as
 # whole tensors (fp32 sums in another order through up to 32 relu steps; a
 # unit within rounding of relu's edge may switch, so not per entry)
@@ -708,8 +729,6 @@ def check_shift(imgs, shifts, pad, where):
 def check_train_kernels(inp):
     """Each training kernel against its plain version on ``inp``; returns
     the largest absolute error of each."""
-    from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_lowp_update_plain
-
     errs = {}
     # B.1': a gather on uint8 and the plain version's normalize table, so bit-equal
     for cam, imgs in inp.frames.items():
@@ -742,26 +761,136 @@ def check_train_kernels(inp):
     want = torch.autograd.grad((p_st * inp.st_weight).sum() + (p_kl * inp.kl_weight).sum(), p_leaves)
     errs["plan_st_kl_bwd"] = check_grads("plan backward kernel", got, want)
 
-    # B.5: two steps on copies of the model's params, bit-equal (the second
-    # reads nonzero bf16 moments)
+    # B.5 and B.7: two steps on copies of the model's params, bit-equal (the
+    # second reads nonzero bf16 moments); the norm of the same gradients
+    check_adam_steps([p.numel() for p in inp.params], inp.params, inp.adam_grads, lambda *arrays: arrays)
+    errs["adam_lowp"] = 0.0
+    errs["grad_norm"] = check_grad_norm(lambda: adam_state(inp.params), inp.adam_grads, "the model's gradients")
+    check_adam_shapes(inp.params[0].device)
+    return errs
+
+
+def adam_state(params):
+    """Copies of ``params`` and zero bf16 moments, as AdamLowp starts."""
+    ps = [p.clone() for p in params]
+    return ps, [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps], [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+
+
+def check_grad_norm(make_state, grads, where):
+    """The two launches on fresh state (``make_state()``: params and zero
+    moments, as laid out for the kernel): the block partials against the
+    plain fp64 sums of each block's range (PARTIALS_RTOL), bit-equal on a
+    second launch; the finish bit-equal to its plain mirror of the same
+    order; the norm within GRAD_NORM_RTOL of an fp64 sum of the gradients
+    and of the plain ``global_norm``. Returns its absolute error against
+    the fp64 sum."""
+    from hulc_tpu_torch.training.optimizers import (
+        adam_lowp_launch, global_norm, grad_norm_finish, grad_norm_finish_plain, grad_norm_partials_plain,
+    )
+
+    c1, c2 = bias_corrections(1)
+    runs = []
+    for _ in range(2):
+        ps, ms, vs = make_state()
+        partials = adam_lowp_launch(ps, grads, ms, vs, 0.9, 0.999, 1e-8, -2e-4, c1, c2)
+        runs.append((partials, grad_norm_finish(partials)))
+    (partials, norm), (partials2, norm2) = runs
+    if not (torch.equal(partials, partials2) and torch.equal(norm, norm2)):
+        fail(f"grad norm at {where}: two launches on the same inputs differ")
+    want_partials = grad_norm_partials_plain(ps, grads)
+    if not torch.allclose(partials.cpu(), want_partials, rtol=PARTIALS_RTOL, atol=0):
+        fail(f"grad norm at {where}: block partials differ from the plain sums of their ranges by up to "
+             f"{max_abs(partials.cpu(), want_partials)}")
+    if not torch.equal(norm.cpu(), grad_norm_finish_plain(partials)):
+        fail(f"grad norm finish at {where}: {float(norm)!r}, its plain mirror {float(grad_norm_finish_plain(partials))!r}")
+    want = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads if g is not None)))
+    if not abs(float(norm) - want) <= GRAD_NORM_RTOL * want:
+        fail(f"grad norm at {where}: {float(norm)!r}, fp64 sum {want!r}")
+    if not torch.allclose(norm, global_norm(grads), rtol=GRAD_NORM_RTOL, atol=0):
+        fail(f"grad norm at {where}: {float(norm)!r}, plain global_norm {float(global_norm(grads))!r}")
+    return abs(float(norm) - want)
+
+
+def check_adam_shapes(device):
+    """B.5 and B.7 on the paths the step's tensors do not take: numel 1, 3,
+    4, 5, 16,383, 16,385 and 4,194,304 (a head, a scalar tail, one and
+    several blocks), a parameter without a gradient, zero gradients beside
+    nonzero ones, and all four arrays one element into their storage (a
+    head of 3); then 500 small tensors, more than one launch takes (two
+    launches). Two steps bit-equal to the plain version; the norm as
+    ``check_grad_norm``. A p that is a view 4 bytes past a 16-byte boundary
+    beside fresh g, m, v (its arrays at different phases) is refused."""
+    from hulc_tpu_torch.training.optimizers import MAX_GRADS_PER_LAUNCH, adam_lowp_update, vector_head
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    # 4,096 without a gradient, every other gradient of 16,383 zero, 1,001 as views
+    sizes = (1, 3, 4, 5, 16383, 16385, 4194304, 4096, 1001)
+    params = [torch.randn(n, generator=gen, device=device) for n in sizes]
+    grads = [1e-3 * torch.randn(n, generator=gen, device=device) for n in sizes]
+    grads[7] = None
+    grads[4][::2] = 0.0  # zero gradients beside nonzero ones in one warp
+
+    def shifted(t):
+        return torch.cat([t.new_zeros(1), t])[1:]
+
+    def lay_out(ps, ms, vs, gs):
+        """All four arrays of the last tensor moved one element into new storages."""
+        ps, ms, vs, gs = list(ps), list(ms), list(vs), list(gs)
+        for arrays in (ps, ms, vs, gs):
+            arrays[-1] = shifted(arrays[-1])
+        return ps, ms, vs, gs
+
+    ps, ms, vs, gs = lay_out(*adam_state(params), grads)
+    heads = {vector_head(p.data_ptr(), p.numel()) for p in ps}
+    if not {0, 3} <= heads:
+        fail(f"adam kernel check: the layouts did not reach a head of 0 and of 3, heads {sorted(heads)}")
+    check_adam_steps(sizes, params, grads, lay_out)
+    check_grad_norm(lambda: lay_out(*adam_state(params), grads)[:3], gs, f"sizes {sizes} with a view")
+
+    many = torch.randint(1, 40, (500,), generator=gen, device=device).tolist()
+    if not len(many) > MAX_GRADS_PER_LAUNCH:
+        fail("the many-tensor case fits one launch")
+    many_params = [torch.randn(n, generator=gen, device=device) for n in many]
+    many_grads = [1e-3 * torch.randn(n, generator=gen, device=device) for n in many]
+    check_adam_steps(many, many_params, many_grads, lambda *arrays: arrays)
+    check_grad_norm(lambda: adam_state(many_params), many_grads, "500 small tensors")
+
+    ps, ms, vs = adam_state(params[-1:])
+    try:
+        adam_lowp_update([shifted(ps[0])], grads[-1:], ms, vs, 0.9, 0.999, 1e-8, -2e-4, *bias_corrections(1))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail("adam kernel: a p view at another phase than its g, m, v was not refused")
+    print(f"[kernels] adam and grad norm at sizes {sizes} (4096 without a gradient, 1001 a view of all four "
+          f"arrays) and at 500 small tensors (two launches): bit-equal, norm within {GRAD_NORM_RTOL} of fp64; "
+          f"a p view 4 bytes off its moments' phase refused ({refusal})")
+
+
+def check_adam_steps(sizes, params, grads, lay_out):
+    """Two steps from zero moments through the kernel (on the tensors as
+    ``lay_out`` places them) and through the plain version: params and
+    moments bit-equal."""
+    from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_lowp_update_plain
+
     sides = []
-    for update in (adam_lowp_update, adam_lowp_update_plain):
-        ps = [p.clone() for p in inp.params]
-        ms = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
-        vs = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+    for kernel in (True, False):
+        ps, ms, vs = adam_state(params)
+        gs = list(grads)
+        if kernel:
+            ps, ms, vs, gs = lay_out(ps, ms, vs, gs)
         for count, lr in ((1, 2e-4), (2, 1e-4)):
             c1, c2 = bias_corrections(count)
-            if update is adam_lowp_update:
-                update(ps, inp.adam_grads, ms, vs, 0.9, 0.999, 1e-8, -lr, c1, c2)
+            if kernel:
+                adam_lowp_update(ps, gs, ms, vs, 0.9, 0.999, 1e-8, -lr, c1, c2)
             else:
-                for p, g, m, v in zip(ps, inp.adam_grads, ms, vs):
-                    update(p, g, m, v, 0.9, 0.999, 1e-8, -lr, c1, c2)
+                for p, g, m, v in zip(ps, gs, ms, vs):
+                    adam_lowp_update_plain(p, g, m, v, 0.9, 0.999, 1e-8, -lr, c1, c2)
         sides.append((ps, ms, vs))
     for what, got, want in zip(("params", "exp_avg", "exp_avg_sq"), sides[0], sides[1]):
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            fail(f"adam kernel: {what} not bit-equal to the plain version")
-    errs["adam_lowp"] = 0.0
-    return errs
+        for n, g, w in zip(sizes, got, want):
+            if not torch.equal(g, w):
+                fail(f"adam kernel: {what} of a {n}-element tensor not bit-equal to the plain version")
 
 
 def bias_corrections(count):
@@ -1008,12 +1137,17 @@ def time_recurrence(model, seed):
 
 def time_train_kernels(inp):
     """Device ms of each training kernel and of its plain version on the
-    same inputs, the bound, and fused fp32 Adam as the optimizer's yardstick."""
+    same inputs, the bound, and the library yardsticks: for the optimizer
+    tail (Adam and the gradient norm) fused fp32 Adam's step plus
+    ``torch.nn.utils.get_total_norm``, for the norm alone
+    ``get_total_norm``."""
     from hulc_tpu_torch import kernels
     from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_bwd, spatial_softmax_plain
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
     from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain
-    from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_lowp_update_plain
+    from hulc_tpu_torch.training.optimizers import (
+        PointerTable, adam_lowp_launch, adam_lowp_update, adam_lowp_update_plain, global_norm, grad_norm_finish,
+    )
 
     def shift(fn):
         return lambda: [fn(imgs, inp.shifts[cam], inp.pads[cam]) for cam, imgs in inp.frames.items()]
@@ -1043,12 +1177,13 @@ def time_train_kernels(inp):
                 plan_graph(inp, use_kernel)
         return run
 
-    ps = [p.clone() for p in inp.params]
-    ms = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
-    vs = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+    ps, ms, vs = adam_state(inp.params)
     c1, c2 = bias_corrections(1)
+    table = PointerTable()  # as AdamLowp keeps it: built on the first call only
 
     def adam_plain():
+        """The plain optimizer tail: the eager norm, then each tensor's update."""
+        global_norm(inp.adam_grads)
         for p, g, m, v in zip(ps, inp.adam_grads, ms, vs):
             adam_lowp_update_plain(p, g, m, v, 0.9, 0.999, 1e-8, -2e-4, c1, c2)
 
@@ -1056,6 +1191,15 @@ def time_train_kernels(inp):
     for p, g in zip(fused_params, inp.adam_grads):
         p.grad = g
     fused_adam = torch.optim.Adam(fused_params, lr=2e-4, fused=True)
+
+    def library_tail():
+        torch.nn.utils.get_total_norm(inp.adam_grads)
+        fused_adam.step()
+
+    p0, m0, v0 = adam_state(inp.params)
+    partials = adam_lowp_launch(p0, inp.adam_grads, m0, v0, 0.9, 0.999, 1e-8, -2e-4, c1, c2)
+    n_blocks = partials.numel()
+    del p0, m0, v0
 
     n_px = sum(t.numel() for t in inp.frames.values())
     n_frames = sum(t.shape[0] * t.shape[1] for t in inp.frames.values())
@@ -1099,17 +1243,25 @@ def time_train_kernels(inp):
         "plan_st_kl_bwd": (lambda: torch.autograd.grad(k_plan_loss, k_plan_leaves, retain_graph=True),
                            lambda: torch.autograd.grad(p_plan_loss, p_plan_leaves, retain_graph=True),
                            bound(20 * n_plan, 15 * n_plan), None),
-        # p, g, p' fp32 and m, v, m', v' bf16: 20 bytes; ~12 flops a param
-        "adam_lowp": (lambda: adam_lowp_update(ps, inp.adam_grads, ms, vs, 0.9, 0.999, 1e-8, -2e-4, c1, c2),
-                      adam_plain, bound(20 * n_params, 12 * n_params), fused_adam.step),
+        # the optimizer tail, B.5 and B.7: p, g, p' fp32 and m, v, m', v' bf16, 20 bytes,
+        # ~14 flops a param (the update, g^2 for the norm); 8 bytes of partials a block
+        "adam_lowp": (lambda: adam_lowp_update(ps, inp.adam_grads, ms, vs, 0.9, 0.999, 1e-8, -2e-4, c1, c2, table),
+                      adam_plain, bound(20 * n_params + 8 * n_blocks, 14 * n_params), library_tail),
+        # B.7's own launch, the finish: the partials to the norm, 8 bytes and one add a
+        # partial (its squares ride in the Adam pass, timed in the row above); the plain
+        # version sums the same partials on the card. No one PyTorch call takes partials
+        "grad_norm": (lambda: grad_norm_finish(partials), lambda: partials.sum().sqrt().float(),
+                      bound(8 * n_blocks + 4, n_blocks), None),
     }
     # these timed calls launch nothing else; hold the profiler to every launch
     one_launch = {"spatial_softmax_train", "mixture_nll_fwd", "mixture_nll_fwd_no_grad", "mixture_nll_bwd"}
+    # the finish launch is short, and the profiler drops some of its launches: time per recorded launch
+    per_recorded = {"grad_norm"}
     out = {"launch_floor": {"ms": device_ms(lambda: kernels.EMPTY_LAUNCH(inp.actions.device), 100, 1)}}
     for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn) in cases.items():
-        iters, launches = 20, 1 if name in one_launch else None
-        ms_ = [device_ms(plain_fn, iters), device_ms(kernel_fn, iters, launches),
-               device_ms(kernel_fn, iters, launches), device_ms(plain_fn, iters)]
+        iters, launches, rec = 20, 1 if name in one_launch | per_recorded else None, name in per_recorded
+        ms_ = [device_ms(plain_fn, iters), device_ms(kernel_fn, iters, launches, rec),
+               device_ms(kernel_fn, iters, launches, rec), device_ms(plain_fn, iters)]
         out[name] = {
             "ms": min(ms_[1], ms_[2]), "plain_ms": min(ms_[0], ms_[3]),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1117,6 +1269,14 @@ def time_train_kernels(inp):
             "call_ms": call_ms(kernel_fn, iters), "plain_call_ms": call_ms(plain_fn, iters),
         }
     out["spatial_softmax_train"]["shape"] = list(inp.conv_map.shape)
+    out["adam_lowp"].update(n_params=n_params, blocks=n_blocks)
+    # B.7 as a function, the gradients to their norm (4 bytes and 2 flops a param): the eager
+    # norm the port ran before, and get_total_norm; the port's cost of it is in adam_lowp's ms
+    out["grad_norm"].update(
+        n_params=n_params, partials=n_blocks, norm_bound_ms=bound(4 * n_params, 2 * n_params)[0],
+        norm_plain_ms=device_ms(lambda: global_norm(inp.adam_grads), 20),
+        norm_library_ms=device_ms(lambda: torch.nn.utils.get_total_norm(inp.adam_grads), 20),
+    )
     return out
 
 
@@ -1127,8 +1287,8 @@ def time_train_kernels(inp):
 
 TRAIN_KERNELS = (
     "hulc_preprocess_rgb_shift", "hulc_spatial_softmax", "hulc_spatial_softmax_bwd", "hulc_mixture_nll_fwd",
-    "hulc_mixture_nll_bwd", "hulc_plan_st_kl_fwd", "hulc_plan_st_kl_bwd", "hulc_adam_lowp", "hulc_rnn_relu_fwd",
-    "hulc_rnn_relu_bwd",
+    "hulc_mixture_nll_bwd", "hulc_plan_st_kl_fwd", "hulc_plan_st_kl_bwd", "hulc_adam_lowp", "hulc_grad_norm_finish",
+    "hulc_rnn_relu_fwd", "hulc_rnn_relu_bwd",
 )
 
 
@@ -1307,6 +1467,7 @@ KERNEL_INFO = {
         "hulc_plan_st_kl_bwd", "hulc_tpu_torch/csrc/plan_kl.cu", "hulc_tpu/ops/plan_distributions.py:102",
     ),
     "adam_lowp": ("hulc_adam_lowp", "hulc_tpu_torch/csrc/adam_lowp.cu", "hulc_tpu/training/optimizers.py:24"),
+    "grad_norm": ("hulc_grad_norm_finish", "hulc_tpu_torch/csrc/adam_lowp.cu", "hulc_tpu/training/trainer.py:258"),
     "rnn_relu_fwd": ("hulc_rnn_relu_fwd", "hulc_tpu_torch/csrc/rnn_relu.cu", "hulc_tpu/models/layers.py:233"),
     "rnn_relu_bwd": ("hulc_rnn_relu_bwd", "hulc_tpu_torch/csrc/rnn_relu.cu", "hulc_tpu/models/layers.py:265"),
 }
@@ -1444,7 +1605,9 @@ def main(argv=None) -> int:
     kernels.reset_launch_counts()
     step_losses, host, events = drive_training(trainer, train_batch, cfg.loss.kl_beta, args.train_steps)
     train_launches = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
-    print(f"[training main path] launches: {train_launches}")
+    table_builds = sum(t.builds for t in trainer.optimizer.tables.values())
+    print(f"[training main path] launches: {train_launches}; the Adam pointer table built {table_builds} "
+          f"times in {args.train_steps} steps")
     if not all(train_launches[k] > 0 for k in TRAIN_KERNELS):
         fail(f"a kernel of the training path was never launched: {train_launches}")
     for i, losses in enumerate(step_losses):
@@ -1496,7 +1659,8 @@ def main(argv=None) -> int:
     rec_plans = {d: recurrence_plan_for(DECODER_ROWS, DECODER_SEQ, hidden, d) for d in (False, True)}
     for fn in ("preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
                "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "mixture_nll_fwd_kernel",
-               "mixture_nll_bwd_kernel", "rnn_relu_fwd_kernel", "rnn_relu_bwd_kernel", "rnn_relu_step_kernel"):
+               "mixture_nll_bwd_kernel", "adam_lowp_kernel", "grad_norm_finish_kernel", "rnn_relu_fwd_kernel",
+               "rnn_relu_bwd_kernel", "rnn_relu_step_kernel"):
         r = resources[fn]
         print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
               f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")
@@ -1521,7 +1685,7 @@ def main(argv=None) -> int:
         "policy_step_ms": {"1": single_ms, str(args.lanes): batched_ms},
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
-                       "peak_memory_gb": peak_gb, "plain_path": train_check},
+                       "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,7 @@
-"""Device times of the image and SpatialSoftmax kernels, and the policy
-step's host-clock time, of one tree of this repository: for comparing two
-trees (a parent commit unpacked beside the working tree) on one card.
+"""Device times of the image, SpatialSoftmax, recurrence and optimizer
+kernels, and the policy and train steps' host-clock times, of one tree of
+this repository: for comparing two trees (a parent commit unpacked beside
+the working tree) on one card.
 
     python hulc_tpu_torch/evaluation/kernel_times.py --tree DIR
 
@@ -18,9 +19,22 @@ and (1, 1, 2048), is timed by CUDA events instead (``event_ms``: the
 profiler drops some of its cooperative launches). It also gives a
 digest of each kernel's output on fixed inputs from seed 0 (equal digests:
 bit-equal results) and the full-width ``hulc`` policy step's median
-host-clock ms at 1 and 64 lanes. Prints one JSON line, with the card's
-name and power limit. Needs a CUDA device. ``--only rnn_relu`` times only
-the cases whose names start so, and skips the policy.
+host-clock ms at 1 and 64 lanes.
+
+The optimizer tail (B.5 and B.7), ``AdamLowp.step``, which returns the
+gradient norm, runs on the full model's 47,053,559 parameters with random
+gradients from seed 0. It is timed by CUDA events, by the profiler (with
+its device launches per call, and the Adam kernel alone) and by the host
+clock to a sync; beside it the eager norm the step no longer runs
+(``optimizers.global_norm``, three launches per tensor) on the same
+gradients, timed the same ways; digests of the parameters, the moments and
+the norm after one step from the same state. The train step (the full-width ``Trainer``,
+2B = 64, S = 32): device operations and host-to-device copies per step
+under the profiler, device ms per step and the median host-clock step.
+
+Prints one JSON line, with the card's name and power limit. Needs a CUDA
+device. ``--only NAME[,NAME...]`` times only the cases whose names start
+with one of them, and skips the policy.
 """
 
 from __future__ import annotations
@@ -45,18 +59,7 @@ ITERS, LANES, SEED = 50, 64, 0
 
 def device_ms(fn, iters: int) -> float:
     """CUDA activity per call of ``fn`` over ``iters`` calls, after a warm-up."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(PAD_S)
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(PAD_S)
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    return op_counts(device_ops(fn, iters), iters)["device_ms"]
 
 
 def event_ms(fn, iters: int = 20, repeats: int = 5) -> float:
@@ -87,6 +90,111 @@ def event_ms(fn, iters: int = 20, repeats: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_ops(fn, iters: int) -> list:
+    """torch.profiler's CUDA operations (kernels, copies, fills; no
+    ``record_function`` ranges) over ``iters`` calls of ``fn`` after a
+    warm-up, each window padded with idle host time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PAD_S)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and _device_us(e) > 0]
+
+
+def _device_us(event) -> float:
+    return float(getattr(event, "self_device_time_total", 0.0))
+
+
+def op_counts(ops, iters: int) -> dict:
+    """Per call: device ms, kernels, host-to-device copies from pinned and
+    from pageable memory."""
+    def count(pred):
+        return sum(e.count for e in ops if pred(e.key)) / iters
+
+    return {
+        "device_ms": sum(_device_us(e) for e in ops) / 1e3 / iters,
+        "kernels": count(lambda k: not k.startswith(("Memcpy", "Memset"))),
+        "h2d_pinned": count(lambda k: k.startswith("Memcpy HtoD (Pinned")),
+        "h2d_pageable": count(lambda k: k.startswith("Memcpy HtoD (Pageable")),
+    }
+
+
+def optimizer_tail(cfg, out: dict) -> None:
+    """The optimizer tail of the tree (see the module's note) into ``out``."""
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training import optimizers
+
+    shapes = [p.shape for p in make_model(cfg, "cuda", seed=SEED).parameters()]
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = [torch.nn.Parameter(0.05 * torch.randn(s, generator=gen, device="cuda")) for s in shapes]
+        for p in params:
+            p.grad = 1e-3 * torch.randn(p.shape, generator=gen, device="cuda")
+        return params, optimizers.AdamLowp(params, lr=2e-4)
+
+    params, opt = fresh()
+    norm = opt.step()
+    moments = [opt.state[p][k].flatten().view(torch.int16) for k in ("exp_avg", "exp_avg_sq") for p in params]
+    out["digest"].update({
+        "optimizer_tail params": digest(torch.cat([p.detach().flatten() for p in params])),
+        "optimizer_tail moments": digest(torch.cat(moments)),
+        "optimizer_tail grad_norm": digest(norm),
+    })
+    out["grad_norm"] = float(norm)
+    del moments
+    params, opt = fresh()
+
+    def synced():
+        opt.step()
+        torch.cuda.synchronize()
+
+    grads = [p.grad for p in params]
+
+    def eager_norm():
+        return optimizers.global_norm(grads)
+
+    def eager_synced():
+        eager_norm()
+        torch.cuda.synchronize()
+
+    out["event_ms"]["optimizer_tail"] = event_ms(opt.step)
+    out["event_ms"]["eager_norm"] = event_ms(eager_norm)
+    ops = device_ops(opt.step, ITERS)
+    out["optimizer_tail"] = {
+        "n_params": sum(p.numel() for p in params), **op_counts(ops, ITERS),
+        "host_ms_to_sync": host_ms(synced, 30),
+        "adam_kernel_ms": next(_device_us(e) / 1e3 / e.count for e in ops if "adam_lowp_kernel" in e.key),
+    }
+    out["eager_norm"] = {**op_counts(device_ops(eager_norm, ITERS), ITERS), "host_ms_to_sync": host_ms(eager_synced, 30)}
+
+
+def train_step_counts(cfg, out: dict) -> None:
+    """Device operations, copies and device ms per train step under the
+    profiler, and the median host-clock step, into ``out``."""
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(cfg, TrainerConfig(seed=SEED), device="cuda")
+    trainer.init_state(1)
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, SEED, "cuda")
+
+    def step():
+        trainer.train_step(batch, cfg.loss.kl_beta)
+
+    def synced():
+        step()
+        torch.cuda.synchronize()
+
+    out["train_step"] = {**op_counts(device_ops(step, 5), 5), "host_ms": host_ms(synced, 10)}
 
 
 def card() -> str:
@@ -146,7 +254,8 @@ def policy_times(cfg, seed: int, lanes: int) -> dict:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--tree", type=pathlib.Path, required=True)
-    p.add_argument("--only", default="", help="time only the cases whose names start with this")
+    p.add_argument("--only", default="", help="time only the cases whose names start with one of these "
+                                              "(comma-separated)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -199,14 +308,21 @@ def main(argv=None) -> None:
         rnn_cases[f"rnn_relu_bwd {b} {s}"] = lambda dy=dy, y=y, h0=h0: rnn_relu_bwd(dy, y, h0, w)[0]
 
     out = {"tree": str(args.tree), "card": card(), "device_ms": {}, "event_ms": {}, "digest": {}}
+    def wanted(name):
+        return any(name.startswith(prefix) for prefix in args.only.split(","))
+
+    if wanted("optimizer_tail"):
+        optimizer_tail(cfg, out)
+    if wanted("train_step"):
+        train_step_counts(cfg, out)
     for name, fn in cases.items():
-        if not name.startswith(args.only):
+        if not wanted(name):
             continue
         out["device_ms"][name] = device_ms(fn, ITERS)
         result = fn()
         out["digest"][name] = digest(torch.cat([r.flatten() for r in result]) if isinstance(result, list) else result)
     for name, fn in rnn_cases.items():
-        if name.startswith(args.only):
+        if wanted(name):
             out["event_ms"][name] = event_ms(fn)
             out["digest"][name] = digest(fn())
     del train, shifts

@@ -82,8 +82,9 @@ def profile_calls(fn, iters: int, trace_path=None):
 
 HAND_KERNELS = (
     "preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
-    "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "logistic_mixture_sample_kernel", "mixture_nll_fwd_kernel",
-    "mixture_nll_bwd_kernel", "plan_st_kl_fwd_kernel", "plan_st_kl_bwd_kernel", "adam_lowp_kernel",
+    "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "logistic_mixture_sample_kernel",
+    "mixture_nll_fwd_kernel", "mixture_nll_bwd_kernel", "plan_st_kl_fwd_kernel", "plan_st_kl_bwd_kernel",
+    "adam_lowp_kernel", "grad_norm_finish_kernel",
     "rnn_relu_fwd_kernel", "rnn_relu_bwd_kernel", "rnn_relu_step_kernel",
 )
 

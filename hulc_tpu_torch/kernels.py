@@ -134,7 +134,8 @@ _SIGNATURES = {
     "hulc_mixture_nll_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32),
     "hulc_plan_st_kl_fwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
     "hulc_plan_st_kl_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
-    "hulc_adam_lowp": (_P, _I32, _I64, _I64, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32),
+    "hulc_adam_lowp": (_P, _I32, _I32, _I32, _I64, _I64, _I64, _P, _P, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32),
+    "hulc_grad_norm_finish": (_P, _I64, _P),
     # the sizes, then ops.recurrence.RecurrencePlan's five fields
     "hulc_rnn_relu_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 8),
     "hulc_rnn_relu_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 8),
@@ -231,6 +232,7 @@ MIXTURE_NLL_BWD = Kernel("hulc_mixture_nll_bwd")
 PLAN_ST_KL_FWD = Kernel("hulc_plan_st_kl_fwd")
 PLAN_ST_KL_BWD = Kernel("hulc_plan_st_kl_bwd")
 ADAM_LOWP = Kernel("hulc_adam_lowp")
+GRAD_NORM_FINISH = Kernel("hulc_grad_norm_finish")
 RNN_RELU_FWD = Kernel("hulc_rnn_relu_fwd")
 RNN_RELU_BWD = Kernel("hulc_rnn_relu_bwd")
 # no work: its device time is the floor under every kernel's (measured, never on a path)
@@ -238,7 +240,7 @@ EMPTY_LAUNCH = Kernel("hulc_empty_launch")
 ALL_KERNELS = (
     PREPROCESS_RGB, PREPROCESS_RGB_SHIFT, SPATIAL_SOFTMAX, SPATIAL_SOFTMAX_BWD,
     LOGISTIC_MIXTURE_SAMPLE, MIXTURE_NLL_FWD, MIXTURE_NLL_BWD, PLAN_ST_KL_FWD, PLAN_ST_KL_BWD,
-    ADAM_LOWP, RNN_RELU_FWD, RNN_RELU_BWD,
+    ADAM_LOWP, GRAD_NORM_FINISH, RNN_RELU_FWD, RNN_RELU_BWD,
 )
 
 

@@ -16,8 +16,11 @@ CUDA operations that take the most device time; and, from ``--steps`` more
 steps profiled with shapes and Python stacks, the host-to-device copies
 per step, from pageable memory (each blocks the host until the stream
 drains) and from pinned memory, by the function of the port that issued
-them, and the device time of the decoder RNN's recurrence by part (its
-forward and backward kernels, the dW product, the bias sum). With ``--out`` it also writes
+them, the device operations launched per step (kernels, copies, fills),
+the optimizer tail (``AdamLowp.step``'s span: the Adam kernel and the
+gradient norm's finish launch), and the device time of the decoder RNN's
+recurrence by part (its forward and backward kernels, the dW product, the
+bias sum). With ``--out`` it also writes
 the Chrome trace there. Needs a CUDA device; TF32 is off, as in the fp32
 reference.
 """
@@ -42,9 +45,11 @@ from hulc_tpu_torch.config import HulcConfig, get_config
 from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, profile_steps
 from hulc_tpu_torch.models.hulc import ModalityBatch
 from hulc_tpu_torch.ops.recurrence import SPANS
+from hulc_tpu_torch.training.optimizers import OPTIMIZER_SPAN
 from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
 BATCH_PER_MOD, SEQ = 32, 32  # windows per modality, frames per window
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # a Chrome trace's device activity
 
 
 def synthetic_fused_batch(
@@ -127,46 +132,57 @@ def _device_events(events, ops):
     """The device activity (kernels, copies, fills) launched by runtime or
     driver calls (cuBLAS launches through the driver) inside the spans of
     ``ops``, on the op's thread."""
-    device = {e["args"].get("correlation"): e for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    device = {e["args"].get("correlation"): e for e in events if e.get("cat") in DEVICE_CATS}
     index = _span_index(ops)
     return [device[e["args"]["correlation"]] for e in events
             if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("args", {}).get("correlation") in device
             and _inside(e, index)]
 
 
+def span_part(events, name: str, steps: int) -> dict:
+    """What was launched inside each ``record_function`` span ``name`` of a
+    Chrome trace, per step: spans, device ms and the names of the device
+    operations; per span, the CPU ops inside it."""
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    spans = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == name]
+    launched = _device_events(events, spans)
+    index = _span_index(spans)
+    inner = collections.Counter(e["name"] for e in ops if _inside(e, index))
+    return {
+        "calls_per_step": len(spans) / steps,
+        "device_ms_per_step": sum(e.get("dur", 0) for e in launched) / 1e3 / steps,
+        "device_ops": sorted({e["name"][:80] for e in launched}),
+        "ops_per_call": {k: v / len(spans) for k, v in sorted(inner.items())} if spans else {},
+    }
+
+
 def recurrence_split(events, steps: int) -> dict:
     """The decoder RNN's recurrence by part, in a Chrome trace: what was
     launched inside each ``record_function`` span of
     ``ops.recurrence.SPANS`` (the forward kernel, the backward kernel, the
-    one dW product, the bias sum). Per part and step: spans, device ms and
-    the names of the device operations; per span, the CPU ops inside it.
-    Then the recurrence's device ms per step and its share of all the
-    device time in the window."""
-    ops = [e for e in events if e.get("cat") == "cpu_op"]
-    device_us = sum(e.get("dur", 0) for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-
-    def part(name):
-        spans = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == name]
-        launched = _device_events(events, spans)
-        index = _span_index(spans)
-        inner = collections.Counter(e["name"] for e in ops if _inside(e, index))
-        return {
-            "calls_per_step": len(spans) / steps,
-            "device_ms_per_step": sum(e.get("dur", 0) for e in launched) / 1e3 / steps,
-            "device_ops": sorted({e["name"][:80] for e in launched}),
-            "ops_per_call": {k: v / len(spans) for k, v in sorted(inner.items())} if spans else {},
-        }
-
-    parts = {key: part(name) for key, name in SPANS.items()}
+    one dW product, the bias sum), as ``span_part`` gives it. Then the
+    recurrence's device ms per step and its share of all the device time in
+    the window."""
+    device_us = sum(e.get("dur", 0) for e in events if e.get("cat") in DEVICE_CATS)
+    parts = {key: span_part(events, name, steps) for key, name in SPANS.items()}
     total = sum(p["device_ms_per_step"] for p in parts.values())
     return {**parts, "device_ms_per_step": total, "share_of_device": total * 1e3 * steps / device_us if device_us else None}
 
 
+def device_launches(events, steps: int) -> Dict[str, float]:
+    """Device operations per step in a Chrome trace, by kind: kernels,
+    copies (``gpu_memcpy``) and fills (``gpu_memset``)."""
+    counts = collections.Counter(e.get("cat") for e in events if e.get("cat") in DEVICE_CATS)
+    return {"kernels": counts["kernel"] / steps, "copies": counts["gpu_memcpy"] / steps,
+            "fills": counts["gpu_memset"] / steps}
+
+
 def trace_breakdown(step, steps: int) -> dict:
     """``steps`` calls of ``step`` under torch.profiler with shapes and Python
-    stacks; returns the host-to-device copies per step (``h2d_sites``) and
-    the recurrence's device time by part (``recurrence_split``)."""
+    stacks; returns the host-to-device copies per step (``h2d_sites``), the
+    device operations per step (``device_launches``), the optimizer tail
+    (``span_part`` of ``OPTIMIZER_SPAN``) and the recurrence's device time
+    by part (``recurrence_split``)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
                  with_stack=True) as prof:
@@ -179,7 +195,8 @@ def trace_breakdown(step, steps: int) -> dict:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    return {"h2d_copies_per_step": h2d_sites(events, steps), "recurrence": recurrence_split(events, steps)}
+    return {"h2d_copies_per_step": h2d_sites(events, steps), "device_launches_per_step": device_launches(events, steps),
+            "optimizer": span_part(events, OPTIMIZER_SPAN, steps), "recurrence": recurrence_split(events, steps)}
 
 
 def main(argv=None) -> None:

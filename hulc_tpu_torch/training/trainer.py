@@ -11,8 +11,10 @@ schedule. ``train_step(raw_batch, kl_beta)`` runs one optimizer step:
 1. on-device preprocessing with the random shift (``training.preprocess``);
 2. ``HulcModel.train_losses`` (the fused pass for a ``{"fused": 2B}`` batch);
 3. the backward of ``total_loss``;
-4. the global gradient norm, reported as ``grad_norm``;
-5. the Adam update.
+4. the Adam update (``AdamLowp.step``), which also returns the global
+   gradient norm, reported as ``grad_norm``: on the card it comes from the
+   Adam kernel's pass over the gradients and a one-block finish launch
+   (``csrc/adam_lowp.cu``), on the CPU from the plain ``global_norm``.
 
 It returns the losses (detached, on the device); the gradients stay on the
 parameters until the next step. Tests pass the shifts and the plan noise
@@ -48,11 +50,6 @@ class TrainerConfig:
     lr_schedule: str = "constant"
     num_warmup_steps: float = 0.1
     seed: int = 42
-
-
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors (optax.global_norm)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
 class Trainer:
@@ -97,9 +94,7 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         losses = self.model.train_losses(batch, kl_beta, generator=self.generator, gumbel=gumbel)
         losses["total_loss"].backward()
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        losses["grad_norm"] = global_norm(grads)
-        self.optimizer.step()
+        losses["grad_norm"] = self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in losses.items()}
 

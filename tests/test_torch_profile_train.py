@@ -1,7 +1,9 @@
 """The trace readers of hulc_tpu_torch.training.profile_train, on the CPU:
-host-to-device copies split by source memory and by issuing function, and
-the decoder RNN's recurrence split by part (forward and backward kernels,
-the dW product, the bias sum) from the spans its autograd Function opens."""
+host-to-device copies split by source memory and by issuing function, the
+device operations per step by kind, the optimizer tail from the span
+``AdamLowp.step`` opens, and the decoder RNN's recurrence split by part
+(forward and backward kernels, the dW product, the bias sum) from the spans
+its autograd Function opens."""
 
 import json
 import pathlib
@@ -12,7 +14,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from hulc_tpu_torch.models.layers import MLP, ScanRNN
 from hulc_tpu_torch.ops.recurrence import SPANS, rnn_relu
-from hulc_tpu_torch.training.profile_train import h2d_sites, recurrence_split
+from hulc_tpu_torch.training.optimizers import OPTIMIZER_SPAN, AdamLowp
+from hulc_tpu_torch.training.profile_train import device_launches, h2d_sites, recurrence_split, span_part
 
 torch.set_num_threads(1)
 
@@ -112,3 +115,31 @@ def test_recurrence_split_times_what_the_ops_launched():
     assert split["weight_grad"]["device_ops"] == ["CatArrayBatchedCopy", "sm90_xmma_gemm_f32f32_dw"]
     assert split["bias_grad"]["device_ms_per_step"] == 15 / 1e3
     assert split["device_ms_per_step"] == 755 / 1e3 and split["share_of_device"] == 755 / 810
+
+
+def test_span_part_finds_the_optimizer_step(tmp_path: pathlib.Path):
+    """Two ``AdamLowp.step`` calls on the CPU: two optimizer spans per
+    window, with the plain update's ops inside and no device time."""
+    params = [nn.Parameter(torch.randn(5, 3)), nn.Parameter(torch.randn(7))]
+    opt = AdamLowp(params, lr=1e-3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            for p in params:
+                p.grad = torch.ones_like(p)
+            opt.step()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    part = span_part(json.loads(path.read_text())["traceEvents"], OPTIMIZER_SPAN, 2)
+    assert part["calls_per_step"] == 1 and part["device_ms_per_step"] == 0 and part["device_ops"] == []
+    assert part["ops_per_call"]["aten::sqrt"] >= 2  # the plain norm and each tensor's update
+
+
+def test_device_launches_counts_kernels_copies_and_fills_per_step():
+    events = [
+        *_launch("cuda_runtime", 1, 1, 0, "adam_lowp_kernel", 5),
+        *_launch("cuda_runtime", 2, 1, 10, "grad_norm_finish_kernel", 1),
+        *_copy("Pinned", 3, 1, 20),
+        {"cat": "gpu_memset", "name": "Memset (Device)", "ts": 30, "dur": 1, "tid": 7, "args": {"correlation": 4}},
+        {"cat": "cpu_op", "name": "aten::add", "ts": 40, "dur": 1, "tid": 1},
+    ]
+    assert device_launches(events, 2) == {"kernels": 1.0, "copies": 0.5, "fills": 0.5}

@@ -51,7 +51,7 @@ from hulc_tpu_torch.ops.logistic_mixture import (
 )
 from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution
 from hulc_tpu_torch.training import schedules
-from hulc_tpu_torch.training.optimizers import CHUNK, AdamLowp, pointer_table_rows
+from hulc_tpu_torch.training.optimizers import ELEMS_PER_BLOCK, AdamLowp, pointer_table_rows
 from tests.torch_port_common import jax_random_params, port_model_from_jax
 
 torch.set_num_threads(1)
@@ -435,17 +435,28 @@ def test_adam_lowp_matches_optax_for_three_steps():
 
 
 def test_adam_pointer_table_rows():
-    """One row per tensor: the four addresses, numel, and the index of the
-    tensor's first CHUNK-element chunk over the tensors before it; and the
-    number of chunks in all."""
-    sizes = (3, CHUNK, CHUNK + 1, 1)
-    ts = [[torch.zeros(n) for n in sizes] for _ in range(4)]
-    rows, n_chunks = pointer_table_rows(*ts)
+    """One row per tensor: the p, m and v addresses (the gradient's goes to
+    each launch by value), numel, the head of scalar
+    elements before the 4-wide groups (from p's address), and the index of
+    the tensor's first block over the blocks of the tensors before it (one
+    per ELEMS_PER_BLOCK elements of groups after the head, at least one);
+    and the number of blocks in all. Fresh storages start aligned (head 0);
+    a view of all four arrays one element in takes a head of 3."""
+    sizes = (3, ELEMS_PER_BLOCK, ELEMS_PER_BLOCK + 1, 1, 2 * ELEMS_PER_BLOCK + 6, 5)
+    ts = [[torch.zeros(n, dtype=torch.bfloat16 if k >= 1 else torch.float32) for n in sizes] for k in range(3)]
+    for k in range(3):
+        ts[k].append(torch.zeros(ELEMS_PER_BLOCK + 9, dtype=ts[k][0].dtype)[1:])
+    # ptrs are 64-byte aligned at least, so the views sit one element past a 16 (8) byte boundary
+    assert all(t[-1].data_ptr() % 16 == 4 if t[0].dtype == torch.float32 else t[-1].data_ptr() % 8 == 2 for t in ts)
+    rows, n_blocks = pointer_table_rows(*ts)
+    numel = (*sizes, ELEMS_PER_BLOCK + 8)
+    heads = [0] * len(sizes) + [3]
+    first = (0, 1, 2, 3, 4, 7, 8)
     assert rows == [
-        [ts[0][i].data_ptr(), ts[1][i].data_ptr(), ts[2][i].data_ptr(), ts[3][i].data_ptr(), n, first]
-        for i, (n, first) in enumerate(zip(sizes, (0, 1, 2, 4)))
+        [ts[0][i].data_ptr(), ts[1][i].data_ptr(), ts[2][i].data_ptr(), n, h, f]
+        for i, (n, h, f) in enumerate(zip(numel, heads, first))
     ]
-    assert n_chunks == 5
+    assert n_blocks == 10
 
 
 @pytest.mark.parametrize("kind", ["constant", "cosine_with_warmup", "linear_with_warmup"])

@@ -210,3 +210,27 @@ def test_trainer_draws_its_own_noise_and_steps():
     for a, b in zip(runs[0], runs[1]):
         assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(runs[0][0]["total_loss"], runs[0][1]["total_loss"])
+
+
+def test_exact_zero_gradients_match_jax(setup, jax_trainer_step):
+    """The gradients that are exactly zero (the rows and columns of units no
+    window of the batch activates: the Adam kernel's cheap case) are zero in
+    the JAX step too, element by element, outside the leaves whose whole
+    gradient is rounding noise (``_check_grads``)."""
+    _, params, _, fused = setup
+    model, _ = port_model_from_jax(params, PORT_CFG)
+    batch = preprocess_batch(PORT_CFG, batch_to_device(_port_batch(fused), "cpu"),
+                             shifts=jax_trainer_step["shifts"])
+    model.train().train_losses(batch, KL_BETA, gumbel=jax_trainer_step["gumbel"])["total_loss"].backward()
+    got, _ = convert_state_dict({k: p.grad.numpy() for k, p in model.named_parameters()}, JAX_CFG)
+    flat = lambda t: jax.tree_util.tree_flatten_with_path(t)[0]
+    want_leaves = flat(jax_trainer_step["grads"])
+    total = np.sqrt(sum(np.sum(np.square(np.asarray(w))) for _, w in want_leaves))
+    with_zeros = 0
+    for (path, g), (_, w) in zip(flat(got), want_leaves):
+        g, w, name = np.asarray(g), np.asarray(w), jax.tree_util.keystr(path)
+        if np.linalg.norm(w) <= ZERO_GRAD * total:
+            continue
+        np.testing.assert_array_equal(g == 0, w == 0, err_msg=name)
+        with_zeros += bool(np.any(w == 0))
+    assert with_zeros >= 10  # the comparison is not vacuous
