@@ -13,7 +13,11 @@ it fails:
 3. kernels: each serving kernel against its plain PyTorch version at the
    policy's shapes, one lane and ``--lanes`` lanes (the eval preprocess
    bit-equal for both cameras; the SpatialSoftmax forward, here and below,
-   with a fixed and with a learnable temperature); each training kernel
+   with a fixed and with a learnable temperature; the action sampler (B.3)
+   at K = 10 and 17 from raw draws and from injected uniforms, which must
+   give the same action bit for bit, the gripper column bit-equal with
+   ties in the gripper logits, identical picks at u_inv = 0.5, also with
+   NaN scores and NaN gripper logits, as torch.argmax picks); each training kernel
    against its plain version (its backward against autograd through the
    plain forward) at the training step's shapes, the SpatialSoftmax
    forward and backward with a fixed and with a learnable temperature (a
@@ -45,7 +49,16 @@ it fails:
    gives: its block partials within PARTIALS_RTOL of the plain sums of
    their ranges and bit-equal on a second launch, the finish launch
    bit-equal to its plain mirror, the norm within GRAD_NORM_RTOL of an
-   fp64 sum and of the plain ``global_norm``.
+   fp64 sum and of the plain ``global_norm``. The plan sample and balanced
+   KL (B.4) from both noise entries (uniforms, transformed in the kernel,
+   and their Gumbel noise) at the step's (64, 32, 32), ``hulc_debug``'s
+   (6, 4, 4), odd (3, 5, 7), (3, 2, 64), (2, 3, 70), (2, 40, 8) and a view
+   of (64, 32, 32) 4 bytes off alignment: identical picks, the sample
+   within 1's ulp, the KL rtol 1e-5, gradients 1e-5 relative L2; one
+   generator seed picks the same classes through the kernel path and the
+   plain path; with NaN in the Gumbel noise the picks are torch.argmax's;
+   the in-kernel Gumbel transform is ``gumbel_noise``'s bit for bit
+   (``check_gumbel_bits``).
 4. serving main path, single lane: the full-width ``hulc`` HulcPolicy
    (random weights from ``--seed``, synthetic uint8 frames, 15-d
    robot_obs, 384-d language embedding) for ``--steps`` steps, across the
@@ -62,7 +75,8 @@ it fails:
    serving kernel against its plain version at ``--lanes`` lanes and at
    one lane (the preprocess for both cameras): device time (the CUDA
    activity torch.profiler records) and time per call (CUDA events around
-   back-to-back calls, so the host's launch cost is included).
+   back-to-back calls, so the host's launch cost is included); the action
+   sampler (B.3) also by CUDA events with the host's launch cost kept out.
 8. training main path: a full-width ``hulc`` Trainer (random init from
    ``--seed``) takes ``--train-steps`` steps on a synthetic loader-fused
    uint8 batch (32 vision + 32 language windows of 32 frames). Launch
@@ -88,8 +102,11 @@ it fails:
    bias sum) against the plain loop and cuDNN's relu RNN (W_ih = I) as
    the library yardstick, all by CUDA events (the profiler drops some of
    the cooperative launches), with each launch's plan; the device time of an empty launch (``csrc/launch_floor.cu``),
-   the floor under every kernel's; each kernel's registers, shared memory
-   and spills from the build log.
+   the floor under every kernel's; B.4's forward and backward also by CUDA
+   events with the host's launch cost kept out, and the backward also
+   through a loss; each kernel's registers, shared memory and spills from
+   the build log. (A kernel against its parent design, and each sampling
+   tail against the parent's: ``evaluation/kernel_times.py --tree``.)
 
 Prints a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -284,13 +301,58 @@ def check_ss_fwd(conv_map, where):
     return err
 
 
+def check_sampler(lead, a, k, gen, bounds):
+    """B.3 at (*lead, a, k): the fused sampler on raw draws (the map into
+    (U_MIN, U_MAX) in the kernel) against its plain version, the sample
+    within atol 1e-5 and the gripper column bit-equal (every third frame's
+    gripper logits tied: argmax's first index, the closed bound). On the
+    same draws mapped by ``map_uniforms`` and passed with the identity map
+    (injected noise) the whole action is bit-equal to the raw entry's: the
+    kernel maps as the plain version does. With u_inv = 0.5 the inverse CDF
+    term is exactly 0, so each sample IS the picked component's mean: equal
+    samples = identical picks; also with NaN scores (torch.argmax picks the
+    first NaN) and NaN gripper logits. Returns the largest absolute
+    error."""
+    from hulc_tpu_torch.ops.logistic_mixture import draw_raw_uniforms, map_uniforms, sample_action, sample_action_plain
+
+    dev = gen.device
+    shape = (*lead, a, k)
+    logits, means = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+    params = (logits, torch.clamp_min(torch.randn(shape, generator=gen, device=dev) - 2.0, -7.0), means)
+    grip = torch.randn((*lead, 2), generator=gen, device=dev)
+    grip.view(-1, 2)[::3, 1] = grip.view(-1, 2)[::3, 0]
+    raw = draw_raw_uniforms(shape, gen, dev)
+    got = sample_action(*params, *raw, grip, bounds)
+    want = sample_action_plain(*params, *raw, grip, bounds)
+    if got.shape != (*lead, a + 1) or not torch.equal(got[..., a], want[..., a]):
+        fail(f"mixture sample kernel at {shape}: gripper column {got[..., a]} against {want[..., a]}")
+    if not torch.allclose(got, want, rtol=0, atol=1e-5):
+        fail(f"mixture sample kernel at {shape}: max abs err {max_abs(got, want)}")
+    mapped = [map_uniforms(u) for u in raw]
+    if not torch.equal(sample_action(*params, *mapped, grip, bounds, (0.0, 1.0)), got):
+        fail(f"mixture sample kernel at {shape}: injected uniforms give another action than the raw draws")
+    if not torch.equal(sample_action(*params, *mapped, None, bounds, (0.0, 1.0)), got[..., :a]):
+        fail(f"mixture sample kernel at {shape}: the sample without a gripper differs")
+    half = torch.full_like(raw[1], 0.5)
+    got_h = sample_action(*params, mapped[0], half, grip, bounds, (0.0, 1.0))
+    if not torch.equal(got_h, sample_action_plain(*params, mapped[0], half, grip, bounds, (0.0, 1.0))):
+        fail(f"mixture sample kernel picked other components than the plain version at {shape}")
+    # NaN scores: two NaN components in every other row, one in every fourth; one NaN
+    # gripper logit in every other frame, at index 0 and at index 1 in turns
+    nan_logits, nan_grip = logits.clone(), grip.clone()
+    nan_logits.view(-1, k)[::2, k // 2] = nan_logits.view(-1, k)[::2, k - 1] = float("nan")
+    nan_logits.view(-1, k)[1::4, 1] = float("nan")
+    nan_grip.view(-1, 2)[::4, 0] = nan_grip.view(-1, 2)[2::4, 1] = float("nan")
+    nan_params = (nan_logits, *params[1:])
+    for _ in range(3):  # the pick must not depend on which lane runs first
+        got_n = sample_action(*nan_params, mapped[0], half, nan_grip, bounds, (0.0, 1.0))
+        if not torch.equal(got_n, sample_action_plain(*nan_params, mapped[0], half, nan_grip, bounds, (0.0, 1.0))):
+            fail(f"mixture sample kernel picked other components than torch.argmax with NaN scores at {shape}")
+    return max_abs(got, want)
+
+
 def check_kernels(model, cfg, lane_counts, rng):
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_plain
-    from hulc_tpu_torch.ops.logistic_mixture import (
-        draw_uniforms,
-        logistic_mixture_sample,
-        logistic_mixture_sample_plain,
-    )
 
     dev = model.device
     pe, ad = cfg.perceptual_encoder, cfg.action_decoder
@@ -309,22 +371,13 @@ def check_kernels(model, cfg, lane_counts, rng):
             conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(frames).contiguous()
         errs["spatial_softmax"] = max(errs["spatial_softmax"], check_ss_fwd(conv_map, f"{e} lane(s)"))
 
-        shape = (e, 1, ad.out_features - 1, ad.n_mixtures)
-        logits, means = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
-        log_scales = torch.clamp_min(torch.randn(shape, generator=gen, device=dev) - 2.0, ad.log_scale_min)
-        u_mix, u_inv = draw_uniforms(shape, gen, dev)
-        got = logistic_mixture_sample(logits, log_scales, means, u_mix=u_mix, u_inv=u_inv)
-        want = logistic_mixture_sample_plain(logits, log_scales, means, u_mix, u_inv)
-        if not torch.allclose(got, want, rtol=0, atol=1e-5):
-            fail(f"mixture sample kernel at {shape}: max abs err {max_abs(got, want)}")
-        errs["logistic_mixture_sample"] = max(errs["logistic_mixture_sample"], max_abs(got, want))
-        # with u_inv = 0.5 the inverse CDF term is exactly 0, so each sample
-        # IS the picked component's mean: equal samples = identical picks
-        half = torch.full_like(u_inv, 0.5)
-        got = logistic_mixture_sample(logits, log_scales, means, u_mix=u_mix, u_inv=half)
-        want = logistic_mixture_sample_plain(logits, log_scales, means, u_mix, half)
-        if not torch.equal(got, want):
-            fail(f"mixture sample kernel picked other components than the plain version at {shape}")
+        # the policy's K and K = 17 (one component a lane, then a lane loop)
+        for k in (ad.n_mixtures, 17):
+            errs["logistic_mixture_sample"] = max(errs["logistic_mixture_sample"], check_sampler(
+                (e, 1), ad.out_features - 1, k, gen, (ad.act_min_bound[-1], ad.act_max_bound[-1])))
+    print(f"[kernels] mixture sampler at {lane_counts} lanes, K = {ad.n_mixtures} and 17: raw and injected "
+          f"uniforms give the same action bit for bit, the gripper column (ties included) bit-equal, the "
+          f"same picks as the plain version (u_inv = 0.5)")
     return errs
 
 
@@ -428,13 +481,10 @@ def time_kernels(model, cfg, lanes, rng):
     """Per-launch ms of each kernel and of its plain version on the same
     inputs, at ``lanes`` lanes (the preprocess for both cameras); and the
     least time the card could take."""
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
     from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_plain
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
-    from hulc_tpu_torch.ops.logistic_mixture import (
-        draw_uniforms,
-        logistic_mixture_sample,
-        logistic_mixture_sample_plain,
-    )
+    from hulc_tpu_torch.ops.logistic_mixture import draw_raw_uniforms, sample_action, sample_action_plain
 
     dev = model.device
     pe, ad = cfg.perceptual_encoder, cfg.action_decoder
@@ -448,7 +498,9 @@ def time_kernels(model, cfg, lanes, rng):
     shape = (lanes, 1, ad.out_features - 1, ad.n_mixtures)
     gen = torch.Generator(device=dev).manual_seed(2)
     lp, ls, mu = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
-    u_mix, u_inv = draw_uniforms(shape, gen, dev)
+    grip_logits = torch.randn((lanes, 1, 2), generator=gen, device=dev)
+    raw = draw_raw_uniforms(shape, gen, dev)
+    bounds = (ad.act_min_bound[-1], ad.act_max_bound[-1])
 
     n_px = imgs.numel()
     n_logits = conv_map.numel()
@@ -469,12 +521,14 @@ def time_kernels(model, cfg, lanes, rng):
             bound(4 * n_logits + 4 * 2 * conv_map.shape[0] * conv_map.shape[1], 9 * n_logits),
             tuple(conv_map.shape),
         ),
-        # four (…, A, K) fp32 inputs, u_inv and the output; ~4 flops per
-        # component plus ~6 per sample
+        # four (…, A, K) fp32 inputs, u_inv, the gripper logits and the (…, A + 1)
+        # action; ~6 operations per component (the map, two logs, the score) plus
+        # ~8 per sample
         "logistic_mixture_sample": (
-            lambda: logistic_mixture_sample(lp, ls, mu, u_mix=u_mix, u_inv=u_inv),
-            lambda: logistic_mixture_sample_plain(lp, ls, mu, u_mix, u_inv),
-            bound(4 * 4 * lp.numel() + 4 * 2 * rows, 4 * lp.numel() + 6 * rows), tuple(shape),
+            lambda: sample_action(lp, ls, mu, *raw, grip_logits, bounds),
+            lambda: sample_action_plain(lp, ls, mu, *raw, grip_logits, bounds),
+            bound(4 * 4 * lp.numel() + 4 * rows + 8 * lanes + 4 * lanes * (shape[-2] + 1), 6 * lp.numel() + 8 * rows),
+            tuple(shape),
         ),
     }
     out = {}
@@ -487,6 +541,7 @@ def time_kernels(model, cfg, lanes, rng):
             "bound_ms": bound_ms, "bound_by": bound_by, "shape": list(shp),
             "call_ms": call_ms(kernel_fn, 100), "plain_call_ms": call_ms(plain_fn, 100),
         }
+    out["logistic_mixture_sample"]["event_ms"] = event_ms(lambda: sample_action(lp, ls, mu, *raw, grip_logits, bounds))
     return out
 
 
@@ -525,12 +580,13 @@ class TrainInputs:
     """What each training kernel is given on the main path, at its shapes:
     the synthetic batch's frames and shifts, the static camera's conv map,
     decoder-shaped mixture parameters and actions (some at the edge bins,
-    some log scales below the clamp), plan logits and their Gumbel noise,
+    some log scales below the clamp), plan logits and their noise (the
+    uniforms of one ``torch.rand`` draw and their Gumbel transform),
     and the model's parameters with random gradients."""
 
     def __init__(self, cfg, model, batch, seed):
         from hulc_tpu_torch.ops.image_ops import draw_shifts, preprocess_rgb_seq_plain
-        from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
+        from hulc_tpu_torch.ops.plan_distributions import gumbel_of_uniform
 
         dev = model.device
         gen = torch.Generator(device=dev).manual_seed(seed + 7)
@@ -551,7 +607,8 @@ class TrainInputs:
                              ad.log_scale_min, ad.gripper_alpha)
         self.post = 2.0 * torch.randn((n, d.plan_dim), generator=gen, device=dev)
         self.prior = 2.0 * torch.randn((n, d.plan_dim), generator=gen, device=dev)
-        self.gumbel = gumbel_noise((n, d.category_size, d.class_size), gen, dev)
+        self.uniform = torch.rand((n, d.category_size, d.class_size), generator=gen, device=dev)
+        self.gumbel = gumbel_of_uniform(self.uniform)
         self.st_weight = torch.randn((n, d.plan_dim), generator=gen, device=dev)
         self.kl_weight = torch.randn((n,), generator=gen, device=dev)
         self.alpha = cfg.loss.kl_balancing_mix
@@ -671,14 +728,158 @@ def check_mixture_shapes(seed):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def plan_graph(inp, use_kernel):
+def plan_graph(inp, use_kernel, noise="uniform"):
+    """((sample, KL), [posterior, prior] leaves) of ``inp``'s logits through
+    the kernel or the plain version, with ``inp.uniform`` or ``inp.gumbel``
+    as the noise; the leaves share the logits' memory (a misaligned view
+    reaches the kernels as it is)."""
     from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState
 
-    post, prior = inp.post.clone().requires_grad_(), inp.prior.clone().requires_grad_()
+    post, prior = inp.post.detach().requires_grad_(), inp.prior.detach().requires_grad_()
     st, kl = inp.dist.rsample_balanced_kl(
-        DiscretePlanState(post), DiscretePlanState(prior), inp.alpha, gumbel=inp.gumbel, use_kernels=use_kernel
+        DiscretePlanState(post), DiscretePlanState(prior), inp.alpha, use_kernels=use_kernel,
+        **{noise: getattr(inp, noise)},
     )
     return (st, kl), [post, prior]
+
+
+def plan_case(batch, cats, classes, gen, offset=0):
+    """B.4's inputs at (batch, cats, classes): logits 2 N(0, 1) (with
+    ``offset``, a view that many floats into its buffer), one ``torch.rand``
+    draw and its Gumbel noise, cotangents for the sample and the KL."""
+    from types import SimpleNamespace
+
+    from hulc_tpu_torch.ops.plan_distributions import PlanDistribution, gumbel_of_uniform
+
+    dev, dim = gen.device, cats * classes
+
+    def logits():
+        return (2.0 * torch.randn(batch * dim + offset, generator=gen, device=dev))[offset:].view(batch, dim)
+
+    uniform = torch.rand((batch, cats, classes), generator=gen, device=dev)
+    return SimpleNamespace(
+        dist=PlanDistribution(category_size=cats, class_size=classes), post=logits(), prior=logits(),
+        uniform=uniform, gumbel=gumbel_of_uniform(uniform), alpha=0.8,
+        st_weight=torch.randn((batch, dim), generator=gen, device=dev),
+        kl_weight=torch.randn((batch,), generator=gen, device=dev),
+    )
+
+
+def check_plan(inp, where):
+    """B.4 on ``inp`` from both noise entries, the uniforms (the Gumbel
+    transform in the kernel) and their Gumbel noise: identical picks, the
+    straight-through value within 1's ulp and the KL per entry (LOSS_RTOL)
+    against the plain version, the gradients within GRAD_REL; the two
+    entries give the kernel the same picks, so the same sample and KL bit
+    for bit. Returns the largest forward and gradient errors."""
+    grid = inp.uniform.shape
+    fwd_err = bwd_err = 0.0
+    outs = {}
+    for noise in ("uniform", "gumbel"):
+        (k_st, k_kl), k_leaves = plan_graph(inp, True, noise)
+        (p_st, p_kl), p_leaves = plan_graph(inp, False, noise)
+        if not torch.equal(k_st.reshape(grid).argmax(-1), p_st.reshape(grid).argmax(-1)):
+            fail(f"plan kernel at {where} {tuple(grid)}, {noise} noise: other picks than the plain version")
+        if not (torch.allclose(k_st, p_st, rtol=0, atol=ONE_ULP)
+                and torch.allclose(k_kl, p_kl, rtol=LOSS_RTOL, atol=0)):
+            fail(f"plan kernel at {where} {tuple(grid)}, {noise} noise: sample err {max_abs(k_st, p_st)}, "
+                 f"KL err {max_abs(k_kl, p_kl)}")
+        fwd_err = max(fwd_err, max_abs(k_st, p_st), max_abs(k_kl, p_kl))
+        got = torch.autograd.grad((k_st * inp.st_weight).sum() + (k_kl * inp.kl_weight).sum(), k_leaves)
+        want = torch.autograd.grad((p_st * inp.st_weight).sum() + (p_kl * inp.kl_weight).sum(), p_leaves)
+        bwd_err = max(bwd_err, check_grads(f"plan backward kernel at {where} {tuple(grid)}", got, want))
+        outs[noise] = (k_st.detach(), k_kl.detach())
+    if not all(torch.equal(a, b) for a, b in zip(outs["uniform"], outs["gumbel"])):
+        fail(f"plan kernel at {where} {tuple(grid)}: uniform and Gumbel noise give other samples")
+    return fwd_err, bwd_err
+
+
+def check_plan_generator(inp, seed):
+    """One generator seed through the kernel path (one torch.rand draw, the
+    transform in the kernel) and the plain path (gumbel_noise): identical
+    picks."""
+    from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState
+
+    dev = inp.uniform.device
+    picks = []
+    for use_kernels in (True, False):
+        st, _ = inp.dist.rsample_balanced_kl(
+            DiscretePlanState(inp.post), DiscretePlanState(inp.prior), inp.alpha, use_kernels=use_kernels,
+            generator=torch.Generator(device=dev).manual_seed(seed),
+        )
+        picks.append(st.reshape(inp.uniform.shape).argmax(-1))
+    if not torch.equal(*picks):
+        fail("plan sample: the kernel path and the plain path pick other classes from one generator seed")
+
+
+def check_gumbel_bits(gen, pairs=32768, classes=32):
+    """The kernel's Gumbel transform bit for bit against the plain
+    ``gumbel_of_uniform`` (``gumbel_noise``'s), read off the picks: each row
+    of ``classes`` uniforms has logits -g - 64 (g the plain transform) but
+    at two adjacent classes (a, a + 1), where they are -g, so the kernel's
+    g + logit is exactly 0 there when its g is the plain one's, and the pick
+    is a (the first index). Each pair of values also sits in the next row
+    swapped: if the kernel's g differs from the plain g at either value, one
+    of the two rows picks a + 1 (unless both differ by the same amount)."""
+    from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution, gumbel_of_uniform
+
+    dev = gen.device
+    rows = 2 * pairs
+    uniform = torch.rand((pairs, classes), generator=gen, device=dev).repeat_interleave(2, 0)
+    values = torch.rand((pairs, 2), generator=gen, device=dev)
+    a = (torch.arange(rows, device=dev) // 2) % (classes // 2) * 2
+    cols = torch.stack([a, a + 1], -1)
+    uniform.scatter_(1, cols, torch.stack([values, values.flip(-1)], 1).reshape(rows, 2))
+    g = gumbel_of_uniform(uniform)
+    post = (-g - 64.0).scatter_(1, cols, -g.gather(1, cols))
+    cats = 32
+    dist = PlanDistribution(category_size=cats, class_size=classes)
+    st, _ = dist.rsample_balanced_kl(DiscretePlanState(post.reshape(rows // cats, -1)),
+                                     DiscretePlanState(torch.zeros_like(post).reshape(rows // cats, -1)), 0.8,
+                                     uniform=uniform.reshape(rows // cats, cats, classes))
+    picks = st.reshape(rows, classes).argmax(-1)
+    if not torch.equal(picks, a):
+        bad = int((picks != a).sum())
+        fail(f"plan kernel's Gumbel transform differs from gumbel_noise's: {bad} of {rows} rows picked otherwise")
+    return 2 * pairs
+
+
+def check_plan_nan(gen):
+    """B.4's pick with NaN in the Gumbel noise (two NaN classes in every
+    other row, one in every fourth) at (8, 32, 32): argmax's first NaN, as
+    the plain version picks it, in each of three launches."""
+    case = plan_case(8, 32, 32, gen)
+    rows = case.gumbel.view(-1, 32)
+    rows[::2, 16] = rows[::2, 31] = rows[1::4, 1] = float("nan")
+    with torch.no_grad():
+        want = plan_graph(case, False, "gumbel")[0][0].reshape(case.gumbel.shape).argmax(-1)
+        for _ in range(3):  # the pick must not depend on which lane runs first
+            got = plan_graph(case, True, "gumbel")[0][0].reshape(case.gumbel.shape).argmax(-1)
+            if not torch.equal(got, want):
+                fail(f"plan kernel picks other classes than torch.argmax with NaN noise: {int((got != want).sum())}")
+
+
+def check_plan_shapes(seed):
+    """B.4 at hulc_debug's (6, 4, 4), odd (3, 5, 7), rows wider than one
+    32-class chunk (3, 2, 64) and (2, 3, 70), more categories than rows in
+    flight (2, 40, 8), and the step's (64, 32, 32) as a view 4 bytes off
+    16-byte alignment (scalar accesses); then NaN noise (``check_plan_nan``).
+    Returns the largest errors."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    cases = [((6, 4, 4), 0, "hulc_debug"), ((3, 5, 7), 0, "an odd shape"), ((3, 2, 64), 0, "two chunks"),
+             ((2, 3, 70), 0, "an odd shape in three chunks"), ((2, 40, 8), 0, "40 categories"),
+             ((64, 32, 32), 1, "a misaligned view")]
+    errs = []
+    for shape, offset, where in cases:
+        case = plan_case(*shape, gen, offset)
+        if offset and case.post.data_ptr() % 16 == 0:
+            fail("the misaligned plan logits start 16-byte aligned")
+        errs.append(check_plan(case, where))
+    check_plan_nan(gen)
+    print(f"[kernels] plan sample and KL at {[c[0] for c in cases]} (the last a misaligned view), uniform and "
+          f"Gumbel noise: identical picks, forward max abs err {max(e[0] for e in errs):.3g}, gradients "
+          f"{max(e[1] for e in errs):.3g}; with NaN noise, torch.argmax's picks")
+    return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def check_grads(name, got, want):
@@ -748,18 +949,15 @@ def check_train_kernels(inp):
         inp.mixture, inp.actions, inp.mixture_args, inp.nll_weight, "the step's shape"
     )
 
-    # B.4: identical picks, the straight-through value within 1's ulp, KL per entry
-    (k_st, k_kl), k_leaves = plan_graph(inp, True)
-    (p_st, p_kl), p_leaves = plan_graph(inp, False)
-    grid = inp.gumbel.shape
-    if not torch.equal(k_st.reshape(grid).argmax(-1), p_st.reshape(grid).argmax(-1)):
-        fail("plan kernel picked other classes than the plain version")
-    if not (torch.allclose(k_st, p_st, rtol=0, atol=ONE_ULP) and torch.allclose(k_kl, p_kl, rtol=LOSS_RTOL, atol=0)):
-        fail(f"plan kernel: sample err {max_abs(k_st, p_st)}, KL err {max_abs(k_kl, p_kl)}")
-    errs["plan_st_kl_fwd"] = max(max_abs(k_st, p_st), max_abs(k_kl, p_kl))
-    got = torch.autograd.grad((k_st * inp.st_weight).sum() + (k_kl * inp.kl_weight).sum(), k_leaves)
-    want = torch.autograd.grad((p_st * inp.st_weight).sum() + (p_kl * inp.kl_weight).sum(), p_leaves)
-    errs["plan_st_kl_bwd"] = check_grads("plan backward kernel", got, want)
+    # B.4: both noise entries, identical picks, the straight-through value
+    # within 1's ulp, KL per entry; one generator seed on both paths; the
+    # in-kernel Gumbel transform bit for bit
+    errs["plan_st_kl_fwd"], errs["plan_st_kl_bwd"] = check_plan(inp, "the step's shape")
+    check_plan_generator(inp, 23)
+    n_bits = check_gumbel_bits(torch.Generator(device=inp.uniform.device).manual_seed(29))
+    print(f"[kernels] plan sample at the step's shape: uniform and Gumbel entries agree with the plain version "
+          f"and with each other, one generator seed picks the same classes on both paths, the in-kernel Gumbel "
+          f"transform is gumbel_noise's bit for bit on {n_bits} uniforms")
 
     # B.5 and B.7: two steps on copies of the model's params, bit-equal (the
     # second reads nonzero bf16 moments); the norm of the same gradients
@@ -1142,6 +1340,7 @@ def time_train_kernels(inp):
     ``torch.nn.utils.get_total_norm``, for the norm alone
     ``get_total_norm``."""
     from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
     from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_bwd, spatial_softmax_plain
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
     from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain
@@ -1161,7 +1360,12 @@ def time_train_kernels(inp):
     (k_st, k_kl), k_plan_leaves = plan_graph(inp, True)
     (p_st, p_kl), p_plan_leaves = plan_graph(inp, False)
     k_plan_loss = (k_st * inp.st_weight).sum() + (k_kl * inp.kl_weight).sum()
-    p_plan_loss = (p_st * inp.st_weight).sum() + (p_kl * inp.kl_weight).sum()
+    grid, d_kl = inp.uniform.shape, inp.kl_weight
+
+    def plan_bwd(st, kl, leaves):
+        """The backward of the function alone: the sample's and the KL's
+        cotangents to the logits' gradients."""
+        return lambda: torch.autograd.grad((st, kl), leaves, (inp.st_weight, d_kl), retain_graph=True)
 
     def nll_fwd(fn, grad):
         """The forward as the train step runs it (inputs that require grad:
@@ -1237,12 +1441,13 @@ def time_train_kernels(inp):
         "mixture_nll_bwd": (lambda: torch.autograd.grad(k_nll, k_nll_leaves, inp.nll_weight, retain_graph=True),
                             lambda: torch.autograd.grad(p_nll, p_nll_leaves, inp.nll_weight, retain_graph=True),
                             bound(24 * n_comp + small + 8 * rows, 40 * n_comp), None),
-        # post, prior, gumbel in, sample out; ~10 flops a logit
-        "plan_st_kl_fwd": (plan_fwd(True), plan_fwd(False), bound(16 * n_plan, 10 * n_plan), None),
+        # post, prior, uniforms in, sample out: 16 bytes a logit; the KL out, 4 bytes a
+        # sample; ~14 operations a logit (the Gumbel transform's four among them)
+        "plan_st_kl_fwd": (plan_fwd(True), plan_fwd(False), bound(16 * n_plan + 4 * len(inp.kl_weight), 14 * n_plan),
+                           None),
         # post, prior, d_sample in, two gradients out; ~15 flops a logit
-        "plan_st_kl_bwd": (lambda: torch.autograd.grad(k_plan_loss, k_plan_leaves, retain_graph=True),
-                           lambda: torch.autograd.grad(p_plan_loss, p_plan_leaves, retain_graph=True),
-                           bound(20 * n_plan, 15 * n_plan), None),
+        "plan_st_kl_bwd": (plan_bwd(k_st, k_kl, k_plan_leaves), plan_bwd(p_st, p_kl, p_plan_leaves),
+                           bound(20 * n_plan + 4 * len(inp.kl_weight), 15 * n_plan), None),
         # the optimizer tail, B.5 and B.7: p, g, p' fp32 and m, v, m', v' bf16, 20 bytes,
         # ~14 flops a param (the update, g^2 for the norm); 8 bytes of partials a block
         "adam_lowp": (lambda: adam_lowp_update(ps, inp.adam_grads, ms, vs, 0.9, 0.999, 1e-8, -2e-4, c1, c2, table),
@@ -1255,8 +1460,9 @@ def time_train_kernels(inp):
     }
     # these timed calls launch nothing else; hold the profiler to every launch
     one_launch = {"spatial_softmax_train", "mixture_nll_fwd", "mixture_nll_fwd_no_grad", "mixture_nll_bwd"}
-    # the finish launch is short, and the profiler drops some of its launches: time per recorded launch
-    per_recorded = {"grad_norm"}
+    # the finish launch and the plan kernels are short, and the profiler drops some of their
+    # launches: time per recorded launch
+    per_recorded = {"grad_norm", "plan_st_kl_fwd", "plan_st_kl_bwd"}
     out = {"launch_floor": {"ms": device_ms(lambda: kernels.EMPTY_LAUNCH(inp.actions.device), 100, 1)}}
     for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn) in cases.items():
         iters, launches, rec = 20, 1 if name in one_launch | per_recorded else None, name in per_recorded
@@ -1269,6 +1475,14 @@ def time_train_kernels(inp):
             "call_ms": call_ms(kernel_fn, iters), "plain_call_ms": call_ms(plain_fn, iters),
         }
     out["spatial_softmax_train"]["shape"] = list(inp.conv_map.shape)
+    # B.4 by CUDA events too (the profiler drops some of its short launches); the backward
+    # also through a loss (with its two eager products' backward), as it was first timed
+    out["plan_st_kl_fwd"]["event_ms"] = event_ms(plan_fwd(True))
+    out["plan_st_kl_bwd"]["event_ms"] = event_ms(plan_bwd(k_st, k_kl, k_plan_leaves))
+    out["plan_st_kl_bwd"]["through_loss_ms"] = device_ms(
+        lambda: torch.autograd.grad(k_plan_loss, k_plan_leaves, retain_graph=True), 20)
+    for name in ("plan_st_kl_fwd", "plan_st_kl_bwd"):
+        out[name]["shape"] = list(grid)
     out["adam_lowp"].update(n_params=n_params, blocks=n_blocks)
     # B.7 as a function, the gradients to their norm (4 bytes and 2 flops a param): the eager
     # norm the port ran before, and get_total_norm; the port's cost of it is in adam_lowp's ms
@@ -1554,6 +1768,9 @@ def main(argv=None) -> int:
     nll_fwd_err, nll_bwd_err = check_mixture_shapes(args.seed)
     errs["mixture_nll_fwd"] = max(errs["mixture_nll_fwd"], nll_fwd_err)
     errs["mixture_nll_bwd"] = max(errs["mixture_nll_bwd"], nll_bwd_err)
+    plan_fwd_err, plan_bwd_err = check_plan_shapes(args.seed)
+    errs["plan_st_kl_fwd"] = max(errs["plan_st_kl_fwd"], plan_fwd_err)
+    errs["plan_st_kl_bwd"] = max(errs["plan_st_kl_bwd"], plan_bwd_err)
     if (DECODER_ROWS, DECODER_SEQ) != (2 * BATCH_PER_MOD, SEQ):
         fail(f"the recurrence's step shape {(DECODER_ROWS, DECODER_SEQ)} is not the train step's")
     errs["rnn_relu_fwd"], errs["rnn_relu_bwd"] = check_recurrence(model, args.seed)
@@ -1655,12 +1872,17 @@ def main(argv=None) -> int:
               f"(kernel / plain {t['ms'] / t['plain_ms']:.4f}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
               f"{100 * t['bound_share']:.1f}% of the bound{lib}; per call with the host's launch "
               f"cost kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms ({card})")
+        if "event_ms" in t:
+            print(f"[timing] {name}: CUDA events {t['event_ms']:.6f} ms a launch, "
+                  f"{t['event_ms'] / launch_floor_ms:.2f}x the empty launch's device time ({card})")
     hidden = cfg.action_decoder.hidden_size
     rec_plans = {d: recurrence_plan_for(DECODER_ROWS, DECODER_SEQ, hidden, d) for d in (False, True)}
     for fn in ("preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
                "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "mixture_nll_fwd_kernel",
                "mixture_nll_bwd_kernel", "adam_lowp_kernel", "grad_norm_finish_kernel", "rnn_relu_fwd_kernel",
-               "rnn_relu_bwd_kernel", "rnn_relu_step_kernel"):
+               "rnn_relu_bwd_kernel", "rnn_relu_step_kernel", "logistic_mixture_sample_kernel",
+               "plan_st_kl_fwd_kernel<true>", "plan_st_kl_fwd_kernel<false>", "plan_st_kl_bwd_kernel<true>",
+               "plan_st_kl_bwd_kernel<false>"):
         r = resources[fn]
         print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
               f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")
@@ -1676,7 +1898,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
-            "max_abs_err": errs[name], **timing[name],
+            "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
         if name == "spatial_softmax_bwd":

@@ -32,6 +32,22 @@ the norm after one step from the same state. The train step (the full-width ``Tr
 2B = 64, S = 32): device operations and host-to-device copies per step
 under the profiler, device ms per step and the median host-clock step.
 
+The two sampling tails, through the calls the step and the policy make:
+the plan's straight-through sample and balanced KL from the generator
+(``rsample_balanced_kl``: the noise draw, its Gumbel transform and B.4's
+forward) at (64, 32, 32) and its backward alone (the sample's and the KL's
+cotangents to the logits' gradients); the decoder's action sample from the
+generator (``_sample_from_outputs``: the two draws, their map, B.3 and
+the gripper column) at 64 lanes and at one. Each by CUDA events, with its
+device operations per call, device ms under the profiler and its hand
+kernel's device ms per recorded launch, and a digest of its result from a
+fixed generator seed. Beside them the two forward kernels alone, each by
+CUDA events and by the profiler: B.4's forward on injected Gumbel noise,
+and B.3 on uniforms already mapped (through ``sample_action``, with the
+gripper column; on a tree from before it, ``logistic_mixture_sample``).
+The backward tail is its kernel alone. The policy steps' device
+operations per step come with their host clock.
+
 Prints one JSON line, with the card's name and power limit. Needs a CUDA
 device. ``--only NAME[,NAME...]`` times only the cases whose names start
 with one of them, and skips the policy.
@@ -40,6 +56,7 @@ with one of them, and skips the policy.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import pathlib
@@ -55,6 +72,7 @@ from torch.profiler import ProfilerActivity, profile
 
 PAD_S = 0.01
 ITERS, LANES, SEED = 50, 64, 0
+SAMPLING_KERNELS = ("plan_st_kl_fwd", "plan_st_kl_bwd", "logistic_mixture_sample")
 
 
 def device_ms(fn, iters: int) -> float:
@@ -66,7 +84,10 @@ def event_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     """Device ms per call of ``fn`` by CUDA events around ``iters``
     back-to-back calls, median of ``repeats``. Each window is queued behind
     a spin of the device (``torch.cuda._sleep``) that outlasts the host's
-    queueing of the calls, so the host's launch cost does not enter."""
+    queueing of the calls, so the host's launch cost does not enter: a
+    window whose spin had ended before the host queued its last call is
+    run again behind a spin twice as long, at most three times (a call
+    that waits for the device is late behind any spin)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -80,15 +101,19 @@ def event_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     end.record()
     end.synchronize()
     cycles_per_s = 1e6 / (start.elapsed_time(end) / 1e3)
-    times = []
-    for _ in range(repeats):
-        torch.cuda._sleep(int(cycles_per_s * (iters * host_s + 2e-3)))
+    spin_s, retries, times = iters * host_s + 2e-3, 3, []
+    while len(times) < repeats:
+        torch.cuda._sleep(int(cycles_per_s * spin_s))
         start.record()
         for _ in range(iters):
             fn()
         end.record()
+        host_late = start.query()  # the device reached the window before the host had queued it
         end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
+        if host_late and retries:
+            spin_s, retries = 2 * spin_s, retries - 1
+        else:
+            times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
 
 
@@ -219,8 +244,87 @@ def host_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(ops) -> float:
+    """Device ms per recorded launch of the sampling kernels among ``ops``
+    (the profiler drops some short launches)."""
+    mine = [e for e in ops if any(name in e.key for name in SAMPLING_KERNELS)]
+    return sum(_device_us(e) for e in mine) / 1e3 / sum(e.count for e in mine)
+
+
+def mixture_kernel(lp, ls, mu, u_mix, u_inv, grip, bounds):
+    """B.3's launch alone on mapped uniforms: the fused sampler with the
+    gripper column, or on a tree from before it the sample alone."""
+    from hulc_tpu_torch.ops import logistic_mixture
+
+    if hasattr(logistic_mixture, "sample_action"):
+        return logistic_mixture.sample_action(lp, ls, mu, u_mix, u_inv, grip, bounds, (0.0, 1.0))
+    return logistic_mixture.logistic_mixture_sample(lp, ls, mu, u_mix, u_inv)
+
+
+def sampling_tails(cfg, out: dict) -> None:
+    """The plan's and the action's sampling tails and their forward kernels
+    alone (see the module's note) into ``out``."""
+    from hulc_tpu_torch.models.decoders import DecoderOutputs, LogisticPolicyDecoder
+    from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution, gumbel_noise
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    d, ad = cfg.distribution, cfg.action_decoder
+    dist = PlanDistribution(category_size=d.category_size, class_size=d.class_size)
+    post, prior = (2.0 * torch.randn((64, d.plan_dim), generator=gen, device="cuda") for _ in range(2))
+    leaves = [post.clone().requires_grad_(), prior.clone().requires_grad_()]
+    st, kl = dist.rsample_balanced_kl(*map(DiscretePlanState, leaves), cfg.loss.kl_balancing_mix, generator=gen)
+    d_st, d_kl = torch.randn_like(st), torch.randn_like(kl)
+    decoder = LogisticPolicyDecoder(ad).cuda()
+
+    def seeded(fn):
+        """``fn`` with a generator at a fixed seed: its result's digest."""
+        return digest(torch.cat([t.flatten() for t in fn(torch.Generator(device="cuda").manual_seed(SEED + 1))]))
+
+    def plan_fwd(g):
+        with torch.no_grad():
+            return dist.rsample_balanced_kl(DiscretePlanState(post), DiscretePlanState(prior),
+                                            cfg.loss.kl_balancing_mix, generator=g)
+
+    tails = {"plan_fwd 64": (plan_fwd, True),
+             "plan_bwd 64": (lambda g: torch.autograd.grad((st, kl), leaves, (d_st, d_kl), retain_graph=True), False)}
+    for lanes in (LANES, 1):
+        shape = (lanes, 1, ad.out_features - 1, ad.n_mixtures)
+        outs = DecoderOutputs(*(torch.randn(shape, generator=gen, device="cuda") for _ in range(3)),
+                              torch.randn((lanes, 1, 2), generator=gen, device="cuda"), None)
+        tails[f"action_sample {lanes}"] = (lambda g, outs=outs: (decoder._sample_from_outputs(outs, g, None, None),),
+                                           True)
+    out["sampling_tail"] = {}
+    for name, (fn, draws) in tails.items():
+        call = functools.partial(fn, torch.Generator(device="cuda").manual_seed(SEED + 2))
+        ops = device_ops(call, ITERS)
+        out["sampling_tail"][name] = {**op_counts(ops, ITERS), "kernel_ms": kernel_ms(ops), "event_ms": event_ms(call)}
+        if draws:
+            out["digest"][f"sampling_tail {name}"] = seeded(fn)
+
+    gumbel = gumbel_noise((64, d.category_size, d.class_size), gen, "cuda")
+
+    def plan_kernel():
+        with torch.no_grad():
+            return dist.rsample_balanced_kl(DiscretePlanState(post), DiscretePlanState(prior),
+                                            cfg.loss.kl_balancing_mix, gumbel=gumbel)
+
+    alone = {"plan_fwd 64": plan_kernel}
+    bounds = (ad.act_min_bound[-1], ad.act_max_bound[-1])
+    for lanes in (LANES, 1):
+        shape = (lanes, 1, ad.out_features - 1, ad.n_mixtures)
+        lp, ls, mu = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        u_mix, u_inv = (torch.rand(s, generator=gen, device="cuda").clamp_(1e-5, 1.0 - 1e-5) for s in (shape, shape[:-1]))
+        grip = torch.randn((lanes, 1, 2), generator=gen, device="cuda")
+        alone[f"action_sample {lanes}"] = functools.partial(mixture_kernel, lp, ls, mu, u_mix, u_inv, grip, bounds)
+    out["sampling_kernel"] = {}
+    for name, fn in alone.items():
+        ops = device_ops(fn, ITERS)
+        out["sampling_kernel"][name] = {**op_counts(ops, ITERS), "kernel_ms": kernel_ms(ops), "event_ms": event_ms(fn)}
+
+
 def policy_times(cfg, seed: int, lanes: int) -> dict:
-    """Median host-clock ms of an acting step at 1 lane and at ``lanes``."""
+    """Median host-clock ms of an acting step at 1 lane and at ``lanes``,
+    and the device operations per step under the profiler."""
     from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
     from hulc_tpu_torch.evaluation.policy import HulcPolicy
     from hulc_tpu_torch.models import make_model
@@ -240,6 +344,7 @@ def policy_times(cfg, seed: int, lanes: int) -> dict:
     single.step(one, lang)  # plan once; the timed steps act
     single.replan_freq = 10**9
     out = {"1": host_ms(lambda: single.step(one, lang), 50)}
+    ops = {"1": op_counts(device_ops(lambda: single.step(one, lang), 20), 20)}
     batched = BatchedHulcPolicy(cfg, model, lanes, seed=seed)
     many, langs = [obs() for _ in range(lanes)], rng.normal(size=(lanes, 384)).astype(np.float32)
     state, mask = [batched.initial_state()], np.zeros(lanes, bool)
@@ -248,7 +353,8 @@ def policy_times(cfg, seed: int, lanes: int) -> dict:
         _, state[0] = batched.step(many, langs, state[0], mask)
 
     out[str(lanes)] = host_ms(step, 30)
-    return out
+    ops[str(lanes)] = op_counts(device_ops(step, 20), 20)
+    return {"host_ms": out, "ops_per_step": ops}
 
 
 def main(argv=None) -> None:
@@ -313,6 +419,8 @@ def main(argv=None) -> None:
 
     if wanted("optimizer_tail"):
         optimizer_tail(cfg, out)
+    if wanted("sampling_tail"):
+        sampling_tails(cfg, out)
     if wanted("train_step"):
         train_step_counts(cfg, out)
     for name, fn in cases.items():
@@ -327,7 +435,8 @@ def main(argv=None) -> None:
             out["digest"][name] = digest(fn())
     del train, shifts
     if not args.only:
-        out["policy_step_host_ms"] = policy_times(cfg, SEED, LANES)
+        policy = policy_times(cfg, SEED, LANES)
+        out["policy_step_host_ms"], out["policy_step_ops"] = policy["host_ms"], policy["ops_per_step"]
     print(json.dumps(out))
 
 

@@ -7,9 +7,10 @@ points, ``HulcPolicy.step`` at one lane and ``BatchedHulcPolicy.step`` at
 ``--lanes`` lanes, under ``torch.profiler`` for ``--steps`` steady steps
 each, and prints one JSON line per lane count: host-clock ms per step,
 device ms per step (the sum of the CUDA activity the profiler recorded),
-the device's idle share of the window, the device time by kind
-(hand kernels, matmuls, convolutions, copies, other) and of each hand
-kernel, and the ten CUDA operations that take the most device time. With
+the device's idle share of the window, the device operations per step
+(kernels, and copies and fills apart), the device time by kind (hand
+kernels, matmuls, convolutions, copies, other) and of each hand kernel,
+and the ten CUDA operations that take the most device time. With
 ``--out`` it also writes each window's Chrome trace there. Needs a CUDA
 device.
 """
@@ -109,10 +110,12 @@ def profile_steps(step, steps: int, trace_path=None) -> dict:
     for e in device:
         by_kind[kind_of(e.key)] = by_kind.get(kind_of(e.key), 0.0) + _device_us(e) / 1e3 / steps
     hand = {k: _device_us(e) / 1e3 / steps for e in device for k in HAND_KERNELS if k in e.key}
+    copies = sum(e.count for e in device if kind_of(e.key) == "copies and fills") / steps
     return {
         "step_ms": step_ms,
         "device_ms_per_step": device_ms,
         "idle_share": 1.0 - device_ms / step_ms if device_ms else None,
+        "device_ops_per_step": {"kernels": sum(e.count for e in device) / steps - copies, "copies_and_fills": copies},
         "device_ms_per_step_by_kind": by_kind,
         "hand_kernel_ms_per_step": hand,
         "top": [

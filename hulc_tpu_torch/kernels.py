@@ -87,15 +87,28 @@ def build() -> pathlib.Path:
     return lib
 
 
+_TEMPLATE_ARG = {"Lb0E": "false", "Lb1E": "true"}
+
+
 def _entry_name(mangled: str) -> str:
     """``preprocess_rgb_shift_kernel`` out of its mangled name: the
-    length-prefixed identifier that ends in ``_kernel``."""
+    length-prefixed identifier that ends in ``_kernel``; an instance of a
+    kernel template gets its arguments, as ``plan_st_kl_fwd_kernel<true>``
+    (a bool, an int literal, or else the arguments as mangled)."""
     for m in re.finditer(r"\d+", mangled):
         for cut in range(len(m.group())):
             k = int(m.group()[cut:])
             name = mangled[m.end():m.end() + k]
-            if len(name) == k and name.endswith("_kernel") and mangled[m.end() + k:m.end() + k + 1] == "E":
+            if len(name) != k or not name.endswith("_kernel"):
+                continue
+            rest = mangled[m.end() + k:]
+            if rest.startswith("E"):
                 return name
+            args = re.match(r"I((?:L[^E]*E)+)E", rest)
+            if args:
+                parts = re.findall(r"L[^E]*E", args.group(1))
+                pretty = [_TEMPLATE_ARG.get(a, a[2:-1] if a.startswith("Li") else a) for a in parts]
+                return f"{name}<{', '.join(pretty)}>"
     return mangled
 
 
@@ -127,12 +140,12 @@ _SIGNATURES = {
     "hulc_preprocess_rgb_shift": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32),
     "hulc_spatial_softmax": (_P, _P, _I64, _I32, _I32, _I32, _P, _F32),
     "hulc_spatial_softmax_bwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _F32),
-    "hulc_logistic_mixture_sample": (_P, _P, _P, _P, _P, _P, _I64, _I32),
+    "hulc_logistic_mixture_sample": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32, _F32, _F32),
     "hulc_mixture_nll_fwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F32, _F32,
     ),
     "hulc_mixture_nll_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32),
-    "hulc_plan_st_kl_fwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
+    "hulc_plan_st_kl_fwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F32, _F32),
     "hulc_plan_st_kl_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
     "hulc_adam_lowp": (_P, _I32, _I32, _I32, _I64, _I64, _I64, _P, _P, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32),
     "hulc_grad_norm_finish": (_P, _I64, _P),

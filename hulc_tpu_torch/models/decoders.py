@@ -4,9 +4,10 @@ A relu RNN with an explicit carry over concat(plan, a slice of the
 perceptual embedding, latent goal; its recurrence a hand-written kernel
 per layer on CUDA tensors, forward and backward), three heads for the mixture's logits,
 log scales (clamped at ``log_scale_min``) and means, and a two-way gripper
-head. ``act`` samples one action per step through the mixture sampler
-(a hand-written kernel on CUDA tensors), picks the gripper by argmax, and
-rotates the action from the TCP frame back to the world frame. ``loss``
+head. ``act`` samples one action per step through the mixture sampler,
+which also picks the gripper by argmax (one hand-written kernel on CUDA
+tensors, from the raw uniform draws to the action), and rotates the
+action from the TCP frame back to the world frame. ``loss``
 rotates the ground-truth actions into the TCP frame and takes the mixture
 NLL plus ``gripper_alpha`` times the gripper cross-entropy
 (``ops.logistic_mixture.mixture_nll``, a forward and a backward kernel on
@@ -24,12 +25,14 @@ from hulc_tpu_torch.config import ActionDecoderConfig
 from hulc_tpu_torch.models.layers import ScanRNN
 from hulc_tpu_torch.ops.frame_transforms import tcp_to_world_frame, world_to_tcp_frame
 from hulc_tpu_torch.ops.logistic_mixture import (
+    U_MIN,
+    U_SPAN,
     cross_entropy_gripper,
-    draw_uniforms,
-    logistic_mixture_sample,
-    logistic_mixture_sample_plain,
+    draw_raw_uniforms,
     mixture_nll,
     mixture_nll_plain,
+    sample_action,
+    sample_action_plain,
 )
 
 
@@ -156,17 +159,22 @@ class LogisticPolicyDecoder(nn.Module):
         u_mix: Optional[torch.Tensor],
         u_inv: Optional[torch.Tensor],
     ) -> torch.Tensor:
+        """The (B, S, A [+ 1]) TCP-frame action. Injected ``u_mix`` / ``u_inv``
+        are uniforms in (U_MIN, U_MAX); without them the generator's raw draws
+        are mapped there inside the sampler."""
+        c = self.cfg
         if (u_mix is None) != (u_inv is None):
             raise ValueError("pass both u_mix and u_inv, or neither")
+        uniform_map = (0.0, 1.0)
         if u_mix is None:
-            u_mix, u_inv = draw_uniforms(tuple(out.logit_probs.shape), generator, out.logit_probs.device)
-        sample = logistic_mixture_sample if self.use_kernels else logistic_mixture_sample_plain
-        actions = sample(out.logit_probs, out.log_scales, out.means, u_mix=u_mix, u_inv=u_inv)
-        if self.cfg.discrete_gripper:
-            open_ = torch.argmax(out.gripper_logits, dim=-1) == 1
-            gripper = torch.where(open_, self.cfg.act_max_bound[-1], self.cfg.act_min_bound[-1])
-            actions = torch.cat([actions, gripper[..., None].to(actions.dtype)], dim=-1)
-        return actions
+            u_mix, u_inv = draw_raw_uniforms(tuple(out.logit_probs.shape), generator, out.logit_probs.device)
+            uniform_map = (U_MIN, U_SPAN)
+        sample = sample_action if self.use_kernels else sample_action_plain
+        return sample(
+            out.logit_probs, out.log_scales, out.means, u_mix, u_inv,
+            out.gripper_logits if c.discrete_gripper else None, (c.act_min_bound[-1], c.act_max_bound[-1]),
+            uniform_map,
+        )
 
     def act(
         self,

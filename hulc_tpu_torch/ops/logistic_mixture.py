@@ -1,14 +1,17 @@
 """Discretized logistic mixture: NLL and sampling (port of
 hulc_tpu/ops/logistic_mixture.py and decoders.py:52-61).
 
-``logistic_mixture_sample`` picks one of K mixture components per action
-dimension by Gumbel-max and inverts that component's logistic CDF. It
-takes the two uniforms it needs, ``u_mix`` (..., A, K) and ``u_inv``
-(..., A), as inputs; ``draw_uniforms`` draws them from a
-``torch.Generator`` in (1e-5, 1 - 1e-5), as the JAX package draws them
-(tests pass exactly the noise JAX drew instead). On a CUDA tensor the
-sample is the hand-written kernel ``csrc/logistic_mixture.cu``; on a CPU
-tensor the plain version.
+``sample_action`` picks one of K mixture components per action dimension
+by Gumbel-max, inverts that component's logistic CDF, and appends the
+gripper column picked by the gripper logits' argmax. It takes the two
+uniforms it needs, ``u_mix`` (..., A, K) and ``u_inv`` (..., A), as inputs
+with the map into (1e-5, 1 - 1e-5) that they still need:
+``draw_raw_uniforms`` draws them from a ``torch.Generator`` and
+``map_uniforms`` maps them as the JAX package draws them (tests pass
+exactly the noise JAX drew instead, with the identity map). On a CUDA
+tensor the whole action, from the raw draws on, is one launch of the
+hand-written kernel ``csrc/logistic_mixture.cu``; on a CPU tensor the plain
+version.
 
 ``logistic_mixture_log_prob`` / ``logistic_mixture_loss`` and
 ``cross_entropy_gripper`` are the JAX functions in plain PyTorch.
@@ -35,6 +38,7 @@ import torch
 from hulc_tpu_torch import kernels
 
 U_MIN, U_MAX = 1e-5, 1.0 - 1e-5
+U_SPAN = U_MAX - U_MIN
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -271,13 +275,20 @@ def mixture_nll(
     return _MixtureNLL.apply(*params, gripper_logits, actions, act_min, act_max, consts)
 
 
-def draw_uniforms(
+def draw_raw_uniforms(
     shape: Tuple[int, ...], generator: Optional[torch.Generator], device: torch.device
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(u_mix, u_inv)`` for logits of shape (..., A, K), in (U_MIN, U_MAX)."""
+    """The two ``torch.rand`` draws in [0, 1) for logits of shape (..., A, K):
+    (..., A, K) for the component pick, (..., A) for the inverse CDF."""
     u_mix = torch.rand(shape, generator=generator, device=device)
     u_inv = torch.rand(shape[:-1], generator=generator, device=device)
-    return U_MIN + (U_MAX - U_MIN) * u_mix, U_MIN + (U_MAX - U_MIN) * u_inv
+    return u_mix, u_inv
+
+
+def map_uniforms(u: torch.Tensor, lo: float = U_MIN, span: float = U_SPAN) -> torch.Tensor:
+    """``lo + span * u``: a multiply, then an add, each rounded in fp32 (the
+    sampler kernel computes the same); the identity map (0, 1) returns u."""
+    return u if (lo, span) == (0.0, 1.0) else lo + span * u
 
 
 def logistic_mixture_sample_plain(
@@ -294,16 +305,48 @@ def logistic_mixture_sample_plain(
     return sel_means + torch.exp(sel_log_scales) * (torch.log(u_inv) - torch.log(1.0 - u_inv))
 
 
-def logistic_mixture_sample(
+def gripper_pick_plain(gripper_logits: torch.Tensor, closed: float, open_: float) -> torch.Tensor:
+    """(..., 2) gripper logits -> (...) ``open_`` where argmax picks index 1,
+    else ``closed``."""
+    return torch.where(torch.argmax(gripper_logits, dim=-1) == 1, open_, closed)
+
+
+def sample_action_plain(
+    logit_probs, log_scales, means, u_mix, u_inv, gripper_logits=None, gripper_bounds=(-1.0, 1.0),
+    uniform_map=(U_MIN, U_SPAN),
+) -> torch.Tensor:
+    """Plain PyTorch version of ``sample_action``: the uniforms mapped, the
+    sample, then the gripper column."""
+    actions = logistic_mixture_sample_plain(
+        logit_probs, log_scales, means, *(map_uniforms(u, *uniform_map) for u in (u_mix, u_inv))
+    )
+    if gripper_logits is None:
+        return actions
+    gripper = gripper_pick_plain(gripper_logits, *gripper_bounds)
+    return torch.cat([actions, gripper[..., None].to(actions.dtype)], dim=-1)
+
+
+def sample_action(
     logit_probs: torch.Tensor,
     log_scales: torch.Tensor,
     means: torch.Tensor,
     u_mix: torch.Tensor,
     u_inv: torch.Tensor,
+    gripper_logits: Optional[torch.Tensor] = None,
+    gripper_bounds: Tuple[float, float] = (-1.0, 1.0),
+    uniform_map: Tuple[float, float] = (U_MIN, U_SPAN),
 ) -> torch.Tensor:
-    """(..., A, K) mixture parameters -> (..., A) sampled actions."""
+    """(..., A, K) mixture parameters, uniforms ``u_mix`` (..., A, K) and
+    ``u_inv`` (..., A) mapped by ``uniform_map`` = (lo, span) as lo + span *
+    u, and optional (..., 2) gripper logits -> the (..., A [+ 1]) action: the
+    sample of each dimension, then ``gripper_bounds`` = (closed, open) by the
+    gripper logits' argmax. Raw ``torch.rand`` draws take the default map,
+    uniforms already in (U_MIN, U_MAX) take (0, 1). On a CUDA tensor one
+    launch of ``csrc/logistic_mixture.cu``; on a CPU tensor the plain
+    version."""
     if logit_probs.device.type == "cpu":
-        return logistic_mixture_sample_plain(logit_probs, log_scales, means, u_mix, u_inv)
+        return sample_action_plain(logit_probs, log_scales, means, u_mix, u_inv, gripper_logits, gripper_bounds,
+                                   uniform_map)
     params = [t.float().contiguous() for t in (logit_probs, log_scales, means, u_mix)]
     u_inv = u_inv.float().contiguous()
     for name, t in zip(("logit_probs", "log_scales", "means", "u_mix"), params):
@@ -313,9 +356,20 @@ def logistic_mixture_sample(
     kernels.require_cuda_tensor("u_inv", u_inv, torch.float32)
     if u_inv.shape != logit_probs.shape[:-1]:
         raise ValueError(f"u_inv has shape {tuple(u_inv.shape)}, expected {tuple(logit_probs.shape[:-1])}")
-    out = torch.empty(logit_probs.shape[:-1], dtype=torch.float32, device=logit_probs.device)
+    *lead, a, k = logit_probs.shape
+    if k < 1:
+        raise ValueError("the mixture needs at least one component")
+    grip_ptr = None
+    if gripper_logits is not None:
+        gripper_logits = gripper_logits.float().contiguous()
+        kernels.require_cuda_tensor("gripper_logits", gripper_logits, torch.float32)
+        if gripper_logits.shape != (*lead, 2):
+            raise ValueError(f"gripper_logits has shape {tuple(gripper_logits.shape)}, expected {(*lead, 2)}")
+        grip_ptr = gripper_logits.data_ptr()
+    out = torch.empty((*lead, a + (gripper_logits is not None)), dtype=torch.float32, device=logit_probs.device)
     kernels.LOGISTIC_MIXTURE_SAMPLE(
-        logit_probs.device, *(t.data_ptr() for t in params), u_inv.data_ptr(), out.data_ptr(),
-        out.numel(), logit_probs.shape[-1],
+        logit_probs.device, *(t.data_ptr() for t in params), u_inv.data_ptr(), grip_ptr, out.data_ptr(),
+        u_inv.numel(), a, k, *uniform_map, *gripper_bounds,
     )
     return out
+

@@ -10,8 +10,12 @@ drew). ``rsample`` is the straight-through sample, ``kl`` / ``balanced_kl``
 the DreamerV2 balanced KL, all plain PyTorch. ``rsample_balanced_kl`` is
 what a training step calls: both at once, for the posterior's sample and
 its KL to the prior; on CUDA tensors it is a ``torch.autograd.Function``
-whose forward and backward are the kernels of ``csrc/plan_kl.cu``. The
-continuous (Normal) plan waits for a later slice.
+whose forward and backward are the kernels of ``csrc/plan_kl.cu``. Its
+noise is Gumbel noise (``gumbel=``) or uniforms (``uniform=``, or the
+generator's ``torch.rand`` draw) that the forward kernel turns into Gumbel
+noise itself, as ``gumbel_of_uniform`` does: from the draw to the sample
+and the KL, one launch. The continuous (Normal) plan waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -31,11 +35,15 @@ class DiscretePlanState(NamedTuple):
     logit: torch.Tensor
 
 
+def gumbel_of_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise of uniforms u in [0, 1): -log(-log u), u clamped
+    at the smallest normal float (jax.random.gumbel draws u in [tiny, 1))."""
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
 def gumbel_noise(shape, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
-    """Standard Gumbel noise, -log(-log u) with u in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, device=device)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    """Standard Gumbel noise from one ``torch.rand`` draw of ``generator``."""
+    return gumbel_of_uniform(torch.rand(shape, generator=generator, device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,38 +135,49 @@ class PlanDistribution:
         *,
         generator: Optional[torch.Generator] = None,
         gumbel: Optional[torch.Tensor] = None,
+        uniform: Optional[torch.Tensor] = None,
         use_kernels: bool = True,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(straight-through sample of the posterior (B, plan_dim), per-sample
-        balanced KL (B,)). ``use_kernels=False`` runs the plain version on any
-        device; it exists to hold the kernels against it on the card."""
+        balanced KL (B,)). The noise: ``gumbel`` (B, category_size,
+        class_size) Gumbel noise, or ``uniform`` of that shape in [0, 1), or
+        else one ``torch.rand`` draw of ``generator`` (the draw
+        ``gumbel_noise`` makes); uniforms go through ``gumbel_of_uniform``.
+        ``use_kernels=False`` runs the plain version on any device; it exists
+        to hold the kernels against it on the card."""
+        if gumbel is not None and uniform is not None:
+            raise ValueError("pass gumbel or uniform noise, not both")
         post, pri = self._grid_logits(posterior), self._grid_logits(prior)
-        if gumbel is None:
-            gumbel = gumbel_noise(post.shape, generator, post.device)
+        if gumbel is None and uniform is None:
+            uniform = torch.rand(post.shape, generator=generator, device=post.device)
         if not use_kernels or post.device.type == "cpu":
+            gumbel = gumbel_of_uniform(uniform) if gumbel is None else gumbel
             sample = self.rsample(posterior, gumbel=gumbel)
             return sample, self.balanced_kl(posterior, prior, alpha, per_sample=True)
-        tensors = [t.contiguous() for t in (post, pri, gumbel.float())]
-        for name, t in zip(("posterior", "prior", "gumbel"), tensors):
+        noise_is_uniform = gumbel is None
+        noise = uniform if noise_is_uniform else gumbel
+        tensors = [t.contiguous() for t in (post, pri, noise.float())]
+        for name, t in zip(("posterior", "prior", "uniform" if noise_is_uniform else "gumbel"), tensors):
             kernels.require_cuda_tensor(name, t, torch.float32, 3)
             if t.shape != post.shape:
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(post.shape)}")
-        st, kl = _PlanStKL.apply(*tensors, float(alpha))
+        st, kl = _PlanStKL.apply(*tensors, float(alpha), noise_is_uniform)
         return st.reshape(st.shape[:-2] + (self.plan_dim,)), kl
 
 
 class _PlanStKL(torch.autograd.Function):
-    """The kernels of csrc/plan_kl.cu: (post, prior, gumbel) grids ->
-    (straight-through sample, per-sample balanced KL), and their backward."""
+    """The kernels of csrc/plan_kl.cu: (post, prior, noise) grids ->
+    (straight-through sample, per-sample balanced KL), the noise Gumbel or,
+    with ``noise_is_uniform``, uniforms; and their backward."""
 
     @staticmethod
-    def forward(ctx, post, prior, gumbel, alpha):
+    def forward(ctx, post, prior, noise, alpha, noise_is_uniform):
         b, cats, classes = post.shape
         st = torch.empty_like(post)
         kl = torch.empty(b, dtype=torch.float32, device=post.device)
         kernels.PLAN_ST_KL_FWD(
-            post.device, post.data_ptr(), prior.data_ptr(), gumbel.data_ptr(), st.data_ptr(),
-            kl.data_ptr(), b, cats, classes, alpha, 1.0 - alpha,
+            post.device, post.data_ptr(), prior.data_ptr(), noise.data_ptr(), st.data_ptr(),
+            kl.data_ptr(), b, cats, classes, int(noise_is_uniform), alpha, 1.0 - alpha,
         )
         ctx.save_for_backward(post, prior)
         ctx.alpha = alpha
@@ -175,4 +194,4 @@ class _PlanStKL(torch.autograd.Function):
             post.device, post.data_ptr(), prior.data_ptr(), d_st.data_ptr(), d_kl.data_ptr(),
             d_post.data_ptr(), d_prior.data_ptr(), b, cats, classes, ctx.alpha, 1.0 - ctx.alpha,
         )
-        return d_post, d_prior, None, None
+        return d_post, d_prior, None, None, None

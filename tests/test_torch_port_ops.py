@@ -27,7 +27,7 @@ from hulc_tpu_torch import kernels
 from hulc_tpu_torch.models.vision import spatial_softmax, spatial_softmax_plain
 from hulc_tpu_torch.ops import frame_transforms, rotations
 from hulc_tpu_torch.ops.image_ops import normalize_table, preprocess_rgb_seq, preprocess_rgb_seq_plain
-from hulc_tpu_torch.ops.logistic_mixture import U_MAX, U_MIN, draw_uniforms, logistic_mixture_sample
+from hulc_tpu_torch.ops.logistic_mixture import U_MAX, U_MIN, draw_raw_uniforms, map_uniforms, sample_action
 from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution
 
 torch.set_num_threads(1)
@@ -100,7 +100,7 @@ def test_logistic_mixture_sample_matches_jax(lanes):
     key = jax.random.key(3)
     want = np.asarray(jax_mixture_sample(key, jnp.asarray(logits), jnp.asarray(log_scales), jnp.asarray(means)))
     u_mix, u_inv = jax_mixture_uniforms(key, shape)
-    got = logistic_mixture_sample(_t(logits), _t(log_scales), _t(means), _t(u_mix), _t(u_inv))
+    got = sample_action(_t(logits), _t(log_scales), _t(means), _t(u_mix), _t(u_inv), uniform_map=(0.0, 1.0))
     assert got.shape == (lanes, 1, 6)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
@@ -108,8 +108,8 @@ def test_logistic_mixture_sample_matches_jax(lanes):
 def test_draw_uniforms_is_seeded_and_in_range():
     shape = (4, 1, 6, 10)
     cpu = torch.device("cpu")
-    first = draw_uniforms(shape, torch.Generator().manual_seed(5), cpu)
-    again = draw_uniforms(shape, torch.Generator().manual_seed(5), cpu)
+    first, again = ([map_uniforms(u) for u in draw_raw_uniforms(shape, torch.Generator().manual_seed(5), cpu)]
+                    for _ in range(2))
     for u, v, want_shape in zip(first, again, (shape, shape[:-1])):
         assert u.shape == want_shape and torch.equal(u, v)
         assert bool((u >= U_MIN).all()) and bool((u <= U_MAX).all())
