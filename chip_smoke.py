@@ -107,9 +107,29 @@ it fails:
    through a loss; each kernel's registers, shared memory and spills from
    the build log. (A kernel against its parent design, and each sampling
    tail against the parent's: ``evaluation/kernel_times.py --tree``.)
+11. evaluator: the LH-MTLC protocol through the port's entry points
+   (``evaluation/eval_split.py``). ``evaluate_policy_batched`` drives the
+   full-width model's BatchedHulcPolicy at 64 lanes over 128
+   feasibility-filtered chains (``chain_sampler.get_sequences``) with their
+   matched resets, in interactive FakeCalvinEnvs at 200 px static and
+   84 px gripper, ep_len 90 (three replans an instruction), 384-d task
+   embeddings; then ``evaluate_policy`` drives HulcPolicy over 2 chains at
+   ep_len 60. Launch counts are zeroed before and read after each run: the
+   eval preprocess (both cameras), the SpatialSoftmax forward, the action
+   sampler and the recurrence's forward must have launched exactly as
+   often as the policy steps (and, sequentially, the replans) imply, and
+   nothing else. results.json must have its schema and count every chain
+   once. Every lockstep iteration, as recorded (frames, embeddings, state,
+   replan mask), is replayed through the plain path on the card with the
+   same generator seed, so the replans inside an instruction and at a
+   lane's next chain are held too; the actions must agree as in phase 6.
+   Prints env-steps/s, wall seconds, policy steps and the wall time split
+   between the policy step and the envs, oracle and loop (host clock);
+   then one round of lanes (64 chains, ep_len 30) under torch.profiler
+   gives the device's idle share of an evaluator run.
 
-Prints a ``{"kernels": [...]}`` JSON line and, last,
-``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
+training and evaluator paths) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -118,9 +138,11 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -459,14 +481,16 @@ def plain_single(cfg, plain_model, obs, lang, seed, kern_states):
     return np.stack(actions), np.stack(plans)
 
 
-def plain_batched(cfg, plain_model, obs_steps, langs, seed, kern_states):
+def plain_batched(cfg, plain_model, steps, seed):
+    """Lockstep steps through the plain model, each step an (obs_batch,
+    lang_embs, state, replan_mask) with the kernel path's state, from one
+    generator seed; returns (actions, post-step plans)."""
     from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
 
-    lanes = len(langs)
-    policy = BatchedHulcPolicy(cfg, plain_model, lanes, seed=seed)
+    policy = BatchedHulcPolicy(cfg, plain_model, len(steps[0][3]), seed=seed)
     actions, plans = [], []
-    for t, obs in enumerate(obs_steps):
-        act, state = policy.step(obs, langs, kern_states[t], replan_mask(t, lanes, cfg.replan_freq))
+    for obs, langs, state, mask in steps:
+        act, state = policy.step(obs, langs, state, mask)
         actions.append(act)
         plans.append(state[0].cpu().numpy())
     return np.stack(actions), np.stack(plans)
@@ -569,6 +593,154 @@ def time_policy(cfg, model, rng, lanes):
         _, state[0] = batched.step(obs, langs, state[0], mask)
 
     return single_ms, host_ms(step, 30)
+
+
+# --------------------------------------------------------------------------
+# phase 11: the LH-MTLC evaluator
+# --------------------------------------------------------------------------
+
+# The batched, sequential and profiled runs take eval_split's sizes; every
+# lockstep iteration of the batched run is replayed through the plain path.
+PROTOCOL_CHAINS, PROTOCOL_EP_LEN = 1000, 360  # LH-MTLC
+
+
+def encode_act_launches(cfg):
+    """({symbol: launches} of encoding one frame, of one decoder act)."""
+    pe = cfg.perceptual_encoder
+    cams = [c for c in (pe.rgb_static, pe.rgb_gripper) if c is not None]
+    encode = {"hulc_preprocess_rgb": len(cams),
+              "hulc_spatial_softmax": sum(c.kind == "spatial_softmax" for c in cams)}
+    act = {"hulc_logistic_mixture_sample": 1, "hulc_rnn_relu_fwd": cfg.action_decoder.num_layers}
+    return encode, act
+
+
+def check_eval_launches(name, launches, encodes, acts, cfg):
+    """Every serving kernel launched exactly as often as ``encodes`` frame
+    encodings and ``acts`` decoder steps imply, and no other kernel."""
+    from hulc_tpu_torch import kernels
+
+    encode, act = encode_act_launches(cfg)
+    want = {k.symbol: 0 for k in kernels.ALL_KERNELS}
+    for per, n in ((encode, encodes), (act, acts)):
+        for symbol, count in per.items():
+            want[symbol] += count * n
+    if launches != want:
+        fail(f"{name}: launches {launches} are not the {want} that {encodes} encodings and {acts} acts imply")
+    if not all(launches[s] > 0 for s in (*encode, *act)):
+        fail(f"{name}: a kernel of the serving path was never launched: {launches}")
+    print(f"[evaluator] {name}: launches {', '.join(f'{k} {v}' for k, v in launches.items() if v)} = "
+          f"{encodes} frame encodings x {encode} + {acts} acts x {act}")
+
+
+def check_eval_results(name, results_path, stats, started):
+    """results.json's schema, and every chain counted exactly once: each
+    chain's reset once, successes and attempts consistent with the chains."""
+    on_disk = json.loads(results_path.read_text())
+    r = on_disk.get("0", {})
+    if set(on_disk) != {"0"} or set(r) != {"avg_seq_len", "chain_sr", "task_sr", "task_info"}:
+        fail(f"{name}: results.json keys {sorted(on_disk)} / {sorted(r)}")
+    if set(r["chain_sr"]) != {"1", "2", "3", "4", "5"} or set(r["task_sr"]) != set(r["task_info"]):
+        fail(f"{name}: results.json chain_sr {sorted(r['chain_sr'])}, task_sr and task_info disagree")
+    n = stats["chains"]
+    if sorted(started) != list(range(n)):
+        fail(f"{name}: chains were started {len(started)} times, not each of {n} once")
+    successes = sum(v["success"] for v in r["task_info"].values())
+    attempts = sum(v["total"] for v in r["task_info"].values())
+    complete = round(r["chain_sr"]["5"] * n)
+    if round(r["avg_seq_len"] * n) != successes or attempts != n + successes - complete:
+        fail(f"{name}: {successes} successes and {attempts} attempts do not add up over {n} chains "
+             f"(avg_seq_len {r['avg_seq_len']}, {complete} complete)")
+    print(f"[evaluator] {name}: results.json schema {{avg_seq_len, chain_sr{{1..5}}, task_sr, task_info}}; "
+          f"each of {n} chains started once; {attempts} instructions attempted, {successes} succeeded")
+
+
+def run_evaluator(cfg, model, seed, card):
+    """Phase 11: the batched evaluator (kernel path, replayed through the
+    plain path) and the sequential one, with launch counts, accounting and
+    the wall-time split."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
+    from hulc_tpu_torch.evaluation.eval_split import (
+        CHAINS, EP_LEN, IDLE_EP_LEN, LANES, SEQ_CHAINS, SEQ_EP_LEN, device_idle_share, run_batched,
+        run_sequential,
+    )
+    from hulc_tpu_torch.evaluation.expert import task_embeddings
+    from hulc_tpu_torch.evaluation.policy import HulcPolicy
+    from hulc_tpu_torch.models import make_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        policy = BatchedHulcPolicy(cfg, model, LANES, seed=seed)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        # an iteration takes at most one env step of a chain: CHAINS * EP_LEN
+        # bounds the iterations, so every one is kept for the replay
+        batched, timed, started = run_batched(cfg, policy, CHAINS, EP_LEN, seed, out / "batched",
+                                              record=CHAINS * EP_LEN)
+        torch.cuda.synchronize()
+        batched_launches = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
+        single = HulcPolicy(cfg, model, lang_embeddings=task_embeddings(cfg.lang_dim), seed=seed)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        seq, seq_started = run_sequential(cfg, single, SEQ_CHAINS, SEQ_EP_LEN, seed, out / "sequential")
+        torch.cuda.synchronize()
+        seq_launches = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
+        iters = batched["lockstep_iters"]
+        check_eval_launches("batched", batched_launches, iters, iters, cfg)
+        check_eval_launches("sequential", seq_launches, seq["policy_steps"] + seq["replans"], seq["policy_steps"],
+                            cfg)
+        check_eval_results("batched", out / "batched" / "results.json", batched, started)
+        check_eval_results("sequential", out / "sequential" / "results.json", seq, seq_started)
+    if seq["env_steps"] != seq["policy_steps"]:
+        fail(f"sequential: {seq['env_steps']} env steps for {seq['policy_steps']} policy steps")
+
+    # the first iterations against the plain path on the card
+    plain_model = make_model(cfg, model.device, seed=seed, use_kernels=False)
+    plain_model.load_state_dict(model.state_dict())
+    records = timed.records
+    kern_actions = np.stack([r.actions for r in records])
+    check_actions("evaluator", kern_actions, LANES)
+    p_actions, p_plans = plain_batched(
+        cfg, plain_model, [(r.obs_batch, r.lang_embs, r.state, r.replan_mask) for r in records], seed
+    )
+    k_plans = np.stack([r.new_state[0].cpu().numpy() for r in records])
+    replanned = np.stack([r.replan_mask for r in records])
+    if len(records) != batched["lockstep_iters"]:
+        fail(f"evaluator: {len(records)} iterations recorded of {batched['lockstep_iters']}")
+    batched["plain_max_abs_err"] = compare_plain(
+        f"evaluator, all {len(records)} iterations ({int(replanned.any(axis=1).sum())} with a replan, "
+        f"{int((replanned.any(axis=1) & ~replanned.all(axis=1)).sum())} of them on only some lanes)",
+        kern_actions, p_actions, k_plans, p_plans, replanned, cfg,
+    )
+    del plain_model, records, timed
+
+    # the device's idle share of a shorter batched run, under the profiler
+    with tempfile.TemporaryDirectory() as tmp:
+        idle = device_idle_share(cfg, BatchedHulcPolicy(cfg, model, LANES, seed=seed), LANES, IDLE_EP_LEN,
+                                 seed, tmp)
+    if not idle["device_busy_ms"] > 0:
+        fail(f"the profiler recorded no device time in the evaluator's run: {idle}")
+    print(f"[evaluator] under torch.profiler, {idle['lanes']} lanes, {idle['chains']} chains, ep_len "
+          f"{idle['ep_len']}: {idle['lockstep_iters']} lockstep iterations in {idle['wall_ms']:.4f} ms wall, device "
+          f"busy {idle['device_busy_ms']:.4f} ms, idle {100 * idle['idle_share']:.2f}% (policy step "
+          f"{100 * idle['policy_share']:.2f}% of the wall under the profiler) ({card})")
+
+    for name, st in (("batched", batched), ("sequential", seq)):
+        lanes_txt = f"{st['lanes']} lanes, " if "lanes" in st else "1 lane, "
+        steps = st.get("lockstep_iters", st.get("policy_steps"))
+        print(f"[evaluator] {name}: {lanes_txt}{st['chains']} chains, ep_len {st['ep_len']}: {steps} policy steps, "
+              f"{st['env_steps']} env steps in {st['wall_s']:.4f} s wall, {st['env_steps_per_s']:.2f} env-steps/s; "
+              f"policy step {st['policy_s']:.4f} s ({100 * st['policy_share']:.2f}%, "
+              f"{1e3 * st['policy_s'] / steps:.4f} ms a step), env + oracle + loop {st['env_oracle_loop_s']:.4f} s "
+              f"({1e3 * st['env_oracle_loop_s'] / steps:.4f} ms a step), host clock ({card})")
+    protocol_s = PROTOCOL_CHAINS * PROTOCOL_EP_LEN / batched["env_steps_per_s"]
+    batched["projected_protocol_s"] = protocol_s
+    print(f"[evaluator] projected: {PROTOCOL_CHAINS} chains that each time out on their first instruction at "
+          f"ep_len {PROTOCOL_EP_LEN} ({PROTOCOL_CHAINS * PROTOCOL_EP_LEN} env steps) at {LANES} lanes take "
+          f"{protocol_s:.1f} s at this rate ({card})")
+    for st in (batched, seq):
+        st["results"] = {k: st["results"][k] for k in ("avg_seq_len", "chain_sr")}
+    return {"batched": batched, "sequential": seq, "profiled": idle}, batched_launches, seq_launches
 
 
 # --------------------------------------------------------------------------
@@ -1799,9 +1971,12 @@ def main(argv=None) -> int:
     k_plans = np.stack([s.plan[0].cpu().numpy() for s in single_states[1:]])
     replanned = np.array([t % cfg.replan_freq == 0 for t in range(args.steps)])
     compare_plain("single lane", single_actions, p_actions, k_plans, p_plans, replanned, cfg)
-    p_actions, p_plans = plain_batched(cfg, plain_model, batched_obs, langs, args.seed, batched_states)
+    masks = [replan_mask(t, args.lanes, cfg.replan_freq) for t in range(args.steps)]
+    p_actions, p_plans = plain_batched(
+        cfg, plain_model, list(zip(batched_obs, [langs] * args.steps, batched_states, masks)), args.seed
+    )
     k_plans = np.stack([s[0].cpu().numpy() for s in batched_states[1:]])
-    replanned = np.stack([replan_mask(t, args.lanes, cfg.replan_freq) for t in range(args.steps)])
+    replanned = np.stack(masks)
     compare_plain("batched", batched_actions, p_actions, k_plans, p_plans, replanned, cfg)
 
     # ---- 7. serving timing -------------------------------------------------------
@@ -1892,12 +2067,17 @@ def main(argv=None) -> int:
               f"k-slice {plan.k_slice}, {plan.smem_bytes} B dynamic shared memory per block, one block per SM, "
               f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
+    # ---- 11. the LH-MTLC evaluator -------------------------------------------
+    evaluator, eval_batched, eval_seq = run_evaluator(cfg, model, args.seed, card)
+    eval_launches = {k: eval_batched[k] + eval_seq[k] for k in eval_batched}
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve_launches[symbol] + train_launches[symbol],
+            "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
+            "launches_evaluator": eval_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -1908,7 +2088,7 @@ def main(argv=None) -> int:
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
-        "launch_floor_ms": launch_floor_ms, "card": card,
+        "evaluator": evaluator, "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

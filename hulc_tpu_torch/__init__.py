@@ -18,7 +18,10 @@ _FORBIDDEN = ("jax", "hulc_tpu")
 _PRELOADED = {_name for _name in _FORBIDDEN if _name in _sys.modules}
 
 from hulc_tpu_torch import config, convert, kernels  # noqa: E402,F401
-from hulc_tpu_torch.evaluation import batched_eval, policy  # noqa: E402,F401
+from hulc_tpu_torch.data import language  # noqa: E402,F401
+from hulc_tpu_torch.evaluation import (  # noqa: E402,F401
+    batched_eval, chain_sampler, expert, fake_env, lh_eval, policy, tasks,
+)
 
 _LEAKED = {_name for _name in _FORBIDDEN if _name in _sys.modules} - _PRELOADED
 if _LEAKED:

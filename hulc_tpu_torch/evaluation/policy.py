@@ -148,8 +148,13 @@ class HulcPolicy:
     def reset(self) -> None:
         self._state = None
 
-    def step(self, obs: Dict, goal) -> np.ndarray:
-        """One env step. goal: instruction str, embedding array, or goal-obs dict."""
+    def step(self, obs: Dict, goal, noise: Optional[Dict[str, torch.Tensor]] = None) -> np.ndarray:
+        """One env step. goal: instruction str, embedding array, or goal-obs dict.
+
+        noise: optional ``gumbel`` (used when the step plans) / ``u_mix`` /
+        ``u_inv`` tensors in place of the generator's draws.
+        """
+        noise = noise or {}
         rgb_static, rgb_gripper, rob_norm, rob_raw = self._split_obs(obs)
         state = self._state
         if state is None or state.step_count % self.replan_freq == 0:
@@ -157,7 +162,7 @@ class HulcPolicy:
                 emb = self.lang_embeddings[goal] if isinstance(goal, str) else goal
                 emb = torch.as_tensor(np.asarray(emb, np.float32).reshape(1, -1), device=self.device)
                 plan, latent_goal = self._replan_lang(
-                    rgb_static, rgb_gripper, rob_norm, emb, generator=self.generator
+                    rgb_static, rgb_gripper, rob_norm, emb, generator=self.generator, gumbel=noise.get("gumbel")
                 )
             else:
                 g_static, g_gripper, g_norm, _ = self._split_obs(goal)
@@ -170,13 +175,14 @@ class HulcPolicy:
                     _cat_seq(rgb_gripper, g_gripper),
                     torch.cat([rob_norm, g_norm], dim=1),
                     generator=self.generator,
+                    gumbel=noise.get("gumbel"),
                 )
             carry = self.model.init_decoder_carry(1)
             state = PolicyState(plan, latent_goal, carry, state.step_count if state else 0)
 
         action, carry = self._act(
             state.plan, state.latent_goal, rgb_static, rgb_gripper, rob_norm, rob_raw, state.carry,
-            generator=self.generator,
+            generator=self.generator, u_mix=noise.get("u_mix"), u_inv=noise.get("u_inv"),
         )
         self._state = PolicyState(state.plan, state.latent_goal, carry, state.step_count + 1)
         return action[0].cpu().numpy()

@@ -73,12 +73,21 @@ def profile_calls(fn, iters: int, trace_path=None):
         time.sleep(WINDOW_PAD_S)
     if trace_path is not None:
         prof.export_chrome_trace(str(trace_path))
-    # a record_function span also shows on the device timeline, over the
-    # kernels it launched: count each kernel once
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-              and not getattr(e, "is_user_annotation", False)]
-    device_ms = sum(_device_us(e) for e in device) / 1e3
-    return wall_ms / iters, device_ms / iters, device
+    device = device_events(prof)
+    return wall_ms / iters, device_ms(device) / iters, device
+
+
+def device_events(prof):
+    """The CUDA operations with device time that ``prof`` recorded, by name.
+    A record_function span also shows on the device timeline, over the
+    kernels it launched: each kernel is counted once."""
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(events) -> float:
+    """Device ms of ``device_events``."""
+    return sum(_device_us(e) for e in events) / 1e3
 
 
 HAND_KERNELS = (

@@ -91,25 +91,29 @@ _TEMPLATE_ARG = {"Lb0E": "false", "Lb1E": "true"}
 
 
 def _entry_name(mangled: str) -> str:
-    """``preprocess_rgb_shift_kernel`` out of its mangled name: the
-    length-prefixed identifier that ends in ``_kernel``; an instance of a
-    kernel template gets its arguments, as ``plan_st_kl_fwd_kernel<true>``
-    (a bool, an int literal, or else the arguments as mangled)."""
-    for m in re.finditer(r"\d+", mangled):
-        for cut in range(len(m.group())):
-            k = int(m.group()[cut:])
-            name = mangled[m.end():m.end() + k]
-            if len(name) != k or not name.endswith("_kernel"):
-                continue
-            rest = mangled[m.end() + k:]
-            if rest.startswith("E"):
-                return name
-            args = re.match(r"I((?:L[^E]*E)+)E", rest)
-            if args:
-                parts = re.findall(r"L[^E]*E", args.group(1))
-                pretty = [_TEMPLATE_ARG.get(a, a[2:-1] if a.startswith("Li") else a) for a in parts]
-                return f"{name}<{', '.join(pretty)}>"
-    return mangled
+    """``preprocess_rgb_shift_kernel`` out of its mangled name: the last
+    length-prefixed identifier, read from the start of the name (the
+    anonymous namespace's identifier holds hex hashes, whose digits must
+    not be read as a length); an instance of a kernel template gets its
+    arguments, as ``plan_st_kl_fwd_kernel<true>`` (a bool, an int literal,
+    or else the arguments as mangled)."""
+    head = re.match(r"_Z(N?)", mangled)
+    if head is None:
+        return mangled
+    pos, name = head.end(), None
+    while (length := re.match(r"\d+", mangled[pos:])) is not None:
+        start = pos + length.end()
+        name, pos = mangled[start:start + int(length.group())], start + int(length.group())
+        if not head.group(1):  # not a nested name: one identifier
+            break
+    if name is None:
+        return mangled
+    args = re.match(r"I((?:L[^E]*E)+)E", mangled[pos:])
+    if args:
+        parts = re.findall(r"L[^E]*E", args.group(1))
+        pretty = [_TEMPLATE_ARG.get(a, a[2:-1] if a.startswith("Li") else a) for a in parts]
+        return f"{name}<{', '.join(pretty)}>"
+    return name
 
 
 def ptxas_report(log: str) -> dict:

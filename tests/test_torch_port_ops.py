@@ -178,6 +178,29 @@ def test_cpu_wrappers_run_plain_versions_and_launch_nothing():
         spatial_softmax(torch.zeros(1, 2, 4, 5), 1.0)
 
 
+@pytest.mark.parametrize("mangled,name", [
+    # the anonymous namespace's hash ends in "45" and its identifier is 45
+    # characters long: a scan for any length that reaches "_kernel" reads
+    # "cb_12_adam_lowp_cu_5bc449f816adam_lowp_kernel"
+    ("_ZN45_GLOBAL__N__0f1e45cb_12_adam_lowp_cu_5bc449f816adam_lowp_kernelEPKfiiif", "adam_lowp_kernel"),
+    ("_ZN46_GLOBAL__N__16c0ffee_13_preprocess_cu_4f95cdf927preprocess_rgb_shift_kernelEPKhi",
+     "preprocess_rgb_shift_kernel"),
+    ("_ZN43_GLOBAL__N__21abcdef_10_plan_kl_cu_0123456721plan_st_kl_fwd_kernelILb0EEEvPKf",
+     "plan_st_kl_fwd_kernel<false>"),
+    ("_Z12empty_kernelv", "empty_kernel"),
+], ids=["hash_digits_look_like_a_length", "hash_starts_with_a_length", "template", "global"])
+def test_ptxas_report_reads_the_mangled_name_from_its_start(mangled, name):
+    """Whatever digits the namespace's hashes hold (they change with the
+    checkout's path), the report is keyed by the kernel's own name."""
+    log = (
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 88 registers, used 1 barriers, 64 bytes smem, 400 bytes cmem[0]\n"
+    )
+    assert kernels.ptxas_report(log) == {name: {"stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+                                                "registers": 88, "static_smem_bytes": 64}}
+
+
 def test_ptxas_report_reads_registers_shared_memory_and_spills():
     """The build log's per-kernel resources, keyed by the kernel's own name
     (a hex hash in the mangled name ends in digits too)."""

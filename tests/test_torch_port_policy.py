@@ -24,29 +24,15 @@ from hulc_tpu_torch import config as port_config
 from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy, build_batched_step
 from hulc_tpu_torch.data.statistics import DatasetStatistics
 from hulc_tpu_torch.evaluation.policy import HulcPolicy, StateObsNormalizer, build_policy_fns
-from hulc_tpu_torch.ops.logistic_mixture import U_MAX, U_MIN
+from tests.torch_port_common import jax_gumbel as _gumbel
 from tests.torch_port_common import jax_init, jax_random_params, port_model_from_jax, to_torch as _t
+from tests.torch_port_common import jax_mixture_uniforms as _mixture_uniforms
 
 torch.set_num_threads(1)
 
 ATOL = 1e-4
 JAX_CFG = jax_config.get_config("hulc_debug")
 PORT_CFG = port_config.get_config("hulc_debug")
-
-
-def _mixture_uniforms(key, lanes, cfg):
-    """The uniforms the JAX decoder's act() draws from ``key``."""
-    ad = cfg.action_decoder
-    shape = (lanes, 1, ad.out_features - 1, ad.n_mixtures)
-    k_mix, k_inv = jax.random.split(key)
-    u_mix = jax.random.uniform(k_mix, shape, jnp.float32, minval=U_MIN, maxval=U_MAX)
-    u_inv = jax.random.uniform(k_inv, shape[:-1], jnp.float32, minval=U_MIN, maxval=U_MAX)
-    return _t(u_mix), _t(u_inv)
-
-
-def _gumbel(key, lanes, cfg):
-    d = cfg.distribution
-    return _t(jax.random.gumbel(key, (lanes, d.category_size, d.class_size)))
 
 
 def _inputs(rng, cfg, lanes, seq=1):

@@ -2,6 +2,7 @@
 the JAX package and carried into the port."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -10,6 +11,7 @@ from hulc_tpu.models import make_model as jax_make_model
 
 from hulc_tpu_torch.convert import params_from_jax
 from hulc_tpu_torch.models import make_model
+from hulc_tpu_torch.ops.logistic_mixture import U_MAX, U_MIN
 
 
 def to_torch(x) -> torch.Tensor:
@@ -53,3 +55,27 @@ def port_model_from_jax(params, port_cfg):
     model = make_model(port_cfg, device="cpu")
     model.load_state_dict(state_dict, strict=True)
     return model, unused
+
+
+def jax_mixture_uniforms(key, lanes, cfg):
+    """The uniforms the JAX decoder's act() draws from ``key``."""
+    ad = cfg.action_decoder
+    shape = (lanes, 1, ad.out_features - 1, ad.n_mixtures)
+    k_mix, k_inv = jax.random.split(key)
+    u_mix = jax.random.uniform(k_mix, shape, jnp.float32, minval=U_MIN, maxval=U_MAX)
+    u_inv = jax.random.uniform(k_inv, shape[:-1], jnp.float32, minval=U_MIN, maxval=U_MAX)
+    return to_torch(u_mix), to_torch(u_inv)
+
+
+def jax_gumbel(key, lanes, cfg):
+    """The Gumbel noise the JAX plan sample draws from ``key``."""
+    d = cfg.distribution
+    return to_torch(jax.random.gumbel(key, (lanes, d.category_size, d.class_size)))
+
+
+def jax_batched_step_noise(key, lanes, cfg):
+    """The noise of one JAX lockstep step (``build_batched_step``) from its
+    key, as the port's ``BatchedHulcPolicy.step`` takes it."""
+    k_plan, k_act = jax.random.split(key)
+    u_mix, u_inv = jax_mixture_uniforms(k_act, lanes, cfg)
+    return {"gumbel": jax_gumbel(k_plan, lanes, cfg), "u_mix": u_mix, "u_inv": u_inv}
