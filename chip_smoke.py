@@ -128,17 +128,54 @@ it fails:
    then one round of lanes (64 chains, ep_len 30) under torch.profiler
    gives the device's idle share of an evaluator run.
 
+12. training loop: ``Trainer.fit`` through the port's entry points at full
+   width. A fixture dataset (``data.fixtures``, 200 / 84 px, 4 training
+   episodes of 64 frames and 2 validation episodes) is written to a
+   temporary directory; ``make_loaders`` (batch 32 per modality, fused for
+   training, per modality and deterministic for validation) feeds ``fit``
+   for 2 epochs of 3 steps, validation capped at 2 batches an epoch,
+   checkpoints in a temporary run dir; a new Trainer resumes from the last
+   checkpoint for 1 step. Launch counts are zeroed before and read after:
+   every train-step kernel must have launched, and validation exactly the
+   kernels its steps imply (B.1 at the window shape, B.3 over whole
+   windows, B.3' forward without its backward, B.6 forward under no_grad)
+   and nothing else. metrics.jsonl must hold train, val and epoch lines,
+   all finite, the val lines with the JAX package's keys (``VAL_KEYS``);
+   the last checkpoint must restore the parameters, the Adam state, the
+   step and the generator bit-equal. One val step is held against the
+   same weights' use_kernels=False model on the same plan and sampler
+   noise (near ties pulled apart and counted): losses and MAEs within
+   VAL_REL, gripper success rates and sampled plans equal; on that step's
+   own inputs, at its window shapes, B.6's forward is held against the
+   plain loop (REC_REL, per decoder layer), B.3 against the plain sampler
+   (atol 1e-5, the gripper column bit-equal, the same picks) and B.3''s
+   forward under no_grad against the plain NLL (LOSS_RTOL). B.1 at the
+   window shape is bit-equal to its plain version and timed against its
+   bytes. Four fused batches uploaded back to back through the trainer's
+   two staging slots, queued behind a spin of the copy stream, must arrive
+   byte-equal to their host batches. Prints the host's core count, the host loader's ms per batch,
+   the upload's ms (into pinned memory, and the copy on the side stream),
+   the val step's ms, fit's epochs, the loop's seq/s over longer epochs
+   with one and four assembly workers beside the device-resident step
+   (phase 8), and, under torch.profiler, the device's idle share of the
+   loop.
+
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
-training and evaluator paths) and, last, ``{"ok": true, "device": {...}}``.
+training, evaluator and training-loop paths) and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
+import itertools
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1823,6 +1860,605 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
 
 
 # --------------------------------------------------------------------------
+# phase 12: the training loop
+# --------------------------------------------------------------------------
+
+FIT_EPISODES, FIT_EPISODE_LEN = 4, 64  # the training split; validation gets half the episodes
+FIT_BATCH, FIT_STEPS_PER_EPOCH, FIT_EPOCHS, FIT_VAL_BATCHES = 32, 3, 2, 2
+VAL_REL = 1e-4  # val step, kernel path vs plain path: each loss and MAE, relative
+# the JAX package's validation keys (hulc_tpu/models/hulc.py val_metrics, scalars only)
+VAL_KEYS = sorted(
+    [f"{scope}_{name}" for scope in ("vis", "lang") for name in (
+        "action_loss_pp", "action_loss_pr", "kl_loss", "gripper_sr_pp", "gripper_sr_pr", "mae_pp", "mae_pr",
+        "pos_mae_pp", "pos_mae_pr", "orn_mae_pp", "orn_mae_pr",
+    )] + ["val_pred_clip_loss", "action_loss_pp"]
+)
+# the kernels one val step launches, per modality: B.1 for both cameras, B.2
+# for the static camera, and per decoded window (two: the proposal's and the
+# recognition's plan) B.3, B.3' forward and B.6 forward for both layers
+VAL_LAUNCHES_PER_MODALITY = {
+    "hulc_preprocess_rgb": 2, "hulc_spatial_softmax": 1, "hulc_logistic_mixture_sample": 2,
+    "hulc_mixture_nll_fwd": 2, "hulc_rnn_relu_fwd": 4,
+}
+LOOP_BATCHES, LOOP_WORKERS = 12, (1, 4)  # the timed loop's epoch and its assembly workers
+SHM_GATHER_THREADS = 4  # C++ threads of one shm gather
+# the upload check: fused batches uploaded back to back (each of the two
+# staging slots staged twice) behind this much device spin on the copy stream
+UPLOAD_CHECK_BATCHES, UPLOAD_SPIN_S = 4, 0.05
+
+
+def long_epoch(loaders, batches, workers):
+    """A fused CombinedLoader over ``loaders`` whose epoch is ``batches``
+    batches of random windows (drawn with replacement, as every epoch is)."""
+    from hulc_tpu_torch.data.loader import CombinedLoader
+
+    class Epoch(CombinedLoader):
+        def __len__(self):
+            return batches
+
+    return Epoch(loaders, num_workers=workers, fuse=True)
+
+
+class FirstBatches:
+    """The first ``n`` batches of ``loader`` as its epoch."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n = loader, n
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        return itertools.islice(iter(self.loader), self.n)
+
+
+def launch_counts():
+    from hulc_tpu_torch import kernels
+
+    return {k.symbol: k.launches for k in kernels.ALL_KERNELS}
+
+
+def count_validation(trainer, launches, calls):
+    """Wrap ``trainer.validate`` so that the launches it makes add up in
+    ``launches`` and each call's means go to ``calls``."""
+    validate = trainer.validate
+
+    def counted(*args, **kwargs):
+        before = launch_counts()
+        out = validate(*args, **kwargs)
+        launches.update({s: n - before[s] for s, n in launch_counts().items()})
+        calls.append(out)
+        return out
+
+    trainer.validate = counted
+
+
+def val_noise(cfg, b, s, gen):
+    """One modality's validation noise (``models.hulc.VAL_NOISE_KEYS``):
+    Gumbel noise for both plans, mixture uniforms in (U_MIN, U_MAX) for
+    both decoded windows."""
+    from hulc_tpu_torch.ops.logistic_mixture import U_MIN, U_SPAN
+    from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
+
+    d, ad = cfg.distribution, cfg.action_decoder
+    shape = (b, s, ad.out_features - 1, ad.n_mixtures)
+    out = {}
+    for tag in ("pp", "pr"):
+        out[f"gumbel_{tag}"] = gumbel_noise((b, d.category_size, d.class_size), gen, "cuda")
+        out[f"u_mix_{tag}"] = U_MIN + U_SPAN * torch.rand(shape, generator=gen, device="cuda")
+        out[f"u_inv_{tag}"] = U_MIN + U_SPAN * torch.rand(shape[:-1], generator=gen, device="cuda")
+    return out
+
+
+def pull_apart(noise, scores):
+    """Where the top two of ``noise + scores`` (last axis) are closer than
+    PLAN_TIE_MARGIN, grow the leader's noise by the margin, in place;
+    returns the number of ties pulled apart."""
+    top = (noise + scores).topk(2, dim=-1)
+    near = (top.values[..., 0] - top.values[..., 1]) < PLAN_TIE_MARGIN
+    noise.scatter_add_(-1, top.indices[..., :1], PLAN_TIE_MARGIN * near[..., None].to(noise.dtype))
+    return int(near.sum())
+
+
+def separate_val_ties(model, batch, noise):
+    """The val step's noise with every near tie pulled apart, from the
+    plain model's scores: each plan's pick (its Gumbel noise) and each
+    decoded window's mixture pick (its uniforms, through their Gumbel
+    transform -log(-log u)), as separate_plan_ties does for the train
+    step. Float noise between the two paths then cannot flip a pick.
+    Returns (plan ties, mixture ties) pulled apart."""
+    plan_ties = mix_ties = 0
+    with torch.no_grad():
+        for scope, mod in batch.items():
+            n = noise[scope]
+            emb, _ = model.encode(mod.rgb_obs(), mod.robot_obs)
+            goal = model.encode_language_goal(mod.lang) if "lang" in scope else model.encode_visual_goal(emb[:, -1])
+            states = {"pp": model.plan_proposal(emb[:, 0], goal), "pr": model.plan_recognition(emb)[0]}
+            for tag, state in states.items():
+                g = n[f"gumbel_{tag}"]
+                plan_ties += pull_apart(g, state.logit.reshape(g.shape))
+                plan = model.dist.sample(state, gumbel=g)
+                logit_probs = model.action_decoder(plan, emb, goal).logit_probs
+                gm = -torch.log(-torch.log(n[f"u_mix_{tag}"]))
+                mix_ties += pull_apart(gm, logit_probs)
+                n[f"u_mix_{tag}"] = torch.exp(-torch.exp(-gm))
+    return plan_ties, mix_ties
+
+
+def check_window_kernels(model, batch, noise):
+    """B.6's forward, B.3 and B.3''s forward at the val step's window shapes
+    on the val step's own inputs (``model`` is the plain path's, ``noise``
+    the val step's with its near ties pulled apart): for each modality and
+    each plan source, each decoder layer's recurrence from a zero carry
+    within REC_REL (relative L2) of the plain loop; the sampled window
+    within atol 1e-5 of the plain sampler with a bit-equal gripper column
+    and, at u_inv = 0.5 (each entry then its picked component's mean),
+    bit-equal, so the picks are the same; the per-frame NLL under no_grad
+    within LOSS_RTOL per entry. Returns the largest errors."""
+    import torch.nn.functional as F
+
+    from hulc_tpu_torch.ops.frame_transforms import world_to_tcp_frame
+    from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain, sample_action, sample_action_plain
+    from hulc_tpu_torch.ops.recurrence import rnn_relu_fwd, rnn_relu_fwd_plain
+
+    dec = model.action_decoder
+    c, rnn = dec.cfg, dec.rnn
+    bounds, (amin, amax) = (c.act_min_bound[-1], c.act_max_bound[-1]), dec._bounds()
+    errs = {"rnn_rel_l2": 0.0, "sample_max_abs": 0.0, "nll_max_abs": 0.0}
+    shapes = set()
+    rnn_inputs = []
+    hook = rnn.register_forward_hook(lambda mod, args, out: rnn_inputs.append(args[0]))
+    try:
+        with torch.no_grad():
+            for scope, mod in batch.items():
+                n = noise[scope]
+                emb, _ = model.encode(mod.rgb_obs(), mod.robot_obs)
+                goal = model.encode_language_goal(mod.lang) if "lang" in scope else model.encode_visual_goal(emb[:, -1])
+                states = {"pp": model.plan_proposal(emb[:, 0], goal), "pr": model.plan_recognition(emb)[0]}
+                actions = world_to_tcp_frame(mod.actions, mod.state_info_robot_obs) if c.gripper_control else mod.actions
+                for tag, state in states.items():
+                    where = f"the val step's {scope} window ({tag} plan)"
+                    rnn_inputs.clear()
+                    out = dec(model.dist.sample(state, gumbel=n[f"gumbel_{tag}"]), emb, goal)
+                    x = rnn_inputs[0]
+                    for k in range(rnn.num_layers):
+                        xp = F.linear(x, getattr(rnn, f"weight_ih_l{k}"), getattr(rnn, f"bias_ih_l{k}"))
+                        h0 = xp.new_zeros(xp.shape[0], xp.shape[2])
+                        w, bias = getattr(rnn, f"weight_hh_l{k}"), getattr(rnn, f"bias_hh_l{k}")
+                        got, _ = rnn_relu_fwd(xp, h0, w, bias)
+                        x = rnn_relu_fwd_plain(xp, h0, w, bias)
+                        if not rel_l2(got, x) <= REC_REL:
+                            fail(f"recurrence forward kernel at {where}, layer {k} {tuple(xp.shape)}: "
+                                 f"relative L2 {rel_l2(got, x)}")
+                        errs["rnn_rel_l2"] = max(errs["rnn_rel_l2"], rel_l2(got, x))
+                        shapes.add(("B.6", tuple(xp.shape)))
+                    grip = out.gripper_logits if c.discrete_gripper else None
+                    params = (out.logit_probs, out.log_scales, out.means)
+                    u = (n[f"u_mix_{tag}"], n[f"u_inv_{tag}"])
+                    got = sample_action(*params, *u, grip, bounds, (0.0, 1.0))
+                    want = sample_action_plain(*params, *u, grip, bounds, (0.0, 1.0))
+                    a = out.means.shape[-2]
+                    if grip is not None and not torch.equal(got[..., a], want[..., a]):
+                        fail(f"mixture sample kernel at {where}: the gripper column differs")
+                    if not torch.allclose(got, want, rtol=0, atol=1e-5):
+                        fail(f"mixture sample kernel at {where}: max abs err {max_abs(got, want)}")
+                    half = torch.full_like(u[1], 0.5)
+                    if not torch.equal(sample_action(*params, u[0], half, grip, bounds, (0.0, 1.0)),
+                                       sample_action_plain(*params, u[0], half, grip, bounds, (0.0, 1.0))):
+                        fail(f"mixture sample kernel picked other components than the plain version at {where}")
+                    errs["sample_max_abs"] = max(errs["sample_max_abs"], max_abs(got, want))
+                    shapes.add(("B.3", tuple(out.means.shape)))
+                    consts = (amin, amax, c.num_classes, c.log_scale_min, c.gripper_alpha)
+                    got = mixture_nll(*params, actions, grip, *consts)
+                    want = mixture_nll_plain(*params, actions, grip, *consts)
+                    if got.grad_fn is not None or not torch.allclose(got, want, rtol=LOSS_RTOL, atol=0):
+                        fail(f"mixture NLL forward kernel under no_grad at {where}: max abs err {max_abs(got, want)}")
+                    errs["nll_max_abs"] = max(errs["nll_max_abs"], max_abs(got, want))
+                    shapes.add(("B.3'", tuple(out.means.shape)))
+    finally:
+        hook.remove()
+    print(f"[training loop] at the val step's window shapes {sorted(shapes)}, on its own inputs: the recurrence's "
+          f"forward within relative L2 {errs['rnn_rel_l2']:.3g} of the plain loop (limit {REC_REL}), the sampled "
+          f"windows within {errs['sample_max_abs']:.3g} (limit 1e-5) with bit-equal gripper columns and the same "
+          f"picks, the NLL under no_grad within {errs['nll_max_abs']:.3g} max abs (rtol {LOSS_RTOL})")
+    return errs
+
+
+def compare_val_plain(cfg, trainer, seed, raw_batch):
+    """One val step through the kernels against the same weights'
+    use_kernels=False model, fed the same plan and sampler noise (near
+    ties of both picks pulled apart): every loss and MAE within VAL_REL
+    relative, the gripper success rates equal, the sampled plans equal."""
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.preprocess import preprocess_batch
+
+    plain = make_model(cfg, "cuda", seed=seed, use_kernels=False)
+    plain.load_state_dict(trainer.model.state_dict())
+    trainer.model.eval()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    b, s = raw_batch["vis"].actions.shape[:2]
+    noise = {scope: val_noise(cfg, b, s, gen) for scope in raw_batch}
+    with torch.no_grad():
+        prep_plain = preprocess_batch(cfg, raw_batch, train=False, use_kernels=False)
+        ties, mix_ties = separate_val_ties(plain, prep_plain, noise)
+        window_errs = check_window_kernels(plain, prep_plain, noise)
+        want = plain.val_metrics(prep_plain, cfg.loss.kl_beta, noise=noise)
+        got = trainer.model.val_metrics(preprocess_batch(cfg, raw_batch, train=False), cfg.loss.kl_beta, noise=noise)
+    trainer.model.train()
+    if set(got) != set(want):
+        fail(f"val step: the kernel and the plain path give different keys: {sorted(set(got) ^ set(want))}")
+    worst = 0.0
+    for k in sorted(want):
+        g, w = got[k], want[k]
+        if "sampled_plan" in k or "gripper_sr" in k:
+            if not torch.equal(g, w):
+                fail(f"val step: {k} differs between the kernel path and the plain path "
+                     f"({int((g != w).sum())} entries; {ties} plan ties pulled apart)")
+            continue
+        rel = abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
+        if not rel <= VAL_REL:
+            fail(f"val step: {k} is {float(g)} on the kernel path and {float(w)} on the plain path (relative {rel})")
+        worst = max(worst, rel)
+    del plain
+    torch.cuda.empty_cache()
+    picks = 4 * b * s * (cfg.action_decoder.out_features - 1)
+    print(f"[training loop] one val step agrees with use_kernels=False on the card: losses and MAEs within relative "
+          f"{worst:.3g} (limit {VAL_REL}), gripper success rates and sampled plans equal ({ties} plan ties of "
+          f"{4 * b * cfg.distribution.category_size} and {mix_ties} mixture ties of {picks} picks pulled apart by "
+          f"{PLAN_TIE_MARGIN})")
+    return {"max_rel_err": worst, "plan_ties": ties, "mixture_ties": mix_ties, "window_kernels": window_errs}
+
+
+def check_window_preprocess(raw_batch, card):
+    """B.1 at the val window shape (each modality's cameras): bit-equal to
+    the plain version, and its device time against its bytes."""
+    from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
+
+    out = {}
+    for cam in ("rgb_static", "rgb_gripper"):
+        imgs = getattr(raw_batch["vis"], cam)
+        got, want = preprocess_rgb_seq(imgs), preprocess_rgb_seq_plain(imgs)
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"preprocess kernel at the window shape {tuple(imgs.shape)} is not bit-equal: "
+                 f"max abs err {max_abs(got, want)}")
+        del got, want
+        nbytes = imgs.numel() * (1 + 4)  # uint8 in, fp32 out
+        t = {"shape": list(imgs.shape), "max_abs_err": 0.0, "in_mb": imgs.numel() / 1e6,
+             "out_mb": 4 * imgs.numel() / 1e6}
+        # late in a long process the profiler drops some launches: the time is per recorded launch
+        t["ms"] = device_ms(lambda: preprocess_rgb_seq(imgs), 20, launches_per_call=1, per_recorded=True)
+        t["plain_ms"] = device_ms(lambda: preprocess_rgb_seq_plain(imgs), 5)
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 0)
+        t["call_ms"] = call_ms(lambda: preprocess_rgb_seq(imgs), 20)
+        t["plain_call_ms"] = call_ms(lambda: preprocess_rgb_seq_plain(imgs), 5)
+        t["library_ms"] = None
+        t["hbm_gb_per_s"] = nbytes / t["ms"] / 1e6
+        print(f"[training loop] B.1 at the window shape {tuple(imgs.shape)} u8: bit-equal to the plain version; "
+              f"device time {t['ms']:.6f} ms against its bound {t['bound_ms']:.6f} ms ({t['in_mb']:.1f} MB in + "
+              f"{t['out_mb']:.1f} MB out at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {100 * t['bound_ms'] / t['ms']:.1f}% "
+              f"of the bound, {t['hbm_gb_per_s']:.1f} GB/s; CUDA events {t['call_ms']:.6f} ms a launch back to "
+              f"back; plain {t['plain_ms']:.6f} ms ({card})")
+        out[cam] = t
+        torch.cuda.empty_cache()
+    return out
+
+
+def timed_staging(device):
+    """A StagingPool that records, for each upload, its bytes, the host
+    seconds of its ``stage`` (the wait for its slot and the copy into
+    pinned memory) and the CUDA events around its copy on the side
+    stream."""
+    from hulc_tpu_torch.data.loader import StagingPool
+
+    class TimedStaging(StagingPool):
+        def __init__(self, device):
+            super().__init__(device)
+            self.nbytes, self.stage_s, self.copy_events = [], [], []
+
+        def stage(self, batch):
+            t0 = time.perf_counter()
+            slot, fields = super().stage(batch)
+            self.stage_s.append(time.perf_counter() - t0)
+            self.nbytes.append(sum(b.numel() * b.element_size() for f in fields.values() for b in f if b is not None))
+            return slot, fields
+
+        def copy(self, staged):
+            start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(self.stream)
+            out = super().copy(staged)
+            done.record(self.stream)
+            self.copy_events.append((start, done))
+            return out
+
+    return TimedStaging(device)
+
+
+def check_upload(trainer, host_batches):
+    """DeviceLoader through the trainer's staging pool, with ``host_batches``
+    (at least 3) uploaded back to back and no host wait, all queued behind
+    UPLOAD_SPIN_S of device spin on the copy stream: each slot is staged
+    again while the copy out of it is still queued. Every field of every
+    uploaded batch, read on the consumer's stream, must equal its host
+    batch byte for byte."""
+    from hulc_tpu_torch.data.loader import DeviceLoader
+
+    pool = trainer.staging
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    end.synchronize()
+    with torch.cuda.stream(pool.stream):
+        torch.cuda._sleep(int(1e6 / (start.elapsed_time(end) / 1e3) * UPLOAD_SPIN_S))
+    got = list(DeviceLoader(host_batches, trainer.device, pool))
+    fields = 0
+    for i, (dev, host) in enumerate(zip(got, host_batches)):
+        for scope, mod in host.items():
+            for name, h, d in zip(mod._fields, mod, dev[scope]):
+                if (h is None) != (d is None):
+                    fail(f"upload {i}: {scope}.{name} is {'missing' if d is None else 'not None'} on the device")
+                if h is None:
+                    continue
+                if not torch.equal(d, torch.from_numpy(np.ascontiguousarray(h)).to(d.device)):
+                    fail(f"upload {i} of {len(host_batches)} back to back: {scope}.{name} on the device differs "
+                         f"from its host batch")
+                fields += 1
+    print(f"[training loop] {len(host_batches)} batches uploaded back to back through the two staging slots behind "
+          f"{1e3 * UPLOAD_SPIN_S:.0f} ms of spin on the copy stream: all {fields} fields byte-equal to their host "
+          f"batches on the device")
+    return {"batches": len(host_batches), "fields": fields}
+
+
+def time_loop(trainer, loader, label, step_seq_per_s, card):
+    """``timed_epoch`` over ``loader``, and the medians of its uploads."""
+    trainer.staging = up = timed_staging(trainer.device)
+    seq_s, step_ms, n = timed_epoch(trainer, loader, trainer.cfg.loss.kl_beta)
+    copy_ms = [a.elapsed_time(b) for a, b in up.copy_events]
+    run = {"seq_per_s": seq_s, "step_host_ms": step_ms, "batch_mb": statistics.median(up.nbytes) / 1e6,
+           "stage_host_ms": 1e3 * statistics.median(up.stage_s), "copy_device_ms": statistics.median(copy_ms)}
+    print(f"[training loop] {n} batches of random windows ({label}) through the upload and train_step: "
+          f"{seq_s:.2f} seq/s after the first step, host clock between step calls "
+          f"{[round(t, 2) for t in step_ms]} ms (no host wait); the device-resident train step (phase 8): "
+          f"{step_seq_per_s:.2f} seq/s ({card})")
+    print(f"[training loop] upload of a {run['batch_mb']:.1f} MB batch ({label}): into pinned memory "
+          f"{run['stage_host_ms']:.4f} ms (host clock), host-to-device copy on the side stream "
+          f"{run['copy_device_ms']:.4f} ms (CUDA events, {run['batch_mb'] / run['copy_device_ms']:.1f} GB/s), "
+          f"medians of {len(copy_ms)} ({card})")
+    return run
+
+
+def check_shm_cache(cfg, root, seed, ram_train, trainer, step_seq_per_s, card):
+    """The training split in a shared-memory arena (``cache="shm"``: the
+    port's g++ build of its C++ cache) against the ram cache: the same
+    fused batches byte for byte from one seed, the host ms per fused batch
+    with SHM_GATHER_THREADS gather threads, and the loop's rate over it.
+    The arena is unlinked after."""
+    from hulc_tpu_torch.data.loader import make_loaders
+    from hulc_tpu_torch.data.shm_store import ShmEpisodeCache
+
+    store = ram_train.loaders["vis"].store
+    frame = store.get_window(store.episode_ranges[0][0], 1)
+    need = store.num_frames * sum(v.nbytes for v in frame.values())
+    free = shutil.disk_usage("/dev/shm").free
+    if not free > 1.1 * need:
+        fail(f"/dev/shm has {free} bytes free; the training split's arena needs {need}")
+    kwargs = dict(batch_size=FIT_BATCH, fuse=True, seed=seed + 5)
+    ram = make_loaders(cfg, root, **kwargs)
+    shm = make_loaders(cfg, root, cache="shm", gather_threads=SHM_GATHER_THREADS, **kwargs)
+    arena = shm.loaders["vis"].store.shm
+    try:
+        for _ in range(2):
+            got, want = shm._make()["fused"], ram._make()["fused"]
+            for name, a, b in zip(got._fields, got, want):
+                if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+                    fail(f"the shm cache's fused batch differs from the ram cache's in {name}")
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            shm._make()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out = {"arena_mb": need / 1e6, "dev_shm_free_mb": free / 1e6, "host_ms": statistics.median(times[1:])}
+        print(f"[training loop] shm cache ({arena.name}, {need / 1e6:.1f} MB of {free / 1e6:.1f} MB free in "
+              f"/dev/shm): the ram cache's fused batches byte for byte; {out['host_ms']:.4f} ms per fused batch "
+              f"with {SHM_GATHER_THREADS} gather threads (median of 3 after one), one assembly worker")
+        out["loop"] = time_loop(trainer, long_epoch(shm.loaders, LOOP_BATCHES, 1),
+                                f"shm cache, 1 worker, {SHM_GATHER_THREADS} gather threads", step_seq_per_s, card)
+    finally:
+        arena.close()
+        ShmEpisodeCache.unlink(arena.name)
+    return out
+
+
+def timed_epoch(trainer, loader, kl_beta):
+    """One pass of ``loader`` through the DeviceLoader and train_step with
+    no host wait between steps, timed from the first step's end (a sync) to
+    the last's: (seq/s, host ms between step calls, batches)."""
+    batches = iter(trainer._device_batches(loader))
+    first = next(batches)
+    trainer.train_step(first, kl_beta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks, seqs = [t0], 0
+    for batch in batches:
+        trainer.train_step(batch, kl_beta)
+        marks.append(time.perf_counter())
+        seqs += sum(b.actions.shape[0] for b in batch.values())
+    torch.cuda.synchronize()
+    return seqs / (time.perf_counter() - t0), (np.diff(marks) * 1e3).tolist(), len(marks)
+
+
+def run_training_loop(cfg, seed, card, step_seq_per_s):
+    """Phase 12: Trainer.fit on a full-width fixture dataset, validation and
+    checkpoints, a resume, the val step against the plain path, B.1 at the
+    window shape, and where the loop's time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.data.fixtures import make_fixture_dataset
+    from hulc_tpu_torch.data.loader import make_loaders
+    from hulc_tpu_torch.evaluation.profile_policy import device_events, device_ms as events_ms, kind_of
+    from hulc_tpu_torch.training import checkpoint as ckpt
+    from hulc_tpu_torch.training.preprocess import batch_to_device
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    print(f"[training loop] host: os.cpu_count() = {os.cpu_count()}")
+    report = {"cpu_count": os.cpu_count()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        root = make_fixture_dataset(tmp / "data", num_episodes=FIT_EPISODES, episode_len=FIT_EPISODE_LEN,
+                                    small=False, seed=seed)
+        npz_mb = sum(p.stat().st_size for p in root.rglob("*.npz")) / 1e6
+        report["fixture"] = {"npz_mb": npz_mb, "write_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        train = make_loaders(cfg, root, batch_size=FIT_BATCH, fuse=True, seed=seed)
+        val = make_loaders(cfg, root, split="validation", batch_size=FIT_BATCH, deterministic=True)
+        print(f"[training loop] fixture: {FIT_EPISODES} training episodes of {FIT_EPISODE_LEN} frames and "
+              f"{FIT_EPISODES // 2} validation episodes at 200 / 84 px, {npz_mb:.1f} MB of npz written in "
+              f"{report['fixture']['write_s']:.2f} s; loaders (ram cache) built in {time.perf_counter() - t0:.2f} s: "
+              f"{len(train)} fused training batches an epoch, {len(val)} validation batches")
+
+        # the host loader alone, on this thread: a fused batch, and its parts
+        # (each modality's windows gathered, then fuse_batch's row stacking)
+        parts = {"fused_batch": train._make}
+        for scope, loader in train.loaders.items():
+            parts[f"{scope}_batch"] = loader.next_batch
+        mods = {scope: loader.next_batch() for scope, loader in train.loaders.items()}
+        parts["fuse_batch"] = lambda: type(train).fuse_batch(mods)
+        host = {}
+        for name, fn in parts.items():
+            times = []
+            for _ in range(4):
+                t1 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t1) * 1e3)
+            host[name] = statistics.median(times[1:])
+        report["loader_host_ms"] = host
+        print(f"[training loop] host loader, one thread, medians of 3 after one: "
+              f"{host['fused_batch']:.4f} ms per fused batch of 2x{FIT_BATCH} windows of 32 frames "
+              f"({sum(t.nbytes for m in mods.values() for t in m if t is not None) / 1e6:.1f} MB); of it "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in host.items() if k != "fused_batch"))
+
+        run_dir = tmp / "run"
+        tcfg = TrainerConfig(run_dir=str(run_dir), seed=seed, log_every=1, val_max_batches=FIT_VAL_BATCHES)
+        trainer = Trainer(cfg, tcfg, "cuda")
+        epoch_loader = FirstBatches(train, FIT_STEPS_PER_EPOCH)
+        val_launches, val_calls = collections.Counter(), []
+        count_validation(trainer, val_launches, val_calls)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        steps = trainer.fit(epoch_loader, val, max_epochs=FIT_EPOCHS)
+        fit_s = time.perf_counter() - t0
+        if steps != FIT_EPOCHS * FIT_STEPS_PER_EPOCH:
+            fail(f"fit took {steps} steps, expected {FIT_EPOCHS * FIT_STEPS_PER_EPOCH}")
+        # the resume: a new Trainer takes one more step from the last checkpoint
+        resumed = Trainer(cfg, tcfg, "cuda")
+        count_validation(resumed, val_launches, val_calls)
+        steps = resumed.fit(epoch_loader, val, max_epochs=FIT_EPOCHS + 1, max_steps=1)
+        torch.cuda.synchronize()
+        loop_launches = launch_counts()
+        if steps != FIT_EPOCHS * FIT_STEPS_PER_EPOCH + 1:
+            fail(f"the resumed fit ended at step {steps}, expected {FIT_EPOCHS * FIT_STEPS_PER_EPOCH + 1}")
+        print(f"[training loop] fit: {FIT_EPOCHS} epochs of {FIT_STEPS_PER_EPOCH} steps with validation "
+              f"({FIT_VAL_BATCHES} batches an epoch) and checkpoints in {fit_s:.2f} s; resumed from "
+              f"{ckpt.latest_checkpoint(run_dir).name} for 1 step; launches {loop_launches}; of them in validation "
+              f"{dict(val_launches)}")
+
+        # launches: every kernel of the train step, and validation's own
+        train_launches = {s: loop_launches[s] - val_launches[s] for s in loop_launches}
+        if not all(train_launches[s] > 0 for s in TRAIN_KERNELS):
+            fail(f"a kernel of the training path was never launched in fit: {train_launches}")
+        val_steps = FIT_VAL_BATCHES * len(val_calls)
+        want = {s: 2 * n * val_steps for s, n in VAL_LAUNCHES_PER_MODALITY.items()}
+        got = {s: n for s, n in val_launches.items() if n}
+        if got != want:
+            fail(f"validation launched {got}, expected {want} for {val_steps} val steps (B.1 at the window shape, "
+                 f"B.3 over whole windows, B.3' forward without its backward, B.6 forward under no_grad)")
+
+        # the JSONL: every line finite, train, val and epoch lines, the JAX val keys
+        records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        prefixes = collections.Counter(r["prefix"] for r in records)
+        if set(prefixes) != {"train", "val", "epoch"}:
+            fail(f"metrics.jsonl has the prefixes {dict(prefixes)}, expected train, val and epoch")
+        for r in records:
+            if not all(np.isfinite(v) for k, v in r.items() if k != "prefix"):
+                fail(f"metrics.jsonl: a value is not finite: {r}")
+        for r in records:
+            if r["prefix"] == "val" and sorted(set(r) - {"step", "prefix"}) != VAL_KEYS:
+                fail(f"the val line's keys {sorted(set(r) - {'step', 'prefix'})} are not JAX's {VAL_KEYS}")
+        epochs = [r for r in records if r["prefix"] == "epoch"]
+        report["fit"] = {"seconds": fit_s, "jsonl_lines": dict(prefixes), "epochs": epochs,
+                         "val": [r for r in records if r["prefix"] == "val"][-1]}
+        print(f"[training loop] metrics.jsonl: {dict(prefixes)} lines, all finite; the val keys are JAX's "
+              f"{len(VAL_KEYS)}; epochs (epoch_time_s, seq_per_sec, kl_beta): "
+              + "; ".join(f"{r['epoch_time_s']:.4f} s, {r['seq_per_sec']:.2f} seq/s, {r['kl_beta']}" for r in epochs))
+        last = [r for r in records if r["prefix"] == "val"][-1]
+        print("[training loop] last val: " + ", ".join(f"{k} {last[k]:.5f}" for k in VAL_KEYS))
+
+        # the last checkpoint restores bit-equal
+        latest = ckpt.latest_checkpoint(run_dir)
+        probe = Trainer(cfg, TrainerConfig(run_dir=str(tmp / "probe"), seed=seed + 1), "cuda")
+        probe.init_state(1)
+        probe.restore(latest)
+        for (k, a), (_, b) in zip(resumed.model.state_dict().items(), probe.model.state_dict().items()):
+            if not torch.equal(a, b):
+                fail(f"checkpoint {latest.name}: parameter {k} does not restore bit-equal")
+        opt_a, opt_b = resumed.optimizer.checkpoint_state(), probe.optimizer.checkpoint_state()
+        if opt_a["count"] != opt_b["count"] or not all(
+            torch.equal(x, y) for key in ("exp_avg", "exp_avg_sq") for x, y in zip(opt_a[key], opt_b[key])
+        ):
+            fail(f"checkpoint {latest.name}: the Adam state does not restore bit-equal")
+        if probe.step != resumed.step or not torch.equal(probe.generator.get_state(), resumed.generator.get_state()):
+            fail(f"checkpoint {latest.name}: the step or the generator state does not restore")
+        print(f"[training loop] {latest.name} restores the parameters, the Adam moments (count {opt_b['count']}), "
+              f"the step and the generator bit-equal; checkpoints {[p.name for p in ckpt.all_checkpoints(run_dir)]}")
+        del probe, trainer
+
+        # the val step, through the kernels and against the plain path
+        raw = next(iter(resumed._device_batches(val)))
+        if not all(a is b for scope in raw for a, b in zip(raw[scope], batch_to_device(raw, "cuda")[scope])):
+            fail("batch_to_device copied a batch that DeviceLoader had already uploaded")
+        resumed.model.eval()
+        with torch.no_grad():
+            val_ms = host_ms(lambda: (resumed.val_step(raw), torch.cuda.synchronize()), 5)
+        resumed.model.train()
+        report["val_step_ms"] = val_ms
+        print(f"[training loop] val step ({{vis, lang}} x {FIT_BATCH} windows of 32 frames, eval preprocess and "
+              f"val_metrics): {val_ms:.4f} ms, host clock to a sync, median of 5 after 5 ({card})")
+        report["plain_path"] = compare_val_plain(cfg, resumed, seed, raw)
+        report["window_preprocess"] = check_window_preprocess(raw, card)
+        del raw
+        report["upload_check"] = check_upload(resumed, [train._make() for _ in range(UPLOAD_CHECK_BATCHES)])
+        torch.cuda.empty_cache()
+
+        # the loop's rate with the upload, beside the device-resident step:
+        # long epochs of random windows, with one and with more assembly
+        # workers, then over the shm cache
+        report["loop"] = {"device_resident_seq_per_s": step_seq_per_s, "batches": LOOP_BATCHES}
+        for workers in LOOP_WORKERS:
+            report["loop"][f"ram_workers_{workers}"] = time_loop(
+                resumed, long_epoch(train.loaders, LOOP_BATCHES, workers),
+                f"ram cache, {workers} assembly worker{'s' if workers > 1 else ''}", step_seq_per_s, card,
+            )
+        loader = long_epoch(train.loaders, LOOP_BATCHES, LOOP_WORKERS[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, _, n_prof = timed_epoch(resumed, loader, cfg.loss.kl_beta)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        busy = events_ms([e for e in events if kind_of(e.key) != "copies and fills"])
+        copies = events_ms([e for e in events if kind_of(e.key) == "copies and fills"])
+        report["loop"]["profiled"] = {"wall_ms": wall_ms, "batches": n_prof, "kernel_busy_ms": busy, "copy_ms": copies,
+                                      "idle_share": 1.0 - busy / wall_ms}
+        print(f"[training loop] under torch.profiler, {n_prof} batches ({LOOP_WORKERS[0]} worker): wall {wall_ms:.4f} ms, "
+              f"kernels busy {busy:.4f} ms, copies and fills {copies:.4f} ms, device idle "
+              f"{100 * (1.0 - busy / wall_ms):.2f}% of the wall ({card})")
+        report["shm"] = check_shm_cache(cfg, root, seed, train, resumed, step_seq_per_s, card)
+    return report, loop_launches, report["window_preprocess"]
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -1866,7 +2502,8 @@ KERNEL_INFO = {
 # also writes the gradients).
 EXTRA_TIMINGS = {
     "preprocess_rgb": {"at_1_lane": "preprocess_rgb_1_lane", "gripper": "preprocess_rgb_gripper",
-                       "gripper_at_1_lane": "preprocess_rgb_gripper_1_lane"},
+                       "gripper_at_1_lane": "preprocess_rgb_gripper_1_lane",
+                       "window_shape": "preprocess_rgb_window", "gripper_window_shape": "preprocess_rgb_gripper_window"},
     "spatial_softmax": {"at_1_lane": "spatial_softmax_1_lane", "train_shape": "spatial_softmax_train"},
     "logistic_mixture_sample": {"at_1_lane": "logistic_mixture_sample_1_lane"},
     "spatial_softmax_bwd": {"learnable_t": "spatial_softmax_bwd_learnable_t"},
@@ -1899,6 +2536,7 @@ def main(argv=None) -> int:
 
     from hulc_tpu_torch import kernels
     from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.data import shm_store
     from hulc_tpu_torch.models import make_model
     from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
     from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -1908,6 +2546,9 @@ def main(argv=None) -> int:
     lib_path = kernels.build()
     kernels.library()
     print(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    shm_lib = shm_store.build()
+    print(f"[build] {shm_lib.name} (g++, the shm cache) in {time.perf_counter() - t0:.1f} s")
     resources = kernels.ptxas_report(lib_path.with_suffix(".log").read_text())
     for fn, r in resources.items():
         print(f"[build] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory, "
@@ -2071,13 +2712,21 @@ def main(argv=None) -> int:
     evaluator, eval_batched, eval_seq = run_evaluator(cfg, model, args.seed, card)
     eval_launches = {k: eval_batched[k] + eval_seq[k] for k in eval_batched}
 
+    # ---- 12. the training loop -----------------------------------------------
+    del model, train_inputs, train_batch
+    torch.cuda.empty_cache()
+    training_loop, loop_launches, window = run_training_loop(cfg, args.seed, card, batch_windows / step_ms * 1e3)
+    errs["preprocess_rgb"] = max(errs["preprocess_rgb"], *(t["max_abs_err"] for t in window.values()))
+    timing["preprocess_rgb_window"], timing["preprocess_rgb_gripper_window"] = window["rgb_static"], window["rgb_gripper"]
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol],
+            "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
+            + loop_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
-            "launches_evaluator": eval_launches[symbol],
+            "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -2088,7 +2737,7 @@ def main(argv=None) -> int:
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
-        "evaluator": evaluator, "launch_floor_ms": launch_floor_ms, "card": card,
+        "evaluator": evaluator, "training_loop": training_loop, "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ action from the TCP frame back to the world frame. ``loss``
 rotates the ground-truth actions into the TCP frame and takes the mixture
 NLL plus ``gripper_alpha`` times the gripper cross-entropy
 (``ops.logistic_mixture.mixture_nll``, a forward and a backward kernel on
-CUDA tensors). ``loss_and_act`` waits for the validation slice.
+CUDA tensors). ``loss_and_act`` is the validation pass: the teacher-forced
+loss and the sampled window of actions from one forward (under
+``torch.no_grad`` the loss kernel writes no derivatives).
 """
 
 from __future__ import annotations
@@ -151,6 +153,28 @@ class LogisticPolicyDecoder(nn.Module):
         if self.cfg.gripper_control:
             actions = world_to_tcp_frame(actions, robot_obs)
         return self._loss_from_outputs(out, actions, per_sample=per_sample)
+
+    def loss_and_act(
+        self,
+        latent_plan: torch.Tensor,
+        perceptual_emb: torch.Tensor,
+        latent_goal: torch.Tensor,
+        actions: torch.Tensor,
+        robot_obs: torch.Tensor,
+        *,
+        generator: Optional[torch.Generator] = None,
+        u_mix: Optional[torch.Tensor] = None,
+        u_inv: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(teacher-forced loss, sampled (B, S, 7) actions) over a window
+        from a zero carry; with ``gripper_control`` the loss is taken in the
+        TCP frame and the actions are returned in the world frame."""
+        out = self(latent_plan, perceptual_emb, latent_goal)
+        pred = self._sample_from_outputs(out, generator, u_mix, u_inv)
+        if self.cfg.gripper_control:
+            loss = self._loss_from_outputs(out, world_to_tcp_frame(actions, robot_obs))
+            return loss, tcp_to_world_frame(pred, robot_obs)
+        return self._loss_from_outputs(out, actions), pred
 
     def _sample_from_outputs(
         self,

@@ -1,4 +1,4 @@
-"""HULC model (port of hulc_tpu/models/hulc.py:44-136, 138-556, 644-662).
+"""HULC model (port of hulc_tpu/models/hulc.py:44-136, 138-556, 593-662).
 
 ``HulcModel`` holds the reference's modules under its state_dict names
 (``perceptual_encoder``, ``plan_proposal``, ``plan_recognition``,
@@ -14,6 +14,13 @@
   The plan's Gumbel noise comes from ``generator`` unless passed as
   ``gumbel`` (a tensor for the fused pass, a dict by scope otherwise), and
   dropout draws from the generator ``layers.set_dropout_generator`` gave it.
+* Validation: ``val_metrics`` over a ``{"vis", "lang"}`` batch, in eval
+  mode (``lmp_val``: the action loss, MAEs and gripper success rate of a
+  window decoded with the proposal's and with the recognition's plan,
+  each drawn by ``DiscretePlanDistribution.sample``, and the KL scaled by
+  the passed beta), with the JAX package's metric names. The plan and
+  action noise come from ``generator`` unless passed as ``noise[scope]``
+  (``VAL_NOISE_KEYS``).
 
 Images arrive preprocessed, (B, S, C, H, W) fp32 (``training.preprocess``).
 GCBC (plan-free), the continuous plan, state reconstruction and the BC-Z
@@ -107,6 +114,11 @@ def masked_clip_loss(
     loss_t = -torch.where(mask, logp_t, zero).sum() / count
     return torch.where(mask.any(), (loss_i + loss_t) / 2.0, zero)
 
+
+# the noise of one modality's validation pass, as lmp_val takes it injected:
+# each plan's (B, category_size, class_size) Gumbel noise and each decoded
+# window's (B, S, A, K) / (B, S, A) mixture uniforms in (U_MIN, U_MAX)
+VAL_NOISE_KEYS = ("gumbel_pp", "u_mix_pp", "u_inv_pp", "gumbel_pr", "u_mix_pr", "u_inv_pr")
 
 LOSS_KEYS = (
     "kl_loss", "action_loss", "total_loss", "proprio_loss", "lang_pred_loss",
@@ -232,6 +244,102 @@ class HulcModel(nn.Module):
             "pr_state": pr_state,
             "seq_feat": seq_feat,
         }
+
+    def lmp_val(
+        self,
+        perceptual_emb: torch.Tensor,
+        latent_goal: torch.Tensor,
+        actions: torch.Tensor,
+        robot_obs: torch.Tensor,
+        kl_beta: Optional[float] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, Any]:
+        """Validation pass: decode the window with the proposal's and with the
+        recognition's plan. The KL is scaled by ``kl_beta`` (the annealed
+        beta), or by the config's when it is None. ``noise`` holds
+        ``VAL_NOISE_KEYS``; without it each draw comes from ``generator``."""
+        noise = {} if noise is None else noise
+        if not set(noise) <= set(VAL_NOISE_KEYS):
+            raise ValueError(f"unknown validation noise {sorted(set(noise) - set(VAL_NOISE_KEYS))}")
+        ad = self.action_decoder
+
+        def decode(plan, tag):
+            return ad.loss_and_act(
+                plan, perceptual_emb, latent_goal, actions, robot_obs, generator=generator,
+                u_mix=noise.get(f"u_mix_{tag}"), u_inv=noise.get(f"u_inv_{tag}"),
+            )
+
+        pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
+        sampled_plan_pp = self.dist.sample(pp_state, generator=generator, gumbel=noise.get("gumbel_pp"))
+        action_loss_pp, sample_act_pp = decode(sampled_plan_pp, "pp")
+        pr_state, seq_feat = self.plan_recognition(perceptual_emb)
+        sampled_plan_pr = self.dist.sample(pr_state, generator=generator, gumbel=noise.get("gumbel_pr"))
+        action_loss_pr, sample_act_pr = decode(sampled_plan_pr, "pr")
+        kl_loss = self.dist.balanced_kl(pr_state, pp_state, self.cfg.loss.kl_balancing_mix)
+
+        def mae(sample_act):
+            return (sample_act[..., :-1] - actions[..., :-1]).abs().mean(dim=1)  # (B, 6)
+
+        def gripper_sr(sample_act):
+            pred = torch.where(sample_act[..., -1] > 0, 1.0, -1.0)
+            return (pred == actions[..., -1]).float().mean()
+
+        return {
+            "sampled_plan_pp": sampled_plan_pp,
+            "sampled_plan_pr": sampled_plan_pr,
+            "action_loss_pp": action_loss_pp,
+            "action_loss_pr": action_loss_pr,
+            "kl_loss": kl_loss * (self.cfg.loss.kl_beta if kl_beta is None else kl_beta),
+            "mae_pp": mae(sample_act_pp),
+            "mae_pr": mae(sample_act_pr),
+            "gripper_sr_pp": gripper_sr(sample_act_pp),
+            "gripper_sr_pr": gripper_sr(sample_act_pr),
+            "seq_feat": seq_feat,
+        }
+
+    def val_metrics(
+        self,
+        batch: Dict[str, ModalityBatch],
+        kl_beta: Optional[float] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Validation metrics of one preprocessed batch, a pass per modality
+        (the JAX package's keys; ``sampled_plan_*`` are the only non-scalar
+        entries). Runs in eval mode only: the plan recognition is
+        deterministic there, as JAX's ``deterministic=True``."""
+        if self.training:
+            raise RuntimeError("val_metrics runs in eval mode (model.eval()): dropout would be drawn")
+        cfg = self.cfg
+        out: Dict[str, torch.Tensor] = {}
+        total_pp = torch.zeros((), device=self.device)
+        for scope, mod in batch.items():
+            perceptual_emb, _ = self.encode(mod.rgb_obs(), mod.robot_obs)
+            if "lang" in scope:
+                latent_goal = self.encode_language_goal(mod.lang)
+            else:
+                latent_goal = self.encode_visual_goal(perceptual_emb[:, -1])
+            m = self.lmp_val(
+                perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs, kl_beta,
+                generator=generator, noise=None if noise is None else noise[scope],
+            )
+            if "lang" in scope and cfg.use_clip_auxiliary_loss:
+                out["val_pred_clip_loss"] = self.clip_loss(m["seq_feat"], latent_goal, mod.use_for_aux_lang_loss)
+            total_pp = total_pp + m["action_loss_pp"]
+            for name in ("action_loss_pp", "action_loss_pr", "kl_loss", "gripper_sr_pp", "gripper_sr_pr"):
+                out[f"{scope}_{name}"] = m[name]
+            for tag in ("pp", "pr"):
+                mae = m[f"mae_{tag}"]
+                out[f"{scope}_mae_{tag}"] = mae.mean()
+                out[f"{scope}_pos_mae_{tag}"] = mae[..., :3].mean()
+                out[f"{scope}_orn_mae_{tag}"] = mae[..., 3:6].mean()
+            out[f"sampled_plan_pp_{scope}"] = m["sampled_plan_pp"]
+            out[f"sampled_plan_pr_{scope}"] = m["sampled_plan_pr"]
+        out["action_loss_pp"] = total_pp / float(len(batch))
+        return out
 
     def clip_loss(self, seq_feat: torch.Tensor, latent_goal: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         img_f, txt_f = self.proj_vis_lang(seq_feat, latent_goal)

@@ -282,6 +282,40 @@ class AdamLowp(torch.optim.Optimizer):
         self.count = 0
         self.tables = {}  # PointerTable by param group index
 
+    def _moments(self, p: torch.Tensor) -> dict:
+        state = self.state[p]
+        if not state:
+            state["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+        return state
+
+    def checkpoint_state(self) -> dict:
+        """What a checkpoint keeps: the step count (the learning rate is a
+        schedule of it) and each parameter's moments, in parameter order
+        (None before the first step)."""
+        params = [p for g in self.param_groups for p in g["params"]]
+        return {
+            "count": self.count,
+            "exp_avg": [self.state[p].get("exp_avg") for p in params],
+            "exp_avg_sq": [self.state[p].get("exp_avg_sq") for p in params],
+        }
+
+    def load_checkpoint_state(self, state: dict) -> None:
+        """Restore ``checkpoint_state()``'s result, copying the moments into
+        the buffers in place (their addresses, and so the kernel's pointer
+        table, stay)."""
+        params = [p for g in self.param_groups for p in g["params"]]
+        if len(state["exp_avg"]) != len(params) or len(state["exp_avg_sq"]) != len(params):
+            raise ValueError(f"the checkpoint has moments for {len(state['exp_avg'])} parameters, expected {len(params)}")
+        self.count = int(state["count"])
+        for p, m, v in zip(params, state["exp_avg"], state["exp_avg_sq"]):
+            if m is None:
+                self.state[p].clear()
+                continue
+            moments = self._moments(p)
+            moments["exp_avg"].copy_(m)
+            moments["exp_avg_sq"].copy_(v)
+
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         """One update of every parameter; returns the global norm of the
@@ -299,10 +333,7 @@ class AdamLowp(torch.optim.Optimizer):
                 neg_lr = float(torch.tensor(-lr, dtype=torch.float32))
                 params, grads, ms, vs = [], [], [], []
                 for p in group["params"]:
-                    state = self.state[p]
-                    if not state:
-                        state["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
-                        state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+                    state = self._moments(p)
                     params.append(p)
                     grads.append(None if p.grad is None else p.grad.contiguous())
                     ms.append(state["exp_avg"])

@@ -32,11 +32,19 @@ NOT_PORTED = (("depth_static", "depth_static"), ("depth_gripper", "depth_gripper
 
 
 def batch_to_device(batch: Dict[str, ModalityBatch], device) -> Dict[str, ModalityBatch]:
-    """Every field as a tensor on ``device`` (numpy arrays are copied)."""
+    """Every field as a tensor on ``device``: numpy arrays and tensors
+    elsewhere are copied; a tensor already there (``"cuda"`` meaning the
+    current CUDA device) is passed as it is, so an uploaded batch is not
+    copied again."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
 
     def move(x):
         if x is None:
             return None
+        if isinstance(x, torch.Tensor) and x.device == device:
+            return x
         return (torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x).to(device)
 
     return {scope: ModalityBatch(*(move(x) for x in mod)) for scope, mod in batch.items()}
