@@ -160,8 +160,28 @@ it fails:
    (phase 8), and, under torch.profiler, the device's idle share of the
    loop.
 
+13. serving export: ``serving.export_policy`` writes the full-width
+   ``hulc`` policy (``--seed`` weights, ``--lanes`` lanes) as
+   ``torch.export`` programs on the card, and a ``hulc_debug`` policy
+   exported on the CPU. A fresh process (``--serve-child``) that imports
+   only the serving runtime (it fails if a model, evaluator, trainer,
+   config or data module of the port, or JAX, was loaded) serves them:
+   ``ServedPolicy`` over phase 4's ``--steps`` language-goal steps, a
+   ``reset()`` and a visual-goal episode; ``ServedBatchedPolicy`` over
+   phase 5's lockstep steps; the ``hulc_debug`` artifact, moved to the
+   card, over a few steps. Observations go to it, and actions and each
+   step's launches come back, as files. The actions must agree with the
+   live ``HulcPolicy`` / ``BatchedHulcPolicy`` from the same seed on the
+   same observations within ACTION_ATOL (bit-equal expected; the error
+   is printed), every served step must launch exactly what the live step
+   launches, the four serving kernels must launch and no other. Prints
+   the export's seconds, the artifact's bytes, the served and live
+   step's host ms at 1 and ``--lanes`` lanes, and each serving op's host
+   microseconds per call through the dispatcher beside its kernel
+   function's called directly (``dispatch_us``).
+
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
-training, evaluator and training-loop paths) and, last,
+training, evaluator, training-loop and served paths) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -191,6 +211,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 ACTION_ATOL = 1e-4  # kernel path vs plain path, per action entry
+# the kernels a policy step launches (B.1, B.2, B.3, B.6's forward)
+SERVING_KERNELS = ("hulc_preprocess_rgb", "hulc_spatial_softmax", "hulc_logistic_mixture_sample", "hulc_rnn_relu_fwd")
 PLAN_TIE_BUDGET = 1e-3  # share of replanned plan categories allowed to differ
 
 # Training tolerances, kernel against plain version on the same inputs:
@@ -614,17 +636,23 @@ def time_policy(cfg, model, rng, lanes):
 
     lang = rng.normal(size=384).astype(np.float32)
     single_obs = make_obs(rng, cfg, 1)[0]
-    policy = HulcPolicy(cfg, model, seed=0)
+    obs = make_obs(rng, cfg, lanes)
+    langs = rng.normal(size=(lanes, 384)).astype(np.float32)
+    return policy_step_ms(HulcPolicy(cfg, model, seed=0), BatchedHulcPolicy(cfg, model, lanes, seed=0),
+                          single_obs, lang, obs, langs)
+
+
+def policy_step_ms(policy, batched, single_obs, lang, obs, langs):
+    """Median host ms of a single-lane step that acts (planned once before)
+    and of a lockstep step that replans no lane, through ``policy`` and
+    ``batched`` (live or served: the same entry points)."""
     policy.reset()
     policy.step(single_obs, lang)  # plan once; the timed steps act
     policy.replan_freq = 10**9
     single_ms = host_ms(lambda: policy.step(single_obs, lang), 50)
 
-    batched = BatchedHulcPolicy(cfg, model, lanes, seed=0)
-    obs = make_obs(rng, cfg, lanes)
-    langs = rng.normal(size=(lanes, 384)).astype(np.float32)
     state = [batched.initial_state()]
-    mask = np.zeros(lanes, bool)
+    mask = np.zeros(len(obs), bool)
 
     def step():
         _, state[0] = batched.step(obs, langs, state[0], mask)
@@ -2458,6 +2486,253 @@ def run_training_loop(cfg, seed, card, step_seq_per_s):
         report["shm"] = check_shm_cache(cfg, root, seed, train, resumed, step_seq_per_s, card)
     return report, loop_launches, report["window_preprocess"]
 
+
+# --------------------------------------------------------------------------
+# phase 13: the serving export
+# --------------------------------------------------------------------------
+
+# modules a serving host must not load: the port's model code, and JAX
+SERVE_BANNED = ("hulc_tpu_torch.models", "hulc_tpu_torch.evaluation", "hulc_tpu_torch.training",
+                "hulc_tpu_torch.config", "hulc_tpu_torch.data", "jax", "hulc_tpu")
+VISUAL_STEPS = 5  # the visual-goal episode after the reset
+DEBUG_STEPS = 4  # the hulc_debug artifact exported on the CPU and served on the card
+SERVE_CHILD_TIMEOUT = 600
+
+
+def step_launches(step):
+    """(``step()``'s result, {kernel symbol: launches it made})."""
+    from hulc_tpu_torch import kernels
+
+    before = [k.launches for k in kernels.ALL_KERNELS]
+    out = step()
+    return out, {k.symbol: k.launches - b for k, b in zip(kernels.ALL_KERNELS, before)}
+
+
+def drive_episodes(policy, lang_obs, lang, visual_obs, goal_obs):
+    """A language-goal episode over ``lang_obs``, ``reset()``, a visual-goal
+    episode over ``visual_obs``: (actions, launches of each step)."""
+    actions, launches = [], []
+    for obs, goal in ((lang_obs, lang), (visual_obs, goal_obs)):
+        policy.reset()
+        for o in obs:
+            a, n = step_launches(lambda: policy.step(o, goal))
+            actions.append(a)
+            launches.append(n)
+    return np.stack(actions), launches
+
+
+def drive_lockstep(policy, obs_steps, langs, freq):
+    """Lockstep steps with staggered replans: (actions, launches of each step)."""
+    state, actions, launches = policy.initial_state(), [], []
+    for t, obs in enumerate(obs_steps):
+        (a, state), n = step_launches(lambda: policy.step(obs, langs, state, replan_mask(t, len(langs), freq)))
+        actions.append(a)
+        launches.append(n)
+    return np.stack(actions), launches
+
+
+def obs_arrays(obs):
+    """A list of env obs (or of lists of them, one per lane) as stacked arrays."""
+    def stack(get):
+        return np.stack([np.stack([get(x) for x in o]) if isinstance(o, list) else get(o) for o in obs])
+
+    return {"static": stack(lambda o: o["rgb_obs"]["rgb_static"]), "gripper": stack(lambda o: o["rgb_obs"]["rgb_gripper"]),
+            "robot": stack(lambda o: o["robot_obs"])}
+
+
+def obs_list(arrays, prefix):
+    """Inverse of ``obs_arrays`` for the arrays stored under ``prefix``."""
+    static, gripper, robot = (arrays[f"{prefix}_{k}"] for k in ("static", "gripper", "robot"))
+
+    def one(idx):
+        return {"rgb_obs": {"rgb_static": static[idx], "rgb_gripper": gripper[idx]}, "robot_obs": robot[idx]}
+
+    if static.ndim == 5:  # (steps, lanes, H, W, 3)
+        return [[one((t, e)) for e in range(static.shape[1])] for t in range(static.shape[0])]
+    return [one(t) for t in range(static.shape[0])]
+
+
+def serve_child(work: pathlib.Path) -> int:
+    """The served side of phase 13, in a fresh process that imports only the
+    serving runtime: the artifacts in ``work`` driven over the observations
+    the parent wrote, with each step's launches, and the served steps'
+    host times; writes ``served.npz`` and ``served.json`` into ``work``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.serving import ServedBatchedPolicy, ServedPolicy
+
+    spec = json.loads((work / "inputs.json").read_text())
+    with np.load(work / "inputs.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    seed, freq = spec["seed"], spec["replan_freq"]
+    kernels.build()
+    kernels.library()
+    t0 = time.perf_counter()
+    single = ServedPolicy(work / "hulc", seed=seed)
+    batched = ServedBatchedPolicy(work / "hulc", seed=seed)
+    load_s = time.perf_counter() - t0
+    goal = obs_list(arrays, "goal")[0]
+    out, report = {}, {"load_s": load_s}
+    out["single"], report["single"] = drive_episodes(
+        single, obs_list(arrays, "single"), arrays["lang"], obs_list(arrays, "visual"), goal)
+    out["batched"], report["batched"] = drive_lockstep(batched, obs_list(arrays, "batched"), arrays["langs"], freq)
+    debug = ServedPolicy(work / "debug", seed=seed)
+    out["debug"], report["debug"] = drive_episodes(debug, obs_list(arrays, "debug"), arrays["debug_lang"], [], None)
+    report["debug_moved"] = debug.meta["device"] != str(debug.device)
+    report["step_ms"] = policy_step_ms(single, batched, obs_list(arrays, "single")[0], arrays["lang"],
+                                       obs_list(arrays, "batched")[0], arrays["langs"])
+    report["loaded"] = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in SERVE_BANNED))
+    np.savez(work / "served.npz", **out)
+    (work / "served.json").write_text(json.dumps(report))
+    return 0
+
+
+def dispatch_us(cfg, gen):
+    """Host microseconds per call of each serving op (``torch.ops.hulc.*``,
+    through the dispatcher) and of the kernel function it calls, at one
+    lane's shapes: the median of 5 runs of 1000 back-to-back calls ended by
+    a sync (the host issues slower than these kernels run)."""
+    from hulc_tpu_torch.ops import image_ops, logistic_mixture, recurrence, spatial_softmax
+    from hulc_tpu_torch.ops.logistic_mixture import U_MIN, U_SPAN
+
+    dev, pe, ad = "cuda", cfg.perceptual_encoder, cfg.action_decoder
+    imgs = torch.randint(0, 256, (1, 1, pe.rgb_static.input_size, pe.rgb_static.input_size, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    conv_map = torch.randn((1, 64, 21, 21), generator=gen, device=dev)
+    shape = (1, 1, ad.out_features - 1, ad.n_mixtures)
+    mix = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)] + [
+        torch.rand(shape, generator=gen, device=dev), torch.rand(shape[:-1], generator=gen, device=dev),
+        torch.randn((1, 1, 2), generator=gen, device=dev)]
+    h = ad.hidden_size
+    rnn = [torch.randn((1, 1, h), generator=gen, device=dev), torch.randn((1, h), generator=gen, device=dev),
+           torch.randn((h, h), generator=gen, device=dev) / h**0.5, torch.randn(h, generator=gen, device=dev)]
+    bounds, umap = (-1.0, 1.0), (U_MIN, U_SPAN)
+    pairs = {
+        "preprocess_rgb": (lambda: torch.ops.hulc.preprocess_rgb(imgs, 0.5, 0.5),
+                           lambda: image_ops.preprocess_rgb_seq_kernel(imgs, 0.5, 0.5)),
+        "spatial_softmax": (lambda: torch.ops.hulc.spatial_softmax(conv_map, None, 1.0),
+                            lambda: spatial_softmax.spatial_softmax_fwd_kernel(conv_map, 1.0)),
+        "sample_action": (lambda: torch.ops.hulc.sample_action(*mix, *bounds, *umap),
+                          lambda: logistic_mixture.sample_action_kernel(*mix, bounds, umap)),
+        "rnn_relu_fwd": (lambda: torch.ops.hulc.rnn_relu_fwd(*rnn), lambda: recurrence.rnn_relu_fwd_kernel(*rnn)),
+    }
+
+    def per_call_us(fn):
+        for _ in range(50):
+            fn()
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(runs)
+
+    return {name: {"op_us": per_call_us(op), "direct_us": per_call_us(direct)} for name, (op, direct) in pairs.items()}
+
+
+def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs, card):
+    """Phase 13: export the full-width policy (``lanes`` lanes) and a
+    ``hulc_debug`` one exported on the CPU; serve both in a fresh process
+    that loads no model code; hold the served actions and each step's
+    launches against the live policies' on the same observations and
+    seed. Returns (summary, {kernel symbol: served launches})."""
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
+    from hulc_tpu_torch.evaluation.policy import HulcPolicy
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.serving import export_policy
+
+    rng = np.random.default_rng(seed + 13)
+    visual_obs, goal_obs = make_obs(rng, cfg, VISUAL_STEPS), make_obs(rng, cfg, 1)
+    dbg_cfg = get_config("hulc_debug")
+    dbg_obs = make_obs(rng, dbg_cfg, DEBUG_STEPS)
+    dbg_lang = rng.normal(size=dbg_cfg.lang_dim).astype(np.float32)
+    with tempfile.TemporaryDirectory(prefix="hulc_serving_") as tmp:
+        work = pathlib.Path(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_policy(cfg, model, work / "hulc", lanes=lanes)
+        export_s = time.perf_counter() - t0
+        art_bytes = sum(f.stat().st_size for f in (work / "hulc").iterdir())
+        dbg_model = make_model(dbg_cfg, "cpu", seed=seed)
+        export_policy(dbg_cfg, dbg_model, work / "debug", device="cpu")
+        dbg_bytes = sum(f.stat().st_size for f in (work / "debug").iterdir())
+        print(f"[serving export] hulc at {lanes} lanes exported in {export_s:.3f} s on the card, {art_bytes} bytes "
+              f"({sorted(f.name for f in (work / 'hulc').iterdir())}); hulc_debug exported on the CPU, "
+              f"{dbg_bytes} bytes ({card})")
+
+        live = {}
+        live["single"] = drive_episodes(HulcPolicy(cfg, model, seed=seed), single_obs, lang, visual_obs, goal_obs[0])
+        live["batched"] = drive_lockstep(BatchedHulcPolicy(cfg, model, lanes, seed=seed), batched_obs, langs,
+                                         cfg.replan_freq)
+        live["debug"] = drive_episodes(HulcPolicy(dbg_cfg, dbg_model.to("cuda"), seed=seed), dbg_obs, dbg_lang, [],
+                                       None)
+        live_ms = policy_step_ms(HulcPolicy(cfg, model, seed=seed), BatchedHulcPolicy(cfg, model, lanes, seed=seed),
+                                 single_obs[0], lang, batched_obs[0], langs)
+
+        arrays = {"lang": lang, "langs": langs, "debug_lang": dbg_lang}
+        for name, obs in (("single", single_obs), ("visual", visual_obs), ("goal", goal_obs), ("batched", batched_obs),
+                          ("debug", dbg_obs)):
+            arrays.update({f"{name}_{k}": v for k, v in obs_arrays(obs).items()})
+        np.savez(work / "inputs.npz", **arrays)
+        (work / "inputs.json").write_text(json.dumps({"seed": seed, "replan_freq": cfg.replan_freq}))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-child", str(work)],
+                              capture_output=True, text=True, timeout=SERVE_CHILD_TIMEOUT)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the serving process failed ({proc.returncode}):\n{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        report = json.loads((work / "served.json").read_text())
+        with np.load(work / "served.npz") as z:
+            served = {k: z[k] for k in z.files}
+
+    if report["loaded"]:
+        fail(f"the serving process loaded model code or JAX: {report['loaded']}")
+    if not report["debug_moved"]:
+        fail("the hulc_debug artifact exported on the CPU was not moved to the card")
+    summary = {"export_s": export_s, "artifact_bytes": art_bytes, "debug_artifact_bytes": dbg_bytes,
+               "load_s": report["load_s"], "child_s": child_s, "card": card}
+    served_launches = collections.Counter()
+    for name, (live_actions, live_launches) in live.items():
+        got = served[name]
+        if got.shape != live_actions.shape:
+            fail(f"served {name}: actions of shape {got.shape}, live {live_actions.shape}")
+        err = float(np.abs(got - live_actions).max())
+        if not err <= ACTION_ATOL:
+            fail(f"served {name}: actions differ from the live policy's by {err} (atol {ACTION_ATOL})")
+        for t, (s_n, l_n) in enumerate(zip(report[name], live_launches)):
+            if s_n != l_n:
+                fail(f"served {name} step {t}: launches {s_n}, the live step's {l_n}")
+        totals = collections.Counter()
+        for n in report[name]:
+            totals.update(n)
+        if not all(totals[k] > 0 for k in SERVING_KERNELS):
+            fail(f"served {name}: a serving kernel was never launched: {dict(totals)}")
+        if any(v for k, v in totals.items() if k not in SERVING_KERNELS):
+            fail(f"served {name}: a kernel off the serving path was launched: {dict(totals)}")
+        if name != "debug":
+            served_launches.update(totals)
+        summary[name] = {"steps": len(got), "max_abs_err": err, "bit_equal": bool(np.array_equal(got, live_actions)),
+                         "launches": {k: totals[k] for k in SERVING_KERNELS}}
+        print(f"[serving export] served {name}: {len(got)} steps, max abs action err against the live policy "
+              f"{err:.3g} (atol {ACTION_ATOL}; bit-equal {summary[name]['bit_equal']}); every step's launches equal "
+              f"the live step's: {summary[name]['launches']}")
+    summary["step_ms"] = {"served": {"1": report["step_ms"][0], str(lanes): report["step_ms"][1]},
+                          "live": {"1": live_ms[0], str(lanes): live_ms[1]}}
+    summary["dispatch_us"] = dispatch_us(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    print("[serving export] host us per call through the hulc:: op / of the kernel function alone, one lane: "
+          + ", ".join(f"{k} {v['op_us']:.2f} / {v['direct_us']:.2f}" for k, v in summary["dispatch_us"].items())
+          + f" ({card})")
+    print(f"[serving export] step host ms (median), served / live: 1 lane {report['step_ms'][0]:.4f} / "
+          f"{live_ms[0]:.4f}, {lanes} lanes {report['step_ms'][1]:.4f} / {live_ms[1]:.4f}; the serving process "
+          f"loaded the artifact in {report['load_s']:.3f} s, ran {child_s:.3f} s, and loaded no model code ({card})")
+    return summary, served_launches
+
+
 # --------------------------------------------------------------------------
 
 
@@ -2519,7 +2794,10 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=35)
     p.add_argument("--lanes", type=int, default=64)
     p.add_argument("--train-steps", type=int, default=5)
+    p.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)  # phase 13's serving process
     args = p.parse_args(argv)
+    if args.serve_child:
+        return serve_child(pathlib.Path(args.serve_child))
     if args.train_steps < 3:
         fail("--train-steps must be at least 3: two warm-up steps and one timed")
 
@@ -2600,9 +2878,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     serve_launches = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
     print(f"[serving main path] launches: {serve_launches}")
-    serving = [KERNEL_INFO[n][0] for n in ("preprocess_rgb", "spatial_softmax", "logistic_mixture_sample",
-                                           "rnn_relu_fwd")]
-    if not all(serve_launches[k] > 0 for k in serving):
+    if not all(serve_launches[k] > 0 for k in SERVING_KERNELS):
         fail(f"a kernel of the serving path was never launched: {serve_launches}")
     check_actions("single lane", single_actions, 1)
     check_actions("batched", batched_actions, args.lanes)
@@ -2719,14 +2995,22 @@ def main(argv=None) -> int:
     errs["preprocess_rgb"] = max(errs["preprocess_rgb"], *(t["max_abs_err"] for t in window.values()))
     timing["preprocess_rgb_window"], timing["preprocess_rgb_gripper_window"] = window["rgb_static"], window["rgb_gripper"]
 
+    # ---- 13. the serving export ----------------------------------------------
+    model = make_model(cfg, "cuda", seed=args.seed)
+    serving_export, served_launches = run_serving_export(
+        cfg, model, args.seed, args.lanes, single_obs, lang, batched_obs, langs, card
+    )
+    del model
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
-            + loop_launches[symbol],
+            + loop_launches[symbol] + served_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
+            "launches_served": served_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -2737,7 +3021,8 @@ def main(argv=None) -> int:
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
-        "evaluator": evaluator, "training_loop": training_loop, "launch_floor_ms": launch_floor_ms, "card": card,
+        "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export,
+        "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,7 @@ operations per step come with their host clock.
 
 Prints one JSON line, with the card's name and power limit. Needs a CUDA
 device. ``--only NAME[,NAME...]`` times only the cases whose names start
-with one of them, and skips the policy.
+with one of them; the policy steps are the case ``policy``.
 """
 
 from __future__ import annotations
@@ -434,7 +434,7 @@ def main(argv=None) -> None:
             out["event_ms"][name] = event_ms(fn)
             out["digest"][name] = digest(fn())
     del train, shifts
-    if not args.only:
+    if wanted("policy"):
         policy = policy_times(cfg, SEED, LANES)
         out["policy_step_host_ms"], out["policy_step_ops"] = policy["host_ms"], policy["ops_per_step"]
     print(json.dumps(out))

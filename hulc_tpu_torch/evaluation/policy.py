@@ -12,9 +12,9 @@ package jits and its serving exporter wraps:
 ``HulcPolicy`` drives them through ``reset()`` / ``step(obs, goal)``,
 replanning every ``replan_freq`` steps, with its state in an explicit
 :class:`PolicyState` and its noise from one seeded ``torch.Generator`` on
-the model's device. Every random draw can instead be passed in
-(``gumbel``, ``u_mix``, ``u_inv``), which is how the tests feed the noise
-JAX drew.
+the model's device, restarted from the seed by ``reset()``. Every random
+draw can instead be passed in (``gumbel``, ``u_mix``, ``u_inv``), which is
+how the tests feed the noise JAX drew.
 """
 
 from __future__ import annotations
@@ -142,11 +142,16 @@ class HulcPolicy:
         self.lang_embeddings = lang_embeddings or {}
         self._state_norm = StateObsNormalizer(cfg, statistics)
         self._state: Optional[PolicyState] = None
+        self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._replan_lang, self._replan_vision, self._act = build_policy_fns(model, cfg)
 
     def reset(self) -> None:
+        """Start an episode: no plan, and the noise stream restarted from the
+        seed, as the JAX policy restarts from its base key, so every episode
+        draws the same noise."""
         self._state = None
+        self.generator.manual_seed(self.seed)
 
     def step(self, obs: Dict, goal, noise: Optional[Dict[str, torch.Tensor]] = None) -> np.ndarray:
         """One env step. goal: instruction str, embedding array, or goal-obs dict.

@@ -5,11 +5,11 @@
 ``fc_model.2`` line up with the reference checkpoints. ``ScanRNN`` is the
 decoder's multi-layer relu RNN with an explicit (num_layers, B, H) carry:
 the input projection of every time step runs as one matmul before the
-recurrence ``relu(x_t W_ih + b_ih + h W_hh + b_hh)``. On CUDA tensors
-each layer's recurrence is one launch of a hand-written kernel, forward
-and backward (``ops.recurrence.rnn_relu``); on CPU tensors, or with
-``use_kernels=False``, it is the plain loop of one fp32 ``addmm`` per step,
-differentiated by autograd.
+recurrence ``relu(x_t W_ih + b_ih + h W_hh + b_hh)``. Each layer's
+recurrence is ``ops.recurrence.rnn_relu``: on CUDA tensors one launch of a
+hand-written kernel, forward and backward; on CPU tensors the plain loop
+forward and the closed-form backward. With ``use_kernels=False`` it is the
+plain loop of one fp32 ``addmm`` per step, differentiated by autograd.
 ``TransformerEncoder`` is the plan recognition network's post-LN encoder,
 under torch ``nn.TransformerEncoder``'s parameter names.
 
@@ -127,7 +127,7 @@ class ScanRNN(nn.Module):
             w_hh = getattr(self, f"weight_hh_l{k}")
             b_hh = getattr(self, f"bias_hh_l{k}")
             x_proj = F.linear(out, getattr(self, f"weight_ih_l{k}"), getattr(self, f"bias_ih_l{k}"))
-            if self.use_kernels and x_proj.device.type == "cuda":
+            if self.use_kernels:
                 out, h = rnn_relu(x_proj, carry[k].contiguous(), w_hh, b_hh)
             else:
                 out = rnn_relu_fwd_plain(x_proj, carry[k], w_hh, b_hh)

@@ -11,6 +11,8 @@ JAX package draws them (``randint((B*S, 2), 0, 2*pad + 1)``), and tests
 pass the shifts JAX drew. On a CUDA tensor each function launches its
 hand-written kernel in ``csrc/preprocess.cu`` (which fuses the NHWC -> NCHW
 transpose into the same pass); on a CPU tensor it runs the plain version.
+The eval branch does so as the ``hulc::preprocess_rgb`` op
+(``ops.library``), which ``torch.export`` keeps as one node.
 Both kernels normalize through ``normalize_table``, the plain version's own
 result for each of the 256 byte values, so they are bit-equal to it.
 """
@@ -44,9 +46,13 @@ def normalize_table(mean: float, std: float, device: torch.device) -> torch.Tens
 
 
 def preprocess_rgb_seq(imgs: torch.Tensor, mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
-    """(B, S, H, W, C) uint8 -> (B, S, C, H, W) fp32 in [-1, 1]."""
-    if imgs.device.type == "cpu":
-        return preprocess_rgb_seq_plain(imgs, mean, std)
+    """(B, S, H, W, C) uint8 -> (B, S, C, H, W) fp32 in [-1, 1], through the
+    ``hulc::preprocess_rgb`` op."""
+    return torch.ops.hulc.preprocess_rgb(imgs, float(mean), float(std))
+
+
+def preprocess_rgb_seq_kernel(imgs: torch.Tensor, mean: float, std: float) -> torch.Tensor:
+    """The eval preprocess kernel on a CUDA tensor."""
     kernels.require_cuda_tensor("imgs", imgs, torch.uint8, 5)
     b, s, h, w, c = imgs.shape
     if c != 3:

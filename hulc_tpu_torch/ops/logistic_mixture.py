@@ -8,10 +8,10 @@ uniforms it needs, ``u_mix`` (..., A, K) and ``u_inv`` (..., A), as inputs
 with the map into (1e-5, 1 - 1e-5) that they still need:
 ``draw_raw_uniforms`` draws them from a ``torch.Generator`` and
 ``map_uniforms`` maps them as the JAX package draws them (tests pass
-exactly the noise JAX drew instead, with the identity map). On a CUDA
-tensor the whole action, from the raw draws on, is one launch of the
-hand-written kernel ``csrc/logistic_mixture.cu``; on a CPU tensor the plain
-version.
+exactly the noise JAX drew instead, with the identity map). It is the
+``hulc::sample_action`` op (``ops.library``): on a CUDA tensor the whole
+action, from the raw draws on, is one launch of the hand-written kernel
+``csrc/logistic_mixture.cu``; on a CPU tensor the plain version.
 
 ``logistic_mixture_log_prob`` / ``logistic_mixture_loss`` and
 ``cross_entropy_gripper`` are the JAX functions in plain PyTorch.
@@ -341,12 +341,17 @@ def sample_action(
     u, and optional (..., 2) gripper logits -> the (..., A [+ 1]) action: the
     sample of each dimension, then ``gripper_bounds`` = (closed, open) by the
     gripper logits' argmax. Raw ``torch.rand`` draws take the default map,
-    uniforms already in (U_MIN, U_MAX) take (0, 1). On a CUDA tensor one
-    launch of ``csrc/logistic_mixture.cu``; on a CPU tensor the plain
-    version."""
-    if logit_probs.device.type == "cpu":
-        return sample_action_plain(logit_probs, log_scales, means, u_mix, u_inv, gripper_logits, gripper_bounds,
-                                   uniform_map)
+    uniforms already in (U_MIN, U_MAX) take (0, 1). The ``hulc::sample_action``
+    op: on a CUDA tensor one launch of ``csrc/logistic_mixture.cu``; on a CPU
+    tensor the plain version."""
+    return torch.ops.hulc.sample_action(logit_probs, log_scales, means, u_mix, u_inv, gripper_logits,
+                                        *map(float, gripper_bounds), *map(float, uniform_map))
+
+
+def sample_action_kernel(
+    logit_probs, log_scales, means, u_mix, u_inv, gripper_logits, gripper_bounds, uniform_map
+) -> torch.Tensor:
+    """``sample_action``'s kernel on CUDA tensors."""
     params = [t.float().contiguous() for t in (logit_probs, log_scales, means, u_mix)]
     u_inv = u_inv.float().contiguous()
     for name, t in zip(("logit_probs", "log_scales", "means", "u_mix"), params):

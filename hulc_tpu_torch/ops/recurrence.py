@@ -6,9 +6,10 @@ loop (``b_ih`` in it) and ``w_hh`` in torch ``nn.RNN`` layout (H_out, H_in):
 relu's gradient is the JAX package's custom VJP, ``g * (y > 0)``: 0 at
 exactly 0.
 
-On CUDA tensors ``rnn_relu`` is a ``torch.autograd.Function`` whose forward
-is ``csrc/rnn_relu.cu``'s forward (one launch a layer: the split-K cluster
-kernel over the sequence, or the one-step GEMV at a serving lane) and whose
+``rnn_relu`` is a ``torch.autograd.Function`` whose forward is the
+``hulc::rnn_relu_fwd`` op (``ops.library``): on CUDA tensors
+``csrc/rnn_relu.cu``'s forward (one launch a layer: the split-K cluster
+kernel over the sequence, or the one-step GEMV at a serving lane). Its
 backward is that file's dh-chain kernel, then dW_hh as ONE matrix product
 over all S * B rows, ``dpre^T [h0, y_{:-1}]``, and db_hh as dpre's sum
 (``recurrence_weight_grads``). ``recurrence_plan`` chooses each launch's
@@ -16,8 +17,9 @@ kernel, cluster size, k-split, columns and shared memory, once per shape
 (``device_plan``, cached), and csrc/rnn_relu.cu checks it against the card
 then. Each part runs inside a
 ``record_function`` span (``SPANS``) so a profile can find it. On CPU
-tensors the wrappers take the plain versions below: ``rnn_relu_fwd_plain``
-is the loop, ``rnn_relu_bwd_plain`` the closed form the backward computes.
+tensors the forward and the dh chain take the plain versions below:
+``rnn_relu_fwd_plain`` is the loop, ``rnn_relu_bwd_plain`` the closed form
+the backward computes.
 """
 
 from __future__ import annotations
@@ -179,11 +181,16 @@ def rnn_relu_bwd_plain(
 def rnn_relu_fwd(
     xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel: (y (B, S, H), the final state y[:, -1] as its
-    own (B, H) tensor)."""
-    if xp.device.type == "cpu":
-        y = rnn_relu_fwd_plain(xp, h0, w_hh, b_hh)
-        return y, y[:, -1]
+    """The ``hulc::rnn_relu_fwd`` op: (y (B, S, H), the final state y[:, -1]
+    as its own (B, H) tensor); the forward kernel on CUDA tensors, the plain
+    loop on CPU tensors."""
+    return torch.ops.hulc.rnn_relu_fwd(xp, h0, w_hh, b_hh)
+
+
+def rnn_relu_fwd_kernel(
+    xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors, after its launch plan."""
     b, s, h = xp.shape
     kernels.require_cuda_tensor("xp", xp, torch.float32, 3)
     kernels.require_cuda_tensor("h0", h0, torch.float32, 2)

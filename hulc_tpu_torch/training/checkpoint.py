@@ -9,8 +9,10 @@ place. An existing ``epoch_<N>`` is renamed aside first (``.old-epoch_<N>-*``)
 and deleted after; a save cut between the two renames leaves it aside,
 where ``all_checkpoints`` finds it. So a save cut at any point leaves the
 last complete checkpoint of every epoch. ``all_checkpoints`` lists only
-directories that hold a ``state.pt``. ``MonitoredCheckpointer`` keeps the top-k epochs by a logged
-metric (``CHECKPOINT_PRESETS``), journaled to ``saved_models/monitor.json``.
+directories that hold a ``state.pt``. ``restore_params`` reads the
+parameters alone, matched to a template by name. ``MonitoredCheckpointer``
+keeps the top-k epochs by a logged metric (``CHECKPOINT_PRESETS``),
+journaled to ``saved_models/monitor.json``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import pathlib
 import re
 import shutil
 import uuid
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 
@@ -58,6 +60,28 @@ def save_checkpoint(run_dir, epoch: int, state: Dict[str, Any]) -> pathlib.Path:
 def restore_checkpoint(path, map_location=None) -> Dict[str, Any]:
     """The state a checkpoint directory holds."""
     return torch.load(pathlib.Path(path) / STATE_FILE, map_location=map_location, weights_only=True)
+
+
+def restore_params(path, template: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The parameters of a checkpoint directory (evaluation and export need
+    no optimizer state), matched to ``template`` (a state_dict) by NAME and
+    in its order, on the template's devices. A checkpoint of another config
+    fails loudly with the offending names or shapes instead of loading
+    weights of the same count in the wrong places."""
+    params = restore_checkpoint(path, map_location="cpu")["params"]
+    missing = [n for n in template if n not in params]
+    extra = sorted(set(params) - set(template))
+    if missing or extra:
+        raise ValueError(
+            f"checkpoint params do not match template by name: "
+            f"missing={missing[:5]}{'...' if len(missing) > 5 else ''} "
+            f"extra={extra[:5]}{'...' if len(extra) > 5 else ''}"
+        )
+    for name, t in template.items():
+        if tuple(params[name].shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {name}: checkpoint {tuple(params[name].shape)} "
+                             f"vs template {tuple(t.shape)}")
+    return {name: params[name].to(t.device) for name, t in template.items()}
 
 
 def all_checkpoints(run_dir) -> List[pathlib.Path]:

@@ -202,6 +202,28 @@ def test_hulc_policy_steps_across_a_replan(debug_pair):
     assert np.isfinite(policy.step(_obs(rng, PORT_CFG), goal_obs)).all()
 
 
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_reset_restarts_the_noise_stream_as_jax_does(debug_pair, package):
+    """Two episodes from the same observations and embedding give the same
+    actions: ``reset()`` restarts the noise stream from the seed (JAX: from
+    its base key), across a replan (replan_freq 3)."""
+    _, params, port_model = debug_pair
+    if package == "jax":
+        from hulc_tpu.evaluation.policy import HulcPolicy as JaxHulcPolicy
+
+        policy = JaxHulcPolicy(jax_config.get_config("hulc_debug", replan_freq=3), params, seed=3)
+    else:
+        policy = HulcPolicy(port_config.get_config("hulc_debug", replan_freq=3), port_model, seed=3)
+    rng = np.random.default_rng(13)
+    lang = rng.normal(size=384).astype(np.float32)
+    obs = [_obs(rng, PORT_CFG) for _ in range(5)]
+    episodes = []
+    for _ in range(2):
+        policy.reset()
+        episodes.append(np.stack([policy.step(o, lang) for o in obs]))
+    np.testing.assert_array_equal(episodes[1], episodes[0])
+
+
 def test_batched_policy_steps_with_staggered_replans(debug_pair):
     _, _, port_model = debug_pair
     lanes = 3
