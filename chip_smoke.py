@@ -180,8 +180,32 @@ it fails:
    microseconds per call through the dispatcher beside its kernel
    function's called directly (``dispatch_us``).
 
+14. mcil: the ``mcil`` preset at full width (``--seed`` weights): the BiRNN
+   plan recognition's kernels, the tanh recurrence (B.8: forward, dh chain,
+   and the autograd Function's four gradients, with a nonzero carry and a
+   carry gradient, on each layer's W_hh) and the bidirectional layer (B.9:
+   both chains into one (B, S, 2H) output, forward, backward kernels and
+   the Function's seven gradients) against their plain versions within
+   REC_REL at the train step's (64, 32, 2048), through both layers (layer 0
+   from 128 features, layer 1 from 4096), and B.9 at (3, 5, 37), one step
+   (3, 1, 37) and two row tiles (96, 3, 64); both timed by CUDA events
+   beside their plain versions and cuDNN's tanh RNN (W_ih = I; the
+   bidirectional one for B.9). Then the main path, launch counts zeroed
+   just before and read just after: ``--train-steps`` train steps at 2B =
+   64, S = 32 (each launches B.8 four times and B.9 twice, forward and
+   backward), a val step, the single-lane policy over 35 steps (replans at
+   0 and 30, a ``reset()``, a replan), the lockstep policy at ``--lanes``
+   lanes over 35 steps, and ``evaluate_policy_batched`` at ``--lanes`` lanes
+   over 64 chains at ep_len 30; B.1, B.2, B.3, B.3', B.6, B.8 and B.9 must
+   have launched, and B.4 not (the continuous plan is eager). The main
+   path is then held against ``use_kernels=False``: one train step (losses
+   and gradients as in phase 9), one val step (as in phase 12, the
+   continuous plans within VAL_REL), the policies' actions within
+   ACTION_ATOL; and the policy is exported at ``--lanes`` lanes and served
+   bit-equal with the same launches per step (as in phase 13).
+
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
-training, evaluator, training-loop and served paths) and, last,
+training, evaluator, training-loop, served and mcil paths) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -229,6 +253,11 @@ ONE_ULP = 2.0**-23  # the straight-through value (1 + p) - p rounds at 1's ulp
 STEP_LOSS_RTOL = 1e-5  # train step, kernel path vs plain path, per loss key
 STEP_GRAD_REL = 1e-4  # train step, relative L2 per parameter's gradient, or:
 NOISE_FACTOR = 2.0  # times the step's measured sensitivity (compare_train_plain)
+# random one-ulp patterns the sensitivity is the largest change over
+# (compare_train_plain): about one pattern in five switches the mcil step's
+# most sensitive relu unit (2 of 10 measured), and 16 patterns all miss it
+# with a chance of 0.8^16, about 3%
+ULP_PATTERNS = 16
 PLAN_TIE_MARGIN = 1e-3  # plan noise margin that float noise cannot cross (separate_plan_ties)
 ZERO_GRAD = 1e-7  # share of the gradient's norm below which a leaf's is rounding noise
 # B.7, the global gradient norm: fp64 partial sums of exact squares, so
@@ -496,20 +525,30 @@ def drive_batched(cfg, model, obs_steps, langs, seed):
     return np.stack(actions), states
 
 
-def check_actions(name, actions, lanes):
+def check_actions(name, actions, lanes, discrete_gripper=True):
     if actions.shape[-1] != 7 or not np.isfinite(actions).all():
         fail(f"{name}: actions not finite of shape (..., 7): {actions.shape}")
-    if not set(np.unique(actions[..., 6])) <= {-1.0, 1.0}:
+    if discrete_gripper and not set(np.unique(actions[..., 6])) <= {-1.0, 1.0}:
         fail(f"{name}: gripper actions outside {{-1, 1}}")
-    print(f"[{name}] {actions.shape[0]} steps x {lanes} lanes: actions finite, shape (7,), gripper in {{-1, 1}}")
+    grip = ", gripper in {-1, 1}" if discrete_gripper else " (the gripper sampled, continuous)"
+    print(f"[{name}] {actions.shape[0]} steps x {lanes} lanes: actions finite, shape (7,){grip}")
 
 
 def compare_plain(name, kern_actions, plain_actions, kern_plans, plain_plans, replanned, cfg):
     """Actions must agree within ACTION_ATOL. A plan category whose argmax
     differs is a tie within float noise of the static-camera encoder; the
     (step, lane) pairs it touches are counted and left out, and at most
-    PLAN_TIE_BUDGET of the replanned categories may differ."""
+    PLAN_TIE_BUDGET of the replanned categories may differ. A continuous
+    plan has no ties: the replanned plans must agree within ACTION_ATOL."""
     d = cfg.distribution
+    if d.kind == "continuous":
+        plan_err = float(np.abs(kern_plans - plain_plans)[replanned].max())
+        err = float(np.abs(kern_actions - plain_actions).max())
+        if not (err <= ACTION_ATOL and plan_err <= ACTION_ATOL):
+            fail(f"{name}: kernel and plain actions differ by {err}, replanned plans by {plan_err}")
+        print(f"[{name}] plain path on the card agrees: max abs action err {err:.3g}, replanned plan err "
+              f"{plan_err:.3g} (atol {ACTION_ATOL})")
+        return err
     grid = (d.category_size, d.class_size)
     k_idx = kern_plans.reshape(kern_plans.shape[:-1] + grid).argmax(-1)
     p_idx = plain_plans.reshape(plain_plans.shape[:-1] + grid).argmax(-1)
@@ -1760,43 +1799,48 @@ def drive_training(trainer, batch, kl_beta, steps):
     return losses, host, events
 
 
-def train_step_grads(cfg, seed, device, state_dict, batch, shifts, gumbel, use_kernels, benchmark=False):
-    """(losses, gradients by name) of one step from ``state_dict``, with
+def train_step_grads(cfg, seed, device, state_dict, batch, shifts, plan_noise, use_kernels, benchmark=False,
+                     trainer=None):
+    """(losses, gradients by name) of one step from ``state_dict`` on the
+    plan noise ``plan_noise`` ({"gumbel": ...} or {"normal": ...}), with
     cuDNN deterministic or, with ``benchmark``, on the algorithms it times
-    fastest."""
+    fastest; on ``trainer`` (built with ``use_kernels``, its state
+    initialized) when given, as the gradients depend on the weights and
+    the inputs alone."""
     from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = not benchmark, benchmark
-    trainer = Trainer(cfg, TrainerConfig(seed=seed), device, use_kernels=use_kernels)
+    if trainer is None:
+        trainer = Trainer(cfg, TrainerConfig(seed=seed), device, use_kernels=use_kernels)
+        trainer.init_state(1)
     trainer.model.load_state_dict(state_dict)
-    trainer.init_state(1)
-    losses = trainer.train_step(batch, cfg.loss.kl_beta, shifts=shifts, gumbel=gumbel)
+    losses = trainer.train_step(batch, cfg.loss.kl_beta, shifts=shifts, **plan_noise)
     grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
     return losses, grads
 
 
 @contextlib.contextmanager
-def spatial_softmax_ulp_noise(seed):
-    """The plain SpatialSoftmax with each output moved one ulp up or down at
-    random: an ulp-level change of the forward at the point where the
-    kernel's forward differs from the plain one (by up to ~1 ulp)."""
-    from hulc_tpu_torch.models import vision
+def ulp_noise(module, name, seed):
+    """``module.name``, a plain version the use_kernels=False path calls,
+    with each output moved one ulp up or down at random: an ulp-level change
+    at a point where a kernel's result differs from the plain one's (the
+    SpatialSoftmax forward by up to ~1 ulp; the BiRNN's layers, B.9, by a
+    few)."""
+    plain = getattr(module, name)
 
-    plain = vision.spatial_softmax_plain
-
-    def noisy(x, temperature):
-        out = plain(x, temperature)
+    def noisy(*args):
+        out = plain(*args)
         gen = torch.Generator(device=out.device).manual_seed(seed)
         up = torch.rand(out.shape, generator=gen, device=out.device) < 0.5
         away = torch.where(up, torch.full_like(out, float("inf")), torch.full_like(out, float("-inf")))
         return out + (torch.nextafter(out.detach(), away) - out.detach())
 
-    vision.spatial_softmax_plain = noisy
+    setattr(module, name, noisy)
     try:
         yield
     finally:
-        vision.spatial_softmax_plain = plain
+        setattr(module, name, plain)
 
 
 def separate_plan_ties(model, cfg, batch, shifts, gumbel):
@@ -1822,20 +1866,28 @@ def separate_plan_ties(model, cfg, batch, shifts, gumbel):
 def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train plain path"):
     """One step from the same params, batch, shifts and plan noise through
     the kernel path and the plain path (recognition dropout 0, cuDNN
-    deterministic, plan ties pulled apart); losses per key and gradients per
-    parameter must agree.
+    deterministic, a discrete plan's ties pulled apart); losses per key and
+    gradients per parameter must agree.
 
     Each gradient is held to STEP_GRAD_REL (relative L2), or to NOISE_FACTOR
-    times the step's sensitivity to the SpatialSoftmax forward, whichever is
-    larger. The kernel's keypoints differ from the plain ones by up to about
-    an ulp, and relu units downstream that sit within an ulp of zero then
-    switch: that moves some gradients by a few 1e-4 (the backward kernels
-    alone move them by about 1e-5). The sensitivity is measured in the run,
-    as the plain path's own gradient change when each keypoint moves one ulp
-    at random (spatial_softmax_ulp_noise); the largest change over the
-    parameters sets the limit."""
+    times its own sensitivity to the SpatialSoftmax forward (and, in a
+    model with a BiRNN, to its layers' outputs), whichever is larger. The
+    kernel's keypoints differ from the plain ones by up to about an ulp (the
+    BiRNN's outputs by a few), and relu units downstream that sit within an
+    ulp of zero then switch: that moves some gradients by a few 1e-4 (the
+    backward kernels alone move them by about 1e-5). The sensitivity is
+    measured in the run, as the plain path's own gradient change when each
+    keypoint and each BiRNN output moves one ulp at random (``ulp_noise``),
+    the largest over ULP_PATTERNS random patterns: which relu units switch,
+    and so how far a gradient moves, depends on the pattern (on the mcil
+    step, 8 of 10 patterns moved the camera towers' gradients by
+    1.5e-4-1.6e-4 and 2 by 3.6e-4 and 5.3e-4, one of them reproducing the
+    kernel path's own differences leaf by leaf). Each parameter's largest
+    change over the patterns sets its limit."""
+    from hulc_tpu_torch.models import layers, vision
     from hulc_tpu_torch.ops.image_ops import draw_shifts
     from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
     cfg0 = dataclasses.replace(cfg, plan_recognition=dataclasses.replace(cfg.plan_recognition, dropout=0.0))
     gen = torch.Generator(device=device).manual_seed(seed + 11)
@@ -1844,15 +1896,19 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     pe, d = cfg.perceptual_encoder, cfg.distribution
     shifts = {"fused": {cam: draw_shifts(n * s, getattr(pe, cam).shift_pad, gen, device)
                         for cam in ("rgb_static", "rgb_gripper")}}
-    gumbel, ties = separate_plan_ties(
-        model, cfg, batch, shifts, gumbel_noise((n, d.category_size, d.class_size), gen, device)
-    )
+    if d.kind == "discrete":
+        gumbel, ties = separate_plan_ties(
+            model, cfg, batch, shifts, gumbel_noise((n, d.category_size, d.class_size), gen, device)
+        )
+        plan_noise = {"gumbel": gumbel}
+        ties_txt = f"{ties} plan ties of {n * d.category_size} pulled apart by {PLAN_TIE_MARGIN}"
+    else:
+        plan_noise, ties = {"normal": torch.randn((n, d.plan_features), generator=gen, device=device)}, 0
+        ties_txt = "a continuous plan: no ties"
     state = {k: v.clone() for k, v in model.state_dict().items()}
-    args = (cfg0, seed, device, state, batch, shifts, gumbel)
+    args = (cfg0, seed, device, state, batch, shifts, plan_noise)
     lk, gk = train_step_grads(*args, use_kernels=True)
     lp, gp = train_step_grads(*args, use_kernels=False)
-    with spatial_softmax_ulp_noise(seed + 13):
-        _, gu = train_step_grads(*args, use_kernels=False)
 
     loss_err = 0.0
     for k in lp:
@@ -1869,22 +1925,34 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
             # added to every key of a query cancels in its softmax)
             fail(f"train step: {k}'s gradient should be rounding noise on both paths")
     errs = {k: rel_l2(gk[k], gp[k]) for k in live}
-    sens = {k: rel_l2(gu[k], gp[k]) for k in live}
-    worst, most_sensitive = max(live, key=errs.get), max(live, key=sens.get)
-    limit = max(STEP_GRAD_REL, NOISE_FACTOR * sens[most_sensitive])
-    if not errs[worst] <= limit:
-        fail(f"train step: {worst}'s gradient differs from the plain path's by relative L2 {errs[worst]}, "
-             f"limit {limit} (sensitivity to one ulp of the keypoints up to {sens[most_sensitive]})")
-    print(f"[{label}] one step agrees with use_kernels=False on the card ({ties} plan ties of "
-          f"{n * d.category_size} pulled apart by {PLAN_TIE_MARGIN}): losses within relative {loss_err:.3g} "
+    sens = dict.fromkeys(live, 0.0)
+    plain = Trainer(cfg0, TrainerConfig(seed=seed), device, use_kernels=False)
+    plain.init_state(1)
+    for i in range(ULP_PATTERNS):
+        with ulp_noise(vision, "spatial_softmax_plain", seed + 13 + 2 * i), \
+                ulp_noise(layers, "birnn_layer_plain", seed + 14 + 2 * i):
+            gu = train_step_grads(*args, use_kernels=False, trainer=plain)[1]
+        sens = {k: max(v, rel_l2(gu[k], gp[k])) for k, v in sens.items()}
+    del plain
+    limits = {k: max(STEP_GRAD_REL, NOISE_FACTOR * sens[k]) for k in live}
+    worst, closest = max(live, key=errs.get), max(live, key=lambda k: errs[k] / limits[k])
+    if not errs[closest] <= limits[closest]:
+        fail(f"train step: {closest}'s gradient differs from the plain path's by relative L2 {errs[closest]}, "
+             f"limit {limits[closest]} (its sensitivity to one ulp of the keypoints and BiRNN outputs "
+             f"{sens[closest]})")
+    print(f"[{label}] one step agrees with use_kernels=False on the card ({ties_txt}): losses within relative "
+          f"{loss_err:.3g} "
           f"(rtol {STEP_LOSS_RTOL}); gradients of {len(live)} tensors within relative L2 {errs[worst]:.3g} "
-          f"({worst}), {sum(e > STEP_GRAD_REL for e in errs.values())} above {STEP_GRAD_REL}; the plain "
-          f"path moves by up to {sens[most_sensitive]:.3g} ({most_sensitive}) when each keypoint moves one "
-          f"ulp; limit {limit:.3g}")
+          f"({worst}), {sum(e > STEP_GRAD_REL for e in errs.values())} above {STEP_GRAD_REL}; each tensor's "
+          f"limit is the larger of {STEP_GRAD_REL} and {NOISE_FACTOR} x how far the plain path moves it when each "
+          f"keypoint (and BiRNN output) moves one ulp, over {ULP_PATTERNS} random patterns (up to "
+          f"{max(sens.values()):.3g}); closest to its limit: {closest} at {errs[closest]:.3g} of "
+          f"{limits[closest]:.3g}")
     if device == "cuda":
         torch.cuda.empty_cache()
-    return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "ulp_sensitivity": sens[most_sensitive],
-            "grad_limit": limit, "plan_ties": ties}
+    return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "ulp_sensitivity": max(sens.values()),
+            "closest_to_limit": {"tensor": closest, "rel_err": errs[closest], "limit": limits[closest]},
+            "plan_ties": ties}
 
 
 # --------------------------------------------------------------------------
@@ -1961,18 +2029,33 @@ def count_validation(trainer, launches, calls):
     trainer.validate = counted
 
 
+def sampled_dims(cfg):
+    """The action dimensions the mixture samples: all but a discrete gripper."""
+    ad = cfg.action_decoder
+    return ad.out_features - 1 if ad.discrete_gripper else ad.out_features
+
+
+def plan_noise_of(noise, tag):
+    """The plan draw's keyword of a val noise dict: gumbel_{tag} or normal_{tag}."""
+    return {k: noise[f"{k}_{tag}"] for k in ("gumbel", "normal") if f"{k}_{tag}" in noise}
+
+
 def val_noise(cfg, b, s, gen):
     """One modality's validation noise (``models.hulc.VAL_NOISE_KEYS``):
-    Gumbel noise for both plans, mixture uniforms in (U_MIN, U_MAX) for
-    both decoded windows."""
+    Gumbel noise (a discrete plan) or a standard-normal draw (a continuous
+    one) for both plans, mixture uniforms in (U_MIN, U_MAX) for both
+    decoded windows."""
     from hulc_tpu_torch.ops.logistic_mixture import U_MIN, U_SPAN
     from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
 
     d, ad = cfg.distribution, cfg.action_decoder
-    shape = (b, s, ad.out_features - 1, ad.n_mixtures)
+    shape = (b, s, sampled_dims(cfg), ad.n_mixtures)
     out = {}
     for tag in ("pp", "pr"):
-        out[f"gumbel_{tag}"] = gumbel_noise((b, d.category_size, d.class_size), gen, "cuda")
+        if d.kind == "discrete":
+            out[f"gumbel_{tag}"] = gumbel_noise((b, d.category_size, d.class_size), gen, "cuda")
+        else:
+            out[f"normal_{tag}"] = torch.randn((b, d.plan_features), generator=gen, device="cuda")
         out[f"u_mix_{tag}"] = U_MIN + U_SPAN * torch.rand(shape, generator=gen, device="cuda")
         out[f"u_inv_{tag}"] = U_MIN + U_SPAN * torch.rand(shape[:-1], generator=gen, device="cuda")
     return out
@@ -2003,9 +2086,10 @@ def separate_val_ties(model, batch, noise):
             goal = model.encode_language_goal(mod.lang) if "lang" in scope else model.encode_visual_goal(emb[:, -1])
             states = {"pp": model.plan_proposal(emb[:, 0], goal), "pr": model.plan_recognition(emb)[0]}
             for tag, state in states.items():
-                g = n[f"gumbel_{tag}"]
-                plan_ties += pull_apart(g, state.logit.reshape(g.shape))
-                plan = model.dist.sample(state, gumbel=g)
+                if f"gumbel_{tag}" in n:
+                    g = n[f"gumbel_{tag}"]
+                    plan_ties += pull_apart(g, state.logit.reshape(g.shape))
+                plan = model.dist.sample(state, **plan_noise_of(n, tag))
                 logit_probs = model.action_decoder(plan, emb, goal).logit_probs
                 gm = -torch.log(-torch.log(n[f"u_mix_{tag}"]))
                 mix_ties += pull_apart(gm, logit_probs)
@@ -2013,7 +2097,7 @@ def separate_val_ties(model, batch, noise):
     return plan_ties, mix_ties
 
 
-def check_window_kernels(model, batch, noise):
+def check_window_kernels(model, batch, noise, label="training loop"):
     """B.6's forward, B.3 and B.3''s forward at the val step's window shapes
     on the val step's own inputs (``model`` is the plain path's, ``noise``
     the val step's with its near ties pulled apart): for each modality and
@@ -2047,7 +2131,7 @@ def check_window_kernels(model, batch, noise):
                 for tag, state in states.items():
                     where = f"the val step's {scope} window ({tag} plan)"
                     rnn_inputs.clear()
-                    out = dec(model.dist.sample(state, gumbel=n[f"gumbel_{tag}"]), emb, goal)
+                    out = dec(model.dist.sample(state, **plan_noise_of(n, tag)), emb, goal)
                     x = rnn_inputs[0]
                     for k in range(rnn.num_layers):
                         xp = F.linear(x, getattr(rnn, f"weight_ih_l{k}"), getattr(rnn, f"bias_ih_l{k}"))
@@ -2085,18 +2169,19 @@ def check_window_kernels(model, batch, noise):
                     shapes.add(("B.3'", tuple(out.means.shape)))
     finally:
         hook.remove()
-    print(f"[training loop] at the val step's window shapes {sorted(shapes)}, on its own inputs: the recurrence's "
+    print(f"[{label}] at the val step's window shapes {sorted(shapes)}, on its own inputs: the recurrence's "
           f"forward within relative L2 {errs['rnn_rel_l2']:.3g} of the plain loop (limit {REC_REL}), the sampled "
           f"windows within {errs['sample_max_abs']:.3g} (limit 1e-5) with bit-equal gripper columns and the same "
           f"picks, the NLL under no_grad within {errs['nll_max_abs']:.3g} max abs (rtol {LOSS_RTOL})")
     return errs
 
 
-def compare_val_plain(cfg, trainer, seed, raw_batch):
+def compare_val_plain(cfg, trainer, seed, raw_batch, label="training loop"):
     """One val step through the kernels against the same weights'
     use_kernels=False model, fed the same plan and sampler noise (near
     ties of both picks pulled apart): every loss and MAE within VAL_REL
-    relative, the gripper success rates equal, the sampled plans equal."""
+    relative, the gripper success rates equal, the sampled plans equal (a
+    continuous plan's within VAL_REL relative L2)."""
     from hulc_tpu_torch.models import make_model
     from hulc_tpu_torch.training.preprocess import preprocess_batch
 
@@ -2109,7 +2194,7 @@ def compare_val_plain(cfg, trainer, seed, raw_batch):
     with torch.no_grad():
         prep_plain = preprocess_batch(cfg, raw_batch, train=False, use_kernels=False)
         ties, mix_ties = separate_val_ties(plain, prep_plain, noise)
-        window_errs = check_window_kernels(plain, prep_plain, noise)
+        window_errs = check_window_kernels(plain, prep_plain, noise, label)
         want = plain.val_metrics(prep_plain, cfg.loss.kl_beta, noise=noise)
         got = trainer.model.val_metrics(preprocess_batch(cfg, raw_batch, train=False), cfg.loss.kl_beta, noise=noise)
     trainer.model.train()
@@ -2118,6 +2203,12 @@ def compare_val_plain(cfg, trainer, seed, raw_batch):
     worst = 0.0
     for k in sorted(want):
         g, w = got[k], want[k]
+        if "sampled_plan" in k and cfg.distribution.kind == "continuous":
+            if not rel_l2(g, w) <= VAL_REL:
+                fail(f"val step: {k} differs between the kernel path and the plain path by relative L2 "
+                     f"{rel_l2(g, w)}")
+            worst = max(worst, rel_l2(g, w))
+            continue
         if "sampled_plan" in k or "gripper_sr" in k:
             if not torch.equal(g, w):
                 fail(f"val step: {k} differs between the kernel path and the plain path "
@@ -2129,11 +2220,13 @@ def compare_val_plain(cfg, trainer, seed, raw_batch):
         worst = max(worst, rel)
     del plain
     torch.cuda.empty_cache()
-    picks = 4 * b * s * (cfg.action_decoder.out_features - 1)
-    print(f"[training loop] one val step agrees with use_kernels=False on the card: losses and MAEs within relative "
-          f"{worst:.3g} (limit {VAL_REL}), gripper success rates and sampled plans equal ({ties} plan ties of "
-          f"{4 * b * cfg.distribution.category_size} and {mix_ties} mixture ties of {picks} picks pulled apart by "
-          f"{PLAN_TIE_MARGIN})")
+    picks = 4 * b * s * sampled_dims(cfg)
+    plans = (f"{ties} plan ties of {4 * b * cfg.distribution.category_size} and " if cfg.distribution.kind == "discrete"
+             else "")
+    print(f"[{label}] one val step agrees with "
+          f"use_kernels=False on the card: losses, MAEs (and a continuous plan) within relative {worst:.3g} (limit "
+          f"{VAL_REL}), gripper success rates and discrete sampled plans equal ({plans}{mix_ties} mixture ties of "
+          f"{picks} picks pulled apart by {PLAN_TIE_MARGIN})")
     return {"max_rel_err": worst, "plan_ties": ties, "mixture_ties": mix_ties, "window_kernels": window_errs}
 
 
@@ -2569,17 +2662,18 @@ def serve_child(work: pathlib.Path) -> int:
     kernels.build()
     kernels.library()
     t0 = time.perf_counter()
-    single = ServedPolicy(work / "hulc", seed=seed)
-    batched = ServedBatchedPolicy(work / "hulc", seed=seed)
+    single = ServedPolicy(work / "full", seed=seed)
+    batched = ServedBatchedPolicy(work / "full", seed=seed)
     load_s = time.perf_counter() - t0
     goal = obs_list(arrays, "goal")[0]
     out, report = {}, {"load_s": load_s}
     out["single"], report["single"] = drive_episodes(
         single, obs_list(arrays, "single"), arrays["lang"], obs_list(arrays, "visual"), goal)
     out["batched"], report["batched"] = drive_lockstep(batched, obs_list(arrays, "batched"), arrays["langs"], freq)
-    debug = ServedPolicy(work / "debug", seed=seed)
-    out["debug"], report["debug"] = drive_episodes(debug, obs_list(arrays, "debug"), arrays["debug_lang"], [], None)
-    report["debug_moved"] = debug.meta["device"] != str(debug.device)
+    if (work / "debug").exists():
+        debug = ServedPolicy(work / "debug", seed=seed)
+        out["debug"], report["debug"] = drive_episodes(debug, obs_list(arrays, "debug"), arrays["debug_lang"], [], None)
+        report["debug_moved"] = debug.meta["device"] != str(debug.device)
     report["step_ms"] = policy_step_ms(single, batched, obs_list(arrays, "single")[0], arrays["lang"],
                                        obs_list(arrays, "batched")[0], arrays["langs"])
     report["loaded"] = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in SERVE_BANNED))
@@ -2634,12 +2728,13 @@ def dispatch_us(cfg, gen):
     return {name: {"op_us": per_call_us(op), "direct_us": per_call_us(direct)} for name, (op, direct) in pairs.items()}
 
 
-def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs, card):
-    """Phase 13: export the full-width policy (``lanes`` lanes) and a
-    ``hulc_debug`` one exported on the CPU; serve both in a fresh process
-    that loads no model code; hold the served actions and each step's
-    launches against the live policies' on the same observations and
-    seed. Returns (summary, {kernel symbol: served launches})."""
+def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs, card, with_debug=True):
+    """Phase 13: export the full-width policy (``lanes`` lanes) and, with
+    ``with_debug``, a ``hulc_debug`` one exported on the CPU; serve them in
+    a fresh process that loads no model code; hold the served actions and
+    each step's launches against the live policies' on the same
+    observations and seed; with ``with_debug`` also each op's dispatcher
+    cost. Returns (summary, {kernel symbol: served launches})."""
     from hulc_tpu_torch.config import get_config
     from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
     from hulc_tpu_torch.evaluation.policy import HulcPolicy
@@ -2655,22 +2750,25 @@ def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, l
         work = pathlib.Path(tmp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        export_policy(cfg, model, work / "hulc", lanes=lanes)
+        export_policy(cfg, model, work / "full", lanes=lanes)
         export_s = time.perf_counter() - t0
-        art_bytes = sum(f.stat().st_size for f in (work / "hulc").iterdir())
-        dbg_model = make_model(dbg_cfg, "cpu", seed=seed)
-        export_policy(dbg_cfg, dbg_model, work / "debug", device="cpu")
-        dbg_bytes = sum(f.stat().st_size for f in (work / "debug").iterdir())
-        print(f"[serving export] hulc at {lanes} lanes exported in {export_s:.3f} s on the card, {art_bytes} bytes "
-              f"({sorted(f.name for f in (work / 'hulc').iterdir())}); hulc_debug exported on the CPU, "
-              f"{dbg_bytes} bytes ({card})")
+        art_bytes = sum(f.stat().st_size for f in (work / "full").iterdir())
+        dbg_bytes = None
+        if with_debug:
+            dbg_model = make_model(dbg_cfg, "cpu", seed=seed)
+            export_policy(dbg_cfg, dbg_model, work / "debug", device="cpu")
+            dbg_bytes = sum(f.stat().st_size for f in (work / "debug").iterdir())
+        print(f"[serving export] the full-width policy at {lanes} lanes exported in {export_s:.3f} s on the card, "
+              f"{art_bytes} bytes ({sorted(f.name for f in (work / 'full').iterdir())})"
+              + (f"; hulc_debug exported on the CPU, {dbg_bytes} bytes" if with_debug else "") + f" ({card})")
 
         live = {}
         live["single"] = drive_episodes(HulcPolicy(cfg, model, seed=seed), single_obs, lang, visual_obs, goal_obs[0])
         live["batched"] = drive_lockstep(BatchedHulcPolicy(cfg, model, lanes, seed=seed), batched_obs, langs,
                                          cfg.replan_freq)
-        live["debug"] = drive_episodes(HulcPolicy(dbg_cfg, dbg_model.to("cuda"), seed=seed), dbg_obs, dbg_lang, [],
-                                       None)
+        if with_debug:
+            live["debug"] = drive_episodes(HulcPolicy(dbg_cfg, dbg_model.to("cuda"), seed=seed), dbg_obs, dbg_lang,
+                                           [], None)
         live_ms = policy_step_ms(HulcPolicy(cfg, model, seed=seed), BatchedHulcPolicy(cfg, model, lanes, seed=seed),
                                  single_obs[0], lang, batched_obs[0], langs)
 
@@ -2692,7 +2790,7 @@ def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, l
 
     if report["loaded"]:
         fail(f"the serving process loaded model code or JAX: {report['loaded']}")
-    if not report["debug_moved"]:
+    if with_debug and not report["debug_moved"]:
         fail("the hulc_debug artifact exported on the CPU was not moved to the card")
     summary = {"export_s": export_s, "artifact_bytes": art_bytes, "debug_artifact_bytes": dbg_bytes,
                "load_s": report["load_s"], "child_s": child_s, "card": card}
@@ -2723,14 +2821,417 @@ def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, l
               f"the live step's: {summary[name]['launches']}")
     summary["step_ms"] = {"served": {"1": report["step_ms"][0], str(lanes): report["step_ms"][1]},
                           "live": {"1": live_ms[0], str(lanes): live_ms[1]}}
-    summary["dispatch_us"] = dispatch_us(cfg, torch.Generator(device="cuda").manual_seed(seed))
-    print("[serving export] host us per call through the hulc:: op / of the kernel function alone, one lane: "
-          + ", ".join(f"{k} {v['op_us']:.2f} / {v['direct_us']:.2f}" for k, v in summary["dispatch_us"].items())
-          + f" ({card})")
+    if with_debug:
+        summary["dispatch_us"] = dispatch_us(cfg, torch.Generator(device="cuda").manual_seed(seed))
+        print("[serving export] host us per call through the hulc:: op / of the kernel function alone, one lane: "
+              + ", ".join(f"{k} {v['op_us']:.2f} / {v['direct_us']:.2f}" for k, v in summary["dispatch_us"].items())
+              + f" ({card})")
     print(f"[serving export] step host ms (median), served / live: 1 lane {report['step_ms'][0]:.4f} / "
           f"{live_ms[0]:.4f}, {lanes} lanes {report['step_ms'][1]:.4f} / {live_ms[1]:.4f}; the serving process "
           f"loaded the artifact in {report['load_s']:.3f} s, ran {child_s:.3f} s, and loaded no model code ({card})")
     return summary, served_launches
+
+
+# --------------------------------------------------------------------------
+# phase 14: mcil at full width
+# --------------------------------------------------------------------------
+
+MCIL_STEPS_FIRST, MCIL_STEPS_AFTER_RESET = 32, 3  # single lane: replans at 0 and 30, reset, replan at 0
+MCIL_EVAL_CHAINS, MCIL_EVAL_EP_LEN = 64, 30  # a short evaluate_policy_batched pass at --lanes lanes
+# the kernels the mcil path must launch: B.1, B.2, B.3, B.3', B.6, B.8, B.9,
+# and the train step's B.1', B.2', B.5 and B.7
+MCIL_KERNELS = (
+    "hulc_preprocess_rgb", "hulc_spatial_softmax", "hulc_logistic_mixture_sample", "hulc_mixture_nll_fwd",
+    "hulc_mixture_nll_bwd", "hulc_rnn_relu_fwd", "hulc_rnn_relu_bwd", "hulc_rnn_tanh_fwd", "hulc_rnn_tanh_bwd",
+    "hulc_birnn_tanh_fwd", "hulc_birnn_tanh_bwd", "hulc_preprocess_rgb_shift", "hulc_spatial_softmax_bwd",
+    "hulc_adam_lowp", "hulc_grad_norm_finish",
+)
+MCIL_NOT_REACHED = ("hulc_plan_st_kl_fwd", "hulc_plan_st_kl_bwd")  # B.4: the continuous plan runs eager
+
+
+def birnn_params(net, k):
+    """Layer k of a ScanBiRNN: ({name: forward chain's}, {name: reverse chain's})."""
+    names = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+    return ({n: getattr(net, f"{n}_l{k}").detach() for n in names},
+            {n: getattr(net, f"{n}_l{k}_reverse").detach() for n in names})
+
+
+def check_tanh_chain(xp, h0, w, bias, dy, dcarry, where):
+    """B.8 on one chain: the forward kernel's y and final state against the
+    plain loop, the dh-chain kernel against the plain dh chain on the same
+    inputs, and the autograd Function's four gradients against the closed
+    form and against autograd through the loop, each within REC_REL
+    (relative L2). Returns (largest absolute error of y, of the gradients)."""
+    from hulc_tpu_torch.ops.recurrence import (
+        dh_chain_tanh_plain, recurrence_weight_grads, rnn_tanh, rnn_tanh_bwd, rnn_tanh_fwd, rnn_tanh_fwd_plain,
+    )
+
+    shape = tuple(xp.shape)
+    got, got_last = rnn_tanh_fwd(xp, h0, w, bias)
+    want = rnn_tanh_fwd_plain(xp, h0, w, bias)
+    if not (rel_l2(got, want) <= REC_REL and torch.equal(got_last, got[:, -1])):
+        fail(f"tanh recurrence forward kernel at {where} {shape}: relative L2 {rel_l2(got, want)}, final state "
+             f"equal to y[:, -1]: {torch.equal(got_last, got[:, -1])}")
+    errs = {}
+    for name, g, r in zip(("dpre", "dh0"), rnn_tanh_bwd(dy, want, dcarry, w), dh_chain_tanh_plain(dy, want, dcarry, w)):
+        errs[f"{name} kernel vs plain"] = rel_l2(g, r)
+    leaves = [t.clone().requires_grad_() for t in (xp, h0, w, bias)]
+    k_grads = torch.autograd.grad(rnn_tanh(*leaves), leaves, [dy, dcarry])
+    dpre, dh0 = dh_chain_tanh_plain(dy, want, dcarry, w)
+    closed = (dpre, dh0, *recurrence_weight_grads(dpre, h0, want))
+    leaves = [t.clone().requires_grad_() for t in (xp, h0, w, bias)]
+    y = rnn_tanh_fwd_plain(*leaves)
+    auto = torch.autograd.grad([y, y[:, -1]], leaves, [dy, dcarry])
+    for ref, wants in (("closed form", closed), ("autograd", auto)):
+        for n, g, r in zip(("dxp", "dh0", "dW_hh", "db_hh"), k_grads, wants):
+            errs[f"{n} vs {ref}"] = rel_l2(g, r)
+    if not max(errs.values()) <= REC_REL:
+        fail(f"tanh recurrence backward at {where} {shape}: relative L2 {errs}")
+    bwd_err = max(max_abs(g, r) for g, r in zip(k_grads, auto))
+    print(f"[mcil] B.8 at {where} {shape}: y relative L2 {rel_l2(got, want):.3g}, max abs err "
+          f"{max_abs(got, want):.3g}; dh chain and gradients relative L2 up to {max(errs.values()):.3g}, max abs err "
+          f"{bwd_err:.3g}")
+    return max_abs(got, want), bwd_err
+
+
+def check_birnn_layer(xp_f, xp_b, h0s, fwd, rev, dy, where):
+    """B.9 on one bidirectional layer: the forward (two launches into one
+    (B, S, 2H) output) against JAX's flip-and-concatenate definition, the
+    backward kernels (each chain's dh chain over its half) against the
+    flipped plain dh chains on the same inputs, and the autograd Function's
+    seven gradients against autograd through the definition, each within
+    REC_REL (relative L2). Returns (plain y, largest absolute error of y,
+    of the gradients)."""
+    from hulc_tpu_torch.ops.recurrence import birnn_layer, birnn_layer_bwd, birnn_layer_bwd_plain, birnn_layer_fwd
+    from hulc_tpu_torch.ops.recurrence import birnn_layer_plain
+
+    weights = (fwd["weight_hh"], rev["weight_hh"], fwd["bias_hh"], rev["bias_hh"])
+    shape = tuple(xp_f.shape)
+    got = birnn_layer_fwd(xp_f, xp_b, h0s, *weights)
+    want = birnn_layer_plain(xp_f, xp_b, h0s, *weights)
+    if not rel_l2(got, want) <= REC_REL:
+        fail(f"bidirectional layer forward at {where} {shape}: relative L2 {rel_l2(got, want)}")
+    errs = {}
+    kern = birnn_layer_bwd(dy, want, weights[0], weights[1])
+    for name, g, r in zip(("dpre_f", "dpre_b", "dh0s"), kern, birnn_layer_bwd_plain(dy, want, weights[0], weights[1])):
+        errs[f"{name} kernel vs plain"] = rel_l2(g, r)
+    inputs = (xp_f, xp_b, h0s, *weights)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    k_grads = torch.autograd.grad(birnn_layer(*leaves), leaves, dy)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    auto = torch.autograd.grad(birnn_layer_plain(*leaves), leaves, dy)
+    for n, g, r in zip(("dxp_f", "dxp_b", "dh0s", "dW_hh_f", "dW_hh_b", "db_hh_f", "db_hh_b"), k_grads, auto):
+        errs[f"{n} vs autograd"] = rel_l2(g, r)
+    if not max(errs.values()) <= REC_REL:
+        fail(f"bidirectional layer backward at {where} {shape}: relative L2 {errs}")
+    bwd_err = max(max_abs(g, r) for g, r in zip(k_grads, auto))
+    print(f"[mcil] B.9 at {where} {shape} -> {tuple(want.shape)}: y relative L2 {rel_l2(got, want):.3g}, max abs err "
+          f"{max_abs(got, want):.3g}; backward kernels and gradients relative L2 up to {max(errs.values()):.3g}, max "
+          f"abs err {bwd_err:.3g}")
+    return want, max_abs(got, want), bwd_err
+
+
+def check_birnn(model, seed):
+    """B.8 and B.9 against their plain versions: at the train step's (64, 32,
+    2048) with the model's plan-recognition weights, B.8 on each layer's
+    forward-chain W_hh with a nonzero carry and a carry gradient, B.9
+    through both layers (layer 0 from 128 input features, layer 1 from
+    layer 0's plain 4096), dense cotangents; then B.9 at odd shapes: a
+    cluster of 4 (3, 5, 37), the one-step launch into a 2H-wide output
+    (3, 1, 37) and two row tiles (96, 3, 64). Returns the largest errors,
+    by kernel row."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 37)
+    net = model.plan_recognition.birnn_model
+    h = net.hidden_size
+    b, s = DECODER_ROWS, DECODER_SEQ
+    errs = {"rnn_tanh_fwd": 0.0, "rnn_tanh_bwd": 0.0, "birnn_tanh_fwd": 0.0, "birnn_tanh_bwd": 0.0}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    for k in range(net.num_layers):
+        fwd, _ = birnn_params(net, k)
+        e = check_tanh_chain(randn(b, s, h), torch.tanh(randn(b, h)), fwd["weight_hh"], fwd["bias_hh"],
+                             randn(b, s, h), randn(b, h), f"the train step, layer {k}'s W_hh")
+        errs["rnn_tanh_fwd"], errs["rnn_tanh_bwd"] = max(errs["rnn_tanh_fwd"], e[0]), max(errs["rnn_tanh_bwd"], e[1])
+
+    def layer_case(x, fwd, rev, where):
+        with torch.no_grad():
+            xp_f = F.linear(x, fwd["weight_ih"], fwd["bias_ih"])
+            xp_b = F.linear(x, rev["weight_ih"], rev["bias_ih"])
+        hid = fwd["weight_hh"].shape[0]
+        y, *e = check_birnn_layer(xp_f, xp_b, torch.zeros(2, x.shape[0], hid, device="cuda"), fwd, rev,
+                                  randn(x.shape[0], x.shape[1], 2 * hid), where)
+        errs["birnn_tanh_fwd"], errs["birnn_tanh_bwd"] = max(errs["birnn_tanh_fwd"], e[0]), max(errs["birnn_tanh_bwd"], e[1])
+        return y
+
+    x = randn(b, s, net.weight_ih_l0.shape[1])
+    for k in range(net.num_layers):
+        x = layer_case(x, *birnn_params(net, k), f"the train step, layer {k}")
+
+    def uniform(hid, *shape):
+        return (2.0 * torch.rand(shape, generator=gen, device="cuda") - 1.0) / hid**0.5
+
+    for bb, ss, hid, where in ((3, 5, 37, "a cluster of 4"), (3, 1, 37, "one step (the GEMV launch)"),
+                               (96, 3, 64, "two row tiles")):
+        chains = [{"weight_ih": uniform(hid, hid, 11), "weight_hh": uniform(hid, hid, hid), "bias_ih": uniform(hid, hid),
+                   "bias_hh": uniform(hid, hid)} for _ in range(2)]
+        layer_case(randn(bb, ss, 11), *chains, where)
+    return errs
+
+
+def time_birnn(model, seed):
+    """Device ms of B.8 and B.9 at the train step's (64, 32, 2048) against
+    their plain versions and cuDNN's tanh RNN (W_ih = I, b_ih = 0, so it
+    computes the same function of xp; bidirectional for B.9, both chains
+    fed the same xp), by CUDA events in turns plain, kernel, kernel,
+    plain, with the bound: 2 B S H^2 fp32 FLOP per chain at 67 TFLOP/s.
+    The port never calls cuDNN."""
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
+    from hulc_tpu_torch.ops.recurrence import (
+        birnn_layer_bwd, birnn_layer_bwd_plain, birnn_layer_fwd, birnn_layer_plain, dh_chain_tanh_plain, rnn_tanh_bwd,
+        rnn_tanh_fwd, rnn_tanh_fwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    net = model.plan_recognition.birnn_model
+    h, b, s = net.hidden_size, DECODER_ROWS, DECODER_SEQ
+    fwd, rev = birnn_params(net, 1)
+    w, bias, w_b, bias_b = fwd["weight_hh"], fwd["bias_hh"], rev["weight_hh"], rev["bias_hh"]
+    xp = torch.randn((b, s, h), generator=gen, device="cuda")
+    dy, dy2 = torch.randn((b, s, h), generator=gen, device="cuda"), torch.randn((b, s, 2 * h), generator=gen,
+                                                                                    device="cuda")
+    h0, h0s = torch.zeros((b, h), device="cuda"), torch.zeros((2, b, h), device="cuda")
+    cudnn = {d: torch.nn.RNN(h, h, nonlinearity="tanh", batch_first=True, bidirectional=d, device="cuda")
+             for d in (False, True)}
+    with torch.no_grad():
+        for d, rnn in cudnn.items():
+            for sfx, (ww, bb) in (("", (w, bias)), ("_reverse", (w_b, bias_b)))[:1 + d]:
+                getattr(rnn, f"weight_ih_l0{sfx}").copy_(torch.eye(h, device="cuda"))
+                getattr(rnn, f"bias_ih_l0{sfx}").zero_()
+                getattr(rnn, f"weight_hh_l0{sfx}").copy_(ww)
+                getattr(rnn, f"bias_hh_l0{sfx}").copy_(bb)
+        y = rnn_tanh_fwd_plain(xp, h0, w, bias)
+        y2 = birnn_layer_plain(xp, xp, h0s, w, w_b, bias, bias_b)
+        for d, want in ((False, y), (True, y2)):
+            lib = cudnn[d](xp, torch.zeros((1 + d, b, h), device="cuda"))[0]
+            if rel_l2(lib, want) > 1e-4:
+                fail(f"cuDNN's tanh RNN (bidirectional {d}) does not compute the recurrence: relative L2 "
+                     f"{rel_l2(lib, want)}")
+    lib_in = {d: (xp.clone().requires_grad_(), torch.zeros((1 + d, b, h), device="cuda", requires_grad=True))
+              for d in (False, True)}
+    lib_out = {d: cudnn[d](*lib_in[d])[0] for d in (False, True)}
+
+    def lib_bwd(d, cot):
+        return lambda: torch.autograd.grad(lib_out[d], [*lib_in[d], *cudnn[d].parameters()], cot, retain_graph=True)
+
+    bsh, flops = b * s * h, 2 * b * s * h * h
+    cases = {
+        # xp, y: B S H each; W, b_hh, h0
+        "rnn_tanh_fwd": (lambda: rnn_tanh_fwd(xp, h0, w, bias), lambda: rnn_tanh_fwd_plain(xp, h0, w, bias),
+                         bound(4 * (2 * bsh + h * h + h + b * h), flops), lambda: cudnn[False](xp, h0[None])),
+        # dy, y in, dpre out; W; dh0 out
+        "rnn_tanh_bwd": (lambda: rnn_tanh_bwd(dy, y, None, w), lambda: dh_chain_tanh_plain(dy, y, None, w),
+                         bound(4 * (3 * bsh + h * h + b * h), flops), lib_bwd(False, dy)),
+        # both chains: xp_f, xp_b in, y (B, S, 2H) out, two W, b_hh, h0
+        "birnn_tanh_fwd": (lambda: birnn_layer_fwd(xp, xp, h0s, w, w_b, bias, bias_b),
+                           lambda: birnn_layer_plain(xp, xp, h0s, w, w_b, bias, bias_b),
+                           bound(4 * (4 * bsh + 2 * (h * h + h + b * h)), 2 * flops),
+                           lambda: cudnn[True](xp, h0s)),
+        # dy, y (B, S, 2H) in, two dpre (B, S, H) out, two W, two dh0 out
+        "birnn_tanh_bwd": (lambda: birnn_layer_bwd(dy2, y2, w, w_b), lambda: birnn_layer_bwd_plain(dy2, y2, w, w_b),
+                           bound(4 * (6 * bsh + 2 * (h * h + b * h)), 2 * flops), lib_bwd(True, dy2)),
+    }
+    out = {}
+    for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn) in cases.items():
+        ms_ = [event_ms(plain_fn, 10), event_ms(kernel_fn), event_ms(kernel_fn), event_ms(plain_fn, 10)]
+        out[name] = {
+            "ms": min(ms_[1], ms_[2]), "plain_ms": min(ms_[0], ms_[3]), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": event_ms(library_fn, 10), "call_ms": call_ms(kernel_fn, 20),
+            "plain_call_ms": call_ms(plain_fn, 20), "timed_by": "CUDA events", "shape": [b, s, h],
+        }
+    out["rnn_tanh_fwd"]["plan"] = dataclasses.asdict(recurrence_plan_for(b, s, h, False))
+    out["rnn_tanh_bwd"]["plan"] = dataclasses.asdict(recurrence_plan_for(b, s, h, True))
+    return out
+
+
+def split_fused(batch):
+    """A loader-fused {"fused": 2B} batch as {"vis": B, "lang": B}."""
+    from hulc_tpu_torch.models.hulc import ModalityBatch
+
+    fused = batch["fused"]
+    b = fused.actions.shape[0] // 2
+    lang_only = ModalityBatch.LANG_ONLY_FIELDS
+
+    def half(sl, lang):
+        return ModalityBatch(**{f: (getattr(fused, f) if lang else None) if f in lang_only
+                                else None if getattr(fused, f) is None else getattr(fused, f)[sl]
+                                for f in ModalityBatch._fields})
+
+    return {"vis": half(slice(0, b), False), "lang": half(slice(b, None), True)}
+
+
+def drive_mcil_single(cfg, model, obs, lang, seed):
+    """HulcPolicy over ``obs``: MCIL_STEPS_FIRST steps (replans at 0 and
+    replan_freq), ``reset()``, the rest; (actions, pre-step states,
+    post-step plans)."""
+    from hulc_tpu_torch.evaluation.policy import HulcPolicy
+
+    policy = HulcPolicy(cfg, model, seed=seed)
+    actions, states, plans = [], [], []
+    for t, o in enumerate(obs):
+        if t in (0, MCIL_STEPS_FIRST):
+            policy.reset()
+        states.append(policy._state)
+        actions.append(policy.step(o, lang))
+        plans.append(policy._state.plan[0].cpu().numpy())
+    return np.stack(actions), states, np.stack(plans)
+
+
+def plain_mcil_single(cfg, plain_model, obs, lang, seed, kern_states):
+    """The single-lane steps through the plain model from the kernel path's
+    states, the reset at the same step; (actions, post-step plans)."""
+    from hulc_tpu_torch.evaluation.policy import HulcPolicy
+
+    policy = HulcPolicy(cfg, plain_model, seed=seed)
+    actions, plans = [], []
+    for t, o in enumerate(obs):
+        if t in (0, MCIL_STEPS_FIRST):
+            policy.reset()
+        policy._state = kern_states[t]
+        actions.append(policy.step(o, lang))
+        plans.append(policy._state.plan[0].cpu().numpy())
+    return np.stack(actions), np.stack(plans)
+
+
+def run_mcil(seed, lanes, train_steps, card):
+    """Phase 14: the ``mcil`` model at full width. Returns (summary, {kernel
+    symbol: launches on the mcil path}, {row: max abs err}, {row: timing})."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
+    from hulc_tpu_torch.evaluation.eval_split import run_batched
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("mcil")
+    model = make_model(cfg, "cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[mcil] mcil preset, {n_params} parameters, random init from seed {seed}: a {cfg.plan_recognition.birnn_num_layers}"
+          f"-layer bidirectional {cfg.plan_recognition.birnn_cell} RNN (H = {cfg.plan_recognition.birnn_hidden_size}), "
+          f"a {cfg.distribution.plan_features}-d Normal plan, {cfg.action_decoder.num_classes} classes, no gripper head")
+
+    # 2. B.8 and B.9 against their plain versions, and their times; B.3' at
+    # the decoder's shapes here: 7 sampled dimensions, 256 classes, no gripper
+    errs = check_birnn(model, seed)
+    ad = cfg.action_decoder
+    gen = torch.Generator(device="cuda").manual_seed(seed + 47)
+    mixture, actions = mixture_inputs((DECODER_ROWS, DECODER_SEQ), ad.out_features, ad.n_mixtures, False, gen)
+    consts = (ad.act_min_bound, ad.act_max_bound, ad.num_classes, ad.log_scale_min, ad.gripper_alpha)
+    errs["mixture_nll_fwd"], errs["mixture_nll_bwd"] = check_mixture(
+        mixture, actions, consts, torch.randn((DECODER_ROWS, DECODER_SEQ), generator=gen, device="cuda"),
+        f"mcil's shape, {ad.num_classes} classes")
+    timing = time_birnn(model, seed)
+    for name, t in timing.items():
+        print(f"[mcil] {name} at {tuple(t['shape'])}: kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, cuDNN "
+              f"{t['library_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% "
+              f"of the bound; per call with the host's launch cost {t['call_ms']:.5f} ms (CUDA events, {card})")
+
+    # 3-7. the main path: train steps, a val step, the policies, the evaluator
+    rng = np.random.default_rng(seed + 43)
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cuda")
+    val_batch = split_fused(batch)
+    lang = rng.normal(size=cfg.lang_dim).astype(np.float32)
+    single_obs = make_obs(rng, cfg, MCIL_STEPS_FIRST + MCIL_STEPS_AFTER_RESET)
+    langs = rng.normal(size=(lanes, cfg.lang_dim)).astype(np.float32)
+    batched_obs = [make_obs(rng, cfg, lanes) for _ in range(MCIL_STEPS_FIRST + MCIL_STEPS_AFTER_RESET)]
+    trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    trainer.model.load_state_dict(model.state_dict())
+    trainer.init_state(1)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step_losses, host, events = drive_training(trainer, batch, cfg.loss.kl_beta, train_steps)
+    per_step = launch_counts()
+    trainer.model.eval()
+    with torch.no_grad():
+        val = trainer.val_step(val_batch, cfg.loss.kl_beta, generator=torch.Generator(device="cuda").manual_seed(seed))
+    trainer.model.train()
+    single_actions, single_states, k_plans = drive_mcil_single(cfg, model, single_obs, lang, seed)
+    batched_actions, batched_states = drive_batched(cfg, model, batched_obs, langs, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluator, _, _ = run_batched(cfg, BatchedHulcPolicy(cfg, model, lanes, seed=seed), MCIL_EVAL_CHAINS,
+                                      MCIL_EVAL_EP_LEN, seed, tmp)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"[mcil main path] launches: {launches}")
+    if not all(launches[k] > 0 for k in MCIL_KERNELS):
+        fail(f"a kernel of the mcil path was never launched: {launches}")
+    if any(launches[k] for k in MCIL_NOT_REACHED):
+        fail(f"the mcil path launched the discrete plan's kernels: {launches}")
+    layers = cfg.plan_recognition.birnn_num_layers
+    want = {"hulc_rnn_tanh_fwd": 2 * layers, "hulc_rnn_tanh_bwd": 2 * layers, "hulc_birnn_tanh_fwd": layers,
+            "hulc_birnn_tanh_bwd": layers}
+    if any(per_step[k] != n * train_steps for k, n in want.items()):
+        fail(f"{train_steps} mcil train steps launched B.8 / B.9 {({k: per_step[k] for k in want})}, not "
+             f"{({k: n * train_steps for k, n in want.items()})}: a train step runs each layer's two chains once")
+    for i, losses in enumerate(step_losses):
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"mcil train step {i}: a loss is not finite: {losses}")
+    if not all(np.isfinite(float(v)) for v in val.values()):
+        fail(f"mcil val step: a metric is not finite: {val}")
+    print("[mcil main path] " + "; ".join(
+        f"step {i}: total {l['total_loss']:.5f} action {l['action_loss']:.5f} kl {l['kl_loss']:.6f} "
+        f"grad_norm {l['grad_norm']:.5f}" for i, l in enumerate(step_losses)))
+    step_ms, event_ms_ = statistics.median(host[2:]), statistics.median(events[2:])
+    print(f"[timing] mcil train step (2B={2 * BATCH_PER_MOD}, S={SEQ}, median of {len(host) - 2} after 2 warm-ups): "
+          f"host clock {step_ms:.4f} ms, CUDA events {event_ms_:.4f} ms, {2 * BATCH_PER_MOD / step_ms * 1e3:.2f} seq/s; "
+          f"all steps host {[round(t, 4) for t in host]} ms ({card})")
+    check_actions("mcil single lane", single_actions, 1, discrete_gripper=False)
+    check_actions("mcil batched", batched_actions, lanes, discrete_gripper=False)
+    print(f"[mcil main path] evaluate_policy_batched: {evaluator['lanes']} lanes, {evaluator['chains']} chains, ep_len "
+          f"{evaluator['ep_len']}: {evaluator['lockstep_iters']} lockstep iterations, {evaluator['env_steps']} env steps "
+          f"in {evaluator['wall_s']:.4f} s, {evaluator['env_steps_per_s']:.2f} env-steps/s, avg_seq_len "
+          f"{evaluator['results']['avg_seq_len']} ({card})")
+    del trainer
+
+    # the main path against the plain path
+    train_check = compare_train_plain(cfg, model, batch, seed, label="mcil train plain path")
+    val_trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    val_trainer.model.load_state_dict(model.state_dict())
+    val_check = compare_val_plain(cfg, val_trainer, seed, val_batch, label="mcil")
+    del val_trainer
+    plain_model = make_model(cfg, "cuda", seed=seed, use_kernels=False)
+    plain_model.load_state_dict(model.state_dict())
+    p_actions, p_plans = plain_mcil_single(cfg, plain_model, single_obs, lang, seed, single_states)
+    replanned = np.array([t % cfg.replan_freq == 0 for t in range(MCIL_STEPS_FIRST)]
+                         + [t % cfg.replan_freq == 0 for t in range(MCIL_STEPS_AFTER_RESET)])
+    single_err = compare_plain("mcil single lane, across a replan and a reset", single_actions, p_actions, k_plans,
+                               p_plans, replanned, cfg)
+    masks = [replan_mask(t, lanes, cfg.replan_freq) for t in range(len(batched_obs))]
+    p_actions, p_plans = plain_batched(
+        cfg, plain_model, list(zip(batched_obs, [langs] * len(batched_obs), batched_states, masks)), seed)
+    k_plans = np.stack([s[0].cpu().numpy() for s in batched_states[1:]])
+    batched_err = compare_plain(f"mcil batched, {lanes} lanes", batched_actions, p_actions, k_plans, p_plans,
+                                np.stack(masks), cfg)
+    del plain_model
+
+    # 6. the serving export at --lanes lanes, served in a process without model code
+    export, served_launches = run_serving_export(cfg, model, seed, lanes, single_obs[:MCIL_STEPS_FIRST], lang,
+                                                 batched_obs, langs, card, with_debug=False)
+    del model
+    torch.cuda.empty_cache()
+    summary = {
+        "parameters": n_params, "train_step": {"host_ms": step_ms, "event_ms": event_ms_, "steps_host_ms": host,
+                                               "plain_path": train_check},
+        "val_step": val_check, "policy_plain_max_abs_err": {"1": single_err, str(lanes): batched_err},
+        "evaluator": {k: evaluator[k] for k in ("lanes", "chains", "ep_len", "lockstep_iters", "env_steps",
+                                                "env_steps_per_s", "wall_s")},
+        "serving_export": export, "card": card,
+    }
+    return summary, launches, errs, timing
 
 
 # --------------------------------------------------------------------------
@@ -2765,8 +3266,13 @@ KERNEL_INFO = {
     ),
     "adam_lowp": ("hulc_adam_lowp", "hulc_tpu_torch/csrc/adam_lowp.cu", "hulc_tpu/training/optimizers.py:24"),
     "grad_norm": ("hulc_grad_norm_finish", "hulc_tpu_torch/csrc/adam_lowp.cu", "hulc_tpu/training/trainer.py:258"),
-    "rnn_relu_fwd": ("hulc_rnn_relu_fwd", "hulc_tpu_torch/csrc/rnn_relu.cu", "hulc_tpu/models/layers.py:233"),
-    "rnn_relu_bwd": ("hulc_rnn_relu_bwd", "hulc_tpu_torch/csrc/rnn_relu.cu", "hulc_tpu/models/layers.py:265"),
+    "rnn_relu_fwd": ("hulc_rnn_relu_fwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:233"),
+    "rnn_relu_bwd": ("hulc_rnn_relu_bwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:265"),
+    "rnn_tanh_fwd": ("hulc_rnn_tanh_fwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:238"),
+    "rnn_tanh_bwd": ("hulc_rnn_tanh_bwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:265"),
+    # B.9: one bidirectional layer, two launches of B.8's kernel (its launches count under B.8 too)
+    "birnn_tanh_fwd": ("hulc_birnn_tanh_fwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:305"),
+    "birnn_tanh_bwd": ("hulc_birnn_tanh_bwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:305"),
 }
 
 
@@ -2971,8 +3477,9 @@ def main(argv=None) -> int:
     rec_plans = {d: recurrence_plan_for(DECODER_ROWS, DECODER_SEQ, hidden, d) for d in (False, True)}
     for fn in ("preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
                "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "mixture_nll_fwd_kernel",
-               "mixture_nll_bwd_kernel", "adam_lowp_kernel", "grad_norm_finish_kernel", "rnn_relu_fwd_kernel",
-               "rnn_relu_bwd_kernel", "rnn_relu_step_kernel", "logistic_mixture_sample_kernel",
+               "mixture_nll_bwd_kernel", "adam_lowp_kernel", "grad_norm_finish_kernel", "rnn_fwd_kernel<false>",
+               "rnn_bwd_kernel<false>", "rnn_step_kernel<false>", "rnn_fwd_kernel<true>", "rnn_bwd_kernel<true>",
+               "rnn_step_kernel<true>", "logistic_mixture_sample_kernel",
                "plan_st_kl_fwd_kernel<true>", "plan_st_kl_fwd_kernel<false>", "plan_st_kl_bwd_kernel<true>",
                "plan_st_kl_bwd_kernel<false>"):
         r = resources[fn]
@@ -3001,16 +3508,22 @@ def main(argv=None) -> int:
         cfg, model, args.seed, args.lanes, single_obs, lang, batched_obs, langs, card
     )
     del model
+    torch.cuda.empty_cache()
+
+    # ---- 14. mcil at full width ----------------------------------------------
+    mcil, mcil_launches, mcil_errs, mcil_timing = run_mcil(args.seed, args.lanes, args.train_steps, card)
+    errs.update({k: max(errs.get(k, 0.0), v) for k, v in mcil_errs.items()})
+    timing.update(mcil_timing)
 
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
-            + loop_launches[symbol] + served_launches[symbol],
+            + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
-            "launches_served": served_launches[symbol],
+            "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -3021,7 +3534,7 @@ def main(argv=None) -> int:
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
-        "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export,
+        "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))

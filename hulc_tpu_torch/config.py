@@ -1,11 +1,11 @@
-"""Config dataclasses and the ``hulc`` / ``hulc_debug`` presets.
+"""Config dataclasses and the ``hulc``, ``mcil`` and ``*_debug`` presets.
 
 A copy of the JAX package's config (hulc_tpu/config.py) for the port: the
 same frozen dataclasses, field names and defaults, the same ``resolve()``
 size inference, so a preset means the same model in both packages. Only
 ``HulcConfig.dtype`` differs: it maps ``compute_dtype`` to a torch dtype.
 
-The other presets (mcil, gcbc, depth, tactile, CLIP, state-only) and the
+The other presets (gcbc, depth, tactile, CLIP, state-only) and the
 dotted-path overrides wait for the slices that port their modules.
 """
 
@@ -211,9 +211,27 @@ def hulc_config(**overrides) -> HulcConfig:
     return dataclasses.replace(HulcConfig(), **overrides).resolve()
 
 
+def mcil_config(**overrides) -> HulcConfig:
+    """MCIL (Lynch & Sermanet, RSS 2021): the BiRNN plan recognition, a
+    continuous 256-d plan, world-frame actions, no gripper head, no CLIP loss."""
+    base = HulcConfig(
+        model_kind="hulc",
+        plan_recognition=PlanRecognitionConfig(kind="birnn"),
+        distribution=DistributionConfig(kind="continuous", plan_features=256),
+        action_decoder=ActionDecoderConfig(
+            num_classes=256,
+            gripper_control=False,
+            discrete_gripper=False,
+            perceptual_emb_slice=None,
+        ),
+        use_clip_auxiliary_loss=False,
+    )
+    return dataclasses.replace(base, **overrides).resolve()
+
+
 def _debug(cfg: HulcConfig) -> HulcConfig:
     """Tiny sizes for fast tests: small cams, small hidden dims (the JAX
-    package's ``_debug``, for the camera-based, discrete-plan presets)."""
+    package's ``_debug``, for the camera-based presets)."""
     cfg = dataclasses.replace(
         cfg,
         perceptual_encoder=PerceptualEncoderConfig(
@@ -231,14 +249,18 @@ def _debug(cfg: HulcConfig) -> HulcConfig:
             birnn_hidden_size=32,
             max_position_embeddings=8,
         ),
-        distribution=DistributionConfig(kind="discrete", category_size=4, class_size=4),
+        distribution=(
+            DistributionConfig(kind="discrete", category_size=4, class_size=4)
+            if cfg.distribution.kind == "discrete"
+            else DistributionConfig(kind="continuous", plan_features=8)
+        ),
         visual_goal=GoalEncoderConfig(hidden_size=32, latent_goal_features=8),
         language_goal=dataclasses.replace(cfg.language_goal, hidden_size=32, latent_goal_features=8),
         action_decoder=dataclasses.replace(
             cfg.action_decoder,
             hidden_size=64,
             latent_goal_features=8,
-            perceptual_emb_slice=(16, 32),
+            perceptual_emb_slice=(16, 32) if cfg.action_decoder.perceptual_emb_slice else None,
         ),
         proj_vis_lang_dim=8,
     )
@@ -247,7 +269,9 @@ def _debug(cfg: HulcConfig) -> HulcConfig:
 
 CONFIGS: Dict[str, Callable[[], HulcConfig]] = {
     "hulc": hulc_config,
+    "mcil": mcil_config,
     "hulc_debug": lambda: _debug(hulc_config()),
+    "mcil_debug": lambda: _debug(mcil_config()),
 }
 
 

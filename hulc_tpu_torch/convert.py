@@ -5,7 +5,9 @@ The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
 * Dense kernels (in, out) transpose to Linear weights (out, in);
 * conv kernels go from HWIO to OIHW;
 * ``ScanRNN``'s ``ih_k`` / ``hh_k`` / ``bhh_k`` become ``weight_ih_lk`` /
-  ``bias_ih_lk`` / ``weight_hh_lk`` / ``bias_hh_lk``;
+  ``bias_ih_lk`` / ``weight_hh_lk`` / ``bias_hh_lk``; ``ScanBiRNN``'s
+  ``fwd_k`` / ``bwd_k`` (each a one-layer ScanRNN) become layer k's
+  parameters, the reverse chain's with the ``_reverse`` suffix;
 * the nature-CNN's first dense kernel is re-permuted from the NHWC flatten
   (y, x, c) to the NCHW flatten (c, y, x);
 * LayerNorm ``scale`` becomes ``weight``;
@@ -15,7 +17,7 @@ The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
 
 Subtrees the port has no module for are returned as a list of unused
 '/'-joined paths, never dropped silently; for the ``hulc`` presets the
-list is empty.
+list is empty, and so it is for the ``mcil`` presets.
 """
 
 from __future__ import annotations
@@ -117,34 +119,46 @@ def params_from_jax(
         if r.has(f"{name}/ln"):
             layernorm(f"{name}/ln", f"{name}.ln")
 
+    def rnn_layer(src: str, dst: str, k: int, suffix: str = "", src_k: int | None = None):
+        """ScanRNN layer ``src_k`` (default k) of ``src`` as torch nn.RNN's
+        layer k of ``dst``, its names ending in ``suffix``."""
+        src_k = k if src_k is None else src_k
+        sd[f"{dst}.weight_ih_l{k}{suffix}"] = r.get(f"{src}/ih_{src_k}/kernel").T
+        sd[f"{dst}.bias_ih_l{k}{suffix}"] = r.get(f"{src}/ih_{src_k}/bias")
+        sd[f"{dst}.weight_hh_l{k}{suffix}"] = r.get(f"{src}/hh_{src_k}").T
+        sd[f"{dst}.bias_hh_l{k}{suffix}"] = r.get(f"{src}/bhh_{src_k}")
+
     ad = cfg.action_decoder
     for k in range(ad.num_layers):
-        sd[f"action_decoder.rnn.weight_ih_l{k}"] = r.get(f"action_decoder/rnn/ih_{k}/kernel").T
-        sd[f"action_decoder.rnn.bias_ih_l{k}"] = r.get(f"action_decoder/rnn/ih_{k}/bias")
-        sd[f"action_decoder.rnn.weight_hh_l{k}"] = r.get(f"action_decoder/rnn/hh_{k}").T
-        sd[f"action_decoder.rnn.bias_hh_l{k}"] = r.get(f"action_decoder/rnn/bhh_{k}")
+        rnn_layer("action_decoder/rnn", "action_decoder.rnn", k)
     for head in ("mean_fc", "log_scale_fc", "prob_fc") + (("gripper_fc",) if ad.discrete_gripper else ()):
         linear(f"action_decoder/{head}", f"action_decoder.{head}")
 
     pr = cfg.plan_recognition
-    sd["plan_recognition.position_embeddings.weight"] = r.get("plan_recognition/position_embeddings")
-    for i in range(pr.num_layers):
-        src, dst = f"plan_recognition/encoder/layer_{i}", f"plan_recognition.transformer_encoder.layers.{i}"
-        attn = f"{src}/self_attn"
-        d_model = r.get(f"{attn}/query/kernel").shape[0]
-        sd[f"{dst}.self_attn.in_proj_weight"] = np.concatenate(
-            [r.get(f"{attn}/{n}/kernel").reshape(d_model, d_model).T for n in ("query", "key", "value")]
-        )
-        sd[f"{dst}.self_attn.in_proj_bias"] = np.concatenate(
-            [r.get(f"{attn}/{n}/bias").reshape(d_model) for n in ("query", "key", "value")]
-        )
-        sd[f"{dst}.self_attn.out_proj.weight"] = r.get(f"{attn}/out/kernel").reshape(d_model, d_model).T
-        sd[f"{dst}.self_attn.out_proj.bias"] = r.get(f"{attn}/out/bias")
-        linear(f"{src}/linear1", f"{dst}.linear1")
-        linear(f"{src}/linear2", f"{dst}.linear2")
-        layernorm(f"{src}/norm1", f"{dst}.norm1")
-        layernorm(f"{src}/norm2", f"{dst}.norm2")
-    linear("plan_recognition/fc", "plan_recognition.fc")
+    if pr.kind == "birnn":
+        # each direction of layer k is a one-layer ScanRNN, fwd_k / bwd_k
+        for k in range(pr.birnn_num_layers):
+            for name, suffix in (("fwd", ""), ("bwd", "_reverse")):
+                rnn_layer(f"plan_recognition/birnn/{name}_{k}", "plan_recognition.birnn_model", k, suffix, src_k=0)
+    else:
+        sd["plan_recognition.position_embeddings.weight"] = r.get("plan_recognition/position_embeddings")
+        for i in range(pr.num_layers):
+            src, dst = f"plan_recognition/encoder/layer_{i}", f"plan_recognition.transformer_encoder.layers.{i}"
+            attn = f"{src}/self_attn"
+            d_model = r.get(f"{attn}/query/kernel").shape[0]
+            sd[f"{dst}.self_attn.in_proj_weight"] = np.concatenate(
+                [r.get(f"{attn}/{n}/kernel").reshape(d_model, d_model).T for n in ("query", "key", "value")]
+            )
+            sd[f"{dst}.self_attn.in_proj_bias"] = np.concatenate(
+                [r.get(f"{attn}/{n}/bias").reshape(d_model) for n in ("query", "key", "value")]
+            )
+            sd[f"{dst}.self_attn.out_proj.weight"] = r.get(f"{attn}/out/kernel").reshape(d_model, d_model).T
+            sd[f"{dst}.self_attn.out_proj.bias"] = r.get(f"{attn}/out/bias")
+            linear(f"{src}/linear1", f"{dst}.linear1")
+            linear(f"{src}/linear2", f"{dst}.linear2")
+            layernorm(f"{src}/norm1", f"{dst}.norm1")
+            layernorm(f"{src}/norm2", f"{dst}.norm2")
+        linear("plan_recognition/fc", "plan_recognition.fc")
     linear("plan_recognition/fc_state", "plan_recognition.fc_state.0")
 
     if cfg.use_clip_auxiliary_loss:

@@ -1,17 +1,32 @@
-// The decoder's relu-RNN recurrence, forward and backward, one layer a launch.
+// The RNN recurrences, forward and backward, one chain a launch: the
+// decoder's relu cell (B.6) and the tanh cell (B.8), which the MCIL plan
+// recognition's bidirectional layers (B.9) run once a direction.
 //
 // Replaces hulc_tpu/models/layers.py ScanRNN.__call__'s lax.scan for the
-// "rnn" cell (lines 233-237 and 265-267): with the input projection xp
-// (B, S, H) already computed (b_ih in it) and W = W_hh in torch nn.RNN
-// layout (H_out, H_in),
-//   y_t = relu(xp_t + h_{t-1} W^T + b_hh),   h_{-1} = h0,   t = 0 .. S-1,
-// and its backward with the custom-VJP relu's mask (layers.py:25-56,
-// g * (y > 0)): with dh_{S-1} = dcarry and g_t = dy_t + dh_t,
-//   dpre_t = g_t * (y_t > 0),   dh_{t-1} = dpre_t W,   dh0 = dh_{-1}.
+// "rnn" and "rnn_tanh" cells (lines 233-238 and 265-267): with the input
+// projection xp (B, S, H) already computed (b_ih in it) and W = W_hh in
+// torch nn.RNN layout (H_out, H_in),
+//   y_t = act(xp_t + h_{t-1} W^T + b_hh),   h_{-1} = h0,   t = 0 .. S-1,
+// act = relu or tanhf (the libdevice tanhf that PyTorch's CUDA tanh calls),
+// and its backward with the activation's derivative from the saved output
+// (relu: the custom-VJP mask of layers.py:25-56, g * (y > 0); tanh:
+// 1 - y^2): with dh_{S-1} = dcarry and g_t = dy_t + dh_t,
+//   dpre_t = g_t * act'(y_t),   dh_{t-1} = dpre_t W,   dh0 = dh_{-1}.
 // The caller forms dW_hh = dpre^T [h0, y_{:-1}] as one matrix product over
 // all S * B rows and db_hh as dpre's sum: no per-step weight gradients.
 //
-// Bound on the H100: operations. Each time step is 2 B H^2 fp32 FLOP that
+// A bidirectional layer (layers.py:284-313 ScanBiRNN: a forward chain and
+// a chain over the time-reversed input, flipped back and concatenated to
+// (B, S, 2H)) is two launches of the tanh kernels, one a direction, into
+// one (B, S, 2H) output: a chain's Layout gives y's row width (2H) and its
+// columns (the caller's pointer already at column 0 or H), and `reverse`
+// has step t read xp[:, S-1-t] and write y[:, S-1-t]. No flip and no
+// concatenation is copied; the backward reads dy and y through the same
+// layout and writes each chain's dpre (B, S, H) in xp's time order. The
+// two chains run one after the other: each takes 120 SMs at H = 2048, and
+// the two W_hh (2 x 16.8 MB) are more than the card's shared memory.
+//
+// Bound on the H100 (either cell, each chain): operations. Each time step is 2 B H^2 fp32 FLOP that
 // cannot start before every column of the step before is done; at the
 // training step's B = 64, S = 32, H = 2048 that is 17.2 GFLOP a layer,
 // 0.256 ms at 67 TFLOP/s. At one serving lane (B = S = 1) it is the read
@@ -19,7 +34,7 @@
 //
 // The launch plan (which kernel, cluster size, k-split, columns, shared
 // memory) is made in Python (ops/recurrence.py recurrence_plan), checked
-// once against this file's geometry and the card (hulc_rnn_relu_check), and
+// once against this file's geometry and the card (hulc_rnn_check), and
 // handed to the entry points, which derive the grid from it and refuse a
 // plan that does not cover the problem.
 //
@@ -47,8 +62,9 @@
 //   * The cluster's partials are summed through distributed shared memory:
 //     block j adds, in rank order (deterministic), the 64 x kCols / cluster
 //     column slice j of every block's partial, then runs the epilogue (+ xp
-//     + b_hh, relu, the h_last store forward; (dy + dh) * (y > 0), or dh0,
-//     backward) on inputs it staged beside chunk 0, and stores its tile.
+//     + b_hh, the activation, the h_last store forward; (dy + dh) *
+//     act'(y), or dh0, backward) on inputs it staged beside chunk 0, and
+//     stores its tile.
 //   * One grid-wide barrier per step (cooperative launch with a cluster
 //     dimension).
 //   Per SM and step the state coming in is 64 KB of L2 reads plus 7 x 4.5 KB
@@ -95,6 +111,29 @@ constexpr int kCols = 144;                                     // output columns
 static_assert(kCols == kWarps * kColGroups * kTileCols, "the warps' tiles cover a cluster's columns");
 
 enum Launch { kSequence = 0, kStep = 1 };
+
+// The activation and its derivative from the saved output.
+template <bool kTanh>
+__device__ __forceinline__ float activate(float pre) {
+  return kTanh ? tanhf(pre) : fmaxf(pre, 0.0f);
+}
+
+template <bool kTanh>
+__device__ __forceinline__ float activation_grad(float y) {
+  return kTanh ? 1.0f - y * y : (y > 0.0f ? 1.0f : 0.0f);
+}
+
+// Where a chain's y (and, backward, dy) lives: rows of `width` floats a
+// time step (H alone, 2H in a bidirectional layer), the chain's columns
+// from the pointer the kernel is given; time step t of the chain at row
+// time(t), which runs backwards for the reverse chain. xp, h0, dpre, dh0
+// and h_last are the chain's own (B, S, H) / (B, H) tensors, in xp's time
+// order.
+struct Layout {
+  int width;
+  int reverse;
+  __device__ __forceinline__ long long time(int t, int seq) const { return reverse ? seq - 1 - t : t; }
+};
 
 // Floats per row of the block's W slice: whole chunks plus the skew.
 __host__ __device__ __forceinline__ int weight_stride(int k_slice) {
@@ -367,10 +406,11 @@ __device__ __forceinline__ void reduce_partials(const cg::cluster_group& cluster
   }
 }
 
+template <bool kTanh>
 __global__ void __launch_bounds__(kThreads, 1)
-    rnn_relu_fwd_kernel(const float* __restrict__ xp, const float* h0, const float* __restrict__ w,
-                        const float* __restrict__ bias, float* y, float* h_last, int batch, int seq, int hidden,
-                        int k_slice, int vec, int vec_w) {
+    rnn_fwd_kernel(const float* __restrict__ xp, const float* h0, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* y, float* h_last, int batch, int seq, int hidden,
+                   int k_slice, int vec, int vec_w, Layout layout) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const Geometry g = geometry(cluster, hidden, k_slice);
@@ -379,22 +419,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* stage = ws + kCols * wst;
   float* part = stage + 2 * kRows * kHStride;
   float* xt = part + kRows * kPartStride;  // xp at the block's reduce slice
+  // the relu cell (the decoder) always runs forward in time into its own
+  // (B, S, H) y: a constant layout, so its instance compiles to B.6's code
+  const Layout out = kTanh ? layout : Layout{hidden, 0};
   load_weight_slice<false>(ws, w, hidden, g, wst, vec_w);
 
-  const long long seq_stride = static_cast<long long>(seq) * hidden;
+  const long long x_stride = static_cast<long long>(seq) * hidden;     // xp's rows
+  const long long y_stride = static_cast<long long>(seq) * out.width;  // y's rows
   for (int t = 0; t < seq; ++t) {
     if (t > 0) cg::this_grid().sync();  // y[:, t - 1] is complete, in every column
-    const float* src = t == 0 ? h0 : y + static_cast<long long>(t - 1) * hidden;
-    const long long stride = t == 0 ? hidden : seq_stride;
+    const long long tp = out.time(t, seq);
+    const float* src = t == 0 ? h0 : y + out.time(t - 1, seq) * out.width;
+    float* const y_t = y + tp * out.width + g.r0;  // step t's row, the block's reduce slice
+    const long long stride = t == 0 ? hidden : y_stride;
     for (int r0 = 0; r0 < batch; r0 += kRows) {
       const int rows = min(kRows, batch - r0);
-      stage_tile(xt, xp + r0 * seq_stride + static_cast<long long>(t) * hidden, seq_stride, rows, g);
+      stage_tile(xt, xp + r0 * x_stride + tp * hidden, x_stride, rows, g);
       partial_product(part, src + r0 * stride, stride, rows, ws, wst, stage, g, vec);
       cluster.sync();  // every partial of the cluster is written
       reduce_partials(cluster, part, rows, g, [&](int i, int row, int cc, float s) {
-        const float v = fmaxf(xt[i] + (s + __ldg(bias + g.r0 + cc)), 0.0f);
-        const long long o = static_cast<long long>(r0 + row) * seq_stride + static_cast<long long>(t) * hidden + g.r0 + cc;
-        y[o] = v;
+        const float v = activate<kTanh>(xt[i] + (s + __ldg(bias + g.r0 + cc)));
+        y_t[static_cast<long long>(r0 + row) * y_stride + cc] = v;
         if (h_last && t == seq - 1) h_last[static_cast<long long>(r0 + row) * hidden + g.r0 + cc] = v;
       });
       if (r0 + kRows < batch) cluster.sync();  // the partials are read before the next tile's
@@ -403,10 +448,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
+template <bool kTanh>
 __global__ void __launch_bounds__(kThreads, 1)
-    rnn_relu_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ y, const float* __restrict__ dcarry,
-                        const float* __restrict__ w, float* dpre, float* dh0, int batch, int seq, int hidden,
-                        int k_slice, int vec, int vec_w) {
+    rnn_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ y, const float* __restrict__ dcarry,
+                   const float* __restrict__ w, float* dpre, float* dh0, int batch, int seq, int hidden,
+                   int k_slice, int vec, int vec_w, Layout layout) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const Geometry g = geometry(cluster, hidden, k_slice);
@@ -415,37 +461,41 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* stage = ws + kCols * wst;
   float* part = stage + 2 * kRows * kHStride;
   float* dyt = part + kRows * kPartStride;  // dy and y at step t - 1, the block's reduce slice
+  const Layout out = kTanh ? layout : Layout{hidden, 0};  // as in the forward
   float* yt = dyt + kRows * g.nred;
   load_weight_slice<true>(ws, w, hidden, g, wst, vec_w);
-  const long long seq_stride = static_cast<long long>(seq) * hidden;
+  const long long x_stride = static_cast<long long>(seq) * hidden;     // dpre's rows
+  const long long y_stride = static_cast<long long>(seq) * out.width;  // dy's and y's rows
 
-  // dpre_{S-1} = (dy_{S-1} + dcarry) * (y_{S-1} > 0), in the block's reduce slice
+  // dpre_{S-1} = (dy_{S-1} + dcarry) * act'(y_{S-1}), in the block's reduce slice
+  const long long last = out.time(seq - 1, seq);
   for (int i = threadIdx.x; i < batch * g.nred; i += kThreads) {
     const int row = i / g.nred, cc = i % g.nred;
     if (cc >= g.r_valid) continue;
-    const long long o = static_cast<long long>(row) * seq_stride + static_cast<long long>(seq - 1) * hidden + g.r0 + cc;
+    const long long o = static_cast<long long>(row) * y_stride + last * out.width + g.r0 + cc;
     const float gr = dy[o] + (dcarry ? dcarry[static_cast<long long>(row) * hidden + g.r0 + cc] : 0.0f);
-    dpre[o] = gr * (y[o] > 0.0f ? 1.0f : 0.0f);
+    dpre[static_cast<long long>(row) * x_stride + last * hidden + g.r0 + cc] = gr * activation_grad<kTanh>(y[o]);
   }
 
   for (int t = seq - 1; t >= 0; --t) {
     cg::this_grid().sync();  // dpre[:, t] is complete, in every column
-    const float* src = dpre + static_cast<long long>(t) * hidden;
+    const float* src = dpre + out.time(t, seq) * hidden;
+    const long long prev = t > 0 ? out.time(t - 1, seq) : 0;
+    float* const dpre_prev = dpre + prev * hidden + g.r0;  // step t - 1's row, the block's reduce slice
     for (int r0 = 0; r0 < batch; r0 += kRows) {
       const int rows = min(kRows, batch - r0);
       if (t > 0) {
-        const long long at = r0 * seq_stride + static_cast<long long>(t - 1) * hidden;
-        stage_tile(dyt, dy + at, seq_stride, rows, g);
-        stage_tile(yt, y + at, seq_stride, rows, g);
+        const long long at = r0 * y_stride + prev * out.width;
+        stage_tile(dyt, dy + at, y_stride, rows, g);
+        stage_tile(yt, y + at, y_stride, rows, g);
       }
-      partial_product(part, src + r0 * seq_stride, seq_stride, rows, ws, wst, stage, g, vec);
+      partial_product(part, src + r0 * x_stride, x_stride, rows, ws, wst, stage, g, vec);
       cluster.sync();
       reduce_partials(cluster, part, rows, g, [&](int i, int row, int cc, float s) {
         if (t > 0) {
           // where dh_{t-1} goes: into dpre[:, t - 1]
-          const float m = yt[i] > 0.0f ? 1.0f : 0.0f;
-          dpre[static_cast<long long>(r0 + row) * seq_stride + static_cast<long long>(t - 1) * hidden + g.r0 + cc] =
-              (dyt[i] + s) * m;
+          const float m = activation_grad<kTanh>(yt[i]);
+          dpre_prev[static_cast<long long>(r0 + row) * x_stride + cc] = (dyt[i] + s) * m;
         } else {
           dh0[static_cast<long long>(r0 + row) * hidden + g.r0 + cc] = s;
         }
@@ -456,12 +506,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();
 }
 
-// y[r, j] = relu(xp[r, j] + h0[r, :] . W[j, :] + b[j]) for r < batch <=
-// kStepRows: warp (blockIdx.x, w) owns column j = kStepWarps blockIdx.x + w.
+// y[r, j] = act(xp[r, j] + h0[r, :] . W[j, :] + b[j]) for r < batch <=
+// kStepRows, y's rows y_width floats apart: warp (blockIdx.x, w) owns
+// column j = kStepWarps blockIdx.x + w.
+template <bool kTanh>
 __global__ void __launch_bounds__(kStepThreads)
-    rnn_relu_step_kernel(const float* __restrict__ xp, const float* __restrict__ h0, const float* __restrict__ w,
-                         const float* __restrict__ bias, float* __restrict__ y, float* __restrict__ h_last, int batch,
-                         int hidden, int vec) {
+    rnn_step_kernel(const float* __restrict__ xp, const float* __restrict__ h0, const float* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ y, float* __restrict__ h_last, int batch,
+                    int hidden, int y_width, int vec) {
   const int lane = threadIdx.x & 31;
   const int j = static_cast<int>(blockIdx.x) * kStepWarps + (threadIdx.x >> 5);
   if (j >= hidden) return;
@@ -498,8 +550,8 @@ __global__ void __launch_bounds__(kStepThreads)
 #pragma unroll
       for (int offset = 16; offset > 0; offset >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], offset);
       if (lane == r) {
-        const float v = fmaxf(xv + (acc[r] + b), 0.0f);
-        y[static_cast<long long>(r) * hidden + j] = v;
+        const float v = activate<kTanh>(xv + (acc[r] + b));
+        y[static_cast<long long>(r) * y_width + j] = v;
         if (h_last) h_last[static_cast<long long>(r) * hidden + j] = v;
       }
     }
@@ -574,6 +626,67 @@ int launch_sequence(const void* kernel, const Plan& p, int hidden, bool cooperat
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
+const void* sequence_kernel(bool tanh, bool backward) {
+  if (backward)
+    return tanh ? reinterpret_cast<const void*>(rnn_bwd_kernel<true>)
+                : reinterpret_cast<const void*>(rnn_bwd_kernel<false>);
+  return tanh ? reinterpret_cast<const void*>(rnn_fwd_kernel<true>)
+              : reinterpret_cast<const void*>(rnn_fwd_kernel<false>);
+}
+
+// Whether a chain's layout holds its H columns: y's rows of `width` floats,
+// the chain's columns [offset, offset + H) of them.
+bool layout_fits(int hidden, int reverse, int width, int offset) {
+  return (reverse == 0 || reverse == 1) && offset >= 0 && static_cast<long long>(offset) + hidden <= width;
+}
+
+template <bool kTanh>
+int forward(const void* xp, const void* h0, const void* w, const void* bias, void* y, void* h_last, int batch,
+            int seq, int hidden, Layout out, int y_offset, const Plan& p, void* stream) {
+  if (batch <= 0 || seq <= 0 || hidden <= 0) return static_cast<int>(cudaGetLastError());
+  if (!plan_fits(p, batch, seq, hidden, false) || !layout_fits(hidden, out.reverse, out.width, y_offset))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp_ = static_cast<const float*>(xp);
+  const float* h0_ = static_cast<const float*>(h0);
+  const float* w_ = static_cast<const float*>(w);
+  const float* b_ = static_cast<const float*>(bias);
+  float* y_ = static_cast<float*>(y) + y_offset;
+  float* hl_ = static_cast<float*>(h_last);
+  if (p.launch == kStep) {
+    const int vec = hidden % 4 == 0 && aligned16(h0) && aligned16(w);
+    const int blocks = (hidden + kStepWarps - 1) / kStepWarps;
+    rnn_step_kernel<kTanh><<<blocks, kStepThreads, 0, s>>>(xp_, h0_, w_, b_, y_, hl_, batch, hidden, out.width, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int vec = hidden % 4 == 0 && out.width % 4 == 0 && aligned16(h0) && aligned16(y_);
+  int vec_w = hidden % 4 == 0 && aligned16(w);
+  int k_slice = p.k_slice;
+  void* args[] = {&xp_, &h0_, &w_, &b_, &y_, &hl_, &batch, &seq, &hidden, &k_slice, &vec, &vec_w, &out};
+  return launch_sequence(reinterpret_cast<const void*>(rnn_fwd_kernel<kTanh>), p, hidden, cooperative(seq, false),
+                         args, s);
+}
+
+template <bool kTanh>
+int backward(const void* dy, const void* y, const void* dcarry, const void* w, void* dpre, void* dh0, int batch,
+             int seq, int hidden, Layout out, int y_offset, const Plan& p, void* stream) {
+  if (batch <= 0 || seq <= 0 || hidden <= 0) return static_cast<int>(cudaGetLastError());
+  if (!plan_fits(p, batch, seq, hidden, true) || !layout_fits(hidden, out.reverse, out.width, y_offset))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int vec = hidden % 4 == 0 && aligned16(dpre);
+  int vec_w = hidden % 4 == 0 && aligned16(w);
+  const float* dy_ = static_cast<const float*>(dy) + y_offset;
+  const float* y_ = static_cast<const float*>(y) + y_offset;
+  const float* dc_ = static_cast<const float*>(dcarry);
+  const float* w_ = static_cast<const float*>(w);
+  float* dpre_ = static_cast<float*>(dpre);
+  float* dh0_ = static_cast<float*>(dh0);
+  int k_slice = p.k_slice;
+  void* args[] = {&dy_, &y_, &dc_, &w_, &dpre_, &dh0_, &batch, &seq, &hidden, &k_slice, &vec, &vec_w, &out};
+  return launch_sequence(reinterpret_cast<const void*>(rnn_bwd_kernel<kTanh>), p, hidden, true, args,
+                         static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // SMs and the shared memory a block may opt in to, for the launch plan.
@@ -588,7 +701,7 @@ extern "C" int hulc_device_limits(int device, int* sms, int* smem_optin) {
 // blocks share a GPC, so this is below SMs / cluster where the GPCs' SM
 // counts are not multiples of the cluster size. For the launch plan.
 extern "C" int hulc_rnn_cluster_limit(int cluster, int* clusters) {
-  const void* kernel = reinterpret_cast<const void*>(rnn_relu_fwd_kernel);
+  const void* kernel = sequence_kernel(false, false);
   int optin = 0;
   cudaError_t err = allow_optin_smem(kernel, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -600,16 +713,15 @@ extern "C" int hulc_rnn_cluster_limit(int cluster, int* clusters) {
 // Checks a plan once, when the wrapper makes it, against this file's
 // geometry and the current device: the shared memory a block may opt in to,
 // and every cluster resident at once where the launch is cooperative. Lets
-// the sequence kernel take all the shared memory a block may opt in to, so
-// any plan that passed here launches.
-extern "C" int hulc_rnn_relu_check(int backward, int batch, int seq, int hidden, int launch, int cluster,
-                                   int k_slice, int cols, int smem) {
+// the cell's sequence kernel (tanh 1, relu 0) take all the shared memory a
+// block may opt in to, so any plan that passed here launches.
+extern "C" int hulc_rnn_check(int tanh, int backward, int batch, int seq, int hidden, int launch, int cluster,
+                              int k_slice, int cols, int smem) {
   const Plan p{launch, cluster, k_slice, cols, smem};
   if (batch <= 0 || seq <= 0 || hidden <= 0 || !plan_fits(p, batch, seq, hidden, backward != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.launch == kStep) return static_cast<int>(cudaSuccess);
-  const void* kernel = backward ? reinterpret_cast<const void*>(rnn_relu_bwd_kernel)
-                                : reinterpret_cast<const void*>(rnn_relu_fwd_kernel);
+  const void* kernel = sequence_kernel(tanh != 0, backward != 0);
   int optin = 0;
   cudaError_t err = allow_optin_smem(kernel, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -624,32 +736,13 @@ extern "C" int hulc_rnn_relu_check(int backward, int batch, int seq, int hidden,
   return static_cast<int>(cudaSuccess);
 }
 
-// y (B, S, H) and, when h_last is not null, y[:, S - 1] again as (B, H).
-// The plan's fields follow the sizes.
+// The relu cell (B.6). y (B, S, H) and, when h_last is not null, y[:, S - 1]
+// again as (B, H). The plan's fields follow the sizes.
 extern "C" int hulc_rnn_relu_fwd(const void* xp, const void* h0, const void* w, const void* bias, void* y,
                                  void* h_last, int batch, int seq, int hidden, int launch, int cluster, int k_slice,
                                  int cols, int smem, void* stream) {
-  if (batch <= 0 || seq <= 0 || hidden <= 0) return static_cast<int>(cudaGetLastError());
-  const Plan p{launch, cluster, k_slice, cols, smem};
-  if (!plan_fits(p, batch, seq, hidden, false)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xp_ = static_cast<const float*>(xp);
-  const float* h0_ = static_cast<const float*>(h0);
-  const float* w_ = static_cast<const float*>(w);
-  const float* b_ = static_cast<const float*>(bias);
-  float* y_ = static_cast<float*>(y);
-  float* hl_ = static_cast<float*>(h_last);
-  if (p.launch == kStep) {
-    const int vec = hidden % 4 == 0 && aligned16(h0) && aligned16(w);
-    const int blocks = (hidden + kStepWarps - 1) / kStepWarps;
-    rnn_relu_step_kernel<<<blocks, kStepThreads, 0, s>>>(xp_, h0_, w_, b_, y_, hl_, batch, hidden, vec);
-    return static_cast<int>(cudaGetLastError());
-  }
-  int vec = hidden % 4 == 0 && aligned16(h0) && aligned16(y);
-  int vec_w = hidden % 4 == 0 && aligned16(w);
-  void* args[] = {&xp_, &h0_, &w_, &b_, &y_, &hl_, &batch, &seq, &hidden, &k_slice, &vec, &vec_w};
-  return launch_sequence(reinterpret_cast<const void*>(rnn_relu_fwd_kernel), p, hidden, cooperative(seq, false),
-                         args, s);
+  return forward<false>(xp, h0, w, bias, y, h_last, batch, seq, hidden, Layout{hidden, 0}, 0,
+                        Plan{launch, cluster, k_slice, cols, smem}, stream);
 }
 
 // dpre (B, S, H) and dh0 (B, H); dcarry (B, H) may be null (no gradient
@@ -657,18 +750,25 @@ extern "C" int hulc_rnn_relu_fwd(const void* xp, const void* h0, const void* w, 
 extern "C" int hulc_rnn_relu_bwd(const void* dy, const void* y, const void* dcarry, const void* w, void* dpre,
                                  void* dh0, int batch, int seq, int hidden, int launch, int cluster, int k_slice,
                                  int cols, int smem, void* stream) {
-  if (batch <= 0 || seq <= 0 || hidden <= 0) return static_cast<int>(cudaGetLastError());
-  const Plan p{launch, cluster, k_slice, cols, smem};
-  if (!plan_fits(p, batch, seq, hidden, true)) return static_cast<int>(cudaErrorInvalidValue);
-  int vec = hidden % 4 == 0 && aligned16(dpre);
-  int vec_w = hidden % 4 == 0 && aligned16(w);
-  const float* dy_ = static_cast<const float*>(dy);
-  const float* y_ = static_cast<const float*>(y);
-  const float* dc_ = static_cast<const float*>(dcarry);
-  const float* w_ = static_cast<const float*>(w);
-  float* dpre_ = static_cast<float*>(dpre);
-  float* dh0_ = static_cast<float*>(dh0);
-  void* args[] = {&dy_, &y_, &dc_, &w_, &dpre_, &dh0_, &batch, &seq, &hidden, &k_slice, &vec, &vec_w};
-  return launch_sequence(reinterpret_cast<const void*>(rnn_relu_bwd_kernel), p, hidden, true, args,
-                         static_cast<cudaStream_t>(stream));
+  return backward<false>(dy, y, dcarry, w, dpre, dh0, batch, seq, hidden, Layout{hidden, 0}, 0,
+                         Plan{launch, cluster, k_slice, cols, smem}, stream);
+}
+
+// The tanh cell (B.8), one chain: y's rows are y_width floats a time step,
+// the chain's columns [y_offset, y_offset + H) of them; reverse = 1 runs the
+// chain from t = S - 1 down (B.9's reverse direction). h_last may be null.
+extern "C" int hulc_rnn_tanh_fwd(const void* xp, const void* h0, const void* w, const void* bias, void* y,
+                                 void* h_last, int batch, int seq, int hidden, int reverse, int y_width, int y_offset,
+                                 int launch, int cluster, int k_slice, int cols, int smem, void* stream) {
+  return forward<true>(xp, h0, w, bias, y, h_last, batch, seq, hidden, Layout{y_width, reverse}, y_offset,
+                       Plan{launch, cluster, k_slice, cols, smem}, stream);
+}
+
+// The tanh chain's dh chain: dy and y in the forward's layout, dpre (B, S, H)
+// in xp's time order, dh0 (B, H); dcarry may be null.
+extern "C" int hulc_rnn_tanh_bwd(const void* dy, const void* y, const void* dcarry, const void* w, void* dpre,
+                                 void* dh0, int batch, int seq, int hidden, int reverse, int y_width, int y_offset,
+                                 int launch, int cluster, int k_slice, int cols, int smem, void* stream) {
+  return backward<true>(dy, y, dcarry, w, dpre, dh0, batch, seq, hidden, Layout{y_width, reverse}, y_offset,
+                        Plan{launch, cluster, k_slice, cols, smem}, stream);
 }

@@ -35,7 +35,7 @@ def build_batched_step(model: HulcModel, cfg: HulcConfig):
 
     @torch.no_grad()
     def step_fn(rgb_static, rgb_gripper, rob_norm, rob_raw, lang_emb, plan, latent_goal, carry,
-                replan_mask, *, generator=None, gumbel=None, u_mix=None, u_inv=None):
+                replan_mask, *, generator=None, gumbel=None, normal=None, u_mix=None, u_inv=None):
         """One lockstep step over E lanes; replan_mask is (E,) bool.
 
         Returns (actions (E, 7), plan, latent_goal, carry).
@@ -47,7 +47,7 @@ def build_batched_step(model: HulcModel, cfg: HulcConfig):
             rgb_obs["rgb_gripper"] = preprocess(rgb_gripper)
         emb, _ = model.encode(rgb_obs, rob_norm)  # (E, 1, F)
         new_goal = model.encode_language_goal(lang_emb)
-        new_plan = model.propose_plan(emb, new_goal, generator=generator, gumbel=gumbel)
+        new_plan = model.propose_plan(emb, new_goal, generator=generator, gumbel=gumbel, normal=normal)
         m = replan_mask[:, None]
         plan = torch.where(m, new_plan, plan)
         latent_goal = torch.where(m, new_goal, latent_goal)
@@ -93,8 +93,9 @@ class BatchedHulcPolicy:
              noise: Optional[Dict[str, torch.Tensor]] = None):
         """obs_batch: list of E env obs dicts. Returns (actions (E, 7), state).
 
-        noise: optional ``gumbel`` / ``u_mix`` / ``u_inv`` tensors used in
-        place of the generator's draws (the step function's keywords).
+        noise: optional ``gumbel`` or ``normal`` (the plan's) / ``u_mix`` /
+        ``u_inv`` tensors used in place of the generator's draws (the step
+        function's keywords).
         """
         pe = self.cfg.perceptual_encoder
 

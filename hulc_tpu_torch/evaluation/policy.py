@@ -13,8 +13,9 @@ package jits and its serving exporter wraps:
 replanning every ``replan_freq`` steps, with its state in an explicit
 :class:`PolicyState` and its noise from one seeded ``torch.Generator`` on
 the model's device, restarted from the seed by ``reset()``. Every random
-draw can instead be passed in (``gumbel``, ``u_mix``, ``u_inv``), which is
-how the tests feed the noise JAX drew.
+draw can instead be passed in (the plan's ``gumbel`` or ``normal`` noise,
+by the plan's kind, and ``u_mix``, ``u_inv``), which is how the tests feed
+the noise JAX drew.
 """
 
 from __future__ import annotations
@@ -97,18 +98,18 @@ def build_policy_fns(model: HulcModel, cfg: HulcConfig):
         return emb
 
     @torch.no_grad()
-    def replan_lang(rgb_static, rgb_gripper, robot_obs_norm, lang_emb, *, generator=None, gumbel=None):
+    def replan_lang(rgb_static, rgb_gripper, robot_obs_norm, lang_emb, *, generator=None, gumbel=None, normal=None):
         emb = _encode_frame(rgb_static, rgb_gripper, robot_obs_norm)
         latent_goal = model.encode_language_goal(lang_emb)
-        plan = model.propose_plan(emb, latent_goal, generator=generator, gumbel=gumbel)
+        plan = model.propose_plan(emb, latent_goal, generator=generator, gumbel=gumbel, normal=normal)
         return plan, latent_goal
 
     @torch.no_grad()
-    def replan_vision(rgb_static2, rgb_gripper2, robot_obs_norm2, *, generator=None, gumbel=None):
+    def replan_vision(rgb_static2, rgb_gripper2, robot_obs_norm2, *, generator=None, gumbel=None, normal=None):
         """Current + goal frame stacked on the seq axis."""
         emb = _encode_frame(rgb_static2, rgb_gripper2, robot_obs_norm2)
         latent_goal = model.encode_visual_goal(emb[:, -1])
-        plan = model.propose_plan(emb[:, :1], latent_goal, generator=generator, gumbel=gumbel)
+        plan = model.propose_plan(emb[:, :1], latent_goal, generator=generator, gumbel=gumbel, normal=normal)
         return plan, latent_goal
 
     @torch.no_grad()
@@ -156,10 +157,12 @@ class HulcPolicy:
     def step(self, obs: Dict, goal, noise: Optional[Dict[str, torch.Tensor]] = None) -> np.ndarray:
         """One env step. goal: instruction str, embedding array, or goal-obs dict.
 
-        noise: optional ``gumbel`` (used when the step plans) / ``u_mix`` /
-        ``u_inv`` tensors in place of the generator's draws.
+        noise: optional ``gumbel`` or ``normal`` (the plan's, used when the
+        step plans) / ``u_mix`` / ``u_inv`` tensors in place of the
+        generator's draws.
         """
         noise = noise or {}
+        plan_noise = {k: noise[k] for k in ("gumbel", "normal") if k in noise}
         rgb_static, rgb_gripper, rob_norm, rob_raw = self._split_obs(obs)
         state = self._state
         if state is None or state.step_count % self.replan_freq == 0:
@@ -167,7 +170,7 @@ class HulcPolicy:
                 emb = self.lang_embeddings[goal] if isinstance(goal, str) else goal
                 emb = torch.as_tensor(np.asarray(emb, np.float32).reshape(1, -1), device=self.device)
                 plan, latent_goal = self._replan_lang(
-                    rgb_static, rgb_gripper, rob_norm, emb, generator=self.generator, gumbel=noise.get("gumbel")
+                    rgb_static, rgb_gripper, rob_norm, emb, generator=self.generator, **plan_noise
                 )
             else:
                 g_static, g_gripper, g_norm, _ = self._split_obs(goal)
@@ -180,7 +183,7 @@ class HulcPolicy:
                     _cat_seq(rgb_gripper, g_gripper),
                     torch.cat([rob_norm, g_norm], dim=1),
                     generator=self.generator,
-                    gumbel=noise.get("gumbel"),
+                    **plan_noise,
                 )
             carry = self.model.init_decoder_carry(1)
             state = PolicyState(plan, latent_goal, carry, state.step_count if state else 0)

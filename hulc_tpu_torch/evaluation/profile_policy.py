@@ -95,7 +95,7 @@ HAND_KERNELS = (
     "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "logistic_mixture_sample_kernel",
     "mixture_nll_fwd_kernel", "mixture_nll_bwd_kernel", "plan_st_kl_fwd_kernel", "plan_st_kl_bwd_kernel",
     "adam_lowp_kernel", "grad_norm_finish_kernel",
-    "rnn_relu_fwd_kernel", "rnn_relu_bwd_kernel", "rnn_relu_step_kernel",
+    "rnn_fwd_kernel", "rnn_bwd_kernel", "rnn_step_kernel",  # csrc/rnn.cu, either cell
 )
 
 
@@ -118,7 +118,11 @@ def profile_steps(step, steps: int, trace_path=None) -> dict:
     by_kind = {}
     for e in device:
         by_kind[kind_of(e.key)] = by_kind.get(kind_of(e.key), 0.0) + _device_us(e) / 1e3 / steps
-    hand = {k: _device_us(e) / 1e3 / steps for e in device for k in HAND_KERNELS if k in e.key}
+    hand = {}  # by kernel, each template instance's time added in (rnn.cu's relu and tanh cells)
+    for e in device:
+        for k in HAND_KERNELS:
+            if k in e.key:
+                hand[k] = hand.get(k, 0.0) + _device_us(e) / 1e3 / steps
     copies = sum(e.count for e in device if kind_of(e.key) == "copies and fills") / steps
     return {
         "step_ms": step_ms,

@@ -2,9 +2,9 @@
 
     python3 hulc_tpu_torch/evaluation/recurrence_variants.py [VARIANT ...]
 
-Builds ``csrc/rnn_relu.cu`` as it is and in variants made by patching its
+Builds ``csrc/rnn.cu`` as it is and in variants made by patching its
 text (each its own ``nvcc``, all started together, into ``build/variants``),
-then times each variant's forward and backward entry point with CUDA
+then times each variant's relu forward and backward entry point with CUDA
 events at the train step's (64, 32, 2048) and at (64, 1, 2048) and
 (1, 1, 2048), W_hh at torch's init, with the plan ``ops.recurrence`` makes
 for the card. A variant that leaves out part of the
@@ -88,9 +88,9 @@ HIDDEN = 2048
 
 
 def patched_source(name: str) -> str:
-    """``csrc/rnn_relu.cu`` with ``name``'s patches; raises when a patch's text
+    """``csrc/rnn.cu`` with ``name``'s patches; raises when a patch's text
     is not in the source."""
-    text = (kernels.CSRC_DIR / "rnn_relu.cu").read_text()
+    text = (kernels.CSRC_DIR / "rnn.cu").read_text()
     for old, new in VARIANTS[name][0]:
         if old not in text:
             raise RuntimeError(f"variant {name}: the source no longer has {old!r}")
@@ -121,7 +121,7 @@ def build(names):
         for fn in ("hulc_rnn_relu_fwd", "hulc_rnn_relu_bwd"):
             getattr(lib, fn).argtypes = [*kernels._SIGNATURES[fn], ctypes.c_void_p]
             getattr(lib, fn).restype = ctypes.c_int
-        lib.hulc_rnn_relu_check.argtypes = [ctypes.c_int] * 9
+        lib.hulc_rnn_check.argtypes = [ctypes.c_int] * 10
         libs[name] = lib
         print(f"{name}: registers {regs}")
     return libs
@@ -149,9 +149,9 @@ def main(argv=None) -> None:
     def plan(lib, b, s, backward):
         # the variant's own check: it also lets its sequence kernel take the shared memory
         args = device_plan(HIDDEN, b, s, index, backward).c_args()
-        err = lib.hulc_rnn_relu_check(int(backward), b, s, HIDDEN, *args)
+        err = lib.hulc_rnn_check(0, int(backward), b, s, HIDDEN, *args)
         if err:
-            raise RuntimeError(f"hulc_rnn_relu_check refused {args} at {(b, s, HIDDEN)}: CUDA error {err}")
+            raise RuntimeError(f"hulc_rnn_check refused {args} at {(b, s, HIDDEN)}: CUDA error {err}")
         return args
 
     gen = torch.Generator(device="cuda").manual_seed(0)

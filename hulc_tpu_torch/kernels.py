@@ -156,6 +156,9 @@ _SIGNATURES = {
     # the sizes, then ops.recurrence.RecurrencePlan's five fields
     "hulc_rnn_relu_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 8),
     "hulc_rnn_relu_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 8),
+    # the sizes, the chain's layout (reverse, y's row width, its column offset), the plan
+    "hulc_rnn_tanh_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
+    "hulc_rnn_tanh_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
     "hulc_empty_launch": (),
 }
 
@@ -174,8 +177,8 @@ def library() -> ctypes.CDLL:
     lib.hulc_device_limits.restype = ctypes.c_int
     lib.hulc_rnn_cluster_limit.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.hulc_rnn_cluster_limit.restype = ctypes.c_int
-    lib.hulc_rnn_relu_check.argtypes = [ctypes.c_int] * 9
-    lib.hulc_rnn_relu_check.restype = ctypes.c_int
+    lib.hulc_rnn_check.argtypes = [ctypes.c_int] * 10
+    lib.hulc_rnn_check.restype = ctypes.c_int
     return lib
 
 
@@ -208,14 +211,14 @@ def cluster_limits(index: int, sizes: tuple[int, ...]) -> dict[int, int]:
     return out
 
 
-def check_rnn_relu_plan(index: int, backward: bool, batch: int, seq: int, hidden: int,
-                        plan: tuple[int, ...]) -> None:
-    """``hulc_rnn_relu_check`` of a launch plan (``RecurrencePlan.c_args()``)
-    on CUDA device ``index``: raises if it refuses the plan. A sequence
-    kernel launches only after this."""
+def check_rnn_plan(index: int, tanh: bool, backward: bool, batch: int, seq: int, hidden: int,
+                   plan: tuple[int, ...]) -> None:
+    """``hulc_rnn_check`` of a launch plan (``RecurrencePlan.c_args()``) of
+    the relu or the tanh cell on CUDA device ``index``: raises if it refuses
+    the plan. A sequence kernel launches only after this."""
     with torch.cuda.device(index):
-        err = library().hulc_rnn_relu_check(int(backward), batch, seq, hidden, *plan)
-    _raise_if(err, f"hulc_rnn_relu_check of the plan {plan} at {(batch, seq, hidden)}")
+        err = library().hulc_rnn_check(int(tanh), int(backward), batch, seq, hidden, *plan)
+    _raise_if(err, f"hulc_rnn_check of the {'tanh' if tanh else 'relu'} plan {plan} at {(batch, seq, hidden)}")
 
 
 class Kernel:
@@ -239,6 +242,18 @@ class Kernel:
         self.launches += 1
 
 
+class Composite:
+    """The launch count of a wrapper whose launches are another entry
+    point's: B.9's bidirectional layer, one launch of B.8's kernel a
+    direction. It counts its own calls, and each launch counts under the
+    entry point too. ``symbol`` names it in the launch counts; it is no C
+    entry point."""
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.launches = 0
+
+
 PREPROCESS_RGB = Kernel("hulc_preprocess_rgb")
 PREPROCESS_RGB_SHIFT = Kernel("hulc_preprocess_rgb_shift")
 SPATIAL_SOFTMAX = Kernel("hulc_spatial_softmax")
@@ -252,12 +267,17 @@ ADAM_LOWP = Kernel("hulc_adam_lowp")
 GRAD_NORM_FINISH = Kernel("hulc_grad_norm_finish")
 RNN_RELU_FWD = Kernel("hulc_rnn_relu_fwd")
 RNN_RELU_BWD = Kernel("hulc_rnn_relu_bwd")
+RNN_TANH_FWD = Kernel("hulc_rnn_tanh_fwd")
+RNN_TANH_BWD = Kernel("hulc_rnn_tanh_bwd")
+BIRNN_TANH_FWD = Composite("hulc_birnn_tanh_fwd")
+BIRNN_TANH_BWD = Composite("hulc_birnn_tanh_bwd")
 # no work: its device time is the floor under every kernel's (measured, never on a path)
 EMPTY_LAUNCH = Kernel("hulc_empty_launch")
 ALL_KERNELS = (
     PREPROCESS_RGB, PREPROCESS_RGB_SHIFT, SPATIAL_SOFTMAX, SPATIAL_SOFTMAX_BWD,
     LOGISTIC_MIXTURE_SAMPLE, MIXTURE_NLL_FWD, MIXTURE_NLL_BWD, PLAN_ST_KL_FWD, PLAN_ST_KL_BWD,
-    ADAM_LOWP, GRAD_NORM_FINISH, RNN_RELU_FWD, RNN_RELU_BWD,
+    ADAM_LOWP, GRAD_NORM_FINISH, RNN_RELU_FWD, RNN_RELU_BWD, RNN_TANH_FWD, RNN_TANH_BWD,
+    BIRNN_TANH_FWD, BIRNN_TANH_BWD,
 )
 
 

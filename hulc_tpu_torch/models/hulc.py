@@ -11,21 +11,24 @@
 * Training: ``train_losses`` over a ``{"vis": B, "lang": B}`` batch (a pass
   per modality) or over a loader-fused ``{"fused": 2B}`` batch (one pass,
   ``_fused_train_losses``), with every loss key the JAX package returns.
-  The plan's Gumbel noise comes from ``generator`` unless passed as
-  ``gumbel`` (a tensor for the fused pass, a dict by scope otherwise), and
-  dropout draws from the generator ``layers.set_dropout_generator`` gave it.
+  The plan's noise (a discrete plan's Gumbel noise, a continuous plan's
+  standard-normal draw) comes from ``generator`` unless passed as
+  ``gumbel`` / ``normal`` (a tensor for the fused pass, a dict by scope
+  otherwise), and dropout draws from the generator
+  ``layers.set_dropout_generator`` gave it.
 * Validation: ``val_metrics`` over a ``{"vis", "lang"}`` batch, in eval
   mode (``lmp_val``: the action loss, MAEs and gripper success rate of a
   window decoded with the proposal's and with the recognition's plan,
-  each drawn by ``DiscretePlanDistribution.sample``, and the KL scaled by
+  each drawn by ``PlanDistribution.sample``, and the KL scaled by
   the passed beta), with the JAX package's metric names. The plan and
   action noise come from ``generator`` unless passed as ``noise[scope]``
   (``VAL_NOISE_KEYS``).
 
-Images arrive preprocessed, (B, S, C, H, W) fp32 (``training.preprocess``).
-GCBC (plan-free), the continuous plan, state reconstruction and the BC-Z
-and MIA auxiliary losses wait for later slices; a config that asks for one
-is refused.
+The plan recognition is the transformer (``hulc``) or the BiRNN, and the
+plan discrete or continuous (``mcil``). Images arrive preprocessed, (B, S,
+C, H, W) fp32 (``training.preprocess``). GCBC (plan-free), state
+reconstruction and the BC-Z and MIA auxiliary losses wait for later
+slices; a config that asks for one is refused.
 """
 
 from __future__ import annotations
@@ -41,15 +44,11 @@ from hulc_tpu_torch.device import resolve_device
 from hulc_tpu_torch.models.aux_heads import ProjVisLang
 from hulc_tpu_torch.models.decoders import LogisticPolicyDecoder, decoder_carry
 from hulc_tpu_torch.models.goal_encoders import GoalEncoder, make_language_goal_encoder
-from hulc_tpu_torch.models.layers import MultiheadSelfAttention, ScanRNN
+from hulc_tpu_torch.models.layers import MultiheadSelfAttention, ScanBiRNN, ScanRNN
 from hulc_tpu_torch.models.perceptual import ConcatEncoders
-from hulc_tpu_torch.models.plan_nets import (
-    PlanProposalNetwork,
-    PlanRecognitionTransformer,
-    make_plan_distribution,
-)
+from hulc_tpu_torch.models.plan_nets import PlanProposalNetwork, make_plan_distribution, make_plan_recognition
 from hulc_tpu_torch.models.vision import SpatialSoftmax
-from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState
+from hulc_tpu_torch.ops.plan_distributions import PlanState
 
 
 class ModalityBatch(NamedTuple):
@@ -116,9 +115,12 @@ def masked_clip_loss(
 
 
 # the noise of one modality's validation pass, as lmp_val takes it injected:
-# each plan's (B, category_size, class_size) Gumbel noise and each decoded
-# window's (B, S, A, K) / (B, S, A) mixture uniforms in (U_MIN, U_MAX)
-VAL_NOISE_KEYS = ("gumbel_pp", "u_mix_pp", "u_inv_pp", "gumbel_pr", "u_mix_pr", "u_inv_pr")
+# each plan's (B, category_size, class_size) Gumbel noise (a discrete plan)
+# or (B, plan_features) standard-normal draw (a continuous plan) and each
+# decoded window's (B, S, A, K) / (B, S, A) mixture uniforms in (U_MIN, U_MAX)
+VAL_NOISE_KEYS = (
+    "gumbel_pp", "normal_pp", "u_mix_pp", "u_inv_pp", "gumbel_pr", "normal_pr", "u_mix_pr", "u_inv_pr",
+)
 
 LOSS_KEYS = (
     "kl_loss", "action_loss", "total_loss", "proprio_loss", "lang_pred_loss",
@@ -144,7 +146,7 @@ class HulcModel(nn.Module):
         self.perceptual_encoder = ConcatEncoders(cfg.perceptual_encoder, use_kernels)
         self.dist = make_plan_distribution(cfg.distribution)
         self.plan_proposal = PlanProposalNetwork(cfg.plan_proposal, self.dist)
-        self.plan_recognition = PlanRecognitionTransformer(cfg.plan_recognition, self.dist)
+        self.plan_recognition = make_plan_recognition(cfg.plan_recognition, self.dist, use_kernels)
         self.visual_goal = GoalEncoder(cfg.visual_goal)
         self.language_goal = (
             make_language_goal_encoder(cfg.language_goal) if cfg.language_goal else None
@@ -178,11 +180,13 @@ class HulcModel(nn.Module):
         *,
         generator: Optional[torch.Generator] = None,
         gumbel: Optional[torch.Tensor] = None,
+        normal: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Sample a plan from the proposal prior; gumbel is optional
-        (B, category_size, class_size) noise."""
+        """Sample a plan from the proposal prior; gumbel (B, category_size,
+        class_size) or normal (B, plan_features) is optional noise, by the
+        plan's kind."""
         state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
-        return self.dist.sample(state, generator=generator, gumbel=gumbel)
+        return self.dist.sample(state, generator=generator, gumbel=gumbel, normal=normal)
 
     def decoder_act(
         self,
@@ -213,13 +217,13 @@ class HulcModel(nn.Module):
     # ------------------------------------------------------------------
 
     def _plan_and_kl(
-        self, pp_state: DiscretePlanState, pr_state: DiscretePlanState,
-        generator: Optional[torch.Generator], gumbel: Optional[torch.Tensor],
+        self, pp_state: PlanState, pr_state: PlanState, generator: Optional[torch.Generator],
+        gumbel: Optional[torch.Tensor], normal: Optional[torch.Tensor],
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The posterior's straight-through plan and the per-sample balanced KL."""
+        """The posterior's reparameterized plan and the per-sample balanced KL."""
         return self.dist.rsample_balanced_kl(
             pr_state, pp_state, self.cfg.loss.kl_balancing_mix,
-            generator=generator, gumbel=gumbel, use_kernels=self.use_kernels,
+            generator=generator, gumbel=gumbel, normal=normal, use_kernels=self.use_kernels,
         )
 
     def lmp_train(
@@ -231,11 +235,12 @@ class HulcModel(nn.Module):
         *,
         generator: Optional[torch.Generator] = None,
         gumbel: Optional[torch.Tensor] = None,
+        normal: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """Posterior plan -> action loss and the (unscaled) balanced KL."""
         pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
         pr_state, seq_feat = self.plan_recognition(perceptual_emb)
-        sampled_plan, kl_ps = self._plan_and_kl(pp_state, pr_state, generator, gumbel)
+        sampled_plan, kl_ps = self._plan_and_kl(pp_state, pr_state, generator, gumbel, normal)
         action_loss = self.action_decoder.loss(sampled_plan, perceptual_emb, latent_goal, actions, robot_obs)
         return {
             "action_loss": action_loss,
@@ -271,11 +276,15 @@ class HulcModel(nn.Module):
                 u_mix=noise.get(f"u_mix_{tag}"), u_inv=noise.get(f"u_inv_{tag}"),
             )
 
+        def sample(state, tag):
+            return self.dist.sample(state, generator=generator, gumbel=noise.get(f"gumbel_{tag}"),
+                                    normal=noise.get(f"normal_{tag}"))
+
         pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
-        sampled_plan_pp = self.dist.sample(pp_state, generator=generator, gumbel=noise.get("gumbel_pp"))
+        sampled_plan_pp = sample(pp_state, "pp")
         action_loss_pp, sample_act_pp = decode(sampled_plan_pp, "pp")
         pr_state, seq_feat = self.plan_recognition(perceptual_emb)
-        sampled_plan_pr = self.dist.sample(pr_state, generator=generator, gumbel=noise.get("gumbel_pr"))
+        sampled_plan_pr = sample(pr_state, "pr")
         action_loss_pr, sample_act_pr = decode(sampled_plan_pr, "pr")
         kl_loss = self.dist.balanced_kl(pr_state, pp_state, self.cfg.loss.kl_balancing_mix)
 
@@ -356,10 +365,12 @@ class HulcModel(nn.Module):
         *,
         generator: Optional[torch.Generator] = None,
         gumbel: Optional[torch.Tensor] = None,
+        normal: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """One 2B-batch pass over [vis; lang]: {"fused": 2B} as the loader
-        stacked it, or {"vis", "lang"} stacked here. ``gumbel`` is the plan's
-        (2B, category_size, class_size) noise."""
+        stacked it, or {"vis", "lang"} stacked here. ``gumbel`` (2B,
+        category_size, class_size) or ``normal`` (2B, plan_features) is the
+        plan's noise."""
         cfg = self.cfg
         if "fused" in batch:
             fused = batch["fused"]
@@ -375,7 +386,7 @@ class HulcModel(nn.Module):
 
         pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
         pr_state, seq_feat = self.plan_recognition(perceptual_emb)
-        sampled_plan, kl_ps = self._plan_and_kl(pp_state, pr_state, generator, gumbel)
+        sampled_plan, kl_ps = self._plan_and_kl(pp_state, pr_state, generator, gumbel, normal)
         act_ps = self.action_decoder.loss(
             sampled_plan, perceptual_emb, latent_goal, fused.actions, fused.state_info_robot_obs, per_sample=True
         )
@@ -405,11 +416,12 @@ class HulcModel(nn.Module):
         *,
         generator: Optional[torch.Generator] = None,
         gumbel: Union[None, torch.Tensor, Dict[str, torch.Tensor]] = None,
+        normal: Union[None, torch.Tensor, Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """One optimizer step's losses. ``{"fused": 2B}`` (and, with
         ``cfg.fuse_modalities``, equal-shaped ``{"vis", "lang"}``) takes the
         fused pass; otherwise one pass per modality, each with its own
-        ``gumbel[scope]``."""
+        ``gumbel[scope]`` / ``normal[scope]``."""
         cfg = self.cfg
         if "fused" in batch or (
             cfg.fuse_modalities
@@ -417,7 +429,7 @@ class HulcModel(nn.Module):
             and batch["vis"].actions.shape == batch["lang"].actions.shape
             and _same_shape(batch["vis"].rgb_static, batch["lang"].rgb_static)
         ):
-            return self._fused_train_losses(batch, kl_beta, generator=generator, gumbel=gumbel)
+            return self._fused_train_losses(batch, kl_beta, generator=generator, gumbel=gumbel, normal=normal)
         zero = torch.zeros((), device=self.device)
         totals = {k: zero for k in LOSS_KEYS}
         per_mod = {}
@@ -430,6 +442,7 @@ class HulcModel(nn.Module):
             out = self.lmp_train(
                 perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs,
                 generator=generator, gumbel=None if gumbel is None else gumbel[scope],
+                normal=None if normal is None else normal[scope],
             )
             act_loss, kl = out["action_loss"], out["kl_loss"] * kl_beta
             if "lang" in scope and cfg.use_clip_auxiliary_loss:
@@ -465,7 +478,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
             m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, ScanRNN):
+        elif isinstance(m, (ScanRNN, ScanBiRNN)):
             bound = 1.0 / math.sqrt(m.hidden_size)
             for p in m.parameters():
                 p.uniform_(-bound, bound, generator=generator)

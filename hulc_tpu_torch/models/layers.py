@@ -2,22 +2,26 @@
 
 ``MLP`` builds the Linear/activation stacks under the reference's
 ``nn.Sequential`` indices, so state_dict keys such as ``mlp.0`` or
-``fc_model.2`` line up with the reference checkpoints. ``ScanRNN`` is the
-decoder's multi-layer relu RNN with an explicit (num_layers, B, H) carry:
-the input projection of every time step runs as one matmul before the
-recurrence ``relu(x_t W_ih + b_ih + h W_hh + b_hh)``. Each layer's
-recurrence is ``ops.recurrence.rnn_relu``: on CUDA tensors one launch of a
-hand-written kernel, forward and backward; on CPU tensors the plain loop
-forward and the closed-form backward. With ``use_kernels=False`` it is the
-plain loop of one fp32 ``addmm`` per step, differentiated by autograd.
+``fc_model.2`` line up with the reference checkpoints. ``ScanRNN`` is a
+multi-layer relu (the decoder) or tanh RNN with an explicit (num_layers,
+B, H) carry: the input projection of every time step runs as one matmul
+before the recurrence ``act(x_t W_ih + b_ih + h W_hh + b_hh)``. Each
+layer's recurrence is ``ops.recurrence.rnn_relu`` / ``rnn_tanh``: on CUDA
+tensors one launch of a hand-written kernel, forward and backward; on CPU
+tensors the plain loop forward and the closed-form backward. With
+``use_kernels=False`` it is the plain loop of one fp32 ``addmm`` per step,
+differentiated by autograd. ``ScanBiRNN`` is MCIL's bidirectional tanh RNN
+(port of layers.py:284-313): per layer both input projections as plain
+matmuls, then ``ops.recurrence.birnn_layer``, the two chains into one
+(B, S, 2H) output, which feeds the next layer.
 ``TransformerEncoder`` is the plan recognition network's post-LN encoder,
 under torch ``nn.TransformerEncoder``'s parameter names.
 
 ``Dropout`` draws its mask from an explicit ``torch.Generator`` (set with
 ``set_dropout_generator``), as every random draw of the port does, and
 keeps flax's semantics: ``where(keep, x / keep_prob, 0)``, with a mask of
-``x``'s shape unless ``broadcast_dims`` names axes that share it. The other
-rnn cells wait for a later slice.
+``x``'s shape unless ``broadcast_dims`` names axes that share it. The gru
+and lstm cells wait for a later slice.
 """
 
 from __future__ import annotations
@@ -29,7 +33,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hulc_tpu_torch.ops.recurrence import rnn_relu, rnn_relu_fwd_plain
+from hulc_tpu_torch.ops.recurrence import (
+    birnn_layer,
+    birnn_layer_plain,
+    rnn_relu,
+    rnn_relu_fwd_plain,
+    rnn_tanh,
+    rnn_tanh_fwd_plain,
+)
+
+# cell: (the autograd Function of the kernels, the plain loop)
+RECURRENCES = {"rnn": (rnn_relu, rnn_relu_fwd_plain), "rnn_tanh": (rnn_tanh, rnn_tanh_fwd_plain)}
 
 ACTIVATIONS = {
     "relu": nn.ReLU,
@@ -90,8 +104,17 @@ def MLP(
     return nn.Sequential(*layers)
 
 
+def _rnn_params(module: nn.Module, k: int, suffix: str, input_size: int, hidden_size: int) -> None:
+    """Layer k's parameters under torch ``nn.RNN``'s names."""
+    module.register_parameter(f"weight_ih_l{k}{suffix}", nn.Parameter(torch.empty(hidden_size, input_size)))
+    module.register_parameter(f"weight_hh_l{k}{suffix}", nn.Parameter(torch.empty(hidden_size, hidden_size)))
+    module.register_parameter(f"bias_ih_l{k}{suffix}", nn.Parameter(torch.empty(hidden_size)))
+    module.register_parameter(f"bias_hh_l{k}{suffix}", nn.Parameter(torch.empty(hidden_size)))
+
+
 class ScanRNN(nn.Module):
-    """Multi-layer relu RNN over (B, S, F) with an explicit carry.
+    """Multi-layer relu (``cell="rnn"``) or tanh (``"rnn_tanh"``) RNN over
+    (B, S, F) with an explicit carry.
 
     Parameters carry torch ``nn.RNN``'s names (``weight_ih_l{k}``,
     ``weight_hh_l{k}``, ``bias_ih_l{k}``, ``bias_hh_l{k}``).
@@ -103,17 +126,14 @@ class ScanRNN(nn.Module):
         self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn", use_kernels: bool = True
     ):
         super().__init__()
-        if cell != "rnn":
-            raise ValueError(f"rnn cell {cell!r} is not ported yet; only 'rnn' (relu) is")
+        if cell not in RECURRENCES:
+            raise ValueError(f"rnn cell {cell!r} is not ported yet; only 'rnn' (relu) and 'rnn_tanh' are")
+        self.cell = cell
         self.use_kernels = use_kernels
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         for k in range(num_layers):
-            in_k = input_size if k == 0 else hidden_size
-            self.register_parameter(f"weight_ih_l{k}", nn.Parameter(torch.empty(hidden_size, in_k)))
-            self.register_parameter(f"weight_hh_l{k}", nn.Parameter(torch.empty(hidden_size, hidden_size)))
-            self.register_parameter(f"bias_ih_l{k}", nn.Parameter(torch.empty(hidden_size)))
-            self.register_parameter(f"bias_hh_l{k}", nn.Parameter(torch.empty(hidden_size)))
+            _rnn_params(self, k, "", input_size if k == 0 else hidden_size, hidden_size)
 
     def forward(
         self, x: torch.Tensor, carry: Optional[torch.Tensor] = None
@@ -121,6 +141,7 @@ class ScanRNN(nn.Module):
         """x (B, S, F), carry (L, B, H) or None -> (outputs (B, S, H), carry)."""
         if carry is None:
             carry = x.new_zeros(self.num_layers, x.shape[0], self.hidden_size)
+        recurrence, plain = RECURRENCES[self.cell]
         out = x
         finals = []
         for k in range(self.num_layers):
@@ -128,12 +149,45 @@ class ScanRNN(nn.Module):
             b_hh = getattr(self, f"bias_hh_l{k}")
             x_proj = F.linear(out, getattr(self, f"weight_ih_l{k}"), getattr(self, f"bias_ih_l{k}"))
             if self.use_kernels:
-                out, h = rnn_relu(x_proj, carry[k].contiguous(), w_hh, b_hh)
+                out, h = recurrence(x_proj, carry[k].contiguous(), w_hh, b_hh)
             else:
-                out = rnn_relu_fwd_plain(x_proj, carry[k], w_hh, b_hh)
+                out = plain(x_proj, carry[k], w_hh, b_hh)
                 h = out[:, -1]
             finals.append(h)
         return out, torch.stack(finals)
+
+
+class ScanBiRNN(nn.Module):
+    """Multi-layer bidirectional tanh RNN over (B, S, F) -> (B, S, 2H), from
+    zero states: each layer a forward chain and a time-reversed chain,
+    concatenated, the next layer's input (torch ``nn.RNN(bidirectional=True)``
+    semantics and parameter names, the reverse chain's with ``_reverse``).
+    ``use_kernels=False`` runs JAX's flip-and-concatenate definition
+    (``birnn_layer_plain``) on any device; it exists to hold the kernels
+    against it on the card."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn_tanh",
+                 use_kernels: bool = True):
+        super().__init__()
+        if cell != "rnn_tanh":
+            raise ValueError(f"bidirectional rnn cell {cell!r} is not ported yet; only 'rnn_tanh' is")
+        self.use_kernels = use_kernels
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        for k in range(num_layers):
+            for suffix in ("", "_reverse"):
+                _rnn_params(self, k, suffix, input_size if k == 0 else 2 * hidden_size, hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layer = birnn_layer if self.use_kernels else birnn_layer_plain
+        h0s = x.new_zeros(2, x.shape[0], self.hidden_size)
+        out = x
+        for k in range(self.num_layers):
+            p = {name: getattr(self, f"{name}_l{k}") for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+            r = {name: getattr(self, f"{name}_l{k}_reverse") for name in p}
+            out = layer(F.linear(out, p["weight_ih"], p["bias_ih"]), F.linear(out, r["weight_ih"], r["bias_ih"]),
+                        h0s, p["weight_hh"], r["weight_hh"], p["bias_hh"], r["bias_hh"])
+        return out
 
 
 class MultiheadSelfAttention(nn.Module):

@@ -1,4 +1,4 @@
-"""Latent-plan networks (port of hulc_tpu/models/plan_nets.py:30-110).
+"""Latent-plan networks (port of hulc_tpu/models/plan_nets.py:30-140).
 
 * ``PlanProposalNetwork`` (the prior): a ``num_layers`` x ``hidden_size``
   relu MLP on concat(initial perceptual embedding, latent goal) projected
@@ -8,24 +8,30 @@
   count, plus learned position embeddings, input dropout, a post-LN
   transformer encoder, ``fc`` to ``fc_hidden_size``, the mean over time
   (``seq_feat``, which the CLIP loss also reads) and ``fc_state`` to the
-  plan logits. The BiRNN posterior (MCIL) waits for a later slice.
+  plan logits.
+* ``PlanRecognitionBiRNN`` (MCIL's posterior): a bidirectional tanh RNN
+  (``layers.ScanBiRNN``, module ``birnn_model``) over the window, its last
+  step's features ``x[:, -1]`` as ``seq_feat`` (the reverse half of that
+  row is the reverse chain's first step, which has seen only the last
+  frame), and ``fc_state`` to the Normal's mean and raw std.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from hulc_tpu_torch.config import DistributionConfig, PlanProposalConfig, PlanRecognitionConfig
-from hulc_tpu_torch.models.layers import MLP, Dropout, TransformerEncoder
-from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution
+from hulc_tpu_torch.models.layers import MLP, Dropout, ScanBiRNN, TransformerEncoder
+from hulc_tpu_torch.ops.plan_distributions import PlanDistribution, PlanState
 
 
 def make_plan_distribution(cfg: DistributionConfig) -> PlanDistribution:
-    return PlanDistribution(kind=cfg.kind, category_size=cfg.category_size, class_size=cfg.class_size)
+    return PlanDistribution(kind=cfg.kind, category_size=cfg.category_size, class_size=cfg.class_size,
+                            plan_features=cfg.plan_features)
 
 
 class PlanProposalNetwork(nn.Module):
@@ -42,7 +48,7 @@ class PlanProposalNetwork(nn.Module):
         )
         self.fc_state = nn.Sequential(nn.Linear(cfg.hidden_size, dist.state_dim))
 
-    def forward(self, initial_percep_emb: torch.Tensor, latent_goal: torch.Tensor) -> DiscretePlanState:
+    def forward(self, initial_percep_emb: torch.Tensor, latent_goal: torch.Tensor) -> PlanState:
         x = torch.cat([initial_percep_emb, latent_goal], dim=-1).float()
         return self.dist.make_state(self.fc_state(self.fc_model(x)))
 
@@ -72,7 +78,7 @@ class PlanRecognitionTransformer(nn.Module):
         self.fc = nn.Linear(d_model, cfg.fc_hidden_size)
         self.fc_state = nn.Sequential(nn.Linear(cfg.fc_hidden_size, dist.state_dim))
 
-    def forward(self, perceptual_emb: torch.Tensor) -> Tuple[DiscretePlanState, torch.Tensor]:
+    def forward(self, perceptual_emb: torch.Tensor) -> Tuple[PlanState, torch.Tensor]:
         """(B, S, F) -> (plan state, seq_feat (B, fc_hidden_size))."""
         s, f = perceptual_emb.shape[1:]
         x = F.pad(perceptual_emb.float(), (0, (-f) % self.cfg.num_heads))
@@ -80,3 +86,31 @@ class PlanRecognitionTransformer(nn.Module):
         x = self.transformer_encoder(self.dropout(x))
         seq_feat = self.fc(x).mean(dim=1)
         return self.dist.make_state(self.fc_state(seq_feat)), seq_feat
+
+
+class PlanRecognitionBiRNN(nn.Module):
+    """MCIL posterior: q(plan | window) from the BiRNN's last step, which is
+    also the seq_feat (B, 2 * birnn_hidden_size)."""
+
+    def __init__(self, cfg: PlanRecognitionConfig, dist: PlanDistribution, use_kernels: bool = True):
+        super().__init__()
+        if cfg.birnn_dropout > 0.0:
+            raise ValueError("the plan recognition BiRNN's dropout is not ported yet")
+        self.dist = dist
+        self.birnn_model = ScanBiRNN(cfg.in_features, cfg.birnn_hidden_size, cfg.birnn_num_layers, cfg.birnn_cell,
+                                     use_kernels)
+        self.fc_state = nn.Sequential(nn.Linear(2 * cfg.birnn_hidden_size, dist.state_dim))
+
+    def forward(self, perceptual_emb: torch.Tensor) -> Tuple[PlanState, torch.Tensor]:
+        seq_feat = self.birnn_model(perceptual_emb.float())[:, -1]
+        return self.dist.make_state(self.fc_state(seq_feat)), seq_feat
+
+
+def make_plan_recognition(
+    cfg: PlanRecognitionConfig, dist: PlanDistribution, use_kernels: bool = True
+) -> Union[PlanRecognitionTransformer, PlanRecognitionBiRNN]:
+    if cfg.kind == "transformer":
+        return PlanRecognitionTransformer(cfg, dist)
+    if cfg.kind == "birnn":
+        return PlanRecognitionBiRNN(cfg, dist, use_kernels)
+    raise ValueError(f"unknown plan recognition kind {cfg.kind!r}")

@@ -17,7 +17,7 @@ registered before any of those wrappers runs.
 | ``hulc::preprocess_rgb`` | ``ops/image_ops.py:85`` (B.1) | ``csrc/preprocess.cu`` |
 | ``hulc::spatial_softmax`` | ``models/vision.py:38`` forward (B.2) | ``csrc/spatial_softmax.cu`` |
 | ``hulc::sample_action`` | ``ops/logistic_mixture.py:114`` + ``models/decoders.py:157`` (B.3) | ``csrc/logistic_mixture.cu`` |
-| ``hulc::rnn_relu_fwd`` | ``models/layers.py:233`` forward (B.6) | ``csrc/rnn_relu.cu`` |
+| ``hulc::rnn_relu_fwd`` | ``models/layers.py:233`` forward (B.6) | ``csrc/rnn.cu`` (the relu instance) |
 
 Launches are counted where they happen, in ``kernels.Kernel.__call__``.
 """

@@ -1,25 +1,34 @@
-"""The decoder RNN's relu recurrence (port of hulc_tpu/models/layers.py:233-267).
+"""The RNN recurrences (port of hulc_tpu/models/layers.py:233-313).
 
 One layer, with the input projection ``xp`` (B, S, H) computed before the
 loop (``b_ih`` in it) and ``w_hh`` in torch ``nn.RNN`` layout (H_out, H_in):
-``y_t = relu(xp_t + h_{t-1} w_hh^T + b_hh)`` from ``h_{-1} = h0``. The
-relu's gradient is the JAX package's custom VJP, ``g * (y > 0)``: 0 at
-exactly 0.
+``y_t = act(xp_t + h_{t-1} w_hh^T + b_hh)`` from ``h_{-1} = h0``, act the
+decoder's relu (B.6) or the MCIL plan recognition's tanh (B.8). The relu's
+gradient is the JAX package's custom VJP, ``g * (y > 0)``: 0 at exactly 0;
+the tanh's ``g * (1 - y^2)``.
 
-``rnn_relu`` is a ``torch.autograd.Function`` whose forward is the
-``hulc::rnn_relu_fwd`` op (``ops.library``): on CUDA tensors
-``csrc/rnn_relu.cu``'s forward (one launch a layer: the split-K cluster
-kernel over the sequence, or the one-step GEMV at a serving lane). Its
-backward is that file's dh-chain kernel, then dW_hh as ONE matrix product
-over all S * B rows, ``dpre^T [h0, y_{:-1}]``, and db_hh as dpre's sum
-(``recurrence_weight_grads``). ``recurrence_plan`` chooses each launch's
-kernel, cluster size, k-split, columns and shared memory, once per shape
-(``device_plan``, cached), and csrc/rnn_relu.cu checks it against the card
-then. Each part runs inside a
-``record_function`` span (``SPANS``) so a profile can find it. On CPU
-tensors the forward and the dh chain take the plain versions below:
-``rnn_relu_fwd_plain`` is the loop, ``rnn_relu_bwd_plain`` the closed form
-the backward computes.
+``rnn_relu`` / ``rnn_tanh`` are a ``torch.autograd.Function`` whose forward
+is, on CUDA tensors, ``csrc/rnn.cu``'s forward (one launch a layer: the
+split-K cluster kernel over the sequence, or the one-step GEMV at a
+serving lane; the relu's through the ``hulc::rnn_relu_fwd`` op,
+``ops.library``). Its backward is that file's dh-chain kernel, then dW_hh
+as ONE matrix product over all S * B rows, ``dpre^T [h0, y_{:-1}]``, and
+db_hh as dpre's sum (``recurrence_weight_grads``). ``birnn_layer`` is one
+bidirectional tanh layer (B.9, ``ScanBiRNN``): a forward chain and a
+time-reversed chain written into the two halves of one (B, S, 2H) output,
+two launches of B.8's kernels with the chain's layout, no flip and no
+concatenation copied. ``recurrence_plan`` chooses each launch's kernel,
+cluster size, k-split, columns and shared memory, once per shape
+(``device_plan``, cached), and csrc/rnn.cu checks it against the card
+then. Each part runs inside a ``record_function`` span (``SPANS``,
+``BIRNN_SPANS``) so a profile can find it. On CPU tensors the forward and
+the dh chain take the plain versions below: ``rnn_relu_fwd_plain`` /
+``rnn_tanh_fwd_plain`` are the loop, ``dh_chain_plain`` /
+``dh_chain_tanh_plain`` the dh chain, ``tanh_chain_fwd_plain`` /
+``tanh_chain_bwd_plain`` one tanh launch index by index (a chain's layout
+in a (B, S, 2H) output, reversed or not), and ``birnn_layer_plain`` /
+``birnn_layer_bwd_plain`` JAX's flip and concatenation, which
+``use_kernels=False`` runs.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from torch.profiler import record_function
 
 from hulc_tpu_torch import kernels
 
-# csrc/rnn_relu.cu's geometry
+# csrc/rnn.cu's geometry
 ROWS = 64  # kRows: batch rows per tile of the sequence kernels
 CHUNK = 64  # kChunk: k values staged at a time
 SKEW = 4  # kSkew: floats of bank skew per shared-memory row
@@ -48,7 +57,7 @@ CLUSTERS = (8, 4, 1)
 
 @dataclasses.dataclass(frozen=True)
 class RecurrencePlan:
-    """One launch of ``csrc/rnn_relu.cu``, in the order its entry points take
+    """One launch of ``csrc/rnn.cu``, in the order its entry points take
     the fields. ``launch`` "sequence": ceil(H / ``cols``) clusters of
     ``cluster`` blocks of eight warps; cluster c owns the ``cols`` output
     columns from c * ``cols``, its block of rank j the k-slice [j *
@@ -74,7 +83,7 @@ def _ceil(a: int, b: int) -> int:
 
 
 def sequence_smem_bytes(k_slice: int, cluster: int, backward: bool) -> int:
-    """csrc/rnn_relu.cu ``sequence_smem_bytes``: the W slice (whole chunks
+    """csrc/rnn.cu ``sequence_smem_bytes``: the W slice (whole chunks
     plus the skew per column), two chunk buffers, the partial product, and
     the epilogue's inputs for the reduce slice (xp; or dy and y)."""
     w_stride = _ceil(k_slice, CHUNK) * CHUNK + SKEW
@@ -108,13 +117,14 @@ def recurrence_plan(hidden: int, batch: int, seq: int, sms: int, smem_optin: int
 
 
 @functools.cache
-def device_plan(hidden: int, batch: int, seq: int, index: int, backward: bool) -> RecurrencePlan:
+def device_plan(hidden: int, batch: int, seq: int, index: int, backward: bool, cell: str = "rnn") -> RecurrencePlan:
     """``recurrence_plan`` for CUDA device ``index``, from what the runtime
-    reports, checked by csrc/rnn_relu.cu against the card. Made once per
-    shape: a launch only looks it up."""
+    reports, checked by csrc/rnn.cu against the card for the cell's kernel
+    (``rnn``: relu, ``rnn_tanh``). Made once per shape: a launch only looks
+    it up."""
     plan = recurrence_plan(hidden, batch, seq, *kernels.device_limits(index),
                            kernels.cluster_limits(index, CLUSTERS), backward)
-    kernels.check_rnn_relu_plan(index, backward, batch, seq, hidden, plan.c_args())
+    kernels.check_rnn_plan(index, cell == "rnn_tanh", backward, batch, seq, hidden, plan.c_args())
     return plan
 
 
@@ -130,27 +140,60 @@ SPANS = {
     "weight_grad": "ScanRNN.recurrence.dw",
     "bias_grad": "ScanRNN.recurrence.db",
 }
+BIRNN_SPANS = {k: v.replace("ScanRNN", "ScanBiRNN") for k, v in SPANS.items()}
 
 
-def rnn_relu_fwd_plain(xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
-    """The loop: one ``addmm`` per time step; y (B, S, H)."""
+def _fwd_loop(xp, h0, w_hh, b_hh, act) -> torch.Tensor:
     h = h0
     steps = []
     for t in range(xp.shape[1]):
-        h = torch.relu(xp[:, t] + torch.addmm(b_hh, h, w_hh.t()))
+        h = act(xp[:, t] + torch.addmm(b_hh, h, w_hh.t()))
         steps.append(h)
     return torch.stack(steps, dim=1)
 
 
-def recurrence_weight_grads(dpre: torch.Tensor, h0: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def rnn_relu_fwd_plain(xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """The loop: one ``addmm`` per time step; y (B, S, H)."""
+    return _fwd_loop(xp, h0, w_hh, b_hh, torch.relu)
+
+
+def rnn_tanh_fwd_plain(xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """The tanh cell's loop; y (B, S, H)."""
+    return _fwd_loop(xp, h0, w_hh, b_hh, torch.tanh)
+
+
+def recurrence_weight_grads(
+    dpre: torch.Tensor, h0: torch.Tensor, y: torch.Tensor, reverse: bool = False, spans: Dict[str, str] = SPANS
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dW_hh, db_hh): one (H x S*B) @ (S*B x H) product against the states
-    each step read, ``[h0, y_0, ..., y_{S-2}]``, and dpre's sum."""
-    with record_function(SPANS["weight_grad"]):
-        h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+    each step read, ``[h0, y_0, ..., y_{S-2}]`` (a ``reverse`` chain, whose
+    dpre and y are in xp's time order: ``[y_1, ..., y_{S-1}, h0]``), and
+    dpre's sum."""
+    with record_function(spans["weight_grad"]):
+        if reverse:
+            h_prev = torch.cat([y[:, 1:], h0[:, None]], dim=1)
+        else:
+            h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
         dw = dpre.flatten(0, 1).t() @ h_prev.flatten(0, 1)
-    with record_function(SPANS["bias_grad"]):
+    with record_function(spans["bias_grad"]):
         db = dpre.sum(dim=(0, 1))
     return dw, db
+
+
+def _dh_chain(dy, y, dcarry, w_hh, act_grad, offset: int = 0, reverse: bool = False):
+    """(dpre (B, S, H), dh0): the chain's dy and y are columns [offset,
+    offset + H) of (B, S, W) tensors, its step t at time S-1-t when
+    ``reverse``; dpre in xp's time order."""
+    b, s = y.shape[:2]
+    h = w_hh.shape[0]
+    dh = y.new_zeros(b, h) if dcarry is None else dcarry
+    dpre = y.new_empty(b, s, h)
+    for t in reversed(range(s)):
+        p = s - 1 - t if reverse else t
+        d = (dy[:, p, offset:offset + h] + dh) * act_grad(y[:, p, offset:offset + h])
+        dpre[:, p] = d
+        dh = d @ w_hh
+    return dpre, dh
 
 
 def dh_chain_plain(
@@ -158,13 +201,39 @@ def dh_chain_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What the backward kernel computes: (dpre, dh0), the dh chain of
     ``rnn_relu_bwd_plain`` without the weight gradients."""
-    dh = torch.zeros_like(y[:, 0]) if dcarry is None else dcarry
-    dpre = torch.empty_like(y)
-    for t in reversed(range(y.shape[1])):
-        d = (dy[:, t] + dh) * (y[:, t] > 0).to(y.dtype)
-        dpre[:, t] = d
-        dh = d @ w_hh
-    return dpre, dh
+    return _dh_chain(dy, y, dcarry, w_hh, lambda y_t: (y_t > 0).to(y_t.dtype))
+
+
+def _tanh_grad(y_t: torch.Tensor) -> torch.Tensor:
+    return 1 - y_t * y_t
+
+
+def dh_chain_tanh_plain(
+    dy: torch.Tensor, y: torch.Tensor, dcarry: Optional[torch.Tensor], w_hh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tanh cell's dh chain: (dpre, dh0) with ``dpre_t = (dy_t + dh_t) *
+    (1 - y_t^2)``, the derivative JAX's tanh JVP and torch's tanh_backward
+    take from the output."""
+    return _dh_chain(dy, y, dcarry, w_hh, _tanh_grad)
+
+
+def tanh_chain_fwd_plain(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool) -> torch.Tensor:
+    """What one launch of B.8's forward computes, index by index: step t
+    reads xp[:, time(t)] and writes y[:, time(t), offset:offset + H] of the
+    (B, S, W) ``y``, time(t) = S-1-t when ``reverse``; returns y."""
+    s, h = xp.shape[1], w_hh.shape[0]
+    state = h0
+    for t in range(s):
+        p = s - 1 - t if reverse else t
+        state = torch.tanh(xp[:, p] + torch.addmm(b_hh, state, w_hh.t()))
+        y[:, p, offset:offset + h] = state
+    return y
+
+
+def tanh_chain_bwd_plain(dy, y, dcarry, w_hh, offset: int, reverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What one launch of B.8's dh chain computes, index by index, over the
+    forward's layout: (dpre (B, S, H) in xp's time order, dh0)."""
+    return _dh_chain(dy, y, dcarry, w_hh, _tanh_grad, offset, reverse)
 
 
 def rnn_relu_bwd_plain(
@@ -207,6 +276,21 @@ def rnn_relu_fwd_kernel(
     return y, h_last
 
 
+def _check_shapes(name, b, h, state, w_hh, b_hh=None):
+    """The (B, H) state (h0 or dcarry, may be None), W_hh and b_hh of a
+    chain of B rows and H columns, before their pointers are passed."""
+    kernels.require_cuda_tensor("w_hh", w_hh, torch.float32, 2)
+    if state is not None:
+        kernels.require_cuda_tensor("state", state, torch.float32, 2)
+    if b_hh is not None:
+        kernels.require_cuda_tensor("b_hh", b_hh, torch.float32, 1)
+    if (state is not None and state.shape != (b, h)) or w_hh.shape != (h, h) or (
+            b_hh is not None and b_hh.shape != (h,)):
+        raise ValueError(f"{name}: state {None if state is None else tuple(state.shape)}, w_hh "
+                         f"{tuple(w_hh.shape)}, b_hh {None if b_hh is None else tuple(b_hh.shape)} do not fit "
+                         f"(B, H) = {(b, h)}")
+
+
 def rnn_relu_bwd(
     dy: torch.Tensor, y: torch.Tensor, dcarry: Optional[torch.Tensor], w_hh: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,14 +317,72 @@ def rnn_relu_bwd(
     return dpre, dh0
 
 
-class _RnnReluRecurrence(torch.autograd.Function):
-    """Forward: the forward kernel. Backward: the dh-chain kernel, then the
-    weight and bias gradients as one product and one sum per layer."""
+def _tanh_fwd_launch(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool, h_last) -> None:
+    """One launch of B.8's forward: the chain's columns [offset, offset + H)
+    of y (B, S, W), run from the last step down when ``reverse``."""
+    b, s, h = xp.shape
+    kernels.require_cuda_tensor("xp", xp, torch.float32, 3)
+    kernels.require_cuda_tensor("y", y, torch.float32, 3)
+    _check_shapes("rnn_tanh_fwd", b, h, h0, w_hh, b_hh)
+    if y.shape[:2] != (b, s) or offset + h > y.shape[2]:
+        raise ValueError(f"rnn_tanh_fwd: y {tuple(y.shape)} has no columns [{offset}, {offset + h}) for xp "
+                         f"{tuple(xp.shape)}")
+    plan = device_plan(h, b, s, _index(xp.device), False, "rnn_tanh")
+    kernels.RNN_TANH_FWD(xp.device, xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), y.data_ptr(),
+                         None if h_last is None else h_last.data_ptr(), b, s, h, int(reverse), y.shape[2], offset,
+                         *plan.c_args())
+
+
+def _tanh_bwd_launch(dy, y, dcarry, w_hh, dpre, dh0, offset: int, reverse: bool) -> None:
+    """One launch of B.8's dh chain over the chain's columns [offset, offset
+    + H) of dy and y (B, S, W); dpre (B, S, H) and dh0 (B, H) its own."""
+    b, s, h = dpre.shape
+    kernels.require_cuda_tensor("dy", dy, torch.float32, 3)
+    kernels.require_cuda_tensor("y", y, torch.float32, 3)
+    _check_shapes("rnn_tanh_bwd", b, h, dcarry, w_hh)
+    if dy.shape != y.shape or y.shape[:2] != (b, s) or offset + h > y.shape[2]:
+        raise ValueError(f"rnn_tanh_bwd: dy {tuple(dy.shape)}, y {tuple(y.shape)} have no columns "
+                         f"[{offset}, {offset + h}) for dpre {tuple(dpre.shape)}")
+    plan = device_plan(h, b, s, _index(y.device), True, "rnn_tanh")
+    kernels.RNN_TANH_BWD(y.device, dy.data_ptr(), y.data_ptr(), None if dcarry is None else dcarry.data_ptr(),
+                         w_hh.data_ptr(), dpre.data_ptr(), dh0.data_ptr(), b, s, h, int(reverse), y.shape[2], offset,
+                         *plan.c_args())
+
+
+def rnn_tanh_fwd(
+    xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, H), the final state (B, H)): B.8's forward kernel on CUDA
+    tensors, the plain loop on CPU tensors."""
+    if xp.device.type == "cpu":
+        y = rnn_tanh_fwd_plain(xp, h0, w_hh, b_hh)
+        return y, y[:, -1].clone()
+    y, h_last = torch.empty_like(xp), torch.empty_like(h0)
+    _tanh_fwd_launch(xp, h0, w_hh, b_hh, y, 0, False, h_last)
+    return y, h_last
+
+
+def rnn_tanh_bwd(
+    dy: torch.Tensor, y: torch.Tensor, dcarry: Optional[torch.Tensor], w_hh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B.8's dh-chain kernel (the plain chain on CPU tensors): (dpre, dh0)."""
+    if y.device.type == "cpu":
+        return dh_chain_tanh_plain(dy, y, dcarry, w_hh)
+    dpre, dh0 = torch.empty_like(y), torch.empty_like(y[:, 0])
+    _tanh_bwd_launch(dy.contiguous(), y, None if dcarry is None else dcarry.contiguous(), w_hh, dpre, dh0, 0, False)
+    return dpre, dh0
+
+
+class _Recurrence(torch.autograd.Function):
+    """Forward: the cell's forward kernel. Backward: its dh-chain kernel,
+    then the weight and bias gradients as one product and one sum per
+    layer."""
 
     @staticmethod
-    def forward(ctx, xp, h0, w_hh, b_hh):
+    def forward(ctx, xp, h0, w_hh, b_hh, cell):
+        fwd, ctx.bwd = (rnn_relu_fwd, rnn_relu_bwd) if cell == "rnn" else (rnn_tanh_fwd, rnn_tanh_bwd)
         with record_function(SPANS["forward"]):
-            y, h_last = rnn_relu_fwd(xp, h0, w_hh, b_hh)
+            y, h_last = fwd(xp, h0, w_hh, b_hh)
         ctx.save_for_backward(y, h0, w_hh)
         ctx.set_materialize_grads(False)
         return y, h_last
@@ -251,14 +393,117 @@ class _RnnReluRecurrence(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros_like(y)
         with record_function(SPANS["backward"]):
-            dpre, dh0 = rnn_relu_bwd(dy, y, dh_last, w_hh)
+            dpre, dh0 = ctx.bwd(dy, y, dh_last, w_hh)
         dw, db = recurrence_weight_grads(dpre, h0, y)
-        return dpre, dh0, dw, db
+        return dpre, dh0, dw, db, None
 
 
 def rnn_relu(
     xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer of the recurrence through ``_RnnReluRecurrence``: (y (B, S,
-    H), final state (B, H)), differentiable in all four inputs."""
-    return _RnnReluRecurrence.apply(xp, h0, w_hh, b_hh)
+    """One relu layer through ``_Recurrence``: (y (B, S, H), final state
+    (B, H)), differentiable in all four inputs."""
+    return _Recurrence.apply(xp, h0, w_hh, b_hh, "rnn")
+
+
+def rnn_tanh(
+    xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One tanh layer (B.8) through ``_Recurrence``, as ``rnn_relu``."""
+    return _Recurrence.apply(xp, h0, w_hh, b_hh, "rnn_tanh")
+
+
+# --------------------------------------------------------------------------
+# B.9: one bidirectional tanh layer
+# --------------------------------------------------------------------------
+
+
+def birnn_layer_plain(
+    xp_f: torch.Tensor, xp_b: torch.Tensor, h0s: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+    b_hh_f: torch.Tensor, b_hh_b: torch.Tensor,
+) -> torch.Tensor:
+    """JAX's definition (layers.py:305-310): the forward chain over xp_f,
+    the reverse chain over the time-flipped xp_b flipped back, concatenated
+    to (B, S, 2H); ``h0s`` (2, B, H) their initial states."""
+    y_f = rnn_tanh_fwd_plain(xp_f, h0s[0], w_hh_f, b_hh_f)
+    y_b = rnn_tanh_fwd_plain(xp_b.flip(1), h0s[1], w_hh_b, b_hh_b).flip(1)
+    return torch.cat([y_f, y_b], dim=-1)
+
+
+def birnn_layer_bwd_plain(
+    dy: torch.Tensor, y: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What B.9's backward computes: (dpre_f, dpre_b (B, S, H) in xp's time
+    order, dh0s (2, B, H)), each chain's dh chain over its flipped halves."""
+    h = w_hh_f.shape[0]
+    dpre_f, dh0_f = dh_chain_tanh_plain(dy[..., :h], y[..., :h], None, w_hh_f)
+    dpre_b, dh0_b = dh_chain_tanh_plain(dy[..., h:].flip(1), y[..., h:].flip(1), None, w_hh_b)
+    return dpre_f, dpre_b.flip(1), torch.stack([dh0_f, dh0_b])
+
+
+def birnn_layer_fwd(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b) -> torch.Tensor:
+    """B.9's forward, y (B, S, 2H): the forward chain into columns [0, H)
+    and the reverse chain into [H, 2H); on CUDA tensors two launches of
+    B.8's forward, on CPU tensors their plain versions
+    (``tanh_chain_fwd_plain``)."""
+    b, s, h = xp_f.shape
+    y = torch.empty((b, s, 2 * h), dtype=xp_f.dtype, device=xp_f.device)
+    chains = ((xp_f, h0s[0], w_hh_f, b_hh_f, 0, False), (xp_b, h0s[1], w_hh_b, b_hh_b, h, True))
+    if y.device.type == "cpu":
+        for xp, h0, w_hh, b_hh, offset, reverse in chains:
+            tanh_chain_fwd_plain(xp, h0, w_hh, b_hh, y, offset, reverse)
+        return y
+    for xp, h0, w_hh, b_hh, offset, reverse in chains:
+        _tanh_fwd_launch(xp, h0, w_hh, b_hh, y, offset, reverse, None)
+    kernels.BIRNN_TANH_FWD.launches += 1
+    return y
+
+
+def birnn_layer_bwd(dy, y, w_hh_f, w_hh_b) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B.9's backward, ``birnn_layer_bwd_plain``'s outputs, each chain
+    reading its half of dy and y: on CUDA tensors two launches of B.8's dh
+    chain, on CPU tensors their plain versions (``tanh_chain_bwd_plain``)."""
+    b, s, h2 = y.shape
+    h = h2 // 2
+    if y.device.type == "cpu":
+        (dpre_f, dh0_f), (dpre_b, dh0_b) = (tanh_chain_bwd_plain(dy, y, None, w_hh, d * h, d == 1)
+                                            for d, w_hh in enumerate((w_hh_f, w_hh_b)))
+        return dpre_f, dpre_b, torch.stack([dh0_f, dh0_b])
+    dy = dy.contiguous()
+    dpre = torch.empty((2, b, s, h), dtype=y.dtype, device=y.device)
+    dh0s = torch.empty((2, b, h), dtype=y.dtype, device=y.device)
+    for d, w_hh in enumerate((w_hh_f, w_hh_b)):
+        _tanh_bwd_launch(dy, y, None, w_hh, dpre[d], dh0s[d], d * h, d == 1)
+    kernels.BIRNN_TANH_BWD.launches += 1
+    return dpre[0], dpre[1], dh0s
+
+
+class _BiRnnTanhLayer(torch.autograd.Function):
+    """Forward: ``birnn_layer_fwd``. Backward: ``birnn_layer_bwd``, then each
+    chain's weight and bias gradients as one product and one sum."""
+
+    @staticmethod
+    def forward(ctx, xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
+        with record_function(BIRNN_SPANS["forward"]):
+            y = birnn_layer_fwd(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
+        ctx.save_for_backward(y, h0s, w_hh_f, w_hh_b)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y, h0s, w_hh_f, w_hh_b = ctx.saved_tensors
+        h = w_hh_f.shape[0]
+        with record_function(BIRNN_SPANS["backward"]):
+            dpre_f, dpre_b, dh0s = birnn_layer_bwd(dy, y, w_hh_f, w_hh_b)
+        dw_f, db_f = recurrence_weight_grads(dpre_f, h0s[0], y[..., :h], spans=BIRNN_SPANS)
+        dw_b, db_b = recurrence_weight_grads(dpre_b, h0s[1], y[..., h:], reverse=True, spans=BIRNN_SPANS)
+        return dpre_f, dpre_b, dh0s, dw_f, dw_b, db_f, db_b
+
+
+def birnn_layer(
+    xp_f: torch.Tensor, xp_b: torch.Tensor, h0s: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+    b_hh_f: torch.Tensor, b_hh_b: torch.Tensor,
+) -> torch.Tensor:
+    """One bidirectional tanh layer (B.9) through ``_BiRnnTanhLayer``: (B, S,
+    2H), differentiable in all seven inputs."""
+    return _BiRnnTanhLayer.apply(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b)

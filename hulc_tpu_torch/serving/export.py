@@ -15,16 +15,17 @@ Artifact layout (one directory):
     meta.json            format version, shapes, normalizer, carry and noise spec
     params.npz           the state_dict, fp32
     replan_lang.pt2      (params, rgb_static, rgb_gripper, rob_norm, lang_emb,
-                          gumbel) -> (plan, latent_goal)
-    replan_vision.pt2    (params, 2-frame stacks, gumbel) -> (plan, latent_goal)
+                          plan noise) -> (plan, latent_goal)
+    replan_vision.pt2    (params, 2-frame stacks, plan noise) -> (plan, latent_goal)
     act.pt2              (params, plan, goal, frames, rob_norm, rob_raw, carry,
                           u_mix, u_inv) -> (action, carry)
     step_batched.pt2     optional E-lane lockstep step (``lanes=E``)
     lang_embeddings.npy  optional instruction -> embedding table
 
 The noise crosses the boundary as inputs, as JAX passes ``key_data``: the
-Gumbel noise of a plan and the mixture sampler's uniforms, already mapped
-into (U_MIN, U_MAX). The runtime draws them from its own generator in the
+plan's noise (a discrete plan's Gumbel noise, ``gumbel``; a continuous
+plan's standard-normal draw, ``normal``) and the mixture sampler's
+uniforms, already mapped into (U_MIN, U_MAX). The runtime draws them from its own generator in the
 live policy's order and shapes (``meta.json``'s ``noise``), so a served
 step gives the live step's action; no program holds a random node. Frames
 cross raw uint8: the preprocess is inside the programs.
@@ -63,7 +64,6 @@ from hulc_tpu_torch.serving.params_io import flatten_params
 __all__ = ["export_policy", "expected_op_counts", "op_counts", "random_nodes", "main"]
 
 FORMAT_VERSION = 1
-NOISE_NAMES = ("gumbel", "u_mix", "u_inv")
 # graph nodes that would draw noise inside a program
 _RANDOM_OPS = ("rand", "uniform", "normal", "bernoulli", "multinomial", "exponential", "geometric", "poisson")
 
@@ -153,14 +153,16 @@ def _carry_spec(cfg: HulcConfig) -> Dict:
 
 def _noise_spec(cfg: HulcConfig) -> Dict:
     """Per lane, the shape of each draw, in the order the live policy draws:
-    the plan's Gumbel noise (one ``torch.rand`` through ``gumbel_of_uniform``,
-    on a replan step, every step in the lockstep step), then the sampler's
-    two ``torch.rand`` draws, mapped as ``lo + span * u``."""
+    the plan's noise (on a replan step, every step in the lockstep step):
+    ``gumbel``, one ``torch.rand`` through ``gumbel_of_uniform``, or
+    ``normal``, one ``torch.randn``; then the sampler's two ``torch.rand``
+    draws, mapped as ``lo + span * u``."""
     d, ad = cfg.distribution, cfg.action_decoder
     a = ad.out_features - 1 if ad.discrete_gripper else ad.out_features
+    plan = {"gumbel": [d.category_size, d.class_size]} if d.kind == "discrete" else {"normal": [d.plan_features]}
     return {
-        "order": list(NOISE_NAMES),
-        "gumbel": [d.category_size, d.class_size],
+        "order": [*plan, "u_mix", "u_inv"],
+        **plan,
         "u_mix": [1, a, ad.n_mixtures],
         "u_inv": [1, a],
         "uniform_map": [U_MIN, U_SPAN],
@@ -205,19 +207,20 @@ def export_policy(
         return None if cam is None else zeros(e, s, cam.input_size, cam.input_size, 3, dtype=torch.uint8)
 
     def draws(e):
-        return [zeros(e, *noise[k]) for k in NOISE_NAMES]
+        return [zeros(e, *noise[k]) for k in noise["order"]]
 
     def lane_args(e, s=1):
         return frames(pe.rgb_static, e, s), frames(pe.rgb_gripper, e, s), zeros(e, s, prop_dim)
 
     replan_lang, replan_vision, act = build_policy_fns(model, cfg)
-    gumbel, u_mix, u_inv = draws(1)
+    plan_noise, u_mix, u_inv = draws(1)
+    plan_name = noise["order"][0]
     with torch.no_grad():
-        plan, goal = replan_lang(*lane_args(1), zeros(1, cfg.lang_dim), gumbel=gumbel)
+        plan, goal = replan_lang(*lane_args(1), zeros(1, cfg.lang_dim), **{plan_name: plan_noise})
     carry = zeros(ad.num_layers, 1, ad.hidden_size)
     specs = {
-        "replan_lang": (replan_lang, (*lane_args(1), zeros(1, cfg.lang_dim), gumbel), ("gumbel",)),
-        "replan_vision": (replan_vision, (*lane_args(1, 2), gumbel), ("gumbel",)),
+        "replan_lang": (replan_lang, (*lane_args(1), zeros(1, cfg.lang_dim), plan_noise), (plan_name,)),
+        "replan_vision": (replan_vision, (*lane_args(1, 2), plan_noise), (plan_name,)),
         "act": (act, (plan, goal, *lane_args(1), zeros(1, 1, 15), carry, u_mix, u_inv), ("u_mix", "u_inv")),
     }
     if lanes > 0:
@@ -226,7 +229,7 @@ def export_policy(
             *lane_args(e), zeros(e, 1, 15), zeros(e, cfg.lang_dim), zeros(e, d.plan_dim),
             zeros(e, cfg.visual_goal.latent_goal_features), zeros(ad.num_layers, e, ad.hidden_size),
             zeros(e, dtype=torch.bool), *draws(e),
-        ), NOISE_NAMES)
+        ), noise["order"])
     for name, (fn, args, noise_names) in specs.items():
         program = _export_one(model, fn, state, args, noise_names, name, cfg)
         program.example_inputs = None  # saved with it otherwise: a copy of the weights in every program

@@ -14,7 +14,8 @@ decoder carry, the cameras, and the noise.
 The programs take their noise as inputs. The runtime draws it from its own
 ``torch.Generator`` on the serving device, seeded as the live policy's, in
 the live policy's order and shapes (``meta.json``'s ``noise``): on a step
-that plans, one ``torch.rand`` through ``gumbel_of_uniform``; on every step
+that plans, the plan's noise (a discrete plan's one ``torch.rand`` through
+``gumbel_of_uniform``, a continuous plan's one ``torch.randn``); on every step
 the sampler's two ``torch.rand`` draws, mapped into (U_MIN, U_MAX) by
 ``map_uniforms`` (the map the sampler kernel applies to raw draws, rounded
 alike). So a served step gives the live step's action. ``step(...,
@@ -108,11 +109,18 @@ class _Artifact:
     def tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    @property
+    def plan_noise(self) -> str:
+        """The plan's noise: ``gumbel`` (a discrete plan) or ``normal``."""
+        return self.meta["noise"]["order"][0]
+
     def draw(self, name: str, lanes: int, generator: torch.Generator) -> torch.Tensor:
         """One draw of the live policy's noise ``name`` for ``lanes`` lanes,
         as the program takes it."""
-        spec = self.meta["noise"]
-        u = torch.rand((lanes, *spec[name]), generator=generator, device=self.device)
+        shape = (lanes, *self.meta["noise"][name])
+        if name == "normal":
+            return torch.randn(shape, generator=generator, device=self.device)
+        u = torch.rand(shape, generator=generator, device=self.device)
         return gumbel_of_uniform(u) if name == "gumbel" else u
 
     def mixture_uniforms(self, lanes: int, generator: torch.Generator):
@@ -196,20 +204,21 @@ class ServedPolicy:
     def step(self, obs: Dict, goal, noise: Optional[Dict[str, torch.Tensor]] = None) -> np.ndarray:
         """One env step. goal: instruction str, embedding array, or goal-obs dict.
 
-        noise: optional ``gumbel`` (used when the step plans) / ``u_mix`` /
+        noise: optional ``gumbel`` or ``normal`` (the plan's, as the artifact
+        names it in ``meta.json``; used when the step plans) / ``u_mix`` /
         ``u_inv`` tensors, the sampler's uniforms in (U_MIN, U_MAX), in place
         of the generator's draws.
         """
         art, noise = self._art, noise or {}
         rgb_static, rgb_gripper, rob_norm, rob_raw = art.split_obs([obs])
         if self._plan is None or self._step_count % self.replan_freq == 0:
-            gumbel = noise["gumbel"] if "gumbel" in noise else art.draw("gumbel", 1, self.generator)
-            gumbel = art.tensor(gumbel)
+            name = art.plan_noise
+            plan_noise = art.tensor(noise[name]) if name in noise else art.draw(name, 1, self.generator)
             if isinstance(goal, (str, np.ndarray, torch.Tensor)):
                 emb = self.lang_embeddings[goal] if isinstance(goal, str) else goal
                 emb = art.tensor(np.asarray(emb, np.float32).reshape(1, -1))
                 self._plan, self._goal = art.fn("replan_lang")(
-                    self.params, rgb_static, rgb_gripper, rob_norm, emb, gumbel
+                    self.params, rgb_static, rgb_gripper, rob_norm, emb, plan_noise
                 )
             else:
                 g_static, g_gripper, g_norm, _ = art.split_obs([goal])
@@ -219,7 +228,7 @@ class ServedPolicy:
 
                 self._plan, self._goal = art.fn("replan_vision")(
                     self.params, _cat(rgb_static, g_static), _cat(rgb_gripper, g_gripper),
-                    torch.cat([rob_norm, g_norm], dim=1), gumbel,
+                    torch.cat([rob_norm, g_norm], dim=1), plan_noise,
                 )
             self._carry = _zero_carry(self.meta["carry"], 1, self.device)
         if "u_mix" in noise:
@@ -276,8 +285,8 @@ class ServedBatchedPolicy:
              noise: Optional[Dict[str, torch.Tensor]] = None):
         """obs_batch: up to E env obs dicts. Returns (actions (n, 7), state).
 
-        noise: optional E-lane ``gumbel`` / ``u_mix`` / ``u_inv`` tensors in
-        place of the generator's draws.
+        noise: optional E-lane ``gumbel`` or ``normal`` (the plan's) /
+        ``u_mix`` / ``u_inv`` tensors in place of the generator's draws.
         """
         # The exported step is FIXED at lanes=E: pad an under-filled batch
         # (e.g. fewer eval chains than exported lanes) with the last obs and
@@ -295,7 +304,8 @@ class ServedBatchedPolicy:
             ])
             replan_mask = np.concatenate([np.asarray(replan_mask, bool), np.zeros((e - n,), bool)])
         rgb_static, rgb_gripper, rob_norm, rob_raw = art.split_obs(obs_batch)
-        gumbel = art.tensor(noise["gumbel"]) if "gumbel" in noise else art.draw("gumbel", e, self.generator)
+        name = art.plan_noise
+        plan_noise = art.tensor(noise[name]) if name in noise else art.draw(name, e, self.generator)
         if "u_mix" in noise:
             u_mix, u_inv = art.tensor(noise["u_mix"]), art.tensor(noise["u_inv"])
         else:
@@ -304,6 +314,6 @@ class ServedBatchedPolicy:
         actions, plan, goal, carry = self._step(
             self.params, rgb_static, rgb_gripper, rob_norm, rob_raw,
             art.tensor(np.asarray(lang_embs, np.float32)), plan, goal, carry,
-            art.tensor(np.asarray(replan_mask, bool)), gumbel, u_mix, u_inv,
+            art.tensor(np.asarray(replan_mask, bool)), plan_noise, u_mix, u_inv,
         )
         return actions.cpu().numpy()[:n], (plan, goal, carry)

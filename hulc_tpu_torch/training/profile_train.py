@@ -1,8 +1,9 @@
 """Where the training step spends its time on the GPU.
 
-    python -m hulc_tpu_torch.training.profile_train [--steps 5] [--seed 0] [--out DIR]
+    python -m hulc_tpu_torch.training.profile_train [--steps 5] [--seed 0] [--config hulc] [--out DIR]
 
-Builds a full-width ``hulc`` ``Trainer`` (random weights from ``--seed``)
+Builds a full-width ``Trainer`` of the ``--config`` preset (``hulc`` or
+``mcil``; random weights from ``--seed``)
 and a synthetic loader-fused uint8 batch of 32 vision and 32 language
 windows of 32 frames (the JAX package's bench shape), takes warm-up steps,
 then runs ``--steps`` steps of ``Trainer.train_step`` under
@@ -20,7 +21,7 @@ them, the device operations launched per step (kernels, copies, fills),
 the optimizer tail (``AdamLowp.step``'s span: the Adam kernel and the
 gradient norm's finish launch), and the device time of the decoder RNN's
 recurrence by part (its forward and backward kernels, the dW product, the
-bias sum). With ``--out`` it also writes
+bias sum), and of the plan recognition BiRNN's (``mcil``) the same way. With ``--out`` it also writes
 the Chrome trace there. Needs a CUDA device; TF32 is off, as in the fp32
 reference.
 """
@@ -44,7 +45,7 @@ from torch.profiler import ProfilerActivity, profile
 from hulc_tpu_torch.config import HulcConfig, get_config
 from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, profile_steps
 from hulc_tpu_torch.models.hulc import ModalityBatch
-from hulc_tpu_torch.ops.recurrence import SPANS
+from hulc_tpu_torch.ops.recurrence import BIRNN_SPANS, SPANS
 from hulc_tpu_torch.training.optimizers import OPTIMIZER_SPAN
 from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
@@ -156,15 +157,15 @@ def span_part(events, name: str, steps: int) -> dict:
     }
 
 
-def recurrence_split(events, steps: int) -> dict:
+def recurrence_split(events, steps: int, spans: Dict[str, str] = SPANS) -> dict:
     """The decoder RNN's recurrence by part, in a Chrome trace: what was
     launched inside each ``record_function`` span of
     ``ops.recurrence.SPANS`` (the forward kernel, the backward kernel, the
-    one dW product, the bias sum), as ``span_part`` gives it. Then the
-    recurrence's device ms per step and its share of all the device time in
-    the window."""
+    one dW product, the bias sum; the BiRNN's with ``BIRNN_SPANS``), as
+    ``span_part`` gives it. Then the recurrence's device ms per step and
+    its share of all the device time in the window."""
     device_us = sum(e.get("dur", 0) for e in events if e.get("cat") in DEVICE_CATS)
-    parts = {key: span_part(events, name, steps) for key, name in SPANS.items()}
+    parts = {key: span_part(events, name, steps) for key, name in spans.items()}
     total = sum(p["device_ms_per_step"] for p in parts.values())
     return {**parts, "device_ms_per_step": total, "share_of_device": total * 1e3 * steps / device_us if device_us else None}
 
@@ -196,18 +197,20 @@ def trace_breakdown(step, steps: int) -> dict:
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     return {"h2d_copies_per_step": h2d_sites(events, steps), "device_launches_per_step": device_launches(events, steps),
-            "optimizer": span_part(events, OPTIMIZER_SPAN, steps), "recurrence": recurrence_split(events, steps)}
+            "optimizer": span_part(events, OPTIMIZER_SPAN, steps), "recurrence": recurrence_split(events, steps),
+            "birnn_recurrence": recurrence_split(events, steps, BIRNN_SPANS)}
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--config", default="hulc", help="the preset: hulc or mcil")
     p.add_argument("--out", type=pathlib.Path, default=None)
     args = p.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("hulc")
+    cfg = get_config(args.config)
     trainer = Trainer(cfg, TrainerConfig(seed=args.seed), device="cuda")
     trainer.init_state(1)
     batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, args.seed, "cuda")
@@ -231,7 +234,7 @@ def main(argv=None) -> None:
     unprofiled_ms = statistics.median(host)
     result = profile_steps(step, args.steps, trace)
     print(json.dumps({
-        "step": "Trainer.train_step", "batch": 2 * BATCH_PER_MOD, "seq": SEQ,
+        "step": "Trainer.train_step", "config": args.config, "batch": 2 * BATCH_PER_MOD, "seq": SEQ,
         "card": torch.cuda.get_device_name(0), "unprofiled_step_ms": unprofiled_ms,
         "unprofiled_idle_share": 1.0 - result["device_ms_per_step"] / unprofiled_ms, **result,
         **trace_breakdown(step, args.steps),

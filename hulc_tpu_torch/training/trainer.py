@@ -3,8 +3,8 @@
 ``Trainer(cfg, tcfg)`` builds the model on the card (CUDA unless the
 caller passes ``device``), randomly initialized from ``tcfg.seed``, in
 train mode, and one ``torch.Generator`` (seeded ``tcfg.seed + 1``) from
-which the train step draws its random shifts, the plan's Gumbel noise and
-every dropout mask. ``init_state`` builds the optimizer (``AdamLowp``: bf16
+which the train step draws its random shifts, the plan's noise and every
+dropout mask. ``init_state`` builds the optimizer (``AdamLowp``: bf16
 moments, fp32 math, the JAX trainer's default) over the learning-rate
 schedule.
 
@@ -12,7 +12,7 @@ schedule.
   (``training.preprocess``), ``HulcModel.train_losses``, the backward and
   the Adam update, which also returns the global gradient norm
   (``grad_norm``). The losses stay on the device. Tests pass the shifts and
-  the plan noise JAX drew (``shifts=``, ``gumbel=``).
+  the plan noise JAX drew (``shifts=``, ``gumbel=`` or ``normal=``).
 * ``val_step(raw_batch, kl_beta)``: the eval preprocess and
   ``HulcModel.val_metrics``, the scalar metrics only; ``validate`` runs it
   over a val loader in eval mode under ``torch.no_grad`` (the model is back
@@ -174,6 +174,7 @@ class Trainer:
         *,
         shifts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
         gumbel=None,
+        normal=None,
     ) -> Dict[str, torch.Tensor]:
         """One optimizer step on a raw uint8 batch; returns the losses and
         ``grad_norm``."""
@@ -184,7 +185,7 @@ class Trainer:
             generator=self.generator, shifts=shifts, use_kernels=self.use_kernels,
         )
         self.optimizer.zero_grad(set_to_none=True)
-        losses = self.model.train_losses(batch, kl_beta, generator=self.generator, gumbel=gumbel)
+        losses = self.model.train_losses(batch, kl_beta, generator=self.generator, gumbel=gumbel, normal=normal)
         losses["total_loss"].backward()
         losses["grad_norm"] = self.optimizer.step()
         self.step += 1

@@ -272,12 +272,12 @@ def test_recurrence_plan_raises_when_the_card_cannot_hold_it(hidden, batch, seq,
 
 
 def test_recurrence_plan_matches_the_cuda_source():
-    """The plan's geometry is csrc/rnn_relu.cu's: its constants, and the
+    """The plan's geometry is csrc/rnn.cu's: its constants, and the
     entry points' argument counts in kernels.py (the sizes, then the plan's
     five fields)."""
     import re
 
-    src = (kernels.CSRC_DIR / "rnn_relu.cu").read_text()
+    src = (kernels.CSRC_DIR / "rnn.cu").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))

@@ -58,9 +58,10 @@ def port_model_from_jax(params, port_cfg):
 
 
 def jax_mixture_uniforms(key, lanes, cfg):
-    """The uniforms the JAX decoder's act() draws from ``key``."""
+    """The uniforms the JAX decoder's act() draws from ``key`` (the gripper
+    dimension is not sampled where the gripper head is discrete)."""
     ad = cfg.action_decoder
-    shape = (lanes, 1, ad.out_features - 1, ad.n_mixtures)
+    shape = (lanes, 1, ad.out_features - 1 if ad.discrete_gripper else ad.out_features, ad.n_mixtures)
     k_mix, k_inv = jax.random.split(key)
     u_mix = jax.random.uniform(k_mix, shape, jnp.float32, minval=U_MIN, maxval=U_MAX)
     u_inv = jax.random.uniform(k_inv, shape[:-1], jnp.float32, minval=U_MIN, maxval=U_MAX)
@@ -73,9 +74,19 @@ def jax_gumbel(key, lanes, cfg):
     return to_torch(jax.random.gumbel(key, (lanes, d.category_size, d.class_size)))
 
 
+def jax_plan_noise(key, lanes, cfg):
+    """The noise the JAX plan sample draws from ``key``, under the port's
+    name for it: a discrete plan's Gumbel noise, a continuous plan's
+    standard-normal draw."""
+    d = cfg.distribution
+    if d.kind == "discrete":
+        return {"gumbel": jax_gumbel(key, lanes, cfg)}
+    return {"normal": to_torch(jax.random.normal(key, (lanes, d.plan_features), jnp.float32))}
+
+
 def jax_batched_step_noise(key, lanes, cfg):
     """The noise of one JAX lockstep step (``build_batched_step``) from its
     key, as the port's ``BatchedHulcPolicy.step`` takes it."""
     k_plan, k_act = jax.random.split(key)
     u_mix, u_inv = jax_mixture_uniforms(k_act, lanes, cfg)
-    return {"gumbel": jax_gumbel(k_plan, lanes, cfg), "u_mix": u_mix, "u_inv": u_inv}
+    return {**jax_plan_noise(k_plan, lanes, cfg), "u_mix": u_mix, "u_inv": u_inv}
