@@ -204,8 +204,26 @@ it fails:
    ACTION_ATOL; and the policy is exported at ``--lanes`` lanes and served
    bit-equal with the same launches per step (as in phase 13).
 
+15. hulc_depth: the RGB-D preset at full width (``--seed`` weights, JAX's
+   50,293,559 parameters): the depth noise (B.10) against its plain
+   version bit for bit in both modes at the train step's shapes (the static
+   camera's gamma noise at (64, 32, 200, 200), the gripper's gaussian
+   noise at (64, 32, 84, 84)), also written into the draw's buffer, and at
+   945 elements 4 bytes off alignment; its device time beside the plain
+   version's, its bound and, for the gaussian mode, ``torch.add(x, z,
+   alpha=0.01)``. Then the main path, launch counts zeroed just before and
+   read just after: ``--train-steps`` train steps at 2B = 64, S = 32 on a
+   device-resident batch with depth frames (each launches B.10 twice and
+   B.2 / B.2' twice, for both static towers), a val step (B.10 not at all),
+   and ``fit`` for 2 epochs of 2 steps on a 200 / 84 px fixture with depth
+   frames (one loader worker, the DeviceLoader, validation and
+   checkpoints) under torch.profiler for seq/s and the device's idle
+   share. Then one train step against ``use_kernels=False`` on the same
+   shifts, depth noise and plan noise (as in phase 9) and one val step (as
+   in phase 12).
+
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
-training, evaluator, training-loop, served and mcil paths) and, last,
+training, evaluator, training-loop, served, mcil and hulc_depth paths) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1799,10 +1817,11 @@ def drive_training(trainer, batch, kl_beta, steps):
     return losses, host, events
 
 
-def train_step_grads(cfg, seed, device, state_dict, batch, shifts, plan_noise, use_kernels, benchmark=False,
-                     trainer=None):
+def train_step_grads(cfg, seed, device, state_dict, batch, shifts, depth_noise, plan_noise, use_kernels,
+                     benchmark=False, trainer=None):
     """(losses, gradients by name) of one step from ``state_dict`` on the
-    plan noise ``plan_noise`` ({"gumbel": ...} or {"normal": ...}), with
+    shifts, the depth noise (None: no depth camera) and the plan noise
+    ``plan_noise`` ({"gumbel": ...} or {"normal": ...}), with
     cuDNN deterministic or, with ``benchmark``, on the algorithms it times
     fastest; on ``trainer`` (built with ``use_kernels``, its state
     initialized) when given, as the gradients depend on the weights and
@@ -1814,7 +1833,7 @@ def train_step_grads(cfg, seed, device, state_dict, batch, shifts, plan_noise, u
         trainer = Trainer(cfg, TrainerConfig(seed=seed), device, use_kernels=use_kernels)
         trainer.init_state(1)
     trainer.model.load_state_dict(state_dict)
-    losses = trainer.train_step(batch, cfg.loss.kl_beta, shifts=shifts, **plan_noise)
+    losses = trainer.train_step(batch, cfg.loss.kl_beta, shifts=shifts, depth_noise=depth_noise, **plan_noise)
     grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
     return losses, grads
@@ -1843,7 +1862,7 @@ def ulp_noise(module, name, seed):
         setattr(module, name, plain)
 
 
-def separate_plan_ties(model, cfg, batch, shifts, gumbel):
+def separate_plan_ties(model, cfg, batch, shifts, depth_noise, gumbel):
     """The plan noise with every near tie of the posterior's pick pulled
     apart: where the top two of gumbel + logits are closer than
     PLAN_TIE_MARGIN, the leader's noise grows by the margin. Float noise
@@ -1853,8 +1872,8 @@ def separate_plan_ties(model, cfg, batch, shifts, gumbel):
     from hulc_tpu_torch.training.preprocess import preprocess_batch
 
     with torch.no_grad():
-        prep = preprocess_batch(cfg, batch, train=True, shifts=shifts)["fused"]
-        emb, _ = model.encode(prep.rgb_obs(), prep.robot_obs)
+        prep = preprocess_batch(cfg, batch, train=True, shifts=shifts, depth_noise=depth_noise)["fused"]
+        emb, _ = model.encode(prep.rgb_obs(), prep.robot_obs, prep.depth_obs())
         state, _ = model.plan_recognition(emb)
         top = (gumbel + state.logit.reshape(gumbel.shape)).topk(2, dim=-1)
     near = (top.values[..., 0] - top.values[..., 1]) < PLAN_TIE_MARGIN
@@ -1864,8 +1883,8 @@ def separate_plan_ties(model, cfg, batch, shifts, gumbel):
 
 
 def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train plain path"):
-    """One step from the same params, batch, shifts and plan noise through
-    the kernel path and the plain path (recognition dropout 0, cuDNN
+    """One step from the same params, batch, shifts, depth noise and plan
+    noise through the kernel path and the plain path (recognition dropout 0, cuDNN
     deterministic, a discrete plan's ties pulled apart); losses per key and
     gradients per parameter must agree.
 
@@ -1896,9 +1915,12 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     pe, d = cfg.perceptual_encoder, cfg.distribution
     shifts = {"fused": {cam: draw_shifts(n * s, getattr(pe, cam).shift_pad, gen, device)
                         for cam in ("rgb_static", "rgb_gripper")}}
+    depth = {cam: torch.randn(getattr(fused, cam).shape, generator=gen, device=device)
+             for cam in ("depth_static", "depth_gripper") if getattr(pe, cam) is not None}
+    depth_noise = {"fused": depth} if depth else None
     if d.kind == "discrete":
         gumbel, ties = separate_plan_ties(
-            model, cfg, batch, shifts, gumbel_noise((n, d.category_size, d.class_size), gen, device)
+            model, cfg, batch, shifts, depth_noise, gumbel_noise((n, d.category_size, d.class_size), gen, device)
         )
         plan_noise = {"gumbel": gumbel}
         ties_txt = f"{ties} plan ties of {n * d.category_size} pulled apart by {PLAN_TIE_MARGIN}"
@@ -1906,7 +1928,7 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
         plan_noise, ties = {"normal": torch.randn((n, d.plan_features), generator=gen, device=device)}, 0
         ties_txt = "a continuous plan: no ties"
     state = {k: v.clone() for k, v in model.state_dict().items()}
-    args = (cfg0, seed, device, state, batch, shifts, plan_noise)
+    args = (cfg0, seed, device, state, batch, shifts, depth_noise, plan_noise)
     lk, gk = train_step_grads(*args, use_kernels=True)
     lp, gp = train_step_grads(*args, use_kernels=False)
 
@@ -2082,7 +2104,7 @@ def separate_val_ties(model, batch, noise):
     with torch.no_grad():
         for scope, mod in batch.items():
             n = noise[scope]
-            emb, _ = model.encode(mod.rgb_obs(), mod.robot_obs)
+            emb, _ = model.encode(mod.rgb_obs(), mod.robot_obs, mod.depth_obs())
             goal = model.encode_language_goal(mod.lang) if "lang" in scope else model.encode_visual_goal(emb[:, -1])
             states = {"pp": model.plan_proposal(emb[:, 0], goal), "pr": model.plan_recognition(emb)[0]}
             for tag, state in states.items():
@@ -2124,7 +2146,7 @@ def check_window_kernels(model, batch, noise, label="training loop"):
         with torch.no_grad():
             for scope, mod in batch.items():
                 n = noise[scope]
-                emb, _ = model.encode(mod.rgb_obs(), mod.robot_obs)
+                emb, _ = model.encode(mod.rgb_obs(), mod.robot_obs, mod.depth_obs())
                 goal = model.encode_language_goal(mod.lang) if "lang" in scope else model.encode_visual_goal(emb[:, -1])
                 states = {"pp": model.plan_proposal(emb[:, 0], goal), "pr": model.plan_recognition(emb)[0]}
                 actions = world_to_tcp_frame(mod.actions, mod.state_info_robot_obs) if c.gripper_control else mod.actions
@@ -2294,7 +2316,7 @@ def timed_staging(device):
     return TimedStaging(device)
 
 
-def check_upload(trainer, host_batches):
+def check_upload(trainer, host_batches, label="training loop"):
     """DeviceLoader through the trainer's staging pool, with ``host_batches``
     (at least 3) uploaded back to back and no host wait, all queued behind
     UPLOAD_SPIN_S of device spin on the copy stream: each slot is staged
@@ -2324,7 +2346,7 @@ def check_upload(trainer, host_batches):
                     fail(f"upload {i} of {len(host_batches)} back to back: {scope}.{name} on the device differs "
                          f"from its host batch")
                 fields += 1
-    print(f"[training loop] {len(host_batches)} batches uploaded back to back through the two staging slots behind "
+    print(f"[{label}] {len(host_batches)} batches uploaded back to back through the two staging slots behind "
           f"{1e3 * UPLOAD_SPIN_S:.0f} ms of spin on the copy stream: all {fields} fields byte-equal to their host "
           f"batches on the device")
     return {"batches": len(host_batches), "fields": fields}
@@ -3235,6 +3257,242 @@ def run_mcil(seed, lanes, train_steps, card):
 
 
 # --------------------------------------------------------------------------
+# phase 15: hulc_depth at full width
+# --------------------------------------------------------------------------
+
+DEPTH_PARAMS = 50_293_559  # JAX's count for hulc_depth, initialized on a batch with depth frames
+# B.10's two modes: the static depth camera's gamma noise, the gripper's gaussian noise (std 0.01)
+DEPTH_MODES = (("depth_static", "gamma", 0.0), ("depth_gripper", "gaussian", 0.01))
+# a hulc_depth train step's launches of B.10 (one per depth camera) and of
+# B.2 / B.2' (the RGB and the depth static towers)
+DEPTH_STEP_LAUNCHES = {"hulc_depth_noise": 2, "hulc_spatial_softmax": 2, "hulc_spatial_softmax_bwd": 2}
+DEPTH_FIT_EPOCHS, DEPTH_FIT_STEPS, DEPTH_FIT_VAL_BATCHES = 2, 2, 1
+
+
+def check_depth_noise(cfg, seed, card):
+    """B.10 against its plain version bit for bit in both modes, at the
+    train step's shapes (also writing into the draw's buffer, as the train
+    step does) and at an odd size (945 elements, n % 4 = 1) on bases 4
+    bytes off 16-byte alignment; then its device time beside the plain
+    version's, its bound and, for the gaussian mode, the one PyTorch call
+    that computes it, ``torch.add(x, z, alpha=std)``, each by CUDA events
+    with the host's launch cost kept out (``kernel_times.event_ms``: late in
+    this process the profiler drops most of these launches). Returns ({row:
+    max abs err}, {row: timing})."""
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
+    from hulc_tpu_torch.ops.depth_noise import prep_depth, prep_depth_plain
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 61)
+    pe = cfg.perceptual_encoder
+    timing, library_err = {}, {}
+    for cam, mode, std in DEPTH_MODES:
+        px = getattr(pe, cam).input_size
+        shape = (2 * BATCH_PER_MOD, SEQ, px, px)
+        x = 0.1 + 4.9 * torch.rand(shape, generator=gen, device="cuda")
+        z = torch.randn(shape, generator=gen, device="cuda")
+        want = prep_depth_plain(x, z, mode, std)
+        if not torch.equal(prep_depth(x, z, mode, std), want):
+            fail(f"depth noise kernel ({mode}) at {shape}: max abs err {max_abs(prep_depth(x, z, mode, std), want)}")
+        zc = z.clone()
+        if not (prep_depth(x, zc, mode, std, out=zc) is zc and torch.equal(zc, want)):
+            fail(f"depth noise kernel ({mode}) at {shape}, written into the draw's buffer, differs from its plain version")
+        odd = (3, 5, 7, 9)
+        xo, zo = (t.reshape(-1)[1:1 + 945].reshape(odd) for t in (x, z))
+        if not (xo.data_ptr() % 16 and torch.equal(prep_depth(xo, zo, mode, std), prep_depth_plain(xo, zo, mode, std))):
+            fail(f"depth noise kernel ({mode}) at {odd}, 4 bytes off alignment, differs from its plain version")
+        out = torch.empty_like(x)
+        n = x.numel()
+        t_bound, by = bound(3 * 4 * n, (5 if mode == "gamma" else 2) * n)
+        row = {
+            "shape": list(shape), "mode": mode,
+            "ms": event_ms(lambda: prep_depth(x, z, mode, std, out=out)),
+            "plain_ms": event_ms(lambda: prep_depth_plain(x, z, mode, std)),
+            "call_ms": call_ms(lambda: prep_depth(x, z, mode, std, out=out), 20),
+            "plain_call_ms": call_ms(lambda: prep_depth_plain(x, z, mode, std), 20),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+        }
+        if mode == "gaussian":
+            row["library_ms"] = event_ms(lambda: torch.add(x, z, alpha=std))
+            library_err[mode] = max_abs(torch.add(x, z, alpha=std), want)
+        timing["depth_noise" if mode == "gamma" else "depth_noise_gaussian"] = row
+        del x, z, zc, want, out
+    torch.cuda.empty_cache()
+    for name, t in timing.items():
+        lib = "" if t["library_ms"] is None else (
+            f", torch.add(x, z, alpha={DEPTH_MODES[1][2]}) {t['library_ms']:.6f} ms (max abs err from the plain "
+            f"version {library_err['gaussian']:.3g}: it rounds x + alpha * z once)")
+        print(f"[depth] B.10 {t['mode']} at {tuple(t['shape'])}: bit-equal to its plain version (also in the draw's "
+              f"buffer, and at 945 elements 4 bytes off alignment); CUDA events: kernel {t['ms']:.6f} ms, plain "
+              f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound{lib}; per call with the host's launch cost "
+              f"kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms ({card})")
+    return {"depth_noise": 0.0}, timing
+
+
+def run_depth_fit(cfg, seed, card):
+    """``Trainer.fit`` at full width on a 200 / 84 px fixture with depth
+    frames: DEPTH_FIT_EPOCHS epochs of DEPTH_FIT_STEPS steps, one loader
+    worker, the batches through the trainer's DeviceLoader, validation
+    (DEPTH_FIT_VAL_BATCHES an epoch) and checkpoints, under torch.profiler
+    for the device's idle share; then three fused batches with their depth
+    frames uploaded back to back through the trainer's staging slots,
+    byte-equal on the device (``check_upload``). Returns (report, {kernel:
+    launches in validation})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hulc_tpu_torch.data.fixtures import make_fixture_dataset
+    from hulc_tpu_torch.data.loader import make_loaders
+    from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, device_events, device_ms as events_ms, kind_of
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        root = make_fixture_dataset(tmp / "data", num_episodes=FIT_EPISODES, episode_len=FIT_EPISODE_LEN,
+                                    small=False, seed=seed)
+        write_s = time.perf_counter() - t0
+        train = make_loaders(cfg, root, batch_size=FIT_BATCH, fuse=True, seed=seed, num_workers=1)
+        val = make_loaders(cfg, root, split="validation", batch_size=FIT_BATCH, deterministic=True)
+        host = train._make()["fused"]
+        for cam, px in (("depth_static", 200), ("depth_gripper", 84)):
+            d = getattr(host, cam)
+            if d is None or d.dtype != np.float32 or d.shape != (2 * FIT_BATCH, 32, px, px):
+                fail(f"the fused fixture batch's {cam} is {None if d is None else (d.dtype, d.shape)}")
+        batch_mb = sum(t.nbytes for t in host if t is not None) / 1e6
+        trainer = Trainer(cfg, TrainerConfig(run_dir=str(tmp / "run"), seed=seed, log_every=1,
+                                             val_max_batches=DEPTH_FIT_VAL_BATCHES), "cuda")
+        val_launches, val_calls = collections.Counter(), []
+        count_validation(trainer, val_launches, val_calls)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(WINDOW_PAD_S)  # the profiler drops device activity at a window's edges
+            t0 = time.perf_counter()
+            steps = trainer.fit(FirstBatches(train, DEPTH_FIT_STEPS), val, max_epochs=DEPTH_FIT_EPOCHS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(WINDOW_PAD_S)
+        if steps != DEPTH_FIT_EPOCHS * DEPTH_FIT_STEPS:
+            fail(f"hulc_depth fit took {steps} steps, expected {DEPTH_FIT_EPOCHS * DEPTH_FIT_STEPS}")
+        events = device_events(prof)
+        busy = events_ms([e for e in events if kind_of(e.key) != "copies and fills"])
+        copies = events_ms([e for e in events if kind_of(e.key) == "copies and fills"])
+        recorded = sum(e.count for e in events if "depth_noise_kernel" in e.key)
+        records = [json.loads(line) for line in (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
+        if {r["prefix"] for r in records} != {"train", "val", "epoch"}:
+            fail(f"hulc_depth fit: metrics.jsonl has the prefixes {sorted({r['prefix'] for r in records})}")
+        for r in records:
+            if not all(np.isfinite(v) for k, v in r.items() if k != "prefix"):
+                fail(f"hulc_depth fit: a value in metrics.jsonl is not finite: {r}")
+            if r["prefix"] == "val" and sorted(set(r) - {"step", "prefix"}) != VAL_KEYS:
+                fail(f"hulc_depth fit: the val line's keys are not JAX's {VAL_KEYS}")
+        epochs = [r for r in records if r["prefix"] == "epoch"]
+        upload = check_upload(trainer, [train._make() for _ in range(3)], label="depth fit")
+        del trainer
+    report = {"fixture_write_s": write_s, "batch_mb": batch_mb, "steps": steps, "wall_ms": wall_ms,
+              "kernel_busy_ms": busy, "copy_ms": copies, "idle_share": 1.0 - busy / wall_ms,
+              "profiled_depth_noise_launches": recorded, "upload_check": upload,
+              "epochs": [{k: r[k] for k in ("epoch_time_s", "seq_per_sec")} for r in epochs]}
+    print(f"[depth fit] fit on a 200 / 84 px fixture with depth frames ({FIT_EPISODES} episodes of {FIT_EPISODE_LEN} "
+          f"frames written in {write_s:.2f} s; fused batches of 2x{FIT_BATCH} windows of 32 frames, {batch_mb:.1f} MB, "
+          f"one loader worker, through the DeviceLoader): {DEPTH_FIT_EPOCHS} epochs of {DEPTH_FIT_STEPS} steps with "
+          f"validation ({DEPTH_FIT_VAL_BATCHES} batch an epoch) and checkpoints in {wall_ms:.4f} ms under "
+          f"torch.profiler; epochs {[round(r['seq_per_sec'], 3) for r in epochs]} seq/s (train steps only, first "
+          f"epoch with the first upload); kernels busy {busy:.4f} ms, copies and fills {copies:.4f} ms, device idle "
+          f"{100 * report['idle_share']:.2f}% of the wall; the profiler recorded {recorded} of the "
+          f"{2 * steps} B.10 launches{'' if recorded == 2 * steps else ', so busy is short of the truth'} ({card})")
+    return report, dict(val_launches)
+
+
+def run_depth(seed, train_steps, card):
+    """Phase 15: the ``hulc_depth`` model at full width. Returns (summary,
+    {kernel symbol: launches on the main path}, {row: max abs err}, {row:
+    timing})."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("hulc_depth")
+    model = make_model(cfg, "cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != DEPTH_PARAMS:
+        fail(f"the hulc_depth model has {n_params} parameters, JAX's has {DEPTH_PARAMS}")
+    pe = cfg.perceptual_encoder
+    print(f"[depth] hulc_depth preset, {n_params} parameters, random init from seed {seed}: RGB and depth towers at "
+          f"{pe.rgb_static.input_size} / {pe.rgb_gripper.input_size} px, a {pe.latent_size}-d latent, the decoder on "
+          f"{cfg.action_decoder.perceptual_emb_slice}")
+
+    # 1. B.10 against its plain version, and its times
+    errs, timing = check_depth_noise(cfg, seed, card)
+
+    # 2-4. the main path: train steps, a val step, fit
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cuda")
+    val_batch = split_fused(batch)
+    trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    trainer.model.load_state_dict(model.state_dict())
+    trainer.init_state(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_losses, host, events = drive_training(trainer, batch, cfg.loss.kl_beta, train_steps)
+    per_step = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer.model.eval()
+    with torch.no_grad():
+        val = trainer.val_step(val_batch, cfg.loss.kl_beta, generator=torch.Generator(device="cuda").manual_seed(seed))
+    trainer.model.train()
+    torch.cuda.synchronize()
+    val_launches = {k: n - per_step[k] for k, n in launch_counts().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    fit, fit_val_launches = run_depth_fit(cfg, seed, card)
+    launches = launch_counts()
+    print(f"[depth main path] launches: {launches}")
+    if not all(per_step[k] > 0 for k in TRAIN_KERNELS):
+        fail(f"a kernel of the training path was never launched by the hulc_depth train steps: {per_step}")
+    if any(per_step[k] != n * train_steps for k, n in DEPTH_STEP_LAUNCHES.items()):
+        fail(f"{train_steps} hulc_depth train steps launched {({k: per_step[k] for k in DEPTH_STEP_LAUNCHES})}, not "
+             f"{({k: n * train_steps for k, n in DEPTH_STEP_LAUNCHES.items()})}")
+    if val_launches["hulc_depth_noise"] or fit_val_launches.get("hulc_depth_noise", 0):
+        fail(f"validation launched the depth noise kernel: the val step {val_launches['hulc_depth_noise']} times, "
+             f"fit's validation {fit_val_launches.get('hulc_depth_noise', 0)} times")
+    if launches["hulc_depth_noise"] != 2 * (train_steps + DEPTH_FIT_EPOCHS * DEPTH_FIT_STEPS):
+        fail(f"the depth noise kernel launched {launches['hulc_depth_noise']} times on the hulc_depth path")
+    for i, losses in enumerate(step_losses):
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"hulc_depth train step {i}: a loss is not finite: {losses}")
+    if not all(np.isfinite(float(v)) for v in val.values()):
+        fail(f"hulc_depth val step: a metric is not finite: {val}")
+    print("[depth main path] " + "; ".join(
+        f"step {i}: total {l['total_loss']:.5f} action {l['action_loss']:.5f} kl {l['kl_loss']:.6f} "
+        f"clip {l['lang_clip_loss']:.5f} grad_norm {l['grad_norm']:.5f}" for i, l in enumerate(step_losses)))
+    step_ms, event_ms_ = statistics.median(host[2:]), statistics.median(events[2:])
+    print(f"[timing] hulc_depth train step (2B={2 * BATCH_PER_MOD}, S={SEQ}, median of {len(host) - 2} after 2 "
+          f"warm-ups): host clock {step_ms:.4f} ms, CUDA events {event_ms_:.4f} ms, "
+          f"{2 * BATCH_PER_MOD / step_ms * 1e3:.2f} seq/s; all steps host {[round(t, 4) for t in host]} ms; peak "
+          f"memory {peak_gb:.2f} GB; the val step launched B.10 {val_launches['hulc_depth_noise']} times ({card})")
+
+    # the main path against the plain path
+    train_check = compare_train_plain(cfg, model, batch, seed, label="hulc_depth train plain path")
+    val_trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    val_trainer.model.load_state_dict(model.state_dict())
+    val_check = compare_val_plain(cfg, val_trainer, seed, val_batch, label="hulc_depth")
+    del val_trainer, model, batch, val_batch
+    torch.cuda.empty_cache()
+    summary = {
+        "parameters": n_params,
+        "train_step": {"host_ms": step_ms, "event_ms": event_ms_, "steps_host_ms": host,
+                       "seq_per_s": 2 * BATCH_PER_MOD / step_ms * 1e3, "peak_memory_gb": peak_gb,
+                       "plain_path": train_check},
+        "val_step": {**val_check, "depth_noise_launches": val_launches["hulc_depth_noise"]},
+        "fit": fit, "card": card,
+    }
+    return summary, launches, errs, timing
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -3273,6 +3531,7 @@ KERNEL_INFO = {
     # B.9: one bidirectional layer, two launches of B.8's kernel (its launches count under B.8 too)
     "birnn_tanh_fwd": ("hulc_birnn_tanh_fwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:305"),
     "birnn_tanh_bwd": ("hulc_birnn_tanh_bwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:305"),
+    "depth_noise": ("hulc_depth_noise", "hulc_tpu_torch/csrc/depth_noise.cu", "hulc_tpu/training/preprocess.py:58"),
 }
 
 
@@ -3291,6 +3550,7 @@ EXTRA_TIMINGS = {
     "mixture_nll_fwd": {"no_grad": "mixture_nll_fwd_no_grad"},
     "rnn_relu_fwd": {"at_64_lanes": "rnn_relu_fwd_64_lanes", "at_1_lane": "rnn_relu_fwd_1_lane"},
     "rnn_relu_bwd": {"with_weight_grads": "rnn_relu_backward_all"},
+    "depth_noise": {"gaussian": "depth_noise_gaussian"},
 }
 
 
@@ -3515,15 +3775,21 @@ def main(argv=None) -> int:
     errs.update({k: max(errs.get(k, 0.0), v) for k, v in mcil_errs.items()})
     timing.update(mcil_timing)
 
+    # ---- 15. hulc_depth at full width ----------------------------------------
+    depth, depth_launches, depth_errs, depth_timing = run_depth(args.seed, args.train_steps, card)
+    errs.update({k: max(errs.get(k, 0.0), v) for k, v in depth_errs.items()})
+    timing.update(depth_timing)
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
-            + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol],
+            + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
+            "launches_depth": depth_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -3535,6 +3801,7 @@ def main(argv=None) -> int:
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
+        "hulc_depth": depth,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))

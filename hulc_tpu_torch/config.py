@@ -1,12 +1,14 @@
-"""Config dataclasses and the ``hulc``, ``mcil`` and ``*_debug`` presets.
+"""Config dataclasses and the ``hulc``, ``mcil``, ``hulc_depth`` and ``*_debug`` presets.
 
 A copy of the JAX package's config (hulc_tpu/config.py) for the port: the
 same frozen dataclasses, field names and defaults, the same ``resolve()``
 size inference, so a preset means the same model in both packages. Only
 ``HulcConfig.dtype`` differs: it maps ``compute_dtype`` to a torch dtype.
 
-The other presets (gcbc, depth, tactile, CLIP, state-only) and the
-dotted-path overrides wait for the slices that port their modules.
+The other presets (gcbc, tactile, CLIP, state-only) and the dotted-path
+overrides wait for the slices that port their modules. ``hulc_depth`` has
+no debug preset, as in the JAX package: its ``_debug`` swaps in two RGB
+cameras, which would drop the depth towers.
 """
 
 from __future__ import annotations
@@ -229,6 +231,22 @@ def mcil_config(**overrides) -> HulcConfig:
     return dataclasses.replace(base, **overrides).resolve()
 
 
+def hulc_depth_config(**overrides) -> HulcConfig:
+    """RGB-D variant (conf/datamodule/observation_space/lang_rgbd_*): a
+    depth tower beside each RGB camera, unshifted; the decoder reads the RGB
+    gripper camera's slice of the 256-d latent."""
+    base = HulcConfig(
+        perceptual_encoder=PerceptualEncoderConfig(
+            rgb_static=VisionEncoderConfig(),
+            rgb_gripper=VisionEncoderConfig(kind="nature_cnn", input_size=84, shift_pad=4),
+            depth_static=VisionEncoderConfig(num_channels=1, shift_pad=0),
+            depth_gripper=VisionEncoderConfig(kind="nature_cnn", input_size=84, num_channels=1, shift_pad=0),
+        ),
+        action_decoder=ActionDecoderConfig(perceptual_emb_slice=(128, 192)),
+    )
+    return dataclasses.replace(base, **overrides).resolve()
+
+
 def _debug(cfg: HulcConfig) -> HulcConfig:
     """Tiny sizes for fast tests: small cams, small hidden dims (the JAX
     package's ``_debug``, for the camera-based presets)."""
@@ -270,6 +288,7 @@ def _debug(cfg: HulcConfig) -> HulcConfig:
 CONFIGS: Dict[str, Callable[[], HulcConfig]] = {
     "hulc": hulc_config,
     "mcil": mcil_config,
+    "hulc_depth": hulc_depth_config,
     "hulc_debug": lambda: _debug(hulc_config()),
     "mcil_debug": lambda: _debug(mcil_config()),
 }

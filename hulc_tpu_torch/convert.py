@@ -15,9 +15,11 @@ The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
   (d, heads, d / heads) and ``out`` kernel (heads, d / heads, d) become
   torch's ``in_proj_weight`` (3d, d), ``in_proj_bias`` and ``out_proj``.
 
+Each camera tower the config names (RGB and depth, static and gripper) is
+carried by its encoder's kind; params without one of them are refused.
 Subtrees the port has no module for are returned as a list of unused
-'/'-joined paths, never dropped silently; for the ``hulc`` presets the
-list is empty, and so it is for the ``mcil`` presets.
+'/'-joined paths, never dropped silently; for the ``hulc``, ``mcil`` and
+``hulc_depth`` presets the list is empty.
 """
 
 from __future__ import annotations
@@ -84,17 +86,15 @@ def params_from_jax(
         for i, name in enumerate(("conv0", "conv1", "conv2")):
             conv(f"{src}/{name}", f"{dst}.conv_model.{2 * i}")
 
-    pe = cfg.perceptual_encoder
-    if pe.rgb_static is not None:
-        src, dst = "perceptual_encoder/rgb_static", "perceptual_encoder.rgb_static_encoder"
+    def static_tower(src: str, dst: str, enc):
         conv_tower(src, dst)
-        if pe.rgb_static.spatial_softmax_temp is None:
+        if enc.spatial_softmax_temp is None:
             sd[f"{dst}.spatial_softmax.temperature"] = r.get(f"{src}/spatial_softmax/temperature").reshape(1)
         linear(f"{src}/fc1", f"{dst}.fc1.0")
         linear(f"{src}/fc2", f"{dst}.fc2")
         layernorm(f"{src}/ln", f"{dst}.ln")
-    if pe.rgb_gripper is not None:
-        src, dst = "perceptual_encoder/rgb_gripper", "perceptual_encoder.rgb_gripper_encoder"
+
+    def nature_cnn(src: str, dst: str, enc):
         conv_tower(src, dst)
         k = r.get(f"{src}/fc0/kernel")  # (side * side * c, out), NHWC flatten
         c = sd[f"{dst}.conv_model.4.weight"].shape[0]
@@ -106,6 +106,20 @@ def params_from_jax(
         linear(f"{src}/fc1", f"{dst}.fc1.0")
         linear(f"{src}/fc2", f"{dst}.fc2")
         layernorm(f"{src}/ln", f"{dst}.ln")
+
+    pe = cfg.perceptual_encoder
+    for cam in ("rgb_static", "rgb_gripper", "depth_static", "depth_gripper"):
+        enc = getattr(pe, cam)
+        if enc is None:
+            continue
+        src = f"perceptual_encoder/{cam}"
+        if not r.has(src):
+            raise ValueError(
+                f"the JAX params have no {src} tower, which the config names (a JAX model initialized "
+                f"on a batch without {cam} frames builds none)"
+            )
+        tower = {"spatial_softmax": static_tower, "nature_cnn": nature_cnn}[enc.kind]
+        tower(src, f"perceptual_encoder.{cam}_encoder", enc)
 
     for i in range(cfg.plan_proposal.num_layers):
         linear(f"plan_proposal/fc_{i}", f"plan_proposal.fc_model.{2 * i}")

@@ -89,7 +89,7 @@ class ClipGroundtruthCallback:
                 lang_batch = lang_loader.deterministic_batch(i)
                 raw = batch_to_device({"lang": lang_batch}, trainer.device)
                 prep = preprocess_batch(trainer.cfg, raw, train=False, use_kernels=trainer.use_kernels)["lang"]
-                emb, _ = model.encode(prep.rgb_obs(), prep.robot_obs)
+                emb, _ = model.encode(prep.rgb_obs(), prep.robot_obs, prep.depth_obs())
                 _, seq_feat = model.plan_recognition(emb)
                 gt = np.asarray([self._task_to_id[self._sampler.tasks[int(j)]] for j in lang_batch.idx])
                 m = clip_groundtruth_metrics(

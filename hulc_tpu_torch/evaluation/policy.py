@@ -15,7 +15,8 @@ replanning every ``replan_freq`` steps, with its state in an explicit
 the model's device, restarted from the seed by ``reset()``. Every random
 draw can instead be passed in (the plan's ``gumbel`` or ``normal`` noise,
 by the plan's kind, and ``u_mix``, ``u_inv``), which is how the tests feed
-the noise JAX drew.
+the noise JAX drew. A config with a depth camera is refused
+(``refuse_depth``): the policies feed RGB frames only.
 """
 
 from __future__ import annotations
@@ -29,6 +30,21 @@ from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.data.statistics import DatasetStatistics
 from hulc_tpu_torch.models.hulc import HulcModel
 from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
+
+
+def refuse_depth(cfg: HulcConfig, what: str) -> None:
+    """Raise for a config with a depth camera: the policies feed the
+    encoder RGB frames only, as the JAX package's ``build_policy_fns`` does
+    (its fake env and gym adapter return no depth), so a depth model's
+    latent would miss its depth features and its plan proposal could not
+    apply."""
+    pe = cfg.perceptual_encoder
+    cams = [c for c in ("depth_static", "depth_gripper") if getattr(pe, c) is not None]
+    if cams:
+        raise ValueError(
+            f"{what} refuses a config with depth cameras ({', '.join(cams)}): the policy feeds the encoder RGB "
+            f"frames only, as the JAX package's build_policy_fns does, so the latent would lack the depth features"
+        )
 
 
 class PolicyState(NamedTuple):
@@ -84,8 +100,10 @@ def build_policy_fns(model: HulcModel, cfg: HulcConfig):
     leading dim of ``robot_obs_norm`` (single-lane inference passes 1).
 
     Frames are (E, S, H, W, 3) uint8 on the model's device; embeddings,
-    plans, goals and carries are fp32 tensors there.
+    plans, goals and carries are fp32 tensors there. A config with a depth
+    camera is refused (``refuse_depth``).
     """
+    refuse_depth(cfg, "the policy")
     preprocess = preprocess_rgb_seq if model.use_kernels else preprocess_rgb_seq_plain
 
     def _encode_frame(rgb_static, rgb_gripper, robot_obs_norm):

@@ -96,6 +96,7 @@ HAND_KERNELS = (
     "mixture_nll_fwd_kernel", "mixture_nll_bwd_kernel", "plan_st_kl_fwd_kernel", "plan_st_kl_bwd_kernel",
     "adam_lowp_kernel", "grad_norm_finish_kernel",
     "rnn_fwd_kernel", "rnn_bwd_kernel", "rnn_step_kernel",  # csrc/rnn.cu, either cell
+    "depth_noise_kernel",
 )
 
 

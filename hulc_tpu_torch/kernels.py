@@ -159,6 +159,8 @@ _SIGNATURES = {
     # the sizes, the chain's layout (reverse, y's row width, its column offset), the plan
     "hulc_rnn_tanh_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
     "hulc_rnn_tanh_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
+    # x, z, y, n, mode (0 gamma, 1 gaussian), then the mode's two fp32 constants
+    "hulc_depth_noise": (_P, _P, _P, _I64, _I32, _F32, _F32),
     "hulc_empty_launch": (),
 }
 
@@ -271,13 +273,14 @@ RNN_TANH_FWD = Kernel("hulc_rnn_tanh_fwd")
 RNN_TANH_BWD = Kernel("hulc_rnn_tanh_bwd")
 BIRNN_TANH_FWD = Composite("hulc_birnn_tanh_fwd")
 BIRNN_TANH_BWD = Composite("hulc_birnn_tanh_bwd")
+DEPTH_NOISE = Kernel("hulc_depth_noise")
 # no work: its device time is the floor under every kernel's (measured, never on a path)
 EMPTY_LAUNCH = Kernel("hulc_empty_launch")
 ALL_KERNELS = (
     PREPROCESS_RGB, PREPROCESS_RGB_SHIFT, SPATIAL_SOFTMAX, SPATIAL_SOFTMAX_BWD,
     LOGISTIC_MIXTURE_SAMPLE, MIXTURE_NLL_FWD, MIXTURE_NLL_BWD, PLAN_ST_KL_FWD, PLAN_ST_KL_BWD,
     ADAM_LOWP, GRAD_NORM_FINISH, RNN_RELU_FWD, RNN_RELU_BWD, RNN_TANH_FWD, RNN_TANH_BWD,
-    BIRNN_TANH_FWD, BIRNN_TANH_BWD,
+    BIRNN_TANH_FWD, BIRNN_TANH_BWD, DEPTH_NOISE,
 )
 
 

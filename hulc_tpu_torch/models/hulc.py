@@ -26,7 +26,10 @@
 
 The plan recognition is the transformer (``hulc``) or the BiRNN, and the
 plan discrete or continuous (``mcil``). Images arrive preprocessed, (B, S,
-C, H, W) fp32 (``training.preprocess``). GCBC (plan-free), state
+C, H, W) fp32, and depth frames (B, S, H, W) fp32 (``training.preprocess``);
+training and validation encode both (``hulc_depth``). The JAX package's
+policies feed no depth, so the port's refuse a depth config
+(``evaluation.policy.refuse_depth``). GCBC (plan-free), state
 reconstruction and the BC-Z and MIA auxiliary losses wait for later
 slices; a config that asks for one is refused.
 """
@@ -72,6 +75,9 @@ class ModalityBatch(NamedTuple):
 
     def rgb_obs(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in ("rgb_static", "rgb_gripper") if getattr(self, k) is not None}
+
+    def depth_obs(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in ("depth_static", "depth_gripper") if getattr(self, k) is not None}
 
 
 def fuse_modalities(vis: ModalityBatch, lang: ModalityBatch) -> ModalityBatch:
@@ -163,9 +169,12 @@ class HulcModel(nn.Module):
     # ------------------------------------------------------------------
 
     def encode(
-        self, rgb_obs: Dict[str, torch.Tensor], robot_obs: Optional[torch.Tensor] = None
+        self,
+        rgb_obs: Dict[str, torch.Tensor],
+        robot_obs: Optional[torch.Tensor] = None,
+        depth_obs: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.perceptual_encoder(rgb_obs, robot_obs)
+        return self.perceptual_encoder(rgb_obs, robot_obs, depth_obs)
 
     def encode_visual_goal(self, last_emb: torch.Tensor) -> torch.Tensor:
         return self.visual_goal(last_emb)
@@ -326,7 +335,7 @@ class HulcModel(nn.Module):
         out: Dict[str, torch.Tensor] = {}
         total_pp = torch.zeros((), device=self.device)
         for scope, mod in batch.items():
-            perceptual_emb, _ = self.encode(mod.rgb_obs(), mod.robot_obs)
+            perceptual_emb, _ = self.encode(mod.rgb_obs(), mod.robot_obs, mod.depth_obs())
             if "lang" in scope:
                 latent_goal = self.encode_language_goal(mod.lang)
             else:
@@ -379,7 +388,7 @@ class HulcModel(nn.Module):
             fused = fuse_modalities(batch["vis"], batch["lang"])
             b = batch["vis"].actions.shape[0]
         lang_emb, aux_mask = fused.lang, fused.use_for_aux_lang_loss
-        perceptual_emb, _ = self.encode(fused.rgb_obs(), fused.robot_obs)
+        perceptual_emb, _ = self.encode(fused.rgb_obs(), fused.robot_obs, fused.depth_obs())
         latent_goal = torch.cat([
             self.encode_visual_goal(perceptual_emb[:b, -1]), self.encode_language_goal(lang_emb)
         ], dim=0)
@@ -434,7 +443,7 @@ class HulcModel(nn.Module):
         totals = {k: zero for k in LOSS_KEYS}
         per_mod = {}
         for scope, mod in batch.items():
-            perceptual_emb, _ = self.encode(mod.rgb_obs(), mod.robot_obs)
+            perceptual_emb, _ = self.encode(mod.rgb_obs(), mod.robot_obs, mod.depth_obs())
             if "lang" in scope:
                 latent_goal = self.encode_language_goal(mod.lang)
             else:

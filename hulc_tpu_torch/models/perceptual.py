@@ -1,10 +1,14 @@
 """Multi-camera perceptual fusion (port of hulc_tpu/models/perceptual.py:35-131).
 
-Images arrive preprocessed as (B, S, C, H, W) fp32; batch and time are
-flattened into one convolution batch per camera. This slice ports the
-static and gripper RGB cameras and the proprio passthrough; depth,
-tactile and CLIP encoders, and the camera-less state-only encoder, wait
-for later slices.
+Images arrive preprocessed as (B, S, C, H, W) fp32, depth frames as (B, S,
+H, W) fp32 (they gain a one-channel axis here, as JAX appends one); batch
+and time are flattened into one convolution batch per camera. This slice
+ports the static and gripper RGB cameras, their depth towers and the
+proprio passthrough. The features are concatenated in JAX's order: RGB
+static, depth static, RGB gripper, depth gripper, where the gripper depth
+is encoded only beside the RGB gripper camera (JAX :108-114). Tactile and
+CLIP encoders, and the camera-less state-only encoder, wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -23,34 +27,42 @@ class ConcatEncoders(nn.Module):
 
     def __init__(self, cfg: PerceptualEncoderConfig, use_kernels: bool = True):
         super().__init__()
-        for name in ("depth_static", "depth_gripper", "tactile"):
-            if getattr(cfg, name) is not None:
-                raise ValueError(f"perceptual encoder {name!r} is not ported yet")
+        if cfg.tactile is not None:
+            raise ValueError("perceptual encoder 'tactile' is not ported yet")
         if cfg.rgb_static is None and cfg.rgb_gripper is None:
             raise ValueError("the camera-less (state-only) encoder is not ported yet")
         self.cfg = cfg
-        self.rgb_static_encoder = (
-            make_vision_encoder(cfg.rgb_static, use_kernels) if cfg.rgb_static else None
-        )
-        self.rgb_gripper_encoder = (
-            make_vision_encoder(cfg.rgb_gripper, use_kernels) if cfg.rgb_gripper else None
-        )
+        for name in ("rgb_static", "rgb_gripper", "depth_static", "depth_gripper"):
+            enc = getattr(cfg, name)
+            setattr(self, f"{name}_encoder", make_vision_encoder(enc, use_kernels) if enc else None)
 
     @staticmethod
     def _encode(encoder: nn.Module, imgs: torch.Tensor) -> torch.Tensor:
         b, s = imgs.shape[:2]
         return encoder(imgs.reshape((b * s,) + imgs.shape[2:])).reshape(b, s, -1)
 
+    def _encode_depth(self, name: str, depth_obs: Dict[str, torch.Tensor], parts: list) -> None:
+        encoder = getattr(self, f"{name}_encoder")
+        if encoder is not None and name in depth_obs:
+            d = depth_obs[name]
+            parts.append(self._encode(encoder, d.unsqueeze(2) if d.dim() == 4 else d))
+
     def forward(
-        self, rgb_obs: Dict[str, torch.Tensor], robot_obs: Optional[torch.Tensor] = None
+        self,
+        rgb_obs: Dict[str, torch.Tensor],
+        robot_obs: Optional[torch.Tensor] = None,
+        depth_obs: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """rgb_obs: {"rgb_static", "rgb_gripper"} -> (perceptual_emb, visual_emb),
-        each (B, S, F)."""
+        """rgb_obs: {"rgb_static", "rgb_gripper"}, depth_obs: {"depth_static",
+        "depth_gripper"} -> (perceptual_emb, visual_emb), each (B, S, F)."""
+        depth_obs = depth_obs or {}
         parts = []
         if self.rgb_static_encoder is not None and "rgb_static" in rgb_obs:
             parts.append(self._encode(self.rgb_static_encoder, rgb_obs["rgb_static"]))
+        self._encode_depth("depth_static", depth_obs, parts)
         if self.rgb_gripper_encoder is not None and "rgb_gripper" in rgb_obs:
             parts.append(self._encode(self.rgb_gripper_encoder, rgb_obs["rgb_gripper"]))
+            self._encode_depth("depth_gripper", depth_obs, parts)
         visual_emb = torch.cat(parts, dim=-1)
         if self.cfg.proprio is not None and robot_obs is not None:
             return torch.cat([visual_emb, robot_obs.to(visual_emb.dtype)], dim=-1), visual_emb

@@ -56,7 +56,7 @@ import torch.nn as nn
 from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.data.statistics import DatasetStatistics
 from hulc_tpu_torch.evaluation.batched_eval import build_batched_step
-from hulc_tpu_torch.evaluation.policy import StateObsNormalizer, build_policy_fns
+from hulc_tpu_torch.evaluation.policy import StateObsNormalizer, build_policy_fns, refuse_depth
 from hulc_tpu_torch.models.hulc import HulcModel, make_model
 from hulc_tpu_torch.ops.logistic_mixture import U_MIN, U_SPAN
 from hulc_tpu_torch.serving.params_io import flatten_params
@@ -182,7 +182,9 @@ def export_policy(
     port's state_dict, loaded into a model built on ``device`` (CUDA unless
     the caller asks for another), or a model, exported as it is (a model
     built with ``use_kernels=False`` is refused). ``lanes > 0`` also
-    exports the E-lane lockstep step."""
+    exports the E-lane lockstep step. A config with a depth camera is
+    refused (``evaluation.policy.refuse_depth``)."""
+    refuse_depth(cfg, "export_policy")
     if isinstance(params, HulcModel):
         model = params.eval()
         if not model.use_kernels:

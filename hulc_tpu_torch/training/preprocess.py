@@ -1,13 +1,19 @@
 """On-device batch preprocessing (port of hulc_tpu/training/preprocess.py:23-122).
 
 uint8 (B, S, H, W, 3) camera frames become normalized fp32 (B, S, 3, H, W),
-with the random shift when training (``ops.image_ops``). Per modality the
-shifts are drawn static camera first, then gripper camera, from the
-caller's ``torch.Generator``, unless the caller passes them
-(``shifts[scope][camera]``, (B*S, 2) each), as the tests pass the shifts
-JAX drew. Depth, tactile and CLIP cameras, and resizing a frame to the
-encoder's input size, are not ported yet: a batch or config that needs
-them is refused.
+with the random shift when training (``ops.image_ops``). fp32 (B, S, H, W)
+depth frames pass through when evaluating and take their noise when
+training (``ops.depth_noise``: the gamma mode on the static camera, the
+gaussian one with std 0.01 on the gripper camera); depth is never shifted.
+Per modality the draws come from the caller's ``torch.Generator`` in a
+fixed order, the static camera's shifts, the gripper camera's, then the
+static depth's noise and the gripper depth's, unless the caller passes
+them (``shifts[scope][camera]``, (B*S, 2) each; ``depth_noise[scope]
+[camera]``, the raw standard-normal draw of the frames' shape), as the
+tests pass what JAX drew. A drawn noise tensor takes the noised frames;
+the raw batch is never written. Tactile and CLIP cameras, and resizing a
+frame to the encoder's input size, are not ported yet: a batch or config
+that needs them is refused.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.models.hulc import ModalityBatch
+from hulc_tpu_torch.ops.depth_noise import prep_depth, prep_depth_plain
 from hulc_tpu_torch.ops.image_ops import (
     draw_shifts,
     preprocess_rgb_seq,
@@ -28,7 +35,9 @@ from hulc_tpu_torch.ops.image_ops import (
 )
 
 CAMERAS = ("rgb_static", "rgb_gripper")
-NOT_PORTED = (("depth_static", "depth_static"), ("depth_gripper", "depth_gripper"), ("rgb_tactile", "tactile"))
+# each depth camera's training noise (JAX: _prep_depth's gamma_noise / gaussian_std)
+DEPTH_CAMERAS = (("depth_static", "gamma", 0.0), ("depth_gripper", "gaussian", 0.01))
+NOT_PORTED = (("rgb_tactile", "tactile"),)
 
 
 def batch_to_device(batch: Dict[str, ModalityBatch], device) -> Dict[str, ModalityBatch]:
@@ -57,6 +66,7 @@ def preprocess_modality(
     *,
     generator: Optional[torch.Generator] = None,
     shifts: Optional[Dict[str, torch.Tensor]] = None,
+    depth_noise: Optional[Dict[str, torch.Tensor]] = None,
     use_kernels: bool = True,
 ) -> ModalityBatch:
     pe = cfg.perceptual_encoder
@@ -82,6 +92,19 @@ def preprocess_modality(
             updates[cam] = fn(imgs, s, enc.shift_pad)
         else:
             updates[cam] = (preprocess_rgb_seq if use_kernels else preprocess_rgb_seq_plain)(imgs)
+    for cam, mode, std in DEPTH_CAMERAS:
+        frames = getattr(batch, cam)
+        if frames is None or getattr(pe, cam) is None:
+            continue
+        if not train:
+            updates[cam] = frames.to(torch.float32)
+        elif depth_noise is not None:
+            fn = prep_depth if use_kernels else prep_depth_plain
+            updates[cam] = fn(frames, depth_noise[cam], mode, std)
+        else:
+            z = torch.randn(frames.shape, generator=generator, device=frames.device, dtype=torch.float32)
+            updates[cam] = prep_depth(frames, z, mode, std, out=z) if use_kernels else prep_depth_plain(
+                frames, z, mode, std)
     return batch._replace(**updates)
 
 
@@ -92,13 +115,16 @@ def preprocess_batch(
     *,
     generator: Optional[torch.Generator] = None,
     shifts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    depth_noise: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
     use_kernels: bool = True,
 ) -> Dict[str, ModalityBatch]:
-    """Each modality of ``batch`` preprocessed; ``shifts`` by scope."""
+    """Each modality of ``batch`` preprocessed; ``shifts`` and
+    ``depth_noise`` by scope."""
     return {
         scope: preprocess_modality(
             cfg, mod, train, generator=generator,
-            shifts=None if shifts is None else shifts[scope], use_kernels=use_kernels,
+            shifts=None if shifts is None else shifts[scope],
+            depth_noise=None if depth_noise is None else depth_noise[scope], use_kernels=use_kernels,
         )
         for scope, mod in batch.items()
     }

@@ -2,10 +2,11 @@
 
     python -m hulc_tpu_torch.training.profile_train [--steps 5] [--seed 0] [--config hulc] [--out DIR]
 
-Builds a full-width ``Trainer`` of the ``--config`` preset (``hulc`` or
-``mcil``; random weights from ``--seed``)
+Builds a full-width ``Trainer`` of the ``--config`` preset (``hulc``,
+``mcil`` or ``hulc_depth``; random weights from ``--seed``)
 and a synthetic loader-fused uint8 batch of 32 vision and 32 language
-windows of 32 frames (the JAX package's bench shape), takes warm-up steps,
+windows of 32 frames (the JAX package's bench shape; with fp32 depth
+frames for ``hulc_depth``), takes warm-up steps,
 then runs ``--steps`` steps of ``Trainer.train_step`` under
 ``torch.profiler`` and prints one JSON line: host-clock ms per step under
 the profiler and, from ``--steps`` steps just before it, without it;
@@ -60,13 +61,18 @@ def synthetic_fused_batch(
     as the JAX package's ``__graft_entry__._make_raw_batch``: uniform frames,
     ``tanh(normal)`` actions, normal 15-d ``state_info_robot_obs``, normal
     384-d language embeddings; every third language window is left out of
-    the auxiliary (CLIP) loss."""
+    the auxiliary (CLIP) loss. A config with depth cameras also gets fp32
+    depth frames, uniform in _make_raw_batch's ranges (drawn last, so the
+    other fields do not change)."""
     rng = np.random.default_rng(seed)
     pe = cfg.perceptual_encoder
     n = 2 * batch_per_mod
 
     def frames(px):
         return rng.integers(0, 255, (n, seq_len, px, px, 3), dtype=np.uint8)
+
+    def depth(enc, lo, hi):
+        return None if enc is None else rng.uniform(lo, hi, (n, seq_len, enc.input_size, enc.input_size)).astype(np.float32)
 
     batch = ModalityBatch(
         rgb_static=frames(pe.rgb_static.input_size),
@@ -77,6 +83,8 @@ def synthetic_fused_batch(
         lang=rng.normal(size=(batch_per_mod, cfg.lang_dim)).astype(np.float32),
         use_for_aux_lang_loss=np.arange(batch_per_mod) % 3 != 2,
         idx=np.arange(batch_per_mod),
+        depth_static=depth(pe.depth_static, 0.1, 5.0),
+        depth_gripper=depth(pe.depth_gripper, 0.01, 2.0),
     )
     return {"fused": ModalityBatch(*(None if x is None else torch.as_tensor(x, device=device) for x in batch))}
 
@@ -205,7 +213,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--config", default="hulc", help="the preset: hulc or mcil")
+    p.add_argument("--config", default="hulc", help="the preset: hulc, mcil or hulc_depth")
     p.add_argument("--out", type=pathlib.Path, default=None)
     args = p.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False

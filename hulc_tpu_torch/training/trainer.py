@@ -3,16 +3,17 @@
 ``Trainer(cfg, tcfg)`` builds the model on the card (CUDA unless the
 caller passes ``device``), randomly initialized from ``tcfg.seed``, in
 train mode, and one ``torch.Generator`` (seeded ``tcfg.seed + 1``) from
-which the train step draws its random shifts, the plan's noise and every
-dropout mask. ``init_state`` builds the optimizer (``AdamLowp``: bf16
+which the train step draws its random shifts and depth noise (first), the
+plan's noise and every dropout mask. ``init_state`` builds the optimizer (``AdamLowp``: bf16
 moments, fp32 math, the JAX trainer's default) over the learning-rate
 schedule.
 
-* ``train_step(raw_batch, kl_beta)``: the random-shift preprocess
-  (``training.preprocess``), ``HulcModel.train_losses``, the backward and
-  the Adam update, which also returns the global gradient norm
-  (``grad_norm``). The losses stay on the device. Tests pass the shifts and
-  the plan noise JAX drew (``shifts=``, ``gumbel=`` or ``normal=``).
+* ``train_step(raw_batch, kl_beta)``: the random-shift preprocess and the
+  depth noise (``training.preprocess``), ``HulcModel.train_losses``, the
+  backward and the Adam update, which also returns the global gradient
+  norm (``grad_norm``). The losses stay on the device. Tests pass the
+  shifts, the depth noise and the plan noise JAX drew (``shifts=``,
+  ``depth_noise=``, ``gumbel=`` or ``normal=``).
 * ``val_step(raw_batch, kl_beta)``: the eval preprocess and
   ``HulcModel.val_metrics``, the scalar metrics only; ``validate`` runs it
   over a val loader in eval mode under ``torch.no_grad`` (the model is back
@@ -173,16 +174,17 @@ class Trainer:
         kl_beta: float,
         *,
         shifts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+        depth_noise: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
         gumbel=None,
         normal=None,
     ) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a raw uint8 batch; returns the losses and
-        ``grad_norm``."""
+        """One optimizer step on a raw batch (uint8 frames, fp32 depth);
+        returns the losses and ``grad_norm``."""
         if self.optimizer is None:
             raise RuntimeError("call init_state before train_step")
         batch = preprocess_batch(
             self.cfg, batch_to_device(raw_batch, self.device), train=True,
-            generator=self.generator, shifts=shifts, use_kernels=self.use_kernels,
+            generator=self.generator, shifts=shifts, depth_noise=depth_noise, use_kernels=self.use_kernels,
         )
         self.optimizer.zero_grad(set_to_none=True)
         losses = self.model.train_losses(batch, kl_beta, generator=self.generator, gumbel=gumbel, normal=normal)

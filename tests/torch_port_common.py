@@ -18,8 +18,22 @@ def to_torch(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+def with_depth(cfg, batch, seed=1):
+    """``batch`` with the (B, S, H, W) fp32 depth frames of each depth
+    camera ``cfg`` names. JAX's ``example_batch`` makes none, and a model
+    initialized on a batch without them builds no depth towers."""
+    pe = cfg.perceptual_encoder
+    b, s = batch.actions.shape[:2]
+    rng = np.random.default_rng(seed)
+
+    def depth(enc):
+        return None if enc is None else rng.uniform(0.1, 5.0, (b, s, enc.input_size, enc.input_size)).astype(np.float32)
+
+    return batch._replace(depth_static=depth(pe.depth_static), depth_gripper=depth(pe.depth_gripper))
+
+
 def _example_batch(cfg):
-    return {"vis": example_batch(cfg, 1, 2), "lang": example_batch(cfg, 1, 2, lang=True)}
+    return {"vis": with_depth(cfg, example_batch(cfg, 1, 2)), "lang": with_depth(cfg, example_batch(cfg, 1, 2, lang=True))}
 
 
 def jax_init(cfg):
