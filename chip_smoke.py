@@ -222,9 +222,33 @@ it fails:
    shifts, depth noise and plan noise (as in phase 9) and one val step (as
    in phase 12).
 
+16. gated decoder cells: ``hulc`` at full width with
+   ``action_decoder.rnn_cell`` set to gru and then to lstm by
+   ``config.apply_overrides`` (``--seed`` weights; the decoder RNN 3x and
+   4x the relu one's parameters). Each cell's forward (B.11, B.12: the
+   inference launch, saving nothing, and the training launch, saving the
+   gates) and dh chain against their plain versions within REC_REL
+   (relative L2), and the autograd Function's gradients against the
+   closed form and against autograd through the plain loop, from a nonzero
+   carry (lstm's h and c) with nonzero carry cotangents, at the train
+   step's (64, 32, 2048) on both decoder layers' W_hh, at (3, 5, 37), two
+   row tiles (96, 3, 64) and one step at 1 and 64 lanes; their times by
+   CUDA events beside the plain loop, cuDNN's nn.GRU / nn.LSTM of the same
+   weights (W_ih = I, forward and forward + backward) and the bound. Then
+   the main path, launch counts zeroed just before and read just after:
+   3 train steps (each layer's forward and dh chain once a step, the relu
+   kernels never), a val step (4 forwards a layer), a single-lane policy
+   over 4 steps with a reset and the lockstep policy at ``--lanes`` lanes
+   over 3 steps with replans on some lanes (one forward a layer a step);
+   the train step's ms and peak memory beside ``hulc``'s (phase 8). Then
+   one train step (as in phase 9), one val step (as in phase 12) and the
+   policies' actions (ACTION_ATOL) against the plain path; and the lstm
+   policy exported at ``--lanes`` lanes and served bit-equal with the same
+   launches per step (as in phase 13).
+
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
-training, evaluator, training-loop, served, mcil and hulc_depth paths) and, last,
-``{"ok": true, "device": {...}}``.
+training, evaluator, training-loop, served, mcil, hulc_depth and gated
+decoder paths) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2120,7 +2144,8 @@ def separate_val_ties(model, batch, noise):
 
 
 def check_window_kernels(model, batch, noise, label="training loop"):
-    """B.6's forward, B.3 and B.3''s forward at the val step's window shapes
+    """The decoder cell's recurrence forward (B.6; B.11 or B.12 for a gru or
+    lstm decoder), B.3 and B.3''s forward at the val step's window shapes
     on the val step's own inputs (``model`` is the plain path's, ``noise``
     the val step's with its near ties pulled apart): for each modality and
     each plan source, each decoder layer's recurrence from a zero carry
@@ -2133,10 +2158,12 @@ def check_window_kernels(model, batch, noise, label="training loop"):
 
     from hulc_tpu_torch.ops.frame_transforms import world_to_tcp_frame
     from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain, sample_action, sample_action_plain
-    from hulc_tpu_torch.ops.recurrence import rnn_relu_fwd, rnn_relu_fwd_plain
+    from hulc_tpu_torch.models.layers import RECURRENCES
 
     dec = model.action_decoder
     c, rnn = dec.cfg, dec.rnn
+    kernel_fn, plain_fn = RECURRENCES[rnn.cell]
+    kernel_row = {"rnn": "B.6", "gru": "B.11", "lstm": "B.12"}[rnn.cell]
     bounds, (amin, amax) = (c.act_min_bound[-1], c.act_max_bound[-1]), dec._bounds()
     errs = {"rnn_rel_l2": 0.0, "sample_max_abs": 0.0, "nll_max_abs": 0.0}
     shapes = set()
@@ -2157,15 +2184,16 @@ def check_window_kernels(model, batch, noise, label="training loop"):
                     x = rnn_inputs[0]
                     for k in range(rnn.num_layers):
                         xp = F.linear(x, getattr(rnn, f"weight_ih_l{k}"), getattr(rnn, f"bias_ih_l{k}"))
-                        h0 = xp.new_zeros(xp.shape[0], xp.shape[2])
                         w, bias = getattr(rnn, f"weight_hh_l{k}"), getattr(rnn, f"bias_hh_l{k}")
-                        got, _ = rnn_relu_fwd(xp, h0, w, bias)
-                        x = rnn_relu_fwd_plain(xp, h0, w, bias)
+                        zeros = (xp.new_zeros(xp.shape[0], w.shape[1]),) * (2 if rnn.cell == "lstm" else 1)
+                        got = kernel_fn(xp, *zeros, w, bias)[0]
+                        x = plain_fn(xp, *zeros, w, bias)
+                        x = x[0] if rnn.cell == "lstm" else x
                         if not rel_l2(got, x) <= REC_REL:
                             fail(f"recurrence forward kernel at {where}, layer {k} {tuple(xp.shape)}: "
                                  f"relative L2 {rel_l2(got, x)}")
                         errs["rnn_rel_l2"] = max(errs["rnn_rel_l2"], rel_l2(got, x))
-                        shapes.add(("B.6", tuple(xp.shape)))
+                        shapes.add((kernel_row, tuple(xp.shape)))
                     grip = out.gripper_logits if c.discrete_gripper else None
                     params = (out.logit_probs, out.log_scales, out.means)
                     u = (n[f"u_mix_{tag}"], n[f"u_inv_{tag}"])
@@ -2750,13 +2778,16 @@ def dispatch_us(cfg, gen):
     return {name: {"op_us": per_call_us(op), "direct_us": per_call_us(direct)} for name, (op, direct) in pairs.items()}
 
 
-def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs, card, with_debug=True):
+def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs, card, with_debug=True,
+                       serving_kernels=SERVING_KERNELS):
     """Phase 13: export the full-width policy (``lanes`` lanes) and, with
     ``with_debug``, a ``hulc_debug`` one exported on the CPU; serve them in
     a fresh process that loads no model code; hold the served actions and
     each step's launches against the live policies' on the same
     observations and seed; with ``with_debug`` also each op's dispatcher
-    cost. Returns (summary, {kernel symbol: served launches})."""
+    cost. ``serving_kernels``: the kernels each served path must launch,
+    and the only ones it may (the decoder cell's recurrence among them).
+    Returns (summary, {kernel symbol: served launches})."""
     from hulc_tpu_torch.config import get_config
     from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
     from hulc_tpu_torch.evaluation.policy import HulcPolicy
@@ -2830,14 +2861,14 @@ def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, l
         totals = collections.Counter()
         for n in report[name]:
             totals.update(n)
-        if not all(totals[k] > 0 for k in SERVING_KERNELS):
+        if not all(totals[k] > 0 for k in serving_kernels):
             fail(f"served {name}: a serving kernel was never launched: {dict(totals)}")
-        if any(v for k, v in totals.items() if k not in SERVING_KERNELS):
+        if any(v for k, v in totals.items() if k not in serving_kernels):
             fail(f"served {name}: a kernel off the serving path was launched: {dict(totals)}")
         if name != "debug":
             served_launches.update(totals)
         summary[name] = {"steps": len(got), "max_abs_err": err, "bit_equal": bool(np.array_equal(got, live_actions)),
-                         "launches": {k: totals[k] for k in SERVING_KERNELS}}
+                         "launches": {k: totals[k] for k in serving_kernels}}
         print(f"[serving export] served {name}: {len(got)} steps, max abs action err against the live policy "
               f"{err:.3g} (atol {ACTION_ATOL}; bit-equal {summary[name]['bit_equal']}); every step's launches equal "
               f"the live step's: {summary[name]['launches']}")
@@ -3493,6 +3524,390 @@ def run_depth(seed, train_steps, card):
 
 
 # --------------------------------------------------------------------------
+# phase 16: the decoder's gru and lstm cells at full width
+# --------------------------------------------------------------------------
+
+HULC_PARAMS = 47_053_559  # JAX's count for hulc, its decoder the relu RNN
+GATED_CELLS = ("gru", "lstm")
+# each cell's kernels, forward and dh chain (B.11, B.12)
+GATED_SYMBOLS = {"gru": ("hulc_rnn_gru_fwd", "hulc_rnn_gru_bwd"), "lstm": ("hulc_rnn_lstm_fwd", "hulc_rnn_lstm_bwd")}
+GATED_TRAIN_STEPS = 3  # two warm-ups and one timed
+GATED_SINGLE_STEPS, GATED_RESET_AT = 4, 2  # single lane: replans at 0 and, after a reset, at 2
+GATED_LOCKSTEP_STEPS = 3  # the lockstep policy: every lane plans at 0, some at 1 and 2
+
+
+def gated_config(cell):
+    """``hulc`` with the decoder cell set as a user sets it: apply_overrides."""
+    from hulc_tpu_torch.config import apply_overrides, get_config
+
+    return apply_overrides(get_config("hulc"), [f"action_decoder.rnn_cell={cell}"])
+
+
+def gated_case(cell, b, s, h, gen, w=None, bias=None):
+    """Inputs of one gated layer: xp ~ N(0, 1) (B, S, G H), a nonzero carry
+    (h0 a tanh of N(0, 1); c0 of N(0, 1) for lstm), W_hh and b_hh (given,
+    or torch's U(-1/sqrt(H), 1/sqrt(H))), and nonzero cotangents for y and
+    the final carry."""
+    from hulc_tpu_torch.ops.recurrence import GATES
+
+    g = GATES[cell]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def uniform(*shape):
+        return (2.0 * torch.rand(shape, generator=gen, device="cuda") - 1.0) / h**0.5
+
+    w = uniform(g * h, h) if w is None else w
+    bias = uniform(g * h) if bias is None else bias
+    states = (torch.tanh(randn(b, h)),) + ((randn(b, h),) if cell == "lstm" else ())
+    dcarry = tuple(randn(b, h) for _ in states)
+    return randn(b, s, g * h), states, w, bias, randn(b, s, h), dcarry
+
+
+def check_gated_case(cell, xp, states, w, bias, dy, dcarry, where):
+    """B.11 / B.12 on one layer against their plain versions, each within
+    REC_REL relative L2: the inference forward (y, the final h and c); the
+    training forward (y and the saved gates); the dh chain on the same
+    inputs, the carry's cotangents nonzero; and the autograd Function's
+    gradients of xp, the carry, W_hh and b_hh against the closed form and
+    against autograd through the plain loop. Returns (largest absolute
+    error of the forward's outputs, of the backward's)."""
+    from hulc_tpu_torch.ops import recurrence as rec
+
+    lstm = cell == "lstm"
+    shape = tuple(dy.shape)
+    c0 = states[1] if lstm else None
+    errs, fwd_abs = {}, 0.0
+    kernel_fwd = rec.rnn_lstm_fwd_kernel if lstm else rec.rnn_gru_fwd_kernel
+    y_p, c_p, saved_p = rec._gated_loop(cell, xp, states[0], c0, w, bias, True)
+    for save in (False, True):
+        out = kernel_fwd(xp, *states, w, bias, save=save)
+        wants = (y_p, y_p[:, -1], *((c_p,) if lstm else ()), *((saved_p,) if save else ()))
+        for name, g, r in zip(("y", "h_last", *(("c_last",) if lstm else ()), "saved"), out, wants):
+            errs[f"{'train' if save else 'inference'} {name}"] = rel_l2(g, r)
+            fwd_abs = max(fwd_abs, max_abs(g, r))
+    if lstm:
+        kern = rec.rnn_lstm_bwd(dy, *dcarry, saved_p, c0, w)
+        plain = rec.dh_chain_lstm_plain(dy, *dcarry, saved_p, c0, w)
+        names = ("dpre", "dh0", "dc0")
+    else:
+        kern = rec.rnn_gru_bwd(dy, dcarry[0], y_p, states[0], saved_p, w)
+        plain = rec.dh_chain_gru_plain(dy, dcarry[0], y_p, states[0], saved_p, w)
+        names = ("dxp", "dhp", "dh0")
+    for name, g, r in zip(names, kern, plain):
+        errs[f"{name} kernel vs plain"] = rel_l2(g, r)
+    inputs = (xp, *states, w, bias)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    fn = rec.rnn_lstm if lstm else rec.rnn_gru
+    k_grads = torch.autograd.grad(fn(*leaves), leaves, [dy, *dcarry])
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    y, c, _ = rec._gated_loop(cell, leaves[0], leaves[1], leaves[2] if lstm else None, leaves[-2], leaves[-1], False)
+    auto = torch.autograd.grad([y, y[:, -1], *((c,) if lstm else ())], leaves, [dy, *dcarry])
+    # the Function's closed form: the dh chain's dxp and carry gradients, then dW_hh and db_hh from dhp
+    dhp = plain[0] if lstm else plain[1]
+    closed = (plain[0], *plain[1 + (not lstm):], *rec.recurrence_weight_grads(dhp, states[0], y_p))
+    for ref, wants in (("closed form", closed), ("autograd", auto)):
+        for n, g, r in zip(("dxp", "dh0", *(("dc0",) if lstm else ()), "dW_hh", "db_hh"), k_grads, wants):
+            errs[f"{n} vs {ref}"] = rel_l2(g, r)
+    if not max(errs.values()) <= REC_REL:
+        fail(f"{cell} recurrence at {where} {shape}: relative L2 {errs}")
+    bwd_abs = max(max_abs(g, r) for g, r in (*zip(kern, plain), *zip(k_grads, auto)))
+    print(f"[gated] {'B.12' if lstm else 'B.11'} ({cell}) at {where} {shape}: forward (inference and training) relative "
+          f"L2 up to {max(v for k, v in errs.items() if 'train' in k or 'inference' in k):.3g}, max abs err "
+          f"{fwd_abs:.3g}; dh chain and gradients relative L2 up to {max(errs.values()):.3g}, max abs err {bwd_abs:.3g}")
+    return fwd_abs, bwd_abs
+
+
+def check_gated(cell, model, seed):
+    """The cell's two kernels against their plain versions: at the train
+    step's (64, 32, 2048) on each decoder layer's W_hh and b_hh, at an odd
+    (3, 5, 37) (H not a multiple of a block's 16 columns), two row tiles
+    (96, 3, 64), and one step at 1 and 64 lanes (the one-step GEMV launch,
+    and a one-step sequence launch). Returns {kernel row: max abs err}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 71)
+    rnn = model.action_decoder.rnn
+    fwd, bwd = f"rnn_{cell}_fwd", f"rnn_{cell}_bwd"
+    errs = {fwd: 0.0, bwd: 0.0}
+    cases = [((DECODER_ROWS, DECODER_SEQ, rnn.hidden_size), f"the train step, layer {k}",
+              (getattr(rnn, f"weight_hh_l{k}").detach(), getattr(rnn, f"bias_hh_l{k}").detach()))
+             for k in range(rnn.num_layers)]
+    cases += [((3, 5, 37), "an odd shape", (None, None)), ((96, 3, 64), "two row tiles", (None, None)),
+              ((1, 1, rnn.hidden_size), "one serving lane", cases[1][2]),
+              ((64, 1, rnn.hidden_size), "64 serving lanes", cases[1][2])]
+    for (b, s, h), where, (w, bias) in cases:
+        e = check_gated_case(cell, *gated_case(cell, b, s, h, gen, w, bias), where)
+        errs[fwd], errs[bwd] = max(errs[fwd], e[0]), max(errs[bwd], e[1])
+    return errs
+
+
+def time_gated(cell, model, seed):
+    """Device ms of the cell's kernels at the train step's (64, 32, 2048)
+    and of the inference forward at 1 and 64 serving lanes, against the
+    plain versions and cuDNN's nn.GRU / nn.LSTM of the same weights (W_ih =
+    I of G H x G H, b_ih = 0: the same function of xp, plus cuDNN's own
+    input projection, timed beside it as one matmul), forward and forward +
+    backward, by CUDA events in turns plain, kernel, kernel, plain; the
+    bound 2 B S H G H fp32 FLOP at 67 TFLOP/s (one step: the read of W).
+    The port never calls cuDNN."""
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
+    from hulc_tpu_torch.ops import recurrence as rec
+
+    lstm = cell == "lstm"
+    gen = torch.Generator(device="cuda").manual_seed(seed + 73)
+    rnn = model.action_decoder.rnn
+    h, b, s = rnn.hidden_size, DECODER_ROWS, DECODER_SEQ
+    g = rec.GATES[cell]
+    w, bias = rnn.weight_hh_l1.detach(), rnn.bias_hh_l1.detach()
+    xp, states, _, _, dy, dcarry = gated_case(cell, b, s, h, gen, w, bias)
+    c0 = states[1] if lstm else None
+    y, _, saved = rec._gated_loop(cell, xp, states[0], c0, w, bias, True)
+    kernel_fwd = rec.rnn_lstm_fwd_kernel if lstm else rec.rnn_gru_fwd_kernel
+    if lstm:
+        bwd_fn = lambda: rec.rnn_lstm_bwd(dy, *dcarry, saved, c0, w)  # noqa: E731
+        bwd_plain = lambda: rec.dh_chain_lstm_plain(dy, *dcarry, saved, c0, w)  # noqa: E731
+    else:
+        bwd_fn = lambda: rec.rnn_gru_bwd(dy, dcarry[0], y, states[0], saved, w)  # noqa: E731
+        bwd_plain = lambda: rec.dh_chain_gru_plain(dy, dcarry[0], y, states[0], saved, w)  # noqa: E731
+    lib = (torch.nn.LSTM if lstm else torch.nn.GRU)(g * h, h, batch_first=True, device="cuda")
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(torch.eye(g * h, device="cuda"))
+        lib.bias_ih_l0.zero_()
+        lib.weight_hh_l0.copy_(w)
+        lib.bias_hh_l0.copy_(bias)
+        lib_states = tuple(t[None] for t in states) if lstm else states[0][None]
+        lib_y = lib(xp, lib_states)[0]
+        if rel_l2(lib_y, y) > 1e-4:
+            fail(f"cuDNN's {cell} does not compute the recurrence: relative L2 {rel_l2(lib_y, y)}")
+    lib_in = xp.clone().requires_grad_()
+
+    def lib_train():
+        out = lib(lib_in, lib_states)[0]
+        torch.autograd.grad(out, [lib_in, *lib.parameters()], dy)
+
+    eye = torch.eye(g * h, device="cuda")
+    flops = 2 * b * s * h * g * h
+    bsh = b * s * h
+    cases = {
+        # xp (B, S, G H) in; y out; W, b_hh, the carry in and out
+        f"rnn_{cell}_fwd": (lambda: kernel_fwd(xp, *states, w, bias),
+                            lambda: rec._gated_loop(cell, xp, states[0], c0, w, bias, False),
+                            bound(4 * (g * bsh + bsh + g * h * h + g * h + 2 * len(states) * b * h), flops),
+                            lambda: lib(xp, lib_states), (b, s, h)),
+        # dy, the saved gates (and y for gru) in; dxp (and dhp for gru) out; W; the carry's gradients
+        f"rnn_{cell}_bwd": (bwd_fn, bwd_plain,
+                            bound(4 * (bsh + rec.SAVED[cell] * bsh + (0 if lstm else bsh) + (1 if lstm else 2) * g * bsh
+                                       + g * h * h + 3 * len(states) * b * h), flops),
+                            lib_train, (b, s, h)),
+    }
+    for lanes in (64, 1):
+        xs, st, _, _, _, _ = gated_case(cell, lanes, 1, h, gen, w, bias)
+        cases[f"rnn_{cell}_fwd_{lanes}_lane{'s' if lanes > 1 else ''}"] = (
+            lambda xs=xs, st=st: kernel_fwd(xs, *st, w, bias),
+            lambda xs=xs, st=st: rec._gated_loop(cell, xs, st[0], st[1] if lstm else None, w, bias, False),
+            bound(4 * (g * h * h + g * h + lanes * (g * h + h) + 2 * len(st) * lanes * h), 2 * lanes * h * g * h),
+            lambda xs=xs, st=st: lib(xs, tuple(t[None] for t in st) if lstm else st[0][None]), (lanes, 1, h))
+    out = {}
+    for name, (kernel_fn, plain_fn, (bound_ms, bound_by), library_fn, shape) in cases.items():
+        ms_ = [event_ms(plain_fn, 5), event_ms(kernel_fn, 10), event_ms(kernel_fn, 10), event_ms(plain_fn, 5)]
+        out[name] = {
+            "ms": min(ms_[1], ms_[2]), "plain_ms": min(ms_[0], ms_[3]), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": event_ms(library_fn, 5), "call_ms": call_ms(kernel_fn, 10),
+            "plain_call_ms": call_ms(plain_fn, 5), "timed_by": "CUDA events", "shape": list(shape),
+        }
+    out[f"rnn_{cell}_fwd"]["library_input_projection_ms"] = event_ms(lambda: xp.reshape(-1, g * h) @ eye, 5)
+    out[f"rnn_{cell}_fwd"]["library"] = out[f"rnn_{cell}_bwd"]["library"] = (
+        f"cuDNN nn.{'LSTM' if lstm else 'GRU'}, W_ih = I ({g * h} x {g * h}), fp32; the backward row forward + backward")
+    for name, backward in ((f"rnn_{cell}_fwd", False), (f"rnn_{cell}_bwd", True)):
+        plan = rec.gated_device_plan(cell, h, b, s, torch.cuda.current_device(), backward, False)
+        out[name]["plan"] = {**dataclasses.asdict(plan), "blocks": plan.blocks(h)}
+    return out
+
+
+def drive_single_with_reset(cfg, model, obs, lang, seed, reset_at):
+    """HulcPolicy over ``obs``, reset at step 0 and at ``reset_at``;
+    (actions, pre-step states, post-step plans)."""
+    from hulc_tpu_torch.evaluation.policy import HulcPolicy
+
+    policy = HulcPolicy(cfg, model, seed=seed)
+    actions, states, plans = [], [], []
+    for t, o in enumerate(obs):
+        if t in (0, reset_at):
+            policy.reset()
+        states.append(policy._state)
+        actions.append(policy.step(o, lang))
+        plans.append(policy._state.plan[0].cpu().numpy())
+    return np.stack(actions), states, np.stack(plans)
+
+
+def plain_single_with_reset(cfg, plain_model, obs, lang, seed, kern_states, reset_at):
+    """The single-lane steps through the plain model from the kernel path's
+    states, the resets at the same steps; (actions, post-step plans)."""
+    from hulc_tpu_torch.evaluation.policy import HulcPolicy
+
+    policy = HulcPolicy(cfg, plain_model, seed=seed)
+    actions, plans = [], []
+    for t, o in enumerate(obs):
+        if t in (0, reset_at):
+            policy.reset()
+        policy._state = kern_states[t]
+        actions.append(policy.step(o, lang))
+        plans.append(policy._state.plan[0].cpu().numpy())
+    return np.stack(actions), np.stack(plans)
+
+
+def run_gated_cell(cell, seed, lanes, hulc_step_ms, card):
+    """Phase 16 for one cell: ``hulc`` with ``action_decoder.rnn_cell=cell``
+    at full width. Returns (summary, {kernel symbol: launches on the main
+    path}, {row: max abs err}, {row: timing})."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.ops.recurrence import GATES
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = gated_config(cell)
+    ad = cfg.action_decoder
+    model = make_model(cfg, "cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    rnn_params = sum(p.numel() for p in model.action_decoder.rnn.parameters())
+    relu_rnn = ad.hidden_size * (model.action_decoder.rnn.weight_ih_l0.shape[1] + 3 * ad.hidden_size + 4)
+    if rnn_params != GATES[cell] * relu_rnn or n_params != HULC_PARAMS + (GATES[cell] - 1) * relu_rnn:
+        fail(f"the {cell} model has {n_params} parameters ({rnn_params} in its decoder RNN), expected "
+             f"{HULC_PARAMS + (GATES[cell] - 1) * relu_rnn} ({GATES[cell]} x the relu RNN's {relu_rnn})")
+    fwd_sym, bwd_sym = GATED_SYMBOLS[cell]
+    print(f"[gated] hulc with action_decoder.rnn_cell={cell} (apply_overrides), {n_params} parameters, "
+          f"{rnn_params} in the decoder RNN ({GATES[cell]} x the relu RNN's), random init from seed {seed}")
+
+    # 1. the kernels against their plain versions, and their times
+    errs = check_gated(cell, model, seed)
+    timing = time_gated(cell, model, seed)
+    for name, t in timing.items():
+        print(f"[gated] {name} at {tuple(t['shape'])}: kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, cuDNN "
+              f"{t['library_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound; per call with the host's launch cost "
+              f"{t['call_ms']:.5f} ms (CUDA events, {card})")
+    print(f"[gated] cuDNN's own input projection (W_ih = I) {timing[f'rnn_{cell}_fwd']['library_input_projection_ms']:.6f}"
+          f" ms of its forward; plans {timing[f'rnn_{cell}_fwd']['plan']} / {timing[f'rnn_{cell}_bwd']['plan']}")
+
+    # 2. the main path: train steps, a val step, the policies
+    rng = np.random.default_rng(seed + 79)
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cuda")
+    val_batch = split_fused(batch)
+    lang = rng.normal(size=cfg.lang_dim).astype(np.float32)
+    single_obs = make_obs(rng, cfg, GATED_SINGLE_STEPS)
+    langs = rng.normal(size=(lanes, cfg.lang_dim)).astype(np.float32)
+    batched_obs = [make_obs(rng, cfg, lanes) for _ in range(GATED_LOCKSTEP_STEPS)]
+    trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    trainer.model.load_state_dict(model.state_dict())
+    trainer.init_state(1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_losses, host, events = drive_training(trainer, batch, cfg.loss.kl_beta, GATED_TRAIN_STEPS)
+    per_step = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer.model.eval()
+    with torch.no_grad():
+        val = trainer.val_step(val_batch, cfg.loss.kl_beta, generator=torch.Generator(device="cuda").manual_seed(seed))
+    trainer.model.train()
+    torch.cuda.synchronize()
+    val_launches = {k: n - per_step[k] for k, n in launch_counts().items()}
+    single_actions, single_states, k_plans = drive_single_with_reset(cfg, model, single_obs, lang, seed, GATED_RESET_AT)
+    batched_actions, batched_states = drive_batched(cfg, model, batched_obs, langs, seed)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"[gated main path] {cell}: launches {launches}")
+    want = {fwd_sym: ad.num_layers, bwd_sym: ad.num_layers, "hulc_rnn_relu_fwd": 0, "hulc_rnn_relu_bwd": 0}
+    if any(per_step[k] != n * GATED_TRAIN_STEPS for k, n in want.items()):
+        fail(f"{GATED_TRAIN_STEPS} {cell} train steps launched {({k: per_step[k] for k in want})}, not "
+             f"{({k: n * GATED_TRAIN_STEPS for k, n in want.items()})}: each layer's forward and dh chain once a step")
+    # a val step decodes two windows (the proposal's and the recognition's plan) a modality
+    if val_launches[fwd_sym] != 2 * 2 * ad.num_layers or val_launches[bwd_sym]:
+        fail(f"the {cell} val step launched {val_launches[fwd_sym]} forwards and {val_launches[bwd_sym]} dh chains, "
+             f"not {4 * ad.num_layers} and 0")
+    acts = launches[fwd_sym] - per_step[fwd_sym] - val_launches[fwd_sym]
+    if acts != ad.num_layers * (GATED_SINGLE_STEPS + GATED_LOCKSTEP_STEPS) or launches["hulc_rnn_relu_fwd"]:
+        fail(f"the {cell} policy steps launched its forward {acts} times, not "
+             f"{ad.num_layers * (GATED_SINGLE_STEPS + GATED_LOCKSTEP_STEPS)} (one a layer a step), and the relu "
+             f"cell's {launches['hulc_rnn_relu_fwd']} times")
+    if not all(launches[k] > 0 for k in GATED_SYMBOLS[cell]):
+        fail(f"a kernel of the {cell} path was never launched: {launches}")
+    for i, losses in enumerate(step_losses):
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"{cell} train step {i}: a loss is not finite: {losses}")
+    if not all(np.isfinite(float(v)) for v in val.values()):
+        fail(f"{cell} val step: a metric is not finite: {val}")
+    check_actions(f"{cell} single lane", single_actions, 1)
+    check_actions(f"{cell} batched", batched_actions, lanes)
+    print(f"[gated main path] {cell}: " + "; ".join(
+        f"step {i}: total {l['total_loss']:.5f} action {l['action_loss']:.5f} kl {l['kl_loss']:.6f} "
+        f"grad_norm {l['grad_norm']:.5f}" for i, l in enumerate(step_losses)))
+    step_ms, event_ms_ = statistics.median(host[2:]), statistics.median(events[2:])
+    print(f"[timing] {cell} train step (2B={2 * BATCH_PER_MOD}, S={SEQ}, after 2 warm-ups): host clock {step_ms:.4f} "
+          f"ms, CUDA events {event_ms_:.4f} ms, {2 * BATCH_PER_MOD / step_ms * 1e3:.2f} seq/s (hulc's relu decoder "
+          f"{hulc_step_ms:.4f} ms in this run, phase 8); all steps host {[round(t, 4) for t in host]} ms; peak memory "
+          f"{peak_gb:.2f} GB ({card})")
+    del trainer
+
+    # 3. the main path against the plain path
+    train_check = compare_train_plain(cfg, model, batch, seed, label=f"{cell} train plain path")
+    val_trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    val_trainer.model.load_state_dict(model.state_dict())
+    val_check = compare_val_plain(cfg, val_trainer, seed, val_batch, label=cell)
+    del val_trainer, batch, val_batch
+    plain_model = make_model(cfg, "cuda", seed=seed, use_kernels=False)
+    plain_model.load_state_dict(model.state_dict())
+    p_actions, p_plans = plain_single_with_reset(cfg, plain_model, single_obs, lang, seed, single_states, GATED_RESET_AT)
+    replanned = np.array([t in (0, GATED_RESET_AT) for t in range(GATED_SINGLE_STEPS)])
+    single_err = compare_plain(f"{cell} single lane, across a replan and a reset", single_actions, p_actions, k_plans,
+                               p_plans, replanned, cfg)
+    masks = [replan_mask(t, lanes, cfg.replan_freq) for t in range(GATED_LOCKSTEP_STEPS)]
+    p_actions, p_plans = plain_batched(
+        cfg, plain_model, list(zip(batched_obs, [langs] * GATED_LOCKSTEP_STEPS, batched_states, masks)), seed)
+    k_plans = np.stack([s[0].cpu().numpy() for s in batched_states[1:]])
+    batched_err = compare_plain(f"{cell} batched, {lanes} lanes, replans on some lanes", batched_actions, p_actions,
+                                k_plans, p_plans, np.stack(masks), cfg)
+    del plain_model
+
+    # 4. lstm: the serving export at --lanes lanes, served in a process without model code
+    export, served_launches = None, collections.Counter()
+    if cell == "lstm":
+        serving = tuple(k if k != "hulc_rnn_relu_fwd" else fwd_sym for k in SERVING_KERNELS)
+        export, served_launches = run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs,
+                                                     card, with_debug=False, serving_kernels=serving)
+        launches = {k: n + served_launches.get(k, 0) for k, n in launches.items()}
+    del model
+    torch.cuda.empty_cache()
+    summary = {
+        "parameters": n_params, "decoder_rnn_parameters": rnn_params,
+        "train_step": {"host_ms": step_ms, "event_ms": event_ms_, "steps_host_ms": host,
+                       "seq_per_s": 2 * BATCH_PER_MOD / step_ms * 1e3, "peak_memory_gb": peak_gb,
+                       "hulc_host_ms": hulc_step_ms, "plain_path": train_check},
+        "val_step": {**val_check, "launches": {k: val_launches[k] for k in GATED_SYMBOLS[cell]}},
+        "policy_plain_max_abs_err": {"1": single_err, str(lanes): batched_err},
+        "serving_export": export, "phase_s": time.perf_counter() - t0, "card": card,
+    }
+    print(f"[gated] {cell} done in {summary['phase_s']:.1f} s")
+    return summary, launches, errs, timing
+
+
+def run_gated(seed, lanes, hulc_step_ms, card):
+    """Phase 16: both gated cells. Returns (summary, {kernel symbol:
+    launches}, {row: max abs err}, {row: timing})."""
+    summary, launches, errs, timing = {}, collections.Counter(), {}, {}
+    for cell in GATED_CELLS:
+        s, n, e, t = run_gated_cell(cell, seed, lanes, hulc_step_ms, card)
+        summary[cell] = s
+        launches.update(n)
+        errs.update(e)
+        timing.update(t)
+    return summary, launches, errs, timing
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -3532,6 +3947,10 @@ KERNEL_INFO = {
     "birnn_tanh_fwd": ("hulc_birnn_tanh_fwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:305"),
     "birnn_tanh_bwd": ("hulc_birnn_tanh_bwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:305"),
     "depth_noise": ("hulc_depth_noise", "hulc_tpu_torch/csrc/depth_noise.cu", "hulc_tpu/training/preprocess.py:58"),
+    "rnn_gru_fwd": ("hulc_rnn_gru_fwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:238"),
+    "rnn_gru_bwd": ("hulc_rnn_gru_bwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:265"),
+    "rnn_lstm_fwd": ("hulc_rnn_lstm_fwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:248"),
+    "rnn_lstm_bwd": ("hulc_rnn_lstm_bwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:265"),
 }
 
 
@@ -3551,6 +3970,8 @@ EXTRA_TIMINGS = {
     "rnn_relu_fwd": {"at_64_lanes": "rnn_relu_fwd_64_lanes", "at_1_lane": "rnn_relu_fwd_1_lane"},
     "rnn_relu_bwd": {"with_weight_grads": "rnn_relu_backward_all"},
     "depth_noise": {"gaussian": "depth_noise_gaussian"},
+    "rnn_gru_fwd": {"at_64_lanes": "rnn_gru_fwd_64_lanes", "at_1_lane": "rnn_gru_fwd_1_lane"},
+    "rnn_lstm_fwd": {"at_64_lanes": "rnn_lstm_fwd_64_lanes", "at_1_lane": "rnn_lstm_fwd_1_lane"},
 }
 
 
@@ -3780,16 +4201,22 @@ def main(argv=None) -> int:
     errs.update({k: max(errs.get(k, 0.0), v) for k, v in depth_errs.items()})
     timing.update(depth_timing)
 
+    # ---- 16. the decoder's gru and lstm cells at full width ------------------
+    gated, gated_launches, gated_errs, gated_timing = run_gated(args.seed, args.lanes, step_ms, card)
+    errs.update(gated_errs)
+    timing.update(gated_timing)
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
-            + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol],
+            + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol]
+            + gated_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
-            "launches_depth": depth_launches[symbol],
+            "launches_depth": depth_launches[symbol], "launches_gated": gated_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -3801,7 +4228,7 @@ def main(argv=None) -> int:
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
-        "hulc_depth": depth,
+        "hulc_depth": depth, "gated_decoder": gated,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))

@@ -5,16 +5,24 @@ same frozen dataclasses, field names and defaults, the same ``resolve()``
 size inference, so a preset means the same model in both packages. Only
 ``HulcConfig.dtype`` differs: it maps ``compute_dtype`` to a torch dtype.
 
-The other presets (gcbc, tactile, CLIP, state-only) and the dotted-path
-overrides wait for the slices that port their modules. ``hulc_depth`` has
+``apply_overrides`` is the JAX package's dotted-path overrides (the
+reference's Hydra overrides, ``--set`` on the CLIs), copied: the same
+parsing, coercion and errors, then ``resolve()``; it is how a config
+reaches the decoder's gru and lstm cells
+(``action_decoder.rnn_cell=gru``). A field the JAX config has and this one
+lacks is refused as an unknown field, by name. The other presets (gcbc,
+tactile, CLIP, state-only) wait for the slices that port their modules.
+``hulc_depth`` has
 no debug preset, as in the JAX package: its ``_debug`` swaps in two RGB
 cameras, which would drop the depth towers.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import typing
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -301,3 +309,134 @@ def get_config(name: str, **overrides) -> HulcConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides).resolve()
     return cfg
+
+
+# --------------------------------------------------------------------------
+# Dotted-path overrides (the reference's Hydra CLI affordance:
+# `python hulc/training.py model.action_decoder.hidden_size=4096` — here
+# `--set action_decoder.hidden_size=4096` on the CLIs, or apply_overrides()
+# from library code)
+# --------------------------------------------------------------------------
+
+
+def _parse_literal(text: str):
+    """CLI string -> Python value: none/true/false keywords, then
+    ast.literal_eval for numbers/tuples/lists, else the raw string."""
+    t = text.strip()
+    low = t.lower()
+    if low in ("none", "null"):
+        return None
+    if low == "true":
+        return True
+    if low == "false":
+        return False
+    try:
+        return ast.literal_eval(t)
+    except (ValueError, SyntaxError):
+        return t
+
+
+def _optional_inner(ftype):
+    """Optional[X] -> X (when the union is exactly X | None), else None."""
+    if typing.get_origin(ftype) is typing.Union:
+        non_none = [a for a in typing.get_args(ftype) if a is not type(None)]
+        if len(non_none) == 1:
+            return non_none[0]
+    return None
+
+
+def _coerce(value, ftype, key: str):
+    """Coerce a parsed literal to the declared field type. Ints widen to
+    float; tuple fields accept lists and coerce elementwise; Optional unwraps."""
+    inner = _optional_inner(ftype)
+    if inner is not None:
+        if value is None:
+            return None
+        return _coerce(value, inner, key)
+    if value is None:
+        raise TypeError(f"{key!r}: field of type {ftype} is not Optional; got none")
+    if ftype is float:
+        if isinstance(value, bool) or not isinstance(value, (int, float)):
+            raise TypeError(f"{key!r}: expected a float, got {value!r}")
+        return float(value)
+    if ftype is int:
+        if isinstance(value, bool) or not isinstance(value, int):
+            raise TypeError(f"{key!r}: expected an int, got {value!r}")
+        return value
+    if ftype is bool:
+        if not isinstance(value, bool):
+            raise TypeError(f"{key!r}: expected true/false, got {value!r}")
+        return value
+    if ftype is str:
+        if not isinstance(value, str):
+            raise TypeError(f"{key!r}: expected a string, got {value!r}")
+        return value
+    if typing.get_origin(ftype) is tuple:
+        if not isinstance(value, (tuple, list)):
+            raise TypeError(f"{key!r}: expected a tuple like (a, b), got {value!r}")
+        args = typing.get_args(ftype)
+        if len(args) == 2 and args[1] is Ellipsis:  # Tuple[X, ...]
+            return tuple(_coerce(v, args[0], key) for v in value)
+        if args and len(args) == len(value):  # fixed-arity Tuple[A, B]
+            return tuple(_coerce(v, a, key) for v, a in zip(value, args))
+        return tuple(value)
+    if dataclasses.is_dataclass(ftype):
+        raise TypeError(
+            f"{key!r} is a config node ({ftype.__name__}); set one of its fields "
+            f"({key}.<field>=...), or assign 'none'/'default' if it is Optional"
+        )
+    return value
+
+
+def _set_path(node, parts: Sequence[str], raw: str, key: str):
+    hints = typing.get_type_hints(type(node))
+    name = parts[0]
+    field_names = [f.name for f in dataclasses.fields(node)]
+    if name not in field_names:
+        raise KeyError(
+            f"{key!r}: {type(node).__name__} has no field {name!r}; "
+            f"have {sorted(field_names)}"
+        )
+    ftype = hints[name]
+    node_type = _optional_inner(ftype) or ftype
+    if len(parts) > 1:
+        child = getattr(node, name)
+        if child is None:
+            # descending into an off-by-default Optional node instantiates
+            # its defaults (e.g. --set perceptual_encoder.proprio.n_state_obs=8
+            # on a config without proprio)
+            if not dataclasses.is_dataclass(node_type):
+                raise TypeError(f"{key!r}: {name} is None and not a config node")
+            child = node_type()
+        if not dataclasses.is_dataclass(child):
+            raise TypeError(f"{key!r}: {name} is a leaf field, not a config node")
+        return dataclasses.replace(node, **{name: _set_path(child, parts[1:], raw, key)})
+    if dataclasses.is_dataclass(node_type) and raw.strip().lower() == "default":
+        return dataclasses.replace(node, **{name: node_type()})
+    value = _coerce(_parse_literal(raw), ftype, key)
+    return dataclasses.replace(node, **{name: value})
+
+
+def apply_overrides(cfg: HulcConfig, assignments: Sequence[str]) -> HulcConfig:
+    """Apply Hydra-style dotted-path overrides and re-resolve.
+
+    Each assignment is ``path.to.field=value`` relative to the HulcConfig
+    root, e.g. ``action_decoder.hidden_size=4096``,
+    ``perceptual_encoder.rgb_static.input_size=112``, ``loss.kl_beta=0.1``,
+    ``language_goal=none``, ``perceptual_encoder.proprio=default``,
+    ``action_decoder.perceptual_emb_slice=(0,32)``. Values parse as Python
+    literals (none/true/false keywords; bare words stay strings) and are
+    type-checked against the declared dataclass field type.
+
+    Like the reference's setup_input_sizes (hulc.py:155-187), resolve() runs
+    AFTER all assignments, so inferred fields (``in_features``,
+    ``perceptual_features``, ``plan_features``) are recomputed and cannot be
+    pinned manually.
+    """
+    for assignment in assignments:
+        key, sep, raw = assignment.partition("=")
+        key = key.strip()
+        if not sep or not key:
+            raise ValueError(f"override {assignment!r} must look like path.to.field=value")
+        cfg = _set_path(cfg, key.split("."), raw, key)
+    return cfg.resolve()

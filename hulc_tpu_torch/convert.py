@@ -7,7 +7,9 @@ The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
 * ``ScanRNN``'s ``ih_k`` / ``hh_k`` / ``bhh_k`` become ``weight_ih_lk`` /
   ``bias_ih_lk`` / ``weight_hh_lk`` / ``bias_hh_lk``; ``ScanBiRNN``'s
   ``fwd_k`` / ``bwd_k`` (each a one-layer ScanRNN) become layer k's
-  parameters, the reverse chain's with the ``_reverse`` suffix;
+  parameters, the reverse chain's with the ``_reverse`` suffix; the gru
+  and lstm cells' gate-wide ones (3H, 4H) keep JAX's gate order, which is
+  torch's;
 * the nature-CNN's first dense kernel is re-permuted from the NHWC flatten
   (y, x, c) to the NCHW flatten (c, y, x);
 * LayerNorm ``scale`` becomes ``weight``;
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from hulc_tpu_torch.config import HulcConfig
+from hulc_tpu_torch.models.layers import GATE_MULTIPLE
 
 
 class _Reader:
@@ -133,18 +136,23 @@ def params_from_jax(
         if r.has(f"{name}/ln"):
             layernorm(f"{name}/ln", f"{name}.ln")
 
-    def rnn_layer(src: str, dst: str, k: int, suffix: str = "", src_k: int | None = None):
+    def rnn_layer(src: str, dst: str, k: int, suffix: str = "", src_k: int | None = None, gates: int = 1):
         """ScanRNN layer ``src_k`` (default k) of ``src`` as torch nn.RNN's
-        layer k of ``dst``, its names ending in ``suffix``."""
+        (nn.GRU's, nn.LSTM's) layer k of ``dst``, its names ending in
+        ``suffix``: JAX's (in, G H) kernels transposed, the gates in JAX's
+        order, which is torch's (r z n; i f g o)."""
         src_k = k if src_k is None else src_k
+        hh = r.get(f"{src}/hh_{src_k}")
+        if hh.ndim != 2 or hh.shape[1] != gates * hh.shape[0]:
+            raise ValueError(f"{src}/hh_{src_k} has shape {hh.shape}, not (H, {gates} H) of a {gates}-gate cell")
         sd[f"{dst}.weight_ih_l{k}{suffix}"] = r.get(f"{src}/ih_{src_k}/kernel").T
         sd[f"{dst}.bias_ih_l{k}{suffix}"] = r.get(f"{src}/ih_{src_k}/bias")
-        sd[f"{dst}.weight_hh_l{k}{suffix}"] = r.get(f"{src}/hh_{src_k}").T
+        sd[f"{dst}.weight_hh_l{k}{suffix}"] = hh.T
         sd[f"{dst}.bias_hh_l{k}{suffix}"] = r.get(f"{src}/bhh_{src_k}")
 
     ad = cfg.action_decoder
     for k in range(ad.num_layers):
-        rnn_layer("action_decoder/rnn", "action_decoder.rnn", k)
+        rnn_layer("action_decoder/rnn", "action_decoder.rnn", k, gates=GATE_MULTIPLE[ad.rnn_cell])
     for head in ("mean_fc", "log_scale_fc", "prob_fc") + (("gripper_fc",) if ad.discrete_gripper else ()):
         linear(f"action_decoder/{head}", f"action_decoder.{head}")
 

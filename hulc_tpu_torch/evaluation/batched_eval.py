@@ -2,8 +2,8 @@
 
 E environments advance through ONE (E, ...) policy step. Replanning is per
 lane: a new plan and goal are computed for every lane and merged in where
-``replan_mask`` is set, and those lanes' decoder carries restart from
-zero, so the step keeps one shape. ``evaluate_policy_batched`` drives E
+``replan_mask`` is set, and those lanes' decoder carries (lstm's h and c
+alike) restart from zero, so the step keeps one shape. ``evaluate_policy_batched`` drives E
 lanes through a queue of instruction chains with that step: each lane moves
 to the next instruction on success, aborts its chain on timeout, and pulls
 the next chain when done.
@@ -27,6 +27,16 @@ from hulc_tpu_torch.evaluation.policy import StateObsNormalizer, refuse_depth
 from hulc_tpu_torch.evaluation.tasks import ALL_TASKS, SceneObsTasks
 from hulc_tpu_torch.models.hulc import HulcModel
 from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
+
+
+def reset_carry(carry, replan_mask: torch.Tensor):
+    """The decoder carry (a (L, E, H) tensor, or lstm's pair of them) with
+    the lanes of ``replan_mask`` (E,) set to zero, each tensor alike (JAX's
+    ``jax.tree.map`` of the reset)."""
+    def reset(t):
+        return torch.where(replan_mask[None, :, None], torch.zeros_like(t), t)
+
+    return tuple(reset(t) for t in carry) if isinstance(carry, tuple) else reset(carry)
 
 
 def build_batched_step(model: HulcModel, cfg: HulcConfig):
@@ -53,7 +63,7 @@ def build_batched_step(model: HulcModel, cfg: HulcConfig):
         m = replan_mask[:, None]
         plan = torch.where(m, new_plan, plan)
         latent_goal = torch.where(m, new_goal, latent_goal)
-        carry = torch.where(replan_mask[None, :, None], torch.zeros_like(carry), carry)
+        carry = reset_carry(carry, replan_mask)
         action, carry = model.decoder_act(
             plan, emb, latent_goal, rob_raw, carry, generator=generator, u_mix=u_mix, u_inv=u_inv
         )

@@ -29,6 +29,7 @@ import torch
 from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.data.statistics import DatasetStatistics
 from hulc_tpu_torch.models.hulc import HulcModel
+from hulc_tpu_torch.models.layers import Carry
 from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
 
 
@@ -50,7 +51,7 @@ def refuse_depth(cfg: HulcConfig, what: str) -> None:
 class PolicyState(NamedTuple):
     plan: torch.Tensor
     latent_goal: torch.Tensor
-    carry: torch.Tensor
+    carry: Carry  # (L, 1, H), or lstm's pair (h, c) of that shape
     step_count: int
 
 
@@ -100,7 +101,7 @@ def build_policy_fns(model: HulcModel, cfg: HulcConfig):
     leading dim of ``robot_obs_norm`` (single-lane inference passes 1).
 
     Frames are (E, S, H, W, 3) uint8 on the model's device; embeddings,
-    plans, goals and carries are fp32 tensors there. A config with a depth
+    plans, goals and carries (lstm's a pair) are fp32 tensors there. A config with a depth
     camera is refused (``refuse_depth``).
     """
     refuse_depth(cfg, "the policy")

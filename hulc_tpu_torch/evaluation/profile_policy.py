@@ -96,6 +96,7 @@ HAND_KERNELS = (
     "mixture_nll_fwd_kernel", "mixture_nll_bwd_kernel", "plan_st_kl_fwd_kernel", "plan_st_kl_bwd_kernel",
     "adam_lowp_kernel", "grad_norm_finish_kernel",
     "rnn_fwd_kernel", "rnn_bwd_kernel", "rnn_step_kernel",  # csrc/rnn.cu, either cell
+    "gated_fwd_kernel", "gated_bwd_kernel", "gated_step_kernel",  # csrc/rnn_gates.cu, gru and lstm
     "depth_noise_kernel",
 )
 

@@ -159,6 +159,11 @@ _SIGNATURES = {
     # the sizes, the chain's layout (reverse, y's row width, its column offset), the plan
     "hulc_rnn_tanh_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
     "hulc_rnn_tanh_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
+    # the pointers, the sizes, then ops.recurrence.GatedPlan's three fields
+    "hulc_rnn_gru_fwd": (*(_P,) * 7, *(_I32,) * 6),
+    "hulc_rnn_gru_bwd": (*(_P,) * 9, *(_I32,) * 6),
+    "hulc_rnn_lstm_fwd": (*(_P,) * 9, *(_I32,) * 6),
+    "hulc_rnn_lstm_bwd": (*(_P,) * 9, *(_I32,) * 6),
     # x, z, y, n, mode (0 gamma, 1 gaussian), then the mode's two fp32 constants
     "hulc_depth_noise": (_P, _P, _P, _I64, _I32, _F32, _F32),
     "hulc_empty_launch": (),
@@ -181,6 +186,8 @@ def library() -> ctypes.CDLL:
     lib.hulc_rnn_cluster_limit.restype = ctypes.c_int
     lib.hulc_rnn_check.argtypes = [ctypes.c_int] * 10
     lib.hulc_rnn_check.restype = ctypes.c_int
+    lib.hulc_rnn_gated_check.argtypes = [ctypes.c_int] * 9
+    lib.hulc_rnn_gated_check.restype = ctypes.c_int
     return lib
 
 
@@ -221,6 +228,16 @@ def check_rnn_plan(index: int, tanh: bool, backward: bool, batch: int, seq: int,
     with torch.cuda.device(index):
         err = library().hulc_rnn_check(int(tanh), int(backward), batch, seq, hidden, *plan)
     _raise_if(err, f"hulc_rnn_check of the {'tanh' if tanh else 'relu'} plan {plan} at {(batch, seq, hidden)}")
+
+
+def check_gated_plan(index: int, lstm: bool, backward: bool, saves: bool, batch: int, seq: int, hidden: int,
+                     plan: tuple[int, ...]) -> None:
+    """``hulc_rnn_gated_check`` of a launch plan (``GatedPlan.c_args()``) of
+    the gru or the lstm cell on CUDA device ``index``: raises if it refuses
+    the plan. A sequence kernel launches only after this."""
+    with torch.cuda.device(index):
+        err = library().hulc_rnn_gated_check(int(lstm), int(backward), int(saves), batch, seq, hidden, *plan)
+    _raise_if(err, f"hulc_rnn_gated_check of the {'lstm' if lstm else 'gru'} plan {plan} at {(batch, seq, hidden)}")
 
 
 class Kernel:
@@ -274,13 +291,17 @@ RNN_TANH_BWD = Kernel("hulc_rnn_tanh_bwd")
 BIRNN_TANH_FWD = Composite("hulc_birnn_tanh_fwd")
 BIRNN_TANH_BWD = Composite("hulc_birnn_tanh_bwd")
 DEPTH_NOISE = Kernel("hulc_depth_noise")
+RNN_GRU_FWD = Kernel("hulc_rnn_gru_fwd")
+RNN_GRU_BWD = Kernel("hulc_rnn_gru_bwd")
+RNN_LSTM_FWD = Kernel("hulc_rnn_lstm_fwd")
+RNN_LSTM_BWD = Kernel("hulc_rnn_lstm_bwd")
 # no work: its device time is the floor under every kernel's (measured, never on a path)
 EMPTY_LAUNCH = Kernel("hulc_empty_launch")
 ALL_KERNELS = (
     PREPROCESS_RGB, PREPROCESS_RGB_SHIFT, SPATIAL_SOFTMAX, SPATIAL_SOFTMAX_BWD,
     LOGISTIC_MIXTURE_SAMPLE, MIXTURE_NLL_FWD, MIXTURE_NLL_BWD, PLAN_ST_KL_FWD, PLAN_ST_KL_BWD,
     ADAM_LOWP, GRAD_NORM_FINISH, RNN_RELU_FWD, RNN_RELU_BWD, RNN_TANH_FWD, RNN_TANH_BWD,
-    BIRNN_TANH_FWD, BIRNN_TANH_BWD, DEPTH_NOISE,
+    BIRNN_TANH_FWD, BIRNN_TANH_BWD, DEPTH_NOISE, RNN_GRU_FWD, RNN_GRU_BWD, RNN_LSTM_FWD, RNN_LSTM_BWD,
 )
 
 

@@ -1,8 +1,10 @@
 """Logistic-mixture action decoder (port of hulc_tpu/models/decoders.py:41-214).
 
-A relu RNN with an explicit carry over concat(plan, a slice of the
-perceptual embedding, latent goal; its recurrence a hand-written kernel
-per layer on CUDA tensors, forward and backward), three heads for the mixture's logits,
+An RNN (the relu cell, or the gru or lstm cell that
+``config.apply_overrides`` selects) with an explicit carry (lstm's a pair
+(h, c)) over concat(plan, a slice of the perceptual embedding, latent goal;
+its recurrence a hand-written kernel per layer on CUDA tensors, forward and
+backward), three heads for the mixture's logits,
 log scales (clamped at ``log_scale_min``) and means, and a two-way gripper
 head. ``act`` samples one action per step through the mixture sampler,
 which also picks the gripper by argmax (one hand-written kernel on CUDA
@@ -24,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from hulc_tpu_torch.config import ActionDecoderConfig
-from hulc_tpu_torch.models.layers import ScanRNN
+from hulc_tpu_torch.models.layers import Carry, ScanRNN
 from hulc_tpu_torch.ops.frame_transforms import tcp_to_world_frame, world_to_tcp_frame
 from hulc_tpu_torch.ops.logistic_mixture import (
     U_MIN,
@@ -43,7 +45,7 @@ class DecoderOutputs(NamedTuple):
     log_scales: torch.Tensor  # (B, S, A, K)
     means: torch.Tensor  # (B, S, A, K)
     gripper_logits: Optional[torch.Tensor]  # (B, S, 2) when discrete_gripper
-    carry: torch.Tensor  # (num_layers, B, H)
+    carry: Carry  # (num_layers, B, H), or lstm's pair (h, c) of that shape
 
 
 def _cross_entropy_gripper(
@@ -53,11 +55,6 @@ def _cross_entropy_gripper(
     all but the batch dim with ``per_sample``."""
     nll = cross_entropy_gripper(gripper_logits, gripper_gt)
     return nll.flatten(1).mean(dim=1) if per_sample else nll.mean()
-
-
-def decoder_carry(cfg: ActionDecoderConfig, batch_size: int, device) -> torch.Tensor:
-    """Zero RNN carry for closed-loop inference."""
-    return torch.zeros(cfg.num_layers, batch_size, cfg.hidden_size, device=device)
 
 
 class LogisticPolicyDecoder(nn.Module):
@@ -98,7 +95,7 @@ class LogisticPolicyDecoder(nn.Module):
         latent_plan: torch.Tensor,
         perceptual_emb: torch.Tensor,
         latent_goal: torch.Tensor,
-        carry: Optional[torch.Tensor] = None,
+        carry: Optional[Carry] = None,
     ) -> DecoderOutputs:
         c = self.cfg
         if c.perceptual_emb_slice is not None:
@@ -206,12 +203,12 @@ class LogisticPolicyDecoder(nn.Module):
         perceptual_emb: torch.Tensor,
         latent_goal: torch.Tensor,
         robot_obs: torch.Tensor,
-        carry: torch.Tensor,
+        carry: Carry,
         *,
         generator: Optional[torch.Generator] = None,
         u_mix: Optional[torch.Tensor] = None,
         u_inv: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ) -> Tuple[torch.Tensor, Carry]:
         """One closed-loop step: (B, S, 7) world-frame actions and the new carry."""
         out = self(latent_plan, perceptual_emb, latent_goal, carry)
         pred = self._sample_from_outputs(out, generator, u_mix, u_inv)

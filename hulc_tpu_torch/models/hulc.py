@@ -45,9 +45,9 @@ import torch.nn as nn
 from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.device import resolve_device
 from hulc_tpu_torch.models.aux_heads import ProjVisLang
-from hulc_tpu_torch.models.decoders import LogisticPolicyDecoder, decoder_carry
+from hulc_tpu_torch.models.decoders import LogisticPolicyDecoder
 from hulc_tpu_torch.models.goal_encoders import GoalEncoder, make_language_goal_encoder
-from hulc_tpu_torch.models.layers import MultiheadSelfAttention, ScanBiRNN, ScanRNN
+from hulc_tpu_torch.models.layers import Carry, MultiheadSelfAttention, ScanBiRNN, ScanRNN
 from hulc_tpu_torch.models.perceptual import ConcatEncoders
 from hulc_tpu_torch.models.plan_nets import PlanProposalNetwork, make_plan_distribution, make_plan_recognition
 from hulc_tpu_torch.models.vision import SpatialSoftmax
@@ -203,19 +203,23 @@ class HulcModel(nn.Module):
         perceptual_emb: torch.Tensor,
         latent_goal: torch.Tensor,
         robot_obs: torch.Tensor,
-        carry: torch.Tensor,
+        carry: Carry,
         *,
         generator: Optional[torch.Generator] = None,
         u_mix: Optional[torch.Tensor] = None,
         u_inv: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ) -> Tuple[torch.Tensor, Carry]:
+        """One decoder step with the carry, a tensor or lstm's pair (h, c)."""
         return self.action_decoder.act(
             plan, perceptual_emb, latent_goal, robot_obs, carry,
             generator=generator, u_mix=u_mix, u_inv=u_inv,
         )
 
-    def init_decoder_carry(self, batch_size: int) -> torch.Tensor:
-        return decoder_carry(self.cfg.action_decoder, batch_size, self.device)
+    def init_decoder_carry(self, batch_size: int) -> Carry:
+        """The decoder's zero carry for closed-loop inference: (num_layers,
+        B, H), or for lstm the pair (h, c) of that shape (JAX's
+        ``decoder_carry``)."""
+        return self.action_decoder.rnn.init_carry(batch_size, self.device)
 
     @property
     def device(self) -> torch.device:

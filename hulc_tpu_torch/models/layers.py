@@ -3,12 +3,14 @@
 ``MLP`` builds the Linear/activation stacks under the reference's
 ``nn.Sequential`` indices, so state_dict keys such as ``mlp.0`` or
 ``fc_model.2`` line up with the reference checkpoints. ``ScanRNN`` is a
-multi-layer relu (the decoder) or tanh RNN with an explicit (num_layers,
-B, H) carry: the input projection of every time step runs as one matmul
-before the recurrence ``act(x_t W_ih + b_ih + h W_hh + b_hh)``. Each
-layer's recurrence is ``ops.recurrence.rnn_relu`` / ``rnn_tanh``: on CUDA
-tensors one launch of a hand-written kernel, forward and backward; on CPU
-tensors the plain loop forward and the closed-form backward. With
+multi-layer relu (the decoder), tanh, gru or lstm RNN with an explicit
+carry, (num_layers, B, H), or for lstm the pair (h, c) of that shape: the
+input projection of every time step (G H wide, G the cell's gates) runs as
+one matmul before the recurrence (``act(x_t W_ih + b_ih + h W_hh + b_hh)``,
+or the gated cells' gate math). Each layer's recurrence is
+``ops.recurrence.rnn_relu`` / ``rnn_tanh`` / ``rnn_gru`` / ``rnn_lstm``: on
+CUDA tensors one launch of a hand-written kernel, forward and backward; on
+CPU tensors the plain loop forward and the closed-form backward. With
 ``use_kernels=False`` it is the plain loop of one fp32 ``addmm`` per step,
 differentiated by autograd. ``ScanBiRNN`` is MCIL's bidirectional tanh RNN
 (port of layers.py:284-313): per layer both input projections as plain
@@ -20,30 +22,40 @@ under torch ``nn.TransformerEncoder``'s parameter names.
 ``Dropout`` draws its mask from an explicit ``torch.Generator`` (set with
 ``set_dropout_generator``), as every random draw of the port does, and
 keeps flax's semantics: ``where(keep, x / keep_prob, 0)``, with a mask of
-``x``'s shape unless ``broadcast_dims`` names axes that share it. The gru
-and lstm cells wait for a later slice.
+``x``'s shape unless ``broadcast_dims`` names axes that share it. The
+decoder's ``mlp`` cell and the bidirectional relu and gru cells wait for
+later slices.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from hulc_tpu_torch.ops.recurrence import (
+    GATES,
     birnn_layer,
     birnn_layer_plain,
+    rnn_gru,
+    rnn_gru_fwd_plain,
+    rnn_lstm,
+    rnn_lstm_fwd_plain,
     rnn_relu,
     rnn_relu_fwd_plain,
     rnn_tanh,
     rnn_tanh_fwd_plain,
 )
 
-# cell: (the autograd Function of the kernels, the plain loop)
-RECURRENCES = {"rnn": (rnn_relu, rnn_relu_fwd_plain), "rnn_tanh": (rnn_tanh, rnn_tanh_fwd_plain)}
+# cell: (the layer through the kernels, the plain loop)
+RECURRENCES = {"rnn": (rnn_relu, rnn_relu_fwd_plain), "rnn_tanh": (rnn_tanh, rnn_tanh_fwd_plain),
+               "gru": (rnn_gru, rnn_gru_fwd_plain), "lstm": (rnn_lstm, rnn_lstm_fwd_plain)}
+GATE_MULTIPLE = {"rnn": 1, "rnn_tanh": 1, **GATES}
+# a carry: (L, B, H), or lstm's pair (h, c) of that shape
+Carry = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 ACTIVATIONS = {
     "relu": nn.ReLU,
@@ -104,22 +116,28 @@ def MLP(
     return nn.Sequential(*layers)
 
 
-def _rnn_params(module: nn.Module, k: int, suffix: str, input_size: int, hidden_size: int) -> None:
-    """Layer k's parameters under torch ``nn.RNN``'s names."""
-    module.register_parameter(f"weight_ih_l{k}{suffix}", nn.Parameter(torch.empty(hidden_size, input_size)))
-    module.register_parameter(f"weight_hh_l{k}{suffix}", nn.Parameter(torch.empty(hidden_size, hidden_size)))
-    module.register_parameter(f"bias_ih_l{k}{suffix}", nn.Parameter(torch.empty(hidden_size)))
-    module.register_parameter(f"bias_hh_l{k}{suffix}", nn.Parameter(torch.empty(hidden_size)))
+def _rnn_params(module: nn.Module, k: int, suffix: str, input_size: int, hidden_size: int, gates: int = 1) -> None:
+    """Layer k's parameters under torch ``nn.RNN`` / ``nn.GRU`` / ``nn.LSTM``'s
+    names, ``gates`` gate blocks of ``hidden_size`` rows each."""
+    rows = gates * hidden_size
+    module.register_parameter(f"weight_ih_l{k}{suffix}", nn.Parameter(torch.empty(rows, input_size)))
+    module.register_parameter(f"weight_hh_l{k}{suffix}", nn.Parameter(torch.empty(rows, hidden_size)))
+    module.register_parameter(f"bias_ih_l{k}{suffix}", nn.Parameter(torch.empty(rows)))
+    module.register_parameter(f"bias_hh_l{k}{suffix}", nn.Parameter(torch.empty(rows)))
 
 
 class ScanRNN(nn.Module):
-    """Multi-layer relu (``cell="rnn"``) or tanh (``"rnn_tanh"``) RNN over
-    (B, S, F) with an explicit carry.
+    """Multi-layer relu (``cell="rnn"``), tanh (``"rnn_tanh"``), gru or lstm
+    RNN over (B, S, F) with an explicit carry: (L, B, H), or for lstm the
+    pair (h, c) of that shape.
 
-    Parameters carry torch ``nn.RNN``'s names (``weight_ih_l{k}``,
-    ``weight_hh_l{k}``, ``bias_ih_l{k}``, ``bias_hh_l{k}``).
-    ``use_kernels=False`` runs the plain loop on any device; it exists to
-    hold the kernels against it on the card.
+    Parameters carry torch ``nn.RNN`` / ``nn.GRU`` / ``nn.LSTM``'s names and
+    shapes (``weight_ih_l{k}`` (G H, F), ``weight_hh_l{k}`` (G H, H),
+    ``bias_ih_l{k}``, ``bias_hh_l{k}`` (G H), G the cell's gates: r z n,
+    i f g o, JAX's order and torch's). ``use_kernels=False`` runs the plain
+    loop on any device; it exists to hold the kernels against it on the
+    card. The decoder's ``mlp`` cell is refused: it belongs to a later
+    slice.
     """
 
     def __init__(
@@ -127,34 +145,40 @@ class ScanRNN(nn.Module):
     ):
         super().__init__()
         if cell not in RECURRENCES:
-            raise ValueError(f"rnn cell {cell!r} is not ported yet; only 'rnn' (relu) and 'rnn_tanh' are")
+            raise ValueError(f"rnn cell {cell!r} is not ported yet; only {sorted(RECURRENCES)} are")
         self.cell = cell
         self.use_kernels = use_kernels
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         for k in range(num_layers):
-            _rnn_params(self, k, "", input_size if k == 0 else hidden_size, hidden_size)
+            _rnn_params(self, k, "", input_size if k == 0 else hidden_size, hidden_size, GATE_MULTIPLE[cell])
 
-    def forward(
-        self, x: torch.Tensor, carry: Optional[torch.Tensor] = None
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B, S, F), carry (L, B, H) or None -> (outputs (B, S, H), carry)."""
+    def init_carry(self, batch_size: int, device=None) -> Carry:
+        """The zero carry: (L, B, H), or lstm's pair of them."""
+        h = torch.zeros(self.num_layers, batch_size, self.hidden_size, device=device)
+        return (h, torch.zeros_like(h)) if self.cell == "lstm" else h
+
+    def forward(self, x: torch.Tensor, carry: Optional[Carry] = None) -> Tuple[torch.Tensor, Carry]:
+        """x (B, S, F), carry or None (zeros) -> (outputs (B, S, H), carry)."""
         if carry is None:
-            carry = x.new_zeros(self.num_layers, x.shape[0], self.hidden_size)
+            carry = self.init_carry(x.shape[0], x.device)
+        lstm = self.cell == "lstm"
         recurrence, plain = RECURRENCES[self.cell]
         out = x
-        finals = []
+        finals, cells = [], []
         for k in range(self.num_layers):
             w_hh = getattr(self, f"weight_hh_l{k}")
             b_hh = getattr(self, f"bias_hh_l{k}")
             x_proj = F.linear(out, getattr(self, f"weight_ih_l{k}"), getattr(self, f"bias_ih_l{k}"))
+            state = (carry[0][k], carry[1][k]) if lstm else (carry[k],)
             if self.use_kernels:
-                out, h = recurrence(x_proj, carry[k].contiguous(), w_hh, b_hh)
+                out, h, *c = recurrence(x_proj, *(s.contiguous() for s in state), w_hh, b_hh)
             else:
-                out = plain(x_proj, carry[k], w_hh, b_hh)
+                out, *c = plain(x_proj, *state, w_hh, b_hh) if lstm else (plain(x_proj, *state, w_hh, b_hh),)
                 h = out[:, -1]
             finals.append(h)
-        return out, torch.stack(finals)
+            cells.extend(c)
+        return out, (torch.stack(finals), torch.stack(cells)) if lstm else torch.stack(finals)
 
 
 class ScanBiRNN(nn.Module):

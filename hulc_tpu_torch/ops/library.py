@@ -5,7 +5,7 @@ CUDA implementation (the kernel, launched through ``kernels.py``) and a
 fake implementation (the output's shape and type, for tracing). The device
 choice is the dispatcher's: the wrappers (``ops.image_ops.preprocess_rgb_seq``,
 ``ops.spatial_softmax.spatial_softmax``, ``ops.logistic_mixture.sample_action``,
-``ops.recurrence.rnn_relu_fwd``) call the op whatever the device, and a
+``ops.recurrence.rnn_relu_fwd``, ``rnn_gru_fwd``, ``rnn_lstm_fwd``) call the op whatever the device, and a
 CUDA tensor launches the kernel or raises. ``torch.export`` keeps each op
 as one graph node, so an exported policy (``serving.export``) holds the
 kernels themselves and not their plain versions; loaded on the card, it
@@ -18,6 +18,8 @@ registered before any of those wrappers runs.
 | ``hulc::spatial_softmax`` | ``models/vision.py:38`` forward (B.2) | ``csrc/spatial_softmax.cu`` |
 | ``hulc::sample_action`` | ``ops/logistic_mixture.py:114`` + ``models/decoders.py:157`` (B.3) | ``csrc/logistic_mixture.cu`` |
 | ``hulc::rnn_relu_fwd`` | ``models/layers.py:233`` forward (B.6) | ``csrc/rnn.cu`` (the relu instance) |
+| ``hulc::rnn_gru_fwd`` | ``models/layers.py:238`` forward (B.11) | ``csrc/rnn_gates.cu`` (the gru instance) |
+| ``hulc::rnn_lstm_fwd`` | ``models/layers.py:248`` forward (B.12) | ``csrc/rnn_gates.cu`` (the lstm instance) |
 
 Launches are counted where they happen, in ``kernels.Kernel.__call__``.
 """
@@ -30,7 +32,7 @@ import torch
 
 from hulc_tpu_torch.ops import image_ops, logistic_mixture, recurrence, spatial_softmax
 
-OPS = ("preprocess_rgb", "spatial_softmax", "sample_action", "rnn_relu_fwd")
+OPS = ("preprocess_rgb", "spatial_softmax", "sample_action", "rnn_relu_fwd", "rnn_gru_fwd", "rnn_lstm_fwd")
 
 
 @torch.library.custom_op("hulc::preprocess_rgb", mutates_args=(), device_types="cpu")
@@ -113,3 +115,45 @@ def _(xp, h0, w_hh, b_hh):
 def _(xp, h0, w_hh, b_hh):
     b, _, h = xp.shape
     return xp.new_empty(xp.shape), xp.new_empty((b, h))
+
+
+@torch.library.custom_op("hulc::rnn_gru_fwd", mutates_args=(), device_types="cpu")
+def rnn_gru_fwd(
+    xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One gru layer's inference forward over the projected inputs (B, S,
+    3H): (y (B, S, H), the final state as its own (B, H) tensor)."""
+    y = recurrence.rnn_gru_fwd_plain(xp, h0, w_hh, b_hh)
+    return y, y[:, -1].clone()
+
+
+@rnn_gru_fwd.register_kernel("cuda")
+def _(xp, h0, w_hh, b_hh):
+    y, h_last, _ = recurrence.rnn_gru_fwd_kernel(xp, h0, w_hh, b_hh)
+    return y, h_last
+
+
+@rnn_gru_fwd.register_fake
+def _(xp, h0, w_hh, b_hh):
+    return xp.new_empty((*xp.shape[:2], h0.shape[1])), h0.new_empty(h0.shape)
+
+
+@torch.library.custom_op("hulc::rnn_lstm_fwd", mutates_args=(), device_types="cpu")
+def rnn_lstm_fwd(
+    xp: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One lstm layer's inference forward over the projected inputs (B, S,
+    4H) from (h0, c0): (y (B, S, H), the final h and c (B, H))."""
+    y, c = recurrence.rnn_lstm_fwd_plain(xp, h0, c0, w_hh, b_hh)
+    return y, y[:, -1].clone(), c.clone()
+
+
+@rnn_lstm_fwd.register_kernel("cuda")
+def _(xp, h0, c0, w_hh, b_hh):
+    y, h_last, c_last, _ = recurrence.rnn_lstm_fwd_kernel(xp, h0, c0, w_hh, b_hh)
+    return y, h_last, c_last
+
+
+@rnn_lstm_fwd.register_fake
+def _(xp, h0, c0, w_hh, b_hh):
+    return xp.new_empty((*xp.shape[:2], h0.shape[1])), h0.new_empty(h0.shape), c0.new_empty(c0.shape)

@@ -29,6 +29,19 @@ the dh chain take the plain versions below: ``rnn_relu_fwd_plain`` /
 in a (B, S, 2H) output, reversed or not), and ``birnn_layer_plain`` /
 ``birnn_layer_bwd_plain`` JAX's flip and concatenation, which
 ``use_kernels=False`` runs.
+
+The gated cells (layers.py:238-257), gru (B.11) and lstm (B.12), take xp
+(B, S, G H) and W_hh (G H, H), G = 3 (r, z, n) or 4 (i, f, g, o), and
+lstm a carry pair (h0, c0); ``csrc/rnn_gates.cu`` streams W_hh every step
+(it does not fit in shared memory) in one cooperative launch a layer
+(``gated_plan``, checked once a shape by ``gated_device_plan``).
+``rnn_gru`` / ``rnn_lstm`` take the autograd Functions where a gradient is
+wanted: a training forward that saves the gates (and c), then the dh
+chain kernel and, as for B.6, dW_hh as one product of dhp and the states,
+db_hh as its sum; without one they take the ``hulc::rnn_gru_fwd`` /
+``hulc::rnn_lstm_fwd`` ops, which save nothing (one step at a serving
+lane: the GEMV). ``rnn_gru_fwd_plain`` / ``rnn_lstm_fwd_plain`` are the
+loops, ``dh_chain_gru_plain`` / ``dh_chain_lstm_plain`` the chains.
 """
 
 from __future__ import annotations
@@ -507,3 +520,374 @@ def birnn_layer(
     """One bidirectional tanh layer (B.9) through ``_BiRnnTanhLayer``: (B, S,
     2H), differentiable in all seven inputs."""
     return _BiRnnTanhLayer.apply(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
+
+
+# --------------------------------------------------------------------------
+# B.11, B.12: the gated cells (gru, lstm)
+# --------------------------------------------------------------------------
+
+# csrc/rnn_gates.cu's geometry
+GATED_COLS = 16  # kCols: hidden columns of a block of the sequence kernels
+GATED_ROWS = 64  # kRows: batch rows per tile
+GATED_CHUNK = 64  # kChunk: k values staged at a time
+GATED_STRIDE = GATED_CHUNK + 4  # kStride: floats per staged row
+GATED_PARTS = 4  # kParts: k-parts of the dh chain's product
+GATED_STEP_ROWS = 8  # kStepRows: most rows of the one-step launch
+GATED_STEP_COLS = 8  # kStepWarps: hidden columns per block of the one-step launch, one a warp
+GATES = {"gru": 3, "lstm": 4}  # gate columns per hidden column: r z n; i f g o
+SAVED = {"gru": 4, "lstm": 5}  # what a training forward saves per hidden column: r z n hn; i f g o c
+
+
+@dataclasses.dataclass(frozen=True)
+class GatedPlan:
+    """One launch of ``csrc/rnn_gates.cu``. ``launch`` "sequence":
+    ceil(H / ``cols``) blocks of 256 threads, block c owning the ``cols``
+    hidden columns from c * ``cols`` and all gate columns of each, ``smem``
+    bytes of shared memory a block, cooperative (every block resident, one
+    grid barrier a step) unless it is a forward of one step. "step":
+    ceil(H / ``cols``) blocks of ``cols`` warps, one hidden column a warp,
+    for a forward of one step at most GATED_STEP_ROWS rows that saves
+    nothing (a serving lane)."""
+
+    launch: str
+    cols: int
+    smem_bytes: int
+
+    def c_args(self) -> Tuple[int, ...]:
+        return 0 if self.launch == "sequence" else 1, self.cols, self.smem_bytes
+
+    def blocks(self, hidden: int) -> int:
+        return _ceil(hidden, self.cols)
+
+
+def gated_smem_bytes(cell: str, backward: bool) -> int:
+    """csrc/rnn_gates.cu ``sequence_smem_bytes``: forward, two chunk buffers
+    of h and of the block's G * cols rows of W; backward, two of dhp and of
+    W's transposed chunk, and the k-parts' partial sums."""
+    if backward:
+        floats = 2 * GATED_ROWS * GATED_STRIDE + 2 * GATED_COLS * GATED_STRIDE + GATED_PARTS * GATED_ROWS * GATED_COLS
+    else:
+        floats = 2 * GATED_ROWS * GATED_STRIDE + 2 * GATES[cell] * GATED_COLS * GATED_STRIDE
+    return 4 * floats
+
+
+def gated_plan(cell: str, hidden: int, batch: int, seq: int, smem_optin: int, backward: bool = False,
+               saves: bool = False) -> GatedPlan:
+    """The launch for one gated layer at (batch, seq, hidden) on a card that
+    gives a block ``smem_optin`` bytes of shared memory: the one-step GEMV
+    for a forward of one time step at most GATED_STEP_ROWS rows that saves
+    no gates, else the sequence kernel. Raises ValueError when its shared
+    memory does not fit; csrc/rnn_gates.cu checks that every block of a
+    cooperative launch is resident (``hulc_rnn_gated_check``)."""
+    if cell not in GATES:
+        raise ValueError(f"gated_plan: cell {cell!r} is not gru or lstm")
+    if min(hidden, batch, seq) <= 0:
+        raise ValueError(f"gated_plan: hidden {hidden}, batch {batch}, seq {seq} must be positive")
+    if not backward and not saves and seq == 1 and batch <= GATED_STEP_ROWS:
+        return GatedPlan("step", GATED_STEP_COLS, 0)
+    smem = gated_smem_bytes(cell, backward)
+    if smem > smem_optin:
+        raise ValueError(f"the {cell} kernels need {smem} B of shared memory a block, the card gives {smem_optin}")
+    return GatedPlan("sequence", GATED_COLS, smem)
+
+
+@functools.cache
+def gated_device_plan(cell: str, hidden: int, batch: int, seq: int, index: int, backward: bool,
+                      saves: bool) -> GatedPlan:
+    """``gated_plan`` for CUDA device ``index``, checked by
+    csrc/rnn_gates.cu against the card once per shape."""
+    plan = gated_plan(cell, hidden, batch, seq, kernels.device_limits(index)[1], backward, saves)
+    kernels.check_gated_plan(index, cell == "lstm", backward, saves, batch, seq, hidden, plan.c_args())
+    return plan
+
+
+def _gated_loop(cell: str, xp, h0, c0, w_hh, b_hh, save: bool):
+    """The gated loop, one ``addmm`` a step, then the gate math as JAX's
+    ScanRNN writes it (hulc_tpu/models/layers.py:239-260): (y (B, S, H),
+    the final c (lstm; else None), the saved gates (B, S, SAVED[cell] * H)
+    when ``save``, else None)."""
+    h, c = h0, c0
+    ys, saved = [], []
+    for t in range(xp.shape[1]):
+        hp = torch.addmm(b_hh, h, w_hh.t())
+        if cell == "gru":
+            xr, xz, xn = xp[:, t].chunk(3, dim=-1)
+            hr, hz, hn = hp.chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = (1.0 - z) * n + z * h
+            parts = (r, z, n, hn)
+        else:
+            xi, xf, xg, xo = xp[:, t].chunk(4, dim=-1)
+            hi, hf, hg, ho = hp.chunk(4, dim=-1)
+            i = torch.sigmoid(xi + hi)
+            f = torch.sigmoid(xf + hf)
+            g = torch.tanh(xg + hg)
+            o = torch.sigmoid(xo + ho)
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            parts = (i, f, g, o, c)
+        ys.append(h)
+        if save:
+            saved.append(torch.cat(parts, dim=-1))
+    return torch.stack(ys, dim=1), c, torch.stack(saved, dim=1) if save else None
+
+
+def rnn_gru_fwd_plain(xp: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """The gru loop over xp (B, S, 3H) from h0 (B, H), W_hh (3H, H): y (B, S, H)."""
+    return _gated_loop("gru", xp, h0, None, w_hh, b_hh, False)[0]
+
+
+def rnn_lstm_fwd_plain(
+    xp: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lstm loop over xp (B, S, 4H) from (h0, c0), W_hh (4H, H): (y (B,
+    S, H), the final c (B, H))."""
+    y, c, _ = _gated_loop("lstm", xp, h0, c0, w_hh, b_hh, False)
+    return y, c
+
+
+def dh_chain_gru_plain(dy, dh_last, y, h0, saved, w_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What B.11's backward computes: (dxp, dhp (B, S, 3H), dh0 (B, H)) from
+    the training forward's saved [r | z | n | hn]; ``dh_last`` None means no
+    gradient reaches the final carry. dhp is dxp but in the n slice, dxp_n
+    * r; dh_{t-1} = gh_t z_t + dhp_t W_hh."""
+    b, s, h = y.shape
+    dh = y.new_zeros(b, h) if dh_last is None else dh_last
+    dxp, dhp = y.new_empty(b, s, 3 * h), y.new_empty(b, s, 3 * h)
+    for t in reversed(range(s)):
+        r, z, n, hn = saved[:, t].chunk(4, dim=-1)
+        h_prev = y[:, t - 1] if t > 0 else h0
+        gh = dy[:, t] + dh
+        dpn = gh * (1.0 - z) * (1.0 - n * n)
+        dpr = dpn * hn * (r * (1.0 - r))
+        dpz = gh * (h_prev - n) * (z * (1.0 - z))
+        dxp[:, t] = torch.cat([dpr, dpz, dpn], dim=-1)
+        dhp[:, t] = torch.cat([dpr, dpz, dpn * r], dim=-1)
+        dh = gh * z + dhp[:, t] @ w_hh
+    return dxp, dhp, dh
+
+
+def dh_chain_lstm_plain(dy, dh_last, dc_last, saved, c0, w_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What B.12's backward computes: (dpre (B, S, 4H), the gradient of xp
+    and of hp alike, dh0, dc0 (B, H)) from the saved [i | f | g | o | c]:
+    dc = dc_t + gh o (1 - tanh^2 c_t), dh_{t-1} = dpre_t W_hh, dc_{t-1} =
+    dc f. ``dh_last`` / ``dc_last`` None: no gradient reaches that carry."""
+    b, s, h5 = saved.shape
+    h = h5 // 5
+    dh = saved.new_zeros(b, h) if dh_last is None else dh_last
+    dc = saved.new_zeros(b, h) if dc_last is None else dc_last
+    dpre = saved.new_empty(b, s, 4 * h)
+    for t in reversed(range(s)):
+        i, f, g, o, c = saved[:, t].chunk(5, dim=-1)
+        c_prev = saved[:, t - 1, 4 * h:] if t > 0 else c0
+        gh = dy[:, t] + dh
+        tc = torch.tanh(c)
+        dc = dc + gh * o * (1.0 - tc * tc)
+        dpre[:, t] = torch.cat([dc * g * (i * (1.0 - i)), dc * c_prev * (f * (1.0 - f)), dc * i * (1.0 - g * g),
+                                gh * tc * (o * (1.0 - o))], dim=-1)
+        dh = dpre[:, t] @ w_hh
+        dc = dc * f
+    return dpre, dh, dc
+
+
+def _check_gated(name, cell, b, h, states, w_hh, b_hh=None):
+    """The (B, H) states (h0, c0, dcarry: None allowed), W_hh (G H, H) and
+    b_hh (G H) of a gated layer of B rows and H columns, before their
+    pointers are passed."""
+    g = GATES[cell]
+    kernels.require_cuda_tensor("w_hh", w_hh, torch.float32, 2)
+    if b_hh is not None:
+        kernels.require_cuda_tensor("b_hh", b_hh, torch.float32, 1)
+    for i, state in enumerate(states):
+        if state is not None:
+            kernels.require_cuda_tensor(f"state {i}", state, torch.float32, 2)
+    if (w_hh.shape != (g * h, h) or (b_hh is not None and b_hh.shape != (g * h,))
+            or any(s is not None and s.shape != (b, h) for s in states)):
+        raise ValueError(f"{name}: w_hh {tuple(w_hh.shape)}, b_hh {None if b_hh is None else tuple(b_hh.shape)}, "
+                         f"states {[None if s is None else tuple(s.shape) for s in states]} do not fit (B, H) = "
+                         f"{(b, h)} of a {cell} layer")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def rnn_gru_fwd_kernel(xp, h0, w_hh, b_hh, save: bool = False):
+    """B.11's forward on CUDA tensors: (y (B, S, H), h_last (B, H), the saved
+    gates (B, S, 4H) when ``save``, else None)."""
+    b, s, gh = xp.shape
+    h = gh // 3
+    kernels.require_cuda_tensor("xp", xp, torch.float32, 3)
+    _check_gated("rnn_gru_fwd", "gru", b, h, (h0,), w_hh, b_hh)
+    if gh != 3 * h:
+        raise ValueError(f"rnn_gru_fwd: xp {tuple(xp.shape)} is not (B, S, 3H)")
+    plan = gated_device_plan("gru", h, b, s, _index(xp.device), False, save)
+    y = xp.new_empty(b, s, h)
+    h_last = xp.new_empty(b, h)
+    saved = xp.new_empty(b, s, SAVED["gru"] * h) if save else None
+    kernels.RNN_GRU_FWD(xp.device, xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), y.data_ptr(),
+                        h_last.data_ptr(), _ptr(saved), b, s, h, *plan.c_args())
+    return y, h_last, saved
+
+
+def rnn_lstm_fwd_kernel(xp, h0, c0, w_hh, b_hh, save: bool = False):
+    """B.12's forward on CUDA tensors: (y (B, S, H), h_last, c_last (B, H),
+    the saved gates and c (B, S, 5H) when ``save``, else None)."""
+    b, s, gh = xp.shape
+    h = gh // 4
+    kernels.require_cuda_tensor("xp", xp, torch.float32, 3)
+    _check_gated("rnn_lstm_fwd", "lstm", b, h, (h0, c0), w_hh, b_hh)
+    if gh != 4 * h:
+        raise ValueError(f"rnn_lstm_fwd: xp {tuple(xp.shape)} is not (B, S, 4H)")
+    plan = gated_device_plan("lstm", h, b, s, _index(xp.device), False, save)
+    y = xp.new_empty(b, s, h)
+    h_last, c_last = xp.new_empty(b, h), xp.new_empty(b, h)
+    saved = xp.new_empty(b, s, SAVED["lstm"] * h) if save else None
+    kernels.RNN_LSTM_FWD(xp.device, xp.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                         y.data_ptr(), h_last.data_ptr(), c_last.data_ptr(), _ptr(saved), b, s, h, *plan.c_args())
+    return y, h_last, c_last, saved
+
+
+def rnn_gru_fwd(xp, h0, w_hh, b_hh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``hulc::rnn_gru_fwd`` op: (y (B, S, H), the final state (B, H));
+    B.11's inference forward on CUDA tensors, the plain loop on CPU tensors."""
+    return torch.ops.hulc.rnn_gru_fwd(xp, h0, w_hh, b_hh)
+
+
+def rnn_lstm_fwd(xp, h0, c0, w_hh, b_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ``hulc::rnn_lstm_fwd`` op: (y, h_last, c_last); B.12's inference
+    forward on CUDA tensors, the plain loop on CPU tensors."""
+    return torch.ops.hulc.rnn_lstm_fwd(xp, h0, c0, w_hh, b_hh)
+
+
+def rnn_gru_bwd(dy, dh_last, y, h0, saved, w_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B.11's dh-chain kernel (the plain chain on CPU tensors): (dxp, dhp,
+    dh0)."""
+    if y.device.type == "cpu":
+        return dh_chain_gru_plain(dy, dh_last, y, h0, saved, w_hh)
+    b, s, h = y.shape
+    dy = dy.contiguous()
+    dh_last = None if dh_last is None else dh_last.contiguous()
+    for name, t, width in (("dy", dy, h), ("y", y, h), ("saved", saved, SAVED["gru"] * h)):
+        kernels.require_cuda_tensor(name, t, torch.float32, 3)
+        if t.shape != (b, s, width):
+            raise ValueError(f"rnn_gru_bwd: {name} {tuple(t.shape)} is not {(b, s, width)}")
+    _check_gated("rnn_gru_bwd", "gru", b, h, (h0, dh_last), w_hh)
+    plan = gated_device_plan("gru", h, b, s, _index(y.device), True, False)
+    dxp, dhp = y.new_empty(b, s, 3 * h), y.new_empty(b, s, 3 * h)
+    dh0 = y.new_empty(b, h)
+    kernels.RNN_GRU_BWD(y.device, dy.data_ptr(), _ptr(dh_last), y.data_ptr(), h0.data_ptr(), saved.data_ptr(),
+                        w_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(), dh0.data_ptr(), b, s, h, *plan.c_args())
+    return dxp, dhp, dh0
+
+
+def rnn_lstm_bwd(dy, dh_last, dc_last, saved, c0, w_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B.12's dh / dc chain kernel (the plain chain on CPU tensors): (dpre,
+    dh0, dc0)."""
+    if saved.device.type == "cpu":
+        return dh_chain_lstm_plain(dy, dh_last, dc_last, saved, c0, w_hh)
+    b, s, h5 = saved.shape
+    h = h5 // SAVED["lstm"]
+    dy = dy.contiguous()
+    dh_last = None if dh_last is None else dh_last.contiguous()
+    dc_last = None if dc_last is None else dc_last.contiguous()
+    for name, t, width in (("dy", dy, h), ("saved", saved, SAVED["lstm"] * h)):
+        kernels.require_cuda_tensor(name, t, torch.float32, 3)
+        if t.shape != (b, s, width):
+            raise ValueError(f"rnn_lstm_bwd: {name} {tuple(t.shape)} is not {(b, s, width)}")
+    _check_gated("rnn_lstm_bwd", "lstm", b, h, (c0, dh_last, dc_last), w_hh)
+    plan = gated_device_plan("lstm", h, b, s, _index(saved.device), True, False)
+    dpre = saved.new_empty(b, s, 4 * h)
+    dh0, dc0 = saved.new_empty(b, h), saved.new_empty(b, h)
+    kernels.RNN_LSTM_BWD(saved.device, dy.data_ptr(), _ptr(dh_last), _ptr(dc_last), saved.data_ptr(), c0.data_ptr(),
+                         w_hh.data_ptr(), dpre.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), b, s, h, *plan.c_args())
+    return dpre, dh0, dc0
+
+
+def _gru_train_fwd(xp, h0, w_hh, b_hh):
+    """(y, h_last, saved): B.11's training forward, or the loop on CPU tensors."""
+    if xp.device.type == "cpu":
+        y, _, saved = _gated_loop("gru", xp, h0, None, w_hh, b_hh, True)
+        return y, y[:, -1].clone(), saved
+    return rnn_gru_fwd_kernel(xp, h0, w_hh, b_hh, save=True)
+
+
+def _lstm_train_fwd(xp, h0, c0, w_hh, b_hh):
+    """(y, h_last, c_last, saved): B.12's training forward, or the loop on CPU tensors."""
+    if xp.device.type == "cpu":
+        y, c, saved = _gated_loop("lstm", xp, h0, c0, w_hh, b_hh, True)
+        return y, y[:, -1].clone(), c.clone(), saved
+    return rnn_lstm_fwd_kernel(xp, h0, c0, w_hh, b_hh, save=True)
+
+
+class _GruRecurrence(torch.autograd.Function):
+    """Forward: B.11's training forward (it saves r, z, n, hn). Backward:
+    its dh chain, then dW_hh and db_hh as one product and one sum."""
+
+    @staticmethod
+    def forward(ctx, xp, h0, w_hh, b_hh):
+        with record_function(SPANS["forward"]):
+            y, h_last, saved = _gru_train_fwd(xp, h0, w_hh, b_hh)
+        ctx.save_for_backward(y, h0, saved, w_hh)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        y, h0, saved, w_hh = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
+        with record_function(SPANS["backward"]):
+            dxp, dhp, dh0 = rnn_gru_bwd(dy, dh_last, y, h0, saved, w_hh)
+        dw, db = recurrence_weight_grads(dhp, h0, y)
+        return dxp, dh0, dw, db
+
+
+class _LstmRecurrence(torch.autograd.Function):
+    """Forward: B.12's training forward (it saves i, f, g, o, c). Backward:
+    its dh / dc chain, then dW_hh and db_hh as one product and one sum."""
+
+    @staticmethod
+    def forward(ctx, xp, h0, c0, w_hh, b_hh):
+        with record_function(SPANS["forward"]):
+            y, h_last, c_last, saved = _lstm_train_fwd(xp, h0, c0, w_hh, b_hh)
+        ctx.save_for_backward(y, h0, c0, saved, w_hh)
+        ctx.set_materialize_grads(False)
+        return y, h_last, c_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last, dc_last):
+        y, h0, c0, saved, w_hh = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
+        with record_function(SPANS["backward"]):
+            dpre, dh0, dc0 = rnn_lstm_bwd(dy, dh_last, dc_last, saved, c0, w_hh)
+        dw, db = recurrence_weight_grads(dpre, h0, y)
+        return dpre, dh0, dc0, dw, db
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def rnn_gru(xp, h0, w_hh, b_hh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One gru layer: (y (B, S, H), final state (B, H)). Where a gradient is
+    wanted, through ``_GruRecurrence`` (differentiable in all four inputs);
+    else the inference forward, the ``hulc::rnn_gru_fwd`` op, which saves no
+    gates and takes the one-step launch at a serving lane."""
+    if _needs_grad(xp, h0, w_hh, b_hh):
+        return _GruRecurrence.apply(xp, h0, w_hh, b_hh)
+    with record_function(SPANS["forward"]):
+        return rnn_gru_fwd(xp, h0, w_hh, b_hh)
+
+
+def rnn_lstm(xp, h0, c0, w_hh, b_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One lstm layer: (y (B, S, H), h_last, c_last), through
+    ``_LstmRecurrence`` where a gradient is wanted, else the
+    ``hulc::rnn_lstm_fwd`` op, as ``rnn_gru``."""
+    if _needs_grad(xp, h0, c0, w_hh, b_hh):
+        return _LstmRecurrence.apply(xp, h0, c0, w_hh, b_hh)
+    with record_function(SPANS["forward"]):
+        return rnn_lstm_fwd(xp, h0, c0, w_hh, b_hh)

@@ -18,7 +18,8 @@ Artifact layout (one directory):
                           plan noise) -> (plan, latent_goal)
     replan_vision.pt2    (params, 2-frame stacks, plan noise) -> (plan, latent_goal)
     act.pt2              (params, plan, goal, frames, rob_norm, rob_raw, carry,
-                          u_mix, u_inv) -> (action, carry)
+                          u_mix, u_inv) -> (action, carry); the carry a
+                          tensor, or lstm's pair (h, c)
     step_batched.pt2     optional E-lane lockstep step (``lanes=E``)
     lang_embeddings.npy  optional instruction -> embedding table
 
@@ -64,6 +65,8 @@ from hulc_tpu_torch.serving.params_io import flatten_params
 __all__ = ["export_policy", "expected_op_counts", "op_counts", "random_nodes", "main"]
 
 FORMAT_VERSION = 1
+# the decoder cell's recurrence op, one node a layer in a program that acts
+RECURRENCE_OPS = {"rnn": "rnn_relu_fwd", "gru": "rnn_gru_fwd", "lstm": "rnn_lstm_fwd"}
 # graph nodes that would draw noise inside a program
 _RANDOM_OPS = ("rand", "uniform", "normal", "bernoulli", "multinomial", "exponential", "geometric", "poisson")
 
@@ -129,7 +132,7 @@ def expected_op_counts(cfg: HulcConfig, name: str) -> Dict[str, int]:
     cams = [c for c in (pe.rgb_static, pe.rgb_gripper) if c is not None]
     out = {"preprocess_rgb": len(cams), "spatial_softmax": sum(c.kind == "spatial_softmax" for c in cams)}
     if name in ("act", "step_batched"):
-        out.update(sample_action=1, rnn_relu_fwd=cfg.action_decoder.num_layers)
+        out.update(sample_action=1, **{RECURRENCE_OPS[cfg.action_decoder.rnn_cell]: cfg.action_decoder.num_layers})
     return {k: v for k, v in out.items() if v}
 
 
@@ -198,7 +201,7 @@ def export_policy(
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     norm = StateObsNormalizer(cfg, statistics)
-    pe, d, ad = cfg.perceptual_encoder, cfg.distribution, cfg.action_decoder
+    pe, d = cfg.perceptual_encoder, cfg.distribution
     prop_dim = int(sum(b - a for a, b in norm.keep))
     noise = _noise_spec(cfg)
 
@@ -219,7 +222,7 @@ def export_policy(
     plan_name = noise["order"][0]
     with torch.no_grad():
         plan, goal = replan_lang(*lane_args(1), zeros(1, cfg.lang_dim), **{plan_name: plan_noise})
-    carry = zeros(ad.num_layers, 1, ad.hidden_size)
+    carry = model.init_decoder_carry(1)
     specs = {
         "replan_lang": (replan_lang, (*lane_args(1), zeros(1, cfg.lang_dim), plan_noise), (plan_name,)),
         "replan_vision": (replan_vision, (*lane_args(1, 2), plan_noise), (plan_name,)),
@@ -229,7 +232,7 @@ def export_policy(
         e = lanes
         specs["step_batched"] = (build_batched_step(model, cfg), (
             *lane_args(e), zeros(e, 1, 15), zeros(e, cfg.lang_dim), zeros(e, d.plan_dim),
-            zeros(e, cfg.visual_goal.latent_goal_features), zeros(ad.num_layers, e, ad.hidden_size),
+            zeros(e, cfg.visual_goal.latent_goal_features), model.init_decoder_carry(e),
             zeros(e, dtype=torch.bool), *draws(e),
         ), noise["order"])
     for name, (fn, args, noise_names) in specs.items():
@@ -288,12 +291,14 @@ def main(argv=None):
     p.add_argument("--lang-folder", default="lang_annotations")
     p.add_argument("--lanes", type=int, default=0, help="also export an E-lane batched step")
     p.add_argument("--device", default="cuda", help="the device the programs are exported on")
+    p.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE",
+                   help="a dotted-path config override, e.g. action_decoder.rnn_cell=lstm (repeatable)")
     args = p.parse_args(argv)
 
-    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.config import apply_overrides, get_config
     from hulc_tpu_torch.training import checkpoint as ckpt
 
-    cfg = get_config(args.config)
+    cfg = apply_overrides(get_config(args.config), args.overrides)
     model = make_model(cfg, args.device)
     run_dir = pathlib.Path(args.run_dir)
     if args.checkpoint == "last":

@@ -9,7 +9,8 @@ programs alone, with torch, numpy and the port's kernel ops
 (``ops.library``, registered before a program is loaded): no models, no
 config, no evaluator. Everything shape- or semantics-bearing comes from
 ``meta.json``: the observation normalization, the replan cadence, the
-decoder carry, the cameras, and the noise.
+decoder carry (a tensor, or lstm's pair (h, c)), the cameras, and the
+noise.
 
 The programs take their noise as inputs. The runtime draws it from its own
 ``torch.Generator`` on the serving device, seeded as the live policy's, in
@@ -45,10 +46,17 @@ from hulc_tpu_torch.serving.params_io import unflatten_params
 FORMAT_VERSION = 1
 
 
-def _zero_carry(spec: Dict, batch: int, device) -> torch.Tensor:
-    if spec["rnn_cell"] != "rnn":
-        raise ValueError(f"the artifact's decoder cell {spec['rnn_cell']!r} is not ported yet; only 'rnn' is")
-    return torch.zeros((spec["num_layers"], batch, spec["hidden_size"]), device=device)
+CARRY_CELLS = ("rnn", "gru", "lstm")
+
+
+def _zero_carry(spec: Dict, batch: int, device):
+    """The decoder's zero carry from meta.json's ``carry``: (L, B, H), or for
+    lstm the pair (h, c) of that shape (JAX's runtime)."""
+    if spec["rnn_cell"] not in CARRY_CELLS:
+        raise ValueError(f"the artifact's decoder cell {spec['rnn_cell']!r} is not ported yet; only "
+                         f"{CARRY_CELLS} are")
+    h = torch.zeros((spec["num_layers"], batch, spec["hidden_size"]), device=device)
+    return (h, torch.zeros_like(h)) if spec["rnn_cell"] == "lstm" else h
 
 
 class _MetaNormalizer:

@@ -1,9 +1,12 @@
 """Where the training step spends its time on the GPU.
 
-    python -m hulc_tpu_torch.training.profile_train [--steps 5] [--seed 0] [--config hulc] [--out DIR]
+    python -m hulc_tpu_torch.training.profile_train [--steps 5] [--seed 0] [--config hulc] [--set K=V ...] [--out DIR]
 
 Builds a full-width ``Trainer`` of the ``--config`` preset (``hulc``,
-``mcil`` or ``hulc_depth``; random weights from ``--seed``)
+``mcil`` or ``hulc_depth``; random weights from ``--seed``), with the
+``--set`` dotted-path overrides applied (``config.apply_overrides``, as the
+JAX package's CLIs take them: ``--set action_decoder.rnn_cell=lstm``
+profiles the lstm decoder)
 and a synthetic loader-fused uint8 batch of 32 vision and 32 language
 windows of 32 frames (the JAX package's bench shape; with fp32 depth
 frames for ``hulc_depth``), takes warm-up steps,
@@ -43,7 +46,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from hulc_tpu_torch.config import HulcConfig, get_config
+from hulc_tpu_torch.config import HulcConfig, apply_overrides, get_config
 from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, profile_steps
 from hulc_tpu_torch.models.hulc import ModalityBatch
 from hulc_tpu_torch.ops.recurrence import BIRNN_SPANS, SPANS
@@ -214,11 +217,13 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--config", default="hulc", help="the preset: hulc, mcil or hulc_depth")
+    p.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE",
+                   help="a dotted-path config override, e.g. action_decoder.rnn_cell=gru (repeatable)")
     p.add_argument("--out", type=pathlib.Path, default=None)
     args = p.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.config)
+    cfg = apply_overrides(get_config(args.config), args.overrides)
     trainer = Trainer(cfg, TrainerConfig(seed=args.seed), device="cuda")
     trainer.init_state(1)
     batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, args.seed, "cuda")
@@ -242,7 +247,8 @@ def main(argv=None) -> None:
     unprofiled_ms = statistics.median(host)
     result = profile_steps(step, args.steps, trace)
     print(json.dumps({
-        "step": "Trainer.train_step", "config": args.config, "batch": 2 * BATCH_PER_MOD, "seq": SEQ,
+        "step": "Trainer.train_step", "config": args.config, "overrides": args.overrides,
+        "batch": 2 * BATCH_PER_MOD, "seq": SEQ,
         "card": torch.cuda.get_device_name(0), "unprofiled_step_ms": unprofiled_ms,
         "unprofiled_idle_share": 1.0 - result["device_ms_per_step"] / unprofiled_ms, **result,
         **trace_breakdown(step, args.steps),

@@ -160,9 +160,12 @@ def test_scan_rnn_matches_jax_with_carry(cell, use_kernels):
 
 
 def test_scan_rnn_refuses_the_cells_still_to_port():
-    for cell in ("gru", "lstm"):
+    """The decoder's mlp cell, and every bidirectional cell but tanh."""
+    with pytest.raises(ValueError, match="not ported yet"):
+        ScanRNN(F_IN, 8, 1, "mlp")
+    for cell in ("rnn", "gru", "lstm"):
         with pytest.raises(ValueError, match="not ported yet"):
-            ScanRNN(F_IN, 8, 1, cell)
+            ScanBiRNN(F_IN, 8, 1, cell)
 
 
 def _birnn_params(rng, in_features, hidden, layers):

@@ -1,7 +1,7 @@
 """The port's serving export on the CPU: ``torch.export`` artifacts ->
 a runtime without model code -> action parity.
 
-* The four ``hulc::`` ops are their plain versions bit for bit on the CPU,
+* The ``hulc::`` ops are their plain versions bit for bit on the CPU,
   and ``torch.library.opcheck`` passes on each (schema, fake
   implementation, dynamic shapes) at ``hulc_debug``'s and at odd shapes.
 * Every exported program holds its ``hulc::`` op nodes and no random node,
@@ -126,6 +126,13 @@ def _op_cases():
     for i, args in enumerate(rnn):
         y = recurrence.rnn_relu_fwd_plain(*args)
         cases[f"rnn_relu_fwd-{i}"] = (library.rnn_relu_fwd, args, (y, y[:, -1]))
+    for i, (b, s, h) in enumerate(((2, 1, 64), (3, 5, 37))):
+        gru = (randn(b, s, 3 * h), randn(b, h).tanh(), 0.1 * randn(3 * h, h), randn(3 * h))
+        y = recurrence.rnn_gru_fwd_plain(*gru)
+        cases[f"rnn_gru_fwd-{i}"] = (library.rnn_gru_fwd, gru, (y, y[:, -1]))
+        lstm = (randn(b, s, 4 * h), randn(b, h).tanh(), randn(b, h), 0.1 * randn(4 * h, h), randn(4 * h))
+        y, c = recurrence.rnn_lstm_fwd_plain(*lstm)
+        cases[f"rnn_lstm_fwd-{i}"] = (library.rnn_lstm_fwd, lstm, (y, y[:, -1], c))
     return cases
 
 

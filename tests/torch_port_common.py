@@ -1,10 +1,14 @@
 """Helpers shared by the tests/test_torch_port_*.py files: weights made by
 the JAX package and carried into the port."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+from __graft_entry__ import _make_raw_batch
 
 from hulc_tpu.models import example_batch, init_params
 from hulc_tpu.models import make_model as jax_make_model
@@ -104,3 +108,53 @@ def jax_batched_step_noise(key, lanes, cfg):
     k_plan, k_act = jax.random.split(key)
     u_mix, u_inv = jax_mixture_uniforms(k_act, lanes, cfg)
     return {**jax_plan_noise(k_plan, lanes, cfg), "u_mix": u_mix, "u_inv": u_inv}
+
+
+GATED_B, GATED_S = 3, 5  # the gated decoder tests' windows
+# XLA's CPU backend at its lowest optimization level: the reference's
+# programs compile in about half the time (numbers within a few ulp of the
+# optimized build's); for tests that compile a whole model once
+QUICK_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_call(fn, *args):
+    """``fn(*args)`` through ``jax.jit``, compiled with QUICK_COMPILE, on the host."""
+    return jax.device_get(jax.jit(fn).lower(*args).compile(QUICK_COMPILE)(*args))
+
+
+def gated_cfg(m, cell):
+    """``hulc_debug`` of config module ``m`` (either package's) with the
+    decoder cell set by ``apply_overrides``: replan every 3 steps, an 84 px
+    gripper camera (the size ``torch_convert.convert_state_dict`` maps) and
+    the recognition network's dropout 0 (the two frameworks cannot draw the
+    same masks)."""
+    cfg = m.get_config("hulc_debug", replan_freq=3)
+    pe = cfg.perceptual_encoder
+    pe = dataclasses.replace(pe, rgb_gripper=dataclasses.replace(pe.rgb_gripper, input_size=84))
+    pr = dataclasses.replace(cfg.plan_recognition, dropout=0.0)
+    cfg = dataclasses.replace(cfg, perceptual_encoder=pe, plan_recognition=pr)
+    return m.apply_overrides(cfg, [f"action_decoder.rnn_cell={cell}"])
+
+
+def gated_setup(cell, jax_config, port_config):
+    """JAX's random weights for ``gated_cfg`` of the cell, a raw {"vis",
+    "lang"} batch of GATED_B windows of GATED_S frames (gripper commands of
+    +-1, Euler angles in the canonical range), the port's model holding the
+    weights, and a language embedding for one task."""
+    jax_cfg, port_cfg = gated_cfg(jax_config, cell), gated_cfg(port_config, cell)
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jax_cfg)
+    jax_model, params = jax_random_params(jax_cfg, seed=70)
+    raw = _make_raw_batch(jax_cfg, GATED_B, GATED_S, seed=71)
+    rng = np.random.default_rng(72)
+    for scope, mod in raw.items():
+        actions = mod.actions.copy()
+        actions[..., -1] = rng.choice([-1.0, 1.0], actions.shape[:-1])  # the dataset's gripper commands
+        state = mod.state_info_robot_obs.copy()
+        state[..., 3:6] = rng.uniform(-1.2, 1.2, state[..., 3:6].shape)  # canonical Euler range
+        raw[scope] = mod._replace(actions=actions, state_info_robot_obs=state)
+    raw["lang"] = raw["lang"]._replace(use_for_aux_lang_loss=np.array([True, False, True]))
+    model, unused = port_model_from_jax(params, port_cfg)
+    assert unused == []
+    lang = rng.normal(size=port_cfg.lang_dim).astype(np.float32)
+    return {"cell": cell, "jax_cfg": jax_cfg, "cfg": port_cfg, "jax_model": jax_model, "params": params, "raw": raw,
+            "model": model, "lang": lang}
