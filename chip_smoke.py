@@ -245,10 +245,39 @@ it fails:
    policies' actions (ACTION_ATOL) against the plain path; and the lstm
    policy exported at ``--lanes`` lanes and served bit-equal with the same
    launches per step (as in phase 13).
+17. bf16: ``hulc`` with ``compute_dtype=bfloat16`` through
+   ``config.apply_overrides`` (fp32 parameters; convolutions and matmuls in
+   bf16 as the JAX package's ``dtype=`` puts them). The bf16 instances of
+   B.1 (the val window shape), B.1' (the step's), B.2 (the step's bf16 map,
+   its first 64 rows and its first row, T fixed and learnable) and B.2' /
+   B.2'' against their plain versions (B.1, B.1' bit-equal; B.2 within
+   SS_FWD_RTOL / SS_FWD_ATOL; each B.2' dx entry within one bf16 ulp, the
+   whole within BF16_DX_REL, dT within SS_DTEMP_RTOL) and against the fp32
+   instances on the same values (bit-equal: they compute in fp32 in the
+   fp32 instances' order and round once), timed beside them. Then the main
+   path, launch counts zeroed just before and read just after: ``--train-
+   steps`` train steps (B.1' bf16 twice, B.2 and B.2' bf16 once a step, the
+   fp32 instances never), a val step (B.1 bf16 four times, B.2 twice), a
+   single-lane policy over 4 steps with a reset and the lockstep policy at
+   ``--lanes`` lanes over 3 steps (serving preprocesses to fp32, as JAX's
+   policies do; B.2 reads the bf16 map); the train step's ms and peak
+   memory beside phase 8's fp32 step. Then one train step, one val step
+   and the policies' actions against the plain path: each loss, gradient,
+   val loss and MAE within its fp32 limit or NOISE_FACTOR x its own
+   sensitivity to keypoint noise (the share of keypoints whose bf16
+   rounding B.2's kernel moves, measured here, moved one bf16 ulp), success
+   rates and plans equal; the lockstep actions within ACTION_ATOL, the
+   single lane's within ACTION_ATOL or NOISE_FACTOR x its sensitivity to
+   that keypoint noise together with noise at the decoder recurrence's own
+   share (of its layer-0 outputs, which the next layer's bf16 input
+   projection rounds, those the kernel rounds to another bf16 value than
+   the plain loop on the same inputs, measured on these steps); and the
+   policy exported at ``--lanes`` lanes and served bit-equal with the same
+   launches per step.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
-training, evaluator, training-loop, served, mcil, hulc_depth and gated
-decoder paths) and, last, ``{"ok": true, "device": {...}}``.
+training, evaluator, training-loop, served, mcil, hulc_depth, gated
+decoder and bf16 paths) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -345,27 +374,39 @@ def call_ms(fn, iters: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+PROFILE_ATTEMPTS = 3  # a window whose every launch must be recorded is profiled at most this often
+
+
 def device_ms(fn, iters: int, launches_per_call: int | None = None, per_recorded: bool = False) -> float:
     """Device time per call: the CUDA activity torch.profiler records over
     ``iters`` calls (every kernel the call launches), after a warm-up. With
-    ``launches_per_call``, fails unless the profiler recorded every launch;
-    with ``per_recorded`` too, the time is per recorded call instead (the
-    profiler drops some launches of the short cooperative kernels)."""
+    ``launches_per_call``, the time of a window in which the profiler
+    recorded every launch: a window that lost some (now and then the
+    profiler drops one, e.g. one of the empty kernel's 100) is profiled
+    again, and it fails if PROFILE_ATTEMPTS windows all lost launches or
+    one recorded more; with ``per_recorded`` too, the
+    time is per recorded call instead (the profiler drops some launches of
+    the short cooperative kernels)."""
     from hulc_tpu_torch.evaluation.profile_policy import profile_calls
 
-    _, ms, device = profile_calls(fn, iters)
     name = getattr(fn, "__qualname__", repr(fn))
-    if not ms > 0:
-        fail(f"the profiler recorded no device time for {name}")
-    recorded = sum(e.count for e in device)
-    if per_recorded and launches_per_call:
-        if recorded < launches_per_call * iters:
-            print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}; "
-                  f"its time is per recorded launch")
-        return ms * iters * launches_per_call / recorded
-    if launches_per_call is not None and recorded != launches_per_call * iters:
-        fail(f"the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}")
-    return ms
+    for _ in range(PROFILE_ATTEMPTS):
+        _, ms, device = profile_calls(fn, iters)
+        if not ms > 0:
+            fail(f"the profiler recorded no device time for {name}")
+        recorded = sum(e.count for e in device)
+        if per_recorded and launches_per_call:
+            if recorded < launches_per_call * iters:
+                print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}; "
+                      f"its time is per recorded launch")
+            return ms * iters * launches_per_call / recorded
+        if launches_per_call is None or recorded == launches_per_call * iters:
+            return ms
+        if recorded > launches_per_call * iters:
+            break
+        print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}; "
+              f"profiling the window again")
+    fail(f"the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}")
 
 
 def host_ms(fn, iters: int) -> float:
@@ -576,8 +617,8 @@ def check_actions(name, actions, lanes, discrete_gripper=True):
     print(f"[{name}] {actions.shape[0]} steps x {lanes} lanes: actions finite, shape (7,){grip}")
 
 
-def compare_plain(name, kern_actions, plain_actions, kern_plans, plain_plans, replanned, cfg):
-    """Actions must agree within ACTION_ATOL. A plan category whose argmax
+def compare_plain(name, kern_actions, plain_actions, kern_plans, plain_plans, replanned, cfg, atol=ACTION_ATOL):
+    """Actions must agree within ``atol`` (ACTION_ATOL). A plan category whose argmax
     differs is a tie within float noise of the static-camera encoder; the
     (step, lane) pairs it touches are counted and left out, and at most
     PLAN_TIE_BUDGET of the replanned categories may differ. A continuous
@@ -586,10 +627,10 @@ def compare_plain(name, kern_actions, plain_actions, kern_plans, plain_plans, re
     if d.kind == "continuous":
         plan_err = float(np.abs(kern_plans - plain_plans)[replanned].max())
         err = float(np.abs(kern_actions - plain_actions).max())
-        if not (err <= ACTION_ATOL and plan_err <= ACTION_ATOL):
+        if not (err <= atol and plan_err <= atol):
             fail(f"{name}: kernel and plain actions differ by {err}, replanned plans by {plan_err}")
         print(f"[{name}] plain path on the card agrees: max abs action err {err:.3g}, replanned plan err "
-              f"{plan_err:.3g} (atol {ACTION_ATOL})")
+              f"{plan_err:.3g} (atol {atol:.3g})")
         return err
     grid = (d.category_size, d.class_size)
     k_idx = kern_plans.reshape(kern_plans.shape[:-1] + grid).argmax(-1)
@@ -600,10 +641,10 @@ def compare_plain(name, kern_actions, plain_actions, kern_plans, plain_plans, re
     if differing.sum() > max(1, PLAN_TIE_BUDGET * n_replanned):
         fail(f"{name}: {int(differing.sum())} of {n_replanned} replanned plan categories differ")
     err = np.abs(kern_actions - plain_actions)[~tie]
-    if not err.max() <= ACTION_ATOL:
+    if not err.max() <= atol:
         fail(f"{name}: kernel and plain actions differ by {err.max()}")
     print(f"[{name}] plain path on the card agrees: max abs action err {err.max():.3g} "
-          f"(atol {ACTION_ATOL}); plan ties {int(differing.sum())} of {n_replanned} categories")
+          f"(atol {atol:.3g}); plan ties {int(differing.sum())} of {n_replanned} categories")
     return float(err.max())
 
 
@@ -1864,26 +1905,114 @@ def train_step_grads(cfg, seed, device, state_dict, batch, shifts, depth_noise, 
 
 
 @contextlib.contextmanager
-def ulp_noise(module, name, seed):
+def ulp_noise(module, name, seed, bf16_share=None):
     """``module.name``, a plain version the use_kernels=False path calls,
     with each output moved one ulp up or down at random: an ulp-level change
     at a point where a kernel's result differs from the plain one's (the
     SpatialSoftmax forward by up to ~1 ulp; the BiRNN's layers, B.9, by a
-    few)."""
+    few). With ``bf16_share`` (a bf16 model), that share of the outputs, at
+    random, moves one bf16 ulp instead, so that it rounds one step away at
+    the next layer's bf16 input: the share of keypoints whose rounding B.2's
+    kernel moves (measured in the run; its keypoints sit a few fp32 ulps
+    from the plain ones, many ulps of a small keypoint)."""
     plain = getattr(module, name)
-
-    def noisy(*args):
-        out = plain(*args)
-        gen = torch.Generator(device=out.device).manual_seed(seed)
-        up = torch.rand(out.shape, generator=gen, device=out.device) < 0.5
-        away = torch.where(up, torch.full_like(out, float("inf")), torch.full_like(out, float("-inf")))
-        return out + (torch.nextafter(out.detach(), away) - out.detach())
-
-    setattr(module, name, noisy)
+    setattr(module, name, noisy(plain, seed, bf16_share))
     try:
         yield
     finally:
         setattr(module, name, plain)
+
+
+def noisy(fn, seed, bf16_share=None):
+    """``fn`` with its output (a tensor, or the first of a tuple) moved as
+    ``ulp_noise`` says."""
+
+    def move(out):
+        gen = torch.Generator(device=out.device).manual_seed(seed)
+        up = torch.rand(out.shape, generator=gen, device=out.device) < 0.5
+        if bf16_share is not None:
+            picked = torch.rand(out.shape, generator=gen, device=out.device) < bf16_share
+            _, exp = torch.frexp(out.detach())
+            bf16_ulp = torch.ldexp(torch.ones_like(out), exp - 8)  # 8 significant bits
+            return out + torch.where(picked, torch.where(up, bf16_ulp, -bf16_ulp), 0.0)
+        away = torch.where(up, torch.full_like(out, float("inf")), torch.full_like(out, float("-inf")))
+        return out + (torch.nextafter(out.detach(), away) - out.detach())
+
+    def wrapped(*args):
+        out = fn(*args)
+        return (move(out[0]), *out[1:]) if isinstance(out, tuple) else move(out)
+
+    return wrapped
+
+
+@contextlib.contextmanager
+def plain_recurrence(cell, wrap):
+    """``layers.RECURRENCES[cell]``'s plain loop replaced by ``wrap(plain)``."""
+    from hulc_tpu_torch.models import layers
+
+    kernel, plain = layers.RECURRENCES[cell]
+    layers.RECURRENCES[cell] = (kernel, wrap(plain))
+    try:
+        yield
+    finally:
+        layers.RECURRENCES[cell] = (kernel, plain)
+
+
+def feeds_bf16(call, num_layers):
+    """Whether call ``call`` (from 0) of a ``num_layers``-layer ScanRNN's
+    recurrence is a layer whose output the next layer's bf16 input
+    projection rounds (every layer but the last: its output goes to the
+    fp32 heads)."""
+    return call % num_layers < num_layers - 1
+
+
+@contextlib.contextmanager
+def recurrence_flips(cell, num_layers):
+    """The plain recurrence of ``cell``, unchanged, counting where its
+    kernel rounds differently: each call of a layer that ``feeds_bf16``
+    also runs the kernel on the same inputs, and {"flipped", "outputs"}
+    counts the outputs whose bf16 value differs from the plain loop's (the
+    kernel's own share of bf16 rounding flips, as ``check_bf16_kernels``
+    measures B.2's). Those kernel launches are not the main path's."""
+    from hulc_tpu_torch.models import layers
+
+    kernel = layers.RECURRENCES[cell][0]
+    counts, calls = {"flipped": 0, "outputs": 0}, itertools.count()
+
+    def wrap(plain):
+        def probed(x_proj, *rest):
+            out = plain(x_proj, *rest)
+            if feeds_bf16(next(calls), num_layers):
+                *state, w_hh, b_hh = rest
+                with torch.no_grad():
+                    got = kernel(x_proj, *(s.contiguous() for s in state), w_hh, b_hh)[0]
+                want = out[0] if isinstance(out, tuple) else out
+                counts["flipped"] += int((got.to(torch.bfloat16) != want.to(torch.bfloat16)).sum())
+                counts["outputs"] += want.numel()
+            return out
+        return probed
+
+    with plain_recurrence(cell, wrap):
+        yield counts
+
+
+@contextlib.contextmanager
+def recurrence_noise(cell, num_layers, seed, bf16_share):
+    """The plain recurrence of ``cell`` with the outputs of each layer that
+    ``feeds_bf16`` moved as ``ulp_noise`` moves the keypoints, at
+    ``bf16_share`` (the recurrence kernel's own share, ``recurrence_flips``),
+    each call at its own random positions; the last layer's outputs as they
+    are."""
+    calls = itertools.count()
+
+    def wrap(plain):
+        def moved(*args):
+            i = next(calls)
+            return noisy(plain, seed * 4096 + i, bf16_share)(*args) if feeds_bf16(i, num_layers) else plain(*args)
+        return moved
+
+    with plain_recurrence(cell, wrap):
+        yield
 
 
 def separate_plan_ties(model, cfg, batch, shifts, depth_noise, gumbel):
@@ -1906,7 +2035,7 @@ def separate_plan_ties(model, cfg, batch, shifts, depth_noise, gumbel):
     return gumbel, int(near.sum())
 
 
-def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train plain path"):
+def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train plain path", bf16_share=None):
     """One step from the same params, batch, shifts, depth noise and plan
     noise through the kernel path and the plain path (recognition dropout 0, cuDNN
     deterministic, a discrete plan's ties pulled apart); losses per key and
@@ -1926,7 +2055,10 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     step, 8 of 10 patterns moved the camera towers' gradients by
     1.5e-4-1.6e-4 and 2 by 3.6e-4 and 5.3e-4, one of them reproducing the
     kernel path's own differences leaf by leaf). Each parameter's largest
-    change over the patterns sets its limit."""
+    change over the patterns sets its limit. Each loss is held to
+    STEP_LOSS_RTOL; with ``bf16_share`` (a bf16 model: the keypoints' noise,
+    ``ulp_noise``) to the larger of that and NOISE_FACTOR x its own
+    sensitivity, measured the same way."""
     from hulc_tpu_torch.models import layers, vision
     from hulc_tpu_torch.ops.image_ops import draw_shifts
     from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
@@ -1956,11 +2088,6 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     lk, gk = train_step_grads(*args, use_kernels=True)
     lp, gp = train_step_grads(*args, use_kernels=False)
 
-    loss_err = 0.0
-    for k in lp:
-        if not torch.allclose(lk[k], lp[k], rtol=STEP_LOSS_RTOL, atol=1e-7):
-            fail(f"train step: {k} differs between kernel path {float(lk[k])} and plain path {float(lp[k])}")
-        loss_err = max(loss_err, abs(float(lk[k]) - float(lp[k])) / max(abs(float(lp[k])), 1e-30))
     total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gp.values())))
     live = []
     for k in gp:
@@ -1971,15 +2098,27 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
             # added to every key of a query cancels in its softmax)
             fail(f"train step: {k}'s gradient should be rounding noise on both paths")
     errs = {k: rel_l2(gk[k], gp[k]) for k in live}
-    sens = dict.fromkeys(live, 0.0)
+    sens, loss_sens = dict.fromkeys(live, 0.0), dict.fromkeys(lp, 0.0)
     plain = Trainer(cfg0, TrainerConfig(seed=seed), device, use_kernels=False)
     plain.init_state(1)
     for i in range(ULP_PATTERNS):
-        with ulp_noise(vision, "spatial_softmax_plain", seed + 13 + 2 * i), \
+        with ulp_noise(vision, "spatial_softmax_plain", seed + 13 + 2 * i, bf16_share), \
                 ulp_noise(layers, "birnn_layer_plain", seed + 14 + 2 * i):
-            gu = train_step_grads(*args, use_kernels=False, trainer=plain)[1]
+            lu, gu = train_step_grads(*args, use_kernels=False, trainer=plain)
         sens = {k: max(v, rel_l2(gu[k], gp[k])) for k, v in sens.items()}
+        loss_sens = {k: max(v, abs(float(lu[k]) - float(lp[k])) / max(abs(float(lp[k])), 1e-30))
+                     for k, v in loss_sens.items()}
     del plain
+    # each loss within STEP_LOSS_RTOL; in bf16, or NOISE_FACTOR x its own sensitivity (a keypoint
+    # an ulp away can round the other way at the next layer's input and move a loss by ~1e-5)
+    loss_err = 0.0
+    for k in lp:
+        rel = abs(float(lk[k]) - float(lp[k])) / max(abs(float(lp[k])), 1e-30)
+        rtol = STEP_LOSS_RTOL if bf16_share is None else max(STEP_LOSS_RTOL, NOISE_FACTOR * loss_sens[k])
+        if not torch.allclose(lk[k], lp[k], rtol=rtol, atol=1e-7):
+            fail(f"train step: {k} differs between kernel path {float(lk[k])} and plain path {float(lp[k])} "
+                 f"(relative {rel}; its sensitivity to the keypoints' noise {loss_sens[k]})")
+        loss_err = max(loss_err, rel)
     limits = {k: max(STEP_GRAD_REL, NOISE_FACTOR * sens[k]) for k in live}
     worst, closest = max(live, key=errs.get), max(live, key=lambda k: errs[k] / limits[k])
     if not errs[closest] <= limits[closest]:
@@ -1988,15 +2127,19 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
              f"{sens[closest]})")
     print(f"[{label}] one step agrees with use_kernels=False on the card ({ties_txt}): losses within relative "
           f"{loss_err:.3g} "
-          f"(rtol {STEP_LOSS_RTOL}); gradients of {len(live)} tensors within relative L2 {errs[worst]:.3g} "
+          f"(rtol {STEP_LOSS_RTOL}{'' if bf16_share is None else f', or {NOISE_FACTOR} x each loss sensitivity'}; "
+          f"sensitivity up to {max(loss_sens.values()):.3g}); gradients of {len(live)} tensors within relative L2 {errs[worst]:.3g} "
           f"({worst}), {sum(e > STEP_GRAD_REL for e in errs.values())} above {STEP_GRAD_REL}; each tensor's "
           f"limit is the larger of {STEP_GRAD_REL} and {NOISE_FACTOR} x how far the plain path moves it when each "
-          f"keypoint (and BiRNN output) moves one ulp, over {ULP_PATTERNS} random patterns (up to "
+          f"keypoint moves one ulp{'' if bf16_share is None else f' (a {bf16_share:.3g} share one bf16 ulp)'} (and each "
+          f"BiRNN output one ulp), over "
+          f"{ULP_PATTERNS} random patterns (up to "
           f"{max(sens.values()):.3g}); closest to its limit: {closest} at {errs[closest]:.3g} of "
           f"{limits[closest]:.3g}")
     if device == "cuda":
         torch.cuda.empty_cache()
-    return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "ulp_sensitivity": max(sens.values()),
+    return {"loss_rel_err": loss_err, "loss_ulp_sensitivity": max(loss_sens.values()),
+            "grad_rel_err": errs[worst], "ulp_sensitivity": max(sens.values()),
             "closest_to_limit": {"tensor": closest, "rel_err": errs[closest], "limit": limits[closest]},
             "plan_ties": ties}
 
@@ -2154,11 +2297,9 @@ def check_window_kernels(model, batch, noise, label="training loop"):
     and, at u_inv = 0.5 (each entry then its picked component's mean),
     bit-equal, so the picks are the same; the per-frame NLL under no_grad
     within LOSS_RTOL per entry. Returns the largest errors."""
-    import torch.nn.functional as F
-
     from hulc_tpu_torch.ops.frame_transforms import world_to_tcp_frame
     from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain, sample_action, sample_action_plain
-    from hulc_tpu_torch.models.layers import RECURRENCES
+    from hulc_tpu_torch.models.layers import RECURRENCES, input_projection
 
     dec = model.action_decoder
     c, rnn = dec.cfg, dec.rnn
@@ -2183,7 +2324,8 @@ def check_window_kernels(model, batch, noise, label="training loop"):
                     out = dec(model.dist.sample(state, **plan_noise_of(n, tag)), emb, goal)
                     x = rnn_inputs[0]
                     for k in range(rnn.num_layers):
-                        xp = F.linear(x, getattr(rnn, f"weight_ih_l{k}"), getattr(rnn, f"bias_ih_l{k}"))
+                        w_ih, b_ih = getattr(rnn, f"weight_ih_l{k}"), getattr(rnn, f"bias_ih_l{k}")
+                        xp = input_projection(rnn.dtype, x, w_ih, b_ih)
                         w, bias = getattr(rnn, f"weight_hh_l{k}"), getattr(rnn, f"bias_hh_l{k}")
                         zeros = (xp.new_zeros(xp.shape[0], w.shape[1]),) * (2 if rnn.cell == "lstm" else 1)
                         got = kernel_fn(xp, *zeros, w, bias)[0]
@@ -2226,13 +2368,17 @@ def check_window_kernels(model, batch, noise, label="training loop"):
     return errs
 
 
-def compare_val_plain(cfg, trainer, seed, raw_batch, label="training loop"):
+def compare_val_plain(cfg, trainer, seed, raw_batch, label="training loop", patterns=0, bf16_share=None):
     """One val step through the kernels against the same weights'
     use_kernels=False model, fed the same plan and sampler noise (near
     ties of both picks pulled apart): every loss and MAE within VAL_REL
     relative, the gripper success rates equal, the sampled plans equal (a
-    continuous plan's within VAL_REL relative L2)."""
-    from hulc_tpu_torch.models import make_model
+    continuous plan's within VAL_REL relative L2). With ``patterns`` (a
+    bf16 model: a keypoint an ulp away can round the other way), each loss
+    and MAE within the larger of VAL_REL and NOISE_FACTOR x the plain path's
+    own change under ``ulp_noise`` of the keypoints (``bf16_share``; the
+    largest over ``patterns`` patterns); success rates and plans as above."""
+    from hulc_tpu_torch.models import make_model, vision
     from hulc_tpu_torch.training.preprocess import preprocess_batch
 
     plain = make_model(cfg, "cuda", seed=seed, use_kernels=False)
@@ -2247,6 +2393,13 @@ def compare_val_plain(cfg, trainer, seed, raw_batch, label="training loop"):
         window_errs = check_window_kernels(plain, prep_plain, noise, label)
         want = plain.val_metrics(prep_plain, cfg.loss.kl_beta, noise=noise)
         got = trainer.model.val_metrics(preprocess_batch(cfg, raw_batch, train=False), cfg.loss.kl_beta, noise=noise)
+        sens = {}
+        for i in range(patterns):
+            with ulp_noise(vision, "spatial_softmax_plain", seed + 41 + i, bf16_share):
+                noisy = plain.val_metrics(prep_plain, cfg.loss.kl_beta, noise=noise)
+            for k, v in noisy.items():
+                if "sampled_plan" not in k and "gripper_sr" not in k:
+                    sens[k] = max(sens.get(k, 0.0), abs(float(v) - float(want[k])) / max(abs(float(want[k])), 1e-30))
     trainer.model.train()
     if set(got) != set(want):
         fail(f"val step: the kernel and the plain path give different keys: {sorted(set(got) ^ set(want))}")
@@ -2265,19 +2418,23 @@ def compare_val_plain(cfg, trainer, seed, raw_batch, label="training loop"):
                      f"({int((g != w).sum())} entries; {ties} plan ties pulled apart)")
             continue
         rel = abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
-        if not rel <= VAL_REL:
-            fail(f"val step: {k} is {float(g)} on the kernel path and {float(w)} on the plain path (relative {rel})")
+        if not rel <= max(VAL_REL, NOISE_FACTOR * sens.get(k, 0.0)):
+            fail(f"val step: {k} is {float(g)} on the kernel path and {float(w)} on the plain path (relative {rel}; "
+                 f"its sensitivity to the keypoints' noise {sens.get(k, 0.0)})")
         worst = max(worst, rel)
     del plain
     torch.cuda.empty_cache()
     picks = 4 * b * s * sampled_dims(cfg)
     plans = (f"{ties} plan ties of {4 * b * cfg.distribution.category_size} and " if cfg.distribution.kind == "discrete"
              else "")
+    noise_txt = (f"; each loss or MAE also within {NOISE_FACTOR} x its sensitivity: over {patterns} keypoint noise "
+                 f"patterns the plain path moved one by up to {max(sens.values(), default=0.0):.3g}" if patterns else "")
     print(f"[{label}] one val step agrees with "
           f"use_kernels=False on the card: losses, MAEs (and a continuous plan) within relative {worst:.3g} (limit "
           f"{VAL_REL}), gripper success rates and discrete sampled plans equal ({plans}{mix_ties} mixture ties of "
-          f"{picks} picks pulled apart by {PLAN_TIE_MARGIN})")
-    return {"max_rel_err": worst, "plan_ties": ties, "mixture_ties": mix_ties, "window_kernels": window_errs}
+          f"{picks} picks pulled apart by {PLAN_TIE_MARGIN}){noise_txt}")
+    return {"max_rel_err": worst, "plan_ties": ties, "mixture_ties": mix_ties, "window_kernels": window_errs,
+            "ulp_sensitivity": max(sens.values(), default=0.0)}
 
 
 def check_window_preprocess(raw_batch, card):
@@ -3908,6 +4065,424 @@ def run_gated(seed, lanes, hulc_step_ms, card):
 
 
 # --------------------------------------------------------------------------
+# phase 17: hulc in bf16 (compute_dtype=bfloat16) at full width
+# --------------------------------------------------------------------------
+
+# the bf16 instances (B.14) of the eval preprocess, the shift, SpatialSoftmax forward and backward
+BF16_SYMBOLS = ("hulc_preprocess_rgb_bf16", "hulc_preprocess_rgb_shift_bf16", "hulc_spatial_softmax_bf16",
+                "hulc_spatial_softmax_bwd_bf16")
+# the fp32 instances they take the place of, which a bf16 step and val step must not launch
+BF16_REPLACES = {"hulc_preprocess_rgb_shift": "hulc_preprocess_rgb_shift_bf16",
+                 "hulc_spatial_softmax": "hulc_spatial_softmax_bf16",
+                 "hulc_spatial_softmax_bwd": "hulc_spatial_softmax_bwd_bf16"}
+# a bf16 policy preprocesses to fp32 (as JAX's policies do) and reads a bf16 map
+BF16_SERVING = ("hulc_preprocess_rgb", "hulc_spatial_softmax_bf16", "hulc_logistic_mixture_sample", "hulc_rnn_relu_fwd")
+BF16_SINGLE_STEPS, BF16_RESET_AT = 4, 2  # single lane: replans at 0 and, after a reset, at 2
+BF16_LOCKSTEP_STEPS = 3
+BF16_DX_REL = 1e-3  # B.2' bf16 dx against the plain version, relative L2 (a few entries one bf16 ulp apart)
+BF16_ULP = 2.0**-7  # bf16's spacing relative to a value's power of two
+# the val metrics' limits: the larger of VAL_REL and NOISE_FACTOR x the plain path's largest
+# change when B.2's own share of keypoints (those its kernel rounds to another bf16 value at
+# the next layer's input) moves one bf16 ulp, over these random patterns
+BF16_VAL_PATTERNS = 4
+
+
+def bf16_config():
+    """``hulc`` with compute_dtype=bfloat16, set as a user sets it (apply_overrides)."""
+    from hulc_tpu_torch.config import apply_overrides, get_config
+
+    return apply_overrides(get_config("hulc"), ["compute_dtype=bfloat16"])
+
+
+def check_bf16_dx(got, want, where):
+    """B.2' bf16 dx against the plain version's: every entry within one bf16
+    ulp of the larger magnitude plus the fp32 instance's atol (an entry whose
+    fp32 sum cancels), and BF16_DX_REL relative L2; returns the largest abs err."""
+    g, w = got.double(), want.double()
+    limit = BF16_ULP * torch.maximum(g.abs(), w.abs()) + SS_BWD_ATOL
+    if not (bool(((g - w).abs() <= limit).all()) and rel_l2(got, want) <= BF16_DX_REL):
+        fail(f"SpatialSoftmax backward bf16 kernel at {where}: {int(((g - w).abs() > limit).sum())} entries beyond "
+             f"one bf16 ulp, relative L2 {rel_l2(got, want)} (limit {BF16_DX_REL})")
+    return max_abs(got, want)
+
+
+def check_bf16_kernels(batch, conv_map, gen):
+    """The four bf16 instances against their plain versions, and against
+    the fp32 instances on the same values (the bf16 ones convert to fp32 in
+    registers and compute in the fp32 instances' order, then round once):
+    B.1 at the val window shape and B.1' at the step's, bit-equal to both;
+    B.2 on the step's bf16 map (2048, 64, 21, 21) and on its first 64 and 1
+    rows within SS_FWD_RTOL / SS_FWD_ATOL of the plain version and
+    bit-equal to the fp32 instance, at T = 1 and a learnable T = 0.7; B.2'
+    and B.2'' with ``check_bf16_dx``, dT within SS_DTEMP_RTOL, dx bit-equal
+    to the fp32 instance's rounded once and dT equal. Returns ({row: max
+    abs err}, the step's shifts)."""
+    from hulc_tpu_torch.ops.image_ops import (
+        draw_shifts, preprocess_rgb_seq, preprocess_rgb_seq_plain, preprocess_rgb_seq_shift,
+        preprocess_rgb_seq_shift_plain,
+    )
+    from hulc_tpu_torch.ops.spatial_softmax import (
+        spatial_softmax_bwd, spatial_softmax_bwd_plain, spatial_softmax_fwd_kernel, spatial_softmax_plain,
+    )
+
+    bf16, fused = torch.bfloat16, batch["fused"]
+    b = fused.actions.shape[0] // 2
+    pe = bf16_config().perceptual_encoder
+    for cam in ("rgb_static", "rgb_gripper"):
+        imgs = getattr(fused, cam)[:b]  # the val window shape: one modality
+        got = preprocess_rgb_seq(imgs, out_dtype=bf16)
+        if not (got.dtype == bf16 and torch.equal(got, preprocess_rgb_seq_plain(imgs, out_dtype=bf16))
+                and torch.equal(got, preprocess_rgb_seq(imgs).to(bf16))):
+            fail(f"bf16 eval preprocess kernel at the window shape {tuple(imgs.shape)} is not bit-equal to the plain "
+                 f"version and to the fp32 instance rounded")
+    n, s = fused.actions.shape[:2]
+    shifts = {cam: draw_shifts(n * s, getattr(pe, cam).shift_pad, gen, "cuda") for cam in ("rgb_static", "rgb_gripper")}
+    for cam, sh in shifts.items():
+        imgs, pad = getattr(fused, cam), getattr(pe, cam).shift_pad
+        got = preprocess_rgb_seq_shift(imgs, sh, pad, out_dtype=bf16)
+        if not (torch.equal(got, preprocess_rgb_seq_shift_plain(imgs, sh, pad, out_dtype=bf16))
+                and torch.equal(got, preprocess_rgb_seq_shift(imgs, sh, pad).to(bf16))):
+            fail(f"bf16 shift kernel at {tuple(imgs.shape)} is not bit-equal to the plain version and to the fp32 "
+                 f"instance rounded")
+    errs = {"preprocess_rgb_bf16": 0.0, "preprocess_rgb_shift_bf16": 0.0, "spatial_softmax_bf16": 0.0}
+    for rows in (conv_map.shape[0], 64, 1):
+        x = conv_map[:rows]
+        for temp in (1.0, torch.tensor([0.7], device="cuda")):
+            got, want = spatial_softmax_fwd_kernel(x, temp), spatial_softmax_plain(x, temp)
+            if not torch.allclose(got, want, rtol=SS_FWD_RTOL, atol=SS_FWD_ATOL):
+                fail(f"bf16 SpatialSoftmax kernel at {tuple(x.shape)}, T = {float(temp)}: max abs err "
+                     f"{max_abs(got, want)}")
+            if not torch.equal(got, spatial_softmax_fwd_kernel(x.float(), temp)):
+                fail(f"bf16 SpatialSoftmax kernel at {tuple(x.shape)} is not bit-equal to the fp32 instance on its "
+                     f"values")
+            errs["spatial_softmax_bf16"] = max(errs["spatial_softmax_bf16"], max_abs(got, want))
+            if rows == conv_map.shape[0] and not isinstance(temp, torch.Tensor):
+                # the share of keypoints the kernel rounds to another bf16 value than the plain version
+                errs["spatial_softmax_bf16_flips"] = float((got.to(bf16) != want.to(bf16)).float().mean())
+    grad = torch.randn(conv_map.shape[0], 2 * conv_map.shape[1], generator=gen, device="cuda")
+    errs["spatial_softmax_bwd_bf16"], dt_err = 0.0, 0.0
+    for temp in (1.0, torch.tensor([0.7], device="cuda")):
+        dx, dt = spatial_softmax_bwd(conv_map, grad, temp)
+        p_dx, p_dt = spatial_softmax_bwd_plain(conv_map, grad, temp)
+        where = f"the step's shape, T = {float(temp)}"
+        errs["spatial_softmax_bwd_bf16"] = max(errs["spatial_softmax_bwd_bf16"], check_bf16_dx(dx, p_dx, where))
+        f_dx, f_dt = spatial_softmax_bwd(conv_map.float(), grad, temp)
+        if not torch.equal(dx, f_dx.to(bf16)) or (dt is not None and not torch.equal(dt, f_dt)):
+            fail(f"bf16 SpatialSoftmax backward at {where} is not the fp32 instance's dx rounded once (and its dT)")
+        if dt is not None:
+            dt_err = float((dt - p_dt).abs() / p_dt.abs())
+            if not dt_err <= SS_DTEMP_RTOL:
+                fail(f"bf16 SpatialSoftmax temperature gradient: {float(dt)} vs {float(p_dt)} (relative {dt_err})")
+    errs["spatial_softmax_bwd_bf16_dtemp_rel"] = dt_err
+    print(f"[bf16 kernels] B.1 at the window shapes and B.1' at the step's bit-equal to their plain versions and to "
+          f"the fp32 instances rounded; B.2 at (2048/64/1, 64, 21, 21) bf16 within max abs "
+          f"{errs['spatial_softmax_bf16']:.3g} of the plain version ({errs['spatial_softmax_bf16_flips']:.3g} of them "
+          f"round to another bf16 value at the step's shape) and bit-equal to the fp32 instance on the same values; B.2'/B.2'' dx within one bf16 ulp (max abs {errs['spatial_softmax_bwd_bf16']:.3g}) of the plain "
+          f"version and bit-equal to the fp32 instance's rounded once, dT relative {dt_err:.3g}")
+    return errs, shifts
+
+
+def time_bf16_kernels(batch, conv_map, shifts, card):
+    """Device ms of each bf16 instance, of the fp32 instance on the same
+    shapes and values and of the plain version, with the bound (bytes: u8
+    in and bf16 out; the bf16 map in, fp32 keypoints out; map, dx and the
+    keypoints' gradient). By CUDA events (``kernel_times.event_ms``): this
+    late in the run the profiler can drop a short window whole."""
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
+    from hulc_tpu_torch.ops.image_ops import (
+        preprocess_rgb_seq, preprocess_rgb_seq_plain, preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain,
+    )
+    from hulc_tpu_torch.ops.spatial_softmax import (
+        spatial_softmax_bwd, spatial_softmax_fwd_kernel, spatial_softmax_plain,
+    )
+
+    bf16, fused = torch.bfloat16, batch["fused"]
+    b = fused.actions.shape[0] // 2
+    pe = bf16_config().perceptual_encoder
+    pads = {cam: getattr(pe, cam).shift_pad for cam in shifts}
+    x32, grad = conv_map.float(), torch.randn(conv_map.shape[0], 2 * conv_map.shape[1], device="cuda")
+    n_map, n_out = conv_map.numel(), conv_map.shape[0] * 2 * conv_map.shape[1]
+    x32_plain = x32.clone().requires_grad_()
+    ss_out = spatial_softmax_plain(x32_plain, 1.0)
+    x16_plain = conv_map.clone().requires_grad_()
+    ss_out16 = spatial_softmax_plain(x16_plain, 1.0)
+    n_px = sum(getattr(fused, cam).numel() for cam in shifts)
+    n_frames = 2 * fused.actions.shape[0] * fused.actions.shape[1]
+
+    def shift(out_dtype, plain=False):
+        fn = preprocess_rgb_seq_shift_plain if plain else preprocess_rgb_seq_shift
+        return lambda: [fn(getattr(fused, cam), sh, pads[cam], out_dtype=out_dtype) for cam, sh in shifts.items()]
+
+    cases = {
+        # per camera at the val window shape: u8 in, bf16 out
+        **{f"preprocess_rgb_bf16{'' if cam == 'rgb_static' else '_gripper'}_window": (
+            lambda imgs=getattr(fused, cam)[:b]: preprocess_rgb_seq(imgs, out_dtype=bf16),
+            lambda imgs=getattr(fused, cam)[:b]: preprocess_rgb_seq(imgs),
+            lambda imgs=getattr(fused, cam)[:b]: preprocess_rgb_seq_plain(imgs, out_dtype=bf16),
+            bound(3 * getattr(fused, cam)[:b].numel(), 0), list(getattr(fused, cam)[:b].shape))
+            for cam in ("rgb_static", "rgb_gripper")},
+        # both cameras at the step's shape: u8 in, bf16 out, the shifts
+        "preprocess_rgb_shift_bf16": (shift(bf16), shift(torch.float32), shift(bf16, plain=True),
+                                      bound(3 * n_px + 8 * n_frames, 3 * n_px), None),
+        # the map in (bf16), the keypoints out (fp32); ~9 flops a logit
+        **{f"spatial_softmax_bf16{'' if rows == 2048 else f'_{rows}'}": (
+            lambda x=conv_map[:rows]: spatial_softmax_fwd_kernel(x, 1.0),
+            lambda x=x32[:rows]: spatial_softmax_fwd_kernel(x, 1.0),
+            lambda x=conv_map[:rows]: spatial_softmax_plain(x, 1.0),
+            bound(2 * conv_map[:rows].numel() + 4 * rows * 128, 9 * conv_map[:rows].numel()),
+            list(conv_map[:rows].shape)) for rows in (2048, 64, 1)},
+        # the map and dx (bf16), the keypoints' gradient (fp32); ~12 flops an entry
+        "spatial_softmax_bwd_bf16": (lambda: spatial_softmax_bwd(conv_map, grad, 1.0),
+                                     lambda: spatial_softmax_bwd(x32, grad, 1.0),
+                                     lambda: torch.autograd.grad(ss_out16, x16_plain, grad, retain_graph=True),
+                                     bound(4 * n_map + 4 * n_out, 12 * n_map), list(conv_map.shape)),
+        "spatial_softmax_bwd_bf16_learnable_t": (
+            lambda: spatial_softmax_bwd(conv_map, grad, torch.tensor([0.7], device="cuda")),
+            lambda: spatial_softmax_bwd(x32, grad, torch.tensor([0.7], device="cuda")),
+            lambda: torch.autograd.grad(ss_out16, x16_plain, grad, retain_graph=True),
+            bound(4 * n_map + 4 * n_out + 8, 14 * n_map), list(conv_map.shape)),
+    }
+    out = {}
+    for name, (kernel_fn, fp32_fn, plain_fn, (bound_ms, bound_by), shape) in cases.items():
+        iters = 20
+        ms_ = [event_ms(fp32_fn, iters), event_ms(kernel_fn, iters), event_ms(kernel_fn, iters), event_ms(fp32_fn, iters)]
+        out[name] = {
+            "ms": min(ms_[1], ms_[2]), "fp32_ms": min(ms_[0], ms_[3]), "plain_ms": event_ms(plain_fn, 5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "call_ms": call_ms(kernel_fn, iters), "plain_call_ms": call_ms(plain_fn, 5),
+        }
+        if shape is not None:
+            out[name]["shape"] = shape
+        t = out[name]
+        print(f"[bf16 timing] {name}{'' if shape is None else f' at {tuple(shape)}'}: bf16 kernel {t['ms']:.6f} ms, "
+              f"fp32 instance {t['fp32_ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of the bound ({card})")
+    del ss_out, ss_out16
+    return out
+
+
+def action_change(cfg, moved, base):
+    """The largest change of a continuous action dimension between two plain
+    runs, each (actions, post-step plans), over the (step, lane) pairs whose
+    plan picks agree: the discrete gripper's pick is held equal and a plan
+    pick that flips is a tie (``compare_plain``)."""
+    (a1, p1), (a0, p0) = moved, base
+    d = cfg.distribution
+    same = np.ones(a0.shape[:-1], bool)
+    if d.kind == "discrete":
+        grid = (d.category_size, d.class_size)
+        same = (p1.reshape(p1.shape[:-1] + grid).argmax(-1) == p0.reshape(p0.shape[:-1] + grid).argmax(-1)).all(-1)
+    cont = slice(None, -1 if cfg.action_decoder.discrete_gripper else None)
+    diff = np.abs(a1[..., cont] - a0[..., cont])[same]
+    return float(diff.max()) if diff.size else 0.0
+
+
+def plain_policies(cfg, plain_model, single_obs, lang, seed, single_states, batched, bf16_share):
+    """The plain path's actions and plans (single lane and lockstep, each
+    step from the kernel path's state), with the decoder recurrence
+    kernel's own share of bf16 rounding flips on each (``recurrence_flips``),
+    and the single lane's sensitivity: its largest action change
+    (``action_change``) under ``ulp_noise`` of the keypoints (``bf16_share``,
+    B.2's share; the decoder reads the gripper camera's features only, so
+    the keypoints reach an action through a replanned plan alone) and
+    ``recurrence_noise`` at the recurrence's single-lane share, over
+    ULP_PATTERNS patterns. Returns (single, lockstep, {lanes: the flip
+    counts}, sensitivity)."""
+    from hulc_tpu_torch.models import vision
+
+    cell, num_layers = cfg.action_decoder.rnn_cell, cfg.action_decoder.num_layers
+    batched_obs, langs, batched_states, masks = batched
+    steps = list(zip(batched_obs, [langs] * BF16_LOCKSTEP_STEPS, batched_states, masks))
+    with recurrence_flips(cell, num_layers) as single_flips:
+        single = plain_single_with_reset(cfg, plain_model, single_obs, lang, seed, single_states, BF16_RESET_AT)
+    with recurrence_flips(cell, num_layers) as batched_flips:
+        lockstep = plain_batched(cfg, plain_model, steps, seed)
+    flips = {1: single_flips, len(langs): batched_flips}
+    sens = 0.0
+    for i in range(ULP_PATTERNS):
+        with ulp_noise(vision, "spatial_softmax_plain", seed + 31 + 2 * i, bf16_share), \
+                recurrence_noise(cell, num_layers, seed + 32 + 2 * i, single_flips["flipped"] / single_flips["outputs"]):
+            moved = plain_single_with_reset(cfg, plain_model, single_obs, lang, seed, single_states, BF16_RESET_AT)
+        sens = max(sens, action_change(cfg, moved, single))
+    return single, lockstep, flips, sens
+
+
+def kernel_recurrence_in_plain(cfg, plain_model, single_obs, lang, seed, single_states):
+    """The plain single-lane steps with the decoder recurrence's kernel in
+    place of its plain loop (everything else plain): how much of the
+    kernel path's difference from the plain path the recurrence makes."""
+    from hulc_tpu_torch.models.layers import RECURRENCES
+
+    kernel = RECURRENCES[cfg.action_decoder.rnn_cell][0]
+
+    def wrap(plain):
+        def through_kernel(x_proj, *rest):
+            *state, w_hh, b_hh = rest
+            return kernel(x_proj, *(s.contiguous() for s in state), w_hh, b_hh)[0]
+        return through_kernel
+
+    with plain_recurrence(cfg.action_decoder.rnn_cell, wrap):
+        return plain_single_with_reset(cfg, plain_model, single_obs, lang, seed, single_states, BF16_RESET_AT)
+
+
+def run_bf16(seed, lanes, train_steps, hulc_step_ms, hulc_peak_gb, card):
+    """Phase 17: ``hulc`` with compute_dtype=bfloat16 at full width.
+    Returns (summary, {kernel symbol: launches on the main path}, {row: max
+    abs err}, {row: timing})."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.preprocess import preprocess_batch
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = bf16_config()
+    model = make_model(cfg, "cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != HULC_PARAMS or {p.dtype for p in model.parameters()} != {torch.float32}:
+        fail(f"the bf16 hulc model has {n_params} parameters of {({p.dtype for p in model.parameters()})}, "
+             f"expected {HULC_PARAMS} fp32")
+    print(f"[bf16] hulc with compute_dtype=bfloat16 (apply_overrides), {n_params} fp32 parameters, random init from "
+          f"seed {seed}")
+
+    # 1. the bf16 instances against their plain versions and the fp32 instances, and their times
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cuda")
+    with torch.no_grad():
+        prep = preprocess_batch(cfg, batch, train=False)["fused"]
+        conv_map = model.perceptual_encoder.rgb_static_encoder.conv_model(prep.rgb_static.flatten(0, 1)).contiguous()
+        del prep
+    if conv_map.dtype != torch.bfloat16:
+        fail(f"the bf16 model's static conv map is {conv_map.dtype}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 83)
+    errs, shifts = check_bf16_kernels(batch, conv_map, gen)
+    # the plain path's sensitivity noise: B.2's own share of keypoints whose bf16 rounding it moves
+    bf16_share = errs.pop("spatial_softmax_bf16_flips")
+    timing = time_bf16_kernels(batch, conv_map, shifts, card)
+    del conv_map, shifts
+    torch.cuda.empty_cache()
+
+    # 2. the main path: train steps, a val step, the policies
+    rng = np.random.default_rng(seed + 89)
+    val_batch = split_fused(batch)
+    lang = rng.normal(size=cfg.lang_dim).astype(np.float32)
+    single_obs = make_obs(rng, cfg, BF16_SINGLE_STEPS)
+    langs = rng.normal(size=(lanes, cfg.lang_dim)).astype(np.float32)
+    batched_obs = [make_obs(rng, cfg, lanes) for _ in range(BF16_LOCKSTEP_STEPS)]
+    trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    trainer.model.load_state_dict(model.state_dict())
+    trainer.init_state(1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_losses, host, events = drive_training(trainer, batch, cfg.loss.kl_beta, train_steps)
+    per_step = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer.model.eval()
+    with torch.no_grad():
+        val = trainer.val_step(val_batch, cfg.loss.kl_beta, generator=torch.Generator(device="cuda").manual_seed(seed))
+    trainer.model.train()
+    torch.cuda.synchronize()
+    val_launches = {k: n - per_step[k] for k, n in launch_counts().items()}
+    single_actions, single_states, k_plans = drive_single_with_reset(cfg, model, single_obs, lang, seed, BF16_RESET_AT)
+    batched_actions, batched_states = drive_batched(cfg, model, batched_obs, langs, seed)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    policy_launches = {k: n - per_step[k] - val_launches[k] for k, n in launches.items()}
+    print(f"[bf16 main path] launches: train steps {({k: per_step[k] for k in BF16_SYMBOLS + tuple(BF16_REPLACES)})}, "
+          f"val step {({k: val_launches[k] for k in BF16_SYMBOLS + ('hulc_preprocess_rgb',)})}, policy steps "
+          f"{({k: policy_launches[k] for k in BF16_SERVING + ('hulc_spatial_softmax',)})}")
+    want = {"hulc_preprocess_rgb_shift_bf16": 2, "hulc_spatial_softmax_bf16": 1, "hulc_spatial_softmax_bwd_bf16": 1,
+            **dict.fromkeys(BF16_REPLACES, 0)}
+    if any(per_step[k] != n * train_steps for k, n in want.items()):
+        fail(f"{train_steps} bf16 train steps launched {({k: per_step[k] for k in want})}, not "
+             f"{({k: n * train_steps for k, n in want.items()})}: the bf16 instances, never the fp32 ones")
+    # a val step: B.1 for both cameras of both modalities, B.2 per modality, no fp32 preprocess
+    if (val_launches["hulc_preprocess_rgb_bf16"], val_launches["hulc_spatial_softmax_bf16"],
+            val_launches["hulc_preprocess_rgb"], val_launches["hulc_spatial_softmax"]) != (4, 2, 0, 0):
+        fail(f"the bf16 val step launched {val_launches}, not B.1's bf16 instance 4 times and B.2's twice")
+    if not all(policy_launches[k] > 0 for k in BF16_SERVING) or policy_launches["hulc_spatial_softmax"]:
+        fail(f"the bf16 policy steps launched {policy_launches}: they must launch {BF16_SERVING} and not the fp32 "
+             f"SpatialSoftmax")
+    for i, losses in enumerate(step_losses):
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"bf16 train step {i}: a loss is not finite: {losses}")
+    if not all(np.isfinite(float(v)) for v in val.values()):
+        fail(f"bf16 val step: a metric is not finite: {val}")
+    check_actions("bf16 single lane", single_actions, 1)
+    check_actions("bf16 batched", batched_actions, lanes)
+    print("[bf16 main path] " + "; ".join(
+        f"step {i}: total {l['total_loss']:.5f} action {l['action_loss']:.5f} kl {l['kl_loss']:.6f} "
+        f"clip {l['lang_clip_loss']:.5f} grad_norm {l['grad_norm']:.5f}" for i, l in enumerate(step_losses)))
+    step_ms, event_ms_ = statistics.median(host[2:]), statistics.median(events[2:])
+    print(f"[timing] bf16 train step (2B={2 * BATCH_PER_MOD}, S={SEQ}, median of {len(host) - 2} after 2 warm-ups): "
+          f"host clock {step_ms:.4f} ms, CUDA events {event_ms_:.4f} ms, {2 * BATCH_PER_MOD / step_ms * 1e3:.2f} "
+          f"seq/s; fp32 hulc {hulc_step_ms:.4f} ms in this run (phase 8), bf16 / fp32 {step_ms / hulc_step_ms:.4f}; all steps "
+          f"host {[round(t, 4) for t in host]} ms; peak memory {peak_gb:.2f} GB (fp32 {hulc_peak_gb:.2f} GB) ({card})")
+    del trainer
+
+    # 3. the main path against the plain path
+    train_check = compare_train_plain(cfg, model, batch, seed, label="bf16 train plain path", bf16_share=bf16_share)
+    val_trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    val_trainer.model.load_state_dict(model.state_dict())
+    val_check = compare_val_plain(cfg, val_trainer, seed, val_batch, label="bf16", patterns=BF16_VAL_PATTERNS,
+                                  bf16_share=bf16_share)
+    del val_trainer, batch, val_batch
+    torch.cuda.empty_cache()
+    plain_model = make_model(cfg, "cuda", seed=seed, use_kernels=False)
+    plain_model.load_state_dict(model.state_dict())
+    masks = [replan_mask(t, lanes, cfg.replan_freq) for t in range(BF16_LOCKSTEP_STEPS)]
+    (p_single, p_single_plans), (p_batched, p_batched_plans), flips, sens = plain_policies(
+        cfg, plain_model, single_obs, lang, seed, single_states, (batched_obs, langs, batched_states, masks),
+        bf16_share)
+    shares = {n: c["flipped"] / c["outputs"] for n, c in flips.items()}
+    # the single lane: the larger of ACTION_ATOL and NOISE_FACTOR x its sensitivity; the lockstep lanes: ACTION_ATOL
+    single_limit = max(ACTION_ATOL, NOISE_FACTOR * sens)
+    with_kernel = kernel_recurrence_in_plain(cfg, plain_model, single_obs, lang, seed, single_states)[0]
+    kernel_rnn_err = float(np.abs(with_kernel - single_actions).max())
+    print(f"[bf16] the decoder recurrence's kernel rounds "
+          + ", ".join(f"{c['flipped']} of {c['outputs']} ({shares[n]:.3g})" for n, c in flips.items())
+          + f" layer-0 outputs to another bf16 value than the plain loop at 1 and {lanes} lanes; the single lane's "
+          f"limit is the larger of {ACTION_ATOL} and {NOISE_FACTOR} x its sensitivity {sens:.3g} (a {bf16_share:.3g} "
+          f"share of the keypoints, B.2's, and a {shares[1]:.3g} share of those outputs, the recurrence's, one bf16 "
+          f"ulp away, over {ULP_PATTERNS} patterns): {single_limit:.3g}; {lanes} lanes {ACTION_ATOL}; the plain path "
+          f"with the recurrence's kernel in place of its loop is within {kernel_rnn_err:.3g} of the kernel path's "
+          f"single-lane actions")
+    replanned = np.array([t in (0, BF16_RESET_AT) for t in range(BF16_SINGLE_STEPS)])
+    single_err = compare_plain("bf16 single lane, across a replan and a reset", single_actions, p_single, k_plans,
+                               p_single_plans, replanned, cfg, atol=single_limit)
+    k_batched_plans = np.stack([s[0].cpu().numpy() for s in batched_states[1:]])
+    batched_err = compare_plain(f"bf16 batched, {lanes} lanes, replans on some lanes", batched_actions, p_batched,
+                                k_batched_plans, p_batched_plans, np.stack(masks), cfg)
+    del plain_model
+
+    # 4. the serving export at --lanes lanes, served in a process without model code
+    export, served_launches = run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs, card,
+                                                 with_debug=False, serving_kernels=BF16_SERVING)
+    launches = {k: n + served_launches.get(k, 0) for k, n in launches.items()}
+    if not all(launches[k] > 0 for k in BF16_SYMBOLS):
+        fail(f"a bf16 kernel was never launched on the bf16 main path: {launches}")
+    del model
+    torch.cuda.empty_cache()
+    summary = {
+        "parameters": n_params,
+        "train_step": {"host_ms": step_ms, "event_ms": event_ms_, "steps_host_ms": host,
+                       "seq_per_s": 2 * BATCH_PER_MOD / step_ms * 1e3, "peak_memory_gb": peak_gb,
+                       "fp32_host_ms": hulc_step_ms, "fp32_peak_memory_gb": hulc_peak_gb,
+                       "launches_per_step": {k: per_step[k] // train_steps for k in want}, "plain_path": train_check},
+        "val_step": {**val_check, "launches": {k: val_launches[k] for k in BF16_SYMBOLS}},
+        "policy_plain": {"max_abs_err": {"1": single_err, str(lanes): batched_err},
+                         "recurrence_flip_share": {str(k): v for k, v in shares.items()},
+                         "keypoint_flip_share": bf16_share, "ulp_sensitivity": {"1": sens},
+                         "limit": {"1": single_limit, str(lanes): ACTION_ATOL},
+                         "kernel_recurrence_in_plain_err": {"1": kernel_rnn_err}},
+        "serving_export": export, "phase_s": time.perf_counter() - t0, "card": card,
+    }
+    print(f"[bf16] done in {summary['phase_s']:.1f} s")
+    return summary, launches, errs, timing
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -3951,6 +4526,19 @@ KERNEL_INFO = {
     "rnn_gru_bwd": ("hulc_rnn_gru_bwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:265"),
     "rnn_lstm_fwd": ("hulc_rnn_lstm_fwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:248"),
     "rnn_lstm_bwd": ("hulc_rnn_lstm_bwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:265"),
+    # B.14: the bf16 instances (phase 17)
+    "preprocess_rgb_bf16": (
+        "hulc_preprocess_rgb_bf16", "hulc_tpu_torch/csrc/preprocess.cu", "hulc_tpu/ops/image_ops.py:85",
+    ),
+    "preprocess_rgb_shift_bf16": (
+        "hulc_preprocess_rgb_shift_bf16", "hulc_tpu_torch/csrc/preprocess.cu", "hulc_tpu/ops/image_ops.py:27",
+    ),
+    "spatial_softmax_bf16": (
+        "hulc_spatial_softmax_bf16", "hulc_tpu_torch/csrc/spatial_softmax.cu", "hulc_tpu/models/vision.py:38",
+    ),
+    "spatial_softmax_bwd_bf16": (
+        "hulc_spatial_softmax_bwd_bf16", "hulc_tpu_torch/csrc/spatial_softmax.cu", "hulc_tpu/models/vision.py:38",
+    ),
 }
 
 
@@ -3972,6 +4560,9 @@ EXTRA_TIMINGS = {
     "depth_noise": {"gaussian": "depth_noise_gaussian"},
     "rnn_gru_fwd": {"at_64_lanes": "rnn_gru_fwd_64_lanes", "at_1_lane": "rnn_gru_fwd_1_lane"},
     "rnn_lstm_fwd": {"at_64_lanes": "rnn_lstm_fwd_64_lanes", "at_1_lane": "rnn_lstm_fwd_1_lane"},
+    "preprocess_rgb_bf16": {"gripper": "preprocess_rgb_bf16_gripper_window"},
+    "spatial_softmax_bf16": {"at_64_lanes": "spatial_softmax_bf16_64", "at_1_lane": "spatial_softmax_bf16_1"},
+    "spatial_softmax_bwd_bf16": {"learnable_t": "spatial_softmax_bwd_bf16_learnable_t"},
 }
 
 
@@ -4156,8 +4747,11 @@ def main(argv=None) -> int:
                   f"{t['event_ms'] / launch_floor_ms:.2f}x the empty launch's device time ({card})")
     hidden = cfg.action_decoder.hidden_size
     rec_plans = {d: recurrence_plan_for(DECODER_ROWS, DECODER_SEQ, hidden, d) for d in (False, True)}
-    for fn in ("preprocess_rgb_kernel", "preprocess_rgb_shift_kernel", "spatial_softmax_kernel",
-               "spatial_softmax_bwd_kernel", "spatial_softmax_temperature_grad_kernel", "mixture_nll_fwd_kernel",
+    for fn in ("preprocess_rgb_kernel<float>", "preprocess_rgb_shift_kernel<float>", "spatial_softmax_kernel<float>",
+               "spatial_softmax_bwd_kernel<float>", "preprocess_rgb_kernel<__nv_bfloat16>",
+               "preprocess_rgb_shift_kernel<__nv_bfloat16>", "spatial_softmax_kernel<__nv_bfloat16>",
+               "spatial_softmax_bwd_kernel<__nv_bfloat16>", "spatial_softmax_temperature_grad_kernel",
+               "mixture_nll_fwd_kernel",
                "mixture_nll_bwd_kernel", "adam_lowp_kernel", "grad_norm_finish_kernel", "rnn_fwd_kernel<false>",
                "rnn_bwd_kernel<false>", "rnn_step_kernel<false>", "rnn_fwd_kernel<true>", "rnn_bwd_kernel<true>",
                "rnn_step_kernel<true>", "logistic_mixture_sample_kernel",
@@ -4206,29 +4800,39 @@ def main(argv=None) -> int:
     errs.update(gated_errs)
     timing.update(gated_timing)
 
+    # ---- 17. hulc in bf16 at full width --------------------------------------
+    bf16, bf16_launches, bf16_errs, bf16_timing = run_bf16(args.seed, args.lanes, args.train_steps, step_ms, peak_gb,
+                                                           card)
+    errs.update(bf16_errs)
+    timing.update(bf16_timing)
+    timing["preprocess_rgb_bf16"] = timing.pop("preprocess_rgb_bf16_window")
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
             + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol]
-            + gated_launches[symbol],
+            + gated_launches[symbol] + bf16_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
             "launches_depth": depth_launches[symbol], "launches_gated": gated_launches[symbol],
+            "launches_bf16": bf16_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
         if name == "spatial_softmax_bwd":
             rows[-1]["learnable_t"]["dtemp_rel_err"] = errs["spatial_softmax_bwd_dtemp_rel"]
+        if name == "spatial_softmax_bwd_bf16":
+            rows[-1]["learnable_t"]["dtemp_rel_err"] = errs["spatial_softmax_bwd_bf16_dtemp_rel"]
     print(json.dumps({
         "policy_step_ms": {"1": single_ms, str(args.lanes): batched_ms},
         "train_step": {"batch": batch_windows, "seq": SEQ, "host_ms": step_ms, "event_ms": event_ms,
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
-        "hulc_depth": depth, "gated_decoder": gated,
+        "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(json.dumps({"kernels": rows}))

@@ -61,8 +61,22 @@
 //   * normalize: a 256-entry table, built on the host by the plain
 //     version's own ops on every byte value, so the result is bit-equal to
 //     preprocess_rgb_seq_shift_plain.
+//
+// bf16 instances (B.14): a bf16 model trains and validates on bf16 frames
+// (hulc_tpu/training/preprocess.py:23 passes the compute dtype; off the TPU
+// the JAX package normalizes in fp32 and rounds once,
+// hulc_tpu/ops/image_ops.py:133-135). Both kernels are templates on the
+// output's element type, float or __nv_bfloat16, with an extern "C"
+// launcher for each instance (the _bf16 ones). The bf16 instances read the
+// same table rounded once to bf16 on the host, so they store the plain
+// version's bits; only the epilogue differs: 8-byte stores of 4 bf16 where
+// an fp32 instance stores 16 bytes of 4 floats. The shift kernel's cp.async
+// staging of the u8 rows is the same. The bound shrinks with the bytes
+// written: the training batch is 289.1 MB read and 578.2 MB written,
+// 0.259 ms at 3.35 TB/s; the 64-lane policy's static frame 0.0057 ms.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -85,36 +99,56 @@ __device__ __forceinline__ void load_quad(unsigned (&q)[3], const uint8_t* frame
   for (int i = 0; i < 3 * count; ++i) q[i >> 2] |= static_cast<unsigned>(b[i]) << (8 * (i & 3));
 }
 
+// Streaming stores of one element, and of 4 consecutive elements (16 bytes
+// of floats, 8 of bf16) at an address aligned to their size.
+__device__ __forceinline__ void store1(float* o, float v) { __stcs(o, v); }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, __nv_bfloat16 v) {
+  __stcs(reinterpret_cast<unsigned short*>(o), __bfloat16_as_ushort(v));
+}
+__device__ __forceinline__ void store4(float* o, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ unsigned bf16_bits(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) | (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, const __nv_bfloat16 (&v)[4]) {
+  __stcs(reinterpret_cast<uint2*>(o), make_uint2(bf16_bits(v[0], v[1]), bf16_bits(v[2], v[3])));
+}
+
 // Pixels [p, p + count) of the frame's three planes from their bytes.
-__device__ __forceinline__ void store_quad(float* out, int plane, int p, int count, const unsigned (&q)[3],
-                                           const float* lut, bool vec4) {
+template <typename E>
+__device__ __forceinline__ void store_quad(E* out, int plane, int p, int count, const unsigned (&q)[3],
+                                           const E* lut, bool vec4) {
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    float v[4];
+    E v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = 3 * j + ch;
       v[j] = lut[(q[i >> 2] >> (8 * (i & 3))) & 0xffu];
     }
-    float* o = out + ch * plane + p;
+    E* o = out + ch * plane + p;
     if (vec4) {
-      __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+      store4(o, v);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (j < count) __stcs(o + j, v[j]);
+        if (j < count) store1(o + j, v[j]);
     }
   }
 }
 
 // grid (quads of a frame / kEvalThreads, min(frames, kMaxFrameBlocks));
-// table 16-byte aligned, read as 64 float4 (one load each for 64 threads:
-// at one lane a thread's chain of loads is the kernel's time).
+// table 16-byte aligned, read as 16-byte words (64 of floats, 32 of bf16;
+// one load each for as many threads: at one lane a thread's chain of loads
+// is the kernel's time).
+template <typename E>
 __global__ void __launch_bounds__(kEvalThreads)
-    preprocess_rgb_kernel(const uint8_t* __restrict__ src, const float4* __restrict__ table,
-                          float* __restrict__ dst, long long frames, int plane, bool words, bool vec4) {
-  __shared__ __align__(16) float lut[256];
-  if (threadIdx.x < 64) reinterpret_cast<float4*>(lut)[threadIdx.x] = table[threadIdx.x];
+    preprocess_rgb_kernel(const uint8_t* __restrict__ src, const uint4* __restrict__ table,
+                          E* __restrict__ dst, long long frames, int plane, bool words, bool vec4) {
+  constexpr int kTableWords = 256 * sizeof(E) / 16;
+  __shared__ __align__(16) E lut[256];
+  if (threadIdx.x < kTableWords) reinterpret_cast<uint4*>(lut)[threadIdx.x] = table[threadIdx.x];
   const int p = 4 * (blockIdx.x * kEvalThreads + threadIdx.x);
   const int count = min(4, plane - p);
   const long long frame_elems = 3ll * plane;
@@ -181,25 +215,28 @@ __device__ __forceinline__ int stage_band(uint8_t* buf, const uint8_t* frame, in
   return stage_bytes(buf, frame + row_lo * row_bytes, frame + (row_hi + 1) * row_bytes);
 }
 
-// One block per frame; shared memory: the 256-entry table, then two band
-// buffers of buf_bytes each.
+// One block per frame; shared memory: the 256-entry table (kLutBytes,
+// room for floats), then two band buffers of buf_bytes each.
+constexpr int kLutBytes = 256 * sizeof(float);
+
+template <typename E>
 __global__ void __launch_bounds__(kShiftThreads)
     preprocess_rgb_shift_kernel(const uint8_t* __restrict__ src, const int* __restrict__ shifts,
-                                const float* __restrict__ table, float* __restrict__ dst, int h,
+                                const E* __restrict__ table, E* __restrict__ dst, int h,
                                 int w, int c, int pad, int buf_bytes) {
   extern __shared__ __align__(16) uint8_t smem[];
-  float* lut = reinterpret_cast<float*>(smem);
-  uint8_t* const bufs = smem + 256 * sizeof(float);
+  E* lut = reinterpret_cast<E*>(smem);
+  uint8_t* const bufs = smem + kLutBytes;
   const int n = blockIdx.x;
   const int row_bytes = w * c;
   const int plane = h * w;
   const uint8_t* frame = src + static_cast<long long>(n) * h * row_bytes;
-  float* out = dst + static_cast<long long>(n) * c * plane;
+  E* out = dst + static_cast<long long>(n) * c * plane;
   const int s_r = shifts[2 * n] - pad, s_c = shifts[2 * n + 1] - pad;
   for (int i = threadIdx.x; i < 256; i += kShiftThreads) lut[i] = table[i];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool vec4 = (w & 3) == 0;  // rows of 16-byte multiples: float4 stores
+  const bool vec4 = (w & 3) == 0;  // rows of whole quads: 4-element stores
   int lo = 0, lo_next = 0, off_next = 0;
   int off = stage_band(bufs, frame, 0, h, row_bytes, s_r, lo);
   for (int y0 = 0, k = 0; y0 < h; y0 += kBand, k ^= 1) {
@@ -214,20 +251,20 @@ __global__ void __launch_bounds__(kShiftThreads)
     if (y < h) {
       const uint8_t* srow = bufs + k * buf_bytes + off + (clamp_index(s_r + y, h - 1) - lo) * row_bytes;
       for (int ch = 0; ch < c; ++ch) {
-        float* orow = out + ch * plane + y * w;
+        E* orow = out + ch * plane + y * w;
         for (int x0 = 4 * lane; x0 < w; x0 += 128) {
-          float v[4];
+          E v[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int sx = clamp_index(s_c + x0 + j, w - 1);
             v[j] = lut[srow[sx * c + ch]];
           }
           if (vec4) {
-            __stcs(reinterpret_cast<float4*>(orow + x0), make_float4(v[0], v[1], v[2], v[3]));
+            store4(orow + x0, v);
           } else {
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              if (x0 + j < w) __stcs(orow + x0 + j, v[j]);
+              if (x0 + j < w) store1(orow + x0 + j, v[j]);
           }
         }
       }
@@ -238,11 +275,8 @@ __global__ void __launch_bounds__(kShiftThreads)
   }
 }
 
-}  // namespace
-
-// RGB frames only (c == 3); table and dst 16-byte aligned.
-extern "C" int hulc_preprocess_rgb(const void* src, const void* table, void* dst, long long n, int h, int w,
-                                   int c, void* stream) {
+template <typename E>
+int launch_eval(const void* src, const void* table, void* dst, long long n, int h, int w, int c, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
   if (c != 3 || static_cast<long long>(h) * w > 0x7fffffffLL - 4) return static_cast<int>(cudaErrorInvalidValue);
   const int plane = h * w;
@@ -250,30 +284,56 @@ extern "C" int hulc_preprocess_rgb(const void* src, const void* table, void* dst
   const dim3 grid(static_cast<unsigned int>((quads + kEvalThreads - 1) / kEvalThreads),
                   static_cast<unsigned int>(n < kMaxFrameBlocks ? n : kMaxFrameBlocks));
   const bool words = reinterpret_cast<unsigned long long>(src) % 4 == 0 && plane % 4 == 0;
-  preprocess_rgb_kernel<<<grid, kEvalThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<const float4*>(table), static_cast<float*>(dst), n, plane,
+  preprocess_rgb_kernel<E><<<grid, kEvalThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<const uint4*>(table), static_cast<E*>(dst), n, plane,
       words, plane % 4 == 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_shift(const void* src, const void* shifts, const void* table, void* dst, long long n, int h, int w,
+                 int c, int pad, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (n > 0x7fffffffLL || static_cast<long long>(c) * h * w > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int buf_bytes = (kBand * w * c + 16 + 15) & ~15;  // a band's rows and the 16-byte slack
+  const int smem = kLutBytes + 2 * buf_bytes;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(preprocess_rgb_shift_kernel<E>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  preprocess_rgb_shift_kernel<E><<<static_cast<unsigned int>(n), kShiftThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<const int*>(shifts),
+      static_cast<const E*>(table), static_cast<E*>(dst), h, w, c, pad, buf_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// RGB frames only (c == 3); table and dst 16-byte aligned. The table and
+// dst hold floats here and bf16 in the _bf16 instance.
+extern "C" int hulc_preprocess_rgb(const void* src, const void* table, void* dst, long long n, int h, int w,
+                                   int c, void* stream) {
+  return launch_eval<float>(src, table, dst, n, h, w, c, stream);
+}
+
+extern "C" int hulc_preprocess_rgb_bf16(const void* src, const void* table, void* dst, long long n, int h, int w,
+                                        int c, void* stream) {
+  return launch_eval<__nv_bfloat16>(src, table, dst, n, h, w, c, stream);
 }
 
 extern "C" int hulc_preprocess_rgb_shift(const void* src, const void* shifts, const void* table,
                                          void* dst, long long n, int h, int w, int c, int pad,
                                          void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (n > 0x7fffffffLL || static_cast<long long>(c) * h * w > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int buf_bytes = (kBand * w * c + 16 + 15) & ~15;  // a band's rows and the 16-byte slack
-  const int smem = static_cast<int>(256 * sizeof(float)) + 2 * buf_bytes;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(preprocess_rgb_shift_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  preprocess_rgb_shift_kernel<<<static_cast<unsigned int>(n), kShiftThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<const int*>(shifts),
-      static_cast<const float*>(table), static_cast<float*>(dst), h, w, c, pad, buf_bytes);
-  return static_cast<int>(cudaGetLastError());
+  return launch_shift<float>(src, shifts, table, dst, n, h, w, c, pad, stream);
+}
+
+extern "C" int hulc_preprocess_rgb_shift_bf16(const void* src, const void* shifts, const void* table,
+                                              void* dst, long long n, int h, int w, int c, int pad,
+                                              void* stream) {
+  return launch_shift<__nv_bfloat16>(src, shifts, table, dst, n, h, w, c, pad, stream);
 }
 
 extern "C" const char* hulc_error_string(int err) {

@@ -53,8 +53,23 @@
 //     caller needs no host sync. Then each warp also writes its row's
 //     sum of x * dx, and a second launch of one block reduces those partials
 //     in a fixed order (in fp64) to dT: no atomics, the same dT every run.
+//
+// bf16 instances (B.14): a bf16 model's SpatialSoftmax reads the bf16 conv
+// map (hulc_tpu/models/vision.py:66 computes on x.astype(float32)), so each
+// kernel is a template on the map's element type, float or __nv_bfloat16,
+// with an extern "C" launcher for each instance (the _bf16 ones). A bf16
+// row is converted to fp32 in registers as it is read from shared memory;
+// the max, exp and sums are the fp32 instance's, in the same order; the
+// keypoints stay fp32. The backward writes dx in bf16, the fp32 value
+// rounded once (the transpose of JAX's convert), and dT from the fp32 dx.
+// Staging is by the block, not by the row: 8 rows of bf16 are 16 * hw
+// bytes, so a block starts 16-byte aligned, while a 441-element row (882 B)
+// does not. The bound halves with the bytes: at the step's (2048, 64, 21,
+// 21) bf16 the forward reads 115.6 MB (0.0345 ms at 3.35 TB/s), the
+// backward reads and writes 231.2 MB (0.069 ms).
 
 #include <cmath>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -88,17 +103,22 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // Copy the block's rows [row0, row0 + kRowsPerBlock) of x (fewer at the
-// end) into xs: 16-byte cp.async for the body, committed as one group, the
-// last count % 4 floats element by element. Returns the number of floats.
-__device__ __forceinline__ int stage_rows(float* xs, const float* __restrict__ x, int row0, int rows,
-                                          int hw) {
+// end) into xs: 16-byte cp.async for the body (4 floats or 8 bf16 a copy),
+// committed as one group, the last elements that fill no 16 bytes one by
+// one. Returns the number of elements.
+template <typename T>
+__device__ __forceinline__ int stage_rows(T* xs, const T* __restrict__ x, int row0, int rows, int hw) {
+  constexpr int kVec = 16 / sizeof(T);
   const int count = min(kRowsPerBlock, rows - row0) * hw;
-  const float* src = x + static_cast<long long>(row0) * hw;
-  const int vecs = count >> 2;
-  for (int i = threadIdx.x; i < vecs; i += kThreads) cp_async16(xs + 4 * i, src + 4 * i);
+  const T* src = x + static_cast<long long>(row0) * hw;
+  const int vecs = count / kVec;
+  for (int i = threadIdx.x; i < vecs; i += kThreads) cp_async16(xs + kVec * i, src + kVec * i);
   asm volatile("cp.async.commit_group;\n" ::);
-  for (int i = 4 * vecs + threadIdx.x; i < count; i += kThreads) xs[i] = src[i];
+  for (int i = kVec * vecs + threadIdx.x; i < count; i += kThreads) xs[i] = src[i];
   return count;
 }
 
@@ -121,17 +141,17 @@ struct Moments {
 
 // One warp's row xr: e_i = exp(x_i * (1/T) - max(x) * (1/T)) and its
 // moments, reduced over the warp; with kKeep, e is also written to er.
-template <bool kKeep>
-__device__ __forceinline__ Moments softmax_moments(const float* xr, float* er, const float* lin_r,
+template <bool kKeep, typename T>
+__device__ __forceinline__ Moments softmax_moments(const T* xr, float* er, const float* lin_r,
                                                    const float* lin_c, int hw, float inv_t, int lane) {
   // max(x * inv_t) = max(x) * inv_t: rounding is monotone and inv_t > 0
   float m = -INFINITY;
-  for (int i = lane; i < hw; i += 32) m = fmaxf(m, xr[i]);
+  for (int i = lane; i < hw; i += 32) m = fmaxf(m, to_float(xr[i]));
   m = warp_max(m) * inv_t;
 
   float s = 0.0f, sx = 0.0f, sy = 0.0f;
   for (int i = lane; i < hw; i += 32) {
-    const float e = expf(fmaf(xr[i], inv_t, -m));
+    const float e = expf(fmaf(to_float(xr[i]), inv_t, -m));
     if (kKeep) er[i] = e;
     s += e;
     sx += e * lin_r[i];
@@ -140,14 +160,16 @@ __device__ __forceinline__ Moments softmax_moments(const float* xr, float* er, c
   return {warp_sum(s), warp_sum(sx), warp_sum(sy)};
 }
 
-// Shared memory, in floats: xs (kRowsPerBlock * hw), lin_r and lin_c (hw each).
+// Shared memory: xs (kRowsPerBlock * hw elements of T), then lin_r and
+// lin_c (hw floats each).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    spatial_softmax_kernel(const float* __restrict__ x, float2* __restrict__ out, int rows, int h, int w,
+    spatial_softmax_kernel(const T* __restrict__ x, float2* __restrict__ out, int rows, int h, int w,
                            const float* __restrict__ temp_ptr, float temp_value) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int hw = h * w;
-  float* xs = smem;
-  float* lin_r = xs + kRowsPerBlock * hw;
+  T* xs = reinterpret_cast<T*>(smem);
+  float* lin_r = reinterpret_cast<float*>(xs + kRowsPerBlock * hw);
   float* lin_c = lin_r + hw;
   const int row0 = blockIdx.x * kRowsPerBlock;
   stage_rows(xs, x, row0, rows, hw);
@@ -159,21 +181,48 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = row0 + warp;
   if (row < rows) {
-    const Moments mo = softmax_moments<false>(xs + warp * hw, nullptr, lin_r, lin_c, hw, inv_t, lane);
+    const Moments mo = softmax_moments<false, T>(xs + warp * hw, nullptr, lin_r, lin_c, hw, inv_t, lane);
     if (lane == 0) out[row] = make_float2(mo.sx / mo.s, mo.sy / mo.s);
   }
 }
 
-// Shared memory, in floats: xs and es (kRowsPerBlock * hw each), then lin_r
-// and lin_c (hw each).
+// The block's dx (count elements) from es: 16-byte stores of 4 floats, or
+// of 8 bf16 each the fp32 value rounded once; the elements that fill no 16
+// bytes one by one.
+__device__ __forceinline__ void store_rows(float* dst, const float* es, int count) {
+  const int vecs = count >> 2;
+  for (int i = threadIdx.x; i < vecs; i += kThreads)
+    reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(es)[i];
+  for (int i = 4 * vecs + threadIdx.x; i < count; i += kThreads) dst[i] = es[i];
+}
+
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo at the lower address
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float* es, int count) {
+  const int vecs = count >> 3;
+  for (int i = threadIdx.x; i < vecs; i += kThreads) {
+    const float4 a = reinterpret_cast<const float4*>(es)[2 * i];
+    const float4 b = reinterpret_cast<const float4*>(es)[2 * i + 1];
+    reinterpret_cast<uint4*>(dst)[i] =
+        make_uint4(bf16_pair(a.x, a.y), bf16_pair(a.z, a.w), bf16_pair(b.x, b.y), bf16_pair(b.z, b.w));
+  }
+  for (int i = 8 * vecs + threadIdx.x; i < count; i += kThreads) dst[i] = __float2bfloat16_rn(es[i]);
+}
+
+// Shared memory: xs (kRowsPerBlock * hw elements of T), then es
+// (kRowsPerBlock * hw floats), lin_r and lin_c (hw floats each).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    spatial_softmax_bwd_kernel(const float* __restrict__ x, const float* __restrict__ grad_out,
-                               float* __restrict__ dx, float* __restrict__ row_xdx, int rows,
+    spatial_softmax_bwd_kernel(const T* __restrict__ x, const float* __restrict__ grad_out,
+                               T* __restrict__ dx, float* __restrict__ row_xdx, int rows,
                                int h, int w, const float* __restrict__ temp_ptr, float temp_value) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int hw = h * w;
-  float* xs = smem;
-  float* es = xs + kRowsPerBlock * hw;
+  T* xs = reinterpret_cast<T*>(smem);
+  float* es = reinterpret_cast<float*>(xs + kRowsPerBlock * hw);
   float* lin_r = es + kRowsPerBlock * hw;
   float* lin_c = lin_r + hw;
   const int row0 = blockIdx.x * kRowsPerBlock;
@@ -187,9 +236,9 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = row0 + warp;
   if (row < rows) {
-    const float* xr = xs + warp * hw;
+    const T* xr = xs + warp * hw;
     float* er = es + warp * hw;
-    const Moments mo = softmax_moments<true>(xr, er, lin_r, lin_c, hw, inv_t, lane);
+    const Moments mo = softmax_moments<true, T>(xr, er, lin_r, lin_c, hw, inv_t, lane);
     const float ex = mo.sx / mo.s;
     const float ey = mo.sy / mo.s;
     const float gx = grad_out[2 * static_cast<long long>(row)];
@@ -201,7 +250,7 @@ __global__ void __launch_bounds__(kThreads)
       const float g = gx * (lin_r[i] - ex) + gy * (lin_c[i] - ey);
       const float d = er[i] * scale * g;
       er[i] = d;
-      xdx += xr[i] * d;
+      xdx += to_float(xr[i]) * d;
     }
     if (row_xdx) {
       xdx = warp_sum(xdx);
@@ -209,12 +258,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-
-  const int vecs = count >> 2;
-  float* dst = dx + static_cast<long long>(row0) * hw;
-  for (int i = threadIdx.x; i < vecs; i += kThreads)
-    reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(es)[i];
-  for (int i = 4 * vecs + threadIdx.x; i < count; i += kThreads) dst[i] = es[i];
+  store_rows(dx + static_cast<long long>(row0) * hw, es, count);
 }
 
 // dT = -(1/T) * sum of the rows' partials, in a fixed order: each thread
@@ -242,27 +286,23 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-}  // namespace
-
-// With a learnable temperature (temp_ptr), row_xdx (rows floats of
-// scratch) and dtemp (one float) are given too, and dT is written.
-extern "C" int hulc_spatial_softmax_bwd(const void* x, const void* grad_out, void* dx,
-                                        void* row_xdx, void* dtemp, long long n, int c, int h,
-                                        int w, const void* temp_ptr, float temp_value,
-                                        void* stream) {
+template <typename T>
+int launch_bwd(const void* x, const void* grad_out, void* dx, void* row_xdx, void* dtemp, long long n, int c,
+               int h, int w, const void* temp_ptr, float temp_value, void* stream) {
   const long long rows = n * c;
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   if (rows > 0x7fffffffLL - kRowsPerBlock || (temp_ptr && (!row_xdx || !dtemp)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int hw = h * w;
-  const int smem = static_cast<int>(sizeof(float)) * (2 * kRowsPerBlock + 2) * hw;
-  cudaError_t err = allow_smem(spatial_softmax_bwd_kernel, smem);
+  const int smem = static_cast<int>(sizeof(T)) * kRowsPerBlock * hw +
+                   static_cast<int>(sizeof(float)) * (kRowsPerBlock + 2) * hw;
+  cudaError_t err = allow_smem(spatial_softmax_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* temp = static_cast<const float*>(temp_ptr);
   const unsigned int blocks = static_cast<unsigned int>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  spatial_softmax_bwd_kernel<<<blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(grad_out), static_cast<float*>(dx),
+  spatial_softmax_bwd_kernel<T><<<blocks, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(grad_out), static_cast<T*>(dx),
       temp ? static_cast<float*>(row_xdx) : nullptr, static_cast<int>(rows), h, w, temp, temp_value);
   err = cudaGetLastError();
   if (err != cudaSuccess || !temp) return static_cast<int>(err);
@@ -271,18 +311,50 @@ extern "C" int hulc_spatial_softmax_bwd(const void* x, const void* grad_out, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// x must start 16-byte aligned and out 8-byte aligned (the wrapper checks).
-extern "C" int hulc_spatial_softmax(const void* x, void* out, long long n, int c, int h, int w,
-                                    const void* temp_ptr, float temp_value, void* stream) {
+template <typename T>
+int launch_fwd(const void* x, void* out, long long n, int c, int h, int w, const void* temp_ptr,
+               float temp_value, void* stream) {
   const long long rows = n * c;
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   if (rows > 0x7fffffffLL - kRowsPerBlock) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(float)) * (kRowsPerBlock + 2) * h * w;
-  const cudaError_t err = allow_smem(spatial_softmax_kernel, smem);
+  const int smem = static_cast<int>(sizeof(T)) * kRowsPerBlock * h * w + static_cast<int>(sizeof(float)) * 2 * h * w;
+  const cudaError_t err = allow_smem(spatial_softmax_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned int blocks = static_cast<unsigned int>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  spatial_softmax_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float2*>(out), static_cast<int>(rows), h, w,
+  spatial_softmax_kernel<T><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<float2*>(out), static_cast<int>(rows), h, w,
       static_cast<const float*>(temp_ptr), temp_value);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// With a learnable temperature (temp_ptr), row_xdx (rows floats of
+// scratch) and dtemp (one float) are given too, and dT is written. x and
+// dx of the map's type (float here, bf16 in the _bf16 instance), x 16-byte
+// aligned (the wrapper checks).
+extern "C" int hulc_spatial_softmax_bwd(const void* x, const void* grad_out, void* dx,
+                                        void* row_xdx, void* dtemp, long long n, int c, int h,
+                                        int w, const void* temp_ptr, float temp_value,
+                                        void* stream) {
+  return launch_bwd<float>(x, grad_out, dx, row_xdx, dtemp, n, c, h, w, temp_ptr, temp_value, stream);
+}
+
+extern "C" int hulc_spatial_softmax_bwd_bf16(const void* x, const void* grad_out, void* dx,
+                                             void* row_xdx, void* dtemp, long long n, int c, int h,
+                                             int w, const void* temp_ptr, float temp_value,
+                                             void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, grad_out, dx, row_xdx, dtemp, n, c, h, w, temp_ptr, temp_value, stream);
+}
+
+// x (float here, bf16 in the _bf16 instance) must start 16-byte aligned and
+// out 8-byte aligned (the wrapper checks).
+extern "C" int hulc_spatial_softmax(const void* x, void* out, long long n, int c, int h, int w,
+                                    const void* temp_ptr, float temp_value, void* stream) {
+  return launch_fwd<float>(x, out, n, c, h, w, temp_ptr, temp_value, stream);
+}
+
+extern "C" int hulc_spatial_softmax_bf16(const void* x, void* out, long long n, int c, int h, int w,
+                                         const void* temp_ptr, float temp_value, void* stream) {
+  return launch_fwd<__nv_bfloat16>(x, out, n, c, h, w, temp_ptr, temp_value, stream);
 }

@@ -11,7 +11,9 @@ through the wrappers a caller uses: the eval preprocess (B.1) on one and 64
 frames of the static (200 px) and the gripper (84 px) camera; the
 SpatialSoftmax forward (B.2) at one lane, 64 lanes and the training step's
 (2048, 64, 21, 21); the training shift (B.1') on the step's two cameras and
-the SpatialSoftmax backward (B.2') at the step's shape. Device time is the
+the SpatialSoftmax backward (B.2') at the step's shape; the bf16 instances
+(B.14) of the four, the eval preprocess at the validation window's (32,
+32) frames of each camera. Device time is the
 CUDA activity torch.profiler records per call (the window padded with idle
 host time, as ``profile_policy.profile_calls`` does). The decoder RNN's
 recurrence (B.6), forward and dh chain at (64, 32, 2048), (64, 1, 2048)
@@ -230,7 +232,8 @@ def card() -> str:
 
 
 def digest(t: torch.Tensor) -> str:
-    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha256((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()).hexdigest()[:16]
 
 
 def host_ms(fn, iters: int) -> float:
@@ -398,6 +401,21 @@ def main(argv=None) -> None:
     ]
     grad = torch.randn((2048, 128), generator=gen, device="cuda")
     cases["spatial_softmax_bwd train"] = lambda: spatial_softmax_bwd(conv_map, grad, 1.0)[0]
+    # the bf16 instances (B.14), on the same maps and shifts; the eval preprocess at the val window's frames
+    bf16 = torch.bfloat16
+    for cam in ("rgb_static", "rgb_gripper"):
+        imgs = frames(32, 32, getattr(pe, cam).input_size)
+        cases[f"preprocess_rgb window {cam}"] = lambda imgs=imgs: preprocess_rgb_seq(imgs)
+        cases[f"preprocess_rgb_bf16 window {cam}"] = lambda imgs=imgs: preprocess_rgb_seq(imgs, out_dtype=bf16)
+    cases["preprocess_rgb_shift_bf16 train"] = lambda: [
+        preprocess_rgb_seq_shift(imgs, shifts[cam], getattr(pe, cam).shift_pad, out_dtype=bf16)
+        for cam, imgs in train.items()
+    ]
+    conv_map_bf16 = conv_map.to(bf16)
+    for rows in (1, LANES, 2048):
+        x = conv_map_bf16[:rows]
+        cases[f"spatial_softmax_bf16 {rows}"] = lambda x=x: spatial_softmax(x, 1.0)
+    cases["spatial_softmax_bwd_bf16 train"] = lambda: spatial_softmax_bwd(conv_map_bf16, grad, 1.0)[0]
 
     # B.6 at the train step's shape and the serving shapes: W and b_hh at
     # torch's U(-1/sqrt(H), 1/sqrt(H)), xp and dy ~ N(0, 1), a relu'd carry

@@ -109,7 +109,7 @@ def kind_of(name: str) -> str:
         return "copies and fills"
     if any(k in name for k in ("fprop", "convolve", "dgrad", "wgrad")):
         return "convolutions"
-    if any(k in name for k in ("gemm", "gemv", "dot_kernel")):
+    if any(k in name for k in ("gemm", "gemv", "dot_kernel", "nvjet")):  # nvjet: cuBLAS's tensor-core GEMMs
         return "matmuls"
     return "other"
 

@@ -88,6 +88,35 @@ def build() -> pathlib.Path:
 
 
 _TEMPLATE_ARG = {"Lb0E": "false", "Lb1E": "true"}
+# builtin types as template arguments (the Itanium ABI's codes)
+_BUILTIN_TYPES = {"f": "float", "d": "double", "i": "int", "j": "unsigned int", "t": "unsigned short",
+                  "h": "unsigned char", "b": "bool"}
+
+
+def _template_args(mangled: str, pos: int):
+    """The template arguments of the ``I...E`` list at ``pos``, readable (a
+    bool or int literal, a builtin type, a named type such as
+    ``__nv_bfloat16``), or None where there is no such list."""
+    if not mangled.startswith("I", pos):
+        return None
+    out, pos = [], pos + 1
+    while pos < len(mangled) and mangled[pos] != "E":
+        if mangled[pos] == "L":
+            end = mangled.index("E", pos) + 1
+            lit = mangled[pos:end]
+            out.append(_TEMPLATE_ARG.get(lit, lit[2:-1] if lit.startswith("Li") else lit))
+            pos = end
+        elif mangled[pos] in _BUILTIN_TYPES:
+            out.append(_BUILTIN_TYPES[mangled[pos]])
+            pos += 1
+        else:
+            length = re.match(r"\d+", mangled[pos:])
+            if length is None:
+                return None
+            start = pos + length.end()
+            out.append(mangled[start:start + int(length.group())])
+            pos = start + int(length.group())
+    return out if out and pos < len(mangled) else None
 
 
 def _entry_name(mangled: str) -> str:
@@ -95,8 +124,8 @@ def _entry_name(mangled: str) -> str:
     length-prefixed identifier, read from the start of the name (the
     anonymous namespace's identifier holds hex hashes, whose digits must
     not be read as a length); an instance of a kernel template gets its
-    arguments, as ``plan_st_kl_fwd_kernel<true>`` (a bool, an int literal,
-    or else the arguments as mangled)."""
+    arguments, as ``plan_st_kl_fwd_kernel<true>`` (a bool, an int literal)
+    or ``spatial_softmax_kernel<__nv_bfloat16>`` (a type)."""
     head = re.match(r"_Z(N?)", mangled)
     if head is None:
         return mangled
@@ -108,12 +137,8 @@ def _entry_name(mangled: str) -> str:
             break
     if name is None:
         return mangled
-    args = re.match(r"I((?:L[^E]*E)+)E", mangled[pos:])
-    if args:
-        parts = re.findall(r"L[^E]*E", args.group(1))
-        pretty = [_TEMPLATE_ARG.get(a, a[2:-1] if a.startswith("Li") else a) for a in parts]
-        return f"{name}<{', '.join(pretty)}>"
-    return name
+    args = _template_args(mangled, pos)
+    return name if args is None else f"{name}<{', '.join(args)}>"
 
 
 def ptxas_report(log: str) -> dict:
@@ -144,6 +169,11 @@ _SIGNATURES = {
     "hulc_preprocess_rgb_shift": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32),
     "hulc_spatial_softmax": (_P, _P, _I64, _I32, _I32, _I32, _P, _F32),
     "hulc_spatial_softmax_bwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _F32),
+    # the bf16 instances (B.14): bf16 out of the preprocess, a bf16 map (and dx) in SpatialSoftmax
+    "hulc_preprocess_rgb_bf16": (_P, _P, _P, _I64, _I32, _I32, _I32),
+    "hulc_preprocess_rgb_shift_bf16": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32),
+    "hulc_spatial_softmax_bf16": (_P, _P, _I64, _I32, _I32, _I32, _P, _F32),
+    "hulc_spatial_softmax_bwd_bf16": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P, _F32),
     "hulc_logistic_mixture_sample": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32, _F32, _F32),
     "hulc_mixture_nll_fwd": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F32, _F32,
@@ -295,6 +325,10 @@ RNN_GRU_FWD = Kernel("hulc_rnn_gru_fwd")
 RNN_GRU_BWD = Kernel("hulc_rnn_gru_bwd")
 RNN_LSTM_FWD = Kernel("hulc_rnn_lstm_fwd")
 RNN_LSTM_BWD = Kernel("hulc_rnn_lstm_bwd")
+PREPROCESS_RGB_BF16 = Kernel("hulc_preprocess_rgb_bf16")
+PREPROCESS_RGB_SHIFT_BF16 = Kernel("hulc_preprocess_rgb_shift_bf16")
+SPATIAL_SOFTMAX_BF16 = Kernel("hulc_spatial_softmax_bf16")
+SPATIAL_SOFTMAX_BWD_BF16 = Kernel("hulc_spatial_softmax_bwd_bf16")
 # no work: its device time is the floor under every kernel's (measured, never on a path)
 EMPTY_LAUNCH = Kernel("hulc_empty_launch")
 ALL_KERNELS = (
@@ -302,6 +336,7 @@ ALL_KERNELS = (
     LOGISTIC_MIXTURE_SAMPLE, MIXTURE_NLL_FWD, MIXTURE_NLL_BWD, PLAN_ST_KL_FWD, PLAN_ST_KL_BWD,
     ADAM_LOWP, GRAD_NORM_FINISH, RNN_RELU_FWD, RNN_RELU_BWD, RNN_TANH_FWD, RNN_TANH_BWD,
     BIRNN_TANH_FWD, BIRNN_TANH_BWD, DEPTH_NOISE, RNN_GRU_FWD, RNN_GRU_BWD, RNN_LSTM_FWD, RNN_LSTM_BWD,
+    PREPROCESS_RGB_BF16, PREPROCESS_RGB_SHIFT_BF16, SPATIAL_SOFTMAX_BF16, SPATIAL_SOFTMAX_BWD_BF16,
 )
 
 

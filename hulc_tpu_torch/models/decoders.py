@@ -15,7 +15,10 @@ NLL plus ``gripper_alpha`` times the gripper cross-entropy
 (``ops.logistic_mixture.mixture_nll``, a forward and a backward kernel on
 CUDA tensors). ``loss_and_act`` is the validation pass: the teacher-forced
 loss and the sampled window of actions from one forward (under
-``torch.no_grad`` the loss kernel writes no derivatives).
+``torch.no_grad`` the loss kernel writes no derivatives). In bf16
+(``dtype``) the RNN's input is cast to bf16 and its input projections run
+in bf16; the recurrence, its output and the four heads are fp32, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ class LogisticPolicyDecoder(nn.Module):
     against them on the card.
     """
 
-    def __init__(self, cfg: ActionDecoderConfig, use_kernels: bool = True):
+    def __init__(self, cfg: ActionDecoderConfig, use_kernels: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.kind != "logistic":
             raise ValueError(f"action decoder {cfg.kind!r} is not ported yet")
@@ -73,11 +76,12 @@ class LogisticPolicyDecoder(nn.Module):
             raise ValueError("the decoder RNN's dropout is not ported yet")
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.dtype = dtype
         emb = cfg.perceptual_features
         if cfg.perceptual_emb_slice is not None:
             emb = cfg.perceptual_emb_slice[1] - cfg.perceptual_emb_slice[0]
         in_features = cfg.plan_features + emb + cfg.latent_goal_features
-        self.rnn = ScanRNN(in_features, cfg.hidden_size, cfg.num_layers, cfg.rnn_cell, use_kernels)
+        self.rnn = ScanRNN(in_features, cfg.hidden_size, cfg.num_layers, cfg.rnn_cell, use_kernels, dtype)
         a = self.cont_dims
         self.mean_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)
         self.log_scale_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)
@@ -106,7 +110,7 @@ class LogisticPolicyDecoder(nn.Module):
             perceptual_emb,
             latent_goal[:, None].expand(b, s, latent_goal.shape[-1]),
         ]
-        y, new_carry = self.rnn(torch.cat([p.float() for p in parts], dim=-1), carry)
+        y, new_carry = self.rnn(torch.cat([p.to(self.dtype) for p in parts], dim=-1), carry)
         a, k = self.cont_dims, c.n_mixtures
         logit_probs = self.prob_fc(y).reshape(b, s, a, k)
         means = self.mean_fc(y).reshape(b, s, a, k)

@@ -25,8 +25,12 @@
   (``VAL_NOISE_KEYS``).
 
 The plan recognition is the transformer (``hulc``) or the BiRNN, and the
-plan discrete or continuous (``mcil``). Images arrive preprocessed, (B, S,
-C, H, W) fp32, and depth frames (B, S, H, W) fp32 (``training.preprocess``);
+plan discrete or continuous (``mcil``). ``cfg.compute_dtype`` is float32 or
+bfloat16: in bf16 the parameters stay fp32 and each module computes as its
+JAX counterpart with ``dtype=bfloat16`` (``models.layers``); the losses,
+the KL and the metrics come from fp32 heads or are cast to fp32, as JAX's.
+Images arrive preprocessed, (B, S, C, H, W) fp32 or in the compute dtype,
+and depth frames (B, S, H, W) fp32 (``training.preprocess``);
 training and validation encode both (``hulc_depth``). The JAX package's
 policies feed no depth, so the port's refuse a depth config
 (``evaluation.policy.refuse_depth``). GCBC (plan-free), state
@@ -143,24 +147,26 @@ class HulcModel(nn.Module):
         super().__init__()
         if cfg.model_kind != "hulc":
             raise ValueError(f"model_kind {cfg.model_kind!r} is not ported yet")
-        if cfg.compute_dtype != "float32":
-            raise ValueError("the port computes in float32 only so far")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is neither 'float32' nor 'bfloat16'")
         if cfg.state_recons or cfg.use_bc_z_auxiliary_loss or cfg.use_mia_auxiliary_loss:
             raise ValueError("state_recons and the BC-Z / MIA auxiliary losses are not ported yet")
         self.cfg = cfg
         self.use_kernels = use_kernels
-        self.perceptual_encoder = ConcatEncoders(cfg.perceptual_encoder, use_kernels)
+        dtype = cfg.dtype
+        self.perceptual_encoder = ConcatEncoders(cfg.perceptual_encoder, use_kernels, dtype)
         self.dist = make_plan_distribution(cfg.distribution)
-        self.plan_proposal = PlanProposalNetwork(cfg.plan_proposal, self.dist)
-        self.plan_recognition = make_plan_recognition(cfg.plan_recognition, self.dist, use_kernels)
-        self.visual_goal = GoalEncoder(cfg.visual_goal)
+        self.plan_proposal = PlanProposalNetwork(cfg.plan_proposal, self.dist, dtype)
+        self.plan_recognition = make_plan_recognition(cfg.plan_recognition, self.dist, use_kernels, dtype)
+        self.visual_goal = GoalEncoder(cfg.visual_goal, dtype=dtype)
         self.language_goal = (
-            make_language_goal_encoder(cfg.language_goal) if cfg.language_goal else None
+            make_language_goal_encoder(cfg.language_goal, dtype) if cfg.language_goal else None
         )
-        self.action_decoder = LogisticPolicyDecoder(cfg.action_decoder, use_kernels)
+        self.action_decoder = LogisticPolicyDecoder(cfg.action_decoder, use_kernels, dtype)
         if cfg.use_clip_auxiliary_loss:
             self.proj_vis_lang = ProjVisLang(
-                cfg.plan_recognition.fc_hidden_size, cfg.visual_goal.latent_goal_features, cfg.proj_vis_lang_dim
+                cfg.plan_recognition.fc_hidden_size, cfg.visual_goal.latent_goal_features, cfg.proj_vis_lang_dim,
+                dtype,
             )
             self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 

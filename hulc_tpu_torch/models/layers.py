@@ -19,6 +19,24 @@ matmuls, then ``ops.recurrence.birnn_layer``, the two chains into one
 ``TransformerEncoder`` is the plan recognition network's post-LN encoder,
 under torch ``nn.TransformerEncoder``'s parameter names.
 
+Compute dtype (``HulcConfig.compute_dtype``): parameters stay fp32, and
+``Linear`` / ``Conv2d`` compute as flax's ``nn.Dense`` / ``nn.Conv`` with
+``dtype=``: input, weight and bias cast to the compute dtype at use, the
+product rounded to it, then the bias added in it (two roundings: a bias
+fused into the product, rounded once, is measurably another result). A
+layer whose output goes straight into fp32 arithmetic (a LayerNorm, a
+residual add, a mean or loss taken in fp32) adds its bias in fp32,
+unrounded (``fp32_out``): XLA fuses that bias add into the fp32 consumer,
+so the JAX package keeps no bf16 rounding there. Every bf16 product
+(``lowp_product``) accumulates in fp32 and rounds once: on CUDA the bf16
+kernels do; on the CPU it is taken in fp32 on the rounded operands, since
+PyTorch's CPU bf16 convolution rounds partial sums. Each module takes
+``dtype`` where its JAX counterpart does; LayerNorms run on fp32 input,
+and the recurrences on the input projection cast back to fp32 (JAX's
+``ScanRNN`` scans ``x_proj.astype(float32)`` with fp32 weights and
+carry). In fp32 nothing is cast, so the fp32 path is the same code as
+before.
+
 ``Dropout`` draws its mask from an explicit ``torch.Generator`` (set with
 ``set_dropout_generator``), as every random draw of the port does, and
 keeps flax's semantics: ``where(keep, x / keep_prob, 0)``, with a mask of
@@ -29,6 +47,7 @@ later slices.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -84,10 +103,78 @@ class Dropout(nn.Module):
         shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
         keep_prob = 1.0 - self.p
         keep = torch.empty(shape, device=x.device).bernoulli_(keep_prob, generator=self.generator)
-        return torch.where(keep.bool(), x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+        # flax divides by keep_prob in x's type: a bf16 x by bf16(keep_prob)
+        scale = keep_prob if x.dtype == torch.float32 else float(torch.tensor(keep_prob, dtype=x.dtype))
+        return torch.where(keep.bool(), x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+def cast(dtype: torch.dtype, *tensors: Optional[torch.Tensor]) -> Tuple[Optional[torch.Tensor], ...]:
+    """Each tensor in ``dtype`` (a tensor already in it, or None, as it is)."""
+    return tuple(t if t is None or t.dtype == dtype else t.to(dtype) for t in tensors)
+
+
+def lowp_product(fn, a: torch.Tensor, b: torch.Tensor, **kwargs) -> torch.Tensor:
+    """``fn(a, b, **kwargs)`` (``F.linear``, ``F.conv2d``, ``torch.matmul``)
+    of two bf16 operands, accumulated in fp32 and rounded once to bf16: on a
+    CUDA tensor the bf16 kernel itself; on a CPU tensor ``fn`` in fp32 of
+    the same values, which is that arithmetic exactly (PyTorch's CPU bf16
+    convolution rounds partial sums; XLA's does not)."""
+    if a.device.type == "cpu":
+        return fn(a.float(), b.float(), **kwargs).to(a.dtype)
+    return fn(a, b, **kwargs)
+
+
+def dense(dtype: torch.dtype, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``x W^T + b`` as flax's ``nn.Dense(dtype=)``: in fp32 one fused
+    call; in another dtype the product rounded to it, then the bias added."""
+    x, weight, bias = cast(dtype, x, weight, bias)
+    if dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    return lowp_product(F.linear, x, weight) + bias
+
+
+def dense_to_fp32(dtype: torch.dtype, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``dense`` whose result goes straight into fp32 arithmetic (a residual
+    add, a mean taken in fp32): the product rounded to ``dtype``, the bias
+    added in fp32, unrounded, as XLA fuses that bias add into its fp32
+    consumer. In fp32, ``dense``."""
+    if dtype == torch.float32:
+        return dense(dtype, x, weight, bias)
+    x, weight, bias = cast(dtype, x, weight, bias)
+    return lowp_product(F.linear, x, weight).float() + bias.float()
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computed in ``dtype`` as flax's ``nn.Dense(dtype=)``
+    (``dense``; with ``fp32_out``, ``dense_to_fp32``), fp32 parameters (the
+    state_dict's names and types are ``nn.Linear``'s)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32,
+                 fp32_out: bool = False):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+        self.fp32_out = fp32_out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (dense_to_fp32 if self.fp32_out else dense)(self.compute_dtype, x, self.weight, self.bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (VALID) computed in ``dtype`` as flax's ``nn.Conv(dtype=)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = cast(self.compute_dtype, x, self.weight, self.bias)
+        if self.compute_dtype == torch.float32:
+            return self._conv_forward(x, weight, bias)
+        return lowp_product(F.conv2d, x, weight, stride=self.stride) + bias[:, None, None]
 
 
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
@@ -103,13 +190,16 @@ def MLP(
     activation: str = "relu",
     final_activation: bool = False,
     input_dropout: Optional[float] = None,
+    dtype: torch.dtype = torch.float32,
+    fp32_out: bool = False,
 ) -> nn.Sequential:
-    """Linear layers with an activation after each but the last (unless
-    ``final_activation``); ``input_dropout`` puts a Dropout at index 0, as
-    the reference's language heads have."""
+    """Linear layers (in ``dtype``) with an activation after each but the
+    last (unless ``final_activation``); ``input_dropout`` puts a Dropout at
+    index 0, as the reference's language heads have; ``fp32_out``: the last
+    layer's output goes into fp32 arithmetic (``Linear``)."""
     layers = [] if input_dropout is None else [Dropout(input_dropout)]
     for i, feat in enumerate(features):
-        layers.append(nn.Linear(in_features, feat))
+        layers.append(Linear(in_features, feat, dtype, fp32_out and i == len(features) - 1))
         if i < len(features) - 1 or final_activation:
             layers.append(ACTIVATIONS[activation]())
         in_features = feat
@@ -126,6 +216,12 @@ def _rnn_params(module: nn.Module, k: int, suffix: str, input_size: int, hidden_
     module.register_parameter(f"bias_hh_l{k}{suffix}", nn.Parameter(torch.empty(rows)))
 
 
+def input_projection(dtype: torch.dtype, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A recurrence's input projection, computed in ``dtype`` and scanned in
+    fp32 (JAX's ``x_proj.astype(float32)``)."""
+    return dense(dtype, x, weight, bias).float()
+
+
 class ScanRNN(nn.Module):
     """Multi-layer relu (``cell="rnn"``), tanh (``"rnn_tanh"``), gru or lstm
     RNN over (B, S, F) with an explicit carry: (L, B, H), or for lstm the
@@ -137,17 +233,20 @@ class ScanRNN(nn.Module):
     i f g o, JAX's order and torch's). ``use_kernels=False`` runs the plain
     loop on any device; it exists to hold the kernels against it on the
     card. The decoder's ``mlp`` cell is refused: it belongs to a later
-    slice.
+    slice. The input projection runs in ``dtype`` and is cast to fp32
+    before the recurrence, which is fp32 whatever ``dtype`` is.
     """
 
     def __init__(
-        self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn", use_kernels: bool = True
+        self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn", use_kernels: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if cell not in RECURRENCES:
             raise ValueError(f"rnn cell {cell!r} is not ported yet; only {sorted(RECURRENCES)} are")
         self.cell = cell
         self.use_kernels = use_kernels
+        self.dtype = dtype
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         for k in range(num_layers):
@@ -169,7 +268,8 @@ class ScanRNN(nn.Module):
         for k in range(self.num_layers):
             w_hh = getattr(self, f"weight_hh_l{k}")
             b_hh = getattr(self, f"bias_hh_l{k}")
-            x_proj = F.linear(out, getattr(self, f"weight_ih_l{k}"), getattr(self, f"bias_ih_l{k}"))
+            w_ih, b_ih = getattr(self, f"weight_ih_l{k}"), getattr(self, f"bias_ih_l{k}")
+            x_proj = input_projection(self.dtype, out, w_ih, b_ih)
             state = (carry[0][k], carry[1][k]) if lstm else (carry[k],)
             if self.use_kernels:
                 out, h, *c = recurrence(x_proj, *(s.contiguous() for s in state), w_hh, b_hh)
@@ -188,14 +288,16 @@ class ScanBiRNN(nn.Module):
     semantics and parameter names, the reverse chain's with ``_reverse``).
     ``use_kernels=False`` runs JAX's flip-and-concatenate definition
     (``birnn_layer_plain``) on any device; it exists to hold the kernels
-    against it on the card."""
+    against it on the card. The input projections run in ``dtype``, the
+    chains in fp32, as ``ScanRNN``'s."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn_tanh",
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cell != "rnn_tanh":
             raise ValueError(f"bidirectional rnn cell {cell!r} is not ported yet; only 'rnn_tanh' is")
         self.use_kernels = use_kernels
+        self.dtype = dtype
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         for k in range(num_layers):
@@ -204,55 +306,83 @@ class ScanBiRNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         layer = birnn_layer if self.use_kernels else birnn_layer_plain
-        h0s = x.new_zeros(2, x.shape[0], self.hidden_size)
+        h0s = x.new_zeros(2, x.shape[0], self.hidden_size, dtype=torch.float32)
         out = x
         for k in range(self.num_layers):
             p = {name: getattr(self, f"{name}_l{k}") for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
             r = {name: getattr(self, f"{name}_l{k}_reverse") for name in p}
-            out = layer(F.linear(out, p["weight_ih"], p["bias_ih"]), F.linear(out, r["weight_ih"], r["bias_ih"]),
+            out = layer(input_projection(self.dtype, out, p["weight_ih"], p["bias_ih"]),
+                        input_projection(self.dtype, out, r["weight_ih"], r["bias_ih"]),
                         h0s, p["weight_hh"], r["weight_hh"], p["bias_hh"], r["bias_hh"])
         return out
+
+
+def softmax(scores: torch.Tensor) -> torch.Tensor:
+    """The softmax over the last axis in ``scores``' type. In fp32 one
+    call; in bf16 as the JAX package computes ``jax.nn.softmax`` of a bf16
+    array: ``x - max(x)`` rounded, its exp in fp32, the sum of those fp32
+    exps rounded, and the exps rounded, then divided by the sum."""
+    if scores.dtype == torch.float32:
+        return torch.softmax(scores, dim=-1)
+    e = torch.exp((scores - scores.amax(dim=-1, keepdim=True)).float())
+    return e.to(scores.dtype) / e.sum(dim=-1, keepdim=True).to(scores.dtype)
 
 
 class MultiheadSelfAttention(nn.Module):
     """Self-attention under torch ``nn.MultiheadAttention``'s parameter names
     (``in_proj_weight`` (3d, d), ``in_proj_bias``, ``out_proj``), computed as
     flax's ``MultiHeadDotProductAttention``: queries scaled by 1/sqrt(head
-    dim), an fp32 softmax, and dropout on the attention weights with one mask
-    shared over the batch and the heads (flax's ``broadcast_dropout``)."""
+    dim), a softmax, and dropout on the attention weights with one mask
+    shared over the batch and the heads (flax's ``broadcast_dropout``).
+    Everything runs in ``dtype``, the softmax too (flax's
+    ``force_fp32_for_softmax`` is False), as the JAX package computes it:
+    in bf16 the queries are multiplied by the fp32 reciprocal of bf16's
+    sqrt(head dim) (XLA's rewrite of the divide), the softmax is
+    ``softmax``'s, and the output projection adds its bias in fp32
+    (``fp32_out``): the output is fp32, which the residual add reads."""
 
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of num_heads {num_heads}")
         self.num_heads = num_heads
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model, dtype, fp32_out=True)
         self.dropout = Dropout(dropout, broadcast_dims=(0, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
         h = self.num_heads
-        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
+        q, k, v = dense(self.dtype, x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
         q, k, v = (t.reshape(b, s, h, d // h).transpose(1, 2) for t in (q, k, v))
-        scores = (q / math.sqrt(d // h)) @ k.transpose(-1, -2)  # (B, h, S, S)
-        weights = self.dropout(torch.softmax(scores.float(), dim=-1))
-        out = (weights @ v).transpose(1, 2).reshape(b, s, d)
+        if self.dtype == torch.float32:
+            q = q / math.sqrt(d // h)
+        else:  # XLA multiplies by the fp32 reciprocal of the bf16 divisor
+            q = q * float(1.0 / torch.tensor(math.sqrt(d // h), dtype=self.dtype).float())
+        mm = torch.matmul if self.dtype == torch.float32 else functools.partial(lowp_product, torch.matmul)
+        scores = mm(q, k.transpose(-1, -2))  # (B, h, S, S)
+        weights = self.dropout(softmax(scores))
+        out = mm(weights, v).transpose(1, 2).reshape(b, s, d)
         return self.out_proj(out)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer (torch ``nn.TransformerEncoderLayer``):
     x -> LN(x + Dropout(SelfAttn(x))) -> LN(x + Dropout(FF(x))), relu FF with
-    dropout after the activation, LayerNorm eps 1e-5."""
+    dropout after the activation, LayerNorm eps 1e-5. Attention and FF run
+    in ``dtype``, their last bias adds in fp32 (``fp32_out``) on the way
+    into the fp32 residual stream, so the LayerNorms run in fp32, as
+    flax's ``LayerNorm(dtype=float32)``."""
 
-    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int, dropout: float = 0.1):
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self_attn = MultiheadSelfAttention(d_model, num_heads, dropout)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.self_attn = MultiheadSelfAttention(d_model, num_heads, dropout, dtype)
+        self.linear1 = Linear(d_model, dim_feedforward, dtype)
         self.dropout = Dropout(dropout)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear2 = Linear(dim_feedforward, d_model, dtype, fp32_out=True)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout1 = Dropout(dropout)
@@ -267,10 +397,11 @@ class TransformerEncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     """A stack of post-LN encoder layers under the key ``layers.{i}``."""
 
-    def __init__(self, num_layers: int, d_model: int, num_heads: int, dim_feedforward: int, dropout: float = 0.1):
+    def __init__(self, num_layers: int, d_model: int, num_heads: int, dim_feedforward: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dropout) for _ in range(num_layers)
+            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dropout, dtype) for _ in range(num_layers)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

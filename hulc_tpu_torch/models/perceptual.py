@@ -1,8 +1,10 @@
 """Multi-camera perceptual fusion (port of hulc_tpu/models/perceptual.py:35-131).
 
-Images arrive preprocessed as (B, S, C, H, W) fp32, depth frames as (B, S,
-H, W) fp32 (they gain a one-channel axis here, as JAX appends one); batch
-and time are flattened into one convolution batch per camera. This slice
+Images arrive preprocessed as (B, S, C, H, W) fp32 or in the compute
+dtype (the encoders cast them), depth frames as (B, S, H, W) fp32 (they
+gain a one-channel axis here, as JAX appends one); batch and time are
+flattened into one convolution batch per camera. The features come out
+fp32 (each encoder ends in a LayerNorm). This slice
 ports the static and gripper RGB cameras, their depth towers and the
 proprio passthrough. The features are concatenated in JAX's order: RGB
 static, depth static, RGB gripper, depth gripper, where the gripper depth
@@ -25,7 +27,7 @@ from hulc_tpu_torch.models.vision import make_vision_encoder
 class ConcatEncoders(nn.Module):
     """Fuse per-camera features (+ optional proprio) into perceptual_emb."""
 
-    def __init__(self, cfg: PerceptualEncoderConfig, use_kernels: bool = True):
+    def __init__(self, cfg: PerceptualEncoderConfig, use_kernels: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.tactile is not None:
             raise ValueError("perceptual encoder 'tactile' is not ported yet")
@@ -34,7 +36,7 @@ class ConcatEncoders(nn.Module):
         self.cfg = cfg
         for name in ("rgb_static", "rgb_gripper", "depth_static", "depth_gripper"):
             enc = getattr(cfg, name)
-            setattr(self, f"{name}_encoder", make_vision_encoder(enc, use_kernels) if enc else None)
+            setattr(self, f"{name}_encoder", make_vision_encoder(enc, use_kernels, dtype) if enc else None)
 
     @staticmethod
     def _encode(encoder: nn.Module, imgs: torch.Tensor) -> torch.Tensor:

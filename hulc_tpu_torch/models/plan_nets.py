@@ -14,6 +14,11 @@
   step's features ``x[:, -1]`` as ``seq_feat`` (the reverse half of that
   row is the reverse chain's first step, which has seen only the last
   frame), and ``fc_state`` to the Normal's mean and raw std.
+
+In bf16 (``dtype``) the MLPs, the transformer and ``fc`` compute in bf16
+and the BiRNN's input projections too; every ``fc_state`` is fp32 (on the
+fp32-promoted features), and so are ``seq_feat`` (the mean of ``fc``'s
+output taken in fp32) and the LayerNorms, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hulc_tpu_torch.config import DistributionConfig, PlanProposalConfig, PlanRecognitionConfig
-from hulc_tpu_torch.models.layers import MLP, Dropout, ScanBiRNN, TransformerEncoder
+from hulc_tpu_torch.models.layers import MLP, Dropout, Linear, ScanBiRNN, TransformerEncoder
 from hulc_tpu_torch.ops.plan_distributions import PlanDistribution, PlanState
 
 
@@ -37,19 +42,21 @@ def make_plan_distribution(cfg: DistributionConfig) -> PlanDistribution:
 class PlanProposalNetwork(nn.Module):
     """Prior: p(plan | s_0, goal)."""
 
-    def __init__(self, cfg: PlanProposalConfig, dist: PlanDistribution):
+    def __init__(self, cfg: PlanProposalConfig, dist: PlanDistribution, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dist = dist
+        self.dtype = dtype
         self.fc_model = MLP(
             cfg.perceptual_features + cfg.latent_goal_features,
             [cfg.hidden_size] * cfg.num_layers,
             cfg.activation,
             final_activation=True,
+            dtype=dtype,
         )
-        self.fc_state = nn.Sequential(nn.Linear(cfg.hidden_size, dist.state_dim))
+        self.fc_state = nn.Sequential(Linear(cfg.hidden_size, dist.state_dim))
 
     def forward(self, initial_percep_emb: torch.Tensor, latent_goal: torch.Tensor) -> PlanState:
-        x = torch.cat([initial_percep_emb, latent_goal], dim=-1).float()
+        x = torch.cat([initial_percep_emb, latent_goal], dim=-1).to(self.dtype)
         return self.dist.make_state(self.fc_state(self.fc_model(x)))
 
 
@@ -61,7 +68,7 @@ def recognition_d_model(cfg: PlanRecognitionConfig) -> int:
 class PlanRecognitionTransformer(nn.Module):
     """Posterior: q(plan | window), and seq_feat for the language aux loss."""
 
-    def __init__(self, cfg: PlanRecognitionConfig, dist: PlanDistribution):
+    def __init__(self, cfg: PlanRecognitionConfig, dist: PlanDistribution, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.kind != "transformer":
             raise ValueError(f"plan recognition {cfg.kind!r} is not ported yet; only 'transformer' is")
@@ -73,15 +80,15 @@ class PlanRecognitionTransformer(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d_model)
         self.dropout = Dropout(cfg.dropout)
         self.transformer_encoder = TransformerEncoder(
-            cfg.num_layers, d_model, cfg.num_heads, cfg.encoder_hidden_size, cfg.dropout
+            cfg.num_layers, d_model, cfg.num_heads, cfg.encoder_hidden_size, cfg.dropout, dtype
         )
-        self.fc = nn.Linear(d_model, cfg.fc_hidden_size)
-        self.fc_state = nn.Sequential(nn.Linear(cfg.fc_hidden_size, dist.state_dim))
+        self.fc = Linear(d_model, cfg.fc_hidden_size, dtype, fp32_out=True)
+        self.fc_state = nn.Sequential(Linear(cfg.fc_hidden_size, dist.state_dim))
 
     def forward(self, perceptual_emb: torch.Tensor) -> Tuple[PlanState, torch.Tensor]:
         """(B, S, F) -> (plan state, seq_feat (B, fc_hidden_size))."""
         s, f = perceptual_emb.shape[1:]
-        x = F.pad(perceptual_emb.float(), (0, (-f) % self.cfg.num_heads))
+        x = F.pad(perceptual_emb, (0, (-f) % self.cfg.num_heads))
         x = x + self.position_embeddings.weight[:s][None]
         x = self.transformer_encoder(self.dropout(x))
         seq_feat = self.fc(x).mean(dim=1)
@@ -92,25 +99,26 @@ class PlanRecognitionBiRNN(nn.Module):
     """MCIL posterior: q(plan | window) from the BiRNN's last step, which is
     also the seq_feat (B, 2 * birnn_hidden_size)."""
 
-    def __init__(self, cfg: PlanRecognitionConfig, dist: PlanDistribution, use_kernels: bool = True):
+    def __init__(self, cfg: PlanRecognitionConfig, dist: PlanDistribution, use_kernels: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.birnn_dropout > 0.0:
             raise ValueError("the plan recognition BiRNN's dropout is not ported yet")
         self.dist = dist
         self.birnn_model = ScanBiRNN(cfg.in_features, cfg.birnn_hidden_size, cfg.birnn_num_layers, cfg.birnn_cell,
-                                     use_kernels)
-        self.fc_state = nn.Sequential(nn.Linear(2 * cfg.birnn_hidden_size, dist.state_dim))
+                                     use_kernels, dtype)
+        self.fc_state = nn.Sequential(Linear(2 * cfg.birnn_hidden_size, dist.state_dim))
 
     def forward(self, perceptual_emb: torch.Tensor) -> Tuple[PlanState, torch.Tensor]:
-        seq_feat = self.birnn_model(perceptual_emb.float())[:, -1]
+        seq_feat = self.birnn_model(perceptual_emb)[:, -1]
         return self.dist.make_state(self.fc_state(seq_feat)), seq_feat
 
 
 def make_plan_recognition(
-    cfg: PlanRecognitionConfig, dist: PlanDistribution, use_kernels: bool = True
+    cfg: PlanRecognitionConfig, dist: PlanDistribution, use_kernels: bool = True, dtype: torch.dtype = torch.float32
 ) -> Union[PlanRecognitionTransformer, PlanRecognitionBiRNN]:
     if cfg.kind == "transformer":
-        return PlanRecognitionTransformer(cfg, dist)
+        return PlanRecognitionTransformer(cfg, dist, dtype)
     if cfg.kind == "birnn":
-        return PlanRecognitionBiRNN(cfg, dist, use_kernels)
+        return PlanRecognitionBiRNN(cfg, dist, use_kernels, dtype)
     raise ValueError(f"unknown plan recognition kind {cfg.kind!r}")

@@ -16,6 +16,12 @@ backward kernel or its closed form, for a fixed or a learnable temperature
 (the backward then also gives the temperature's gradient). The encoders'
 dropout, the sinusoid and the L2-normalized outputs, which no ported preset
 uses, are not ported yet: a config that sets them is refused.
+
+In bf16 (``dtype``) the convolutions and the FC layers compute in bf16
+(``layers.Conv2d`` / ``layers.Linear``), SpatialSoftmax reads the bf16 map
+and gives fp32 keypoints (its kernels' bf16 instances), and the LayerNorm
+runs on fp32 features (``fc2`` adds its bias in fp32, ``layers.Linear``'s
+``fp32_out``), as the JAX package's encoders do.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 import torch.nn as nn
 
 from hulc_tpu_torch.config import VisionEncoderConfig
-from hulc_tpu_torch.models.layers import ACTIVATIONS
+from hulc_tpu_torch.models.layers import ACTIVATIONS, Conv2d, Linear
 from hulc_tpu_torch.ops.spatial_softmax import (  # noqa: F401 (the encoder's SpatialSoftmax, and its kernels' callers)
     _aligned,
     spatial_softmax,
@@ -58,14 +64,14 @@ class SpatialSoftmax(nn.Module):
         return spatial_softmax_plain(x, temp)
 
 
-def conv_tower(in_channels: int, activation: str) -> nn.Sequential:
+def conv_tower(in_channels: int, activation: str, dtype: torch.dtype = torch.float32) -> nn.Sequential:
     """The three VALID convolutions shared by both encoders, as the
-    reference's ``conv_model.{0,2,4}``."""
+    reference's ``conv_model.{0,2,4}``, in ``dtype``."""
     act = ACTIVATIONS[activation]
     return nn.Sequential(
-        nn.Conv2d(in_channels, 32, 8, stride=4), act(),
-        nn.Conv2d(32, 64, 4, stride=2), act(),
-        nn.Conv2d(64, 64, 3, stride=1), act(),
+        Conv2d(in_channels, 32, 8, stride=4, dtype=dtype), act(),
+        Conv2d(32, 64, 4, stride=2, dtype=dtype), act(),
+        Conv2d(64, 64, 3, stride=1, dtype=dtype), act(),
     )
 
 
@@ -84,46 +90,47 @@ def _check_ported(cfg: VisionEncoderConfig) -> None:
 class VisionNetworkStatic(nn.Module):
     """Static-camera encoder: convs + SpatialSoftmax + FC head."""
 
-    def __init__(self, cfg: VisionEncoderConfig, use_kernels: bool = True):
+    def __init__(self, cfg: VisionEncoderConfig, use_kernels: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_ported(cfg)
         act = ACTIVATIONS[cfg.activation]
-        self.conv_model = conv_tower(cfg.num_channels, cfg.activation)
+        self.conv_model = conv_tower(cfg.num_channels, cfg.activation, dtype)
         self.spatial_softmax = SpatialSoftmax(cfg.spatial_softmax_temp, use_kernels)
-        self.fc1 = nn.Sequential(nn.Linear(2 * 64, 512), act())
-        self.fc2 = nn.Linear(512, cfg.visual_features)
+        self.fc1 = nn.Sequential(Linear(2 * 64, 512, dtype), act())
+        self.fc2 = Linear(512, cfg.visual_features, dtype, fp32_out=True)
         self.ln = nn.LayerNorm(cfg.visual_features, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, C, H, W) preprocessed frames -> (N, visual_features)."""
+        """(N, C, H, W) preprocessed frames -> (N, visual_features) fp32."""
         return self.ln(self.fc2(self.fc1(self.spatial_softmax(self.conv_model(x)))))
 
 
 class NatureCNN(nn.Module):
     """Gripper-camera encoder: nature_cnn convs + NCHW flatten + FC head."""
 
-    def __init__(self, cfg: VisionEncoderConfig):
+    def __init__(self, cfg: VisionEncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_ported(cfg)
         act = ACTIVATIONS[cfg.activation]
         side = conv_tower_size(cfg.input_size)
         self.conv_model = nn.Sequential(
-            *conv_tower(cfg.num_channels, cfg.activation),
+            *conv_tower(cfg.num_channels, cfg.activation, dtype),
             nn.Flatten(),
-            nn.Linear(64 * side * side, 128),
+            Linear(64 * side * side, 128, dtype),
             act(),
         )
-        self.fc1 = nn.Sequential(nn.Linear(128, 512), act())
-        self.fc2 = nn.Linear(512, cfg.visual_features)
+        self.fc1 = nn.Sequential(Linear(128, 512, dtype), act())
+        self.fc2 = Linear(512, cfg.visual_features, dtype, fp32_out=True)
         self.ln = nn.LayerNorm(cfg.visual_features, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ln(self.fc2(self.fc1(self.conv_model(x))))
 
 
-def make_vision_encoder(cfg: VisionEncoderConfig, use_kernels: bool = True) -> nn.Module:
+def make_vision_encoder(cfg: VisionEncoderConfig, use_kernels: bool = True,
+                        dtype: torch.dtype = torch.float32) -> nn.Module:
     if cfg.kind == "spatial_softmax":
-        return VisionNetworkStatic(cfg, use_kernels)
+        return VisionNetworkStatic(cfg, use_kernels, dtype)
     if cfg.kind == "nature_cnn":
-        return NatureCNN(cfg)
+        return NatureCNN(cfg, dtype)
     raise ValueError(f"vision encoder kind {cfg.kind!r} is not ported yet")

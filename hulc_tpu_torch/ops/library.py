@@ -21,6 +21,11 @@ registered before any of those wrappers runs.
 | ``hulc::rnn_gru_fwd`` | ``models/layers.py:238`` forward (B.11) | ``csrc/rnn_gates.cu`` (the gru instance) |
 | ``hulc::rnn_lstm_fwd`` | ``models/layers.py:248`` forward (B.12) | ``csrc/rnn_gates.cu`` (the lstm instance) |
 
+``hulc::spatial_softmax`` takes an fp32 or a bf16 map (a bf16 model's)
+and gives fp32 keypoints either way, so a bf16 program holds it as the
+same one node; its CUDA implementation launches the map's instance.
+``hulc::preprocess_rgb`` writes fp32 only (serving preprocesses to fp32).
+
 Launches are counted where they happen, in ``kernels.Kernel.__call__``.
 """
 
@@ -54,8 +59,9 @@ def _(imgs, mean, std):
 
 @torch.library.custom_op("hulc::spatial_softmax", mutates_args=(), device_types="cpu")
 def spatial_softmax_fwd(x: torch.Tensor, temperature: Optional[torch.Tensor], fixed_temperature: float) -> torch.Tensor:
-    """(N, C, H, W) -> (N, 2C) keypoints at ``temperature`` (a learnable
-    one-element tensor) or, when it is None, at ``fixed_temperature``."""
+    """(N, C, H, W) fp32 or bf16 -> (N, 2C) fp32 keypoints at
+    ``temperature`` (a learnable one-element tensor) or, when it is None, at
+    ``fixed_temperature``."""
     return spatial_softmax.spatial_softmax_plain(x, fixed_temperature if temperature is None else temperature)
 
 

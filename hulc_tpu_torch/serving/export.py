@@ -13,7 +13,8 @@ replan cadence, the carry and the noise are described in ``meta.json``.
 Artifact layout (one directory):
 
     meta.json            format version, shapes, normalizer, carry and noise spec
-    params.npz           the state_dict, fp32
+                         (and a bf16 model's compute_dtype)
+    params.npz           the state_dict, fp32 (a bf16 model's too)
     replan_lang.pt2      (params, rgb_static, rgb_gripper, rob_norm, lang_emb,
                           plan noise) -> (plan, latent_goal)
     replan_vision.pt2    (params, 2-frame stacks, plan noise) -> (plan, latent_goal)
@@ -41,6 +42,12 @@ artifact serves the CPU tests and the card. AOTInductor is not used: its
 C++ runtime cannot call the ops' Python implementations, and it would
 recompile the eager operations around the kernels, so served actions
 would no longer equal live ones.
+
+A bf16 model (``compute_dtype="bfloat16"``) exports the same way: its casts
+to bf16 are nodes of the programs, its parameters stay fp32 in
+``params.npz``, and the runtime's contract does not change. ``meta.json``
+then records ``compute_dtype`` for the reader; an fp32 artifact keeps the
+JAX package's keys, with no such entry.
 """
 
 from __future__ import annotations
@@ -274,6 +281,8 @@ def export_policy(
         "carry": _carry_spec(cfg),
         "noise": noise,
     }
+    if cfg.compute_dtype != "float32":
+        meta["compute_dtype"] = cfg.compute_dtype
     (out / "meta.json").write_text(json.dumps(meta, indent=1))
     print(f"[export] wrote {sorted(p.name for p in out.iterdir())} -> {out}")
     return out

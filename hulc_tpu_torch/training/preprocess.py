@@ -1,7 +1,9 @@
 """On-device batch preprocessing (port of hulc_tpu/training/preprocess.py:23-122).
 
-uint8 (B, S, H, W, 3) camera frames become normalized fp32 (B, S, 3, H, W),
-with the random shift when training (``ops.image_ops``). fp32 (B, S, H, W)
+uint8 (B, S, H, W, 3) camera frames become normalized (B, S, 3, H, W) in
+the model's compute dtype (fp32, or bf16: the fp32 normalize rounded once,
+as JAX's ``_prep_one(..., dtype)``), with the random shift when training
+(``ops.image_ops``). fp32 (B, S, H, W)
 depth frames pass through when evaluating and take their noise when
 training (``ops.depth_noise``: the gamma mode on the static camera, the
 gaussian one with std 0.01 on the gripper camera); depth is never shifted.
@@ -89,9 +91,9 @@ def preprocess_modality(
                 imgs.shape[0] * imgs.shape[1], enc.shift_pad, generator, imgs.device
             )
             fn = preprocess_rgb_seq_shift if use_kernels else preprocess_rgb_seq_shift_plain
-            updates[cam] = fn(imgs, s, enc.shift_pad)
+            updates[cam] = fn(imgs, s, enc.shift_pad, out_dtype=cfg.dtype)
         else:
-            updates[cam] = (preprocess_rgb_seq if use_kernels else preprocess_rgb_seq_plain)(imgs)
+            updates[cam] = (preprocess_rgb_seq if use_kernels else preprocess_rgb_seq_plain)(imgs, out_dtype=cfg.dtype)
     for cam, mode, std in DEPTH_CAMERAS:
         frames = getattr(batch, cam)
         if frames is None or getattr(pe, cam) is None:

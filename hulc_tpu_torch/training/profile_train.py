@@ -22,7 +22,9 @@ steps profiled with shapes and Python stacks, the host-to-device copies
 per step, from pageable memory (each blocks the host until the stream
 drains) and from pinned memory, by the function of the port that issued
 them, the device operations launched per step (kernels, copies, fills),
-the optimizer tail (``AdamLowp.step``'s span: the Adam kernel and the
+the device time by kind of those that compute on bf16 (``--set
+compute_dtype=bfloat16``: launched by an op that reads a bf16 tensor, or
+a hand kernel's bf16 instance), the optimizer tail (``AdamLowp.step``'s span: the Adam kernel and the
 gradient norm's finish launch), and the device time of the decoder RNN's
 recurrence by part (its forward and backward kernels, the dW product, the
 bias sum), and of the plan recognition BiRNN's (``mcil``) the same way. With ``--out`` it also writes
@@ -47,7 +49,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from hulc_tpu_torch.config import HulcConfig, apply_overrides, get_config
-from hulc_tpu_torch.evaluation.profile_policy import WINDOW_PAD_S, profile_steps
+from hulc_tpu_torch.evaluation.profile_policy import HAND_KERNELS, WINDOW_PAD_S, kind_of, profile_steps
 from hulc_tpu_torch.models.hulc import ModalityBatch
 from hulc_tpu_torch.ops.recurrence import BIRNN_SPANS, SPANS
 from hulc_tpu_torch.training.optimizers import OPTIMIZER_SPAN
@@ -181,6 +183,46 @@ def recurrence_split(events, steps: int, spans: Dict[str, str] = SPANS) -> dict:
     return {**parts, "device_ms_per_step": total, "share_of_device": total * 1e3 * steps / device_us if device_us else None}
 
 
+def innermost_op(ops, starts, ts: float):
+    """The innermost of ``ops`` (a thread's CPU ops sorted by start, their
+    ``starts``) whose span holds time ``ts``, or None: the latest-starting
+    one that holds it (an op starting later and holding it would lie inside
+    it)."""
+    for i in range(bisect.bisect_right(starts, ts) - 1, -1, -1):
+        if ts <= ops[i]["ts"] + ops[i].get("dur", 0):
+            return ops[i]
+    return None
+
+
+def bf16_device_ms(events, steps: int) -> Dict[str, float]:
+    """Device ms per step by kind (``kind_of``) of the device operations that
+    compute on bf16, in a Chrome trace recorded with shapes: each launched by
+    a runtime or driver call inside a CPU op that reads a bf16 tensor (its
+    "Input type"; the innermost op around the call, on its thread), and each
+    hand kernel's bf16 instance (a ctypes launch, inside no op of its own:
+    the instance's element type is in its symbol)."""
+    device = {e["args"].get("correlation"): e for e in events if e.get("cat") in DEVICE_CATS}
+    ops = collections.defaultdict(list)
+    for e in sorted((e for e in events if e.get("cat") == "cpu_op"), key=lambda e: e["ts"]):
+        ops[e["tid"]].append(e)
+    starts = {tid: [o["ts"] for o in v] for tid, v in ops.items()}
+    out = collections.Counter()
+    for call in events:
+        launched = device.get(call.get("args", {}).get("correlation"))
+        if call.get("cat") not in ("cuda_runtime", "cuda_driver") or launched is None:
+            continue
+        name = launched["name"]
+        if any(k in name for k in HAND_KERNELS):
+            bf16 = "__nv_bfloat16" in name
+        else:
+            tid = call["tid"]
+            op = innermost_op(ops[tid], starts[tid], call["ts"]) if tid in ops else None
+            bf16 = op is not None and "c10::BFloat16" in op.get("args", {}).get("Input type", ())
+        if bf16:
+            out[kind_of(name)] += launched.get("dur", 0) / 1e3 / steps
+    return dict(out)
+
+
 def device_launches(events, steps: int) -> Dict[str, float]:
     """Device operations per step in a Chrome trace, by kind: kernels,
     copies (``gpu_memcpy``) and fills (``gpu_memset``)."""
@@ -192,9 +234,10 @@ def device_launches(events, steps: int) -> Dict[str, float]:
 def trace_breakdown(step, steps: int) -> dict:
     """``steps`` calls of ``step`` under torch.profiler with shapes and Python
     stacks; returns the host-to-device copies per step (``h2d_sites``), the
-    device operations per step (``device_launches``), the optimizer tail
-    (``span_part`` of ``OPTIMIZER_SPAN``) and the recurrence's device time
-    by part (``recurrence_split``)."""
+    device operations per step (``device_launches``), the device ms per
+    step of those that compute on bf16, by kind (``bf16_device_ms``), the
+    optimizer tail (``span_part`` of ``OPTIMIZER_SPAN``) and the
+    recurrence's device time by part (``recurrence_split``)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
                  with_stack=True) as prof:
@@ -208,6 +251,7 @@ def trace_breakdown(step, steps: int) -> dict:
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     return {"h2d_copies_per_step": h2d_sites(events, steps), "device_launches_per_step": device_launches(events, steps),
+            "bf16_device_ms_per_step_by_kind": bf16_device_ms(events, steps),
             "optimizer": span_part(events, OPTIMIZER_SPAN, steps), "recurrence": recurrence_split(events, steps),
             "birnn_recurrence": recurrence_split(events, steps, BIRNN_SPANS)}
 
@@ -248,6 +292,7 @@ def main(argv=None) -> None:
     result = profile_steps(step, args.steps, trace)
     print(json.dumps({
         "step": "Trainer.train_step", "config": args.config, "overrides": args.overrides,
+        "compute_dtype": cfg.compute_dtype, "model_compute_dtype": str(trainer.model.cfg.dtype),
         "batch": 2 * BATCH_PER_MOD, "seq": SEQ,
         "card": torch.cuda.get_device_name(0), "unprofiled_step_ms": unprofiled_ms,
         "unprofiled_idle_share": 1.0 - result["device_ms_per_step"] / unprofiled_ms, **result,
