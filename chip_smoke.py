@@ -390,23 +390,43 @@ def device_ms(fn, iters: int, launches_per_call: int | None = None, per_recorded
     from hulc_tpu_torch.evaluation.profile_policy import profile_calls
 
     name = getattr(fn, "__qualname__", repr(fn))
-    for _ in range(PROFILE_ATTEMPTS):
-        _, ms, device = profile_calls(fn, iters)
-        if not ms > 0:
-            fail(f"the profiler recorded no device time for {name}")
-        recorded = sum(e.count for e in device)
-        if per_recorded and launches_per_call:
-            if recorded < launches_per_call * iters:
-                print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}; "
-                      f"its time is per recorded launch")
-            return ms * iters * launches_per_call / recorded
-        if launches_per_call is None or recorded == launches_per_call * iters:
-            return ms
-        if recorded > launches_per_call * iters:
-            break
-        print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}; "
-              f"profiling the window again")
+    held = launches_per_call is not None and not per_recorded  # a window that must record every launch
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = pathlib.Path(tmp) / "window.json" if held else None
+        for _ in range(PROFILE_ATTEMPTS):
+            _, ms, device = profile_calls(fn, iters, trace)
+            if not ms > 0:
+                fail(f"the profiler recorded no device time for {name}")
+            recorded = sum(e.count for e in device)
+            if per_recorded and launches_per_call:
+                if recorded < launches_per_call * iters:
+                    print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of "
+                          f"{name}; its time is per recorded launch")
+                return ms * iters * launches_per_call / recorded
+            if launches_per_call is None or recorded == launches_per_call * iters:
+                return ms
+            if recorded > launches_per_call * iters:
+                break
+            print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of {name} "
+                  f"({lost_launches(trace)}); profiling the window again")
     fail(f"the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}")
+
+
+def lost_launches(trace_path) -> str:
+    """Which kernel launches of a profiled window (its Chrome trace) have no
+    kernel in it: their places among the window's launches, in host order,
+    and how far each kept kernel started after its launch as the trace
+    maps the device's clock onto the host's."""
+    events = json.loads(pathlib.Path(trace_path).read_text())["traceEvents"]
+    kernels_ = {e["args"].get("correlation"): e for e in events if e.get("cat") == "kernel" and "args" in e}
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")),
+                      key=lambda e: e["ts"])
+    lost = [i for i, e in enumerate(launches) if e.get("args", {}).get("correlation") not in kernels_]
+    lags = [kernels_[e["args"]["correlation"]]["ts"] - e["ts"] for e in launches
+            if e.get("args", {}).get("correlation") in kernels_]
+    lag = f"{min(lags):.1f} .. {max(lags):.1f} us" if lags else "none kept"
+    return (f"{len(launches)} launches and {len(kernels_)} kernels in the trace; launches without a kernel at "
+            f"places {lost}; a kernel's start less its launch's {lag}")
 
 
 def host_ms(fn, iters: int) -> float:
@@ -3779,7 +3799,8 @@ def check_gated_case(cell, xp, states, w, bias, dy, dcarry, where):
 def check_gated(cell, model, seed):
     """The cell's two kernels against their plain versions: at the train
     step's (64, 32, 2048) on each decoder layer's W_hh and b_hh, at an odd
-    (3, 5, 37) (H not a multiple of a block's 16 columns), two row tiles
+    (3, 5, 37) (H not a multiple of 4: the ring filled by plain loads, one
+    block a cluster, its one chunk past H), two row tiles
     (96, 3, 64), and one step at 1 and 64 lanes (the one-step GEMV launch,
     and a one-step sequence launch). Returns {kernel row: max abs err}."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 71)
@@ -3804,9 +3825,12 @@ def time_gated(cell, model, seed):
     plain versions and cuDNN's nn.GRU / nn.LSTM of the same weights (W_ih =
     I of G H x G H, b_ih = 0: the same function of xp, plus cuDNN's own
     input projection, timed beside it as one matmul), forward and forward +
-    backward, by CUDA events in turns plain, kernel, kernel, plain; the
-    bound 2 B S H G H fp32 FLOP at 67 TFLOP/s (one step: the read of W).
-    The port never calls cuDNN."""
+    backward (and the backward alone: their difference), by CUDA events in
+    turns plain, kernel, kernel, plain; the bound 2 B S H G H fp32 FLOP at
+    67 TFLOP/s (one step: the read of W); each launch's plan and the
+    kernel's registers a thread (``registers``, from the build's ptxas
+    report). The port never calls cuDNN."""
+    from hulc_tpu_torch import kernels
     from hulc_tpu_torch.evaluation.kernel_times import event_ms
     from hulc_tpu_torch.ops import recurrence as rec
 
@@ -3872,12 +3896,21 @@ def time_gated(cell, model, seed):
             "library_ms": event_ms(library_fn, 5), "call_ms": call_ms(kernel_fn, 10),
             "plain_call_ms": call_ms(plain_fn, 5), "timed_by": "CUDA events", "shape": list(shape),
         }
-    out[f"rnn_{cell}_fwd"]["library_input_projection_ms"] = event_ms(lambda: xp.reshape(-1, g * h) @ eye, 5)
-    out[f"rnn_{cell}_fwd"]["library"] = out[f"rnn_{cell}_bwd"]["library"] = (
+    fwd_row, bwd_row = out[f"rnn_{cell}_fwd"], out[f"rnn_{cell}_bwd"]
+    fwd_row["library_input_projection_ms"] = event_ms(lambda: xp.reshape(-1, g * h) @ eye, 5)
+    fwd_row["library_recurrence_ms"] = fwd_row["library_ms"] - fwd_row["library_input_projection_ms"]
+    bwd_row["library_backward_ms"] = bwd_row["library_ms"] - fwd_row["library_ms"]
+    fwd_row["library"] = bwd_row["library"] = (
         f"cuDNN nn.{'LSTM' if lstm else 'GRU'}, W_ih = I ({g * h} x {g * h}), fp32; the backward row forward + backward")
-    for name, backward in ((f"rnn_{cell}_fwd", False), (f"rnn_{cell}_bwd", True)):
-        plan = rec.gated_device_plan(cell, h, b, s, torch.cuda.current_device(), backward, False)
-        out[name]["plan"] = {**dataclasses.asdict(plan), "blocks": plan.blocks(h)}
+    ptxas = kernels.ptxas_report(kernels.build().with_suffix(".log").read_text())
+    for name, t in out.items():
+        backward = name.endswith("_bwd")
+        plan = rec.gated_device_plan(cell, h, t["shape"][0], t["shape"][1], torch.cuda.current_device(), backward,
+                                     False)
+        kernel = "gated_bwd_kernel" if backward else "gated_step_kernel" if plan.launch == "step" else "gated_fwd_kernel"
+        fn = f"{kernel}<{'true' if lstm else 'false'}>"
+        t["plan"] = {**dataclasses.asdict(plan), "blocks": plan.blocks(h)}
+        t["registers"] = ptxas[fn]["registers"]
     return out
 
 
@@ -3941,12 +3974,17 @@ def run_gated_cell(cell, seed, lanes, hulc_step_ms, card):
     errs = check_gated(cell, model, seed)
     timing = time_gated(cell, model, seed)
     for name, t in timing.items():
+        plan = t["plan"]
         print(f"[gated] {name} at {tuple(t['shape'])}: kernel {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, cuDNN "
               f"{t['library_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound; per call with the host's launch cost "
-              f"{t['call_ms']:.5f} ms (CUDA events, {card})")
-    print(f"[gated] cuDNN's own input projection (W_ih = I) {timing[f'rnn_{cell}_fwd']['library_input_projection_ms']:.6f}"
-          f" ms of its forward; plans {timing[f'rnn_{cell}_fwd']['plan']} / {timing[f'rnn_{cell}_bwd']['plan']}")
+              f"{t['call_ms']:.5f} ms; {plan['launch']} launch, {plan['blocks']} blocks in clusters of "
+              f"{plan['cluster']}, {plan['cols']} columns a cluster, k-slice {plan['k_slice']}, {plan['stages']} "
+              f"stages, {plan['smem_bytes']} B shared memory, {t['registers']} registers a thread (CUDA events, {card})")
+    fwd_row, bwd_row = timing[f"rnn_{cell}_fwd"], timing[f"rnn_{cell}_bwd"]
+    print(f"[gated] cuDNN's own input projection (W_ih = I) {fwd_row['library_input_projection_ms']:.6f} ms of its "
+          f"forward, its recurrence without it {fwd_row['library_recurrence_ms']:.6f} ms; its backward alone "
+          f"((forward + backward) - forward) {bwd_row['library_backward_ms']:.6f} ms ({card})")
 
     # 2. the main path: train steps, a val step, the policies
     rng = np.random.default_rng(seed + 79)

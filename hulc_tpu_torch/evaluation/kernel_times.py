@@ -18,7 +18,10 @@ CUDA activity torch.profiler records per call (the window padded with idle
 host time, as ``profile_policy.profile_calls`` does). The decoder RNN's
 recurrence (B.6), forward and dh chain at (64, 32, 2048), (64, 1, 2048)
 and (1, 1, 2048), is timed by CUDA events instead (``event_ms``: the
-profiler drops some of its cooperative launches). It also gives a
+profiler drops some of its cooperative launches), and so are the gated
+cells' (B.11 gru, B.12 lstm): the inference forward and the dh chain at
+the same three shapes, on inputs made from seed 0 by the plain loop (the
+saved gates), the same on any tree. It also gives a
 digest of each kernel's output on fixed inputs from seed 0 (equal digests:
 bit-equal results) and the full-width ``hulc`` policy step's median
 host-clock ms at 1 and 64 lanes.
@@ -325,6 +328,35 @@ def sampling_tails(cfg, out: dict) -> None:
         out["sampling_kernel"][name] = {**op_counts(ops, ITERS), "kernel_ms": kernel_ms(ops), "event_ms": event_ms(fn)}
 
 
+def gated_cases(hidden: int, gen) -> dict:
+    """{name: call} of B.11 and B.12, forward and dh chain, at (64, 32),
+    (64, 1) and (1, 1) rows and steps of ``hidden`` columns: W_hh and b_hh
+    at torch's U(-1/sqrt(H), 1/sqrt(H)), xp, dy, the carries and their
+    cotangents ~ N(0, 1), the saved gates from the plain loop. Each call
+    returns the wrapper's outputs."""
+    from hulc_tpu_torch.ops import recurrence as rec
+
+    cases = {}
+    for cell, g in (("gru", 3), ("lstm", 4)):
+        w = (2.0 * torch.rand(g * hidden, hidden, generator=gen, device="cuda") - 1.0) / hidden**0.5
+        bias = (2.0 * torch.rand(g * hidden, generator=gen, device="cuda") - 1.0) / hidden**0.5
+        for b, s in ((64, 32), (64, 1), (1, 1)):
+            xp = torch.randn((b, s, g * hidden), generator=gen, device="cuda")
+            h0, c0, dh, dc = (torch.randn((b, hidden), generator=gen, device="cuda") for _ in range(4))
+            dy = torch.randn((b, s, hidden), generator=gen, device="cuda")
+            if cell == "lstm":
+                _, _, saved = rec._gated_loop(cell, xp, h0, c0, w, bias, True)
+                fwd = functools.partial(rec.rnn_lstm_fwd_kernel, xp, h0, c0, w, bias)
+                bwd = functools.partial(rec.rnn_lstm_bwd, dy, dh, dc, saved, c0, w)
+            else:
+                y, _, saved = rec._gated_loop(cell, xp, h0, None, w, bias, True)
+                fwd = functools.partial(rec.rnn_gru_fwd_kernel, xp, h0, w, bias)
+                bwd = functools.partial(rec.rnn_gru_bwd, dy, dh, y, h0, saved, w)
+            cases[f"rnn_{cell}_fwd {b} {s}"] = fwd
+            cases[f"rnn_{cell}_bwd {b} {s}"] = bwd
+    return cases
+
+
 def policy_times(cfg, seed: int, lanes: int) -> dict:
     """Median host-clock ms of an acting step at 1 lane and at ``lanes``,
     and the device operations per step under the profiler."""
@@ -430,6 +462,7 @@ def main(argv=None) -> None:
         y = rnn_relu_fwd(xp, h0, w, bias)[0]
         rnn_cases[f"rnn_relu_fwd {b} {s}"] = lambda xp=xp, h0=h0: rnn_relu_fwd(xp, h0, w, bias)[0]
         rnn_cases[f"rnn_relu_bwd {b} {s}"] = lambda dy=dy, y=y, h0=h0: rnn_relu_bwd(dy, y, h0, w)[0]
+    rnn_cases.update(gated_cases(hidden, gen))
 
     out = {"tree": str(args.tree), "card": card(), "device_ms": {}, "event_ms": {}, "digest": {}}
     def wanted(name):
@@ -450,7 +483,10 @@ def main(argv=None) -> None:
     for name, fn in rnn_cases.items():
         if wanted(name):
             out["event_ms"][name] = event_ms(fn)
-            out["digest"][name] = digest(fn())
+            result = fn()
+            if isinstance(result, tuple):  # a gated cell's outputs, the saved gates None in inference
+                result = torch.cat([t.flatten() for t in result if t is not None])
+            out["digest"][name] = digest(result)
     del train, shifts
     if wanted("policy"):
         policy = policy_times(cfg, SEED, LANES)

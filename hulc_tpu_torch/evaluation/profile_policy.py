@@ -49,7 +49,10 @@ def _device_us(event) -> float:
     return float(getattr(event, "self_device_time_total", getattr(event, "self_cuda_time_total", 0.0)))
 
 
-WINDOW_PAD_S = 0.01  # idle host time at each end of a profiled window
+# idle host time at each end of a profiled window. At 10 ms, some runs of chip_smoke.py lost one
+# of the empty kernel's 100 launches in every window of its launch floor, and other runs none;
+# why is not known (chip_smoke.py's lost_launches prints where a window lost them)
+WINDOW_PAD_S = 0.05
 
 
 def profile_calls(fn, iters: int, trace_path=None):
@@ -97,6 +100,7 @@ HAND_KERNELS = (
     "adam_lowp_kernel", "grad_norm_finish_kernel",
     "rnn_fwd_kernel", "rnn_bwd_kernel", "rnn_step_kernel",  # csrc/rnn.cu, either cell
     "gated_fwd_kernel", "gated_bwd_kernel", "gated_step_kernel",  # csrc/rnn_gates.cu, gru and lstm
+    "gated_transpose_kernel",  # csrc/rnn_gates.cu: W^T for the dh chain
     "depth_noise_kernel",
 )
 

@@ -189,11 +189,11 @@ _SIGNATURES = {
     # the sizes, the chain's layout (reverse, y's row width, its column offset), the plan
     "hulc_rnn_tanh_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
     "hulc_rnn_tanh_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
-    # the pointers, the sizes, then ops.recurrence.GatedPlan's three fields
-    "hulc_rnn_gru_fwd": (*(_P,) * 7, *(_I32,) * 6),
-    "hulc_rnn_gru_bwd": (*(_P,) * 9, *(_I32,) * 6),
-    "hulc_rnn_lstm_fwd": (*(_P,) * 9, *(_I32,) * 6),
-    "hulc_rnn_lstm_bwd": (*(_P,) * 9, *(_I32,) * 6),
+    # the pointers (the dh chains' with a scratch for W^T), the sizes, then ops.recurrence.GatedPlan's six fields
+    "hulc_rnn_gru_fwd": (*(_P,) * 7, *(_I32,) * 9),
+    "hulc_rnn_gru_bwd": (*(_P,) * 10, *(_I32,) * 9),
+    "hulc_rnn_lstm_fwd": (*(_P,) * 9, *(_I32,) * 9),
+    "hulc_rnn_lstm_bwd": (*(_P,) * 10, *(_I32,) * 9),
     # x, z, y, n, mode (0 gamma, 1 gaussian), then the mode's two fp32 constants
     "hulc_depth_noise": (_P, _P, _P, _I64, _I32, _F32, _F32),
     "hulc_empty_launch": (),
@@ -216,7 +216,7 @@ def library() -> ctypes.CDLL:
     lib.hulc_rnn_cluster_limit.restype = ctypes.c_int
     lib.hulc_rnn_check.argtypes = [ctypes.c_int] * 10
     lib.hulc_rnn_check.restype = ctypes.c_int
-    lib.hulc_rnn_gated_check.argtypes = [ctypes.c_int] * 9
+    lib.hulc_rnn_gated_check.argtypes = [ctypes.c_int] * 12
     lib.hulc_rnn_gated_check.restype = ctypes.c_int
     return lib
 

@@ -32,9 +32,11 @@ in a (B, S, 2H) output, reversed or not), and ``birnn_layer_plain`` /
 
 The gated cells (layers.py:238-257), gru (B.11) and lstm (B.12), take xp
 (B, S, G H) and W_hh (G H, H), G = 3 (r, z, n) or 4 (i, f, g, o), and
-lstm a carry pair (h0, c0); ``csrc/rnn_gates.cu`` streams W_hh every step
-(it does not fit in shared memory) in one cooperative launch a layer
-(``gated_plan``, checked once a shape by ``gated_device_plan``).
+lstm a carry pair (h0, c0); ``csrc/rnn_gates.cu`` runs a layer in one
+launch: split-K over clusters as B.6, W_hh streamed every step through a
+ring of asynchronous copies (it does not fit in shared memory), or the
+one-step GEMV at a serving lane (``gated_plan``, checked once a shape by
+``gated_device_plan``).
 ``rnn_gru`` / ``rnn_lstm`` take the autograd Functions where a gradient is
 wanted: a training forward that saves the gates (and c), then the dh
 chain kernel and, as for B.6, dW_hh as one product of dhp and the states,
@@ -527,76 +529,126 @@ def birnn_layer(
 # --------------------------------------------------------------------------
 
 # csrc/rnn_gates.cu's geometry
-GATED_COLS = 16  # kCols: hidden columns of a block of the sequence kernels
+GATED_COLS = {"forward": 32, "backward": 72}  # kFwdCols, kCols: hidden columns of a cluster
 GATED_ROWS = 64  # kRows: batch rows per tile
-GATED_CHUNK = 64  # kChunk: k values staged at a time
-GATED_STRIDE = GATED_CHUNK + 4  # kStride: floats per staged row
-GATED_PARTS = 4  # kParts: k-parts of the dh chain's product
+GATED_SKEW = 4  # kSkew: floats a staged row is wider than its data (bank skew)
+GATED_ALIGN = 128  # kAlign: bytes the ring is aligned to (a box's alignment)
+GATED_FWD_CHUNK = {"gru": 128, "lstm": 64}  # Cell::kFwdChunk: k values of h's slice staged at a time
+GATED_BWD_CHUNK = 128  # kBwdChunk: k values of dhp's slice staged at a time
+GATED_FWD_STAGES = {"gru": 2, "lstm": 3}  # Cell::kFwdStages: the forward's ring of chunk buffers
+GATED_BWD_STAGES = 2  # kBwdStages: the dh chain's
 GATED_STEP_ROWS = 8  # kStepRows: most rows of the one-step launch
 GATED_STEP_COLS = 8  # kStepWarps: hidden columns per block of the one-step launch, one a warp
 GATES = {"gru": 3, "lstm": 4}  # gate columns per hidden column: r z n; i f g o
 SAVED = {"gru": 4, "lstm": 5}  # what a training forward saves per hidden column: r z n hn; i f g o c
+# The cluster sizes (= k-splits) the sequence launch tries, in order. The
+# forward: 2 (H = 2048 on an H100: 64 clusters of 32 columns on 128 SMs,
+# where the card holds 66 clusters of 2), then 1. The dh chain: 4 (29
+# clusters of 72 columns on 116 SMs, where the card holds 30 of 4), 2, 1.
+# A smaller cluster where H is too small to give each block some k.
+GATED_CLUSTERS = {"forward": (2, 1), "backward": (4, 2, 1)}
 
 
 @dataclasses.dataclass(frozen=True)
 class GatedPlan:
-    """One launch of ``csrc/rnn_gates.cu``. ``launch`` "sequence":
-    ceil(H / ``cols``) blocks of 256 threads, block c owning the ``cols``
-    hidden columns from c * ``cols`` and all gate columns of each, ``smem``
-    bytes of shared memory a block, cooperative (every block resident, one
-    grid barrier a step) unless it is a forward of one step. "step":
-    ceil(H / ``cols``) blocks of ``cols`` warps, one hidden column a warp,
-    for a forward of one step at most GATED_STEP_ROWS rows that saves
-    nothing (a serving lane)."""
+    """One launch of ``csrc/rnn_gates.cu``, in the order its entry points
+    take the fields. ``launch`` "sequence": ceil(H / ``cols``) clusters of
+    ``cluster`` blocks; cluster c owns the ``cols`` hidden columns from c *
+    ``cols`` and all gate columns of each, its block of rank r the k-slice
+    [r * ``k_slice``, (r + 1) * ``k_slice``) of H (forward) or of G H (the
+    dh chain), whole chunks streamed through a ring of ``stages`` buffers,
+    and the reduce slice ``gated_reduce_columns(cols, cluster, r)`` of the
+    cluster's columns; ``smem_bytes`` of shared memory a block; cooperative
+    (every cluster resident, one grid barrier a step) unless it is a
+    forward of one step. "step": ceil(H / ``cols``) blocks of ``cols``
+    warps, one hidden column a warp over the whole k (``k_slice`` = H), for
+    a forward of one step at most GATED_STEP_ROWS rows that saves nothing
+    (a serving lane)."""
 
     launch: str
+    cluster: int
+    k_slice: int
     cols: int
+    stages: int
     smem_bytes: int
 
     def c_args(self) -> Tuple[int, ...]:
-        return 0 if self.launch == "sequence" else 1, self.cols, self.smem_bytes
+        return (0 if self.launch == "sequence" else 1, self.cluster, self.k_slice, self.cols, self.stages,
+                self.smem_bytes)
 
     def blocks(self, hidden: int) -> int:
-        return _ceil(hidden, self.cols)
+        return _ceil(hidden, self.cols) * self.cluster
+
+
+def gated_reduce_columns(cols: int, cluster: int, rank: int) -> Tuple[int, int]:
+    """csrc/rnn_gates.cu ``geometry``: the columns [lo, hi) of its cluster's
+    ``cols`` that the block of ``rank`` reduces (with all their gates),
+    whole quads of 4: the quads [rank Q / cluster, (rank + 1) Q / cluster)
+    of Q = cols / 4."""
+    quads = cols // 4
+    return 4 * (rank * quads // cluster), 4 * ((rank + 1) * quads // cluster)
 
 
 def gated_smem_bytes(cell: str, backward: bool) -> int:
-    """csrc/rnn_gates.cu ``sequence_smem_bytes``: forward, two chunk buffers
-    of h and of the block's G * cols rows of W; backward, two of dhp and of
-    W's transposed chunk, and the k-parts' partial sums."""
+    """csrc/rnn_gates.cu ``sequence_smem_bytes``: the ring's stages (forward:
+    h's 64 rows and the cluster's G * cols rows of W; dh chain: dhp's 64
+    rows and the cluster's cols rows of W^T; each row a chunk and the skew
+    wide), the block's partial product, and room to align the ring to
+    GATED_ALIGN bytes."""
+    g, skew = GATES[cell], GATED_SKEW
     if backward:
-        floats = 2 * GATED_ROWS * GATED_STRIDE + 2 * GATED_COLS * GATED_STRIDE + GATED_PARTS * GATED_ROWS * GATED_COLS
+        cols = GATED_COLS["backward"]
+        stage = (GATED_ROWS + cols) * (GATED_BWD_CHUNK + skew)
+        floats = GATED_BWD_STAGES * stage + GATED_ROWS * (cols + skew)
     else:
-        floats = 2 * GATED_ROWS * GATED_STRIDE + 2 * GATES[cell] * GATED_COLS * GATED_STRIDE
-    return 4 * floats
+        cols = GATED_COLS["forward"]
+        stage = (GATED_ROWS + g * cols) * (GATED_FWD_CHUNK[cell] + skew)
+        floats = GATED_FWD_STAGES[cell] * stage + GATED_ROWS * (g * cols + skew)
+    return 4 * floats + GATED_ALIGN
 
 
-def gated_plan(cell: str, hidden: int, batch: int, seq: int, smem_optin: int, backward: bool = False,
-               saves: bool = False) -> GatedPlan:
-    """The launch for one gated layer at (batch, seq, hidden) on a card that
-    gives a block ``smem_optin`` bytes of shared memory: the one-step GEMV
-    for a forward of one time step at most GATED_STEP_ROWS rows that saves
-    no gates, else the sequence kernel. Raises ValueError when its shared
-    memory does not fit; csrc/rnn_gates.cu checks that every block of a
-    cooperative launch is resident (``hulc_rnn_gated_check``)."""
+def gated_plan(cell: str, hidden: int, batch: int, seq: int, sms: int, smem_optin: int,
+               cluster_limits: Dict[int, int], backward: bool = False, saves: bool = False) -> GatedPlan:
+    """The launch for one gated layer at (batch, seq, hidden) on a card with
+    ``sms`` SMs, ``smem_optin`` bytes of shared memory a block and room for
+    ``cluster_limits[n]`` clusters of n blocks at once at one block per SM:
+    the one-step GEMV for a forward of one time step at most
+    GATED_STEP_ROWS rows that saves no gates; else the sequence launch with
+    the first of GATED_CLUSTERS whose blocks all hold k (of H forward, of G
+    H in the dh chain; each block's slice whole chunks), whose shared memory
+    fits and whose clusters all fit at once. Raises ValueError when none
+    fits; csrc/rnn_gates.cu checks the plan against the kernel on the card
+    (``hulc_rnn_gated_check``)."""
     if cell not in GATES:
         raise ValueError(f"gated_plan: cell {cell!r} is not gru or lstm")
     if min(hidden, batch, seq) <= 0:
         raise ValueError(f"gated_plan: hidden {hidden}, batch {batch}, seq {seq} must be positive")
     if not backward and not saves and seq == 1 and batch <= GATED_STEP_ROWS:
-        return GatedPlan("step", GATED_STEP_COLS, 0)
+        return GatedPlan("step", 1, hidden, GATED_STEP_COLS, 0, 0)
+    direction = "backward" if backward else "forward"
+    k_total = GATES[cell] * hidden if backward else hidden
+    cols = GATED_COLS[direction]
+    clusters = _ceil(hidden, cols)
     smem = gated_smem_bytes(cell, backward)
-    if smem > smem_optin:
-        raise ValueError(f"the {cell} kernels need {smem} B of shared memory a block, the card gives {smem_optin}")
-    return GatedPlan("sequence", GATED_COLS, smem)
+    stages = GATED_BWD_STAGES if backward else GATED_FWD_STAGES[cell]
+    chunk = GATED_BWD_CHUNK if backward else GATED_FWD_CHUNK[cell]
+    for cluster in GATED_CLUSTERS[direction]:
+        k_slice = _ceil(_ceil(k_total, cluster), chunk) * chunk
+        if ((cluster - 1) * k_slice < k_total and smem <= smem_optin and clusters * cluster <= sms
+                and clusters <= cluster_limits[cluster]):
+            return GatedPlan("sequence", cluster, k_slice, cols, stages, smem)
+    raise ValueError(f"hidden size {hidden} is too large for the {cell} kernels on this card ({sms} SMs, "
+                     f"{smem_optin} B of shared memory a block, {smem} B needed, clusters at once {cluster_limits})")
 
 
 @functools.cache
 def gated_device_plan(cell: str, hidden: int, batch: int, seq: int, index: int, backward: bool,
                       saves: bool) -> GatedPlan:
-    """``gated_plan`` for CUDA device ``index``, checked by
-    csrc/rnn_gates.cu against the card once per shape."""
-    plan = gated_plan(cell, hidden, batch, seq, kernels.device_limits(index)[1], backward, saves)
+    """``gated_plan`` for CUDA device ``index``, from what the runtime
+    reports, checked by csrc/rnn_gates.cu against the card once per shape:
+    a launch only looks it up."""
+    plan = gated_plan(cell, hidden, batch, seq, *kernels.device_limits(index),
+                      kernels.cluster_limits(index, GATED_CLUSTERS["backward"]), backward, saves)
     kernels.check_gated_plan(index, cell == "lstm", backward, saves, batch, seq, hidden, plan.c_args())
     return plan
 
@@ -762,6 +814,12 @@ def rnn_lstm_fwd(xp, h0, c0, w_hh, b_hh) -> Tuple[torch.Tensor, torch.Tensor, to
     return torch.ops.hulc.rnn_lstm_fwd(xp, h0, c0, w_hh, b_hh)
 
 
+def _w_t_scratch(w_hh: torch.Tensor) -> torch.Tensor:
+    """The (H, G H) scratch the dh chain's launch writes W_hh^T into
+    (csrc/rnn_gates.cu ``gated_transpose_kernel``)."""
+    return w_hh.new_empty(w_hh.shape[1], w_hh.shape[0])
+
+
 def rnn_gru_bwd(dy, dh_last, y, h0, saved, w_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B.11's dh-chain kernel (the plain chain on CPU tensors): (dxp, dhp,
     dh0)."""
@@ -777,9 +835,10 @@ def rnn_gru_bwd(dy, dh_last, y, h0, saved, w_hh) -> Tuple[torch.Tensor, torch.Te
     _check_gated("rnn_gru_bwd", "gru", b, h, (h0, dh_last), w_hh)
     plan = gated_device_plan("gru", h, b, s, _index(y.device), True, False)
     dxp, dhp = y.new_empty(b, s, 3 * h), y.new_empty(b, s, 3 * h)
-    dh0 = y.new_empty(b, h)
+    dh0, w_t = y.new_empty(b, h), _w_t_scratch(w_hh)
     kernels.RNN_GRU_BWD(y.device, dy.data_ptr(), _ptr(dh_last), y.data_ptr(), h0.data_ptr(), saved.data_ptr(),
-                        w_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(), dh0.data_ptr(), b, s, h, *plan.c_args())
+                        w_hh.data_ptr(), w_t.data_ptr(), dxp.data_ptr(), dhp.data_ptr(), dh0.data_ptr(), b, s, h,
+                        *plan.c_args())
     return dxp, dhp, dh0
 
 
@@ -800,9 +859,10 @@ def rnn_lstm_bwd(dy, dh_last, dc_last, saved, c0, w_hh) -> Tuple[torch.Tensor, t
     _check_gated("rnn_lstm_bwd", "lstm", b, h, (c0, dh_last, dc_last), w_hh)
     plan = gated_device_plan("lstm", h, b, s, _index(saved.device), True, False)
     dpre = saved.new_empty(b, s, 4 * h)
-    dh0, dc0 = saved.new_empty(b, h), saved.new_empty(b, h)
+    dh0, dc0, w_t = saved.new_empty(b, h), saved.new_empty(b, h), _w_t_scratch(w_hh)
     kernels.RNN_LSTM_BWD(saved.device, dy.data_ptr(), _ptr(dh_last), _ptr(dc_last), saved.data_ptr(), c0.data_ptr(),
-                         w_hh.data_ptr(), dpre.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), b, s, h, *plan.c_args())
+                         w_hh.data_ptr(), w_t.data_ptr(), dpre.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), b, s, h,
+                         *plan.c_args())
     return dpre, dh0, dc0
 
 

@@ -55,6 +55,8 @@ B, S, F_IN, H, LAYERS = 3, 5, 7, 16, 2
 ATOL = 1e-5  # fp32 sums in another order through S steps
 CELLS = tuple(GATES)
 H100_SMEM_OPTIN = 232_448  # bytes of shared memory a block may opt in to on an H100
+H100_SMS = 132
+H100_CLUSTERS = {8: 15, 4: 30, 2: 66, 1: 132}  # clusters an H100 holds at once at one block per SM
 
 
 def _t(x) -> torch.Tensor:
@@ -259,50 +261,119 @@ def test_functions_take_the_op_without_a_gradient(cell):
 
 def test_gated_entry_points_and_geometry_match_the_cuda_source():
     """csrc/rnn_gates.cu's constants are the plan's, and each entry point
-    takes its pointers, the three sizes and the plan's three fields."""
+    takes its pointers, the three sizes and the plan's six fields."""
     src = (kernels.CSRC_DIR / "rnn_gates.cu").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert (const("kCols"), const("kRows"), const("kChunk"), const("kParts"), const("kStepRows")) == (
-        recurrence.GATED_COLS, recurrence.GATED_ROWS, recurrence.GATED_CHUNK, recurrence.GATED_PARTS,
+    assert (const("kFwdCols"), const("kCols"), const("kRows"), const("kSkew"), const("kAlign"), const("kBwdChunk"),
+            const("kBwdStages"), const("kStepRows")) == (
+        recurrence.GATED_COLS["forward"], recurrence.GATED_COLS["backward"], recurrence.GATED_ROWS,
+        recurrence.GATED_SKEW, recurrence.GATED_ALIGN, recurrence.GATED_BWD_CHUNK, recurrence.GATED_BWD_STAGES,
         recurrence.GATED_STEP_ROWS)
+    assert "static constexpr int kFwdChunk = kLstm ? 64 : 128;" in src
+    assert recurrence.GATED_FWD_CHUNK == {"gru": 128, "lstm": 64}
     assert const("kStepThreads") // 32 == recurrence.GATED_STEP_COLS
-    assert "kStride = kChunk + 4" in src and recurrence.GATED_STRIDE == recurrence.GATED_CHUNK + 4
-    pointers = {"hulc_rnn_gru_fwd": 7, "hulc_rnn_gru_bwd": 9, "hulc_rnn_lstm_fwd": 9, "hulc_rnn_lstm_bwd": 9}
+    assert const("kMaxCluster") == max(max(sizes) for sizes in recurrence.GATED_CLUSTERS.values())
+    assert "static constexpr int kFwdStages = kLstm ? 3 : 2;" in src
+    assert recurrence.GATED_FWD_STAGES == {"gru": 2, "lstm": 3}
+    pointers = {"hulc_rnn_gru_fwd": 7, "hulc_rnn_gru_bwd": 10, "hulc_rnn_lstm_fwd": 9, "hulc_rnn_lstm_bwd": 10}
     for symbol, n in pointers.items():
-        assert kernels._SIGNATURES[symbol] == (*(kernels._P,) * n, *(kernels._I32,) * 6), symbol
+        assert kernels._SIGNATURES[symbol] == (*(kernels._P,) * n, *(kernels._I32,) * 9), symbol
     assert {k.symbol for k in (kernels.RNN_GRU_FWD, kernels.RNN_GRU_BWD, kernels.RNN_LSTM_FWD,
                                kernels.RNN_LSTM_BWD)} == set(pointers)
     assert set(pointers) <= {k.symbol for k in kernels.ALL_KERNELS}
-    assert re.search(r'extern "C" int hulc_rnn_gated_check\((\s*int \w+,?){9}\)', src)
+    assert re.search(r'extern "C" int hulc_rnn_gated_check\((\s*int \w+,?){12}\)', src)
+    assert len(dataclasses.fields(recurrence.GatedPlan)) == 6
+    # the reduce slices, whole quads of columns (ops.recurrence.gated_reduce_columns)
+    assert "g.q0 = g.rank * (cols / 4) / g.cluster;" in src
+    assert "g.nq = (g.rank + 1) * (cols / 4) / g.cluster - g.q0;" in src
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_gated_plan_at_h2048_and_at_a_small_h(cell):
-    """At the train step's (64, 32, 2048): 128 blocks of 16 columns (one a
-    SM of 132), shared memory within the H100's opt-in, forward and
-    backward; the one-step launch at 1 and 8 serving lanes only when
-    nothing is saved; a sequence launch at 9 lanes; 3 blocks at H = 37."""
+    """At the train step's (64, 32, 2048): the forward on 64 clusters of 2
+    blocks, 32 columns a cluster, on 128 of the H100's 132 SMs, k-slices of
+    1024 (of H); the dh chain on 29 clusters of 4, 72 columns a cluster, on
+    116 SMs, k-slices of 512 G (of G H); shared memory within the H100's
+    opt-in; the one-step launch at 1 and 8 serving lanes only when nothing
+    is saved; a sequence launch at 9 lanes; at H = 37 clusters of 1 (one
+    forward chunk of 64 or 128 k holds H)."""
     g = GATES[cell]
     for backward in (False, True):
-        plan = gated_plan(cell, 2048, 64, 32, H100_SMEM_OPTIN, backward, saves=not backward)
-        assert plan.launch == "sequence" and plan.blocks(2048) == 128 <= 132
+        plan = gated_plan(cell, 2048, 64, 32, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS, backward,
+                          saves=not backward)
+        cluster, cols, blocks = (4, 72, 116) if backward else (2, 32, 128)
+        assert (plan.launch, plan.cluster, plan.cols) == ("sequence", cluster, cols)
+        assert plan.k_slice == (512 * g if backward else 1024)
+        assert plan.blocks(2048) == blocks <= H100_SMS and plan.stages == (3 if cell == "lstm" and not backward else 2)
         assert plan.smem_bytes == gated_smem_bytes(cell, backward) <= H100_SMEM_OPTIN
-        assert plan.c_args() == (0, 16, plan.smem_bytes)
-    assert gated_smem_bytes(cell, False) == 4 * (2 * 64 * 68 + 2 * g * 16 * 68)
-    assert gated_smem_bytes(cell, True) == 4 * (2 * 64 * 68 + 2 * 16 * 68 + 4 * 64 * 16)
+        assert plan.c_args() == (0, cluster, plan.k_slice, cols, plan.stages, plan.smem_bytes)
+    stages, stride = {"gru": (2, 132), "lstm": (3, 68)}[cell]
+    assert gated_smem_bytes(cell, False) == 4 * (stages * (64 + 32 * g) * stride + 64 * (32 * g + 4)) + 128
+    assert gated_smem_bytes(cell, True) == 4 * (2 * (64 + 72) * 132 + 64 * 76) + 128
     for lanes in (1, 8):
-        step = gated_plan(cell, 2048, lanes, 1, H100_SMEM_OPTIN)
-        assert step.launch == "step" and step.c_args() == (1, 8, 0) and step.blocks(2048) == 256
-        assert gated_plan(cell, 2048, lanes, 1, H100_SMEM_OPTIN, saves=True).launch == "sequence"
-    assert gated_plan(cell, 2048, 9, 1, H100_SMEM_OPTIN).launch == "sequence"
-    assert gated_plan(cell, 37, 3, 5, H100_SMEM_OPTIN).blocks(37) == 3
-    with pytest.raises(ValueError, match="shared memory"):
-        gated_plan(cell, 2048, 64, 32, 48 * 1024)
+        step = gated_plan(cell, 2048, lanes, 1, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS)
+        assert step.launch == "step" and step.c_args() == (1, 1, 2048, 8, 0, 0) and step.blocks(2048) == 256
+        assert gated_plan(cell, 2048, lanes, 1, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS,
+                          saves=True).launch == "sequence"
+    assert gated_plan(cell, 2048, 9, 1, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS).launch == "sequence"
+    small = gated_plan(cell, 37, 3, 5, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS)
+    assert (small.cluster, small.k_slice, small.blocks(37)) == (1, recurrence.GATED_FWD_CHUNK[cell], 2)
+    with pytest.raises(ValueError, match="too large"):
+        gated_plan(cell, 2048, 64, 32, H100_SMS, 48 * 1024, H100_CLUSTERS)
     with pytest.raises(ValueError, match="positive"):
-        gated_plan(cell, 0, 64, 32, H100_SMEM_OPTIN)
+        gated_plan(cell, 0, 64, 32, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS)
+
+
+def _covered_once(ranges, n) -> bool:
+    """Whether the half-open ranges, cut at n, cover [0, n) each index once."""
+    hits = np.zeros(n, int)
+    for lo, hi in ranges:
+        hits[max(lo, 0):min(hi, n)] += 1
+    return bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("batch,seq", [(1, 1), (8, 1), (64, 1), (96, 3), (64, 32)])
+@pytest.mark.parametrize("hidden", [37, 64, 2048])
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "dh_chain"])
+@pytest.mark.parametrize("cell", CELLS)
+def test_gated_plan_reduces_every_column_once_and_fits(cell, backward, hidden, batch, seq):
+    """Every hidden column, with all its G gates, is reduced by exactly one
+    block, and every k (of H forward, of G H in the dh chain) is in exactly
+    one block's slice of each cluster; the shared memory fits the H100's
+    opt-in and the clusters fit at once. A training forward saves (a
+    sequence launch); an inference forward of one step at 8 rows or fewer
+    takes the one-step GEMV, each hidden column a warp of one block."""
+    g = GATES[cell]
+    for saves in ((False,) if backward else (False, True)):
+        plan = gated_plan(cell, hidden, batch, seq, H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS, backward, saves)
+        assert len(plan.c_args()) == 6
+        if plan.launch == "step":
+            assert not backward and not saves and seq == 1 and batch <= recurrence.GATED_STEP_ROWS
+            assert (plan.cluster, plan.k_slice, plan.cols, plan.stages, plan.smem_bytes) == (1, hidden, 8, 0, 0)
+            blocks = plan.blocks(hidden)
+            assert _covered_once([(b * plan.cols, (b + 1) * plan.cols) for b in range(blocks)], hidden)
+            continue
+        assert plan.launch == "sequence" and plan.cols == recurrence.GATED_COLS["backward" if backward else "forward"]
+        n, cols, ks = plan.cluster, plan.cols, plan.k_slice
+        k_total = g * hidden if backward else hidden
+        clusters = -(-hidden // cols)
+        chunk = recurrence.GATED_BWD_CHUNK if backward else recurrence.GATED_FWD_CHUNK[cell]
+        assert ks % chunk == 0
+        # the reduce slices: block (c, r) whole quads of its cluster's columns
+        slices = [recurrence.gated_reduce_columns(cols, n, r) for r in range(n)]
+        assert all(lo % 4 == 0 and hi % 4 == 0 and hi > lo for lo, hi in slices)
+        assert _covered_once([(c * cols + lo, c * cols + hi) for c in range(clusters) for lo, hi in slices], hidden)
+        # each block's k-slice holds some k, the cluster's slices all of it once
+        assert all(r * ks < k_total for r in range(n))
+        assert _covered_once([(r * ks, (r + 1) * ks) for r in range(n)], k_total)
+        assert plan.smem_bytes == gated_smem_bytes(cell, backward) <= H100_SMEM_OPTIN
+        assert plan.stages == (recurrence.GATED_BWD_STAGES if backward else recurrence.GATED_FWD_STAGES[cell])
+        assert plan.blocks(hidden) == clusters * n <= H100_SMS and clusters <= H100_CLUSTERS[n]
+    with pytest.raises(ValueError, match="too large"):
+        gated_plan(cell, 20_000, batch, max(seq, 2), H100_SMS, H100_SMEM_OPTIN, H100_CLUSTERS, backward, True)
 
 
 def test_profiles_count_the_gated_kernels_as_hand_kernels():
@@ -312,7 +383,7 @@ def test_profiles_count_the_gated_kernels_as_hand_kernels():
 
     src = (kernels.CSRC_DIR / "rnn_gates.cu").read_text()
     names = re.findall(r"__global__ void __launch_bounds__\([^)]*\) (\w+)\(", src)
-    assert sorted(names) == ["gated_bwd_kernel", "gated_fwd_kernel", "gated_step_kernel"]
+    assert sorted(names) == ["gated_bwd_kernel", "gated_fwd_kernel", "gated_step_kernel", "gated_transpose_kernel"]
     for name in names:
         assert kind_of(f"void (anonymous namespace)::{name}<true>((anonymous namespace)::FwdArgs)") == "hand kernels"
 
