@@ -274,10 +274,30 @@ it fails:
    the plain loop on the same inputs, measured on these steps); and the
    policy exported at ``--lanes`` lanes and served bit-equal with the same
    launches per step.
+18. the optimizers and the CLIs, ``hulc`` at full width: each instance of
+   ``csrc/adam_lowp.cu``'s template (B.5's bf16 Adam, B.5''s fp32 Adam,
+   AdamW and SGD) through its optimizer over 3 steps at the model's
+   47,053,559 parameters (one tensor without a gradient) against the
+   plain version from the same state: parameters and moments bit-equal,
+   each norm within GRAD_NORM_RTOL; the B.5' instances timed beside their
+   bound, plain versions and the fused ``torch.optim`` yardsticks. Then the
+   main path, launch counts zeroed just before and read just after: the
+   train CLI in-process (``training.train.main``) on a 200 / 84 px
+   ``--fixture``: AdamW for 3 steps and a relaunch to 5 by
+   ``--steps-total``, SGD for 3, fp32-moment Adam for 3 with the batched
+   rollout callback (64 envs, 64 chains, ep_len 90; ``metrics.jsonl``
+   must log ``eval_lh/avg_seq_len``), the default optimizer for 3 with
+   ``profile_start=1, profile_steps=2`` (its trace must name every train
+   kernel); the evaluate CLI batched over every checkpoint of the AdamW
+   run and sequentially over 4 chains on the SGD run's last, each
+   results.json in JAX's schema; a synthetic reference ``.ckpt`` (the
+   model's state_dict at ``--seed`` + 7 and one buffer the port lacks)
+   imported, its restored parameters bit-equal to the file's, and
+   evaluated batched. Every kernel of these paths must launch.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
 training, evaluator, training-loop, served, mcil, hulc_depth, gated
-decoder and bf16 paths) and, last, ``{"ok": true, "device": {...}}``.
+decoder, bf16 and CLI paths) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -286,6 +306,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -1448,7 +1469,7 @@ def check_adam_steps(sizes, params, grads, lay_out):
     """Two steps from zero moments through the kernel (on the tensors as
     ``lay_out`` places them) and through the plain version: params and
     moments bit-equal."""
-    from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_lowp_update_plain
+    from hulc_tpu_torch.training.optimizers import adam_lowp_update, adam_update_plain
 
     sides = []
     for kernel in (True, False):
@@ -1462,7 +1483,7 @@ def check_adam_steps(sizes, params, grads, lay_out):
                 adam_lowp_update(ps, gs, ms, vs, 0.9, 0.999, 1e-8, -lr, c1, c2)
             else:
                 for p, g, m, v in zip(ps, gs, ms, vs):
-                    adam_lowp_update_plain(p, g, m, v, 0.9, 0.999, 1e-8, -lr, c1, c2)
+                    adam_update_plain(p, g, m, v, 0.9, 0.999, 1e-8, -lr, c1, c2)
         sides.append((ps, ms, vs))
     for what, got, want in zip(("params", "exp_avg", "exp_avg_sq"), sides[0], sides[1]):
         for n, g, w in zip(sizes, got, want):
@@ -1724,7 +1745,7 @@ def time_train_kernels(inp):
     from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq_shift, preprocess_rgb_seq_shift_plain
     from hulc_tpu_torch.ops.logistic_mixture import mixture_nll, mixture_nll_plain
     from hulc_tpu_torch.training.optimizers import (
-        PointerTable, adam_lowp_launch, adam_lowp_update, adam_lowp_update_plain, global_norm, grad_norm_finish,
+        PointerTable, adam_lowp_launch, adam_lowp_update, adam_update_plain, global_norm, grad_norm_finish,
     )
 
     def shift(fn):
@@ -1768,7 +1789,7 @@ def time_train_kernels(inp):
         """The plain optimizer tail: the eager norm, then each tensor's update."""
         global_norm(inp.adam_grads)
         for p, g, m, v in zip(ps, inp.adam_grads, ms, vs):
-            adam_lowp_update_plain(p, g, m, v, 0.9, 0.999, 1e-8, -2e-4, c1, c2)
+            adam_update_plain(p, g, m, v, 0.9, 0.999, 1e-8, -2e-4, c1, c2)
 
     fused_params = [torch.nn.Parameter(p.clone()) for p in inp.params]
     for p, g in zip(fused_params, inp.adam_grads):
@@ -4521,6 +4542,343 @@ def run_bf16(seed, lanes, train_steps, hulc_step_ms, hulc_peak_gb, card):
 
 
 # --------------------------------------------------------------------------
+# phase 18: B.5' (the optimizer instances), the train and evaluate CLIs, the import
+# --------------------------------------------------------------------------
+
+OPTIMIZER_STEPS = 3  # steps each optimizer instance takes from one state, kernel and plain
+# the instances of csrc/adam_lowp.cu's template: the optimizer class, the entry point, the
+# moments, the bytes and operations a parameter (the update and g^2), the JAX line replaced
+OPTIMIZER_INSTANCES = {
+    "adam_lowp": ("AdamLowp", "hulc_adam_lowp", ("exp_avg", "exp_avg_sq"), 20, 14, "hulc_tpu/training/optimizers.py:24"),
+    "adam_fp32": ("Adam", "hulc_adam_fp32", ("exp_avg", "exp_avg_sq"), 28, 14, "hulc_tpu/training/trainer.py:189"),
+    "adamw": ("AdamW", "hulc_adamw", ("exp_avg", "exp_avg_sq"), 28, 16, "hulc_tpu/training/trainer.py:191"),
+    "sgd": ("SGD", "hulc_sgd", ("momentum_buffer",), 20, 4, "hulc_tpu/training/trainer.py:193"),
+}
+# what the train CLI's steps launch (B.5 or a B.5' instance, by --optimizer and
+# --adam-mv-dtype), and what the evaluate CLI's, the rollout's and validation's policy steps do
+CLI_TRAIN_KERNELS = tuple(k for k in TRAIN_KERNELS if k != "hulc_adam_lowp") + tuple(
+    v[1] for v in OPTIMIZER_INSTANCES.values())
+CLI_EVAL_KERNELS = SERVING_KERNELS
+# the kernels a profile window of train steps must name (csrc/ function names)
+PROFILED_TRAIN_KERNELS = (
+    "preprocess_rgb_shift_kernel", "spatial_softmax_kernel", "spatial_softmax_bwd_kernel", "mixture_nll_fwd_kernel",
+    "mixture_nll_bwd_kernel", "plan_st_kl_fwd_kernel", "plan_st_kl_bwd_kernel", "rnn_fwd_kernel", "rnn_bwd_kernel",
+    "adam_lowp_kernel", "grad_norm_finish_kernel",
+)
+PROFILE_RUNS = 2  # the profiler drops some launches of the short kernels: a window that misses one is run again
+CLI_LANES, CLI_CHAINS, CLI_EP_LEN = 64, 64, 90  # the rollout's and the batched evaluations' sizes
+SEQUENTIAL_CHAINS = 4
+IMPORT_EXTRA_KEY = "perceptual_encoder.rgb_static_encoder.spatial_softmax.x_map"  # a buffer the port lacks
+RESULT_KEYS = {"avg_seq_len", "chain_sr", "task_sr", "task_info"}  # JAX's results.json, per epoch
+
+
+def optimizer_state(shapes, seed):
+    """One state at the model's shapes: parameters 0.05 N(0, 1) and the
+    gradients of OPTIMIZER_STEPS steps, 1e-3 N(0, 1), the second tensor
+    without a gradient and every other element of the first zero."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = [0.05 * torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    steps = []
+    for _ in range(OPTIMIZER_STEPS):
+        grads = [1e-3 * torch.randn(s, generator=gen, device="cuda") for s in shapes]
+        grads[1] = None
+        grads[0].view(-1)[::2] = 0.0
+        steps.append(grads)
+    return base, steps
+
+
+def check_optimizer_instances(shapes, seed):
+    """Each instance of B.5's template (B.5, and B.5' for Adam, AdamW and
+    SGD) through its optimizer class over OPTIMIZER_STEPS steps at the
+    model's parameters, against the plain version from the same state:
+    parameters and moments bit-equal, each step's norm within
+    GRAD_NORM_RTOL of the plain ``global_norm``. Returns {name: (max abs
+    err of parameters and moments, the norms' largest relative error)}."""
+    from hulc_tpu_torch.training import optimizers
+
+    base, steps = optimizer_state(shapes, seed)
+    out = {}
+    for name, (cls_name, symbol, moment_keys, *_) in OPTIMIZER_INSTANCES.items():
+        sides = []
+        for use_kernels in (True, False):
+            params = [torch.nn.Parameter(b.clone()) for b in base]
+            sides.append((params, getattr(optimizers, cls_name)(params, lr=2e-4, use_kernels=use_kernels)))
+        (kparams, kopt), (pparams, popt) = sides
+        norm_err = 0.0
+        for grads in steps:
+            for params in (kparams, pparams):
+                for p, g in zip(params, grads):
+                    p.grad = g
+            knorm, pnorm = kopt.step(), popt.step()
+            norm_err = max(norm_err, abs(float(knorm) - float(pnorm)) / float(pnorm))
+        if not norm_err <= GRAD_NORM_RTOL:
+            fail(f"{name}: the kernel's gradient norm is {norm_err:.3g} off the plain global_norm")
+        for kp, pp in zip(kparams, pparams):
+            for what, got, want in [("params", kp, pp)] + [(k, kopt.state[kp][k], popt.state[pp][k]) for k in moment_keys]:
+                if not torch.equal(got, want):
+                    fail(f"{name}: {what} of a {tuple(kp.shape)} tensor not bit-equal to the plain version after "
+                         f"{OPTIMIZER_STEPS} steps (max abs err {max_abs(got, want):.3g})")
+        out[name] = (0.0, norm_err)
+        print(f"[optimizers] {name} ({symbol}): {OPTIMIZER_STEPS} steps over {sum(b.numel() for b in base)} "
+              f"parameters in {len(base)} tensors (one without a gradient) bit-equal to the plain version in params "
+              f"and {', '.join(moment_keys)}; norms within {norm_err:.3g} of the plain global_norm")
+        del sides, kparams, pparams, kopt, popt
+    return out
+
+
+def time_optimizer_instances(shapes, seed, card):
+    """Ms per call by CUDA events (``kernel_times.event_ms``) of each
+    instance's update and finish, of its plain version (the eager norm,
+    then each tensor's update; it waits for the device at each tensor's
+    scalar uploads, so its time is the host's: 2 calls a window) and of the
+    library yardstick (fused ``torch.optim.Adam`` / ``AdamW``,
+    ``SGD(foreach=True)``, each with ``get_total_norm``; never on the path),
+    beside the bound: the bytes a parameter moves (20 for bf16 Adam and
+    SGD, 28 for fp32 Adam and AdamW) and the partials, or the operations.
+    Events, not the profiler: in a long process its windows drop these
+    launches (PERF.md §7)."""
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
+    from hulc_tpu_torch.training import optimizers as o
+
+    base, steps = optimizer_state(shapes, seed)
+    grads = steps[0]
+    n_params = sum(b.numel() for b in base)
+    c1, c2 = o.bias_corrections(0.9, 0.999, 1)
+    out = {}
+    for name, (_, symbol, moment_keys, nbytes, nops, _) in OPTIMIZER_INSTANCES.items():
+        dtype = torch.bfloat16 if name == "adam_lowp" else torch.float32
+        ps = [b.clone() for b in base]
+        moments = [[torch.zeros_like(b, dtype=dtype) for b in base] for _ in moment_keys]
+        table = o.PointerTable()
+        wd = o.ADAMW_WEIGHT_DECAY if name == "adamw" else None
+        if name == "sgd":
+            def kernel():
+                return o.sgd_update(ps, grads, moments[0], o.SGD_MOMENTUM, -2e-4, table)
+
+            def plain():
+                o.global_norm(grads)
+                for p, g, t in zip(ps, grads, moments[0]):
+                    o.sgd_update_plain(p, g, t, o.SGD_MOMENTUM, -2e-4)
+        else:
+            update = o.adam_lowp_update if name == "adam_lowp" else functools.partial(o.adam_update, weight_decay=wd)
+
+            def kernel():
+                return update(ps, grads, *moments, 0.9, 0.999, 1e-8, -2e-4, c1, c2, table)
+
+            def plain():
+                o.global_norm(grads)
+                for p, g, m, v in zip(ps, grads, *moments):
+                    o.adam_update_plain(p, g, m, v, 0.9, 0.999, 1e-8, -2e-4, c1, c2, wd)
+        lib_params = [torch.nn.Parameter(b.clone()) for b in base]
+        lib_grads = [torch.zeros_like(b) if g is None else g for b, g in zip(base, grads)]
+        for p, g in zip(lib_params, lib_grads):
+            p.grad = g
+        library_opt = (torch.optim.SGD(lib_params, lr=2e-4, momentum=o.SGD_MOMENTUM, foreach=True) if name == "sgd"
+                       else torch.optim.AdamW(lib_params, lr=2e-4, weight_decay=wd, fused=True) if name == "adamw"
+                       else torch.optim.Adam(lib_params, lr=2e-4, fused=True))
+
+        def library():
+            torch.nn.utils.get_total_norm(lib_grads)
+            library_opt.step()
+
+        kernel()
+        n_blocks = table.n_blocks
+        ev = [event_ms(plain, 2, 3), event_ms(kernel), event_ms(kernel), event_ms(plain, 2, 3)]
+        bound_ms, bound_by = bound(nbytes * n_params + 8 * n_blocks, nops * n_params)
+        out[name] = {
+            "ms": min(ev[1], ev[2]), "plain_ms": min(ev[0], ev[3]), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": event_ms(library), "call_ms": call_ms(kernel, 20),
+            "n_params": n_params, "blocks": n_blocks, "bytes_per_param": nbytes,
+        }
+        t = out[name]
+        print(f"[timing] {name} ({symbol}) over {n_params} parameters, {n_blocks} blocks: CUDA events, update and "
+              f"finish {t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} ms; bound "
+              f"{bound_ms:.6f} ms ({bound_by}), {100 * bound_ms / t['ms']:.1f}% of the bound; per call with the "
+              f"host's launch cost {t['call_ms']:.5f} ms ({card})")
+        del ps, moments, lib_params, library_opt
+    return out
+
+
+def results_epochs(path, want_chains):
+    """The epochs of a results.json written in JAX's schema, each with its
+    chain success rates 1..5; fails otherwise."""
+    on_disk = json.loads(pathlib.Path(path).read_text())
+    for epoch, r in on_disk.items():
+        if set(r) != RESULT_KEYS or set(r["chain_sr"]) != {"1", "2", "3", "4", "5"}:
+            fail(f"{path}: epoch {epoch} has keys {sorted(r)}, chain_sr {sorted(r['chain_sr'])}")
+        attempts = sum(v["total"] for v in r["task_info"].values())
+        if attempts < want_chains:
+            fail(f"{path}: epoch {epoch} attempted {attempts} instructions over {want_chains} chains")
+    return sorted(int(e) for e in on_disk)
+
+
+def profiled_kernels(trace_path):
+    """{csrc function name: kernels of it} in a Chrome trace."""
+    events = json.loads(pathlib.Path(trace_path).read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in names) for k in PROFILED_TRAIN_KERNELS}
+
+
+def run_clis(seed, card):
+    """Phase 18's main path: the train CLI (``training.train.main``) on a
+    200 / 84 px ``--fixture`` at the ``hulc`` preset's full width with
+    AdamW (3 steps, then a relaunch to 5 with ``--steps-total``), SGD,
+    fp32-moment Adam with the batched rollout callback, and the default
+    optimizer with a profile window; the evaluate CLI
+    (``evaluation.evaluate.main``) batched over every checkpoint of the
+    AdamW run and sequentially over the SGD run's last; a synthetic
+    reference ``.ckpt`` imported (``training.import_checkpoint``) and
+    evaluated. Launch counts are zeroed before and read after."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.evaluation import evaluate
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training import checkpoint as ckpt
+    from hulc_tpu_torch.training import import_checkpoint as importer
+    from hulc_tpu_torch.training import train
+
+    cfg = get_config("hulc")
+    t0 = time.perf_counter()
+    summary = {"train": {}, "evaluate": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clis_") as tmp:
+        tmp = pathlib.Path(tmp)
+        saved_tempdir, tempfile.tempdir = tempfile.tempdir, str(tmp)  # the --fixture datasets go here
+        try:
+            def train_cli(run, *flags):
+                t = time.perf_counter()
+                trainer = train.main(["--config", "hulc", "--fixture", "--run-dir", str(tmp / run), "--seed",
+                                      str(seed), *flags])
+                torch.cuda.synchronize()
+                rec = {"flags": list(flags), "step": trainer.step, "optimizer": trainer.optimizer.KIND,
+                       "epochs": [ckpt.checkpoint_epoch(p) for p in ckpt.all_checkpoints(tmp / run)],
+                       "s": time.perf_counter() - t}
+                del trainer
+                torch.cuda.empty_cache()
+                summary["train"].setdefault(run, []).append(rec)
+                print(f"[clis] train {' '.join(flags)}: step {rec['step']}, {rec['optimizer']}, checkpoints of epochs "
+                      f"{rec['epochs']}, {rec['s']:.1f} s")
+                return rec
+
+            def evaluate_cli(run, *flags):
+                t = time.perf_counter()
+                evaluate.main(["--run-dir", str(tmp / run), "--config", "hulc", "--seed", str(seed), *flags])
+                summary["evaluate"].setdefault(run, []).append({"flags": list(flags), "s": time.perf_counter() - t})
+                return tmp / run / "evaluation" / "results.json"
+
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            if train_cli("adamw", "--optimizer", "adamw", "--steps", "3")["step"] != 3:
+                fail("train CLI: --steps 3 did not take 3 steps")
+            relaunch = train_cli("adamw", "--optimizer", "adamw", "--steps-total", "5")
+            if relaunch["step"] != 5 or relaunch["optimizer"] != "adamw":
+                fail(f"train CLI: the relaunch with --steps-total 5 ended at {relaunch}")
+            if train_cli("sgd", "--optimizer", "sgd", "--steps", "3")["optimizer"] != "sgd":
+                fail("train CLI: --optimizer sgd built another optimizer")
+            rollout = train_cli("rollout", "--adam-mv-dtype", "float32", "--steps", "3", "--rollout",
+                                "--rollout-num-envs", str(CLI_LANES), "--rollout-sequences", str(CLI_CHAINS),
+                                "--rollout-ep-len", str(CLI_EP_LEN))
+            records = [json.loads(x) for x in (tmp / "rollout" / "metrics.jsonl").read_text().splitlines()]
+            rolled = [r for r in records if r["prefix"] == "rollout"]
+            if rollout["optimizer"] != "adam" or not rolled or not all("eval_lh/avg_seq_len" in r for r in rolled):
+                fail(f"train CLI --rollout: optimizer {rollout['optimizer']}, rollout records {rolled}")
+            summary["rollout_records"] = rolled
+
+            profile_counts = None
+            for attempt in range(PROFILE_RUNS):
+                args = train.build_parser().parse_args(["--config", "hulc", "--fixture", "--steps", "3", "--run-dir",
+                                                        str(tmp / f"profile{attempt}"), "--seed", str(seed)])
+                run = train.build_run(args)
+                run.trainer.tcfg.profile_start, run.trainer.tcfg.profile_steps = 1, 2
+                run.trainer.fit(run.train_loader, run.val_loader, **run.fit_kwargs)
+                traces = sorted((tmp / f"profile{attempt}" / "profile").glob("*.json"))
+                del run
+                torch.cuda.empty_cache()
+                if [t.name for t in traces] != ["trace_steps_1-2.json"]:
+                    fail(f"train profile window: traces {traces}, not trace_steps_1-2.json")
+                profile_counts = profiled_kernels(traces[0])
+                if all(profile_counts.values()):
+                    break
+                print(f"[clis] the profile window of steps 1-2 lost every launch of a kernel: {profile_counts}; "
+                      f"running it again")
+            else:
+                fail(f"train profile window: a train kernel is missing from the trace: {profile_counts}")
+            summary["profile_window"] = {"steps": [1, 2], "kernels": profile_counts, "runs": attempt + 1}
+            print(f"[clis] profile_start=1, profile_steps=2: trace_steps_1-2.json names every train kernel "
+                  f"({profile_counts})")
+            torch.cuda.synchronize()
+            train_launches = launch_counts()
+
+            epochs = results_epochs(evaluate_cli("adamw", "--batched", "--num-envs", str(CLI_LANES), "--num-sequences",
+                                                 str(CLI_CHAINS), "--ep-len", str(CLI_EP_LEN), "--checkpoint", "all"),
+                                    CLI_CHAINS)
+            if epochs != relaunch["epochs"]:
+                fail(f"evaluate --checkpoint all: results for epochs {epochs}, checkpoints {relaunch['epochs']}")
+            seq_epochs = results_epochs(evaluate_cli("sgd", "--num-sequences", str(SEQUENTIAL_CHAINS)),
+                                        SEQUENTIAL_CHAINS)
+            if seq_epochs != summary["train"]["sgd"][-1]["epochs"][-1:]:
+                fail(f"evaluate (sequential, last): results for epochs {seq_epochs}")
+
+            source = {k: v.cpu() for k, v in make_model(cfg, "cuda", seed=seed + 7).state_dict().items()}
+            ckpt_file = tmp / "reference" / "epoch=3.ckpt"
+            ckpt_file.parent.mkdir()
+            torch.save({"state_dict": {**source, IMPORT_EXTRA_KEY: torch.zeros(3)}, "epoch": 3}, ckpt_file)
+            path, unused = importer.import_checkpoint(ckpt_file, cfg, tmp / "imported")
+            if unused != [IMPORT_EXTRA_KEY] or ckpt.checkpoint_epoch(path) != 3:
+                fail(f"import: unused keys {unused}, checkpoint {path}")
+            template = make_model(cfg, "cuda", seed=seed).state_dict()
+            restored = ckpt.restore_params(path, template)
+            if not all(torch.equal(restored[k].cpu(), v) for k, v in source.items()) or set(restored) != set(source):
+                fail("import: the restored parameters are not the .ckpt's bit for bit")
+            del template, restored
+            imported_epochs = results_epochs(evaluate_cli("imported", "--batched", "--num-envs", str(CLI_LANES),
+                                                          "--num-sequences", str(CLI_CHAINS), "--ep-len",
+                                                          str(CLI_EP_LEN)), CLI_CHAINS)
+            if imported_epochs != [3]:
+                fail(f"evaluate on the imported run: epochs {imported_epochs}")
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            summary["import"] = {"parameters": sum(v.numel() for v in source.values()), "unused": unused,
+                                 "restored_bit_equal": True}
+            for run in ("adamw", "sgd", "imported"):
+                summary["evaluate"][run][-1]["results"] = json.loads(
+                    (tmp / run / "evaluation" / "results.json").read_text())
+        finally:
+            tempfile.tempdir = saved_tempdir
+    eval_launches = {k: launches[k] - train_launches[k] for k in launches}
+    print(f"[clis] launches: train CLIs {train_launches}; evaluate CLIs and the import {eval_launches}")
+    if not all(train_launches[k] > 0 for k in CLI_TRAIN_KERNELS + CLI_EVAL_KERNELS):
+        fail(f"a kernel of the train CLIs' path was never launched: {train_launches}")
+    if not all(eval_launches[k] > 0 for k in CLI_EVAL_KERNELS) or any(
+            eval_launches[k] for k in CLI_TRAIN_KERNELS if k not in CLI_EVAL_KERNELS):
+        fail(f"the evaluate CLI's launches are not the serving kernels': {eval_launches}")
+    summary.update(launches_train=train_launches, launches_evaluate=eval_launches, phase_s=time.perf_counter() - t0,
+                   card=card)
+    print(f"[clis] done in {summary['phase_s']:.1f} s ({card})")
+    return summary, launches
+
+
+def run_phase18(seed, card):
+    """B.5' held and timed, then the CLIs' main path; returns (summary,
+    launches, errs, timing)."""
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.models import make_model
+
+    shapes = [p.shape for p in make_model(get_config("hulc"), "cuda", seed=seed).parameters()]
+    if sum(int(np.prod(s)) for s in shapes) != HULC_PARAMS:
+        fail(f"hulc has {sum(int(np.prod(s)) for s in shapes)} parameters, not {HULC_PARAMS}")
+    t0 = time.perf_counter()
+    checks = check_optimizer_instances(shapes, seed + 18)
+    timing = time_optimizer_instances(shapes, seed + 19, card)
+    torch.cuda.empty_cache()
+    print(f"[optimizers] checked and timed in {time.perf_counter() - t0:.1f} s")
+    summary, launches = run_clis(seed, card)
+    summary["optimizer_norm_rel_err"] = {k: v[1] for k, v in checks.items()}
+    summary["adam_lowp_events"] = timing.pop("adam_lowp")  # B.5 by events, beside its row's profiler time
+    errs = {k: v[0] for k, v in checks.items() if k != "adam_lowp"}
+    return summary, launches, errs, timing
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -4577,6 +4935,9 @@ KERNEL_INFO = {
     "spatial_softmax_bwd_bf16": (
         "hulc_spatial_softmax_bwd_bf16", "hulc_tpu_torch/csrc/spatial_softmax.cu", "hulc_tpu/models/vision.py:38",
     ),
+    # B.5': the other instances of B.5's template (phase 18)
+    **{name: (symbol, "hulc_tpu_torch/csrc/adam_lowp.cu", replaces)
+       for name, (_, symbol, _, _, _, replaces) in OPTIMIZER_INSTANCES.items() if name != "adam_lowp"},
 }
 
 
@@ -4617,6 +4978,7 @@ def main(argv=None) -> int:
     if args.train_steps < 3:
         fail("--train-steps must be at least 3: two warm-up steps and one timed")
 
+    t_start = time.perf_counter()  # the phases' start times go to the log, for the run's time budget
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         fail("CUDA is not available; this script runs the port on an NVIDIA GPU")
@@ -4635,6 +4997,7 @@ def main(argv=None) -> int:
     from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
     from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
+    print(f"[time] phase 2 at {time.perf_counter() - t_start:.1f} s")
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     lib_path = kernels.build()
@@ -4657,6 +5020,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     train_batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, args.seed, "cuda")
 
+    print(f"[time] phase 3 at {time.perf_counter() - t_start:.1f} s")
     # ---- 3. kernels against plain versions ---------------------------------
     errs = check_kernels(model, cfg, (1, args.lanes), rng)
     print(f"[kernels] serving kernels agree with their plain versions at 1 and {args.lanes} lanes: "
@@ -4682,6 +5046,7 @@ def main(argv=None) -> int:
         fail(f"the recurrence's step shape {(DECODER_ROWS, DECODER_SEQ)} is not the train step's")
     errs["rnn_relu_fwd"], errs["rnn_relu_bwd"] = check_recurrence(model, args.seed)
 
+    print(f"[time] phase 4-5 at {time.perf_counter() - t_start:.1f} s")
     # ---- 4-5. serving main path ------------------------------------------------
     lang = rng.normal(size=384).astype(np.float32)
     single_obs = make_obs(rng, cfg, args.steps)
@@ -4699,6 +5064,7 @@ def main(argv=None) -> int:
     check_actions("single lane", single_actions, 1)
     check_actions("batched", batched_actions, args.lanes)
 
+    print(f"[time] phase 6 at {time.perf_counter() - t_start:.1f} s")
     # ---- 6. serving plain path -------------------------------------------------
     p_actions, p_plans = plain_single(cfg, plain_model, single_obs, lang, args.seed, single_states)
     k_plans = np.stack([s.plan[0].cpu().numpy() for s in single_states[1:]])
@@ -4712,6 +5078,7 @@ def main(argv=None) -> int:
     replanned = np.stack(masks)
     compare_plain("batched", batched_actions, p_actions, k_plans, p_plans, replanned, cfg)
 
+    print(f"[time] phase 7 at {time.perf_counter() - t_start:.1f} s")
     # ---- 7. serving timing -------------------------------------------------------
     single_ms, batched_ms = time_policy(cfg, model, rng, args.lanes)
     print(f"[timing] policy step (entry point, host clock, median): 1 lane {single_ms:.4f} ms, "
@@ -4722,6 +5089,7 @@ def main(argv=None) -> int:
         t["library_ms"] = None  # no one PyTorch call computes these functions
     del plain_model
 
+    print(f"[time] phase 8 at {time.perf_counter() - t_start:.1f} s")
     # ---- 8. training main path ---------------------------------------------------
     trainer = Trainer(cfg, TrainerConfig(seed=args.seed), "cuda")
     trainer.init_state(1)
@@ -4749,6 +5117,7 @@ def main(argv=None) -> int:
           f"all steps host {[round(t, 4) for t in host]} ms; peak memory {peak_gb:.2f} GB ({card})")
     del trainer
 
+    print(f"[time] phase 9 at {time.perf_counter() - t_start:.1f} s")
     # ---- 9. training plain path --------------------------------------------------
     train_check = compare_train_plain(cfg, model, train_batch, args.seed)
 
@@ -4766,6 +5135,7 @@ def main(argv=None) -> int:
         fail("the train step with a learnable temperature never launched the backward kernel")
     del learn_model
 
+    print(f"[time] phase 10 at {time.perf_counter() - t_start:.1f} s")
     # ---- 10. training timing -----------------------------------------------------
     timing.update(time_train_kernels(train_inputs))
     timing.update(time_recurrence(model, args.seed))
@@ -4790,7 +5160,9 @@ def main(argv=None) -> int:
                "preprocess_rgb_shift_kernel<__nv_bfloat16>", "spatial_softmax_kernel<__nv_bfloat16>",
                "spatial_softmax_bwd_kernel<__nv_bfloat16>", "spatial_softmax_temperature_grad_kernel",
                "mixture_nll_fwd_kernel",
-               "mixture_nll_bwd_kernel", "adam_lowp_kernel", "grad_norm_finish_kernel", "rnn_fwd_kernel<false>",
+               "mixture_nll_bwd_kernel", "adam_lowp_kernel<__nv_bfloat16, 0>", "adam_lowp_kernel<float, 0>",
+               "adam_lowp_kernel<float, 1>", "adam_lowp_kernel<float, 2>", "grad_norm_finish_kernel",
+               "rnn_fwd_kernel<false>",
                "rnn_bwd_kernel<false>", "rnn_step_kernel<false>", "rnn_fwd_kernel<true>", "rnn_bwd_kernel<true>",
                "rnn_step_kernel<true>", "logistic_mixture_sample_kernel",
                "plan_st_kl_fwd_kernel<true>", "plan_st_kl_fwd_kernel<false>", "plan_st_kl_bwd_kernel<true>",
@@ -4804,10 +5176,12 @@ def main(argv=None) -> int:
               f"k-slice {plan.k_slice}, {plan.smem_bytes} B dynamic shared memory per block, one block per SM, "
               f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
+    print(f"[time] phase 11 at {time.perf_counter() - t_start:.1f} s")
     # ---- 11. the LH-MTLC evaluator -------------------------------------------
     evaluator, eval_batched, eval_seq = run_evaluator(cfg, model, args.seed, card)
     eval_launches = {k: eval_batched[k] + eval_seq[k] for k in eval_batched}
 
+    print(f"[time] phase 12 at {time.perf_counter() - t_start:.1f} s")
     # ---- 12. the training loop -----------------------------------------------
     del model, train_inputs, train_batch
     torch.cuda.empty_cache()
@@ -4815,6 +5189,7 @@ def main(argv=None) -> int:
     errs["preprocess_rgb"] = max(errs["preprocess_rgb"], *(t["max_abs_err"] for t in window.values()))
     timing["preprocess_rgb_window"], timing["preprocess_rgb_gripper_window"] = window["rgb_static"], window["rgb_gripper"]
 
+    print(f"[time] phase 13 at {time.perf_counter() - t_start:.1f} s")
     # ---- 13. the serving export ----------------------------------------------
     model = make_model(cfg, "cuda", seed=args.seed)
     serving_export, served_launches = run_serving_export(
@@ -4823,21 +5198,25 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
 
+    print(f"[time] phase 14 at {time.perf_counter() - t_start:.1f} s")
     # ---- 14. mcil at full width ----------------------------------------------
     mcil, mcil_launches, mcil_errs, mcil_timing = run_mcil(args.seed, args.lanes, args.train_steps, card)
     errs.update({k: max(errs.get(k, 0.0), v) for k, v in mcil_errs.items()})
     timing.update(mcil_timing)
 
+    print(f"[time] phase 15 at {time.perf_counter() - t_start:.1f} s")
     # ---- 15. hulc_depth at full width ----------------------------------------
     depth, depth_launches, depth_errs, depth_timing = run_depth(args.seed, args.train_steps, card)
     errs.update({k: max(errs.get(k, 0.0), v) for k, v in depth_errs.items()})
     timing.update(depth_timing)
 
+    print(f"[time] phase 16 at {time.perf_counter() - t_start:.1f} s")
     # ---- 16. the decoder's gru and lstm cells at full width ------------------
     gated, gated_launches, gated_errs, gated_timing = run_gated(args.seed, args.lanes, step_ms, card)
     errs.update(gated_errs)
     timing.update(gated_timing)
 
+    print(f"[time] phase 17 at {time.perf_counter() - t_start:.1f} s")
     # ---- 17. hulc in bf16 at full width --------------------------------------
     bf16, bf16_launches, bf16_errs, bf16_timing = run_bf16(args.seed, args.lanes, args.train_steps, step_ms, peak_gb,
                                                            card)
@@ -4845,18 +5224,28 @@ def main(argv=None) -> int:
     timing.update(bf16_timing)
     timing["preprocess_rgb_bf16"] = timing.pop("preprocess_rgb_bf16_window")
 
+    print(f"[time] phase 18 at {time.perf_counter() - t_start:.1f} s")
+    # ---- 18. B.5' and the train and evaluate CLIs at full width ---------------
+    clis, clis_launches, clis_errs, clis_timing = run_phase18(args.seed, card)
+    errs.update(clis_errs)
+    timing.update(clis_timing)
+    # B.5's row by events too: the profiler's window (phase 10) drops some of its launches and reads short
+    b5 = clis["adam_lowp_events"]
+    timing["adam_lowp"].update(profiler_ms=timing["adam_lowp"]["ms"], ms=b5["ms"], event_plain_ms=b5["plain_ms"],
+                               event_library_ms=b5["library_ms"])
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
             + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol]
-            + gated_launches[symbol] + bf16_launches[symbol],
+            + gated_launches[symbol] + bf16_launches[symbol] + clis_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
             "launches_depth": depth_launches[symbol], "launches_gated": gated_launches[symbol],
-            "launches_bf16": bf16_launches[symbol],
+            "launches_bf16": bf16_launches[symbol], "launches_clis": clis_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -4870,9 +5259,10 @@ def main(argv=None) -> int:
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
-        "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16,
+        "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16, "clis": clis,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
+    print(f"[time] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -182,6 +182,11 @@ _SIGNATURES = {
     "hulc_plan_st_kl_fwd": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F32, _F32),
     "hulc_plan_st_kl_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32),
     "hulc_adam_lowp": (_P, _I32, _I32, _I32, _I64, _I64, _I64, _P, _P, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32),
+    # B.5', the other instances of B.5's template: fp32 moments; adamw adds the
+    # weight decay; sgd takes the momentum and the negated learning rate
+    "hulc_adam_fp32": (_P, _I32, _I32, _I32, _I64, _I64, _I64, _P, _P, _F32, _F32, _F32, _F32, _F32, _F32, _F32, _F32),
+    "hulc_adamw": (_P, _I32, _I32, _I32, _I64, _I64, _I64, _P, _P, *(_F32,) * 9),
+    "hulc_sgd": (_P, _I32, _I32, _I32, _I64, _I64, _I64, _P, _P, _F32, _F32),
     "hulc_grad_norm_finish": (_P, _I64, _P),
     # the sizes, then ops.recurrence.RecurrencePlan's five fields
     "hulc_rnn_relu_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 8),
@@ -314,6 +319,9 @@ PLAN_ST_KL_FWD = Kernel("hulc_plan_st_kl_fwd")
 PLAN_ST_KL_BWD = Kernel("hulc_plan_st_kl_bwd")
 ADAM_LOWP = Kernel("hulc_adam_lowp")
 GRAD_NORM_FINISH = Kernel("hulc_grad_norm_finish")
+ADAM_FP32 = Kernel("hulc_adam_fp32")
+ADAMW = Kernel("hulc_adamw")
+SGD = Kernel("hulc_sgd")
 RNN_RELU_FWD = Kernel("hulc_rnn_relu_fwd")
 RNN_RELU_BWD = Kernel("hulc_rnn_relu_bwd")
 RNN_TANH_FWD = Kernel("hulc_rnn_tanh_fwd")
@@ -337,6 +345,7 @@ ALL_KERNELS = (
     ADAM_LOWP, GRAD_NORM_FINISH, RNN_RELU_FWD, RNN_RELU_BWD, RNN_TANH_FWD, RNN_TANH_BWD,
     BIRNN_TANH_FWD, BIRNN_TANH_BWD, DEPTH_NOISE, RNN_GRU_FWD, RNN_GRU_BWD, RNN_LSTM_FWD, RNN_LSTM_BWD,
     PREPROCESS_RGB_BF16, PREPROCESS_RGB_SHIFT_BF16, SPATIAL_SOFTMAX_BF16, SPATIAL_SOFTMAX_BWD_BF16,
+    ADAM_FP32, ADAMW, SGD,
 )
 
 

@@ -1,32 +1,46 @@
-"""Adam with bf16-stored moments (port of hulc_tpu/training/optimizers.py:24-87),
+"""The optimizers of the JAX trainer (hulc_tpu/training/trainer.py:183-194)
 and the global gradient norm (hulc_tpu/training/trainer.py:258).
 
-``AdamLowp`` is ``optax.chain(scale_by_adam_lowp(), scale_by_learning_rate(lr))``
-as a ``torch.optim.Optimizer``: the two moment buffers are stored in
-bfloat16 while every update is computed in fp32, in the optax order
+Each is an optax chain ending in ``scale_by_learning_rate(lr)``, as a
+``torch.optim.Optimizer`` whose ``step()`` returns ``optax.global_norm`` of
+the gradients it applied (0-d fp32 on the parameters' device):
 
-    m' = m * b1 + (1 - b1) * g           v' = v * b2 + (1 - b2) * (g * g)
-    p' = p + (-lr) * ((m' / c1) / (sqrt(v' / c2) + eps))
+* ``AdamLowp``: ``scale_by_adam_lowp()`` (hulc_tpu/training/optimizers.py:24-87),
+  Adam with its two moments stored in bfloat16, the JAX trainer's default;
+* ``Adam``: ``optax.adam``, the same with fp32 moments (``adam_mv_dtype=float32``);
+* ``AdamW``: ``optax.adamw(lr, weight_decay=1e-6)``: ``scale_by_adam``, then
+  ``add_decayed_weights`` (every tensor decays), then the learning rate;
+* ``SGD``: ``optax.sgd(lr, momentum=0.9)``: ``trace(decay=0.9)``, then the
+  learning rate.
+
+Every update is computed in fp32, in the optax order
+
+    adam:  m' = m * b1 + (1 - b1) * g        v' = v * b2 + (1 - b2) * (g * g)
+           p' = p + (-lr) * ((m' / c1) / (sqrt(v' / c2) + eps))
+    adamw: p' = p + (-lr) * ((m' / c1) / (sqrt(v' / c2) + eps) + wd * p)
+    sgd:   t' = g + momentum * t              p' = p + (-lr) * t'
 
 with c1 = 1 - b1^t, c2 = 1 - b2^t at step t (from 1) and lr the schedule's
-value at t - 1; m' and v' are rounded to bf16 on write-back. ``step()``
-returns ``optax.global_norm`` of the gradients it applied (0-d fp32 on the
-parameters' device). On CUDA parameters one launch of the hand-written
-kernel ``csrc/adam_lowp.cu`` updates every tensor of a parameter group and
-writes per-block sums of g^2, which a second, one-block launch reduces to
-the norm. The Adam launch reads a device table of the parameters' and
-moments' addresses that is built, and uploaded from pinned memory, only
-when one of them or a size changes (``PointerTable``), and takes the
-gradients' addresses, which autograd changes every step, by value. On CPU
-parameters (or with ``use_kernels=False``) the plain versions below run
-tensor by tensor. A parameter without a gradient is updated with a zero
-gradient, as optax updates every leaf.
+value at t - 1 (optax's ``scale_by_schedule`` reads the count before the
+step); AdamLowp rounds m' and v' to bf16 on write-back. On CUDA parameters
+one launch of the hand-written kernel ``csrc/adam_lowp.cu`` (an instance of
+its template per optimizer: B.5 for AdamLowp, B.5' for the others) updates
+every tensor of a parameter group and writes per-block sums of g^2, which a
+second, one-block launch reduces to the norm. The update launch reads a
+device table of the parameters' and moments' addresses that is built, and
+uploaded from pinned memory, only when one of them or a size changes
+(``PointerTable``), and takes the gradients' addresses, which autograd
+changes every step, by value. On CPU parameters (or with
+``use_kernels=False``) the plain versions below run tensor by tensor. A
+parameter without a gradient is updated with a zero gradient, as optax
+updates every leaf. ``checkpoint_state()`` names the optimizer's kind, and
+``load_checkpoint_state`` refuses the state of another kind.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -37,8 +51,10 @@ Schedule = Union[float, Callable[[int], float]]
 ELEMS_PER_BLOCK = 8192  # elements of one tensor per block of the kernel's grid
 MAX_GRADS_PER_LAUNCH = 448  # gradient addresses one launch takes by value (csrc/adam_lowp.cu kMaxGrads)
 FINISH_THREADS = 1024  # threads of the one-block finish launch (csrc/adam_lowp.cu kFinishThreads)
-# the record_function span around AdamLowp.step, so a profile can find the optimizer tail
+# the record_function span around every optimizer's step, so a profile can find the optimizer tail
 OPTIMIZER_SPAN = "hulc::adam_lowp_step"
+ADAMW_WEIGHT_DECAY = 1e-6  # the JAX trainer's optax.adamw(weight_decay=1e-6)
+SGD_MOMENTUM = 0.9  # the JAX trainer's optax.sgd(momentum=0.9)
 
 
 def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
@@ -52,23 +68,37 @@ def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
     return c(b1), c(b2)
 
 
-def adam_lowp_update_plain(
+def adam_update_plain(
     p: torch.Tensor, g: Optional[torch.Tensor], m: torch.Tensor, v: torch.Tensor,
-    b1: float, b2: float, eps: float, neg_lr: float, c1: float, c2: float,
+    b1: float, b2: float, eps: float, neg_lr: float, c1: float, c2: float, weight_decay: Optional[float] = None,
 ) -> None:
-    """Plain PyTorch version of one tensor's update, in place; a ``None``
-    gradient is zeros. The bias corrections divide as device tensors:
-    dividing by a Python scalar may run as a multiply by its reciprocal,
-    which is not the optax division."""
+    """Plain PyTorch version of one tensor's Adam update (AdamW's with
+    ``weight_decay``), in place; the moments are stored back in their own
+    dtype (bf16 for AdamLowp, fp32 for Adam and AdamW); a ``None`` gradient
+    is zeros. The bias corrections divide as device tensors: dividing by a
+    Python scalar may run as a multiply by its reciprocal, which is not the
+    optax division."""
     c1_t = torch.tensor(c1, dtype=torch.float32, device=p.device)
     c2_t = torch.tensor(c2, dtype=torch.float32, device=p.device)
     g32 = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
     m32 = m.float() * b1 + (1.0 - b1) * g32
     v32 = v.float() * b2 + (1.0 - b2) * (g32 * g32)
     u = (m32 / c1_t) / (torch.sqrt(v32 / c2_t) + eps)
+    if weight_decay is not None:
+        u = u + weight_decay * p
     p.add_(u * neg_lr)
     m.copy_(m32.to(m.dtype))
     v.copy_(v32.to(v.dtype))
+
+
+def sgd_update_plain(p: torch.Tensor, g: Optional[torch.Tensor], t: torch.Tensor, momentum: float, neg_lr: float) -> None:
+    """Plain PyTorch version of one tensor's SGD-with-momentum update, in
+    place (``optax.trace`` without Nesterov, then the learning rate); a
+    ``None`` gradient is zeros."""
+    g32 = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+    t32 = g32 + momentum * t
+    p.add_(t32 * neg_lr)
+    t.copy_(t32)
 
 
 def global_norm(tensors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
@@ -108,20 +138,25 @@ def block_ranges(numel: int, head: int) -> List[Tuple[int, int]]:
             for j in range(nb)]
 
 
+def _address(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def pointer_table_rows(
-    params: List[torch.Tensor], ms: List[torch.Tensor], vs: List[torch.Tensor]
+    params: List[torch.Tensor], ms: List[torch.Tensor], vs: List[Optional[torch.Tensor]]
 ) -> Tuple[List[List[int]], int]:
     """The kernel's table, one row per tensor with elements, (p, m, v
-    addresses, numel, head, first block), the head from p's address
-    (``vector_head``) and the first block counting the blocks of the rows
-    before it; and the number of blocks of all of them."""
+    addresses, numel, head, first block; v 0 where there is none, as for
+    SGD), the head from p's address (``vector_head``) and the first block
+    counting the blocks of the rows before it; and the number of blocks of
+    all of them."""
     rows, first_block = [], 0
     for p, m, v in zip(params, ms, vs):
         n = p.numel()
         if n == 0:
             continue
         head = vector_head(p.data_ptr(), n)
-        rows.append([p.data_ptr(), m.data_ptr(), v.data_ptr(), n, head, first_block])
+        rows.append([p.data_ptr(), m.data_ptr(), _address(v), n, head, first_block])
         first_block += blocks_of(n, head)
     return rows, first_block
 
@@ -141,7 +176,7 @@ class PointerTable:
 
     def get(self, params, ms, vs) -> torch.Tensor:
         dev = params[0].device
-        key = (dev, *((p.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel()) for p, m, v in zip(params, ms, vs)))
+        key = (dev, *((p.data_ptr(), m.data_ptr(), _address(v), p.numel()) for p, m, v in zip(params, ms, vs)))
         if key != self.key:
             rows, n_blocks = pointer_table_rows(params, ms, vs)
             blocks = [i for i, row in enumerate(rows) for _ in range(blocks_of(row[3], row[4]))]
@@ -204,15 +239,16 @@ def grad_norm_finish_plain(partials: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_tensors(params, grads, ms, vs) -> torch.device:
+def _check_tensors(params, grads, ms, vs, moment_dtype: torch.dtype) -> torch.device:
     dev = params[0].device
     for p, g, m, v in zip(params, grads, ms, vs):
         kernels.require_cuda_tensor("param", p, torch.float32)
         if g is not None:
             kernels.require_cuda_tensor("grad", g, torch.float32)
-        kernels.require_cuda_tensor("exp_avg", m, torch.bfloat16)
-        kernels.require_cuda_tensor("exp_avg_sq", v, torch.bfloat16)
-        if not all(t.shape == p.shape and t.device == dev for t in (m, v) + (() if g is None else (g,))):
+        kernels.require_cuda_tensor("exp_avg", m, moment_dtype)
+        if v is not None:
+            kernels.require_cuda_tensor("exp_avg_sq", v, moment_dtype)
+        if not all(t.shape == p.shape and t.device == dev for t in (m, v, g) if t is not None):
             raise ValueError("param, grad and moments must share a shape and a device")
         for name, t in (("param", p), ("grad", g), ("exp_avg", m), ("exp_avg_sq", v)):
             if t is not None and t.data_ptr() % t.element_size():
@@ -223,28 +259,65 @@ def _check_tensors(params, grads, ms, vs) -> torch.device:
     return dev
 
 
+def _launch(
+    kernel: kernels.Kernel, consts: Sequence[float], params: List[torch.Tensor], grads: List[Optional[torch.Tensor]],
+    ms: List[torch.Tensor], vs: List[Optional[torch.Tensor]], moment_dtype: torch.dtype, table: Optional[PointerTable],
+) -> torch.Tensor:
+    """``kernel`` (an instance of csrc/adam_lowp.cu's template) over all the
+    tensors (CUDA, fp32 params and grads, moments of ``moment_dtype``, each
+    contiguous and all at one phase modulo 4 elements; a ``None`` grad is
+    zeros), in place: one launch per MAX_GRADS_PER_LAUNCH tensors, each
+    taking ``consts`` after the gradients' addresses. Returns the per-block
+    sums of g^2 (fp64, one per block of ``table``'s plan). ``table`` caches
+    the pointer table across calls."""
+    dev = _check_tensors(params, grads, ms, vs, moment_dtype)
+    table = PointerTable() if table is None else table
+    buf = table.get(params, ms, vs)
+    partials = torch.empty(table.n_blocks, dtype=torch.float64, device=dev)
+    grad_ptrs = [_address(g) for p, g in zip(params, grads) if p.numel()]
+    for r0 in range(0, table.n_tensors, MAX_GRADS_PER_LAUNCH):
+        r1 = min(r0 + MAX_GRADS_PER_LAUNCH, table.n_tensors)
+        blk0, blk1 = table.first_blocks[r0], table.first_blocks[r1]
+        kernel(dev, buf.data_ptr(), table.n_tensors, r0, r1 - r0, blk0, blk1 - blk0, ELEMS_PER_BLOCK,
+               partials.data_ptr(), (ctypes.c_longlong * (r1 - r0))(*grad_ptrs[r0:r1]), *consts)
+    return partials
+
+
+def _adam_consts(b1, b2, eps, neg_lr, c1, c2) -> Tuple[float, ...]:
+    return (b1, 1.0 - b1, b2, 1.0 - b2, eps, neg_lr, c1, c2)
+
+
 def adam_lowp_launch(
     params: List[torch.Tensor], grads: List[Optional[torch.Tensor]], ms: List[torch.Tensor], vs: List[torch.Tensor],
     b1: float, b2: float, eps: float, neg_lr: float, c1: float, c2: float, table: Optional[PointerTable] = None,
 ) -> torch.Tensor:
-    """``hulc_adam_lowp`` over all the tensors (CUDA, fp32 params and grads,
-    bf16 moments, each contiguous and the four at one phase modulo 4
-    elements; a ``None`` grad is zeros), in place: one launch per
-    MAX_GRADS_PER_LAUNCH tensors. Returns the per-block sums of g^2 (fp64,
-    one per block of ``table``'s plan). ``table`` caches the pointer table
-    across calls."""
-    dev = _check_tensors(params, grads, ms, vs)
-    table = PointerTable() if table is None else table
-    buf = table.get(params, ms, vs)
-    partials = torch.empty(table.n_blocks, dtype=torch.float64, device=dev)
-    grad_ptrs = [0 if g is None else g.data_ptr() for p, g in zip(params, grads) if p.numel()]
-    for r0 in range(0, table.n_tensors, MAX_GRADS_PER_LAUNCH):
-        r1 = min(r0 + MAX_GRADS_PER_LAUNCH, table.n_tensors)
-        blk0, blk1 = table.first_blocks[r0], table.first_blocks[r1]
-        kernels.ADAM_LOWP(dev, buf.data_ptr(), table.n_tensors, r0, r1 - r0, blk0, blk1 - blk0, ELEMS_PER_BLOCK,
-                          partials.data_ptr(), (ctypes.c_longlong * (r1 - r0))(*grad_ptrs[r0:r1]),
-                          b1, 1.0 - b1, b2, 1.0 - b2, eps, neg_lr, c1, c2)
-    return partials
+    """``hulc_adam_lowp`` (B.5: Adam, bf16 moments) over all the tensors, in
+    place; returns the per-block sums of g^2 (``_launch``)."""
+    return _launch(kernels.ADAM_LOWP, _adam_consts(b1, b2, eps, neg_lr, c1, c2), params, grads, ms, vs,
+                   torch.bfloat16, table)
+
+
+def adam_launch(
+    params: List[torch.Tensor], grads: List[Optional[torch.Tensor]], ms: List[torch.Tensor], vs: List[torch.Tensor],
+    b1: float, b2: float, eps: float, neg_lr: float, c1: float, c2: float, table: Optional[PointerTable] = None,
+    weight_decay: Optional[float] = None,
+) -> torch.Tensor:
+    """``hulc_adam_fp32`` (Adam, fp32 moments) or, with ``weight_decay``,
+    ``hulc_adamw`` over all the tensors, in place; returns the per-block
+    sums of g^2 (``_launch``)."""
+    consts = _adam_consts(b1, b2, eps, neg_lr, c1, c2)
+    if weight_decay is None:
+        return _launch(kernels.ADAM_FP32, consts, params, grads, ms, vs, torch.float32, table)
+    return _launch(kernels.ADAMW, (*consts, weight_decay), params, grads, ms, vs, torch.float32, table)
+
+
+def sgd_launch(
+    params: List[torch.Tensor], grads: List[Optional[torch.Tensor]], ts: List[torch.Tensor], momentum: float,
+    neg_lr: float, table: Optional[PointerTable] = None,
+) -> torch.Tensor:
+    """``hulc_sgd`` (fp32 trace) over all the tensors, in place; returns the
+    per-block sums of g^2 (``_launch``)."""
+    return _launch(kernels.SGD, (momentum, neg_lr), params, grads, ts, [None] * len(ts), torch.float32, table)
 
 
 def grad_norm_finish(partials: torch.Tensor) -> torch.Tensor:
@@ -265,88 +338,191 @@ def adam_lowp_update(
     return grad_norm_finish(adam_lowp_launch(params, grads, ms, vs, b1, b2, eps, neg_lr, c1, c2, table))
 
 
-class AdamLowp(torch.optim.Optimizer):
-    """Adam with bf16-stored moments and fp32 math; ``lr`` is a float or a
-    schedule (step count -> float), as optax takes it."""
+def adam_update(
+    params: List[torch.Tensor], grads: List[Optional[torch.Tensor]], ms: List[torch.Tensor], vs: List[torch.Tensor],
+    b1: float, b2: float, eps: float, neg_lr: float, c1: float, c2: float, table: Optional[PointerTable] = None,
+    weight_decay: Optional[float] = None,
+) -> torch.Tensor:
+    """``adam_launch`` and the finish: the update and the global norm."""
+    return grad_norm_finish(adam_launch(params, grads, ms, vs, b1, b2, eps, neg_lr, c1, c2, table, weight_decay))
 
-    def __init__(
-        self,
-        params: Iterable,
-        lr: Schedule = 2e-4,
-        betas: Tuple[float, float] = (0.9, 0.999),
-        eps: float = 1e-8,
-        use_kernels: bool = True,
-    ):
-        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+def sgd_update(
+    params: List[torch.Tensor], grads: List[Optional[torch.Tensor]], ts: List[torch.Tensor], momentum: float,
+    neg_lr: float, table: Optional[PointerTable] = None,
+) -> torch.Tensor:
+    """``sgd_launch`` and the finish: the update and the global norm."""
+    return grad_norm_finish(sgd_launch(params, grads, ts, momentum, neg_lr, table))
+
+
+# ---------------------------------------------------------------------------
+# the optimizers
+# ---------------------------------------------------------------------------
+
+
+class _KernelOptimizer(torch.optim.Optimizer):
+    """What the four optimizers share: the step count, the schedule read at
+    the count before the step, one kernel update (and the finish) per
+    parameter group on CUDA or the plain version tensor by tensor, the
+    pointer tables, and the checkpointed state. A subclass names its
+    ``KIND``, its ``MOMENTS`` (state keys, stored in ``MOMENT_DTYPE``) and
+    the update of a group (``_kernel_update``) and of one tensor
+    (``_plain_update``)."""
+
+    KIND: str
+    MOMENTS: Tuple[str, ...]
+    MOMENT_DTYPE: torch.dtype
+
+    def __init__(self, params: Iterable, defaults: dict, use_kernels: bool):
+        super().__init__(params, defaults)
         self.use_kernels = use_kernels
         self.count = 0
-        self.tables = {}  # PointerTable by param group index
+        self.tables: Dict[int, PointerTable] = {}  # by param group index
 
     def _moments(self, p: torch.Tensor) -> dict:
         state = self.state[p]
         if not state:
-            state["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
-            state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.bfloat16, memory_format=torch.contiguous_format)
+            for name in self.MOMENTS:
+                state[name] = torch.zeros_like(p, dtype=self.MOMENT_DTYPE, memory_format=torch.contiguous_format)
         return state
 
+    def _params(self) -> List[torch.Tensor]:
+        return [p for g in self.param_groups for p in g["params"]]
+
     def checkpoint_state(self) -> dict:
-        """What a checkpoint keeps: the step count (the learning rate is a
-        schedule of it) and each parameter's moments, in parameter order
-        (None before the first step)."""
-        params = [p for g in self.param_groups for p in g["params"]]
-        return {
-            "count": self.count,
-            "exp_avg": [self.state[p].get("exp_avg") for p in params],
-            "exp_avg_sq": [self.state[p].get("exp_avg_sq") for p in params],
-        }
+        """What a checkpoint keeps: the optimizer's kind, the step count (the
+        learning rate is a schedule of it) and each parameter's moments, in
+        parameter order (None before the first step)."""
+        params = self._params()
+        return {"kind": self.KIND, "count": self.count,
+                **{name: [self.state[p].get(name) for p in params] for name in self.MOMENTS}}
 
     def load_checkpoint_state(self, state: dict) -> None:
         """Restore ``checkpoint_state()``'s result, copying the moments into
         the buffers in place (their addresses, and so the kernel's pointer
-        table, stay)."""
-        params = [p for g in self.param_groups for p in g["params"]]
-        if len(state["exp_avg"]) != len(params) or len(state["exp_avg_sq"]) != len(params):
-            raise ValueError(f"the checkpoint has moments for {len(state['exp_avg'])} parameters, expected {len(params)}")
+        table, stay). The state of another kind of optimizer is refused (a
+        state saved before states named their kind is AdamLowp's, the only
+        optimizer then)."""
+        kind = state.get("kind", AdamLowp.KIND)
+        if kind != self.KIND:
+            raise ValueError(f"the checkpoint holds the state of a {kind!r} optimizer, not of {self.KIND!r}: "
+                             f"resume with the optimizer it was trained with")
+        params = self._params()
+        for name in self.MOMENTS:
+            if len(state[name]) != len(params):
+                raise ValueError(f"the checkpoint has moments for {len(state[name])} parameters, expected {len(params)}")
         self.count = int(state["count"])
-        for p, m, v in zip(params, state["exp_avg"], state["exp_avg_sq"]):
-            if m is None:
+        for i, p in enumerate(params):
+            if state[self.MOMENTS[0]][i] is None:
                 self.state[p].clear()
                 continue
             moments = self._moments(p)
-            moments["exp_avg"].copy_(m)
-            moments["exp_avg_sq"].copy_(v)
+            for name in self.MOMENTS:
+                moments[name].copy_(state[name][i])
+
+    def _kernel_update(self, group, params, grads, moments, neg_lr, table) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _plain_update(self, group, p, g, moments, neg_lr) -> None:
+        raise NotImplementedError
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         """One update of every parameter; returns the global norm of the
         gradients applied."""
         if closure is not None:
-            raise ValueError("AdamLowp.step takes no closure")
+            raise ValueError(f"{type(self).__name__}.step takes no closure")
         with record_function(OPTIMIZER_SPAN):
             lr_count = self.count  # optax's scale_by_schedule reads the count before the step
             self.count += 1
             norms = []
             for i, group in enumerate(self.param_groups):
-                b1, b2 = group["betas"]
-                c1, c2 = bias_corrections(b1, b2, self.count)
                 lr = group["lr"](lr_count) if callable(group["lr"]) else group["lr"]
                 neg_lr = float(torch.tensor(-lr, dtype=torch.float32))
-                params, grads, ms, vs = [], [], [], []
-                for p in group["params"]:
-                    state = self._moments(p)
-                    params.append(p)
-                    grads.append(None if p.grad is None else p.grad.contiguous())
-                    ms.append(state["exp_avg"])
-                    vs.append(state["exp_avg_sq"])
+                params = list(group["params"])
                 if not params:
                     continue
+                grads = [None if p.grad is None else p.grad.contiguous() for p in params]
+                moments = [[self._moments(p)[name] for p in params] for name in self.MOMENTS]
                 if self.use_kernels and params[0].device.type == "cuda":
                     table = self.tables.setdefault(i, PointerTable())
-                    norms.append(adam_lowp_update(params, grads, ms, vs, b1, b2, group["eps"], neg_lr, c1, c2, table))
+                    norms.append(self._kernel_update(group, params, grads, moments, neg_lr, table))
                 else:
                     norms.append(global_norm(grads).to(params[0].device))
-                    for p, g, m, v in zip(params, grads, ms, vs):
-                        adam_lowp_update_plain(p, g, m, v, b1, b2, group["eps"], neg_lr, c1, c2)
+                    for j, (p, g) in enumerate(zip(params, grads)):
+                        self._plain_update(group, p, g, [m[j] for m in moments], neg_lr)
             if len(norms) == 1:
                 return norms[0]
             return torch.sqrt(sum(n * n for n in norms)) if norms else torch.zeros((), dtype=torch.float32)
+
+
+class AdamLowp(_KernelOptimizer):
+    """Adam with bf16-stored moments and fp32 math; ``lr`` is a float or a
+    schedule (step count -> float), as optax takes it. The kernel is B.5."""
+
+    KIND = "adam_lowp"
+    MOMENTS = ("exp_avg", "exp_avg_sq")
+    MOMENT_DTYPE = torch.bfloat16
+
+    def __init__(self, params: Iterable, lr: Schedule = 2e-4, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, use_kernels: bool = True):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps), use_kernels)
+
+    def _consts(self, group):
+        b1, b2 = group["betas"]
+        return (b1, b2, group["eps"], *bias_corrections(b1, b2, self.count))
+
+    def _kernel_update(self, group, params, grads, moments, neg_lr, table):
+        b1, b2, eps, c1, c2 = self._consts(group)
+        return adam_lowp_update(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table)
+
+    def _plain_update(self, group, p, g, moments, neg_lr):
+        b1, b2, eps, c1, c2 = self._consts(group)
+        adam_update_plain(p, g, *moments, b1, b2, eps, neg_lr, c1, c2)
+
+
+class Adam(AdamLowp):
+    """``optax.adam``: Adam with fp32 moments (the JAX trainer's
+    ``adam_mv_dtype="float32"``). The kernel is B.5's fp32 instance."""
+
+    KIND = "adam"
+    MOMENT_DTYPE = torch.float32
+
+    def _kernel_update(self, group, params, grads, moments, neg_lr, table):
+        b1, b2, eps, c1, c2 = self._consts(group)
+        return adam_update(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table)
+
+
+class AdamW(Adam):
+    """``optax.adamw(lr, weight_decay=1e-6)``: Adam's fp32 update plus
+    ``ADAMW_WEIGHT_DECAY * p``, then the learning rate, on every tensor
+    (optax's default mask is none). The kernel is B.5's adamw instance."""
+
+    KIND = "adamw"
+
+    def _kernel_update(self, group, params, grads, moments, neg_lr, table):
+        b1, b2, eps, c1, c2 = self._consts(group)
+        return adam_update(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table, ADAMW_WEIGHT_DECAY)
+
+    def _plain_update(self, group, p, g, moments, neg_lr):
+        b1, b2, eps, c1, c2 = self._consts(group)
+        adam_update_plain(p, g, *moments, b1, b2, eps, neg_lr, c1, c2, ADAMW_WEIGHT_DECAY)
+
+
+class SGD(_KernelOptimizer):
+    """``optax.sgd(lr, momentum=0.9)``: an fp32 trace ``t' = g +
+    SGD_MOMENTUM * t`` (no Nesterov), then the learning rate. The kernel is
+    B.5's sgd instance."""
+
+    KIND = "sgd"
+    MOMENTS = ("momentum_buffer",)
+    MOMENT_DTYPE = torch.float32
+
+    def __init__(self, params: Iterable, lr: Schedule = 2e-4, use_kernels: bool = True):
+        super().__init__(params, dict(lr=lr), use_kernels)
+
+    def _kernel_update(self, group, params, grads, moments, neg_lr, table):
+        return sgd_update(params, grads, moments[0], SGD_MOMENTUM, neg_lr, table)
+
+    def _plain_update(self, group, p, g, moments, neg_lr):
+        sgd_update_plain(p, g, moments[0], SGD_MOMENTUM, neg_lr)

@@ -4,14 +4,15 @@
 caller passes ``device``), randomly initialized from ``tcfg.seed``, in
 train mode, and one ``torch.Generator`` (seeded ``tcfg.seed + 1``) from
 which the train step draws its random shifts and depth noise (first), the
-plan's noise and every dropout mask. ``init_state`` builds the optimizer (``AdamLowp``: bf16
-moments, fp32 math, the JAX trainer's default) over the learning-rate
-schedule.
+plan's noise and every dropout mask. ``init_state`` builds the optimizer over the
+learning-rate schedule as the JAX trainer chooses it (``build_optimizer``:
+``tcfg.optimizer`` adam, adamw or sgd; adam's moments in ``tcfg.adam_mv_dtype``,
+bf16 by default).
 
 * ``train_step(raw_batch, kl_beta)``: the random-shift preprocess and the
   depth noise (``training.preprocess``), ``HulcModel.train_losses``, the
-  backward and the Adam update, which also returns the global gradient
-  norm (``grad_norm``). The losses stay on the device. Tests pass the
+  backward and the optimizer's update, which also returns the global
+  gradient norm (``grad_norm``). The losses stay on the device. Tests pass the
   shifts, the depth noise and the plan noise JAX drew (``shifts=``,
   ``depth_noise=``, ``gumbel=`` or ``normal=``).
 * ``val_step(raw_batch, kl_beta)``: the eval preprocess and
@@ -27,9 +28,13 @@ schedule.
   and ``checkpoint_every_steps``, and the JAX package's ``max_steps`` (this
   call's steps), ``max_total_steps`` (the run's) and resume semantics. It
   starts from fresh weights (``reset_state``) unless a checkpoint resumes
-  it; a checkpoint holds the parameters, the Adam state, the step, the
-  epoch and the generator's state, so a resumed run draws what an
-  uninterrupted one would. Host batches go up through the trainer's
+  it; a checkpoint holds the parameters, the optimizer's state (its kind
+  named), the step, the epoch and the generator's state, so a resumed run
+  draws what an uninterrupted one would. A params-only checkpoint
+  (``training.import_checkpoint``) is refused: it cannot resume a run.
+  With ``tcfg.profile_start``, steps ``[profile_start, profile_start +
+  profile_steps)`` of the call run under ``torch.profiler``, whose Chrome
+  trace goes to ``<run_dir>/profile``. Host batches go up through the trainer's
   ``data.loader.StagingPool`` (``staging``): two pinned staging slots and a
   copy on a side stream that runs under the previous step.
 
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import pathlib
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -53,7 +59,7 @@ from hulc_tpu_torch.device import resolve_device
 from hulc_tpu_torch.models.hulc import HulcModel, ModalityBatch, init_weights_, make_model
 from hulc_tpu_torch.models.layers import set_dropout_generator
 from hulc_tpu_torch.training import checkpoint as ckpt
-from hulc_tpu_torch.training.optimizers import AdamLowp
+from hulc_tpu_torch.training.optimizers import SGD, Adam, AdamLowp, AdamW
 from hulc_tpu_torch.training.preprocess import batch_to_device, preprocess_batch
 from hulc_tpu_torch.training.schedules import KLSchedule, make_lr_schedule
 from hulc_tpu_torch.utils.loggers import MetricLogger
@@ -61,8 +67,9 @@ from hulc_tpu_torch.utils.loggers import MetricLogger
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The JAX TrainerConfig's fields that the port's loop reads. The
-    optimizer is its default, Adam with bf16-stored moments."""
+    """The JAX TrainerConfig's fields that the port's loop reads (its
+    ``fsdp``, ``tp``, ``sp`` and ``num_devices`` are multi-device, not
+    ported)."""
 
     run_dir: str = "runs/dev"
     max_epochs: int = 100
@@ -83,6 +90,15 @@ class TrainerConfig:
     val_max_batches: Optional[int] = None
     # optimizer steps per uploaded batch, each with fresh shifts and noise
     echo_factor: int = 1
+    # the optimizer family: adam, adamw (weight decay 1e-6) or sgd (momentum 0.9)
+    optimizer: str = "adam"
+    # adam's moment storage: "bfloat16" (AdamLowp) or "float32" / None (Adam);
+    # the arithmetic is fp32 either way
+    adam_mv_dtype: Optional[str] = "bfloat16"
+    # torch.profiler trace of steps [profile_start, profile_start + profile_steps)
+    # of a fit call, written to <run_dir>/profile (None: no trace)
+    profile_start: Optional[int] = None
+    profile_steps: int = 5
 
 
 class Trainer:
@@ -94,11 +110,13 @@ class Trainer:
         self.model: HulcModel = make_model(cfg, self.device, seed=tcfg.seed, use_kernels=use_kernels).train()
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed + 1)
         set_dropout_generator(self.model, self.generator)
-        self.optimizer: Optional[AdamLowp] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.epoch = 0
         self.checkpointer = ckpt.MonitoredCheckpointer(tcfg.run_dir, tcfg.checkpoint_policy)
         self._logger: Optional[MetricLogger] = None
+        self._profiler: Optional[torch.profiler.profile] = None
+        self._profile_first_step = 0
         # the pinned staging slots every loader's batches go up through
         self.staging = StagingPool(self.device) if self.device.type == "cuda" else None
 
@@ -113,12 +131,30 @@ class Trainer:
     # state
     # ------------------------------------------------------------------
 
-    def build_optimizer(self, steps_per_epoch: int) -> AdamLowp:
+    def build_optimizer(self, steps_per_epoch: int) -> torch.optim.Optimizer:
+        """The JAX trainer's choice (hulc_tpu/training/trainer.py:183-194):
+        adam with moments stored in any dtype but fp32 is AdamLowp (bf16, the
+        only low-precision storage ported), adam with fp32 moments (or none
+        named) is Adam, adamw is AdamW with fp32 moments whatever
+        ``adam_mv_dtype`` says, sgd is SGD."""
         num_training_steps = min(steps_per_epoch * self.tcfg.max_epochs, 2**31 - 1)
         self.lr_schedule = make_lr_schedule(
             self.tcfg.lr_schedule, self.tcfg.lr, num_training_steps, self.tcfg.num_warmup_steps
         )
-        return AdamLowp(self.model.parameters(), lr=self.lr_schedule, use_kernels=self.use_kernels)
+        name, mv_dtype = self.tcfg.optimizer, self.tcfg.adam_mv_dtype
+        kwargs = dict(lr=self.lr_schedule, use_kernels=self.use_kernels)
+        if name == "adam":
+            if mv_dtype and mv_dtype != "float32":
+                if mv_dtype != "bfloat16":
+                    raise ValueError(f"adam_mv_dtype {mv_dtype!r}: the port stores adam's moments in "
+                                     f"bfloat16 or float32")
+                return AdamLowp(self.model.parameters(), **kwargs)
+            return Adam(self.model.parameters(), **kwargs)
+        if name == "adamw":
+            return AdamW(self.model.parameters(), **kwargs)
+        if name == "sgd":
+            return SGD(self.model.parameters(), **kwargs)
+        raise ValueError(f"unknown optimizer {name!r} (adam|adamw|sgd)")
 
     def init_state(self, steps_per_epoch: int = 1) -> None:
         self.optimizer = self.build_optimizer(steps_per_epoch)
@@ -141,13 +177,43 @@ class Trainer:
         }
 
     def restore(self, path) -> None:
-        """Load a checkpoint's parameters, Adam state, step, epoch and
-        generator state."""
+        """Load a checkpoint's parameters, optimizer state, step, epoch and
+        generator state. A params-only checkpoint is refused."""
         state = ckpt.restore_checkpoint(path, map_location="cpu")
+        if state.get("optimizer") is None:
+            raise ValueError(
+                f"{path} holds parameters only (an imported checkpoint, training.import_checkpoint): it has no "
+                f"optimizer state, step or generator to resume a run from. Evaluate it, or warm-start a new run "
+                f"from it (training.pretrain.load_pretrained) in another run_dir"
+            )
         self.model.load_state_dict(state["params"])
         self.optimizer.load_checkpoint_state(state["optimizer"])
         self.step, self.epoch = int(state["step"]), int(state["epoch"])
         self.generator.set_state(state["generator"])
+
+    def _profile_start(self) -> None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=activities)
+        self._profiler.start()
+        self._profile_first_step = self.step
+
+    def _profile_stop(self) -> None:
+        """End an open profile window: wait for its steps' device work, then
+        write ``<run_dir>/profile/trace_steps_<first>-<last>.json`` (the
+        run's step numbers)."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out = pathlib.Path(self.tcfg.run_dir) / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"trace_steps_{self._profile_first_step}-{self.step - 1}.json"
+        self._profiler.export_chrome_trace(str(path))
+        self._profiler = None
+        print(f"[trainer] profile of steps {self._profile_first_step}-{self.step - 1} written to {path}")
 
     def _save(self, epoch: int, metrics: Dict[str, float]) -> None:
         self.checkpointer.save(epoch, self.checkpoint_state(), metrics)
@@ -284,60 +350,67 @@ class Trainer:
         max_epochs = tcfg.max_epochs if max_epochs is None else max_epochs
         batches = self._device_batches(train_loader)
         losses = None
-        for epoch in range(start_epoch, max_epochs):
-            self.epoch = epoch
-            kl_beta = float(tcfg.kl_schedule(epoch, self.cfg.loss.kl_beta))
-            t_epoch = time.time()
-            seqs = 0
-            for i, batch in enumerate(batches):
-                for _ in range(max(1, tcfg.echo_factor)):
-                    losses = self.train_step(batch, kl_beta)
-                    seqs += sum(b.actions.shape[0] for b in batch.values())
-                    total_steps += 1
-                    if (
-                        tcfg.checkpoint_every_steps
-                        and total_steps % tcfg.checkpoint_every_steps == 0
-                        and not hit_cap(total_steps)  # the end-of-run save covers the cap
-                    ):
-                        self._save(epoch, {})
+        try:
+            for epoch in range(start_epoch, max_epochs):
+                self.epoch = epoch
+                kl_beta = float(tcfg.kl_schedule(epoch, self.cfg.loss.kl_beta))
+                t_epoch = time.time()
+                seqs = 0
+                for i, batch in enumerate(batches):
+                    for _ in range(max(1, tcfg.echo_factor)):
+                        if tcfg.profile_start is not None and total_steps == tcfg.profile_start:
+                            self._profile_start()
+                        losses = self.train_step(batch, kl_beta)
+                        seqs += sum(b.actions.shape[0] for b in batch.values())
+                        total_steps += 1
+                        if tcfg.profile_start is not None and total_steps == tcfg.profile_start + tcfg.profile_steps:
+                            self._profile_stop()
+                        if (
+                            tcfg.checkpoint_every_steps
+                            and total_steps % tcfg.checkpoint_every_steps == 0
+                            and not hit_cap(total_steps)  # the end-of-run save covers the cap
+                        ):
+                            self._save(epoch, {})
+                        if hit_cap(total_steps):
+                            break
+                    if i % tcfg.log_every == 0:
+                        host = self._host_scalars(losses)
+                        host["lr"] = float(self.lr_schedule(self.step))
+                        self.logger.log(host, self.step, "train")
+                        print(
+                            f"[trainer] epoch {epoch} step {i}/{steps_per_epoch} loss={host['total_loss']:.4f} "
+                            f"act={host['action_loss']:.4f} kl={host['kl_loss']:.5f}"
+                        )
                     if hit_cap(total_steps):
                         break
-                if i % tcfg.log_every == 0:
-                    host = self._host_scalars(losses)
-                    host["lr"] = float(self.lr_schedule(self.step))
-                    self.logger.log(host, self.step, "train")
-                    print(
-                        f"[trainer] epoch {epoch} step {i}/{steps_per_epoch} loss={host['total_loss']:.4f} "
-                        f"act={host['action_loss']:.4f} kl={host['kl_loss']:.5f}"
-                    )
-                if hit_cap(total_steps):
-                    break
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)  # the epoch's time includes its last steps
-            dt = time.time() - t_epoch
-            self.logger.log(
-                {"epoch_time_s": dt, "seq_per_sec": seqs / max(dt, 1e-9), "kl_beta": kl_beta}, self.step, "epoch"
-            )
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)  # the epoch's time includes its last steps
+                dt = time.time() - t_epoch
+                self.logger.log(
+                    {"epoch_time_s": dt, "seq_per_sec": seqs / max(dt, 1e-9), "kl_beta": kl_beta}, self.step, "epoch"
+                )
 
-            # what the monitored checkpointer sees this epoch: the last step's
-            # losses (train/), the val means (val/) and the callbacks' metrics
-            epoch_metrics: Dict[str, float] = (
-                {} if losses is None else {f"train/{k}": v for k, v in self._host_scalars(losses).items()}
-            )
-            hit_max_steps = hit_cap(total_steps)
-            # a capped or final epoch always validates, so the run ends with
-            # fresh val metrics
-            val_epoch = (epoch + 1) % tcfg.val_every_epochs == 0 or epoch == max_epochs - 1 or hit_max_steps
-            if val_loader is not None and val_epoch:
-                val_mean = self.validate(val_loader, kl_beta=kl_beta)
-                epoch_metrics.update({f"val/{k}": v for k, v in val_mean.items()})
-            if val_epoch:
-                for cb in callbacks or ():
-                    cb_metrics = cb.on_epoch_end(self, epoch)
-                    if isinstance(cb_metrics, dict):
-                        epoch_metrics.update({k: v for k, v in cb_metrics.items() if isinstance(v, (int, float))})
-            if (epoch + 1) % tcfg.checkpoint_every_epochs == 0 or epoch == max_epochs - 1 or hit_max_steps:
-                self._save(epoch, epoch_metrics)
-            if hit_max_steps:
-                break
+                # what the monitored checkpointer sees this epoch: the last step's
+                # losses (train/), the val means (val/) and the callbacks' metrics
+                epoch_metrics: Dict[str, float] = (
+                    {} if losses is None else {f"train/{k}": v for k, v in self._host_scalars(losses).items()}
+                )
+                hit_max_steps = hit_cap(total_steps)
+                # a capped or final epoch always validates, so the run ends with
+                # fresh val metrics
+                val_epoch = (epoch + 1) % tcfg.val_every_epochs == 0 or epoch == max_epochs - 1 or hit_max_steps
+                if val_loader is not None and val_epoch:
+                    val_mean = self.validate(val_loader, kl_beta=kl_beta)
+                    epoch_metrics.update({f"val/{k}": v for k, v in val_mean.items()})
+                if val_epoch:
+                    for cb in callbacks or ():
+                        cb_metrics = cb.on_epoch_end(self, epoch)
+                        if isinstance(cb_metrics, dict):
+                            epoch_metrics.update({k: v for k, v in cb_metrics.items() if isinstance(v, (int, float))})
+                if (epoch + 1) % tcfg.checkpoint_every_epochs == 0 or epoch == max_epochs - 1 or hit_max_steps:
+                    self._save(epoch, epoch_metrics)
+                if hit_max_steps:
+                    break
+        finally:
+            self._profile_stop()  # a window the run ended inside
         return self.step

@@ -24,6 +24,7 @@ keys. The recognition network's dropout is 0 on both sides.
 """
 
 import dataclasses
+import itertools
 import re
 
 import flax
@@ -523,28 +524,36 @@ def _depth_trainer(run_dir):
 def test_fit_cut_and_resumed_is_bit_equal(root, tmp_path):
     """``fit`` for 2 epochs of 1 step on the depth fixture, and the same run
     cut after its first step and resumed by a new Trainer: the parameters,
-    the Adam state, the step and the generator bit-equal."""
-    def loaders():
-        return (make_loaders(PORT_CFG, root, fuse=True, seed=0, **LOADER),
-                make_loaders(PORT_CFG, root, split="validation", deterministic=True, **LOADER))
+    the Adam state, the step and the generator bit-equal. Epoch e trains on
+    the loader's batch e, both drawn up front in one pass: taking one batch
+    from each of two passes would leave the second to the first pass's
+    worker thread, which draws ahead a number of batches that depends on
+    the host's timing."""
+    train = make_loaders(PORT_CFG, root, fuse=True, seed=0, **LOADER)
+    batches = list(itertools.islice(train, 2))
+    del train
 
-    class First:
-        def __init__(self, loader):
-            self.loader = loader
+    class Epochs:
+        """One batch an epoch: batch ``start`` + e in the e-th pass."""
+
+        def __init__(self, start=0):
+            self.next = start
 
         def __len__(self):
             return 1
 
         def __iter__(self):
-            return iter([next(iter(self.loader))])
+            self.next += 1
+            return iter([batches[self.next - 1]])
 
-    train, val = loaders()
+    def val():
+        return make_loaders(PORT_CFG, root, split="validation", deterministic=True, **LOADER)
+
     whole = _depth_trainer(tmp_path / "whole")
-    assert whole.fit(First(train), val, max_epochs=2) == 2
-    train, val = loaders()
-    assert _depth_trainer(tmp_path / "cut").fit(First(train), val, max_epochs=2, max_steps=1) == 1
+    assert whole.fit(Epochs(), val(), max_epochs=2) == 2
+    assert _depth_trainer(tmp_path / "cut").fit(Epochs(), val(), max_epochs=2, max_steps=1) == 1
     resumed = _depth_trainer(tmp_path / "cut")
-    assert resumed.fit(First(train), val, max_epochs=2) == 2
+    assert resumed.fit(Epochs(start=1), val(), max_epochs=2) == 2
     for k, v in whole.model.state_dict().items():
         assert torch.equal(resumed.model.state_dict()[k], v), k
     a, b = whole.optimizer.checkpoint_state(), resumed.optimizer.checkpoint_state()

@@ -258,3 +258,38 @@ def test_importing_port_loads_no_jax_and_no_hulc_tpu():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_running_the_clis_loads_no_jax_and_no_hulc_tpu(tmp_path):
+    """Run ``python -m hulc_tpu_torch.training.train`` (a one-step fixture
+    run on the CPU) and then ``python -m hulc_tpu_torch.evaluation.evaluate``
+    on its checkpoint in a fresh interpreter, as ``-m`` runs them, and list
+    the forbidden modules that appeared: the CLIs import most of their
+    modules inside ``main``, which importing the package does not reach."""
+    run = tmp_path / "run"
+    code = (
+        "import runpy, sys\n"
+        "before = set(sys.modules)\n"
+        f"for argv in ({_cli_argv('hulc_tpu_torch.training.train', run)!r}, "
+        f"{_cli_argv('hulc_tpu_torch.evaluation.evaluate', run)!r}):\n"
+        "    sys.argv = list(argv)\n"
+        "    runpy.run_module(argv[0], run_name='__main__', alter_sys=True)\n"
+        "new = set(sys.modules) - before\n"
+        "print(sorted(m for m in new if m.split('.')[0] in ('jax', 'hulc_tpu')))\n"
+    )
+    env = dict(os.environ, TMPDIR=str(tmp_path),
+               PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert (run / "evaluation" / "results.json").is_file()
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _cli_argv(module, run):
+    if module.endswith(".train"):
+        return [module, "--config", "hulc_debug", "--fixture", "--steps", "1", "--batch-size", "2", "--cache",
+                "none", "--device", "cpu", "--run-dir", str(run), "--val-max-batches", "1"]
+    return [module, "--run-dir", str(run), "--config", "hulc_debug", "--device", "cpu", "--batched", "--num-envs",
+            "1", "--num-sequences", "1", "--ep-len", "4"]
