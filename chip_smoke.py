@@ -295,9 +295,34 @@ it fails:
    imported, its restored parameters bit-equal to the file's, and
    evaluated batched. Every kernel of these paths must launch.
 
+19. the BiRNN's relu and gru cells (B.13), dropout and the encoders'
+   options: ``mcil`` with ``plan_recognition.birnn_cell`` gru and then rnn,
+   and dropout B13_DROPOUT at every site the JAX package has on that path
+   (the BiRNN's and the decoder's between layers, both vision encoders'),
+   set by ``config.apply_overrides``. Each cell's chain kernels, forward
+   (the gru's saving its gates) and dh chain, against their plain mirrors
+   for the forward and the reverse chain at (64, 32, 2048) on both layers'
+   weights; one layer at a time through the autograd Function against
+   ``birnn_layer_plain`` (the output, and the seven gradients against the
+   closed form and autograd) there and at (3, 5, 37), (3, 1, 37), (96, 3,
+   64), all within REC_REL; the chains timed by CUDA events beside their
+   plain mirrors, cuDNN's nn.RNN(relu) / nn.GRU (W_ih = I) and the bound,
+   and each layer beside cuDNN's bidirectional one. Then the main path,
+   launch counts zeroed just before and read just after: B13_TRAIN_STEPS
+   train steps (each layer's two chains once forward and once backward a
+   step, no tanh kernel) and a val step; then one train step against the
+   plain path on the same generator state (the same dropout masks;
+   phase 9's rule). The train CLI for 3 steps on a 200 / 84 px
+   ``--fixture`` with the gru BiRNN and the dropout sites by ``--set``.
+   ``hulc`` with every encoder option on (OPTION_OVERRIDES): one train step
+   and a policy step at 1 and ``--lanes`` lanes against the plain path.
+   Last, the decoder's B.6 and B.11 on ``kernel_times.py``'s fixed inputs
+   must give the digests of the tree before B.13 (PARENT_DIGESTS).
+
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
 training, evaluator, training-loop, served, mcil, hulc_depth, gated
-decoder, bf16 and CLI paths) and, last, ``{"ok": true, "device": {...}}``.
+decoder, bf16, CLI and B.13 paths) and, last, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -405,13 +430,16 @@ def device_ms(fn, iters: int, launches_per_call: int | None = None, per_recorded
     recorded every launch: a window that lost some (now and then the
     profiler drops one, e.g. one of the empty kernel's 100) is profiled
     again, and it fails if PROFILE_ATTEMPTS windows all lost launches or
-    one recorded more; with ``per_recorded`` too, the
+    one recorded more, unless every window lost only its first launch of
+    one a call (then the time is per recorded launch); with
+    ``per_recorded`` too, the
     time is per recorded call instead (the profiler drops some launches of
     the short cooperative kernels)."""
     from hulc_tpu_torch.evaluation.profile_policy import profile_calls
 
     name = getattr(fn, "__qualname__", repr(fn))
     held = launches_per_call is not None and not per_recorded  # a window that must record every launch
+    first_only = True  # every window lost its first launch and no other
     with tempfile.TemporaryDirectory() as tmp:
         trace = pathlib.Path(tmp) / "window.json" if held else None
         for _ in range(PROFILE_ATTEMPTS):
@@ -427,17 +455,26 @@ def device_ms(fn, iters: int, launches_per_call: int | None = None, per_recorded
             if launches_per_call is None or recorded == launches_per_call * iters:
                 return ms
             if recorded > launches_per_call * iters:
+                first_only = False
                 break
+            places, where = lost_launches(trace)
+            first_only = first_only and places == [0]
             print(f"[timing] the profiler recorded {recorded} of {launches_per_call * iters} launches of {name} "
-                  f"({lost_launches(trace)}); profiling the window again")
+                  f"({where}); profiling the window again")
+    if first_only and launches_per_call == 1:
+        # every window dropped only its first launch's kernel record, window after window in one process
+        # (seen on the parent tree too, on a card whose other processes kept every launch): the time per
+        # recorded launch is the time per call
+        print(f"[timing] every window of {name} lost only its first launch; its time is per recorded launch")
+        return ms * iters / recorded
     fail(f"the profiler recorded {recorded} of {launches_per_call * iters} launches of {name}")
 
 
-def lost_launches(trace_path) -> str:
+def lost_launches(trace_path):
     """Which kernel launches of a profiled window (its Chrome trace) have no
-    kernel in it: their places among the window's launches, in host order,
-    and how far each kept kernel started after its launch as the trace
-    maps the device's clock onto the host's."""
+    kernel in it: (their places among the window's launches, in host order;
+    a line with those and how far each kept kernel started after its launch
+    as the trace maps the device's clock onto the host's)."""
     events = json.loads(pathlib.Path(trace_path).read_text())["traceEvents"]
     kernels_ = {e["args"].get("correlation"): e for e in events if e.get("cat") == "kernel" and "args" in e}
     launches = sorted((e for e in events if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")),
@@ -446,8 +483,8 @@ def lost_launches(trace_path) -> str:
     lags = [kernels_[e["args"]["correlation"]]["ts"] - e["ts"] for e in launches
             if e.get("args", {}).get("correlation") in kernels_]
     lag = f"{min(lags):.1f} .. {max(lags):.1f} us" if lags else "none kept"
-    return (f"{len(launches)} launches and {len(kernels_)} kernels in the trace; launches without a kernel at "
-            f"places {lost}; a kernel's start less its launch's {lag}")
+    return lost, (f"{len(launches)} launches and {len(kernels_)} kernels in the trace; launches without a kernel "
+                  f"at places {lost}; a kernel's start less its launch's {lag}")
 
 
 def host_ms(fn, iters: int) -> float:
@@ -1926,8 +1963,9 @@ def drive_training(trainer, batch, kl_beta, steps):
 def train_step_grads(cfg, seed, device, state_dict, batch, shifts, depth_noise, plan_noise, use_kernels,
                      benchmark=False, trainer=None):
     """(losses, gradients by name) of one step from ``state_dict`` on the
-    shifts, the depth noise (None: no depth camera) and the plan noise
-    ``plan_noise`` ({"gumbel": ...} or {"normal": ...}), with
+    shifts, the depth noise (None: no depth camera), the plan noise
+    ``plan_noise`` ({"gumbel": ...} or {"normal": ...}) and the trainer's
+    generator at its seed (the dropout masks it draws), with
     cuDNN deterministic or, with ``benchmark``, on the algorithms it times
     fastest; on ``trainer`` (built with ``use_kernels``, its state
     initialized) when given, as the gradients depend on the weights and
@@ -1939,6 +1977,7 @@ def train_step_grads(cfg, seed, device, state_dict, batch, shifts, depth_noise, 
         trainer = Trainer(cfg, TrainerConfig(seed=seed), device, use_kernels=use_kernels)
         trainer.init_state(1)
     trainer.model.load_state_dict(state_dict)
+    trainer.generator.manual_seed(seed + 1)  # the same dropout masks on every path (phase 19)
     losses = trainer.train_step(batch, cfg.loss.kl_beta, shifts=shifts, depth_noise=depth_noise, **plan_noise)
     grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
@@ -3929,7 +3968,8 @@ def time_gated(cell, model, seed):
         plan = rec.gated_device_plan(cell, h, t["shape"][0], t["shape"][1], torch.cuda.current_device(), backward,
                                      False)
         kernel = "gated_bwd_kernel" if backward else "gated_step_kernel" if plan.launch == "step" else "gated_fwd_kernel"
-        fn = f"{kernel}<{'true' if lstm else 'false'}>"
+        # the step kernel is a template on the cell, the sequence kernels also on the layout (the decoder's: none)
+        fn = f"{kernel}<{'true' if lstm else 'false'}{'' if plan.launch == 'step' else ', false'}>"
         t["plan"] = {**dataclasses.asdict(plan), "blocks": plan.blocks(h)}
         t["registers"] = ptxas[fn]["registers"]
     return out
@@ -4879,6 +4919,531 @@ def run_phase18(seed, card):
 
 
 # --------------------------------------------------------------------------
+# phase 19: the BiRNN's relu and gru cells (B.13), dropout, the encoders' options
+# --------------------------------------------------------------------------
+
+B13_CELLS = ("gru", "rnn")
+# every dropout site of the mcil path at the recognition transformer's rate (no preset sets them)
+B13_DROPOUT = 0.1
+B13_TRAIN_STEPS = 3
+# each cell's chain kernels (forward, dh chain); the other BiRNN kernels must stay idle
+B13_KERNELS = {"gru": ("hulc_rnn_gru_chain_fwd", "hulc_rnn_gru_chain_bwd"),
+               "rnn": ("hulc_rnn_relu_chain_fwd", "hulc_rnn_relu_chain_bwd")}
+B13_IDLE = ("hulc_rnn_tanh_fwd", "hulc_rnn_tanh_bwd", "hulc_birnn_tanh_fwd", "hulc_birnn_tanh_bwd")
+# the encoders' options, all on, on hulc (the transformer's sinusoidal positions with both LayerNorms)
+OPTION_OVERRIDES = (
+    "perceptual_encoder.rgb_static.use_sinusoid=true", "perceptual_encoder.rgb_static.l2_normalize_output=true",
+    "perceptual_encoder.rgb_gripper.l2_normalize_output=true", "visual_goal.l2_normalize=true",
+    "language_goal.l2_normalize=true", "plan_recognition.position_embedding=false",
+    "plan_recognition.positional_normalize=true", "plan_recognition.encoder_normalize=true",
+)
+# The decoder's B.6 (relu) and B.11 (gru) outputs on kernel_times.py's fixed inputs from seed 0, as that
+# script digests them (``kernel_times.py --tree DIR --only rnn_relu_,rnn_gru_``) on the tree before B.13
+# (commit 721cb30) on an H100: B.13's templates must leave the decoder's instances bit-equal.
+PARENT_DIGESTS = {
+    "rnn_relu_fwd 64 32": "1a2efa7475d961a5", "rnn_relu_bwd 64 32": "d78a0f763f7577fb",
+    "rnn_relu_fwd 64 1": "7d8a84ba78ac7158", "rnn_relu_bwd 64 1": "5e1520afcf8585b0",
+    "rnn_relu_fwd 1 1": "866d1a175783caf3", "rnn_relu_bwd 1 1": "9aa0161c027076a3",
+    "rnn_gru_fwd 64 32": "2e5d18512fa201d0", "rnn_gru_bwd 64 32": "ea262e836a5b8050",
+    "rnn_gru_fwd 64 1": "c61b4a6b0fc418e3", "rnn_gru_bwd 64 1": "1a63327abf551dc2",
+    "rnn_gru_fwd 1 1": "8ef68b600c1c359b", "rnn_gru_bwd 1 1": "b3e71cbc97d3ecfc",
+}
+
+
+def b13_config(cell):
+    """``mcil`` with the BiRNN's cell and the dropout sites set as a user
+    sets them (``apply_overrides``, the train CLI's ``--set``)."""
+    from hulc_tpu_torch.config import apply_overrides, get_config
+
+    return apply_overrides(get_config("mcil"), b13_overrides(cell))
+
+
+def b13_overrides(cell):
+    return [f"plan_recognition.birnn_cell={cell}", f"plan_recognition.birnn_dropout={B13_DROPOUT}",
+            f"action_decoder.rnn_dropout={B13_DROPOUT}", f"perceptual_encoder.rgb_static.dropout={B13_DROPOUT}",
+            f"perceptual_encoder.rgb_gripper.dropout={B13_DROPOUT}"]
+
+
+def b13_chain(cell, xp, h0, w, bias, y, d, saved=None, kernel=True):
+    """Chain ``d`` of a layer (0 forward, 1 reverse) into its half of y (B,
+    S, 2H): the kernel (B.13) or its plain mirror; the gru's gates into
+    ``saved``."""
+    from hulc_tpu_torch.ops import recurrence as rec
+
+    h = w.shape[1]
+    if cell == "gru":
+        if kernel:
+            rec._gru_chain_fwd_launch(xp, h0, w, bias, y, d * h, d == 1, saved)
+        else:
+            rec.gru_chain_fwd_plain(xp, h0, w, bias, y, d * h, d == 1, saved)
+    elif kernel:
+        rec._chain_fwd_launch(xp, h0, w, bias, y, d * h, d == 1, None, "rnn")
+    else:
+        rec.relu_chain_fwd_plain(xp, h0, w, bias, y, d * h, d == 1)
+    return y
+
+
+def b13_dh_chain(cell, dy, y, h0, saved, w, d, kernel=True):
+    """Chain ``d``'s dh chain over its half of dy and y: gru (dxp, dhp,
+    dh0), relu (dpre, dh0); the kernel or its plain mirror."""
+    from hulc_tpu_torch.ops import recurrence as rec
+
+    h = w.shape[1]
+    b, s = y.shape[:2]
+    if cell == "gru":
+        if not kernel:
+            return rec.gru_chain_bwd_plain(dy, None, y, h0, saved, w, d * h, d == 1)
+        out = (y.new_empty(b, s, 3 * h), y.new_empty(b, s, 3 * h), y.new_empty(b, h))
+        rec._gru_chain_bwd_launch(dy, y, h0, saved, w, *out, d * h, d == 1)
+        return out
+    if not kernel:
+        return rec.relu_chain_bwd_plain(dy, y, None, w, d * h, d == 1)
+    out = (y.new_empty(b, s, h), y.new_empty(b, h))
+    rec._chain_bwd_launch(dy, y, None, w, *out, d * h, d == 1, "rnn")
+    return out
+
+
+def check_b13_chains(cell, chains, dy, where):
+    """Each chain of one layer (forward and reverse, ``chains`` two (xp, h0,
+    W_hh, b_hh)) through B.13's kernels against their plain mirrors on the
+    same inputs: the forward's half of y (and the gru's saved gates), the
+    dh chain's outputs on the plain forward's y, each within REC_REL
+    relative L2. Returns ({row: max abs err}, {check: relative L2})."""
+    b, s = dy.shape[:2]
+    h = chains[0][2].shape[1]
+    y_k, y_p = (torch.full((b, s, 2 * h), float("nan"), device="cuda") for _ in range(2))
+    saved_k, saved_p = ((torch.empty((2, b, s, 4 * h), device="cuda") for _ in range(2)) if cell == "gru"
+                        else (None, None))
+    rel, fwd_abs, bwd_abs = {}, 0.0, 0.0
+    for d, (xp, h0, w, bias) in enumerate(chains):
+        direction = ("forward", "reverse")[d]
+        b13_chain(cell, xp, h0, w, bias, y_k, d, None if saved_k is None else saved_k[d])
+        b13_chain(cell, xp, h0, w, bias, y_p, d, None if saved_p is None else saved_p[d], kernel=False)
+        half = slice(d * h, (d + 1) * h)
+        rel[f"y {direction}"] = rel_l2(y_k[..., half], y_p[..., half])
+        fwd_abs = max(fwd_abs, max_abs(y_k[..., half], y_p[..., half]))
+        if cell == "gru":
+            rel[f"saved {direction}"] = rel_l2(saved_k[d], saved_p[d])
+            fwd_abs = max(fwd_abs, max_abs(saved_k[d], saved_p[d]))
+        sv = None if saved_p is None else saved_p[d]
+        got = b13_dh_chain(cell, dy, y_p, h0, sv, w, d)
+        want = b13_dh_chain(cell, dy, y_p, h0, sv, w, d, kernel=False)
+        for name, g, r in zip(("dxp", "dhp", "dh0") if cell == "gru" else ("dpre", "dh0"), got, want):
+            rel[f"{name} {direction}"] = rel_l2(g, r)
+            bwd_abs = max(bwd_abs, max_abs(g, r))
+    if not max(rel.values()) <= REC_REL:
+        fail(f"B.13 {cell} chains at {where} {(b, s, h)}: relative L2 {rel}")
+    print(f"[b13] {cell} chains at {where} {(b, s, h)}, forward and reverse: forward relative L2 up to "
+          f"{max(v for k, v in rel.items() if k.startswith(('y', 'saved'))):.3g} (max abs err {fwd_abs:.3g}), dh "
+          f"chain up to {max(v for k, v in rel.items() if k.startswith('d')):.3g} (max abs err {bwd_abs:.3g})")
+    fwd, bwd = (f"rnn_{'gru' if cell == 'gru' else 'relu'}_chain_{x}" for x in ("fwd", "bwd"))
+    return {fwd: fwd_abs, bwd: bwd_abs}, rel
+
+
+def check_b13_layer(cell, x, fwd, rev, dy, where):
+    """One bidirectional layer of the cell through ``birnn_layer`` (the
+    autograd Function: B.13's two chains forward, their dh chains and one dW
+    product a chain backward) from zero states: the output against JAX's
+    flip-and-concatenate definition (``birnn_layer_plain``), and the
+    gradients of all seven inputs against the closed form on the Function's
+    own output (each chain's plain dh chain, one dW product, the bias sum)
+    and against autograd through the definition, each within REC_REL
+    relative L2. A relu unit within rounding of zero can sit on the other
+    side of it in the kernel's output than in the plain one's (the mask
+    flips, and the dh chain carries that back through time): where any
+    did, autograd's gradients are another function's, and they are printed
+    beside the count, not held. Returns (the plain output, {check:
+    relative L2})."""
+    import torch.nn.functional as F
+
+    from hulc_tpu_torch.ops import recurrence as rec
+
+    with torch.no_grad():
+        xp_f, xp_b = F.linear(x, fwd["weight_ih"], fwd["bias_ih"]), F.linear(x, rev["weight_ih"], rev["bias_ih"])
+    h = fwd["weight_hh"].shape[1]
+    inputs = (xp_f, xp_b, torch.zeros(2, x.shape[0], h, device="cuda"), fwd["weight_hh"], rev["weight_hh"],
+              fwd["bias_hh"], rev["bias_hh"])
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    got = rec.birnn_layer(*leaves, cell)
+    k_grads = torch.autograd.grad(got, leaves, dy)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    want = rec.birnn_layer_plain(*leaves, cell)
+    auto = torch.autograd.grad(want, leaves, dy)
+    y, h0s = got.detach(), inputs[2]
+    if cell == "gru":
+        saved = torch.empty((2, *y.shape[:2], 4 * h), device="cuda")
+        y_ref = torch.empty_like(y)
+        for d in range(2):
+            b13_chain(cell, inputs[d], h0s[d], inputs[3 + d], inputs[5 + d], y_ref, d, saved[d], kernel=False)
+        y = y_ref  # the gru's dh chain reads the gates: the plain forward's, with its own y
+    else:
+        saved = None
+    chains = [b13_dh_chain(cell, dy, y, h0s[d], None if saved is None else saved[d], inputs[3 + d], d, kernel=False)
+              for d in range(2)]
+    dhp = [c[1] if cell == "gru" else c[0] for c in chains]
+    dw = [rec.recurrence_weight_grads(dhp[d], h0s[d], y[..., d * h:(d + 1) * h], reverse=d == 1) for d in range(2)]
+    closed = (chains[0][0], chains[1][0], torch.stack([chains[0][-1], chains[1][-1]]), dw[0][0], dw[1][0], dw[0][1],
+              dw[1][1])
+    rel = {"y": rel_l2(got, want)}
+    names = ("dxp_f", "dxp_b", "dh0s", "dW_hh_f", "dW_hh_b", "db_hh_f", "db_hh_b")
+    for n, g, r in zip(names, k_grads, closed):
+        rel[f"{n} vs closed form"] = rel_l2(g, r)
+    flips = 0 if cell == "gru" else int(((got > 0) != (want > 0)).sum())
+    vs_auto = {f"{n} vs autograd": rel_l2(g, r) for n, g, r in zip(names, k_grads, auto)}
+    if not flips:
+        rel.update(vs_auto)
+    if not max(rel.values()) <= REC_REL:
+        fail(f"B.13 {cell} layer at {where} {tuple(dy.shape)}: relative L2 {rel}")
+    auto_txt = (f"and autograd through the definition" if not flips else
+                f"(autograd through the definition up to {max(vs_auto.values()):.3g}: {flips} relu units of "
+                f"{got.numel()} on the other side of zero than in the plain output)")
+    print(f"[b13] {cell} layer at {where} {tuple(xp_f.shape[:2])} -> {tuple(dy.shape)}: y against "
+          f"birnn_layer_plain and the seven gradients against the closed form {auto_txt} within relative L2 "
+          f"{max(rel.values()):.3g}")
+    return want.detach(), rel
+
+
+def check_b13(cell, model, seed):
+    """B.13 against its plain versions: each chain of both directions at the
+    train step's (64, 32, 2048) on layer 0's and layer 1's W_hh (xp ~ N(0,
+    1), a nonzero h0), one layer at a time through the Function from the
+    model's input projections (layer 0 from 128 features, layer 1 from
+    layer 0's 4096), and whole layers at odd shapes: H = 37 (plain loads,
+    the gru's ring without the TMA unit), one step (3, 1, 37) and two row
+    tiles (96, 3, 64). Returns ({row: max abs err}, {check: largest
+    relative L2})."""
+    from hulc_tpu_torch.ops.recurrence import GATES
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 91)
+    net = model.plan_recognition.birnn_model
+    h, b, s, g = net.hidden_size, DECODER_ROWS, DECODER_SEQ, GATES.get(cell, 1)
+    errs, worst = {}, {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def note(e, rel):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        for k, v in rel.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+
+    for k in range(net.num_layers):
+        fwd, rev = birnn_params(net, k)
+        chains = [(randn(b, s, g * h), torch.tanh(randn(b, h)), p["weight_hh"], p["bias_hh"]) for p in (fwd, rev)]
+        note(*check_b13_chains(cell, chains, randn(b, s, 2 * h), f"the train step, layer {k}'s weights"))
+    x = randn(b, s, net.weight_ih_l0.shape[1])
+    for k in range(net.num_layers):
+        x, rel = check_b13_layer(cell, x, *birnn_params(net, k), randn(b, s, 2 * h), f"the train step, layer {k}")
+        note({}, rel)
+
+    def uniform(hid, *shape):
+        return (2.0 * torch.rand(shape, generator=gen, device="cuda") - 1.0) / hid**0.5
+
+    for bb, ss, hid, where in ((3, 5, 37, "an odd shape"), (3, 1, 37, "one step"), (96, 3, 64, "two row tiles")):
+        chains = [{"weight_ih": uniform(hid, g * hid, 11), "weight_hh": uniform(hid, g * hid, hid),
+                   "bias_ih": uniform(hid, g * hid), "bias_hh": uniform(hid, g * hid)} for _ in range(2)]
+        _, rel = check_b13_layer(cell, randn(bb, ss, 11), *chains, randn(bb, ss, 2 * hid), where)
+        note({}, rel)
+    return errs, worst
+
+
+def time_b13(cell, model, seed):
+    """Device ms of B.13's chain kernels at the train step's (64, 32, 2048)
+    on layer 1's weights, forward and reverse chain (the gru's forward
+    saving its gates), against their plain mirrors and cuDNN's nn.RNN(relu)
+    / nn.GRU of the same weights (W_ih = I, b_ih = 0: the same function of
+    xp; the dh chain's yardstick is cuDNN's backward alone), by CUDA events
+    in turns plain, kernel, kernel, plain, with the bound: 2 B S H G H fp32
+    FLOP a chain at 67 TFLOP/s. Then each whole layer (two chains)
+    against cuDNN's bidirectional layer. The port never calls cuDNN."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.evaluation.kernel_times import event_ms
+    from hulc_tpu_torch.ops import recurrence as rec
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 93)
+    net = model.plan_recognition.birnn_model
+    h, b, s = net.hidden_size, DECODER_ROWS, DECODER_SEQ
+    g = rec.GATES.get(cell, 1)
+    fwd, rev = birnn_params(net, 1)
+    xp = torch.randn((b, s, g * h), generator=gen, device="cuda")
+    h0, h0s = torch.zeros((b, h), device="cuda"), torch.zeros((2, b, h), device="cuda")
+    dy = torch.randn((b, s, 2 * h), generator=gen, device="cuda")
+    saved = torch.empty((2, b, s, 4 * h), device="cuda") if cell == "gru" else None
+    y = torch.empty((b, s, 2 * h), device="cuda")
+    for d, p in enumerate((fwd, rev)):
+        b13_chain(cell, xp, h0, p["weight_hh"], p["bias_hh"], y, d, None if saved is None else saved[d],
+                  kernel=False)
+    make = (lambda: torch.nn.GRU(g * h, h, batch_first=True, bidirectional=bi, device="cuda")) if cell == "gru" else (
+        lambda: torch.nn.RNN(h, h, nonlinearity="relu", batch_first=True, bidirectional=bi, device="cuda"))
+    libs = {}
+    for bi in (False, True):
+        libs[bi] = make()
+        with torch.no_grad():
+            for sfx, p in (("", fwd), ("_reverse", rev))[:1 + bi]:
+                getattr(libs[bi], f"weight_ih_l0{sfx}").copy_(torch.eye(g * h, device="cuda"))
+                getattr(libs[bi], f"bias_ih_l0{sfx}").zero_()
+                getattr(libs[bi], f"weight_hh_l0{sfx}").copy_(p["weight_hh"])
+                getattr(libs[bi], f"bias_hh_l0{sfx}").copy_(p["bias_hh"])
+            want = y if bi else y[..., :h]
+            lib_y = libs[bi](xp, torch.zeros((1 + bi, b, h), device="cuda"))[0]
+            if rel_l2(lib_y, want) > 1e-4:
+                fail(f"cuDNN's {cell} (bidirectional {bi}) does not compute the recurrence: relative L2 "
+                     f"{rel_l2(lib_y, want)}")
+    lib_in = {bi: (xp.clone().requires_grad_(), torch.zeros((1 + bi, b, h), device="cuda", requires_grad=True))
+              for bi in (False, True)}
+    lib_out = {bi: libs[bi](*lib_in[bi])[0] for bi in (False, True)}
+
+    def lib_bwd(bi, cot):
+        return lambda: torch.autograd.grad(lib_out[bi], [*lib_in[bi], *libs[bi].parameters()], cot, retain_graph=True)
+
+    def chain_fwd(d, kernel):
+        p = (fwd, rev)[d]
+        sv = None if saved is None else saved[d]
+        return lambda: b13_chain(cell, xp, h0, p["weight_hh"], p["bias_hh"], torch.empty_like(y), d, sv, kernel)
+
+    def chain_bwd(d, kernel):
+        p = (fwd, rev)[d]
+        return lambda: b13_dh_chain(cell, dy, y, h0, None if saved is None else saved[d], p["weight_hh"], d, kernel)
+
+    bsh, flops = b * s * h, 2 * b * s * h * g * h
+    sv = 4 * bsh if cell == "gru" else 0  # the gru's saved gates, written forward and read by the dh chain
+    # forward: xp in, its half of y out (and the saved gates), W, b_hh, h0; dh chain: dy, y (and the saved
+    # gates and h0) in, dxp (and dhp) and dh0 out, W
+    fwd_bytes = 4 * (g * bsh + bsh + sv + g * h * h + g * h + b * h)
+    bwd_bytes = 4 * (2 * bsh + sv + (2 * g if cell == "gru" else 1) * bsh + g * h * h + 2 * b * h)
+    kind = "gru" if cell == "gru" else "relu"
+    cases = {
+        f"rnn_{kind}_chain_fwd": (chain_fwd, bound(fwd_bytes, flops), lambda: libs[False](xp, h0[None])),
+        f"rnn_{kind}_chain_bwd": (chain_bwd, bound(bwd_bytes, flops), lib_bwd(False, dy[..., :h].contiguous())),
+    }
+    out = {}
+    for name, (make_fn, (bound_ms, bound_by), library_fn) in cases.items():
+        row = {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": event_ms(library_fn, 5),
+               "timed_by": "CUDA events", "shape": [b, s, h]}
+        for d, direction in enumerate(("forward", "reverse")):
+            kernel_fn, plain_fn = make_fn(d, True), make_fn(d, False)
+            ms_ = [event_ms(plain_fn, 3), event_ms(kernel_fn, 10), event_ms(kernel_fn, 10), event_ms(plain_fn, 3)]
+            row[direction] = {"ms": min(ms_[1], ms_[2]), "plain_ms": min(ms_[0], ms_[3])}
+        row["ms"], row["plain_ms"] = row["forward"]["ms"], row["forward"]["plain_ms"]
+        row["call_ms"], row["plain_call_ms"] = call_ms(make_fn(0, True), 10), call_ms(make_fn(0, False), 3)
+        row["library"] = (f"cuDNN nn.{'GRU' if cell == 'gru' else 'RNN(relu)'}, one direction, W_ih = I, fp32"
+                          + ("; the backward alone" if name.endswith("bwd") else ""))
+        out[name] = row
+    # the whole layer: both chains, against cuDNN's bidirectional layer
+    layer_fwd = lambda: rec.birnn_layer_fwd(xp, xp, h0s, fwd["weight_hh"], rev["weight_hh"], fwd["bias_hh"],  # noqa
+                                            rev["bias_hh"], cell, saved)
+    layer_bwd = lambda: rec.birnn_layer_bwd(dy, y, fwd["weight_hh"], rev["weight_hh"], cell, h0s, saved)  # noqa
+    out[f"birnn_{kind}_layer"] = {
+        "forward_ms": event_ms(layer_fwd, 5), "backward_ms": event_ms(layer_bwd, 5),
+        "library_forward_ms": event_ms(lambda: libs[True](xp, h0s), 5),
+        "library_backward_ms": event_ms(lib_bwd(True, dy), 5), "bound_ms": 2 * cases[f"rnn_{kind}_chain_fwd"][1][0],
+        "timed_by": "CUDA events", "shape": [b, s, 2 * h],
+    }
+    ptxas = kernels.ptxas_report(kernels.build().with_suffix(".log").read_text())
+    names = {"fwd": "gated_fwd_kernel<false, true>", "bwd": "gated_bwd_kernel<false, true>"} if cell == "gru" else {
+        "fwd": "rnn_fwd_kernel<false, true>", "bwd": "rnn_bwd_kernel<false, true>"}
+    for x in ("fwd", "bwd"):
+        backward = x == "bwd"
+        if cell == "gru":
+            plan = rec.gated_device_plan("gru", h, b, s, torch.cuda.current_device(), backward, not backward, True)
+            out[f"rnn_{kind}_chain_{x}"]["plan"] = {**dataclasses.asdict(plan), "blocks": plan.blocks(h)}
+        else:
+            out[f"rnn_{kind}_chain_{x}"]["plan"] = dataclasses.asdict(recurrence_plan_for(b, s, h, backward))
+        out[f"rnn_{kind}_chain_{x}"]["registers"] = ptxas[names[x]]["registers"]
+    return out
+
+
+def b13_sites(model):
+    """The model's dropout sites that draw (p > 0), by name."""
+    from hulc_tpu_torch.models.layers import Dropout
+
+    return sorted(n for n, m in model.named_modules() if isinstance(m, Dropout) and m.p > 0)
+
+
+def run_b13_cell(cell, seed, card):
+    """``mcil`` with the BiRNN's ``cell`` and dropout at every site: B.13
+    checked and timed, then the main path (launch counts zeroed just before
+    and read just after): B13_TRAIN_STEPS train steps and a val step; then
+    one train step against the plain path with the same generator state
+    (the same dropout masks; compare_train_plain's rule). Returns (summary,
+    launches, errs, timing)."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = b13_config(cell)
+    model = make_model(cfg, "cuda", seed=seed)
+    sites = b13_sites(model)
+    print(f"[b13] mcil with birnn_cell={cell}, {sum(p.numel() for p in model.parameters())} parameters, dropout "
+          f"{B13_DROPOUT} at {sites}")
+    want_sites = ["action_decoder.rnn.dropouts.0", "perceptual_encoder.rgb_gripper_encoder.dropout",
+                  "perceptual_encoder.rgb_static_encoder.dropout", "plan_recognition.birnn_model.dropouts.0"]
+    if sites != want_sites:
+        fail(f"b13 {cell}: the dropout sites that draw are {sites}, not {want_sites}")
+    errs, worst = check_b13(cell, model, seed)
+    timing = time_b13(cell, model, seed)
+    for name, t in timing.items():
+        if "forward" in t and isinstance(t["forward"], dict):
+            print(f"[b13] {name} at {tuple(t['shape'])}: kernel {t['forward']['ms']:.6f} ms (reverse chain "
+                  f"{t['reverse']['ms']:.6f} ms), plain {t['plain_ms']:.6f} ms, cuDNN {t['library_ms']:.6f} ms, bound "
+                  f"{t['bound_ms']:.6f} ms ({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of the bound; "
+                  f"plan {t['plan']}, {t['registers']} registers (CUDA events, {card})")
+        else:
+            print(f"[b13] {name} at {tuple(t['shape'])}: forward {t['forward_ms']:.6f} ms, dh chains "
+                  f"{t['backward_ms']:.6f} ms; cuDNN's bidirectional layer forward {t['library_forward_ms']:.6f} ms, "
+                  f"backward {t['library_backward_ms']:.6f} ms; bound {t['bound_ms']:.6f} ms a direction pair "
+                  f"(CUDA events, {card})")
+
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cuda")
+    trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    trainer.model.load_state_dict(model.state_dict())
+    trainer.init_state(1)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step_losses, host, _ = drive_training(trainer, batch, cfg.loss.kl_beta, B13_TRAIN_STEPS)
+    per_step = launch_counts()
+    trainer.model.eval()
+    with torch.no_grad():
+        val = trainer.val_step(split_fused(batch), cfg.loss.kl_beta,
+                               generator=torch.Generator(device="cuda").manual_seed(seed))
+    trainer.model.train()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    fwd, bwd = B13_KERNELS[cell]
+    other = B13_KERNELS["rnn" if cell == "gru" else "gru"]
+    layers = cfg.plan_recognition.birnn_num_layers
+    if per_step[fwd] != 2 * layers * B13_TRAIN_STEPS or per_step[bwd] != 2 * layers * B13_TRAIN_STEPS:
+        fail(f"b13 {cell}: {B13_TRAIN_STEPS} train steps launched {fwd} {per_step[fwd]} and {bwd} {per_step[bwd]} "
+             f"times, not {2 * layers * B13_TRAIN_STEPS} each: a step runs each layer's two chains once")
+    if not launches[fwd] > per_step[fwd] or any(launches[k] for k in (*other, *B13_IDLE)):
+        fail(f"b13 {cell}: the val step did not launch {fwd}, or another BiRNN kernel ran: {launches}")
+    for i, losses in enumerate(step_losses):
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"b13 {cell} train step {i}: a loss is not finite: {losses}")
+    if not all(np.isfinite(float(v)) for v in val.values()):
+        fail(f"b13 {cell} val step: a metric is not finite: {val}")
+    print(f"[b13 main path] {cell}: {B13_TRAIN_STEPS} train steps (host ms {[round(t, 3) for t in host]}, {card}), "
+          f"total losses {[round(l['total_loss'], 5) for l in step_losses]}, a val step ({len(val)} metrics, all "
+          f"finite); launches {({k: launches[k] for k in (fwd, bwd)})}")
+    del trainer
+    train_check = compare_train_plain(cfg, model, batch, seed, label=f"b13 {cell} train plain path")
+    del model
+    torch.cuda.empty_cache()
+    summary = {"train_steps_host_ms": host, "losses": step_losses, "plain_path": train_check,
+               "dropout_sites": sites, "check_rel_l2": worst, "s": time.perf_counter() - t0}
+    return summary, launches, errs, timing
+
+
+def run_b13_cli(seed, card):
+    """The train CLI in-process (``training.train.main``) for 3 steps on a
+    200 / 84 px ``--fixture`` with ``mcil`` and the gru BiRNN and the
+    dropout sites set by ``--set``; launch counts zeroed before and read
+    after."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.training import train
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_b13_") as tmp:
+        saved_tempdir, tempfile.tempdir = tempfile.tempdir, tmp  # the --fixture dataset goes here
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            sets = [arg for o in b13_overrides("gru") for arg in ("--set", o)]
+            trainer = train.main(["--config", "mcil", "--fixture", "--steps", "3", "--run-dir", f"{tmp}/run",
+                                  "--seed", str(seed), *sets])
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            step, cell = trainer.step, trainer.cfg.plan_recognition.birnn_cell
+            records = [json.loads(x) for x in (pathlib.Path(tmp) / "run" / "metrics.jsonl").read_text().splitlines()]
+            del trainer
+            torch.cuda.empty_cache()
+        finally:
+            tempfile.tempdir = saved_tempdir
+    if step != 3 or cell != "gru" or not all(launches[k] for k in B13_KERNELS["gru"]):
+        fail(f"b13 train CLI: step {step}, cell {cell}, launches {launches}")
+    if not all(np.isfinite(v) for r in records for k, v in r.items() if k != "prefix"):
+        fail(f"b13 train CLI: a logged value is not finite: {records}")
+    print(f"[b13 main path] train CLI --config mcil with {' '.join(sets)}: {step} steps, "
+          f"{len(records)} metrics lines, {time.perf_counter() - t0:.1f} s ({card})")
+    return {"steps": step, "records": len(records), "s": time.perf_counter() - t0}, launches
+
+
+def run_b13_options(seed, lanes, card):
+    """``hulc`` with the encoders' options all on (OPTION_OVERRIDES): one
+    train step against the plain path (compare_train_plain's rule), and a
+    policy step at one lane and at ``lanes`` lanes against the plain path
+    (ACTION_ATOL, plan ties counted)."""
+    from hulc_tpu_torch.config import apply_overrides, get_config
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+
+    t0 = time.perf_counter()
+    cfg = apply_overrides(get_config("hulc"), OPTION_OVERRIDES)
+    model = make_model(cfg, "cuda", seed=seed)
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cuda")
+    train_check = compare_train_plain(cfg, model, batch, seed, label="encoder options train plain path")
+    rng = np.random.default_rng(seed + 95)
+    lang = rng.normal(size=cfg.lang_dim).astype(np.float32)
+    langs = rng.normal(size=(lanes, cfg.lang_dim)).astype(np.float32)
+    single_obs, batched_obs = make_obs(rng, cfg, 1), [make_obs(rng, cfg, lanes)]
+    single_actions, single_states = drive_single(cfg, model, single_obs, lang, seed)
+    batched_actions, batched_states = drive_batched(cfg, model, batched_obs, langs, seed)
+    plain_model = make_model(cfg, "cuda", seed=seed, use_kernels=False)
+    plain_model.load_state_dict(model.state_dict())
+    p_actions, p_plans = plain_single(cfg, plain_model, single_obs, lang, seed, single_states)
+    single_err = compare_plain("options single lane", single_actions, p_actions,
+                               single_states[1].plan[0].cpu().numpy()[None], p_plans, np.ones(1, bool), cfg)
+    mask = replan_mask(0, lanes, cfg.replan_freq)
+    p_actions, p_plans = plain_batched(cfg, plain_model, [(batched_obs[0], langs, batched_states[0], mask)], seed)
+    batched_err = compare_plain(f"options batched, {lanes} lanes", batched_actions, p_actions,
+                                batched_states[1][0].cpu().numpy()[None], p_plans, mask[None], cfg)
+    del model, plain_model
+    torch.cuda.empty_cache()
+    print(f"[b13] encoder options {list(OPTION_OVERRIDES)} held against the plain path in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    return {"overrides": list(OPTION_OVERRIDES), "train_step": train_check,
+            "policy_plain_max_abs_err": {"1": single_err, str(lanes): batched_err}}
+
+
+def check_decoder_digests(card):
+    """The decoder's B.6 and B.11 forward and dh chain on kernel_times.py's
+    fixed inputs, digested as that script does, against the tree before
+    B.13 (PARENT_DIGESTS): bit-equal."""
+    from hulc_tpu_torch.evaluation import kernel_times
+
+    out = kernel_times.run(["--tree", str(pathlib.Path(__file__).resolve().parent), "--only", "rnn_relu_,rnn_gru_"])
+    got = out["digest"]
+    if set(got) != set(PARENT_DIGESTS) or any(got[k] != v for k, v in PARENT_DIGESTS.items()):
+        fail(f"the decoder's B.6 / B.11 outputs are not the parent tree's: {got} against {PARENT_DIGESTS}")
+    print(f"[b13] the decoder's B.6 and B.11 outputs bit-equal to the tree before B.13 ({len(got)} digests); CUDA "
+          f"events ms {out['event_ms']} ({card})")
+    return out["event_ms"]
+
+
+def run_phase19(seed, lanes, card):
+    """Phase 19: B.13 on both cells' mcil paths, the train CLI, the encoder
+    options on hulc, and the decoder's instances against the parent's
+    digests. Returns (summary, launches on the main paths, errs, timing)."""
+    t0 = time.perf_counter()
+    summary, launches, errs, timing = {}, collections.Counter(), {}, {}
+    for cell in B13_CELLS:
+        summary[cell], cell_launches, cell_errs, cell_timing = run_b13_cell(cell, seed, card)
+        launches.update(cell_launches)
+        errs.update(cell_errs)
+        timing.update(cell_timing)
+    summary["train_cli"], cli_launches = run_b13_cli(seed, card)
+    launches.update(cli_launches)
+    summary["options"] = run_b13_options(seed, lanes, card)
+    summary["decoder_event_ms"] = check_decoder_digests(card)
+    summary["s"] = time.perf_counter() - t0
+    print(f"[b13] phase 19 in {summary['s']:.1f} s")
+    return summary, launches, errs, timing
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -4922,6 +5487,13 @@ KERNEL_INFO = {
     "rnn_gru_bwd": ("hulc_rnn_gru_bwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:265"),
     "rnn_lstm_fwd": ("hulc_rnn_lstm_fwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:248"),
     "rnn_lstm_bwd": ("hulc_rnn_lstm_bwd", "hulc_tpu_torch/csrc/rnn_gates.cu", "hulc_tpu/models/layers.py:265"),
+    # B.13: a bidirectional layer's chains of the relu and gru cells (phase 19)
+    "rnn_relu_chain_fwd": ("hulc_rnn_relu_chain_fwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:305"),
+    "rnn_relu_chain_bwd": ("hulc_rnn_relu_chain_bwd", "hulc_tpu_torch/csrc/rnn.cu", "hulc_tpu/models/layers.py:305"),
+    "rnn_gru_chain_fwd": ("hulc_rnn_gru_chain_fwd", "hulc_tpu_torch/csrc/rnn_gates.cu",
+                          "hulc_tpu/models/layers.py:305"),
+    "rnn_gru_chain_bwd": ("hulc_rnn_gru_chain_bwd", "hulc_tpu_torch/csrc/rnn_gates.cu",
+                          "hulc_tpu/models/layers.py:305"),
     # B.14: the bf16 instances (phase 17)
     "preprocess_rgb_bf16": (
         "hulc_preprocess_rgb_bf16", "hulc_tpu_torch/csrc/preprocess.cu", "hulc_tpu/ops/image_ops.py:85",
@@ -4959,6 +5531,8 @@ EXTRA_TIMINGS = {
     "depth_noise": {"gaussian": "depth_noise_gaussian"},
     "rnn_gru_fwd": {"at_64_lanes": "rnn_gru_fwd_64_lanes", "at_1_lane": "rnn_gru_fwd_1_lane"},
     "rnn_lstm_fwd": {"at_64_lanes": "rnn_lstm_fwd_64_lanes", "at_1_lane": "rnn_lstm_fwd_1_lane"},
+    "rnn_relu_chain_fwd": {"layer": "birnn_relu_layer"},
+    "rnn_gru_chain_fwd": {"layer": "birnn_gru_layer"},
     "preprocess_rgb_bf16": {"gripper": "preprocess_rgb_bf16_gripper_window"},
     "spatial_softmax_bf16": {"at_64_lanes": "spatial_softmax_bf16_64", "at_1_lane": "spatial_softmax_bf16_1"},
     "spatial_softmax_bwd_bf16": {"learnable_t": "spatial_softmax_bwd_bf16_learnable_t"},
@@ -5162,9 +5736,11 @@ def main(argv=None) -> int:
                "mixture_nll_fwd_kernel",
                "mixture_nll_bwd_kernel", "adam_lowp_kernel<__nv_bfloat16, 0>", "adam_lowp_kernel<float, 0>",
                "adam_lowp_kernel<float, 1>", "adam_lowp_kernel<float, 2>", "grad_norm_finish_kernel",
-               "rnn_fwd_kernel<false>",
-               "rnn_bwd_kernel<false>", "rnn_step_kernel<false>", "rnn_fwd_kernel<true>", "rnn_bwd_kernel<true>",
-               "rnn_step_kernel<true>", "logistic_mixture_sample_kernel",
+               "rnn_fwd_kernel<false, false>",
+               "rnn_bwd_kernel<false, false>", "rnn_step_kernel<false>", "rnn_fwd_kernel<true, true>",
+               "rnn_bwd_kernel<true, true>", "rnn_step_kernel<true>", "rnn_fwd_kernel<false, true>",
+               "rnn_bwd_kernel<false, true>", "gated_fwd_kernel<false, true>", "gated_bwd_kernel<false, true>",
+               "logistic_mixture_sample_kernel",
                "plan_st_kl_fwd_kernel<true>", "plan_st_kl_fwd_kernel<false>", "plan_st_kl_bwd_kernel<true>",
                "plan_st_kl_bwd_kernel<false>"):
         r = resources[fn]
@@ -5234,18 +5810,25 @@ def main(argv=None) -> int:
     timing["adam_lowp"].update(profiler_ms=timing["adam_lowp"]["ms"], ms=b5["ms"], event_plain_ms=b5["plain_ms"],
                                event_library_ms=b5["library_ms"])
 
+    print(f"[time] phase 19 at {time.perf_counter() - t_start:.1f} s")
+    # ---- 19. the BiRNN's relu and gru cells (B.13), dropout, the encoders' options
+    b13, b13_launches, b13_errs, b13_timing = run_phase19(args.seed, args.lanes, card)
+    errs.update(b13_errs)
+    timing.update(b13_timing)
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
             + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol]
-            + gated_launches[symbol] + bf16_launches[symbol] + clis_launches[symbol],
+            + gated_launches[symbol] + bf16_launches[symbol] + clis_launches[symbol] + b13_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
             "launches_depth": depth_launches[symbol], "launches_gated": gated_launches[symbol],
             "launches_bf16": bf16_launches[symbol], "launches_clis": clis_launches[symbol],
+            "launches_b13": b13_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -5259,7 +5842,7 @@ def main(argv=None) -> int:
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
-        "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16, "clis": clis,
+        "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16, "clis": clis, "b13": b13,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(f"[time] all phases in {time.perf_counter() - t_start:.1f} s")

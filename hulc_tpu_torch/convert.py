@@ -8,11 +8,13 @@ The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
   ``bias_ih_lk`` / ``weight_hh_lk`` / ``bias_hh_lk``; ``ScanBiRNN``'s
   ``fwd_k`` / ``bwd_k`` (each a one-layer ScanRNN) become layer k's
   parameters, the reverse chain's with the ``_reverse`` suffix; the gru
-  and lstm cells' gate-wide ones (3H, 4H) keep JAX's gate order, which is
-  torch's;
+  and lstm cells' gate-wide ones (3H, 4H), the decoder's and the BiRNN's,
+  keep JAX's gate order, which is torch's;
 * the nature-CNN's first dense kernel is re-permuted from the NHWC flatten
   (y, x, c) to the NCHW flatten (c, y, x);
-* LayerNorm ``scale`` becomes ``weight``;
+* LayerNorm ``scale`` becomes ``weight`` (the recognition transformer's
+  optional ``positional_norm`` and ``encoder/final_norm`` too, which the
+  JAX package's own ``torch_convert.convert_state_dict`` does not map);
 * flax attention's per-head ``query`` / ``key`` / ``value`` kernels
   (d, heads, d / heads) and ``out`` kernel (heads, d / heads, d) become
   torch's ``in_proj_weight`` (3d, d), ``in_proj_bias`` and ``out_proj``.
@@ -161,9 +163,13 @@ def params_from_jax(
         # each direction of layer k is a one-layer ScanRNN, fwd_k / bwd_k
         for k in range(pr.birnn_num_layers):
             for name, suffix in (("fwd", ""), ("bwd", "_reverse")):
-                rnn_layer(f"plan_recognition/birnn/{name}_{k}", "plan_recognition.birnn_model", k, suffix, src_k=0)
+                rnn_layer(f"plan_recognition/birnn/{name}_{k}", "plan_recognition.birnn_model", k, suffix, src_k=0,
+                          gates=GATE_MULTIPLE[pr.birnn_cell])
     else:
-        sd["plan_recognition.position_embeddings.weight"] = r.get("plan_recognition/position_embeddings")
+        if pr.position_embedding:
+            sd["plan_recognition.position_embeddings.weight"] = r.get("plan_recognition/position_embeddings")
+        if pr.positional_normalize:
+            layernorm("plan_recognition/positional_norm", "plan_recognition.positional_norm")
         for i in range(pr.num_layers):
             src, dst = f"plan_recognition/encoder/layer_{i}", f"plan_recognition.transformer_encoder.layers.{i}"
             attn = f"{src}/self_attn"
@@ -180,6 +186,8 @@ def params_from_jax(
             linear(f"{src}/linear2", f"{dst}.linear2")
             layernorm(f"{src}/norm1", f"{dst}.norm1")
             layernorm(f"{src}/norm2", f"{dst}.norm2")
+        if pr.encoder_normalize:
+            layernorm("plan_recognition/encoder/final_norm", "plan_recognition.transformer_encoder.final_norm")
         linear("plan_recognition/fc", "plan_recognition.fc")
     linear("plan_recognition/fc_state", "plan_recognition.fc_state.0")
 

@@ -1,6 +1,7 @@
 // The RNN recurrences, forward and backward, one chain a launch: the
-// decoder's relu cell (B.6) and the tanh cell (B.8), which the MCIL plan
-// recognition's bidirectional layers (B.9) run once a direction.
+// decoder's relu cell (B.6), the tanh cell (B.8), which the MCIL plan
+// recognition's bidirectional layers (B.9) run once a direction, and the
+// relu cell's chain of a bidirectional layer (B.13, birnn_cell = "rnn").
 //
 // Replaces hulc_tpu/models/layers.py ScanRNN.__call__'s lax.scan for the
 // "rnn" and "rnn_tanh" cells (lines 233-238 and 265-267): with the input
@@ -17,14 +18,19 @@
 //
 // A bidirectional layer (layers.py:284-313 ScanBiRNN: a forward chain and
 // a chain over the time-reversed input, flipped back and concatenated to
-// (B, S, 2H)) is two launches of the tanh kernels, one a direction, into
-// one (B, S, 2H) output: a chain's Layout gives y's row width (2H) and its
+// (B, S, 2H)) is two launches of the tanh (or relu) kernels, one a
+// direction, into one (B, S, 2H) output: a chain's Layout gives y's row width (2H) and its
 // columns (the caller's pointer already at column 0 or H), and `reverse`
 // has step t read xp[:, S-1-t] and write y[:, S-1-t]. No flip and no
 // concatenation is copied; the backward reads dy and y through the same
 // layout and writes each chain's dpre (B, S, H) in xp's time order. The
 // two chains run one after the other: each takes 120 SMs at H = 2048, and
 // the two W_hh (2 x 16.8 MB) are more than the card's shared memory.
+// The kernels are templates on the activation and on kLaid, whether the
+// layout is the launch's or the constant (H, forward) of a chain that owns
+// its y: the decoder's relu chain (B.6) compiles with the constant layout
+// (with the layout as kernel arguments its forward ran 2.3-2.8% slower),
+// the bidirectional relu chain (B.13) with the launch's, as the tanh's.
 //
 // Bound on the H100 (either cell, each chain): operations. Each time step is 2 B H^2 fp32 FLOP that
 // cannot start before every column of the step before is done; at the
@@ -406,7 +412,7 @@ __device__ __forceinline__ void reduce_partials(const cg::cluster_group& cluster
   }
 }
 
-template <bool kTanh>
+template <bool kTanh, bool kLaid>
 __global__ void __launch_bounds__(kThreads, 1)
     rnn_fwd_kernel(const float* __restrict__ xp, const float* h0, const float* __restrict__ w,
                    const float* __restrict__ bias, float* y, float* h_last, int batch, int seq, int hidden,
@@ -419,9 +425,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* stage = ws + kCols * wst;
   float* part = stage + 2 * kRows * kHStride;
   float* xt = part + kRows * kPartStride;  // xp at the block's reduce slice
-  // the relu cell (the decoder) always runs forward in time into its own
+  // the decoder's relu chain always runs forward in time into its own
   // (B, S, H) y: a constant layout, so its instance compiles to B.6's code
-  const Layout out = kTanh ? layout : Layout{hidden, 0};
+  const Layout out = kLaid ? layout : Layout{hidden, 0};
   load_weight_slice<false>(ws, w, hidden, g, wst, vec_w);
 
   const long long x_stride = static_cast<long long>(seq) * hidden;     // xp's rows
@@ -448,7 +454,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <bool kTanh>
+template <bool kTanh, bool kLaid>
 __global__ void __launch_bounds__(kThreads, 1)
     rnn_bwd_kernel(const float* __restrict__ dy, const float* __restrict__ y, const float* __restrict__ dcarry,
                    const float* __restrict__ w, float* dpre, float* dh0, int batch, int seq, int hidden,
@@ -461,7 +467,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* stage = ws + kCols * wst;
   float* part = stage + 2 * kRows * kHStride;
   float* dyt = part + kRows * kPartStride;  // dy and y at step t - 1, the block's reduce slice
-  const Layout out = kTanh ? layout : Layout{hidden, 0};  // as in the forward
+  const Layout out = kLaid ? layout : Layout{hidden, 0};  // as in the forward
   float* yt = dyt + kRows * g.nred;
   load_weight_slice<true>(ws, w, hidden, g, wst, vec_w);
   const long long x_stride = static_cast<long long>(seq) * hidden;     // dpre's rows
@@ -626,12 +632,20 @@ int launch_sequence(const void* kernel, const Plan& p, int hidden, bool cooperat
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-const void* sequence_kernel(bool tanh, bool backward) {
-  if (backward)
-    return tanh ? reinterpret_cast<const void*>(rnn_bwd_kernel<true>)
-                : reinterpret_cast<const void*>(rnn_bwd_kernel<false>);
-  return tanh ? reinterpret_cast<const void*>(rnn_fwd_kernel<true>)
-              : reinterpret_cast<const void*>(rnn_fwd_kernel<false>);
+// The cells' sequence kernels: the decoder's relu chain (B.6), the tanh
+// chain (B.8), the relu chain with a layout (B.13).
+enum Cell { kRelu = 0, kTanhChain = 1, kReluChain = 2 };
+
+template <bool kTanh, bool kLaid>
+const void* sequence_kernel_of(bool backward) {
+  return backward ? reinterpret_cast<const void*>(rnn_bwd_kernel<kTanh, kLaid>)
+                  : reinterpret_cast<const void*>(rnn_fwd_kernel<kTanh, kLaid>);
+}
+
+const void* sequence_kernel(int cell, bool backward) {
+  if (cell == kTanhChain) return sequence_kernel_of<true, true>(backward);
+  if (cell == kReluChain) return sequence_kernel_of<false, true>(backward);
+  return cell == kRelu ? sequence_kernel_of<false, false>(backward) : nullptr;
 }
 
 // Whether a chain's layout holds its H columns: y's rows of `width` floats,
@@ -640,7 +654,7 @@ bool layout_fits(int hidden, int reverse, int width, int offset) {
   return (reverse == 0 || reverse == 1) && offset >= 0 && static_cast<long long>(offset) + hidden <= width;
 }
 
-template <bool kTanh>
+template <bool kTanh, bool kLaid>
 int forward(const void* xp, const void* h0, const void* w, const void* bias, void* y, void* h_last, int batch,
             int seq, int hidden, Layout out, int y_offset, const Plan& p, void* stream) {
   if (batch <= 0 || seq <= 0 || hidden <= 0) return static_cast<int>(cudaGetLastError());
@@ -663,11 +677,11 @@ int forward(const void* xp, const void* h0, const void* w, const void* bias, voi
   int vec_w = hidden % 4 == 0 && aligned16(w);
   int k_slice = p.k_slice;
   void* args[] = {&xp_, &h0_, &w_, &b_, &y_, &hl_, &batch, &seq, &hidden, &k_slice, &vec, &vec_w, &out};
-  return launch_sequence(reinterpret_cast<const void*>(rnn_fwd_kernel<kTanh>), p, hidden, cooperative(seq, false),
-                         args, s);
+  return launch_sequence(reinterpret_cast<const void*>(rnn_fwd_kernel<kTanh, kLaid>), p, hidden,
+                         cooperative(seq, false), args, s);
 }
 
-template <bool kTanh>
+template <bool kTanh, bool kLaid>
 int backward(const void* dy, const void* y, const void* dcarry, const void* w, void* dpre, void* dh0, int batch,
              int seq, int hidden, Layout out, int y_offset, const Plan& p, void* stream) {
   if (batch <= 0 || seq <= 0 || hidden <= 0) return static_cast<int>(cudaGetLastError());
@@ -683,7 +697,7 @@ int backward(const void* dy, const void* y, const void* dcarry, const void* w, v
   float* dh0_ = static_cast<float*>(dh0);
   int k_slice = p.k_slice;
   void* args[] = {&dy_, &y_, &dc_, &w_, &dpre_, &dh0_, &batch, &seq, &hidden, &k_slice, &vec, &vec_w, &out};
-  return launch_sequence(reinterpret_cast<const void*>(rnn_bwd_kernel<kTanh>), p, hidden, true, args,
+  return launch_sequence(reinterpret_cast<const void*>(rnn_bwd_kernel<kTanh, kLaid>), p, hidden, true, args,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -701,7 +715,7 @@ extern "C" int hulc_device_limits(int device, int* sms, int* smem_optin) {
 // blocks share a GPC, so this is below SMs / cluster where the GPCs' SM
 // counts are not multiples of the cluster size. For the launch plan.
 extern "C" int hulc_rnn_cluster_limit(int cluster, int* clusters) {
-  const void* kernel = sequence_kernel(false, false);
+  const void* kernel = sequence_kernel(kRelu, false);
   int optin = 0;
   cudaError_t err = allow_optin_smem(kernel, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -713,15 +727,17 @@ extern "C" int hulc_rnn_cluster_limit(int cluster, int* clusters) {
 // Checks a plan once, when the wrapper makes it, against this file's
 // geometry and the current device: the shared memory a block may opt in to,
 // and every cluster resident at once where the launch is cooperative. Lets
-// the cell's sequence kernel (tanh 1, relu 0) take all the shared memory a
-// block may opt in to, so any plan that passed here launches.
-extern "C" int hulc_rnn_check(int tanh, int backward, int batch, int seq, int hidden, int launch, int cluster,
+// the cell's sequence kernel (relu 0, tanh 1, the relu chain with a layout
+// 2) take all the shared memory a block may opt in to, so any plan that
+// passed here launches.
+extern "C" int hulc_rnn_check(int cell, int backward, int batch, int seq, int hidden, int launch, int cluster,
                               int k_slice, int cols, int smem) {
   const Plan p{launch, cluster, k_slice, cols, smem};
-  if (batch <= 0 || seq <= 0 || hidden <= 0 || !plan_fits(p, batch, seq, hidden, backward != 0))
+  if (batch <= 0 || seq <= 0 || hidden <= 0 || !plan_fits(p, batch, seq, hidden, backward != 0) ||
+      !sequence_kernel(cell, backward != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.launch == kStep) return static_cast<int>(cudaSuccess);
-  const void* kernel = sequence_kernel(tanh != 0, backward != 0);
+  const void* kernel = sequence_kernel(cell, backward != 0);
   int optin = 0;
   cudaError_t err = allow_optin_smem(kernel, &optin);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -741,8 +757,8 @@ extern "C" int hulc_rnn_check(int tanh, int backward, int batch, int seq, int hi
 extern "C" int hulc_rnn_relu_fwd(const void* xp, const void* h0, const void* w, const void* bias, void* y,
                                  void* h_last, int batch, int seq, int hidden, int launch, int cluster, int k_slice,
                                  int cols, int smem, void* stream) {
-  return forward<false>(xp, h0, w, bias, y, h_last, batch, seq, hidden, Layout{hidden, 0}, 0,
-                        Plan{launch, cluster, k_slice, cols, smem}, stream);
+  return forward<false, false>(xp, h0, w, bias, y, h_last, batch, seq, hidden, Layout{hidden, 0}, 0,
+                               Plan{launch, cluster, k_slice, cols, smem}, stream);
 }
 
 // dpre (B, S, H) and dh0 (B, H); dcarry (B, H) may be null (no gradient
@@ -750,8 +766,8 @@ extern "C" int hulc_rnn_relu_fwd(const void* xp, const void* h0, const void* w, 
 extern "C" int hulc_rnn_relu_bwd(const void* dy, const void* y, const void* dcarry, const void* w, void* dpre,
                                  void* dh0, int batch, int seq, int hidden, int launch, int cluster, int k_slice,
                                  int cols, int smem, void* stream) {
-  return backward<false>(dy, y, dcarry, w, dpre, dh0, batch, seq, hidden, Layout{hidden, 0}, 0,
-                         Plan{launch, cluster, k_slice, cols, smem}, stream);
+  return backward<false, false>(dy, y, dcarry, w, dpre, dh0, batch, seq, hidden, Layout{hidden, 0}, 0,
+                                Plan{launch, cluster, k_slice, cols, smem}, stream);
 }
 
 // The tanh cell (B.8), one chain: y's rows are y_width floats a time step,
@@ -760,8 +776,8 @@ extern "C" int hulc_rnn_relu_bwd(const void* dy, const void* y, const void* dcar
 extern "C" int hulc_rnn_tanh_fwd(const void* xp, const void* h0, const void* w, const void* bias, void* y,
                                  void* h_last, int batch, int seq, int hidden, int reverse, int y_width, int y_offset,
                                  int launch, int cluster, int k_slice, int cols, int smem, void* stream) {
-  return forward<true>(xp, h0, w, bias, y, h_last, batch, seq, hidden, Layout{y_width, reverse}, y_offset,
-                       Plan{launch, cluster, k_slice, cols, smem}, stream);
+  return forward<true, true>(xp, h0, w, bias, y, h_last, batch, seq, hidden, Layout{y_width, reverse}, y_offset,
+                             Plan{launch, cluster, k_slice, cols, smem}, stream);
 }
 
 // The tanh chain's dh chain: dy and y in the forward's layout, dpre (B, S, H)
@@ -769,6 +785,27 @@ extern "C" int hulc_rnn_tanh_fwd(const void* xp, const void* h0, const void* w, 
 extern "C" int hulc_rnn_tanh_bwd(const void* dy, const void* y, const void* dcarry, const void* w, void* dpre,
                                  void* dh0, int batch, int seq, int hidden, int reverse, int y_width, int y_offset,
                                  int launch, int cluster, int k_slice, int cols, int smem, void* stream) {
-  return backward<true>(dy, y, dcarry, w, dpre, dh0, batch, seq, hidden, Layout{y_width, reverse}, y_offset,
-                        Plan{launch, cluster, k_slice, cols, smem}, stream);
+  return backward<true, true>(dy, y, dcarry, w, dpre, dh0, batch, seq, hidden, Layout{y_width, reverse}, y_offset,
+                              Plan{launch, cluster, k_slice, cols, smem}, stream);
+}
+
+// The relu cell's chain of a bidirectional layer (B.13, birnn_cell =
+// "rnn"): B.6's arithmetic with the tanh chain's layout (y_width, y_offset,
+// reverse) as kernel arguments. h_last may be null.
+extern "C" int hulc_rnn_relu_chain_fwd(const void* xp, const void* h0, const void* w, const void* bias, void* y,
+                                       void* h_last, int batch, int seq, int hidden, int reverse, int y_width,
+                                       int y_offset, int launch, int cluster, int k_slice, int cols, int smem,
+                                       void* stream) {
+  return forward<false, true>(xp, h0, w, bias, y, h_last, batch, seq, hidden, Layout{y_width, reverse}, y_offset,
+                              Plan{launch, cluster, k_slice, cols, smem}, stream);
+}
+
+// Its dh chain: dy and y in the forward's layout, dpre (B, S, H) in xp's
+// time order, dh0 (B, H); dcarry may be null.
+extern "C" int hulc_rnn_relu_chain_bwd(const void* dy, const void* y, const void* dcarry, const void* w, void* dpre,
+                                       void* dh0, int batch, int seq, int hidden, int reverse, int y_width,
+                                       int y_offset, int launch, int cluster, int k_slice, int cols, int smem,
+                                       void* stream) {
+  return backward<false, true>(dy, y, dcarry, w, dpre, dh0, batch, seq, hidden, Layout{y_width, reverse}, y_offset,
+                               Plan{launch, cluster, k_slice, cols, smem}, stream);
 }

@@ -1,5 +1,6 @@
-// The gated RNN cells of the decoder, forward and dh chain, one layer a
-// launch: the gru cell (B.11) and the lstm cell (B.12).
+// The gated RNN cells, forward and dh chain, one chain a launch: the
+// decoder's gru cell (B.11) and lstm cell (B.12), and the gru chain of a
+// bidirectional layer (B.13, the plan recognition's birnn_cell = "gru").
 //
 // Replaces hulc_tpu/models/layers.py ScanRNN.__call__'s lax.scan for the
 // "gru" and "lstm" cells (lines 239-260, scanned at :265). With the input
@@ -25,6 +26,18 @@
 //         dh_{t-1} = dhp_t W, dc_{t-1} = dc f.
 // The caller forms dW_hh = dhp^T [h0, y_{:-1}] as one matrix product over
 // all S * B rows and db_hh as dhp's sum: no per-step weight gradients.
+//
+// A bidirectional gru layer (layers.py:284-313 ScanBiRNN) is two launches
+// of the gru kernels into one (B, S, 2H) output, as csrc/rnn.cu's tanh and
+// relu chains: the kernels are templates on kLaid, and a laid chain's y
+// (and dy) rows are y_width floats a time step, its columns from the
+// pointer it is given (y_offset), its step t at row time(t) = S - 1 - t
+// for the reverse chain. Its xp, saved gates, dxp and dhp are its own
+// (B, S, G H) / (B, S, 4H) tensors in xp's time order, row time(t) too;
+// h_{t-1} is y's row time(t - 1), staged by the TMA unit from a 3-D view
+// of y with the time stride y_width and the batch stride S y_width. The
+// decoder's instances (kLaid false) compile with the constant layout (H,
+// forward). A laid chain never takes the one-step launch.
 //
 // Bound on the H100: operations. Each step is 2 B H G H fp32 FLOP that
 // cannot start before every column of the step before is done; at the
@@ -460,7 +473,20 @@ struct FwdArgs {
   int batch, seq, hidden, k_slice;
   int vec;  // 16-byte loads and stores of the tensors' rows (H a multiple of 4, all aligned)
   int tma;  // the sequence kernel: the ring filled by the TMA unit
+  int y_width, reverse;  // a laid chain's layout: y's row width, time running backwards
 };
+
+// Row of a chain's step t in its tensors: t, or S - 1 - t for a laid
+// reverse chain (a constant forward layout where kLaid is false).
+template <bool kLaid, typename Args>
+__device__ __forceinline__ int time_of(const Args& a, int t) {
+  return kLaid && a.reverse ? a.seq - 1 - t : t;
+}
+
+template <bool kLaid, typename Args>
+__device__ __forceinline__ int y_width_of(const Args& a) {
+  return kLaid ? a.y_width : a.hidden;
+}
 
 // The gate math of one (row, column): x, hp the G pre-activations' two
 // halves (hp with b_hh); returns h_t, writes c_t and the saved row.
@@ -496,7 +522,7 @@ __device__ __forceinline__ float cell_step(const float (&x)[Cell<kLstm>::kGates]
   }
 }
 
-template <bool kLstm>
+template <bool kLstm, bool kLaid>
 __global__ void __launch_bounds__(Cell<kLstm>::kFwdThreads, 1) gated_fwd_kernel(const __grid_constant__ FwdArgs a,
                                                                                 const __grid_constant__ Maps maps) {
   using C = Cell<kLstm>;
@@ -508,7 +534,7 @@ __global__ void __launch_bounds__(Cell<kLstm>::kFwdThreads, 1) gated_fwd_kernel(
   float* ring = aligned_smem(smem_raw);
   float* part = ring + NS * C::kFwdStageFloats;
   cg::cluster_group cluster = cg::this_cluster();
-  const int H = a.hidden, S = a.seq;
+  const int H = a.hidden, S = a.seq, YW = y_width_of<kLaid>(a);
   const Geometry geo = geometry(cluster, kFwdCols, H, H, a.k_slice);
   const Stream str = stream_of(geo.k_valid, C::kFwdChunk, a.batch, S);
   const long long gh = static_cast<long long>(G) * H;
@@ -546,15 +572,15 @@ __global__ void __launch_bounds__(Cell<kLstm>::kFwdThreads, 1) gated_fwd_kernel(
         if (t == 0) {
           tma_2d(hs, maps.state0, geo.k0 + kc, r0, &bars.state[p % NS]);
         } else {
-          tma_3d(hs, maps.state, geo.k0 + kc, t - 1, r0, &bars.state[p % NS]);
+          tma_3d(hs, maps.state, geo.k0 + kc, time_of<kLaid>(a, t - 1), r0, &bars.state[p % NS]);
         }
       }
       return;
     }
     const int rows = min(kRows, a.batch - r0);
-    const float* h =
-        t == 0 ? a.h0 + static_cast<long long>(r0) * H : a.y + (static_cast<long long>(r0) * S + t - 1) * H;
-    const long long stride = t == 0 ? H : static_cast<long long>(S) * H;
+    const float* h = t == 0 ? a.h0 + static_cast<long long>(r0) * H
+                            : a.y + (static_cast<long long>(r0) * S + time_of<kLaid>(a, t - 1)) * YW;
+    const long long stride = t == 0 ? H : static_cast<long long>(S) * YW;
     fill_rows(hs, NT, kRows, C::kFwdChunk, C::kFwdStride, geo.k_valid - kc,
               [&](int r) { return r < rows ? h + r * stride + geo.k0 + kc : nullptr; });
     if (threadIdx.x == 0) mbar_arrive_tx(&bars.state[p % NS], 0);
@@ -572,6 +598,7 @@ __global__ void __launch_bounds__(Cell<kLstm>::kFwdThreads, 1) gated_fwd_kernel(
     // the state's share of the chunks already in flight
     for (int q = p; q < p + kAhead && q < str.total; ++q)
       if (str.step(q) == t) issue_h(q);
+    const int tp = time_of<kLaid>(a, t), tq = t > 0 ? time_of<kLaid>(a, t - 1) : 0;  // step t's row, t - 1's
     for (int tile = 0; tile < str.tiles; ++tile) {
       const int r0 = tile * kRows, rows = min(kRows, a.batch - r0);
       float acc[kTileRows][kFwdTileCols];
@@ -602,7 +629,7 @@ __global__ void __launch_bounds__(Cell<kLstm>::kFwdThreads, 1) gated_fwd_kernel(
         for (int m = 0; m < kBatch; ++m) {
           const int i = i0 + m * NT, row = i / geo.nq, jj = 4 * (geo.q0 + i % geo.nq);
           const int j = geo.c0 + jj, b = r0 + row, n = i < n_items ? min(4, H - j) : 0;
-          const long long bt = static_cast<long long>(b) * S + t, bj = static_cast<long long>(b) * H + j;
+          const long long bt = static_cast<long long>(b) * S + tp, bj = static_cast<long long>(b) * H + j;
           const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
           for (int g = 0; g < G; ++g) {
@@ -611,7 +638,8 @@ __global__ void __launch_bounds__(Cell<kLstm>::kFwdThreads, 1) gated_fwd_kernel(
                              : zero;
             x[m][g] = n > 0 ? load4(a.xp + bt * gh + g * H + j, n, a.vec) : zero;
           }
-          h_prev[m] = n > 0 ? load4(t == 0 ? a.h0 + bj : a.y + (bt - 1) * H + j, n, a.vec) : zero;
+          h_prev[m] = n > 0 ? load4(t == 0 ? a.h0 + bj : a.y + (static_cast<long long>(b) * S + tq) * YW + j, n, a.vec)
+                            : zero;
           c_prev[m] = kLstm && n > 0 ? load4(t == 0 ? a.c0 + bj : a.c_last + bj, n, a.vec) : zero;
         }
 #pragma unroll
@@ -619,7 +647,7 @@ __global__ void __launch_bounds__(Cell<kLstm>::kFwdThreads, 1) gated_fwd_kernel(
           const int i = i0 + m * NT, row = i / geo.nq, j = geo.c0 + 4 * (geo.q0 + i % geo.nq), b = r0 + row;
           const int n = i < n_items ? min(4, H - j) : 0;
           if (n <= 0) continue;
-          const long long bt = static_cast<long long>(b) * S + t, bj = static_cast<long long>(b) * H + j;
+          const long long bt = static_cast<long long>(b) * S + tp, bj = static_cast<long long>(b) * H + j;
           float4 y4, c4, sv4[C::kSaved];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -634,9 +662,9 @@ __global__ void __launch_bounds__(Cell<kLstm>::kFwdThreads, 1) gated_fwd_kernel(
 #pragma unroll
             for (int k = 0; k < C::kSaved; ++k) set_lane(sv4[k], e, sv[k]);
           }
-          store4(a.y + bt * H + j, y4, n, a.vec);
+          store4(a.y + bt * YW + j, y4, n, a.vec);
           if (kLstm) store4(a.c_last + bj, c4, n, a.vec);
-          if (t == S - 1) store4(a.h_last + bj, y4, n, a.vec);
+          if (t == S - 1 && (!kLaid || a.h_last)) store4(a.h_last + bj, y4, n, a.vec);
           if (a.saved)
 #pragma unroll
             for (int k = 0; k < C::kSaved; ++k) store4(a.saved + bt * C::kSaved * H + k * H + j, sv4[k], n, a.vec);
@@ -736,29 +764,31 @@ struct BwdArgs {
   int batch, seq, hidden, k_slice;
   int vec;  // 16-byte loads and stores of the tensors' rows (H a multiple of 4, all aligned)
   int tma;  // the ring filled by the TMA unit
+  int y_width, reverse;  // a laid chain's layout of dy and y, as the forward's
 };
 
 // Step t's gate gradients at (b, j .. j + n - 1), n <= 4, from gh = dy_t +
 // dh_t and (lstm) the dc carried from step t + 1: writes dxp and dhp at
 // (b, t) and the carry to step t - 1 (gru: gh z into dh0; lstm: dc f into
 // dc0).
-template <bool kLstm>
+template <bool kLstm, bool kLaid>
 __device__ __forceinline__ void cell_grad4(const BwdArgs& a, int b, int t, int j, int n, const float4& gh,
                                            const float4& dc_in) {
   using C = Cell<kLstm>;
   constexpr int G = C::kGates;
   const int H = a.hidden, S = a.seq;
   const bool vec = a.vec;
-  const long long bt = static_cast<long long>(b) * S + t;
+  const long long bt = static_cast<long long>(b) * S + time_of<kLaid>(a, t);
+  const long long bq = static_cast<long long>(b) * S + (t > 0 ? time_of<kLaid>(a, t - 1) : 0);  // step t - 1's row
   const long long o = bt * G * H + j, bj = static_cast<long long>(b) * H + j;
   const float* sv = a.saved + bt * C::kSaved * H + j;
   float4 s[C::kSaved];
 #pragma unroll
   for (int k = 0; k < C::kSaved; ++k) s[k] = load4(sv + k * H, n, vec);
   // lstm: c_{t-1}; gru: h_{t-1}
-  const float4 prev = kLstm ? (t > 0 ? load4(sv + 4 * H - static_cast<long long>(C::kSaved) * H, n, vec)
+  const float4 prev = kLstm ? (t > 0 ? load4(a.saved + bq * C::kSaved * H + 4 * H + j, n, vec)
                                      : load4(a.c0 + bj, n, vec))
-                            : (t > 0 ? load4(a.y + (bt - 1) * H + j, n, vec) : load4(a.h0 + bj, n, vec));
+                            : (t > 0 ? load4(a.y + bq * y_width_of<kLaid>(a) + j, n, vec) : load4(a.h0 + bj, n, vec));
   float4 dx[G], dhp_n, carry;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -796,7 +826,7 @@ __device__ __forceinline__ void cell_grad4(const BwdArgs& a, int b, int t, int j
   }
 }
 
-template <bool kLstm>
+template <bool kLstm, bool kLaid>
 __global__ void __launch_bounds__(kBwdThreads, 1) gated_bwd_kernel(const __grid_constant__ BwdArgs a,
                                                                    const __grid_constant__ Maps maps) {
   using C = Cell<kLstm>;
@@ -807,7 +837,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) gated_bwd_kernel(const __grid_
   float* ring = aligned_smem(smem_raw);
   float* part = ring + NS * kBwdStageFloats;
   cg::cluster_group cluster = cg::this_cluster();
-  const int H = a.hidden, S = a.seq;
+  const int H = a.hidden, S = a.seq, YW = y_width_of<kLaid>(a);
   const int gate_width = C::kGates * H;
   const Geometry geo = geometry(cluster, kCols, H, gate_width, a.k_slice);
   const Stream str = stream_of(geo.k_valid, kBwdChunk, a.batch, S);
@@ -837,7 +867,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) gated_bwd_kernel(const __grid_
   };
   auto issue_h = [&](int p) {
     float* ds = ring + p % NS * kBwdStageFloats;
-    const int t = S - 1 - str.step(p), r0 = str.tile(p) * kRows, kc = str.chunk(p) * kBwdChunk;
+    const int t = time_of<kLaid>(a, S - 1 - str.step(p));  // dhp's row of the chain's step
+    const int r0 = str.tile(p) * kRows, kc = str.chunk(p) * kBwdChunk;
     if (a.tma) {
       if (threadIdx.x == 0) {
         mbar_arrive_tx(&bars.state[p % NS], sizeof(float) * kBwdDhpFloats);
@@ -863,9 +894,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) gated_bwd_kernel(const __grid_
     if (n <= 0) continue;
     const long long bj = static_cast<long long>(b) * H + j;
     const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float4 gh = add4(load4(a.dy + (static_cast<long long>(b) * S + S - 1) * H + j, n, a.vec),
-                           a.dh_last ? load4(a.dh_last + bj, n, a.vec) : zero);
-    cell_grad4<kLstm>(a, b, S - 1, j, n, gh, kLstm && a.dc_last ? load4(a.dc_last + bj, n, a.vec) : zero);
+    const long long last = (static_cast<long long>(b) * S + time_of<kLaid>(a, S - 1)) * YW;  // dy's row of step S - 1
+    const float4 gh = add4(load4(a.dy + last + j, n, a.vec), a.dh_last ? load4(a.dh_last + bj, n, a.vec) : zero);
+    cell_grad4<kLstm, kLaid>(a, b, S - 1, j, n, gh, kLstm && a.dc_last ? load4(a.dc_last + bj, n, a.vec) : zero);
   }
 
   const Partials parts(cluster, part, geo.cluster);
@@ -878,6 +909,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) gated_bwd_kernel(const __grid_
     if (a.tma && threadIdx.x == 0) fence_proxy_global();
     for (int q = p; q < p + kAhead && q < str.total; ++q)
       if (str.step(q) == step) issue_h(q);
+    const int tq = t > 0 ? time_of<kLaid>(a, t - 1) : 0;  // step t - 1's row of dy
     for (int tile = 0; tile < str.tiles; ++tile) {
       const int r0 = tile * kRows, rows = min(kRows, a.batch - r0);
       float acc[kTileRows][kTileCols];
@@ -913,7 +945,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) gated_bwd_kernel(const __grid_
           // gru: dh_{t-1} = gh_t z_t (carried in dh0) + dhp_t W; lstm: dhp_t W
           dh[m] = n > 0 ? parts.sum4(row * kBwdPartStride + jj, geo.cluster) : zero;
           if (!kLstm && n > 0) dh[m] = add4(dh[m], load4(a.dh0 + bj, n, a.vec));
-          dy[m] = n > 0 && t > 0 ? load4(a.dy + (static_cast<long long>(b) * S + t - 1) * H + j, n, a.vec) : zero;
+          dy[m] = n > 0 && t > 0 ? load4(a.dy + (static_cast<long long>(b) * S + tq) * YW + j, n, a.vec) : zero;
           dc[m] = kLstm && n > 0 && t > 0 ? load4(a.dc0 + bj, n, a.vec) : zero;
         }
 #pragma unroll
@@ -922,7 +954,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) gated_bwd_kernel(const __grid_
           const int n = i < n_items ? min(4, H - j) : 0;
           if (n <= 0) continue;
           if (t > 0) {
-            cell_grad4<kLstm>(a, b, t - 1, j, n, add4(dy[m], dh[m]), dc[m]);
+            cell_grad4<kLstm, kLaid>(a, b, t - 1, j, n, add4(dy[m], dh[m]), dc[m]);
           } else {
             store4(a.dh0 + static_cast<long long>(b) * H + j, dh[m], n, a.vec);
           }
@@ -1002,13 +1034,14 @@ bool cooperative(int seq, bool backward) { return backward || seq > 1; }
 
 // Whether the plan covers the problem with this file's geometry: the
 // one-step kernel only for a forward of one step at a few rows that saves
-// nothing; a sequence kernel's blocks of a cluster each a whole number of
-// chunks of the forward's H or the dh chain's G H and all of it together,
-// with the ring and the shared memory they need.
-template <bool kLstm>
+// nothing, of a chain that owns its y; a sequence kernel's blocks of a
+// cluster each a whole number of chunks of the forward's H or the dh
+// chain's G H and all of it together, with the ring and the shared memory
+// they need.
+template <bool kLstm, bool kLaid>
 bool plan_fits(const Plan& p, int batch, int seq, int hidden, bool backward, bool saves) {
   if (p.launch == kStep)
-    return !backward && !saves && seq == 1 && batch <= kStepRows && p.cluster == 1 && p.k_slice == hidden &&
+    return !kLaid && !backward && !saves && seq == 1 && batch <= kStepRows && p.cluster == 1 && p.k_slice == hidden &&
            p.cols == kStepWarps && p.stages == 0 && p.smem == 0;
   const long long k_total = backward ? static_cast<long long>(Cell<kLstm>::kGates) * hidden : hidden;
   return p.launch == kSequence && p.cols == cols_of(backward) && p.cluster >= 1 && p.cluster <= kMaxCluster &&
@@ -1018,11 +1051,11 @@ bool plan_fits(const Plan& p, int batch, int seq, int hidden, bool backward, boo
          p.smem >= sequence_smem_bytes<kLstm>(backward);
 }
 
-template <bool kLstm>
+template <bool kLstm, bool kLaid>
 const void* kernel_of(int launch, bool backward) {
-  if (backward) return reinterpret_cast<const void*>(gated_bwd_kernel<kLstm>);
+  if (backward) return reinterpret_cast<const void*>(gated_bwd_kernel<kLstm, kLaid>);
   return launch == kStep ? reinterpret_cast<const void*>(gated_step_kernel<kLstm>)
-                         : reinterpret_cast<const void*>(gated_fwd_kernel<kLstm>);
+                         : reinterpret_cast<const void*>(gated_fwd_kernel<kLstm, kLaid>);
 }
 
 template <bool kLstm>
@@ -1095,12 +1128,13 @@ bool encode(CUtensorMap* map, const float* base, int rank, const long long* dims
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kLstm>
+template <bool kLstm, bool kLaid>
 int check(int backward, int saves, int batch, int seq, int hidden, const Plan& p) {
-  if (batch <= 0 || seq <= 0 || hidden <= 0 || !plan_fits<kLstm>(p, batch, seq, hidden, backward != 0, saves != 0))
+  if (batch <= 0 || seq <= 0 || hidden <= 0 ||
+      !plan_fits<kLstm, kLaid>(p, batch, seq, hidden, backward != 0, saves != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.launch == kStep) return static_cast<int>(cudaSuccess);
-  const void* kernel = kernel_of<kLstm>(p.launch, backward != 0);
+  const void* kernel = kernel_of<kLstm, kLaid>(p.launch, backward != 0);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -1118,60 +1152,68 @@ int check(int backward, int saves, int batch, int seq, int hidden, const Plan& p
   return static_cast<int>(cudaSuccess);
 }
 
-template <bool kLstm>
+template <bool kLstm, bool kLaid>
 int launch_sequence(const Plan& p, bool backward, int seq, int hidden, void* arg, Maps* maps, cudaStream_t stream) {
   void* args[] = {arg, maps};
   SequenceLaunch l(clusters_of(hidden, backward) * p.cluster, p.cluster, threads_of<kLstm>(backward), p.smem,
                    cooperative(seq, backward), stream);
-  const cudaError_t err = cudaLaunchKernelExC(&l.cfg, kernel_of<kLstm>(p.launch, backward), args);
+  const cudaError_t err = cudaLaunchKernelExC(&l.cfg, kernel_of<kLstm, kLaid>(p.launch, backward), args);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <bool kLstm>
+// Whether a chain's layout holds its H columns: y's rows of `width` floats,
+// the chain's columns [offset, offset + H) of them.
+bool layout_fits(int hidden, int reverse, int width, int offset) {
+  return (reverse == 0 || reverse == 1) && offset >= 0 && static_cast<long long>(offset) + hidden <= width;
+}
+
+template <bool kLstm, bool kLaid>
 int forward(FwdArgs a, const Plan& p, void* stream) {
   if (a.batch <= 0 || a.seq <= 0 || a.hidden <= 0) return static_cast<int>(cudaGetLastError());
-  if (!plan_fits<kLstm>(p, a.batch, a.seq, a.hidden, false, a.saved != nullptr))
+  if (!plan_fits<kLstm, kLaid>(p, a.batch, a.seq, a.hidden, false, a.saved != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long H = a.hidden, S = a.seq, B = a.batch, G = Cell<kLstm>::kGates;
+  const long long H = a.hidden, S = a.seq, B = a.batch, G = Cell<kLstm>::kGates, YW = a.y_width;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   a.k_slice = p.k_slice;
-  a.vec = H % 4 == 0 && aligned16(a.xp) && aligned16(a.h0) && aligned16(a.c0) && aligned16(a.w) &&
+  a.vec = H % 4 == 0 && YW % 4 == 0 && aligned16(a.xp) && aligned16(a.h0) && aligned16(a.c0) && aligned16(a.w) &&
           aligned16(a.bias) && aligned16(a.y) && aligned16(a.h_last) && aligned16(a.c_last) && aligned16(a.saved);
   if (p.launch == kStep) {
     void* args[] = {&a};
     const dim3 grid(static_cast<unsigned>((H + kStepWarps - 1) / kStepWarps));
-    const void* kernel = kernel_of<kLstm>(p.launch, false);
+    const void* kernel = kernel_of<kLstm, kLaid>(p.launch, false);
     const cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(kStepThreads), args, 0, s);
     const cudaError_t last = cudaGetLastError();
     return static_cast<int>(err != cudaSuccess ? err : last);
   }
   Maps maps{};
+  // y as (H, S, B) with its rows YW floats apart: a laid chain's columns of the (B, S, YW) output
   const long long w_dims[] = {H, G * H}, y_dims[] = {H, S, B}, h0_dims[] = {H, B};
-  const long long w_strides[] = {H}, y_strides[] = {H, S * H};
+  const long long w_strides[] = {H}, y_strides[] = {YW, S * YW};
   constexpr int kStride = Cell<kLstm>::kFwdStride;
   const int w_box[] = {kStride, kFwdCols}, y_box[] = {kStride, 1, kRows}, h0_box[] = {kStride, kRows};
   // the TMA unit fills the ring wherever the rows are 16-byte aligned, and then a map that
   // cannot be made is an error, not a quiet switch to plain loads; y's map is read from step 1
   // on: none for one step
-  a.tma = H % 4 == 0 && aligned16(a.w) && aligned16(a.y) && aligned16(a.h0);
+  a.tma = H % 4 == 0 && YW % 4 == 0 && aligned16(a.w) && aligned16(a.y) && aligned16(a.h0);
   if (a.tma && !(encode(&maps.w, a.w, 2, w_dims, w_strides, w_box) &&
                  (S == 1 || encode(&maps.state, a.y, 3, y_dims, y_strides, y_box)) &&
                  encode(&maps.state0, a.h0, 2, h0_dims, w_strides, h0_box)))
     return static_cast<int>(cudaErrorNotSupported);
-  return launch_sequence<kLstm>(p, false, a.seq, a.hidden, &a, &maps, s);
+  return launch_sequence<kLstm, kLaid>(p, false, a.seq, a.hidden, &a, &maps, s);
 }
 
-template <bool kLstm>
+template <bool kLstm, bool kLaid>
 int backward(BwdArgs a, const Plan& p, void* stream) {
   if (a.batch <= 0 || a.seq <= 0 || a.hidden <= 0) return static_cast<int>(cudaGetLastError());
-  if (!plan_fits<kLstm>(p, a.batch, a.seq, a.hidden, true, false)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_fits<kLstm, kLaid>(p, a.batch, a.seq, a.hidden, true, false))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long H = a.hidden, S = a.seq, B = a.batch, GH = Cell<kLstm>::kGates * H;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   a.k_slice = p.k_slice;
-  a.vec = H % 4 == 0 && aligned16(a.dy) && aligned16(a.dh_last) && aligned16(a.dc_last) && aligned16(a.y) &&
-          aligned16(a.h0) && aligned16(a.c0) && aligned16(a.saved) && aligned16(a.dxp) && aligned16(a.dhp) &&
-          aligned16(a.dh0) && aligned16(a.dc0);
+  a.vec = H % 4 == 0 && a.y_width % 4 == 0 && aligned16(a.dy) && aligned16(a.dh_last) && aligned16(a.dc_last) &&
+          aligned16(a.y) && aligned16(a.h0) && aligned16(a.c0) && aligned16(a.saved) && aligned16(a.dxp) &&
+          aligned16(a.dhp) && aligned16(a.dh0) && aligned16(a.dc0);
   if (!a.w_t) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 tiles(static_cast<unsigned>((H + kTransposeTile - 1) / kTransposeTile),
                    static_cast<unsigned>((GH + kTransposeTile - 1) / kTransposeTile));
@@ -1192,7 +1234,7 @@ int backward(BwdArgs a, const Plan& p, void* stream) {
                  (S == 1 ? encode(&maps.state0, dhp, 2, dhp1_dims, dhp_strides, dhp1_box)
                          : encode(&maps.state, dhp, 3, dhp_dims, dhp_strides, dhp_box))))
     return static_cast<int>(cudaErrorNotSupported);
-  return launch_sequence<kLstm>(p, true, a.seq, a.hidden, &a, &maps, s);
+  return launch_sequence<kLstm, kLaid>(p, true, a.seq, a.hidden, &a, &maps, s);
 }
 
 }  // namespace
@@ -1200,12 +1242,16 @@ int backward(BwdArgs a, const Plan& p, void* stream) {
 // Checks a plan once, when the wrapper makes it, against this file's
 // geometry and the current device (every cluster resident at once where
 // the launch is cooperative), and lets the sequence kernel take the shared
-// memory the plan gives it. lstm 1 for B.12, 0 for B.11; saves 1 for a
-// training forward; then the sizes and GatedPlan's six fields.
-extern "C" int hulc_rnn_gated_check(int lstm, int backward, int saves, int batch, int seq, int hidden, int launch,
-                                    int cluster, int k_slice, int cols, int stages, int smem) {
+// memory the plan gives it. lstm 1 for B.12, 0 for B.11; laid 1 for a gru
+// chain with a layout (B.13); saves 1 for a training forward; then the
+// sizes and GatedPlan's six fields.
+extern "C" int hulc_rnn_gated_check(int lstm, int laid, int backward, int saves, int batch, int seq, int hidden,
+                                    int launch, int cluster, int k_slice, int cols, int stages, int smem) {
   const Plan p{launch, cluster, k_slice, cols, stages, smem};
-  return lstm ? check<true>(backward, saves, batch, seq, hidden, p) : check<false>(backward, saves, batch, seq, hidden, p);
+  if (laid)
+    return lstm ? static_cast<int>(cudaErrorInvalidValue) : check<false, true>(backward, saves, batch, seq, hidden, p);
+  return lstm ? check<true, false>(backward, saves, batch, seq, hidden, p)
+              : check<false, false>(backward, saves, batch, seq, hidden, p);
 }
 
 // B.11 forward: y (B, S, H), h_last (B, H); saved (B, S, 4 H) [r | z | n | hn]
@@ -1215,8 +1261,8 @@ extern "C" int hulc_rnn_gru_fwd(const void* xp, const void* h0, const void* w, c
                                 int k_slice, int cols, int stages, int smem, void* stream) {
   FwdArgs a{static_cast<const float*>(xp), static_cast<const float*>(h0), nullptr, static_cast<const float*>(w),
             static_cast<const float*>(bias), static_cast<float*>(y), static_cast<float*>(h_last), nullptr,
-            static_cast<float*>(saved), batch, seq, hidden, 0, 0, 0};
-  return forward<false>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
+            static_cast<float*>(saved), batch, seq, hidden, 0, 0, 0, hidden, 0};
+  return forward<false, false>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
 }
 
 // B.11 dh chain: dxp and dhp (B, S, 3 H), dh0 (B, H); dh_last may be null;
@@ -1228,8 +1274,40 @@ extern "C" int hulc_rnn_gru_bwd(const void* dy, const void* dh_last, const void*
   BwdArgs a{static_cast<const float*>(dy), static_cast<const float*>(dh_last), nullptr, static_cast<const float*>(y),
             static_cast<const float*>(h0), nullptr, static_cast<const float*>(saved), static_cast<const float*>(w),
             static_cast<float*>(w_t), static_cast<float*>(dxp), static_cast<float*>(dhp), static_cast<float*>(dh0),
-            nullptr, batch, seq, hidden, 0, 0, 0};
-  return backward<false>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
+            nullptr, batch, seq, hidden, 0, 0, 0, hidden, 0};
+  return backward<false, false>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
+}
+
+// B.13 gru chain forward: as hulc_rnn_gru_fwd, y's rows y_width floats a
+// time step and the chain's columns [y_offset, y_offset + H) of them, run
+// from t = S - 1 down when reverse = 1; xp and saved (B, S, 4 H) in xp's
+// time order. h_last may be null.
+extern "C" int hulc_rnn_gru_chain_fwd(const void* xp, const void* h0, const void* w, const void* bias, void* y,
+                                      void* h_last, void* saved, int batch, int seq, int hidden, int reverse,
+                                      int y_width, int y_offset, int launch, int cluster, int k_slice, int cols,
+                                      int stages, int smem, void* stream) {
+  if (!layout_fits(hidden, reverse, y_width, y_offset)) return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a{static_cast<const float*>(xp), static_cast<const float*>(h0), nullptr, static_cast<const float*>(w),
+            static_cast<const float*>(bias), static_cast<float*>(y) + y_offset, static_cast<float*>(h_last), nullptr,
+            static_cast<float*>(saved), batch, seq, hidden, 0, 0, 0, y_width, reverse};
+  return forward<false, true>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
+}
+
+// B.13 gru chain dh chain: dy and y in the forward's layout, dxp and dhp
+// (B, S, 3 H) in xp's time order, dh0 (B, H); dh_last may be null; w_t (H,
+// 3 H) is scratch for W^T.
+extern "C" int hulc_rnn_gru_chain_bwd(const void* dy, const void* dh_last, const void* y, const void* h0,
+                                      const void* saved, const void* w, void* w_t, void* dxp, void* dhp, void* dh0,
+                                      int batch, int seq, int hidden, int reverse, int y_width, int y_offset,
+                                      int launch, int cluster, int k_slice, int cols, int stages, int smem,
+                                      void* stream) {
+  if (!layout_fits(hidden, reverse, y_width, y_offset)) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{static_cast<const float*>(dy) + y_offset, static_cast<const float*>(dh_last), nullptr,
+            static_cast<const float*>(y) + y_offset, static_cast<const float*>(h0), nullptr,
+            static_cast<const float*>(saved), static_cast<const float*>(w), static_cast<float*>(w_t),
+            static_cast<float*>(dxp), static_cast<float*>(dhp), static_cast<float*>(dh0), nullptr, batch, seq,
+            hidden, 0, 0, 0, y_width, reverse};
+  return backward<false, true>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
 }
 
 // B.12 forward: y (B, S, H), h_last and c_last (B, H); saved (B, S, 5 H)
@@ -1240,8 +1318,8 @@ extern "C" int hulc_rnn_lstm_fwd(const void* xp, const void* h0, const void* c0,
   FwdArgs a{static_cast<const float*>(xp), static_cast<const float*>(h0), static_cast<const float*>(c0),
             static_cast<const float*>(w), static_cast<const float*>(bias), static_cast<float*>(y),
             static_cast<float*>(h_last), static_cast<float*>(c_last), static_cast<float*>(saved),
-            batch, seq, hidden, 0, 0, 0};
-  return forward<true>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
+            batch, seq, hidden, 0, 0, 0, hidden, 0};
+  return forward<true, false>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
 }
 
 // B.12 dh / dc chain: dpre (B, S, 4 H) (the gradient of xp and of hp alike),
@@ -1254,6 +1332,6 @@ extern "C" int hulc_rnn_lstm_bwd(const void* dy, const void* dh_last, const void
   BwdArgs a{static_cast<const float*>(dy), static_cast<const float*>(dh_last), static_cast<const float*>(dc_last),
             nullptr, nullptr, static_cast<const float*>(c0), static_cast<const float*>(saved),
             static_cast<const float*>(w), static_cast<float*>(w_t), static_cast<float*>(dpre), nullptr,
-            static_cast<float*>(dh0), static_cast<float*>(dc0), batch, seq, hidden, 0, 0, 0};
-  return backward<true>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
+            static_cast<float*>(dh0), static_cast<float*>(dc0), batch, seq, hidden, 0, 0, 0, hidden, 0};
+  return backward<true, false>(a, Plan{launch, cluster, k_slice, cols, stages, smem}, stream);
 }

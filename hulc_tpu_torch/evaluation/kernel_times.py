@@ -21,7 +21,10 @@ and (1, 1, 2048), is timed by CUDA events instead (``event_ms``: the
 profiler drops some of its cooperative launches), and so are the gated
 cells' (B.11 gru, B.12 lstm): the inference forward and the dh chain at
 the same three shapes, on inputs made from seed 0 by the plain loop (the
-saved gates), the same on any tree. It also gives a
+saved gates), the same on any tree; and, on a tree that has them, the
+bidirectional layers of the relu and gru cells (B.13: two chains into one
+(64, 32, 4096) output, the gru's training forward, which saves its gates,
+and each layer's two dh chains) at the train step's (64, 32, 2048). It also gives a
 digest of each kernel's output on fixed inputs from seed 0 (equal digests:
 bit-equal results) and the full-width ``hulc`` policy step's median
 host-clock ms at 1 and 64 lanes.
@@ -357,6 +360,36 @@ def gated_cases(hidden: int, gen) -> dict:
     return cases
 
 
+def birnn_cases(hidden: int, gen) -> dict:
+    """{name: call} of B.13's bidirectional relu and gru layers at the train
+    step's (64, 32) and ``hidden`` columns a chain, forward (the gru's
+    saving its gates) and backward (both dh chains), on W_hh and b_hh at
+    torch's U(-1/sqrt(H), 1/sqrt(H)), xp and dy ~ N(0, 1), from zero
+    states; empty on a tree without B.13."""
+    from hulc_tpu_torch.ops import recurrence as rec
+
+    if not hasattr(rec, "BIRNN_CELLS"):
+        return {}
+    b, s = 64, 32
+    cases = {}
+    for cell, g in (("rnn", 1), ("gru", 3)):
+        def uniform(*shape):
+            return (2.0 * torch.rand(shape, generator=gen, device="cuda") - 1.0) / hidden**0.5
+
+        w_f, w_b, b_f, b_b = uniform(g * hidden, hidden), uniform(g * hidden, hidden), uniform(g * hidden), \
+            uniform(g * hidden)
+        xp_f, xp_b = (torch.randn((b, s, g * hidden), generator=gen, device="cuda") for _ in range(2))
+        h0s = torch.zeros((2, b, hidden), device="cuda")
+        dy = torch.randn((b, s, 2 * hidden), generator=gen, device="cuda")
+        saved = xp_f.new_empty(2, b, s, 4 * hidden) if cell == "gru" else None
+        args = (xp_f, xp_b, h0s, w_f, w_b, b_f, b_b, cell)
+        y = rec.birnn_layer_fwd(*args, saved)
+        cases[f"birnn_{cell}_fwd {b} {s}"] = lambda args=args, saved=saved: rec.birnn_layer_fwd(*args, saved)
+        cases[f"birnn_{cell}_bwd {b} {s}"] = lambda dy=dy, y=y, w_f=w_f, w_b=w_b, cell=cell, h0s=h0s, saved=saved: (
+            rec.birnn_layer_bwd(dy, y, w_f, w_b, cell, h0s, saved))
+    return cases
+
+
 def policy_times(cfg, seed: int, lanes: int) -> dict:
     """Median host-clock ms of an acting step at 1 lane and at ``lanes``,
     and the device operations per step under the profiler."""
@@ -392,7 +425,9 @@ def policy_times(cfg, seed: int, lanes: int) -> dict:
     return {"host_ms": out, "ops_per_step": ops}
 
 
-def main(argv=None) -> None:
+def run(argv=None) -> dict:
+    """The measurements ``main`` prints, as a dict (``--tree`` and
+    ``--only`` as ``main`` takes them)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--tree", type=pathlib.Path, required=True)
     p.add_argument("--only", default="", help="time only the cases whose names start with one of these "
@@ -463,6 +498,7 @@ def main(argv=None) -> None:
         rnn_cases[f"rnn_relu_fwd {b} {s}"] = lambda xp=xp, h0=h0: rnn_relu_fwd(xp, h0, w, bias)[0]
         rnn_cases[f"rnn_relu_bwd {b} {s}"] = lambda dy=dy, y=y, h0=h0: rnn_relu_bwd(dy, y, h0, w)[0]
     rnn_cases.update(gated_cases(hidden, gen))
+    rnn_cases.update(birnn_cases(hidden, gen))
 
     out = {"tree": str(args.tree), "card": card(), "device_ms": {}, "event_ms": {}, "digest": {}}
     def wanted(name):
@@ -491,7 +527,11 @@ def main(argv=None) -> None:
     if wanted("policy"):
         policy = policy_times(cfg, SEED, LANES)
         out["policy_step_host_ms"], out["policy_step_ops"] = policy["host_ms"], policy["ops_per_step"]
-    print(json.dumps(out))
+    return out
+
+
+def main(argv=None) -> None:
+    print(json.dumps(run(argv)))
 
 
 if __name__ == "__main__":

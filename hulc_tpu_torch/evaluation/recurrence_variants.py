@@ -102,7 +102,7 @@ _G_W = (("        mbar_arrive_tx(&bars.w[p % NS], sizeof(float) * C::kGateCols *
 _G_STATE = (("        mbar_arrive_tx(&bars.state[p % NS], sizeof(float) * kRows * C::kFwdStride);\n"
              "        if (t == 0) {",
              "        mbar_arrive_tx(&bars.state[p % NS], 0);\n        if (t < 0) {"),
-            ("          tma_3d(hs, maps.state, geo.k0 + kc, t - 1, r0, &bars.state[p % NS]);", ""),
+            ("          tma_3d(hs, maps.state, geo.k0 + kc, time_of<kLaid>(a, t - 1), r0, &bars.state[p % NS]);", ""),
             ("        mbar_arrive_tx(&bars.state[p % NS], sizeof(float) * kBwdDhpFloats);\n        if (S == 1) {",
              "        mbar_arrive_tx(&bars.state[p % NS], 0);\n        if (S < 0) {"),
             ("          tma_3d(ds, maps.state, geo.k0 + kc, t, r0, &bars.state[p % NS]);", ""))
@@ -135,14 +135,15 @@ GATED_VARIANTS = {
          "            x[m][g] = zero;"),
         ("                                    load4(a.bias + g * H + j, n, a.vec))",
          "                                    zero)"),
-        ("          h_prev[m] = n > 0 ? load4(t == 0 ? a.h0 + bj : a.y + (bt - 1) * H + j, n, a.vec) : zero;",
+        ("          h_prev[m] = n > 0 ? load4(t == 0 ? a.h0 + bj : a.y + (static_cast<long long>(b) * S + tq) * YW + j, "
+         "n, a.vec)\n                            : zero;",
          "          h_prev[m] = zero;"),
         ("          c_prev[m] = kLstm && n > 0 ? load4(t == 0 ? a.c0 + bj : a.c_last + bj, n, a.vec) : zero;",
          "          c_prev[m] = zero;"),
         ("  for (int k = 0; k < C::kSaved; ++k) s[k] = load4(sv + k * H, n, vec);",
          "  for (int k = 0; k < C::kSaved; ++k) s[k] = make_float4(0.5f, 0.5f, 0.5f, 0.5f);"),
         ("          if (!kLstm && n > 0) dh[m] = add4(dh[m], load4(a.dh0 + bj, n, a.vec));", ""),
-        ("          dy[m] = n > 0 && t > 0 ? load4(a.dy + (static_cast<long long>(b) * S + t - 1) * H + j, n, a.vec)"
+        ("          dy[m] = n > 0 && t > 0 ? load4(a.dy + (static_cast<long long>(b) * S + tq) * YW + j, n, a.vec)"
          " : zero;",
          "          dy[m] = zero;"),
         ("          dc[m] = kLstm && n > 0 && t > 0 ? load4(a.dc0 + bj, n, a.vec) : zero;", "          dc[m] = zero;"),
@@ -196,7 +197,7 @@ def build(names, gated: bool = False):
             getattr(lib, fn).argtypes = [*kernels._SIGNATURES[fn], ctypes.c_void_p]
             getattr(lib, fn).restype = ctypes.c_int
         if gated:
-            lib.hulc_rnn_gated_check.argtypes = [ctypes.c_int] * 12
+            lib.hulc_rnn_gated_check.argtypes = [ctypes.c_int] * 13
         else:
             lib.hulc_rnn_check.argtypes = [ctypes.c_int] * 10
         libs[name] = lib
@@ -240,7 +241,7 @@ def time_gated(libs, card: str) -> None:
             for name, lib in libs.items():
                 for backward, plan in ((False, fwd_plan), (True, bwd_plan)):
                     # the variant's own check: it also lets its sequence kernel take the shared memory
-                    err = lib.hulc_rnn_gated_check(int(lstm), int(backward), 0, b, s, h, *plan)
+                    err = lib.hulc_rnn_gated_check(int(lstm), 0, int(backward), 0, b, s, h, *plan)
                     if err:
                         raise RuntimeError(f"{name}: hulc_rnn_gated_check refused {plan} at {(b, s, h)}: error {err}")
                 if lstm:

@@ -194,11 +194,18 @@ _SIGNATURES = {
     # the sizes, the chain's layout (reverse, y's row width, its column offset), the plan
     "hulc_rnn_tanh_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
     "hulc_rnn_tanh_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
+    # B.13's relu chain: the tanh chain's parameters
+    "hulc_rnn_relu_chain_fwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
+    "hulc_rnn_relu_chain_bwd": (_P, _P, _P, _P, _P, _P, *(_I32,) * 11),
     # the pointers (the dh chains' with a scratch for W^T), the sizes, then ops.recurrence.GatedPlan's six fields
     "hulc_rnn_gru_fwd": (*(_P,) * 7, *(_I32,) * 9),
     "hulc_rnn_gru_bwd": (*(_P,) * 10, *(_I32,) * 9),
     "hulc_rnn_lstm_fwd": (*(_P,) * 9, *(_I32,) * 9),
     "hulc_rnn_lstm_bwd": (*(_P,) * 10, *(_I32,) * 9),
+    # B.13's gru chain: B.11's pointers, the sizes, the chain's layout (reverse, y's row width, its column
+    # offset), the plan
+    "hulc_rnn_gru_chain_fwd": (*(_P,) * 7, *(_I32,) * 12),
+    "hulc_rnn_gru_chain_bwd": (*(_P,) * 10, *(_I32,) * 12),
     # x, z, y, n, mode (0 gamma, 1 gaussian), then the mode's two fp32 constants
     "hulc_depth_noise": (_P, _P, _P, _I64, _I32, _F32, _F32),
     "hulc_empty_launch": (),
@@ -221,7 +228,7 @@ def library() -> ctypes.CDLL:
     lib.hulc_rnn_cluster_limit.restype = ctypes.c_int
     lib.hulc_rnn_check.argtypes = [ctypes.c_int] * 10
     lib.hulc_rnn_check.restype = ctypes.c_int
-    lib.hulc_rnn_gated_check.argtypes = [ctypes.c_int] * 12
+    lib.hulc_rnn_gated_check.argtypes = [ctypes.c_int] * 13
     lib.hulc_rnn_gated_check.restype = ctypes.c_int
     return lib
 
@@ -255,24 +262,33 @@ def cluster_limits(index: int, sizes: tuple[int, ...]) -> dict[int, int]:
     return out
 
 
-def check_rnn_plan(index: int, tanh: bool, backward: bool, batch: int, seq: int, hidden: int,
+# csrc/rnn.cu's sequence kernels, by the cell name the launch plan is made for
+RNN_CELLS = {"rnn": 0, "rnn_tanh": 1, "rnn_chain": 2}
+
+
+def check_rnn_plan(index: int, cell: str, backward: bool, batch: int, seq: int, hidden: int,
                    plan: tuple[int, ...]) -> None:
-    """``hulc_rnn_check`` of a launch plan (``RecurrencePlan.c_args()``) of
-    the relu or the tanh cell on CUDA device ``index``: raises if it refuses
-    the plan. A sequence kernel launches only after this."""
+    """``hulc_rnn_check`` of a launch plan (``RecurrencePlan.c_args()``) on
+    CUDA device ``index`` for a kernel of ``RNN_CELLS``: the decoder's relu
+    chain (``rnn``), the tanh chain, or the relu chain with a layout
+    (``rnn_chain``, B.13). Raises if it refuses the plan. A sequence kernel
+    launches only after this."""
     with torch.cuda.device(index):
-        err = library().hulc_rnn_check(int(tanh), int(backward), batch, seq, hidden, *plan)
-    _raise_if(err, f"hulc_rnn_check of the {'tanh' if tanh else 'relu'} plan {plan} at {(batch, seq, hidden)}")
+        err = library().hulc_rnn_check(RNN_CELLS[cell], int(backward), batch, seq, hidden, *plan)
+    _raise_if(err, f"hulc_rnn_check of the {cell} plan {plan} at {(batch, seq, hidden)}")
 
 
-def check_gated_plan(index: int, lstm: bool, backward: bool, saves: bool, batch: int, seq: int, hidden: int,
-                     plan: tuple[int, ...]) -> None:
+def check_gated_plan(index: int, lstm: bool, laid: bool, backward: bool, saves: bool, batch: int, seq: int,
+                     hidden: int, plan: tuple[int, ...]) -> None:
     """``hulc_rnn_gated_check`` of a launch plan (``GatedPlan.c_args()``) of
-    the gru or the lstm cell on CUDA device ``index``: raises if it refuses
-    the plan. A sequence kernel launches only after this."""
+    the gru or the lstm cell (``laid``: the gru chain with a layout, B.13)
+    on CUDA device ``index``: raises if it refuses the plan. A sequence
+    kernel launches only after this."""
     with torch.cuda.device(index):
-        err = library().hulc_rnn_gated_check(int(lstm), int(backward), int(saves), batch, seq, hidden, *plan)
-    _raise_if(err, f"hulc_rnn_gated_check of the {'lstm' if lstm else 'gru'} plan {plan} at {(batch, seq, hidden)}")
+        err = library().hulc_rnn_gated_check(int(lstm), int(laid), int(backward), int(saves), batch, seq, hidden,
+                                             *plan)
+    what = "lstm" if lstm else "gru chain" if laid else "gru"
+    _raise_if(err, f"hulc_rnn_gated_check of the {what} plan {plan} at {(batch, seq, hidden)}")
 
 
 class Kernel:
@@ -326,6 +342,8 @@ RNN_RELU_FWD = Kernel("hulc_rnn_relu_fwd")
 RNN_RELU_BWD = Kernel("hulc_rnn_relu_bwd")
 RNN_TANH_FWD = Kernel("hulc_rnn_tanh_fwd")
 RNN_TANH_BWD = Kernel("hulc_rnn_tanh_bwd")
+RNN_RELU_CHAIN_FWD = Kernel("hulc_rnn_relu_chain_fwd")
+RNN_RELU_CHAIN_BWD = Kernel("hulc_rnn_relu_chain_bwd")
 BIRNN_TANH_FWD = Composite("hulc_birnn_tanh_fwd")
 BIRNN_TANH_BWD = Composite("hulc_birnn_tanh_bwd")
 DEPTH_NOISE = Kernel("hulc_depth_noise")
@@ -333,6 +351,8 @@ RNN_GRU_FWD = Kernel("hulc_rnn_gru_fwd")
 RNN_GRU_BWD = Kernel("hulc_rnn_gru_bwd")
 RNN_LSTM_FWD = Kernel("hulc_rnn_lstm_fwd")
 RNN_LSTM_BWD = Kernel("hulc_rnn_lstm_bwd")
+RNN_GRU_CHAIN_FWD = Kernel("hulc_rnn_gru_chain_fwd")
+RNN_GRU_CHAIN_BWD = Kernel("hulc_rnn_gru_chain_bwd")
 PREPROCESS_RGB_BF16 = Kernel("hulc_preprocess_rgb_bf16")
 PREPROCESS_RGB_SHIFT_BF16 = Kernel("hulc_preprocess_rgb_shift_bf16")
 SPATIAL_SOFTMAX_BF16 = Kernel("hulc_spatial_softmax_bf16")
@@ -345,7 +365,7 @@ ALL_KERNELS = (
     ADAM_LOWP, GRAD_NORM_FINISH, RNN_RELU_FWD, RNN_RELU_BWD, RNN_TANH_FWD, RNN_TANH_BWD,
     BIRNN_TANH_FWD, BIRNN_TANH_BWD, DEPTH_NOISE, RNN_GRU_FWD, RNN_GRU_BWD, RNN_LSTM_FWD, RNN_LSTM_BWD,
     PREPROCESS_RGB_BF16, PREPROCESS_RGB_SHIFT_BF16, SPATIAL_SOFTMAX_BF16, SPATIAL_SOFTMAX_BWD_BF16,
-    ADAM_FP32, ADAMW, SGD,
+    ADAM_FP32, ADAMW, SGD, RNN_RELU_CHAIN_FWD, RNN_RELU_CHAIN_BWD, RNN_GRU_CHAIN_FWD, RNN_GRU_CHAIN_BWD,
 )
 
 

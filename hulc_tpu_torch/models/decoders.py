@@ -1,8 +1,9 @@
 """Logistic-mixture action decoder (port of hulc_tpu/models/decoders.py:41-214).
 
 An RNN (the relu cell, or the gru or lstm cell that
-``config.apply_overrides`` selects) with an explicit carry (lstm's a pair
-(h, c)) over concat(plan, a slice of the perceptual embedding, latent goal;
+``config.apply_overrides`` selects; ``rnn_dropout`` between its layers in
+train mode) with an explicit carry (lstm's a pair (h, c)) over
+concat(plan, a slice of the perceptual embedding, latent goal;
 its recurrence a hand-written kernel per layer on CUDA tensors, forward and
 backward), three heads for the mixture's logits,
 log scales (clamped at ``log_scale_min``) and means, and a two-way gripper
@@ -72,8 +73,6 @@ class LogisticPolicyDecoder(nn.Module):
         super().__init__()
         if cfg.kind != "logistic":
             raise ValueError(f"action decoder {cfg.kind!r} is not ported yet")
-        if cfg.rnn_dropout > 0.0:
-            raise ValueError("the decoder RNN's dropout is not ported yet")
         self.cfg = cfg
         self.use_kernels = use_kernels
         self.dtype = dtype
@@ -81,7 +80,8 @@ class LogisticPolicyDecoder(nn.Module):
         if cfg.perceptual_emb_slice is not None:
             emb = cfg.perceptual_emb_slice[1] - cfg.perceptual_emb_slice[0]
         in_features = cfg.plan_features + emb + cfg.latent_goal_features
-        self.rnn = ScanRNN(in_features, cfg.hidden_size, cfg.num_layers, cfg.rnn_cell, use_kernels, dtype)
+        self.rnn = ScanRNN(in_features, cfg.hidden_size, cfg.num_layers, cfg.rnn_cell, use_kernels, dtype,
+                           cfg.rnn_dropout)
         a = self.cont_dims
         self.mean_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)
         self.log_scale_fc = nn.Linear(cfg.hidden_size, a * cfg.n_mixtures)

@@ -6,7 +6,8 @@ whose ``mlp`` starts with a word Dropout, hence keys ``mlp.{1,3,5}``).
 ``LanguageEncoder``: the plain three-Linear language head, no LayerNorm.
 The Linear layers compute in ``dtype`` (the word Dropout runs before, on
 the fp32 input); ``GoalEncoder``'s LayerNorm runs in fp32 (its last Linear
-adds its bias in fp32, ``layers.Linear``'s ``fp32_out``), while
+adds its bias in fp32, ``layers.Linear``'s ``fp32_out``), after the
+division by the fp32 norm with ``l2_normalize``, while
 ``LanguageEncoder`` returns its last layer's ``dtype``, as JAX's do.
 """
 
@@ -16,14 +17,13 @@ import torch
 import torch.nn as nn
 
 from hulc_tpu_torch.config import GoalEncoderConfig
-from hulc_tpu_torch.models.layers import MLP
+from hulc_tpu_torch.models.layers import MLP, l2_normalized
 
 
 class GoalEncoder(nn.Module):
     def __init__(self, cfg: GoalEncoderConfig, word_dropout: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.l2_normalize:
-            raise ValueError("l2_normalize goal encoders are not ported yet")
+        self.l2_normalize = cfg.l2_normalize
         self.mlp = MLP(
             cfg.in_features,
             [cfg.hidden_size, cfg.hidden_size, cfg.latent_goal_features],
@@ -35,7 +35,8 @@ class GoalEncoder(nn.Module):
         self.ln = nn.LayerNorm(cfg.latent_goal_features, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ln(self.mlp(x.float()))
+        x = self.mlp(x.float())
+        return self.ln(l2_normalized(x) if self.l2_normalize else x)
 
 
 class LanguageEncoder(nn.Module):

@@ -12,12 +12,14 @@ or the gated cells' gate math). Each layer's recurrence is
 CUDA tensors one launch of a hand-written kernel, forward and backward; on
 CPU tensors the plain loop forward and the closed-form backward. With
 ``use_kernels=False`` it is the plain loop of one fp32 ``addmm`` per step,
-differentiated by autograd. ``ScanBiRNN`` is MCIL's bidirectional tanh RNN
-(port of layers.py:284-313): per layer both input projections as plain
-matmuls, then ``ops.recurrence.birnn_layer``, the two chains into one
-(B, S, 2H) output, which feeds the next layer.
-``TransformerEncoder`` is the plan recognition network's post-LN encoder,
-under torch ``nn.TransformerEncoder``'s parameter names.
+differentiated by autograd. ``ScanBiRNN`` is MCIL's bidirectional tanh,
+relu or gru RNN (port of layers.py:284-313): per layer both input
+projections as plain matmuls, then ``ops.recurrence.birnn_layer``, the two
+chains into one (B, S, 2H) output, which feeds the next layer. Both RNNs
+take JAX's ``dropout`` between layers (not after the last), eagerly,
+outside the recurrence. ``TransformerEncoder`` is the plan recognition
+network's post-LN encoder, under torch ``nn.TransformerEncoder``'s
+parameter names, with JAX's optional final LayerNorm.
 
 Compute dtype (``HulcConfig.compute_dtype``): parameters stay fp32, and
 ``Linear`` / ``Conv2d`` compute as flax's ``nn.Dense`` / ``nn.Conv`` with
@@ -40,22 +42,25 @@ before.
 ``Dropout`` draws its mask from an explicit ``torch.Generator`` (set with
 ``set_dropout_generator``), as every random draw of the port does, and
 keeps flax's semantics: ``where(keep, x / keep_prob, 0)``, with a mask of
-``x``'s shape unless ``broadcast_dims`` names axes that share it. The
-decoder's ``mlp`` cell and the bidirectional relu and gru cells wait for
-later slices.
+``x``'s shape unless ``broadcast_dims`` names axes that share it. Its masks
+can also be given as tensors, site by site (``feed_dropout_masks``: a
+module name and the masks of its calls, in order), so that a test can
+hand the port the masks JAX is given. The decoder's ``mlp`` cell and the
+bidirectional lstm cell wait for later slices.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from hulc_tpu_torch.ops.recurrence import (
+    BIRNN_CELLS,
     GATES,
     birnn_layer,
     birnn_layer_plain,
@@ -85,7 +90,10 @@ ACTIVATIONS = {
 
 
 class Dropout(nn.Module):
-    """Dropout with an explicit generator; a no-op in eval mode or at p=0."""
+    """Dropout with an explicit generator; a no-op in eval mode or at p=0.
+    While ``masks`` holds tensors (``feed_dropout_masks``), each training-mode
+    call takes the next of them as its keep mask (True: kept), of the shape
+    it would draw, instead of drawing one."""
 
     def __init__(self, p: float, broadcast_dims: Tuple[int, ...] = ()):
         super().__init__()
@@ -94,15 +102,23 @@ class Dropout(nn.Module):
         self.p = p
         self.broadcast_dims = broadcast_dims
         self.generator: Optional[torch.Generator] = None
+        self.masks: Optional[List[torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        if self.generator is None:
-            raise RuntimeError("training-mode dropout needs a generator: call set_dropout_generator")
         shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
         keep_prob = 1.0 - self.p
-        keep = torch.empty(shape, device=x.device).bernoulli_(keep_prob, generator=self.generator)
+        if self.masks is not None:
+            if not self.masks:
+                raise RuntimeError("this dropout site was fed fewer masks than it was called")
+            keep = self.masks.pop(0).to(x.device)
+            if list(keep.shape) != shape:
+                raise ValueError(f"a fed dropout mask has shape {tuple(keep.shape)}, not {tuple(shape)}")
+        elif self.generator is None:
+            raise RuntimeError("training-mode dropout needs a generator: call set_dropout_generator")
+        else:
+            keep = torch.empty(shape, device=x.device).bernoulli_(keep_prob, generator=self.generator)
         # flax divides by keep_prob in x's type: a bf16 x by bf16(keep_prob)
         scale = keep_prob if x.dtype == torch.float32 else float(torch.tensor(keep_prob, dtype=x.dtype))
         return torch.where(keep.bool(), x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -177,11 +193,30 @@ class Conv2d(nn.Conv2d):
         return lowp_product(F.conv2d, x, weight, stride=self.stride) + bias[:, None, None]
 
 
+def l2_normalized(x: torch.Tensor) -> torch.Tensor:
+    """``x`` over its fp32 L2 norm along the last axis (JAX's ``x /
+    jnp.linalg.norm(x.astype(float32), axis=-1, keepdims=True)``), fp32."""
+    return x / torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True)
+
+
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     """Give every ``Dropout`` under ``module`` the generator it draws from."""
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def feed_dropout_masks(module: nn.Module, masks: Optional[Dict[str, Sequence[torch.Tensor]]]) -> None:
+    """Give each ``Dropout`` under ``module`` named in ``masks`` (its name in
+    ``module.named_modules()``) the keep masks of its next calls, in call
+    order; every other site draws from its generator. ``None`` takes every
+    fed mask back. Raises on a name that is no Dropout site."""
+    sites = {name: m for name, m in module.named_modules() if isinstance(m, Dropout)}
+    unknown = sorted(set(masks or ()) - set(sites))
+    if unknown:
+        raise KeyError(f"no dropout site {unknown}; the sites are {sorted(sites)}")
+    for name, m in sites.items():
+        m.masks = None if masks is None or name not in masks else [torch.as_tensor(k).bool() for k in masks[name]]
 
 
 def MLP(
@@ -234,12 +269,13 @@ class ScanRNN(nn.Module):
     loop on any device; it exists to hold the kernels against it on the
     card. The decoder's ``mlp`` cell is refused: it belongs to a later
     slice. The input projection runs in ``dtype`` and is cast to fp32
-    before the recurrence, which is fp32 whatever ``dtype`` is.
+    before the recurrence, which is fp32 whatever ``dtype`` is. ``dropout``
+    acts on each layer's output but the last (``dropouts.{k}``).
     """
 
     def __init__(
         self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn", use_kernels: bool = True,
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, dropout: float = 0.0,
     ):
         super().__init__()
         if cell not in RECURRENCES:
@@ -251,6 +287,7 @@ class ScanRNN(nn.Module):
         self.num_layers = num_layers
         for k in range(num_layers):
             _rnn_params(self, k, "", input_size if k == 0 else hidden_size, hidden_size, GATE_MULTIPLE[cell])
+        self.dropouts = nn.ModuleList(Dropout(dropout) for _ in range(num_layers - 1))
 
     def init_carry(self, batch_size: int, device=None) -> Carry:
         """The zero carry: (L, B, H), or lstm's pair of them."""
@@ -276,33 +313,43 @@ class ScanRNN(nn.Module):
             else:
                 out, *c = plain(x_proj, *state, w_hh, b_hh) if lstm else (plain(x_proj, *state, w_hh, b_hh),)
                 h = out[:, -1]
+            if k < self.num_layers - 1:
+                out = self.dropouts[k](out)
             finals.append(h)
             cells.extend(c)
         return out, (torch.stack(finals), torch.stack(cells)) if lstm else torch.stack(finals)
 
 
 class ScanBiRNN(nn.Module):
-    """Multi-layer bidirectional tanh RNN over (B, S, F) -> (B, S, 2H), from
-    zero states: each layer a forward chain and a time-reversed chain,
-    concatenated, the next layer's input (torch ``nn.RNN(bidirectional=True)``
-    semantics and parameter names, the reverse chain's with ``_reverse``).
+    """Multi-layer bidirectional tanh (``cell="rnn_tanh"``), relu (``"rnn"``)
+    or gru RNN over (B, S, F) -> (B, S, 2H), from zero states: each layer a
+    forward chain and a time-reversed chain, concatenated, the next layer's
+    input (torch ``nn.RNN`` / ``nn.GRU(bidirectional=True)`` semantics and
+    parameter names, the reverse chain's with ``_reverse``). ``dropout``
+    acts on each layer's output but the last (``dropouts.{k}``).
     ``use_kernels=False`` runs JAX's flip-and-concatenate definition
     (``birnn_layer_plain``) on any device; it exists to hold the kernels
     against it on the card. The input projections run in ``dtype``, the
-    chains in fp32, as ``ScanRNN``'s."""
+    chains in fp32, as ``ScanRNN``'s. The lstm cell, which JAX's
+    ``ScanBiRNN`` would take but its config does not name, is refused
+    (ROADMAP.md, section C)."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 2, cell: str = "rnn_tanh",
-                 use_kernels: bool = True, dtype: torch.dtype = torch.float32):
+                 use_kernels: bool = True, dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        if cell != "rnn_tanh":
-            raise ValueError(f"bidirectional rnn cell {cell!r} is not ported yet; only 'rnn_tanh' is")
+        if cell not in BIRNN_CELLS:
+            raise ValueError(f"bidirectional rnn cell {cell!r} is not ported yet; only {list(BIRNN_CELLS)} are "
+                             f"(ROADMAP.md, section C)")
+        self.cell = cell
         self.use_kernels = use_kernels
         self.dtype = dtype
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         for k in range(num_layers):
             for suffix in ("", "_reverse"):
-                _rnn_params(self, k, suffix, input_size if k == 0 else 2 * hidden_size, hidden_size)
+                _rnn_params(self, k, suffix, input_size if k == 0 else 2 * hidden_size, hidden_size,
+                            GATE_MULTIPLE[cell])
+        self.dropouts = nn.ModuleList(Dropout(dropout) for _ in range(num_layers - 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         layer = birnn_layer if self.use_kernels else birnn_layer_plain
@@ -313,7 +360,9 @@ class ScanBiRNN(nn.Module):
             r = {name: getattr(self, f"{name}_l{k}_reverse") for name in p}
             out = layer(input_projection(self.dtype, out, p["weight_ih"], p["bias_ih"]),
                         input_projection(self.dtype, out, r["weight_ih"], r["bias_ih"]),
-                        h0s, p["weight_hh"], r["weight_hh"], p["bias_hh"], r["bias_hh"])
+                        h0s, p["weight_hh"], r["weight_hh"], p["bias_hh"], r["bias_hh"], self.cell)
+            if k < self.num_layers - 1:
+                out = self.dropouts[k](out)
         return out
 
 
@@ -395,16 +444,19 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """A stack of post-LN encoder layers under the key ``layers.{i}``."""
+    """A stack of post-LN encoder layers under the key ``layers.{i}``, and
+    with ``final_norm`` a LayerNorm after them (``final_norm``, JAX's
+    ``encoder_normalize``)."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int, dim_feedforward: int, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, final_norm: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dropout, dtype) for _ in range(num_layers)
         )
+        self.final_norm = nn.LayerNorm(d_model, eps=1e-5) if final_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
             x = layer(x)
-        return x
+        return x if self.final_norm is None else self.final_norm(x)

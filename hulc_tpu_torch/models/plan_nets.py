@@ -5,15 +5,18 @@
   to the plan distribution's logits.
 * ``PlanRecognitionTransformer`` (the posterior, training only): the
   window's perceptual embeddings, zero-padded up to a multiple of the head
-  count, plus learned position embeddings, input dropout, a post-LN
-  transformer encoder, ``fc`` to ``fc_hidden_size``, the mean over time
-  (``seq_feat``, which the CLIP loss also reads) and ``fc_state`` to the
-  plan logits.
-* ``PlanRecognitionBiRNN`` (MCIL's posterior): a bidirectional tanh RNN
-  (``layers.ScanBiRNN``, module ``birnn_model``) over the window, its last
-  step's features ``x[:, -1]`` as ``seq_feat`` (the reverse half of that
-  row is the reverse chain's first step, which has seen only the last
-  frame), and ``fc_state`` to the Normal's mean and raw std.
+  count, plus learned position embeddings (or, with ``position_embedding``
+  off, the fixed sinusoidal ones), optionally a LayerNorm
+  (``positional_normalize``), input dropout, a post-LN transformer encoder
+  (with ``encoder_normalize`` a final LayerNorm), ``fc`` to
+  ``fc_hidden_size``, the mean over time (``seq_feat``, which the CLIP loss
+  also reads) and ``fc_state`` to the plan logits.
+* ``PlanRecognitionBiRNN`` (MCIL's posterior): a bidirectional tanh, relu
+  or gru RNN (``birnn_cell``; ``layers.ScanBiRNN``, module ``birnn_model``,
+  ``birnn_dropout`` between its layers) over the window, its last step's
+  features ``x[:, -1]`` as ``seq_feat`` (the reverse half of that row is
+  the reverse chain's first step, which has seen only the last frame), and
+  ``fc_state`` to the Normal's mean and raw std.
 
 In bf16 (``dtype``) the MLPs, the transformer and ``fc`` compute in bf16
 and the BiRNN's input projections too; every ``fc_state`` is fp32 (on the
@@ -23,6 +26,7 @@ output taken in fp32) and the LayerNorms, as in the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
@@ -60,6 +64,19 @@ class PlanProposalNetwork(nn.Module):
         return self.dist.make_state(self.fc_state(self.fc_model(x)))
 
 
+def sinusoidal_position_encoding(seq_len: int, d_model: int, device=None) -> torch.Tensor:
+    """The classic sinusoidal positions (seq_len, d_model), as the JAX
+    package's (hulc_tpu/models/plan_nets.py:56-66): sin at the even
+    columns, cos at the odd ones (an odd d_model drops the last cos)."""
+    position = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                         * (-math.log(10000.0) / d_model))
+    pe = torch.zeros(seq_len, d_model, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * (div_term if d_model % 2 == 0 else div_term[:-1]))
+    return pe
+
+
 def recognition_d_model(cfg: PlanRecognitionConfig) -> int:
     """The encoder width: the input padded up to a multiple of the heads."""
     return cfg.in_features + (-cfg.in_features) % cfg.num_heads
@@ -72,15 +89,16 @@ class PlanRecognitionTransformer(nn.Module):
         super().__init__()
         if cfg.kind != "transformer":
             raise ValueError(f"plan recognition {cfg.kind!r} is not ported yet; only 'transformer' is")
-        if not cfg.position_embedding or cfg.positional_normalize or cfg.encoder_normalize:
-            raise ValueError("sinusoidal positions, positional_normalize and encoder_normalize are not ported yet")
         self.cfg = cfg
         self.dist = dist
         d_model = recognition_d_model(cfg)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d_model)
+        if cfg.position_embedding:
+            self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, d_model)
+        if cfg.positional_normalize:
+            self.positional_norm = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(cfg.dropout)
         self.transformer_encoder = TransformerEncoder(
-            cfg.num_layers, d_model, cfg.num_heads, cfg.encoder_hidden_size, cfg.dropout, dtype
+            cfg.num_layers, d_model, cfg.num_heads, cfg.encoder_hidden_size, cfg.dropout, dtype, cfg.encoder_normalize
         )
         self.fc = Linear(d_model, cfg.fc_hidden_size, dtype, fp32_out=True)
         self.fc_state = nn.Sequential(Linear(cfg.fc_hidden_size, dist.state_dim))
@@ -89,7 +107,12 @@ class PlanRecognitionTransformer(nn.Module):
         """(B, S, F) -> (plan state, seq_feat (B, fc_hidden_size))."""
         s, f = perceptual_emb.shape[1:]
         x = F.pad(perceptual_emb, (0, (-f) % self.cfg.num_heads))
-        x = x + self.position_embeddings.weight[:s][None]
+        if self.cfg.position_embedding:
+            x = x + self.position_embeddings.weight[:s][None]
+        else:
+            x = x + sinusoidal_position_encoding(s, x.shape[-1], x.device)[None]
+        if self.cfg.positional_normalize:
+            x = self.positional_norm(x)
         x = self.transformer_encoder(self.dropout(x))
         seq_feat = self.fc(x).mean(dim=1)
         return self.dist.make_state(self.fc_state(seq_feat)), seq_feat
@@ -102,11 +125,9 @@ class PlanRecognitionBiRNN(nn.Module):
     def __init__(self, cfg: PlanRecognitionConfig, dist: PlanDistribution, use_kernels: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.birnn_dropout > 0.0:
-            raise ValueError("the plan recognition BiRNN's dropout is not ported yet")
         self.dist = dist
         self.birnn_model = ScanBiRNN(cfg.in_features, cfg.birnn_hidden_size, cfg.birnn_num_layers, cfg.birnn_cell,
-                                     use_kernels, dtype)
+                                     use_kernels, dtype, cfg.birnn_dropout)
         self.fc_state = nn.Sequential(Linear(2 * cfg.birnn_hidden_size, dist.state_dim))
 
     def forward(self, perceptual_emb: torch.Tensor) -> Tuple[PlanState, torch.Tensor]:

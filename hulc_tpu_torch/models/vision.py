@@ -13,9 +13,11 @@ math. SpatialSoftmax is ``ops.spatial_softmax.spatial_softmax``: a
 op (the hand-written kernel of ``csrc/spatial_softmax.cu`` on a CUDA
 tensor, the plain version on a CPU tensor) and whose backward is the
 backward kernel or its closed form, for a fixed or a learnable temperature
-(the backward then also gives the temperature's gradient). The encoders'
-dropout, the sinusoid and the L2-normalized outputs, which no ported preset
-uses, are not ported yet: a config that sets them is refused.
+(the backward then also gives the temperature's gradient). Each encoder
+takes JAX's options: ``use_sinusoid`` (the static encoder's keypoints as
+``[x, sin x, cos x]``, so ``fc1`` reads three times as many), ``dropout``
+after ``fc1``'s activation (module ``dropout``) and ``l2_normalize_output``
+(``fc2``'s output over its fp32 norm before the LayerNorm).
 
 In bf16 (``dtype``) the convolutions and the FC layers compute in bf16
 (``layers.Conv2d`` / ``layers.Linear``), SpatialSoftmax reads the bf16 map
@@ -32,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from hulc_tpu_torch.config import VisionEncoderConfig
-from hulc_tpu_torch.models.layers import ACTIVATIONS, Conv2d, Linear
+from hulc_tpu_torch.models.layers import ACTIVATIONS, Conv2d, Dropout, Linear, l2_normalized
 from hulc_tpu_torch.ops.spatial_softmax import (  # noqa: F401 (the encoder's SpatialSoftmax, and its kernels' callers)
     _aligned,
     spatial_softmax,
@@ -82,9 +84,13 @@ def conv_tower_size(input_size: int) -> int:
     return s - 2
 
 
-def _check_ported(cfg: VisionEncoderConfig) -> None:
-    if cfg.use_sinusoid or cfg.l2_normalize_output or cfg.dropout > 0.0:
-        raise ValueError("use_sinusoid, l2_normalize_output and encoder dropout are not ported yet")
+def head(x: torch.Tensor, fc1: nn.Module, dropout: Dropout, fc2: Linear, ln: nn.LayerNorm,
+         l2_normalize: bool) -> torch.Tensor:
+    """The encoders' FC head (JAX vision.py:164-166, 188-190): fc1 and its
+    activation, dropout, fc2, the optional division by the fp32 norm, the
+    LayerNorm."""
+    x = fc2(dropout(fc1(x)))
+    return ln(l2_normalized(x) if l2_normalize else x)
 
 
 class VisionNetworkStatic(nn.Module):
@@ -92,17 +98,21 @@ class VisionNetworkStatic(nn.Module):
 
     def __init__(self, cfg: VisionEncoderConfig, use_kernels: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_ported(cfg)
         act = ACTIVATIONS[cfg.activation]
+        self.cfg = cfg
         self.conv_model = conv_tower(cfg.num_channels, cfg.activation, dtype)
         self.spatial_softmax = SpatialSoftmax(cfg.spatial_softmax_temp, use_kernels)
-        self.fc1 = nn.Sequential(Linear(2 * 64, 512, dtype), act())
+        self.fc1 = nn.Sequential(Linear((3 if cfg.use_sinusoid else 1) * 2 * 64, 512, dtype), act())
+        self.dropout = Dropout(cfg.dropout)
         self.fc2 = Linear(512, cfg.visual_features, dtype, fp32_out=True)
         self.ln = nn.LayerNorm(cfg.visual_features, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, C, H, W) preprocessed frames -> (N, visual_features) fp32."""
-        return self.ln(self.fc2(self.fc1(self.spatial_softmax(self.conv_model(x)))))
+        x = self.spatial_softmax(self.conv_model(x))
+        if self.cfg.use_sinusoid:
+            x = torch.cat([x, torch.sin(x), torch.cos(x)], dim=-1)
+        return head(x, self.fc1, self.dropout, self.fc2, self.ln, self.cfg.l2_normalize_output)
 
 
 class NatureCNN(nn.Module):
@@ -110,8 +120,8 @@ class NatureCNN(nn.Module):
 
     def __init__(self, cfg: VisionEncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_ported(cfg)
         act = ACTIVATIONS[cfg.activation]
+        self.l2_normalize = cfg.l2_normalize_output
         side = conv_tower_size(cfg.input_size)
         self.conv_model = nn.Sequential(
             *conv_tower(cfg.num_channels, cfg.activation, dtype),
@@ -120,11 +130,12 @@ class NatureCNN(nn.Module):
             act(),
         )
         self.fc1 = nn.Sequential(Linear(128, 512, dtype), act())
+        self.dropout = Dropout(cfg.dropout)
         self.fc2 = Linear(512, cfg.visual_features, dtype, fp32_out=True)
         self.ln = nn.LayerNorm(cfg.visual_features, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ln(self.fc2(self.fc1(self.conv_model(x))))
+        return head(self.conv_model(x), self.fc1, self.dropout, self.fc2, self.ln, self.l2_normalize)
 
 
 def make_vision_encoder(cfg: VisionEncoderConfig, use_kernels: bool = True,

@@ -14,10 +14,12 @@ serving lane; the relu's through the ``hulc::rnn_relu_fwd`` op,
 ``ops.library``). Its backward is that file's dh-chain kernel, then dW_hh
 as ONE matrix product over all S * B rows, ``dpre^T [h0, y_{:-1}]``, and
 db_hh as dpre's sum (``recurrence_weight_grads``). ``birnn_layer`` is one
-bidirectional tanh layer (B.9, ``ScanBiRNN``): a forward chain and a
-time-reversed chain written into the two halves of one (B, S, 2H) output,
-two launches of B.8's kernels with the chain's layout, no flip and no
-concatenation copied. ``recurrence_plan`` chooses each launch's kernel,
+bidirectional layer (``ScanBiRNN``) of the tanh (B.9), relu or gru cell
+(B.13): a forward chain and a time-reversed chain written into the two
+halves of one (B, S, 2H) output, two launches of the cell's chain kernel
+with the chain's layout (the tanh's B.8; for relu ``csrc/rnn.cu``'s relu
+instance with the runtime layout, for gru ``csrc/rnn_gates.cu``'s laid
+instance), no flip and no concatenation copied. ``recurrence_plan`` chooses each launch's kernel,
 cluster size, k-split, columns and shared memory, once per shape
 (``device_plan``, cached), and csrc/rnn.cu checks it against the card
 then. Each part runs inside a ``record_function`` span (``SPANS``,
@@ -25,9 +27,10 @@ then. Each part runs inside a ``record_function`` span (``SPANS``,
 the dh chain take the plain versions below: ``rnn_relu_fwd_plain`` /
 ``rnn_tanh_fwd_plain`` are the loop, ``dh_chain_plain`` /
 ``dh_chain_tanh_plain`` the dh chain, ``tanh_chain_fwd_plain`` /
-``tanh_chain_bwd_plain`` one tanh launch index by index (a chain's layout
-in a (B, S, 2H) output, reversed or not), and ``birnn_layer_plain`` /
-``birnn_layer_bwd_plain`` JAX's flip and concatenation, which
+``tanh_chain_bwd_plain`` (``relu_chain_*_plain``, ``gru_chain_*_plain``)
+one chain launch index by index (a chain's layout in a (B, S, 2H) output,
+reversed or not), and ``birnn_layer_plain`` (any of the three cells) /
+``birnn_layer_bwd_plain`` (tanh) JAX's flip and concatenation, which
 ``use_kernels=False`` runs.
 
 The gated cells (layers.py:238-257), gru (B.11) and lstm (B.12), take xp
@@ -135,16 +138,21 @@ def recurrence_plan(hidden: int, batch: int, seq: int, sms: int, smem_optin: int
 def device_plan(hidden: int, batch: int, seq: int, index: int, backward: bool, cell: str = "rnn") -> RecurrencePlan:
     """``recurrence_plan`` for CUDA device ``index``, from what the runtime
     reports, checked by csrc/rnn.cu against the card for the cell's kernel
-    (``rnn``: relu, ``rnn_tanh``). Made once per shape: a launch only looks
-    it up."""
+    (``kernels.RNN_CELLS``: ``rnn`` the decoder's relu, ``rnn_tanh``,
+    ``rnn_chain`` B.13's relu chain). Made once per shape: a launch only
+    looks it up."""
     plan = recurrence_plan(hidden, batch, seq, *kernels.device_limits(index),
                            kernels.cluster_limits(index, CLUSTERS), backward)
-    kernels.check_rnn_plan(index, cell == "rnn_tanh", backward, batch, seq, hidden, plan.c_args())
+    kernels.check_rnn_plan(index, cell, backward, batch, seq, hidden, plan.c_args())
     return plan
 
 
 def _index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 # record_function span of each part of the recurrence, by the name
@@ -216,7 +224,7 @@ def dh_chain_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What the backward kernel computes: (dpre, dh0), the dh chain of
     ``rnn_relu_bwd_plain`` without the weight gradients."""
-    return _dh_chain(dy, y, dcarry, w_hh, lambda y_t: (y_t > 0).to(y_t.dtype))
+    return _dh_chain(dy, y, dcarry, w_hh, _relu_grad)
 
 
 def _tanh_grad(y_t: torch.Tensor) -> torch.Tensor:
@@ -232,23 +240,45 @@ def dh_chain_tanh_plain(
     return _dh_chain(dy, y, dcarry, w_hh, _tanh_grad)
 
 
-def tanh_chain_fwd_plain(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool) -> torch.Tensor:
-    """What one launch of B.8's forward computes, index by index: step t
-    reads xp[:, time(t)] and writes y[:, time(t), offset:offset + H] of the
-    (B, S, W) ``y``, time(t) = S-1-t when ``reverse``; returns y."""
+def _act_chain_fwd(act, xp, h0, w_hh, b_hh, y, offset: int, reverse: bool) -> torch.Tensor:
+    """One chain of the relu or tanh cell, index by index: step t reads
+    xp[:, time(t)] and writes y[:, time(t), offset:offset + H] of the (B, S,
+    W) ``y``, time(t) = S-1-t when ``reverse``; returns y."""
     s, h = xp.shape[1], w_hh.shape[0]
     state = h0
     for t in range(s):
         p = s - 1 - t if reverse else t
-        state = torch.tanh(xp[:, p] + torch.addmm(b_hh, state, w_hh.t()))
+        state = act(xp[:, p] + torch.addmm(b_hh, state, w_hh.t()))
         y[:, p, offset:offset + h] = state
     return y
+
+
+def tanh_chain_fwd_plain(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool) -> torch.Tensor:
+    """What one launch of B.8's forward computes, index by index (a chain's
+    layout in a (B, S, W) output, ``_act_chain_fwd``); returns y."""
+    return _act_chain_fwd(torch.tanh, xp, h0, w_hh, b_hh, y, offset, reverse)
 
 
 def tanh_chain_bwd_plain(dy, y, dcarry, w_hh, offset: int, reverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """What one launch of B.8's dh chain computes, index by index, over the
     forward's layout: (dpre (B, S, H) in xp's time order, dh0)."""
     return _dh_chain(dy, y, dcarry, w_hh, _tanh_grad, offset, reverse)
+
+
+def relu_chain_fwd_plain(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool) -> torch.Tensor:
+    """What one launch of B.13's relu chain computes, index by index, as
+    ``tanh_chain_fwd_plain``; returns y."""
+    return _act_chain_fwd(torch.relu, xp, h0, w_hh, b_hh, y, offset, reverse)
+
+
+def _relu_grad(y_t: torch.Tensor) -> torch.Tensor:
+    return (y_t > 0).to(y_t.dtype)
+
+
+def relu_chain_bwd_plain(dy, y, dcarry, w_hh, offset: int, reverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What one launch of B.13's relu dh chain computes, index by index,
+    over the forward's layout: (dpre (B, S, H) in xp's time order, dh0)."""
+    return _dh_chain(dy, y, dcarry, w_hh, _relu_grad, offset, reverse)
 
 
 def rnn_relu_bwd_plain(
@@ -332,36 +362,43 @@ def rnn_relu_bwd(
     return dpre, dh0
 
 
-def _tanh_fwd_launch(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool, h_last) -> None:
-    """One launch of B.8's forward: the chain's columns [offset, offset + H)
-    of y (B, S, W), run from the last step down when ``reverse``."""
+# a chain's csrc/rnn.cu kernels by cell: (plan cell, forward entry point, dh chain entry point)
+CHAIN_KERNELS = {"rnn_tanh": ("rnn_tanh", "RNN_TANH_FWD", "RNN_TANH_BWD"),
+                 "rnn": ("rnn_chain", "RNN_RELU_CHAIN_FWD", "RNN_RELU_CHAIN_BWD")}
+
+
+def _chain_fwd_launch(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool, h_last, cell: str = "rnn_tanh") -> None:
+    """One launch of B.8's forward (B.13's relu chain for ``cell`` "rnn"):
+    the chain's columns [offset, offset + H) of y (B, S, W), run from the
+    last step down when ``reverse``."""
     b, s, h = xp.shape
     kernels.require_cuda_tensor("xp", xp, torch.float32, 3)
     kernels.require_cuda_tensor("y", y, torch.float32, 3)
-    _check_shapes("rnn_tanh_fwd", b, h, h0, w_hh, b_hh)
+    _check_shapes(f"{cell} chain forward", b, h, h0, w_hh, b_hh)
     if y.shape[:2] != (b, s) or offset + h > y.shape[2]:
-        raise ValueError(f"rnn_tanh_fwd: y {tuple(y.shape)} has no columns [{offset}, {offset + h}) for xp "
+        raise ValueError(f"{cell} chain forward: y {tuple(y.shape)} has no columns [{offset}, {offset + h}) for xp "
                          f"{tuple(xp.shape)}")
-    plan = device_plan(h, b, s, _index(xp.device), False, "rnn_tanh")
-    kernels.RNN_TANH_FWD(xp.device, xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), y.data_ptr(),
-                         None if h_last is None else h_last.data_ptr(), b, s, h, int(reverse), y.shape[2], offset,
-                         *plan.c_args())
+    plan_cell, fwd, _ = CHAIN_KERNELS[cell]
+    plan = device_plan(h, b, s, _index(xp.device), False, plan_cell)
+    getattr(kernels, fwd)(xp.device, xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), y.data_ptr(),
+                          _ptr(h_last), b, s, h, int(reverse), y.shape[2], offset, *plan.c_args())
 
 
-def _tanh_bwd_launch(dy, y, dcarry, w_hh, dpre, dh0, offset: int, reverse: bool) -> None:
-    """One launch of B.8's dh chain over the chain's columns [offset, offset
-    + H) of dy and y (B, S, W); dpre (B, S, H) and dh0 (B, H) its own."""
+def _chain_bwd_launch(dy, y, dcarry, w_hh, dpre, dh0, offset: int, reverse: bool, cell: str = "rnn_tanh") -> None:
+    """One launch of B.8's dh chain (B.13's relu one for ``cell`` "rnn")
+    over the chain's columns [offset, offset + H) of dy and y (B, S, W);
+    dpre (B, S, H) and dh0 (B, H) its own."""
     b, s, h = dpre.shape
     kernels.require_cuda_tensor("dy", dy, torch.float32, 3)
     kernels.require_cuda_tensor("y", y, torch.float32, 3)
-    _check_shapes("rnn_tanh_bwd", b, h, dcarry, w_hh)
+    _check_shapes(f"{cell} chain dh chain", b, h, dcarry, w_hh)
     if dy.shape != y.shape or y.shape[:2] != (b, s) or offset + h > y.shape[2]:
-        raise ValueError(f"rnn_tanh_bwd: dy {tuple(dy.shape)}, y {tuple(y.shape)} have no columns "
+        raise ValueError(f"{cell} chain dh chain: dy {tuple(dy.shape)}, y {tuple(y.shape)} have no columns "
                          f"[{offset}, {offset + h}) for dpre {tuple(dpre.shape)}")
-    plan = device_plan(h, b, s, _index(y.device), True, "rnn_tanh")
-    kernels.RNN_TANH_BWD(y.device, dy.data_ptr(), y.data_ptr(), None if dcarry is None else dcarry.data_ptr(),
-                         w_hh.data_ptr(), dpre.data_ptr(), dh0.data_ptr(), b, s, h, int(reverse), y.shape[2], offset,
-                         *plan.c_args())
+    plan_cell, _, bwd = CHAIN_KERNELS[cell]
+    plan = device_plan(h, b, s, _index(y.device), True, plan_cell)
+    getattr(kernels, bwd)(y.device, dy.data_ptr(), y.data_ptr(), _ptr(dcarry), w_hh.data_ptr(), dpre.data_ptr(),
+                          dh0.data_ptr(), b, s, h, int(reverse), y.shape[2], offset, *plan.c_args())
 
 
 def rnn_tanh_fwd(
@@ -373,7 +410,7 @@ def rnn_tanh_fwd(
         y = rnn_tanh_fwd_plain(xp, h0, w_hh, b_hh)
         return y, y[:, -1].clone()
     y, h_last = torch.empty_like(xp), torch.empty_like(h0)
-    _tanh_fwd_launch(xp, h0, w_hh, b_hh, y, 0, False, h_last)
+    _chain_fwd_launch(xp, h0, w_hh, b_hh, y, 0, False, h_last)
     return y, h_last
 
 
@@ -384,7 +421,7 @@ def rnn_tanh_bwd(
     if y.device.type == "cpu":
         return dh_chain_tanh_plain(dy, y, dcarry, w_hh)
     dpre, dh0 = torch.empty_like(y), torch.empty_like(y[:, 0])
-    _tanh_bwd_launch(dy.contiguous(), y, None if dcarry is None else dcarry.contiguous(), w_hh, dpre, dh0, 0, False)
+    _chain_bwd_launch(dy.contiguous(), y, None if dcarry is None else dcarry.contiguous(), w_hh, dpre, dh0, 0, False)
     return dpre, dh0
 
 
@@ -426,102 +463,6 @@ def rnn_tanh(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One tanh layer (B.8) through ``_Recurrence``, as ``rnn_relu``."""
     return _Recurrence.apply(xp, h0, w_hh, b_hh, "rnn_tanh")
-
-
-# --------------------------------------------------------------------------
-# B.9: one bidirectional tanh layer
-# --------------------------------------------------------------------------
-
-
-def birnn_layer_plain(
-    xp_f: torch.Tensor, xp_b: torch.Tensor, h0s: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
-    b_hh_f: torch.Tensor, b_hh_b: torch.Tensor,
-) -> torch.Tensor:
-    """JAX's definition (layers.py:305-310): the forward chain over xp_f,
-    the reverse chain over the time-flipped xp_b flipped back, concatenated
-    to (B, S, 2H); ``h0s`` (2, B, H) their initial states."""
-    y_f = rnn_tanh_fwd_plain(xp_f, h0s[0], w_hh_f, b_hh_f)
-    y_b = rnn_tanh_fwd_plain(xp_b.flip(1), h0s[1], w_hh_b, b_hh_b).flip(1)
-    return torch.cat([y_f, y_b], dim=-1)
-
-
-def birnn_layer_bwd_plain(
-    dy: torch.Tensor, y: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """What B.9's backward computes: (dpre_f, dpre_b (B, S, H) in xp's time
-    order, dh0s (2, B, H)), each chain's dh chain over its flipped halves."""
-    h = w_hh_f.shape[0]
-    dpre_f, dh0_f = dh_chain_tanh_plain(dy[..., :h], y[..., :h], None, w_hh_f)
-    dpre_b, dh0_b = dh_chain_tanh_plain(dy[..., h:].flip(1), y[..., h:].flip(1), None, w_hh_b)
-    return dpre_f, dpre_b.flip(1), torch.stack([dh0_f, dh0_b])
-
-
-def birnn_layer_fwd(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b) -> torch.Tensor:
-    """B.9's forward, y (B, S, 2H): the forward chain into columns [0, H)
-    and the reverse chain into [H, 2H); on CUDA tensors two launches of
-    B.8's forward, on CPU tensors their plain versions
-    (``tanh_chain_fwd_plain``)."""
-    b, s, h = xp_f.shape
-    y = torch.empty((b, s, 2 * h), dtype=xp_f.dtype, device=xp_f.device)
-    chains = ((xp_f, h0s[0], w_hh_f, b_hh_f, 0, False), (xp_b, h0s[1], w_hh_b, b_hh_b, h, True))
-    if y.device.type == "cpu":
-        for xp, h0, w_hh, b_hh, offset, reverse in chains:
-            tanh_chain_fwd_plain(xp, h0, w_hh, b_hh, y, offset, reverse)
-        return y
-    for xp, h0, w_hh, b_hh, offset, reverse in chains:
-        _tanh_fwd_launch(xp, h0, w_hh, b_hh, y, offset, reverse, None)
-    kernels.BIRNN_TANH_FWD.launches += 1
-    return y
-
-
-def birnn_layer_bwd(dy, y, w_hh_f, w_hh_b) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """B.9's backward, ``birnn_layer_bwd_plain``'s outputs, each chain
-    reading its half of dy and y: on CUDA tensors two launches of B.8's dh
-    chain, on CPU tensors their plain versions (``tanh_chain_bwd_plain``)."""
-    b, s, h2 = y.shape
-    h = h2 // 2
-    if y.device.type == "cpu":
-        (dpre_f, dh0_f), (dpre_b, dh0_b) = (tanh_chain_bwd_plain(dy, y, None, w_hh, d * h, d == 1)
-                                            for d, w_hh in enumerate((w_hh_f, w_hh_b)))
-        return dpre_f, dpre_b, torch.stack([dh0_f, dh0_b])
-    dy = dy.contiguous()
-    dpre = torch.empty((2, b, s, h), dtype=y.dtype, device=y.device)
-    dh0s = torch.empty((2, b, h), dtype=y.dtype, device=y.device)
-    for d, w_hh in enumerate((w_hh_f, w_hh_b)):
-        _tanh_bwd_launch(dy, y, None, w_hh, dpre[d], dh0s[d], d * h, d == 1)
-    kernels.BIRNN_TANH_BWD.launches += 1
-    return dpre[0], dpre[1], dh0s
-
-
-class _BiRnnTanhLayer(torch.autograd.Function):
-    """Forward: ``birnn_layer_fwd``. Backward: ``birnn_layer_bwd``, then each
-    chain's weight and bias gradients as one product and one sum."""
-
-    @staticmethod
-    def forward(ctx, xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
-        with record_function(BIRNN_SPANS["forward"]):
-            y = birnn_layer_fwd(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
-        ctx.save_for_backward(y, h0s, w_hh_f, w_hh_b)
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        y, h0s, w_hh_f, w_hh_b = ctx.saved_tensors
-        h = w_hh_f.shape[0]
-        with record_function(BIRNN_SPANS["backward"]):
-            dpre_f, dpre_b, dh0s = birnn_layer_bwd(dy, y, w_hh_f, w_hh_b)
-        dw_f, db_f = recurrence_weight_grads(dpre_f, h0s[0], y[..., :h], spans=BIRNN_SPANS)
-        dw_b, db_b = recurrence_weight_grads(dpre_b, h0s[1], y[..., h:], reverse=True, spans=BIRNN_SPANS)
-        return dpre_f, dpre_b, dh0s, dw_f, dw_b, db_f, db_b
-
-
-def birnn_layer(
-    xp_f: torch.Tensor, xp_b: torch.Tensor, h0s: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
-    b_hh_f: torch.Tensor, b_hh_b: torch.Tensor,
-) -> torch.Tensor:
-    """One bidirectional tanh layer (B.9) through ``_BiRnnTanhLayer``: (B, S,
-    2H), differentiable in all seven inputs."""
-    return _BiRnnTanhLayer.apply(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b)
 
 
 # --------------------------------------------------------------------------
@@ -608,12 +549,14 @@ def gated_smem_bytes(cell: str, backward: bool) -> int:
 
 
 def gated_plan(cell: str, hidden: int, batch: int, seq: int, sms: int, smem_optin: int,
-               cluster_limits: Dict[int, int], backward: bool = False, saves: bool = False) -> GatedPlan:
+               cluster_limits: Dict[int, int], backward: bool = False, saves: bool = False,
+               laid: bool = False) -> GatedPlan:
     """The launch for one gated layer at (batch, seq, hidden) on a card with
     ``sms`` SMs, ``smem_optin`` bytes of shared memory a block and room for
     ``cluster_limits[n]`` clusters of n blocks at once at one block per SM:
     the one-step GEMV for a forward of one time step at most
-    GATED_STEP_ROWS rows that saves no gates; else the sequence launch with
+    GATED_STEP_ROWS rows that saves no gates, of a chain that owns its y
+    (not ``laid``, B.13's chain with a layout); else the sequence launch with
     the first of GATED_CLUSTERS whose blocks all hold k (of H forward, of G
     H in the dh chain; each block's slice whole chunks), whose shared memory
     fits and whose clusters all fit at once. Raises ValueError when none
@@ -623,7 +566,9 @@ def gated_plan(cell: str, hidden: int, batch: int, seq: int, sms: int, smem_opti
         raise ValueError(f"gated_plan: cell {cell!r} is not gru or lstm")
     if min(hidden, batch, seq) <= 0:
         raise ValueError(f"gated_plan: hidden {hidden}, batch {batch}, seq {seq} must be positive")
-    if not backward and not saves and seq == 1 and batch <= GATED_STEP_ROWS:
+    if laid and cell != "gru":
+        raise ValueError(f"gated_plan: only the gru chain takes a layout, not {cell!r}")
+    if not backward and not saves and not laid and seq == 1 and batch <= GATED_STEP_ROWS:
         return GatedPlan("step", 1, hidden, GATED_STEP_COLS, 0, 0)
     direction = "backward" if backward else "forward"
     k_total = GATES[cell] * hidden if backward else hidden
@@ -643,14 +588,25 @@ def gated_plan(cell: str, hidden: int, batch: int, seq: int, sms: int, smem_opti
 
 @functools.cache
 def gated_device_plan(cell: str, hidden: int, batch: int, seq: int, index: int, backward: bool,
-                      saves: bool) -> GatedPlan:
+                      saves: bool, laid: bool = False) -> GatedPlan:
     """``gated_plan`` for CUDA device ``index``, from what the runtime
-    reports, checked by csrc/rnn_gates.cu against the card once per shape:
-    a launch only looks it up."""
+    reports, checked by csrc/rnn_gates.cu against the card once per shape
+    (``laid``: for B.13's gru chain): a launch only looks it up."""
     plan = gated_plan(cell, hidden, batch, seq, *kernels.device_limits(index),
-                      kernels.cluster_limits(index, GATED_CLUSTERS["backward"]), backward, saves)
-    kernels.check_gated_plan(index, cell == "lstm", backward, saves, batch, seq, hidden, plan.c_args())
+                      kernels.cluster_limits(index, GATED_CLUSTERS["backward"]), backward, saves, laid)
+    kernels.check_gated_plan(index, cell == "lstm", laid, backward, saves, batch, seq, hidden, plan.c_args())
     return plan
+
+
+def _gru_gates(x_t, hp, h):
+    """One gru step as JAX's ScanRNN writes it (layers.py:240-247) from x_t
+    (B, 3H) and hp = h W_hh^T + b_hh: (h_t, its saved parts (r, z, n, hn))."""
+    xr, xz, xn = x_t.chunk(3, dim=-1)
+    hr, hz, hn = hp.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h, (r, z, n, hn)
 
 
 def _gated_loop(cell: str, xp, h0, c0, w_hh, b_hh, save: bool):
@@ -663,13 +619,7 @@ def _gated_loop(cell: str, xp, h0, c0, w_hh, b_hh, save: bool):
     for t in range(xp.shape[1]):
         hp = torch.addmm(b_hh, h, w_hh.t())
         if cell == "gru":
-            xr, xz, xn = xp[:, t].chunk(3, dim=-1)
-            hr, hz, hn = hp.chunk(3, dim=-1)
-            r = torch.sigmoid(xr + hr)
-            z = torch.sigmoid(xz + hz)
-            n = torch.tanh(xn + r * hn)
-            h = (1.0 - z) * n + z * h
-            parts = (r, z, n, hn)
+            h, parts = _gru_gates(xp[:, t], hp, h)
         else:
             xi, xf, xg, xo = xp[:, t].chunk(4, dim=-1)
             hi, hf, hg, ho = hp.chunk(4, dim=-1)
@@ -705,20 +655,53 @@ def dh_chain_gru_plain(dy, dh_last, y, h0, saved, w_hh) -> Tuple[torch.Tensor, t
     the training forward's saved [r | z | n | hn]; ``dh_last`` None means no
     gradient reaches the final carry. dhp is dxp but in the n slice, dxp_n
     * r; dh_{t-1} = gh_t z_t + dhp_t W_hh."""
-    b, s, h = y.shape
+    return _gru_dh_chain(dy, dh_last, y, h0, saved, w_hh)
+
+
+def _gru_dh_chain(dy, dh_last, y, h0, saved, w_hh, offset: int = 0, reverse: bool = False):
+    """``dh_chain_gru_plain`` with the chain's dy and y the columns [offset,
+    offset + H) of (B, S, W) tensors, its step t at time S-1-t when
+    ``reverse``; saved, dxp and dhp in xp's time order."""
+    b, s = saved.shape[:2]
+    h = w_hh.shape[1]
     dh = y.new_zeros(b, h) if dh_last is None else dh_last
     dxp, dhp = y.new_empty(b, s, 3 * h), y.new_empty(b, s, 3 * h)
     for t in reversed(range(s)):
-        r, z, n, hn = saved[:, t].chunk(4, dim=-1)
-        h_prev = y[:, t - 1] if t > 0 else h0
-        gh = dy[:, t] + dh
+        p = s - 1 - t if reverse else t
+        r, z, n, hn = saved[:, p].chunk(4, dim=-1)
+        h_prev = y[:, p + 1 if reverse else p - 1, offset:offset + h] if t > 0 else h0
+        gh = dy[:, p, offset:offset + h] + dh
         dpn = gh * (1.0 - z) * (1.0 - n * n)
         dpr = dpn * hn * (r * (1.0 - r))
         dpz = gh * (h_prev - n) * (z * (1.0 - z))
-        dxp[:, t] = torch.cat([dpr, dpz, dpn], dim=-1)
-        dhp[:, t] = torch.cat([dpr, dpz, dpn * r], dim=-1)
-        dh = gh * z + dhp[:, t] @ w_hh
+        dxp[:, p] = torch.cat([dpr, dpz, dpn], dim=-1)
+        dhp[:, p] = torch.cat([dpr, dpz, dpn * r], dim=-1)
+        dh = gh * z + dhp[:, p] @ w_hh
     return dxp, dhp, dh
+
+
+def gru_chain_fwd_plain(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool, saved=None) -> torch.Tensor:
+    """What one launch of B.13's gru chain computes, index by index: step t
+    reads xp[:, time(t)] (B, S, 3H), writes y[:, time(t), offset:offset + H]
+    of the (B, S, W) ``y`` and, when ``saved`` (B, S, 4H) is given, its
+    [r | z | n | hn] at time(t), time(t) = S-1-t when ``reverse``; returns
+    y."""
+    s, h = xp.shape[1], w_hh.shape[1]
+    state = h0
+    for t in range(s):
+        p = s - 1 - t if reverse else t
+        state, parts = _gru_gates(xp[:, p], torch.addmm(b_hh, state, w_hh.t()), state)
+        y[:, p, offset:offset + h] = state
+        if saved is not None:
+            saved[:, p] = torch.cat(parts, dim=-1)
+    return y
+
+
+def gru_chain_bwd_plain(dy, dh_last, y, h0, saved, w_hh, offset: int,
+                        reverse: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What one launch of B.13's gru dh chain computes, index by index, over
+    the forward's layout: (dxp, dhp (B, S, 3H) in xp's time order, dh0)."""
+    return _gru_dh_chain(dy, dh_last, y, h0, saved, w_hh, offset, reverse)
 
 
 def dh_chain_lstm_plain(dy, dh_last, dc_last, saved, c0, w_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -760,10 +743,6 @@ def _check_gated(name, cell, b, h, states, w_hh, b_hh=None):
         raise ValueError(f"{name}: w_hh {tuple(w_hh.shape)}, b_hh {None if b_hh is None else tuple(b_hh.shape)}, "
                          f"states {[None if s is None else tuple(s.shape) for s in states]} do not fit (B, H) = "
                          f"{(b, h)} of a {cell} layer")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def rnn_gru_fwd_kernel(xp, h0, w_hh, b_hh, save: bool = False):
@@ -951,3 +930,185 @@ def rnn_lstm(xp, h0, c0, w_hh, b_hh) -> Tuple[torch.Tensor, torch.Tensor, torch.
         return _LstmRecurrence.apply(xp, h0, c0, w_hh, b_hh)
     with record_function(SPANS["forward"]):
         return rnn_lstm_fwd(xp, h0, c0, w_hh, b_hh)
+
+
+# --------------------------------------------------------------------------
+# B.9 and B.13: one bidirectional layer of the tanh, relu or gru cell
+# --------------------------------------------------------------------------
+
+BIRNN_CELLS = ("rnn_tanh", "rnn", "gru")
+_PLAIN_LOOPS = {"rnn_tanh": rnn_tanh_fwd_plain, "rnn": rnn_relu_fwd_plain, "gru": rnn_gru_fwd_plain}
+
+
+def _birnn_cell(cell: str) -> str:
+    if cell not in BIRNN_CELLS:
+        raise ValueError(f"bidirectional rnn cell {cell!r} is not ported yet; only {list(BIRNN_CELLS)} are")
+    return cell
+
+
+def birnn_layer_plain(
+    xp_f: torch.Tensor, xp_b: torch.Tensor, h0s: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+    b_hh_f: torch.Tensor, b_hh_b: torch.Tensor, cell: str = "rnn_tanh",
+) -> torch.Tensor:
+    """JAX's definition (layers.py:305-310): the forward chain over xp_f,
+    the reverse chain over the time-flipped xp_b flipped back, concatenated
+    to (B, S, 2H); ``h0s`` (2, B, H) their initial states; each chain the
+    cell's plain loop (xp (B, S, G H), W_hh (G H, H))."""
+    loop = _PLAIN_LOOPS[_birnn_cell(cell)]
+    y_f = loop(xp_f, h0s[0], w_hh_f, b_hh_f)
+    y_b = loop(xp_b.flip(1), h0s[1], w_hh_b, b_hh_b).flip(1)
+    return torch.cat([y_f, y_b], dim=-1)
+
+
+def birnn_layer_bwd_plain(
+    dy: torch.Tensor, y: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What B.9's backward computes: (dpre_f, dpre_b (B, S, H) in xp's time
+    order, dh0s (2, B, H)), each chain's dh chain over its flipped halves."""
+    h = w_hh_f.shape[0]
+    dpre_f, dh0_f = dh_chain_tanh_plain(dy[..., :h], y[..., :h], None, w_hh_f)
+    dpre_b, dh0_b = dh_chain_tanh_plain(dy[..., h:].flip(1), y[..., h:].flip(1), None, w_hh_b)
+    return dpre_f, dpre_b.flip(1), torch.stack([dh0_f, dh0_b])
+
+
+def _gru_chain_fwd_launch(xp, h0, w_hh, b_hh, y, offset: int, reverse: bool, saved) -> None:
+    """One launch of B.13's gru chain forward: the chain's columns [offset,
+    offset + H) of y (B, S, W), run from the last step down when
+    ``reverse``; its gates into ``saved`` (B, S, 4H) unless None."""
+    b, s, gh = xp.shape
+    h = gh // 3
+    kernels.require_cuda_tensor("xp", xp, torch.float32, 3)
+    kernels.require_cuda_tensor("y", y, torch.float32, 3)
+    _check_gated("gru chain forward", "gru", b, h, (h0,), w_hh, b_hh)
+    if saved is not None:
+        kernels.require_cuda_tensor("saved", saved, torch.float32, 3)
+    if gh != 3 * h or y.shape[:2] != (b, s) or offset + h > y.shape[2] or (
+            saved is not None and saved.shape != (b, s, SAVED["gru"] * h)):
+        raise ValueError(f"gru chain forward: xp {tuple(xp.shape)}, y {tuple(y.shape)} (columns [{offset}, "
+                         f"{offset + h})), saved {None if saved is None else tuple(saved.shape)} do not fit")
+    plan = gated_device_plan("gru", h, b, s, _index(xp.device), False, saved is not None, True)
+    kernels.RNN_GRU_CHAIN_FWD(xp.device, xp.data_ptr(), h0.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                              y.data_ptr(), None, _ptr(saved), b, s, h, int(reverse), y.shape[2], offset,
+                              *plan.c_args())
+
+
+def _gru_chain_bwd_launch(dy, y, h0, saved, w_hh, dxp, dhp, dh0, offset: int, reverse: bool) -> None:
+    """One launch of B.13's gru dh chain over the chain's columns [offset,
+    offset + H) of dy and y (B, S, W); dxp, dhp (B, S, 3H) and dh0 its own."""
+    b, s, h4 = saved.shape
+    h = h4 // SAVED["gru"]
+    for name, t in (("dy", dy), ("y", y), ("saved", saved)):
+        kernels.require_cuda_tensor(name, t, torch.float32, 3)
+    _check_gated("gru chain dh chain", "gru", b, h, (h0,), w_hh)
+    if dy.shape != y.shape or y.shape[:2] != (b, s) or offset + h > y.shape[2]:
+        raise ValueError(f"gru chain dh chain: dy {tuple(dy.shape)}, y {tuple(y.shape)} have no columns "
+                         f"[{offset}, {offset + h}) for saved {tuple(saved.shape)}")
+    plan = gated_device_plan("gru", h, b, s, _index(y.device), True, False, True)
+    kernels.RNN_GRU_CHAIN_BWD(y.device, dy.data_ptr(), None, y.data_ptr(), h0.data_ptr(), saved.data_ptr(),
+                              w_hh.data_ptr(), _w_t_scratch(w_hh).data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
+                              dh0.data_ptr(), b, s, h, int(reverse), y.shape[2], offset, *plan.c_args())
+
+
+def birnn_layer_fwd(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b, cell: str = "rnn_tanh",
+                    saved: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One bidirectional layer's forward, y (B, S, 2H): the forward chain
+    into columns [0, H) and the reverse chain into [H, 2H); on CUDA tensors
+    two launches of the cell's chain kernel (B.8's for tanh, B.13's for relu
+    and gru), on CPU tensors their plain versions (``tanh_chain_fwd_plain``,
+    ``relu_chain_fwd_plain``, ``gru_chain_fwd_plain``). A gru layer writes
+    each chain's gates into ``saved`` (2, B, S, 4H) when it is given."""
+    b, s = xp_f.shape[:2]
+    h = w_hh_f.shape[1]
+    if _birnn_cell(cell) != "gru" and saved is not None:
+        raise ValueError(f"a {cell} layer saves no gates")
+    y = torch.empty((b, s, 2 * h), dtype=xp_f.dtype, device=xp_f.device)
+    chains = ((xp_f, h0s[0], w_hh_f, b_hh_f, 0, False), (xp_b, h0s[1], w_hh_b, b_hh_b, h, True))
+    for d, (xp, h0, w_hh, b_hh, offset, reverse) in enumerate(chains):
+        sv = None if saved is None else saved[d]
+        if y.device.type == "cpu":
+            if cell == "gru":
+                gru_chain_fwd_plain(xp, h0, w_hh, b_hh, y, offset, reverse, sv)
+            else:
+                _act_chain_fwd(torch.tanh if cell == "rnn_tanh" else torch.relu, xp, h0, w_hh, b_hh, y, offset,
+                               reverse)
+        elif cell == "gru":
+            _gru_chain_fwd_launch(xp, h0, w_hh, b_hh, y, offset, reverse, sv)
+        else:
+            _chain_fwd_launch(xp, h0, w_hh, b_hh, y, offset, reverse, None, cell)
+    if y.device.type != "cpu" and cell == "rnn_tanh":
+        kernels.BIRNN_TANH_FWD.launches += 1
+    return y
+
+
+def birnn_layer_bwd(dy, y, w_hh_f, w_hh_b, cell: str = "rnn_tanh", h0s=None, saved=None):
+    """One bidirectional layer's backward, each chain's dh chain reading its
+    half of dy and y: (dxp_f, dxp_b (B, S, G H) in xp's time order, dh0s
+    (2, B, H), dhp_f, dhp_b), dhp the gradient of hp = h W_hh^T + b_hh (the
+    relu and tanh cells' dxp; the gru's from ``h0s`` and the forward's
+    ``saved`` gates). On CUDA tensors two launches of the cell's dh chain
+    kernel, on CPU tensors their plain versions."""
+    b, s, h2 = y.shape
+    h = h2 // 2
+    if _birnn_cell(cell) == "gru" and (h0s is None or saved is None):
+        raise ValueError("a gru layer's backward needs h0s and the forward's saved gates")
+    dy = dy.contiguous()
+    g = GATES.get(cell, 1)
+    dxp = torch.empty((2, b, s, g * h), dtype=y.dtype, device=y.device)
+    dhp = torch.empty_like(dxp) if cell == "gru" else dxp
+    dh0s = torch.empty((2, b, h), dtype=y.dtype, device=y.device)
+    for d, w_hh in enumerate((w_hh_f, w_hh_b)):
+        offset, reverse = d * h, d == 1
+        if y.device.type == "cpu":
+            if cell == "gru":
+                dxp[d], dhp[d], dh0s[d] = gru_chain_bwd_plain(dy, None, y, h0s[d], saved[d], w_hh, offset, reverse)
+            else:
+                grad = _tanh_grad if cell == "rnn_tanh" else _relu_grad
+                dxp[d], dh0s[d] = _dh_chain(dy, y, None, w_hh, grad, offset, reverse)
+        elif cell == "gru":
+            _gru_chain_bwd_launch(dy, y, h0s[d], saved[d], w_hh, dxp[d], dhp[d], dh0s[d], offset, reverse)
+        else:
+            _chain_bwd_launch(dy, y, None, w_hh, dxp[d], dh0s[d], offset, reverse, cell)
+    if y.device.type != "cpu" and cell == "rnn_tanh":
+        kernels.BIRNN_TANH_BWD.launches += 1
+    return dxp[0], dxp[1], dh0s, dhp[0], dhp[1]
+
+
+class _BiRnnLayer(torch.autograd.Function):
+    """Forward: ``birnn_layer_fwd`` (a gru layer saving its gates).
+    Backward: ``birnn_layer_bwd``, then each chain's weight and bias
+    gradients as one product and one sum."""
+
+    @staticmethod
+    def forward(ctx, xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b, cell):
+        b, s = xp_f.shape[:2]
+        h = w_hh_f.shape[1]
+        saved = xp_f.new_empty(2, b, s, SAVED["gru"] * h) if cell == "gru" else None
+        with record_function(BIRNN_SPANS["forward"]):
+            y = birnn_layer_fwd(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b, cell, saved)
+        ctx.cell = cell
+        ctx.save_for_backward(y, h0s, w_hh_f, w_hh_b, saved)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y, h0s, w_hh_f, w_hh_b, saved = ctx.saved_tensors
+        h = w_hh_f.shape[1]
+        with record_function(BIRNN_SPANS["backward"]):
+            dxp_f, dxp_b, dh0s, dhp_f, dhp_b = birnn_layer_bwd(dy, y, w_hh_f, w_hh_b, ctx.cell, h0s, saved)
+        dw_f, db_f = recurrence_weight_grads(dhp_f, h0s[0], y[..., :h], spans=BIRNN_SPANS)
+        dw_b, db_b = recurrence_weight_grads(dhp_b, h0s[1], y[..., h:], reverse=True, spans=BIRNN_SPANS)
+        return dxp_f, dxp_b, dh0s, dw_f, dw_b, db_f, db_b, None
+
+
+def birnn_layer(
+    xp_f: torch.Tensor, xp_b: torch.Tensor, h0s: torch.Tensor, w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+    b_hh_f: torch.Tensor, b_hh_b: torch.Tensor, cell: str = "rnn_tanh",
+) -> torch.Tensor:
+    """One bidirectional layer of the tanh (B.9), relu or gru (B.13) cell:
+    (B, S, 2H), through ``_BiRnnLayer`` where a gradient is wanted
+    (differentiable in all seven inputs), else ``birnn_layer_fwd``, which
+    saves no gates."""
+    if _needs_grad(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b):
+        return _BiRnnLayer.apply(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b, _birnn_cell(cell))
+    with record_function(BIRNN_SPANS["forward"]):
+        return birnn_layer_fwd(xp_f, xp_b, h0s, w_hh_f, w_hh_b, b_hh_f, b_hh_b, cell)

@@ -27,7 +27,8 @@ compute_dtype=bfloat16``: launched by an op that reads a bf16 tensor, or
 a hand kernel's bf16 instance), the optimizer tail (``AdamLowp.step``'s span: the Adam kernel and the
 gradient norm's finish launch), and the device time of the decoder RNN's
 recurrence by part (its forward and backward kernels, the dW product, the
-bias sum), and of the plan recognition BiRNN's (``mcil``) the same way. With ``--out`` it also writes
+bias sum), and of the plan recognition BiRNN's (``mcil``; ``--set
+plan_recognition.birnn_cell=gru`` or ``=rnn`` for B.13's cells) the same way. With ``--out`` it also writes
 the Chrome trace there. Needs a CUDA device; TF32 is off, as in the fp32
 reference.
 """

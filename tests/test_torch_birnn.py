@@ -160,10 +160,11 @@ def test_scan_rnn_matches_jax_with_carry(cell, use_kernels):
 
 
 def test_scan_rnn_refuses_the_cells_still_to_port():
-    """The decoder's mlp cell, and every bidirectional cell but tanh."""
+    """The decoder's mlp cell, and the bidirectional lstm and mlp cells (the
+    relu and gru ones: tests/test_torch_birnn_cells.py)."""
     with pytest.raises(ValueError, match="not ported yet"):
         ScanRNN(F_IN, 8, 1, "mlp")
-    for cell in ("rnn", "gru", "lstm"):
+    for cell in ("lstm", "mlp"):
         with pytest.raises(ValueError, match="not ported yet"):
             ScanBiRNN(F_IN, 8, 1, cell)
 
@@ -334,7 +335,7 @@ def test_plan_check_binding():
     """``hulc_rnn_check`` takes the cell, the direction, the sizes and the
     plan's five fields, ten ints, as ``kernels.check_rnn_plan`` passes them."""
     assert _c_params("hulc_rnn_check") == [
-        "int tanh", "int backward", "int batch", "int seq", "int hidden", "int launch", "int cluster",
+        "int cell", "int backward", "int batch", "int seq", "int hidden", "int launch", "int cluster",
         "int k_slice", "int cols", "int smem"]
 
 

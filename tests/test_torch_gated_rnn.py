@@ -284,7 +284,7 @@ def test_gated_entry_points_and_geometry_match_the_cuda_source():
     assert {k.symbol for k in (kernels.RNN_GRU_FWD, kernels.RNN_GRU_BWD, kernels.RNN_LSTM_FWD,
                                kernels.RNN_LSTM_BWD)} == set(pointers)
     assert set(pointers) <= {k.symbol for k in kernels.ALL_KERNELS}
-    assert re.search(r'extern "C" int hulc_rnn_gated_check\((\s*int \w+,?){12}\)', src)
+    assert re.search(r'extern "C" int hulc_rnn_gated_check\((\s*int \w+,?){13}\)', src)
     assert len(dataclasses.fields(recurrence.GatedPlan)) == 6
     # the reduce slices, whole quads of columns (ops.recurrence.gated_reduce_columns)
     assert "g.q0 = g.rank * (cols / 4) / g.cluster;" in src
@@ -392,8 +392,7 @@ def test_profiles_count_the_gated_kernels_as_hand_kernels():
 # the cells still to port
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("module,cell", [(ScanRNN, "mlp"), (ScanBiRNN, "gru"), (ScanBiRNN, "rnn"),
-                                         (ScanBiRNN, "lstm")])
+@pytest.mark.parametrize("module,cell", [(ScanRNN, "mlp"), (ScanBiRNN, "mlp"), (ScanBiRNN, "lstm")])
 def test_cells_still_to_port_are_refused(module, cell):
     with pytest.raises(ValueError, match="not ported yet"):
         module(F_IN, 8, 1, cell)
