@@ -318,11 +318,34 @@ it fails:
    and a policy step at 1 and ``--lanes`` lanes against the plain path.
    Last, the decoder's B.6 and B.11 on ``kernel_times.py``'s fixed inputs
    must give the digests of the tree before B.13 (PARENT_DIGESTS).
+20. data-parallel and ZeRO-3 training, ``hulc`` at full width (fp32, TF32
+   off, one global batch of 2B = 64 windows of 32 frames): the one-device
+   ``Trainer``'s 3 steps here; the train CLI under ``torchrun --fsdp``
+   (``torch.distributed.run --standalone``) for 3 steps on a 200 / 84 px
+   ``--fixture``, its rank 0's checkpoint restored here in one process
+   without a group for one more step; then ``torch.cuda.device_count()``
+   ranks (at most 4) over NCCL (``parallel.mesh.Ranks``), each on its
+   rows of the batch: 3 DistributedDataParallel steps (on at one rank
+   too, ``data_parallel=True``) and 3 FSDP2 steps, launch counts zeroed
+   just before and read just after in every rank (the training kernels
+   must launch in each), each step's ``total_loss`` and ``grad_norm`` and
+   every parameter after step 3 within PARALLEL_REL relative L2 of the
+   one-device run (bit-equality printed; cuDNN's deterministic algorithms
+   in every process; an attention's key bias on its query and value
+   thirds, ``against``); then the FSDP trainer restores
+   the CLI's checkpoint and takes the step the one process took, held to
+   it the same way. Then PARALLEL_TIMED_STEPS more steps of each on cuDNN's
+   default algorithms, the batch on the device as in phase 8: their times
+   (host clock) beside the one-device step's,
+   the gradient shards the optimizer copied to their parameter's phase and
+   what the copies cost, and the ``hulc_depth`` step's depth noise draw,
+   which every rank makes whole. With one card the equal-loss check of N
+   ranks against one is reported as needing a second card.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
 training, evaluator, training-loop, served, mcil, hulc_depth, gated
-decoder, bf16, CLI and B.13 paths) and, last, ``{"ok": true, "device":
-{...}}``.
+decoder, bf16, CLI, B.13 and data-parallel paths, the last summed over the
+ranks) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -5444,6 +5467,281 @@ def run_phase19(seed, lanes, card):
 
 
 # --------------------------------------------------------------------------
+# phase 20: data-parallel and ZeRO-3 training
+# --------------------------------------------------------------------------
+
+PARALLEL_REL = 1e-5  # N ranks against one device: relative L2 of each loss, norm and parameter
+PARALLEL_STEPS = 3  # steps held against the one-device run
+PARALLEL_TIMED_STEPS = 5  # then timed, with cuDNN's fastest algorithms
+MAX_RANKS = 4
+PARALLEL_EQUAL_LOSS = 1e-3  # the JAX package's full-size equal-loss rule, |a - b| / max(1, |b|)
+
+
+def parallel_steps(trainer, batch, kl_beta, steps):
+    """(losses averaged over the ranks per step, host ms per step)."""
+    losses, host = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train_step(batch, kl_beta)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        losses.append(trainer.host_scalars(out))
+    return losses, host
+
+
+def against(params, want_path):
+    """Each parameter's relative L2 against a saved one-device state_dict,
+    and whether all are bit-equal (compared on the device). An attention's
+    key bias is held on its query and value thirds: its gradient is zero
+    in exact arithmetic (a constant added to every key of a query cancels
+    in its softmax), so Adam steps it on rounding noise, which ranks
+    round otherwise."""
+    want = torch.load(want_path, map_location="cuda", weights_only=True)
+    rel = {}
+    for k, v in params.items():
+        w = want[k]
+        if k.endswith("self_attn.in_proj_bias"):
+            d = w.numel() // 3
+            v, w = torch.cat([v[:d], v[2 * d:]]), torch.cat([w[:d], w[2 * d:]])
+        rel[k] = rel_l2(v, w)
+    return rel, all(torch.equal(v, want[k]) for k, v in params.items())
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(on: bool = True):
+    """cuDNN's deterministic algorithms (no atomics in the convolutions'
+    backward; twice the step's time): the ranks and this process then
+    compute the same sums. ``on=False``: its default algorithms."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = on, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def timed_steps(trainer, batch, kl_beta):
+    """PARALLEL_TIMED_STEPS more steps on cuDNN's default algorithms; their
+    host ms (the first warms the algorithms up)."""
+    with deterministic_cudnn(False):
+        return parallel_steps(trainer, batch, kl_beta, PARALLEL_TIMED_STEPS)[1]
+
+
+def phase20_rank(spec):
+    """One rank of phase 20 (a fresh process in the group): the DDP and FSDP
+    steps on this rank's rows, the launch counts of both, then the FSDP
+    trainer's step from the CLI's checkpoint. Rank 0 compares the
+    parameters with the one-device files."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.parallel import mesh
+    from hulc_tpu_torch.training.preprocess import batch_to_device
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.library()
+    cfg = get_config("hulc")
+    batch = batch_to_device(mesh.shard_rows(spec["batch"]), "cuda")  # on the device, as phase 8's steps
+    kl_beta = cfg.loss.kl_beta
+    out = {"rank": mesh.rank(), "world": mesh.world(), "runs": {}}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    trainers = {}
+    for mode in ("ddp", "fsdp"):
+        tcfg = TrainerConfig(seed=spec["seed"], fsdp=mode == "fsdp", data_parallel=True if mode == "ddp" else None)
+        trainer = Trainer(cfg, tcfg, "cuda")
+        trainer.init_state(1)
+        with deterministic_cudnn():
+            losses, _ = parallel_steps(trainer, batch, kl_beta, PARALLEL_STEPS)
+        params = trainer.params()
+        run = {"losses": losses, "grad_copies": trainer.optimizer.grad_copies,
+               "grad_copy_bytes": trainer.optimizer.grad_copy_bytes}
+        if mesh.rank() == 0:
+            run["param_rel"], run["bit_equal"] = against(params, spec["reference"])
+        del params
+        run["host_ms"] = timed_steps(trainer, batch, kl_beta)
+        out["runs"][mode] = run
+        trainers[mode] = trainer
+    torch.cuda.synchronize()
+    out["launches"] = {k.symbol: k.launches for k in kernels.ALL_KERNELS}
+    del trainers["ddp"]
+    # the gradient copies' cost: one copy of as many bytes, by CUDA events
+    n = out["runs"]["fsdp"]["grad_copy_bytes"] // (PARALLEL_STEPS + PARALLEL_TIMED_STEPS) // 4
+    if n:
+        src, dst = torch.randn(n, device="cuda"), torch.empty(n, device="cuda")
+        out["grad_copy_ms"] = time_events(lambda: dst.copy_(src), 20)
+    # the CLI's checkpoint, resumed by the sharded trainer
+    trainer = trainers["fsdp"]
+    trainer.restore(spec["checkpoint"])
+    with deterministic_cudnn():
+        losses, _ = parallel_steps(trainer, batch, kl_beta, 1)
+    params = trainer.params()
+    out["resume"] = {"losses": losses[0]}
+    if mesh.rank() == 0:
+        out["resume"]["param_rel"], out["resume"]["bit_equal"] = against(params, spec["resumed"])
+    return out
+
+
+def time_events(fn, iters: int) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls by CUDA events, after a
+    warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def torchrun_cli(run_dir, seed, ranks, tmp):
+    """The train CLI under ``torchrun --fsdp`` for 3 steps on the 200 / 84
+    px fixture (rank 0 writes the fixture into ``tmp``); fails unless every
+    rank exits 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(ranks),
+           "-m", "hulc_tpu_torch.training.train", "--config", "hulc", "--fixture", "--steps", str(PARALLEL_STEPS),
+           "--fsdp", "--run-dir", str(run_dir), "--seed", str(seed), "--val-max-batches", "1", "--log-every", "1"]
+    env = dict(os.environ, TMPDIR=str(tmp),
+               PYTHONPATH=os.pathsep.join([str(pathlib.Path(__file__).resolve().parent),
+                                           os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-8000:], file=sys.stderr)
+        fail(f"torchrun --fsdp train CLI exited {proc.returncode}")
+    return time.perf_counter() - t0, proc.stdout
+
+
+def run_parallel(seed, card):
+    """Phase 20. Returns (summary, launches summed over the ranks)."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.parallel import mesh
+    from hulc_tpu_torch.training import checkpoint as ckpt
+    from hulc_tpu_torch.training.preprocess import batch_to_device
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config("hulc")
+    ranks = min(torch.cuda.device_count(), MAX_RANKS)
+    host_batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cpu")  # each rank uploads its rows
+    batch = batch_to_device(host_batch, "cuda")
+    summary = {"ranks": ranks, "batch": 2 * BATCH_PER_MOD, "seq": SEQ}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp, deterministic_cudnn():
+        tmp = pathlib.Path(tmp)
+        # the one-device run
+        trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+        trainer.init_state(1)
+        one_losses, _ = parallel_steps(trainer, batch, cfg.loss.kl_beta, PARALLEL_STEPS)
+        torch.save(trainer.params(), tmp / "reference.pt")
+        one_host = timed_steps(trainer, batch, cfg.loss.kl_beta)
+        del trainer
+        # the CLI under torchrun, and its checkpoint resumed in one process
+        cli_s, cli_out = torchrun_cli(tmp / "cli", seed, ranks, tmp)
+        latest = ckpt.latest_checkpoint(tmp / "cli")
+        lines = [json.loads(x) for x in (tmp / "cli" / "metrics.jsonl").read_text().splitlines()]
+        train_lines = [x for x in lines if x["prefix"] == "train"]
+        if latest is None or [x["step"] for x in train_lines] != list(range(1, PARALLEL_STEPS + 1)):
+            fail(f"torchrun --fsdp CLI: checkpoint {latest}, train log steps {[x['step'] for x in train_lines]} "
+                 f"(rank 0 alone writes one line a step)")
+        resumed = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+        resumed.init_state(1)
+        resumed.restore(latest)
+        if resumed.step != PARALLEL_STEPS or resumed.optimizer.count != PARALLEL_STEPS:
+            fail(f"the CLI's checkpoint resumed at step {resumed.step}, optimizer count {resumed.optimizer.count}")
+        resume_losses, _ = parallel_steps(resumed, batch, cfg.loss.kl_beta, 1)
+        torch.save(resumed.params(), tmp / "resumed.pt")
+        del resumed
+        # the depth noise every rank of a hulc_depth step draws whole
+        depth = get_config("hulc_depth").perceptual_encoder
+        shapes = [(2 * BATCH_PER_MOD, SEQ, e.input_size, e.input_size) for e in (depth.depth_static, depth.depth_gripper)]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        depth_ms = time_events(lambda: [torch.randn(s, generator=gen, device="cuda") for s in shapes], 5)
+        depth_mb = sum(int(np.prod(s)) * 4 for s in shapes) / 1e6
+        torch.cuda.empty_cache()
+        # the ranks
+        spec = {"batch": host_batch, "seed": seed, "reference": str(tmp / "reference.pt"), "resumed": str(tmp / "resumed.pt"),
+                "checkpoint": str(latest)}
+        t0 = time.perf_counter()
+        results = mesh.spawn_ranks(phase20_rank, ranks, "cuda", (spec,))
+        ranks_s = time.perf_counter() - t0
+
+    launches = collections.Counter()
+    for r in results:
+        missing = [k for k in TRAIN_KERNELS if r["launches"][k] <= 0]
+        if missing:
+            fail(f"phase 20: rank {r['rank']} never launched {missing}: {r['launches']}")
+        launches.update(r["launches"])
+    r0 = results[0]
+    for mode, run in r0["runs"].items():
+        for i, (got, want) in enumerate(zip(run["losses"], one_losses)):
+            for key in ("total_loss", "grad_norm"):
+                err = abs(got[key] - want[key]) / max(abs(want[key]), 1e-30)
+                if not np.isfinite(got[key]) or err > PARALLEL_REL:
+                    fail(f"phase 20 {mode} step {i}: {key} {got[key]} against one device's {want[key]} "
+                         f"(relative {err:.3g} > {PARALLEL_REL})")
+        worst = max(run["param_rel"].items(), key=lambda kv: kv[1])
+        if worst[1] > PARALLEL_REL:
+            fail(f"phase 20 {mode}: parameter {worst[0]} after step {PARALLEL_STEPS} is {worst[1]:.3g} relative L2 "
+                 f"from one device's (> {PARALLEL_REL})")
+        print(f"[parallel] {mode} at {ranks} rank(s) over NCCL: {PARALLEL_STEPS} steps' total_loss "
+              f"{[round(l['total_loss'], 6) for l in run['losses']]} and grad_norm "
+              f"{[round(l['grad_norm'], 6) for l in run['losses']]} within {PARALLEL_REL} of one device's; every "
+              f"parameter within {worst[1]:.3g} relative L2 ({worst[0]}); bit-equal to one device: {run['bit_equal']}")
+    res = r0["resume"]
+    for key in ("total_loss", "grad_norm"):
+        err = abs(res["losses"][key] - resume_losses[0][key]) / abs(resume_losses[0][key])
+        if err > PARALLEL_REL:
+            fail(f"phase 20: the resumed step's {key} differs by {err:.3g} between the FSDP ranks and one process")
+    worst = max(res["param_rel"].items(), key=lambda kv: kv[1])
+    if worst[1] > PARALLEL_REL:
+        fail(f"phase 20: after the resumed step {worst[0]} is {worst[1]:.3g} relative L2 from one process's")
+    print(f"[parallel] torchrun --fsdp CLI: {PARALLEL_STEPS} steps on {ranks} rank(s), rank 0's checkpoint "
+          f"{latest.name} resumed in one process without a group; its next step (total_loss "
+          f"{resume_losses[0]['total_loss']:.6f}) against the FSDP ranks' from the same checkpoint: every parameter "
+          f"within {worst[1]:.3g} relative L2, bit-equal {res['bit_equal']}; the CLI took {cli_s:.1f} s")
+    if ranks >= 2:
+        for mode, run in r0["runs"].items():
+            for got, want in zip(run["losses"], one_losses):
+                if abs(got["total_loss"] - want["total_loss"]) / max(1.0, abs(want["total_loss"])) >= PARALLEL_EQUAL_LOSS:
+                    fail(f"phase 20 {mode}: the equal-loss rule fails at {ranks} ranks")
+        print(f"[parallel] equal-loss rule (relative {PARALLEL_EQUAL_LOSS}): {ranks} ranks against one device ok")
+    else:
+        print("[parallel] the equal-loss check of N ranks against one device needs a second card: not run "
+              "(neither a pass nor a failure)")
+    one_ms = statistics.median(one_host[1:])
+    times = {mode: statistics.median(run["host_ms"][1:]) for mode, run in r0["runs"].items()}
+    fsdp = r0["runs"]["fsdp"]
+    summary.update({
+        "one_device_step_ms": one_ms, "ddp_step_ms": times["ddp"], "fsdp_step_ms": times["fsdp"],
+        "steps_host_ms": {"one_device": one_host, **{m: r["host_ms"] for m, r in r0["runs"].items()}},
+        "bit_equal": {m: r["bit_equal"] for m, r in r0["runs"].items()},
+        "grad_copies_per_step": fsdp["grad_copies"] / (PARALLEL_STEPS + PARALLEL_TIMED_STEPS),
+        "grad_copy_mb_per_step": fsdp["grad_copy_bytes"] / (PARALLEL_STEPS + PARALLEL_TIMED_STEPS) / 1e6,
+        "grad_copy_ms_per_step": r0.get("grad_copy_ms", 0.0),
+        "depth_noise_mb_per_rank": depth_mb, "depth_noise_draw_ms": depth_ms,
+        "cli_s": cli_s, "ranks_s": ranks_s, "resume_bit_equal": res["bit_equal"],
+        "launches_per_rank": [r["launches"] for r in results],
+    })
+    print(f"[timing] train step at {ranks} rank(s), 2B = {2 * BATCH_PER_MOD}, S = {SEQ}, host clock median of "
+          f"{PARALLEL_TIMED_STEPS - 1} steps after a warm-up, cuDNN's default algorithms: one device {one_ms:.4f} ms, DDP {times['ddp']:.4f} ms "
+          f"({times['ddp'] / one_ms:.4f}x), FSDP2 {times['fsdp']:.4f} ms ({times['fsdp'] / one_ms:.4f}x) ({card})")
+    print(f"[timing] FSDP2: {summary['grad_copies_per_step']:.1f} gradient shards a step copied to their parameter's "
+          f"phase, {summary['grad_copy_mb_per_step']:.3f} MB, {summary['grad_copy_ms_per_step']:.6f} ms of device time "
+          f"as one copy ({card})")
+    print(f"[timing] hulc_depth's depth noise, drawn whole on every rank: {depth_mb:.1f} MB a step, "
+          f"{depth_ms:.4f} ms to draw by CUDA events ({card})")
+    summary["s"] = time.perf_counter() - t_phase
+    print(f"[parallel] phase 20 in {summary['s']:.1f} s (the ranks {ranks_s:.1f} s)")
+    return summary, launches
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -5816,19 +6114,24 @@ def main(argv=None) -> int:
     errs.update(b13_errs)
     timing.update(b13_timing)
 
+    print(f"[time] phase 20 at {time.perf_counter() - t_start:.1f} s")
+    # ---- 20. data-parallel and ZeRO-3 training ---------------------------------
+    parallel, parallel_launches = run_parallel(args.seed, card)
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
             + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol]
-            + gated_launches[symbol] + bf16_launches[symbol] + clis_launches[symbol] + b13_launches[symbol],
+            + gated_launches[symbol] + bf16_launches[symbol] + clis_launches[symbol] + b13_launches[symbol]
+            + parallel_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
             "launches_depth": depth_launches[symbol], "launches_gated": gated_launches[symbol],
             "launches_bf16": bf16_launches[symbol], "launches_clis": clis_launches[symbol],
-            "launches_b13": b13_launches[symbol],
+            "launches_b13": b13_launches[symbol], "launches_parallel": parallel_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -5842,7 +6145,7 @@ def main(argv=None) -> int:
                        "seq_per_s": batch_windows / step_ms * 1e3, "steps_host_ms": host,
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
-        "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16, "clis": clis, "b13": b13,
+        "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16, "clis": clis, "b13": b13, "parallel": parallel,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(f"[time] all phases in {time.perf_counter() - t_start:.1f} s")

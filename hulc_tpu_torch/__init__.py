@@ -2,7 +2,7 @@
 
 The JAX package ``hulc_tpu`` is the reference; this package mirrors its
 module layout (``config``, ``ops``, ``models``, ``data``, ``training``,
-``evaluation``, ``serving``, ``utils``) so each counterpart is found under
+``parallel``, ``evaluation``, ``serving``, ``utils``) so each counterpart is found under
 the same name. The hot ops that the JAX package
 shaped by hand for the TPU are hand-written CUDA kernels here
 (``csrc/*.cu``, bound by ``kernels.py``), each with a plain PyTorch version
@@ -20,8 +20,8 @@ import importlib as _importlib
 import sys as _sys
 
 _FORBIDDEN = ("jax", "hulc_tpu")
-_SUBMODULES = ("config", "convert", "data", "device", "evaluation", "kernels", "models", "ops", "serving",
-               "training", "utils")
+_SUBMODULES = ("config", "convert", "data", "device", "evaluation", "kernels", "models", "ops", "parallel",
+               "serving", "training", "utils")
 
 
 def __getattr__(name):

@@ -35,6 +35,7 @@ from hulc_tpu_torch.data.dataset import (
     VisionWindowSampler,
 )
 from hulc_tpu_torch.models.hulc import ModalityBatch
+from hulc_tpu_torch.parallel.mesh import rows_of
 from hulc_tpu_torch.training.preprocess import batch_to_device
 
 
@@ -47,7 +48,12 @@ def _keep_indices_slice(robot_obs: np.ndarray, keep_indices) -> np.ndarray:
 
 
 class ModalityLoader:
-    """Assembles ModalityBatch structs for one modality ("vis" or "lang")."""
+    """Assembles ModalityBatch structs for one modality ("vis" or "lang").
+
+    ``batch_size`` is the global batch. Rank ``rank`` of ``world`` draws the
+    global batch's samples from the shared seed, as one process does, and
+    assembles only its rows (``rows_of``): stacked by rank, the ranks'
+    batches are the one-process batch."""
 
     def __init__(
         self,
@@ -58,7 +64,11 @@ class ModalityLoader:
         modality: str = "vis",
         seed: int = 0,
         gather_threads: int = 1,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"a batch of {batch_size} per modality does not split over {world} ranks")
         self.store = store
         self.sampler = sampler
         self.cfg = cfg
@@ -67,6 +77,7 @@ class ModalityLoader:
         self.max_window = sampler.max_window
         self.rng = np.random.default_rng(seed)
         self.gather_threads = gather_threads
+        self.rank, self.world = rank, world
 
     def __len__(self) -> int:
         return max(1, len(self.sampler) // self.batch_size)
@@ -138,14 +149,20 @@ class ModalityLoader:
         callers with multiple assembly workers serialize draws with a lock)."""
         return [self.sampler.sample() for _ in range(self.batch_size)]
 
-    def next_batch(self) -> ModalityBatch:
-        return self._assemble(self.draw())
+    def mine(self, samples: list) -> list:
+        """This rank's share of a global batch's samples."""
+        return rows_of(samples, 1, self.world, self.rank)
 
-    def deterministic_batch(self, step: int) -> ModalityBatch:
-        """Sequential (wrap-around) batch for validation."""
+    def next_batch(self) -> ModalityBatch:
+        return self._assemble(self.mine(self.draw()))
+
+    def deterministic_batch(self, step: int, whole: bool = False) -> ModalityBatch:
+        """Sequential (wrap-around) batch for validation: this rank's rows, or
+        with ``whole`` every rank's."""
         n = len(self.sampler)
         idxs = [(step * self.batch_size + i) % n for i in range(self.batch_size)]
-        return self._assemble([self.sampler.sample_at(i, deterministic=True) for i in idxs])
+        return self._assemble([self.sampler.sample_at(i, deterministic=True)
+                               for i in (idxs if whole else self.mine(idxs))])
 
 
 class CombinedLoader:
@@ -258,7 +275,7 @@ class CombinedLoader:
                         }
                     else:
                         batch = {
-                            k: self.loaders[k]._assemble(s) for k, s in payload.items()
+                            k: self.loaders[k]._assemble(self.loaders[k].mine(s)) for k, s in payload.items()
                         }
                         if self.fuse:
                             batch = self.fuse_batch(batch)
@@ -298,6 +315,8 @@ def make_loaders(
     num_workers: int = 1,
     gather_threads: int = 1,
     fuse: bool = False,
+    rank: int = 0,
+    world: int = 1,
 ) -> CombinedLoader:
     """Build the (possibly single-) modality loader for one split.
 
@@ -305,7 +324,9 @@ def make_loaders(
     reference's vision_only / lang_only dataset configs. num_workers
     parallelizes whole-batch assembly across Python threads (heavy work is
     GIL-released numpy/C++); gather_threads additionally splits each shm
-    C++ gather across std::threads.
+    C++ gather across std::threads. ``batch_size`` is the global
+    per-modality batch; rank ``rank`` of ``world`` gets its rows of each
+    (``ModalityLoader``), fused as ``[vis_r; lang_r]``.
     """
 
     split_dir = pathlib.Path(root_data_dir) / split
@@ -325,7 +346,7 @@ def make_loaders(
         vis_sampler = VisionWindowSampler(store.episode_ranges, min_window, max_window, seed=seed)
         loaders["vis"] = ModalityLoader(
             store, vis_sampler, cfg, batch_size, "vis", seed + 2,
-            gather_threads=gather_threads,
+            gather_threads=gather_threads, rank=rank, world=world,
         )
     if "lang" in modalities:
         lang_sampler = LangWindowSampler(
@@ -338,7 +359,7 @@ def make_loaders(
         )
         loaders["lang"] = ModalityLoader(
             store, lang_sampler, cfg, batch_size, "lang", seed + 3,
-            gather_threads=gather_threads,
+            gather_threads=gather_threads, rank=rank, world=world,
         )
     if not loaders:
         raise ValueError(f"no modalities selected from {modalities!r}")

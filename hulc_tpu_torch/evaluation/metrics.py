@@ -4,7 +4,9 @@
 between the plan-recognition features of language windows and a bank of
 encoded instructions; the projections run in the model, the ranking in
 fp64 numpy, as in the JAX package. ``ClipGroundtruthCallback`` logs them as
-``lang_gt`` after each validation epoch.
+``lang_gt`` after each validation epoch; in a process group every rank
+computes them on the whole val batches (its trainer's logger writes on rank
+0 alone).
 """
 
 from __future__ import annotations
@@ -76,33 +78,41 @@ class ClipGroundtruthCallback:
 
     @torch.no_grad()
     def on_epoch_end(self, trainer, epoch: int):
-        from hulc_tpu_torch.training.preprocess import batch_to_device, preprocess_batch
+        from hulc_tpu_torch.parallel import mesh
 
         model = trainer.model
         was_training = model.training
         model.eval()
-        metrics_acc = []
         lang_loader = self.val_loader.loaders["lang"]
         try:
-            for i in range(self.max_batches):
-                # language windows only: no vision-modality gathers
-                lang_batch = lang_loader.deterministic_batch(i)
-                raw = batch_to_device({"lang": lang_batch}, trainer.device)
-                prep = preprocess_batch(trainer.cfg, raw, train=False, use_kernels=trainer.use_kernels)["lang"]
-                emb, _ = model.encode(prep.rgb_obs(), prep.robot_obs, prep.depth_obs())
-                _, seq_feat = model.plan_recognition(emb)
-                gt = np.asarray([self._task_to_id[self._sampler.tasks[int(j)]] for j in lang_batch.idx])
-                m = clip_groundtruth_metrics(
-                    model, seq_feat, gt, self.bank_emb, self.bank_ids,
-                    mask=np.asarray(lang_batch.use_for_aux_lang_loss),
-                )
-                if m:
-                    metrics_acc.append(m)
+            with mesh.unsharded_root(model):  # logit_scale is read outside the root's forward
+                metrics_acc = self._metrics(trainer, model, lang_loader)
         finally:
             model.train(was_training)
         if not metrics_acc:
             return None
         mean = {k: float(np.mean([m[k] for m in metrics_acc])) for k in metrics_acc[0]}
         trainer.logger.log(mean, trainer.step, "lang_gt")
-        print(f"[lang_gt] epoch {epoch}: sr={mean['lang_gt_sr']:.3f}")
+        if mesh.rank() == 0:
+            print(f"[lang_gt] epoch {epoch}: sr={mean['lang_gt_sr']:.3f}")
         return mean
+
+    def _metrics(self, trainer, model, lang_loader) -> list:
+        from hulc_tpu_torch.training.preprocess import batch_to_device, preprocess_batch
+
+        metrics_acc = []
+        for i in range(self.max_batches):
+            # language windows only: no vision-modality gathers
+            lang_batch = lang_loader.deterministic_batch(i, whole=True)
+            raw = batch_to_device({"lang": lang_batch}, trainer.device)
+            prep = preprocess_batch(trainer.cfg, raw, train=False, use_kernels=trainer.use_kernels)["lang"]
+            emb, _ = model.encode(prep.rgb_obs(), prep.robot_obs, prep.depth_obs())
+            _, seq_feat = model.plan_recognition(emb)
+            gt = np.asarray([self._task_to_id[self._sampler.tasks[int(j)]] for j in lang_batch.idx])
+            m = clip_groundtruth_metrics(
+                model, seq_feat, gt, self.bank_emb, self.bank_ids,
+                mask=np.asarray(lang_batch.use_for_aux_lang_loss),
+            )
+            if m:
+                metrics_acc.append(m)
+        return metrics_acc

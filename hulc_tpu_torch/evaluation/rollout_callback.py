@@ -13,6 +13,9 @@ Both hook into ``Trainer.fit`` as ``on_epoch_end(trainer, epoch)``. They
 never drive ``trainer.model`` itself (a policy puts its model in eval mode):
 each keeps one eval copy of the model on the trainer's device, built at its
 first rollout, and loads ``trainer.model``'s weights into it every epoch.
+In a process group every rank gathers the weights (``Trainer.params``),
+rank 0 alone runs the rollouts while the others wait, and the metrics are
+broadcast, so every rank's checkpoint policy sees them.
 The batched policy over that copy is built once and reused, as JAX reuses
 its compiled policy with a parameter swap.
 """
@@ -33,6 +36,7 @@ from hulc_tpu_torch.evaluation.lh_eval import evaluate_policy, get_sequences, ro
 from hulc_tpu_torch.evaluation.policy import HulcPolicy
 from hulc_tpu_torch.evaluation.tasks import ALL_TASKS, SceneObsTasks
 from hulc_tpu_torch.models.hulc import make_model
+from hulc_tpu_torch.parallel import mesh
 
 
 class _EvalModel:
@@ -41,11 +45,18 @@ class _EvalModel:
     def __init__(self):
         self.model = None
 
-    def refresh(self, trainer):
+    def refresh(self, trainer, params):
         if self.model is None:
             self.model = make_model(trainer.cfg, trainer.device, use_kernels=trainer.use_kernels).eval()
-        self.model.load_state_dict(trainer.model.state_dict())
+        self.model.load_state_dict(params)
         return self.model
+
+
+def _on_rank0(trainer, run):
+    """``run(params)`` on rank 0 with the trainer's one-device weights, which
+    every rank gathers; its result on every rank."""
+    params = trainer.params()
+    return mesh.broadcast_object(run(params) if mesh.rank() == 0 else None)
 
 
 def _default_embeddings(lang_embeddings, cfg) -> Dict[str, np.ndarray]:
@@ -132,7 +143,10 @@ class RolloutLongHorizonCallback:
     def on_epoch_end(self, trainer, epoch: int) -> Optional[Dict[str, float]]:
         if epoch < self.skip_epochs or (epoch - self.skip_epochs) % self.rollout_freq != 0:
             return None
-        model = self._eval_model.refresh(trainer)
+        return _on_rank0(trainer, lambda params: self._rollout(trainer, epoch, params))
+
+    def _rollout(self, trainer, epoch: int, params) -> Dict[str, float]:
+        model = self._eval_model.refresh(trainer, params)
         if self.mode == "batched":
             results = self._run_batched(trainer, model, epoch)
         else:
@@ -234,7 +248,11 @@ class RolloutCallback:
     def on_epoch_end(self, trainer, epoch: int) -> Optional[Dict[str, float]]:
         if epoch < self.skip_epochs or (epoch - self.skip_epochs) % self.rollout_freq != 0:
             return None
-        policy = HulcPolicy(trainer.cfg, self._eval_model.refresh(trainer), statistics=self.statistics, seed=self.seed)
+        return _on_rank0(trainer, lambda params: self._rollout(trainer, epoch, params))
+
+    def _rollout(self, trainer, epoch: int, params) -> Dict[str, float]:
+        policy = HulcPolicy(trainer.cfg, self._eval_model.refresh(trainer, params), statistics=self.statistics,
+                            seed=self.seed)
         pool = list(restrict_task_pool(self.lang_embeddings, ALL_TASKS))
         policy.lang_embeddings = _default_embeddings(self.lang_embeddings, trainer.cfg)
         rng = np.random.default_rng(self.seed + epoch)

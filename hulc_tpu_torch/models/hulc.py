@@ -56,6 +56,7 @@ from hulc_tpu_torch.models.perceptual import ConcatEncoders
 from hulc_tpu_torch.models.plan_nets import PlanProposalNetwork, make_plan_distribution, make_plan_recognition
 from hulc_tpu_torch.models.vision import SpatialSoftmax
 from hulc_tpu_torch.ops.plan_distributions import PlanState
+from hulc_tpu_torch.parallel import mesh
 
 
 class ModalityBatch(NamedTuple):
@@ -105,9 +106,14 @@ def masked_clip_loss(
 ) -> torch.Tensor:
     """Symmetric CLIP loss over the masked subset, with static shapes:
     masked columns get a -1e9 logit, masked rows leave the mean; an
-    all-false mask gives 0."""
-    img = image_features.float()
-    txt = text_features.float()
+    all-false mask gives 0. With a process group of more than one rank the
+    rows (features and mask) are every rank's, gathered in rank order
+    (``parallel.mesh.gather_rows``): each rank computes the whole batch's
+    loss, and the gather's backward sums the ranks' gradients of its rows."""
+    img = mesh.gather_rows(image_features.float())
+    txt = mesh.gather_rows(text_features.float())
+    if mask is not None:
+        mask = mesh.gather_rows(mask.bool())
     img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
     txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
     logits = logit_scale * img @ txt.T
@@ -289,6 +295,8 @@ class HulcModel(nn.Module):
             raise ValueError(f"unknown validation noise {sorted(set(noise) - set(VAL_NOISE_KEYS))}")
         ad = self.action_decoder
 
+        noise = {k: mesh.local_rows(v) for k, v in noise.items()}
+
         def decode(plan, tag):
             return ad.loss_and_act(
                 plan, perceptual_emb, latent_goal, actions, robot_obs, generator=generator,
@@ -389,7 +397,12 @@ class HulcModel(nn.Module):
         """One 2B-batch pass over [vis; lang]: {"fused": 2B} as the loader
         stacked it, or {"vis", "lang"} stacked here. ``gumbel`` (2B,
         category_size, class_size) or ``normal`` (2B, plan_features) is the
-        plan's noise."""
+        plan's noise. Under ``parallel.mesh.sharded_rows`` a rank holds
+        [vis_r; lang_r] and the global noise is cut to those rows."""
+        with mesh.row_blocks(2):
+            return self._fused_pass(batch, kl_beta, generator, mesh.local_rows(gumbel), mesh.local_rows(normal))
+
+    def _fused_pass(self, batch, kl_beta, generator, gumbel, normal) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         if "fused" in batch:
             fused = batch["fused"]
@@ -399,9 +412,10 @@ class HulcModel(nn.Module):
             b = batch["vis"].actions.shape[0]
         lang_emb, aux_mask = fused.lang, fused.use_for_aux_lang_loss
         perceptual_emb, _ = self.encode(fused.rgb_obs(), fused.robot_obs, fused.depth_obs())
-        latent_goal = torch.cat([
-            self.encode_visual_goal(perceptual_emb[:b, -1]), self.encode_language_goal(lang_emb)
-        ], dim=0)
+        with mesh.row_blocks(1):  # the goal encoders see one modality's rows
+            latent_goal = torch.cat([
+                self.encode_visual_goal(perceptual_emb[:b, -1]), self.encode_language_goal(lang_emb)
+            ], dim=0)
 
         pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
         pr_state, seq_feat = self.plan_recognition(perceptual_emb)
@@ -460,8 +474,8 @@ class HulcModel(nn.Module):
                 latent_goal = self.encode_visual_goal(perceptual_emb[:, -1])
             out = self.lmp_train(
                 perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs,
-                generator=generator, gumbel=None if gumbel is None else gumbel[scope],
-                normal=None if normal is None else normal[scope],
+                generator=generator, gumbel=None if gumbel is None else mesh.local_rows(gumbel[scope]),
+                normal=None if normal is None else mesh.local_rows(normal[scope]),
             )
             act_loss, kl = out["action_loss"], out["kl_loss"] * kl_beta
             if "lang" in scope and cfg.use_clip_auxiliary_loss:

@@ -73,6 +73,7 @@ from hulc_tpu_torch.ops.recurrence import (
     rnn_tanh,
     rnn_tanh_fwd_plain,
 )
+from hulc_tpu_torch.parallel import mesh
 
 # cell: (the layer through the kernels, the plain loop)
 RECURRENCES = {"rnn": (rnn_relu, rnn_relu_fwd_plain), "rnn_tanh": (rnn_tanh, rnn_tanh_fwd_plain),
@@ -109,16 +110,23 @@ class Dropout(nn.Module):
             return x
         shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
         keep_prob = 1.0 - self.p
+        # a mask of the batch's rows is the global batch's, cut to this rank's
+        # rows under parallel.mesh.sharded_rows; one shared over the batch is used whole
+        per_row = 0 not in self.broadcast_dims
         if self.masks is not None:
             if not self.masks:
                 raise RuntimeError("this dropout site was fed fewer masks than it was called")
             keep = self.masks.pop(0).to(x.device)
+            keep = mesh.local_rows(keep) if per_row else keep
             if list(keep.shape) != shape:
                 raise ValueError(f"a fed dropout mask has shape {tuple(keep.shape)}, not {tuple(shape)}")
         elif self.generator is None:
             raise RuntimeError("training-mode dropout needs a generator: call set_dropout_generator")
         else:
-            keep = torch.empty(shape, device=x.device).bernoulli_(keep_prob, generator=self.generator)
+            def draw(s):
+                return torch.empty(s, device=x.device).bernoulli_(keep_prob, generator=self.generator)
+
+            keep = mesh.draw_rows(draw, shape) if per_row else draw(shape)
         # flax divides by keep_prob in x's type: a bf16 x by bf16(keep_prob)
         scale = keep_prob if x.dtype == torch.float32 else float(torch.tensor(keep_prob, dtype=x.dtype))
         return torch.where(keep.bool(), x / scale, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -36,6 +36,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from hulc_tpu_torch import kernels
+from hulc_tpu_torch.parallel import mesh
 
 U_MIN, U_MAX = 1e-5, 1.0 - 1e-5
 U_SPAN = U_MAX - U_MIN
@@ -280,8 +281,11 @@ def draw_raw_uniforms(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two ``torch.rand`` draws in [0, 1) for logits of shape (..., A, K):
     (..., A, K) for the component pick, (..., A) for the inverse CDF."""
-    u_mix = torch.rand(shape, generator=generator, device=device)
-    u_inv = torch.rand(shape[:-1], generator=generator, device=device)
+    def draw(s):
+        return torch.rand(s, generator=generator, device=device)
+
+    u_mix = mesh.draw_rows(draw, shape)
+    u_inv = mesh.draw_rows(draw, shape[:-1])
     return u_mix, u_inv
 
 

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from hulc_tpu_torch import kernels
+from hulc_tpu_torch.parallel import mesh
 
 
 class DiscretePlanState(NamedTuple):
@@ -58,7 +59,13 @@ def gumbel_of_uniform(u: torch.Tensor) -> torch.Tensor:
 
 def gumbel_noise(shape, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
     """Standard Gumbel noise from one ``torch.rand`` draw of ``generator``."""
-    return gumbel_of_uniform(torch.rand(shape, generator=generator, device=device))
+    return gumbel_of_uniform(_rand(shape, generator, device))
+
+
+def _rand(shape, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
+    """One ``torch.rand`` draw of the batch's (B, ...) noise; under
+    ``parallel.mesh.sharded_rows``, this rank's rows of the global draw."""
+    return mesh.draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +121,8 @@ class PlanDistribution:
         if self.kind == "discrete":
             logits = self._grid_logits(state)
             return gumbel_noise(logits.shape, generator, logits.device)
-        return torch.randn(state.mean.shape, generator=generator, device=state.mean.device)
+        return mesh.draw_rows(lambda s: torch.randn(s, generator=generator, device=state.mean.device),
+                              state.mean.shape)
 
     def sample(
         self,
@@ -213,7 +221,7 @@ class PlanDistribution:
             raise ValueError("pass gumbel or uniform noise, not both")
         post, pri = self._grid_logits(posterior), self._grid_logits(prior)
         if gumbel is None and uniform is None:
-            uniform = torch.rand(post.shape, generator=generator, device=post.device)
+            uniform = _rand(post.shape, generator, post.device)
         if not use_kernels or post.device.type == "cpu":
             gumbel = gumbel_of_uniform(uniform) if gumbel is None else gumbel
             sample = self.rsample(posterior, gumbel=gumbel)

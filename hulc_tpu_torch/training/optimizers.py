@@ -46,6 +46,7 @@ import torch
 from torch.profiler import record_function
 
 from hulc_tpu_torch import kernels
+from hulc_tpu_torch.parallel import mesh
 
 Schedule = Union[float, Callable[[int], float]]
 ELEMS_PER_BLOCK = 8192  # elements of one tensor per block of the kernel's grid
@@ -140,6 +141,20 @@ def block_ranges(numel: int, head: int) -> List[Tuple[int, int]]:
 
 def _address(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def phase(t: torch.Tensor) -> int:
+    """A tensor's start modulo the kernel's 4-element groups."""
+    return (t.data_ptr() // t.element_size()) % 4
+
+
+def empty_at_phase(like: torch.Tensor, at: int, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An uninitialized contiguous tensor of ``like``'s shape (in ``dtype``)
+    that starts at phase ``at``: a view into a buffer 4 elements longer."""
+    dtype = like.dtype if dtype is None else dtype
+    buf = torch.empty(like.numel() + 4, dtype=dtype, device=like.device)
+    off = (at - phase(buf)) % 4
+    return buf[off:off + like.numel()].view(like.shape)
 
 
 def pointer_table_rows(
@@ -242,6 +257,8 @@ def grad_norm_finish_plain(partials: torch.Tensor) -> torch.Tensor:
 def _check_tensors(params, grads, ms, vs, moment_dtype: torch.dtype) -> torch.device:
     dev = params[0].device
     for p, g, m, v in zip(params, grads, ms, vs):
+        if p.numel() == 0:  # a rank's empty shard: no row of the table
+            continue
         kernels.require_cuda_tensor("param", p, torch.float32)
         if g is not None:
             kernels.require_cuda_tensor("grad", g, torch.float32)
@@ -366,8 +383,22 @@ class _KernelOptimizer(torch.optim.Optimizer):
     parameter group on CUDA or the plain version tensor by tensor, the
     pointer tables, and the checkpointed state. A subclass names its
     ``KIND``, its ``MOMENTS`` (state keys, stored in ``MOMENT_DTYPE``) and
-    the update of a group (``_kernel_update``) and of one tensor
-    (``_plain_update``)."""
+    the kernel launch over a group (``_kernel_launch``, which returns the
+    per-block sums of g^2) and the update of one tensor (``_plain_update``).
+
+    Sharded parameters (``parallel.mesh.fsdp_shard``: DTensors) are updated
+    on their local shards: the moments are allocated per shard, the pointer
+    table holds the shards' addresses, and a gradient shard that starts at
+    another phase modulo 4 elements than its parameter (a view into FSDP's
+    reduce-scatter output may) is copied once into a buffer at the
+    parameter's phase (``grad_copies`` counts the copies). A parameter FSDP
+    leaves whole (0-d) is updated on every rank alike. The norm is global:
+    every rank's per-block partials (a whole parameter's counted on rank 0
+    only), each padded with zeros to the longest any rank can have, are
+    gathered in rank order and finished by one ``hulc_grad_norm_finish``
+    launch, so every rank gets the same norm (on the CPU, the sum of the
+    ranks' sums of squares). The checkpointed moments are full tensors, as
+    one device holds them."""
 
     KIND: str
     MOMENTS: Tuple[str, ...]
@@ -378,12 +409,18 @@ class _KernelOptimizer(torch.optim.Optimizer):
         self.use_kernels = use_kernels
         self.count = 0
         self.tables: Dict[int, PointerTable] = {}  # by param group index
+        self.grad_copies = 0  # gradient shards copied to their parameter's phase
+        self.grad_copy_bytes = 0  # and their bytes
+        self._padded: Dict[int, int] = {}  # by param group index: the gathered partials' length per rank
 
     def _moments(self, p: torch.Tensor) -> dict:
         state = self.state[p]
         if not state:
+            shard = mesh.local(p)
+            at = phase(shard) if shard.numel() else 0
             for name in self.MOMENTS:
-                state[name] = torch.zeros_like(p, dtype=self.MOMENT_DTYPE, memory_format=torch.contiguous_format)
+                state[name] = (torch.zeros_like(shard, dtype=self.MOMENT_DTYPE, memory_format=torch.contiguous_format)
+                               if at == 0 else empty_at_phase(shard, at, self.MOMENT_DTYPE).zero_())
         return state
 
     def _params(self) -> List[torch.Tensor]:
@@ -392,17 +429,23 @@ class _KernelOptimizer(torch.optim.Optimizer):
     def checkpoint_state(self) -> dict:
         """What a checkpoint keeps: the optimizer's kind, the step count (the
         learning rate is a schedule of it) and each parameter's moments, in
-        parameter order (None before the first step)."""
+        parameter order (None before the first step), as full tensors (every
+        rank takes part for sharded parameters)."""
         params = self._params()
+
+        def full(p, name):
+            m = self.state[p].get(name)
+            return None if m is None else mesh.full_tensor(m, p)
+
         return {"kind": self.KIND, "count": self.count,
-                **{name: [self.state[p].get(name) for p in params] for name in self.MOMENTS}}
+                **{name: [full(p, name) for p in params] for name in self.MOMENTS}}
 
     def load_checkpoint_state(self, state: dict) -> None:
-        """Restore ``checkpoint_state()``'s result, copying the moments into
-        the buffers in place (their addresses, and so the kernel's pointer
-        table, stay). The state of another kind of optimizer is refused (a
-        state saved before states named their kind is AdamLowp's, the only
-        optimizer then)."""
+        """Restore ``checkpoint_state()``'s result, copying the moments (this
+        rank's shard of each, for sharded parameters) into the buffers in
+        place (their addresses, and so the kernel's pointer table, stay). The
+        state of another kind of optimizer is refused (a state saved before
+        states named their kind is AdamLowp's, the only optimizer then)."""
         kind = state.get("kind", AdamLowp.KIND)
         if kind != self.KIND:
             raise ValueError(f"the checkpoint holds the state of a {kind!r} optimizer, not of {self.KIND!r}: "
@@ -418,13 +461,41 @@ class _KernelOptimizer(torch.optim.Optimizer):
                 continue
             moments = self._moments(p)
             for name in self.MOMENTS:
-                moments[name].copy_(state[name][i])
+                moments[name].copy_(mesh.local_shard(state[name][i], p))
 
-    def _kernel_update(self, group, params, grads, moments, neg_lr, table) -> torch.Tensor:
+    def _kernel_launch(self, group, params, grads, moments, neg_lr, table) -> torch.Tensor:
         raise NotImplementedError
 
     def _plain_update(self, group, p, g, moments, neg_lr) -> None:
         raise NotImplementedError
+
+    def _at_param_phase(self, g: Optional[torch.Tensor], p: torch.Tensor) -> Optional[torch.Tensor]:
+        """``g``, or its copy at ``p``'s phase when it starts at another."""
+        if g is None or g.numel() == 0 or phase(g) == phase(p):
+            return g
+        self.grad_copies += 1
+        self.grad_copy_bytes += g.numel() * g.element_size()
+        return empty_at_phase(g, phase(p)).copy_(g)
+
+    def _padded_partials(self, i: int, params: List[torch.Tensor]) -> int:
+        """The most per-block partials any rank's shards of the group can
+        give (a head only takes blocks away), from the parameters' global
+        shapes: the length every rank pads its partials to."""
+        if i not in self._padded:
+            n = mesh.world()
+            most = 0
+            for r in range(n):
+                total = 0
+                for p in params:
+                    numel = p.numel()
+                    if mesh.is_sharded(p):  # rank r's torch.chunk of the global dimension 0
+                        rows = p.shape[0]
+                        chunk = -(-rows // n)
+                        numel = max(0, min(chunk, rows - r * chunk)) * (numel // max(rows, 1))
+                    total += blocks_of(numel, 0) if numel else 0
+                most = max(most, total)
+            self._padded[i] = most
+        return self._padded[i]
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
@@ -439,21 +510,42 @@ class _KernelOptimizer(torch.optim.Optimizer):
             for i, group in enumerate(self.param_groups):
                 lr = group["lr"](lr_count) if callable(group["lr"]) else group["lr"]
                 neg_lr = float(torch.tensor(-lr, dtype=torch.float32))
-                params = list(group["params"])
-                if not params:
+                if not group["params"]:
                     continue
-                grads = [None if p.grad is None else p.grad.contiguous() for p in params]
-                moments = [[self._moments(p)[name] for p in params] for name in self.MOMENTS]
+                sharded = any(mesh.is_sharded(p) for p in group["params"])
+                params = [mesh.local(p) for p in group["params"]]
+                grads = [None if p.grad is None else mesh.local(p.grad).contiguous() for p in group["params"]]
+                moments = [[self._moments(p)[name] for p in group["params"]] for name in self.MOMENTS]
                 if self.use_kernels and params[0].device.type == "cuda":
+                    grads = [self._at_param_phase(g, p) for p, g in zip(params, grads)]
                     table = self.tables.setdefault(i, PointerTable())
-                    norms.append(self._kernel_update(group, params, grads, moments, neg_lr, table))
+                    partials = self._kernel_launch(group, params, grads, moments, neg_lr, table)
+                    if sharded:
+                        if mesh.rank():  # a whole parameter's gradient counts once, in rank 0's partials
+                            rows = [j for j, p in enumerate(params) if p.numel()]
+                            for row, j in enumerate(rows):
+                                if not mesh.is_sharded(group["params"][j]):
+                                    partials[table.first_blocks[row]:table.first_blocks[row + 1]] = 0
+                        partials = mesh.gather_padded(partials, self._padded_partials(i, group["params"]))
+                    norms.append(grad_norm_finish(partials))
                 else:
-                    norms.append(global_norm(grads).to(params[0].device))
+                    norms.append((_sharded_norm(grads, group["params"]) if sharded else global_norm(grads))
+                                 .to(params[0].device))
                     for j, (p, g) in enumerate(zip(params, grads)):
                         self._plain_update(group, p, g, [m[j] for m in moments], neg_lr)
             if len(norms) == 1:
                 return norms[0]
             return torch.sqrt(sum(n * n for n in norms)) if norms else torch.zeros((), dtype=torch.float32)
+
+
+def _sharded_norm(grads: Sequence[Optional[torch.Tensor]], params: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The global norm of every rank's gradient shards: the sum over ranks of
+    each rank's sum of squares (fp64; a whole parameter's on rank 0 only),
+    then the root, in fp32."""
+    present = [g for g, p in zip(grads, params) if g is not None and (mesh.rank() == 0 or mesh.is_sharded(p))]
+    device = present[0].device if present else torch.device("cpu")
+    local_sq = sum(((g.double() * g.double()).sum() for g in present), torch.zeros((), dtype=torch.float64, device=device))
+    return torch.sqrt(mesh.sum_across_ranks(local_sq)).float()
 
 
 class AdamLowp(_KernelOptimizer):
@@ -472,9 +564,9 @@ class AdamLowp(_KernelOptimizer):
         b1, b2 = group["betas"]
         return (b1, b2, group["eps"], *bias_corrections(b1, b2, self.count))
 
-    def _kernel_update(self, group, params, grads, moments, neg_lr, table):
+    def _kernel_launch(self, group, params, grads, moments, neg_lr, table):
         b1, b2, eps, c1, c2 = self._consts(group)
-        return adam_lowp_update(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table)
+        return adam_lowp_launch(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table)
 
     def _plain_update(self, group, p, g, moments, neg_lr):
         b1, b2, eps, c1, c2 = self._consts(group)
@@ -488,9 +580,9 @@ class Adam(AdamLowp):
     KIND = "adam"
     MOMENT_DTYPE = torch.float32
 
-    def _kernel_update(self, group, params, grads, moments, neg_lr, table):
+    def _kernel_launch(self, group, params, grads, moments, neg_lr, table):
         b1, b2, eps, c1, c2 = self._consts(group)
-        return adam_update(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table)
+        return adam_launch(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table)
 
 
 class AdamW(Adam):
@@ -500,9 +592,9 @@ class AdamW(Adam):
 
     KIND = "adamw"
 
-    def _kernel_update(self, group, params, grads, moments, neg_lr, table):
+    def _kernel_launch(self, group, params, grads, moments, neg_lr, table):
         b1, b2, eps, c1, c2 = self._consts(group)
-        return adam_update(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table, ADAMW_WEIGHT_DECAY)
+        return adam_launch(params, grads, *moments, b1, b2, eps, neg_lr, c1, c2, table, ADAMW_WEIGHT_DECAY)
 
     def _plain_update(self, group, p, g, moments, neg_lr):
         b1, b2, eps, c1, c2 = self._consts(group)
@@ -521,8 +613,8 @@ class SGD(_KernelOptimizer):
     def __init__(self, params: Iterable, lr: Schedule = 2e-4, use_kernels: bool = True):
         super().__init__(params, dict(lr=lr), use_kernels)
 
-    def _kernel_update(self, group, params, grads, moments, neg_lr, table):
-        return sgd_update(params, grads, moments[0], SGD_MOMENTUM, neg_lr, table)
+    def _kernel_launch(self, group, params, grads, moments, neg_lr, table):
+        return sgd_launch(params, grads, moments[0], SGD_MOMENTUM, neg_lr, table)
 
     def _plain_update(self, group, p, g, moments, neg_lr):
         sgd_update_plain(p, g, moments[0], SGD_MOMENTUM, neg_lr)

@@ -13,7 +13,9 @@ static depth's noise and the gripper depth's, unless the caller passes
 them (``shifts[scope][camera]``, (B*S, 2) each; ``depth_noise[scope]
 [camera]``, the raw standard-normal draw of the frames' shape), as the
 tests pass what JAX drew. A drawn noise tensor takes the noised frames;
-the raw batch is never written. Tactile and CLIP cameras, and resizing a
+the raw batch is never written. With several ranks each draw is the
+global batch's, and a rank keeps its rows (``parallel.mesh.draw_rows``):
+the depth noise of a ``hulc_depth`` step is drawn whole on every rank. Tactile and CLIP cameras, and resizing a
 frame to the encoder's input size, are not ported yet: a batch or config
 that needs them is refused.
 """
@@ -35,6 +37,7 @@ from hulc_tpu_torch.ops.image_ops import (
     preprocess_rgb_seq_shift,
     preprocess_rgb_seq_shift_plain,
 )
+from hulc_tpu_torch.parallel import mesh
 
 CAMERAS = ("rgb_static", "rgb_gripper")
 # each depth camera's training noise (JAX: _prep_depth's gamma_noise / gaussian_std)
@@ -87,8 +90,9 @@ def preprocess_modality(
                 f"resizing {cam} from {imgs.shape[2]} px to {enc.input_size} px is not ported yet"
             )
         if train and enc.shift_pad > 0:
-            s = shifts[cam] if shifts is not None else draw_shifts(
-                imgs.shape[0] * imgs.shape[1], enc.shift_pad, generator, imgs.device
+            s = mesh.local_rows(shifts[cam]) if shifts is not None else mesh.draw_rows(
+                lambda shape: draw_shifts(shape[0], enc.shift_pad, generator, imgs.device),
+                (imgs.shape[0] * imgs.shape[1], 2),
             )
             fn = preprocess_rgb_seq_shift if use_kernels else preprocess_rgb_seq_shift_plain
             updates[cam] = fn(imgs, s, enc.shift_pad, out_dtype=cfg.dtype)
@@ -102,9 +106,12 @@ def preprocess_modality(
             updates[cam] = frames.to(torch.float32)
         elif depth_noise is not None:
             fn = prep_depth if use_kernels else prep_depth_plain
-            updates[cam] = fn(frames, depth_noise[cam], mode, std)
+            updates[cam] = fn(frames, mesh.local_rows(depth_noise[cam]), mode, std)
         else:
-            z = torch.randn(frames.shape, generator=generator, device=frames.device, dtype=torch.float32)
+            z = mesh.draw_rows(
+                lambda shape: torch.randn(shape, generator=generator, device=frames.device, dtype=torch.float32),
+                frames.shape,
+            )
             updates[cam] = prep_depth(frames, z, mode, std, out=z) if use_kernels else prep_depth_plain(
                 frames, z, mode, std)
     return batch._replace(**updates)
@@ -121,12 +128,15 @@ def preprocess_batch(
     use_kernels: bool = True,
 ) -> Dict[str, ModalityBatch]:
     """Each modality of ``batch`` preprocessed; ``shifts`` and
-    ``depth_noise`` by scope."""
-    return {
-        scope: preprocess_modality(
-            cfg, mod, train, generator=generator,
-            shifts=None if shifts is None else shifts[scope],
-            depth_noise=None if depth_noise is None else depth_noise[scope], use_kernels=use_kernels,
-        )
-        for scope, mod in batch.items()
-    }
+    ``depth_noise`` by scope. Under ``parallel.mesh.sharded_rows`` the draws
+    are the global batch's and the injected tensors global, each cut to this
+    rank's rows (of both halves of a ``"fused"`` batch)."""
+    out = {}
+    for scope, mod in batch.items():
+        with mesh.row_blocks(2 if scope == "fused" else 1):
+            out[scope] = preprocess_modality(
+                cfg, mod, train, generator=generator,
+                shifts=None if shifts is None else shifts[scope],
+                depth_noise=None if depth_noise is None else depth_noise[scope], use_kernels=use_kernels,
+            )
+    return out

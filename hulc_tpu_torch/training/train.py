@@ -7,14 +7,24 @@ Examples, on the card (``--device cpu`` runs the same on the CPU)::
   python -m hulc_tpu_torch.training.train --config hulc --data-dir /data/task_D_D \\
       --run-dir runs/hulc_d --epochs 30
 
+On N cards, one process per card::
+
+  torchrun --standalone --nproc-per-node N -m hulc_tpu_torch.training.train --config hulc [--fsdp] ...
+
 Every flag of the JAX CLI, with its default and meaning, and ``--device``
-(``cuda`` by default). Two departures: ``--fsdp``, ``--tp`` > 1 and
-``--sp`` > 1 are multi-device modes the port does not have yet (ROADMAP
-A.4), and are refused rather than ignored; the JAX CLI's multi-host
-coordinator (``HULC_TPU_COORDINATOR``) and TPU-tunnel journal compaction
-have no counterpart on one GPU. A relaunch of the same command resumes from
-the run dir's latest checkpoint; ``--steps-total`` caps the run's step
-count, so a relaunch trains only the remainder.
+(``cuda`` by default). Under ``torchrun`` every rank joins the process group
+(NCCL; gloo with ``--device cpu``) and trains data-parallel on its rows of
+each ``--batch-size`` batch (the global per-modality batch), or ZeRO-3
+sharded with ``--fsdp``. The departures: ``--tp`` > 1 and ``--sp`` > 1 are
+the next slice of ROADMAP A.4 and are refused rather than ignored; a world
+size that does not divide ``--batch-size`` is refused where the JAX CLI
+clamps its mesh to a divisor (``resolve_mesh_devices``), since torchrun
+has started every rank already; ``--fsdp`` without torchrun shards over a
+group of one process; torchrun's rendezvous does the work of the JAX CLI's
+multi-host coordinator (``HULC_TPU_COORDINATOR``), and its TPU-tunnel
+journal compaction has no counterpart. A relaunch of the same command resumes from the run dir's
+latest checkpoint, on any number of cards; ``--steps-total`` caps the run's
+step count, so a relaunch trains only the remainder.
 """
 
 from __future__ import annotations
@@ -24,8 +34,8 @@ import pathlib
 import tempfile
 from typing import NamedTuple, Optional
 
-MULTI_DEVICE_REFUSAL = ("{flag}: multi-GPU training (FSDP, tensor and sequence parallelism) is not ported to "
-                        "hulc_tpu_torch yet (ROADMAP A.4); the port trains on one device")
+MULTI_DEVICE_REFUSAL = ("{flag}: tensor and sequence parallelism are not ported to hulc_tpu_torch yet: they are the "
+                        "next slice of ROADMAP A.4 (data parallelism and --fsdp are ported)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,9 +87,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="storage dtype for adam moments (computed fp32 either way; "
         "float32 gives the reference adam's moment storage)",
     )
-    p.add_argument("--fsdp", action="store_true", help="multi-device: not ported (ROADMAP A.4), refused")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallelism: not ported (ROADMAP A.4); > 1 is refused")
-    p.add_argument("--sp", type=int, default=1, help="sequence parallelism: not ported (ROADMAP A.4); > 1 is refused")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3 param+optimizer sharding over the data axis (every torchrun rank, or one process)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: not ported (the next slice of ROADMAP A.4); > 1 is refused")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence parallelism: not ported (the next slice of ROADMAP A.4); > 1 is refused")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--log-every", type=int, default=50, help="log every N loader batches")
@@ -135,12 +148,20 @@ def build_run(args: argparse.Namespace) -> Run:
     from hulc_tpu_torch.config import apply_overrides, get_config
     from hulc_tpu_torch.data.fixtures import make_fixture_dataset
     from hulc_tpu_torch.data.loader import make_loaders
+    from hulc_tpu_torch.parallel import mesh
     from hulc_tpu_torch.training.schedules import KLSchedule
     from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-    for flag, refused in (("--fsdp", args.fsdp), (f"--tp {args.tp}", args.tp > 1), (f"--sp {args.sp}", args.sp > 1)):
+    for flag, refused in ((f"--tp {args.tp}", args.tp > 1), (f"--sp {args.sp}", args.sp > 1)):
         if refused:
             raise SystemExit(MULTI_DEVICE_REFUSAL.format(flag=flag))
+    device = mesh.initialize_distributed(args.device)  # torchrun's group, or none
+    if args.fsdp and not mesh.active():  # one process without torchrun: a group of one
+        device = mesh.initialize_single(args.device)
+    rank, world = mesh.rank(), mesh.world()
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} does not split over {world} ranks: the per-modality "
+                         f"batch is sharded over every rank (the JAX CLI clamps its mesh to a divisor instead)")
 
     cfg = get_config(args.config, **({"compute_dtype": "bfloat16"} if args.bf16 else {}))
     if args.overrides:
@@ -150,9 +171,12 @@ def build_run(args: argparse.Namespace) -> Run:
     min_w = args.min_window or (8 if debug else 20)
     max_w = args.max_window or (8 if debug else 32)
     if args.fixture or args.data_dir is None:
-        root = pathlib.Path(tempfile.mkdtemp(prefix="hulc_fixture_"))
-        make_fixture_dataset(root, num_episodes=2, episode_len=48, small=debug)
-        print(f"[train] using synthetic fixture dataset at {root}")
+        root = None
+        if rank == 0:  # one dataset for every rank
+            root = pathlib.Path(tempfile.mkdtemp(prefix="hulc_fixture_"))
+            make_fixture_dataset(root, num_episodes=2, episode_len=48, small=debug)
+            print(f"[train] using synthetic fixture dataset at {root}")
+        root = mesh.broadcast_object(root)
     else:
         root = pathlib.Path(args.data_dir)
 
@@ -173,17 +197,18 @@ def build_run(args: argparse.Namespace) -> Run:
         checkpoint_every_steps=args.checkpoint_every_steps,
         optimizer=args.optimizer,
         adam_mv_dtype=args.adam_mv_dtype,
+        fsdp=args.fsdp,
     )
-    trainer = Trainer(cfg, tcfg, device=args.device)
+    trainer = Trainer(cfg, tcfg, device=device)
     train_loader = make_loaders(
         cfg, root, "training", args.batch_size, min_w, max_w, cache=args.cache,
         seed=args.seed, num_workers=args.loader_workers, gather_threads=args.gather_threads,
-        fuse=args.fuse,
+        fuse=args.fuse, rank=rank, world=world,
     )
     try:
         val_loader = make_loaders(
             cfg, root, "validation", args.batch_size, min_w, max_w,
-            cache=args.cache, seed=args.seed + 100, deterministic=True,
+            cache=args.cache, seed=args.seed + 100, deterministic=True, rank=rank, world=world,
         )
     except FileNotFoundError:
         val_loader = None
@@ -245,9 +270,17 @@ def _rollout_callback(args, cfg, root):
 def main(argv=None):
     """Parse, build and train; returns the trainer (its ``step`` is the
     run's step count)."""
-    run = build_run(build_parser().parse_args(argv))
-    run.trainer.fit(run.train_loader, run.val_loader, **run.fit_kwargs)
-    print(f"[train] done at step {run.trainer.step}; checkpoints in {run.trainer.tcfg.run_dir}/saved_models")
+    from hulc_tpu_torch.parallel import mesh
+
+    started = mesh.active()
+    try:
+        run = build_run(build_parser().parse_args(argv))
+        run.trainer.fit(run.train_loader, run.val_loader, **run.fit_kwargs)
+        if mesh.rank() == 0:
+            print(f"[train] done at step {run.trainer.step}; checkpoints in {run.trainer.tcfg.run_dir}/saved_models")
+    finally:
+        if not started:  # the group this call started
+            mesh.destroy()
     return run.trainer
 
 

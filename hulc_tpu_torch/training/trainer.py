@@ -40,6 +40,20 @@ bf16 by default).
 
 Metrics go to ``<run_dir>/metrics.jsonl`` (``utils.loggers.MetricLogger``)
 under the prefixes ``train``, ``val``, ``epoch`` (and a callback's own).
+
+Several devices (port of the JAX trainer's ``num_devices`` and ``fsdp``):
+in a process group (``parallel.mesh.initialize_distributed``, one process
+per GPU under ``torchrun``) each rank trains on its rows of every global
+batch (``make_loaders(rank=, world=)`` or ``parallel.mesh.shard_rows``) and
+the step computes what one device computes on the whole batch: the
+model is wrapped in ``DistributedDataParallel`` (gradients averaged) when
+there is more than one rank, or sharded ZeRO-3 style with
+``tcfg.fsdp`` (``parallel.mesh.fsdp_shard``, one rank too). The steps run
+under ``parallel.mesh.sharded_rows``: each draw is the global batch's, cut to
+this rank's rows, and injected noise is global. The logged losses and the
+val metrics are averaged over the ranks before they are written; rank 0
+alone writes the JSONL and the checkpoints (full tensors, the one-device
+format, so a run resumes on any number of devices) while the others wait.
 """
 
 from __future__ import annotations
@@ -58,18 +72,18 @@ from hulc_tpu_torch.data.loader import DeviceLoader, StagingPool
 from hulc_tpu_torch.device import resolve_device
 from hulc_tpu_torch.models.hulc import HulcModel, ModalityBatch, init_weights_, make_model
 from hulc_tpu_torch.models.layers import set_dropout_generator
+from hulc_tpu_torch.parallel import mesh
 from hulc_tpu_torch.training import checkpoint as ckpt
 from hulc_tpu_torch.training.optimizers import SGD, Adam, AdamLowp, AdamW
 from hulc_tpu_torch.training.preprocess import batch_to_device, preprocess_batch
 from hulc_tpu_torch.training.schedules import KLSchedule, make_lr_schedule
-from hulc_tpu_torch.utils.loggers import MetricLogger
+from hulc_tpu_torch.utils.loggers import MetricLogger, NullLogger
 
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The JAX TrainerConfig's fields that the port's loop reads (its
-    ``fsdp``, ``tp``, ``sp`` and ``num_devices`` are multi-device, not
-    ported)."""
+    """The JAX TrainerConfig's fields that the port's loop reads (its ``tp``
+    and ``sp`` are not ported yet)."""
 
     run_dir: str = "runs/dev"
     max_epochs: int = 100
@@ -99,6 +113,27 @@ class TrainerConfig:
     # of a fit call, written to <run_dir>/profile (None: no trace)
     profile_start: Optional[int] = None
     profile_steps: int = 5
+    # the devices of the data axis: None (every rank of the process group) or
+    # the world size; any other count is refused (torchrun sets the count)
+    num_devices: Optional[int] = None
+    # ZeRO-3 over the data axis (parallel.mesh.fsdp_shard); needs a process
+    # group, of one rank too
+    fsdp: bool = False
+    # DistributedDataParallel over the process group: None turns it on above
+    # one rank, True at one rank too (its reducer and collectives run)
+    data_parallel: Optional[bool] = None
+
+
+class _TrainLosses(torch.nn.Module):
+    """``model.train_losses`` as a forward, for DistributedDataParallel (its
+    gradient hooks are armed by its forward)."""
+
+    def __init__(self, model: HulcModel):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, kl_beta, **kwargs):
+        return self.model.train_losses(batch, kl_beta, **kwargs)
 
 
 class Trainer:
@@ -106,8 +141,28 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
+        if mesh.active() and self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())  # this rank's (initialize_distributed)
+        if tcfg.num_devices not in (None, mesh.world()):
+            raise ValueError(f"num_devices={tcfg.num_devices}: the port trains on every rank of its process group "
+                             f"({mesh.world()}); launch that many ranks (torchrun --nproc-per-node)")
         self.use_kernels = use_kernels
         self.model: HulcModel = make_model(cfg, self.device, seed=tcfg.seed, use_kernels=use_kernels).train()
+        self._ddp: Optional[torch.nn.Module] = None
+        if tcfg.fsdp:
+            if not mesh.active():
+                raise ValueError("fsdp needs a process group: launch under torchrun "
+                                 "(parallel.mesh.initialize_distributed)")
+            mesh.fsdp_shard(self.model, self.device)
+        elif tcfg.data_parallel or (tcfg.data_parallel is None and mesh.world() > 1):
+            from torch.nn.parallel import DistributedDataParallel
+
+            if not mesh.active():
+                raise ValueError("data_parallel needs a process group: launch under torchrun")
+
+            self._ddp = DistributedDataParallel(
+                _TrainLosses(self.model), device_ids=[self.device.index] if self.device.type == "cuda" else None,
+            )
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed + 1)
         set_dropout_generator(self.model, self.generator)
         self.optimizer: Optional[torch.optim.Optimizer] = None
@@ -122,9 +177,10 @@ class Trainer:
 
     @property
     def logger(self) -> MetricLogger:
-        """The run's JSONL sink, opened at its first use."""
+        """The run's JSONL sink, opened at its first use (rank 0's; the other
+        ranks' writes nothing)."""
         if self._logger is None:
-            self._logger = MetricLogger(self.tcfg.run_dir)
+            self._logger = MetricLogger(self.tcfg.run_dir) if mesh.rank() == 0 else NullLogger()
         return self._logger
 
     # ------------------------------------------------------------------
@@ -163,13 +219,39 @@ class Trainer:
     def reset_state(self, steps_per_epoch: int = 1) -> None:
         """Fresh weights from ``tcfg.seed``, the generator back at
         ``tcfg.seed + 1``, a new optimizer at step 0: where ``fit`` starts."""
-        init_weights_(self.model, torch.Generator(device=self.device).manual_seed(self.tcfg.seed))
+        if self.tcfg.fsdp:  # the one-device model's fresh weights, each rank keeping its shards
+            fresh = make_model(self.cfg, self.device, seed=self.tcfg.seed, use_kernels=self.use_kernels)
+            self.load_params(fresh.state_dict())
+        else:
+            init_weights_(self.model, torch.Generator(device=self.device).manual_seed(self.tcfg.seed))
         self.generator.manual_seed(self.tcfg.seed + 1)
         self.init_state(steps_per_epoch)
 
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The model's state_dict as one device holds it (sharded parameters
+        gathered: every rank takes part)."""
+        if self.tcfg.fsdp:
+            mesh.reshard(self.model)
+        return {k: mesh.full_tensor(mesh.local(v), v) for k, v in self.model.state_dict().items()}
+
+    @torch.no_grad()
+    def load_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Load a one-device state_dict (each rank its shards of sharded
+        parameters); strict, as ``load_state_dict``."""
+        if not self.tcfg.fsdp:
+            self.model.load_state_dict(state_dict)
+            return
+        mesh.reshard(self.model)
+        own = self.model.state_dict()
+        if set(own) != set(state_dict):
+            raise ValueError(f"state_dict keys differ: missing {sorted(set(own) - set(state_dict))[:5]}, "
+                             f"unexpected {sorted(set(state_dict) - set(own))[:5]}")
+        for k, v in own.items():
+            mesh.local(v).copy_(mesh.local_shard(state_dict[k].to(self.device), v))
+
     def checkpoint_state(self) -> Dict[str, Any]:
         return {
-            "params": self.model.state_dict(),
+            "params": self.params(),
             "optimizer": self.optimizer.checkpoint_state(),
             "step": self.step,
             "epoch": self.epoch,
@@ -186,7 +268,7 @@ class Trainer:
                 f"optimizer state, step or generator to resume a run from. Evaluate it, or warm-start a new run "
                 f"from it (training.pretrain.load_pretrained) in another run_dir"
             )
-        self.model.load_state_dict(state["params"])
+        self.load_params(state["params"])
         self.optimizer.load_checkpoint_state(state["optimizer"])
         self.step, self.epoch = int(state["step"]), int(state["epoch"])
         self.generator.set_state(state["generator"])
@@ -216,7 +298,12 @@ class Trainer:
         print(f"[trainer] profile of steps {self._profile_first_step}-{self.step - 1} written to {path}")
 
     def _save(self, epoch: int, metrics: Dict[str, float]) -> None:
-        self.checkpointer.save(epoch, self.checkpoint_state(), metrics)
+        """Rank 0 writes the checkpoint (every rank gathers its state); the
+        others wait for it."""
+        state = self.checkpoint_state()
+        if mesh.rank() == 0:
+            self.checkpointer.save(epoch, state, metrics)
+        mesh.barrier()
 
     def _device_batches(self, loader):
         """``loader``'s batches on the device, through the trainer's staging
@@ -224,11 +311,12 @@ class Trainer:
         return loader if isinstance(loader, DeviceLoader) else DeviceLoader(loader, self.device, self.staging)
 
     @staticmethod
-    def _host_scalars(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-        """Scalar tensors as floats, in one copy to the host."""
+    def host_scalars(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """Scalar tensors as floats, averaged over the ranks, in one copy to
+        the host."""
         keys = list(metrics)
-        values = torch.stack([metrics[k].detach().float().reshape(()) for k in keys]).cpu().tolist()
-        return dict(zip(keys, values))
+        values = mesh.mean_across_ranks(torch.stack([metrics[k].detach().float().reshape(()) for k in keys]))
+        return dict(zip(keys, values.cpu().tolist()))
 
     # ------------------------------------------------------------------
     # steps
@@ -244,17 +332,20 @@ class Trainer:
         gumbel=None,
         normal=None,
     ) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a raw batch (uint8 frames, fp32 depth);
-        returns the losses and ``grad_norm``."""
+        """One optimizer step on a raw batch (uint8 frames, fp32 depth; this
+        rank's rows); returns the losses (means over this rank's rows) and
+        ``grad_norm`` (global). Injected noise is the global batch's."""
         if self.optimizer is None:
             raise RuntimeError("call init_state before train_step")
-        batch = preprocess_batch(
-            self.cfg, batch_to_device(raw_batch, self.device), train=True,
-            generator=self.generator, shifts=shifts, depth_noise=depth_noise, use_kernels=self.use_kernels,
-        )
-        self.optimizer.zero_grad(set_to_none=True)
-        losses = self.model.train_losses(batch, kl_beta, generator=self.generator, gumbel=gumbel, normal=normal)
-        losses["total_loss"].backward()
+        with mesh.sharded_rows():
+            batch = preprocess_batch(
+                self.cfg, batch_to_device(raw_batch, self.device), train=True,
+                generator=self.generator, shifts=shifts, depth_noise=depth_noise, use_kernels=self.use_kernels,
+            )
+            self.optimizer.zero_grad(set_to_none=True)
+            forward = self.model.train_losses if self._ddp is None else self._ddp
+            losses = forward(batch, kl_beta, generator=self.generator, gumbel=gumbel, normal=normal)
+            losses["total_loss"].backward()
         losses["grad_norm"] = self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in losses.items()}
@@ -276,7 +367,8 @@ class Trainer:
         batch = preprocess_batch(
             self.cfg, batch_to_device(raw_batch, self.device), train=False, use_kernels=self.use_kernels
         )
-        metrics = self.model.val_metrics(batch, kl_beta, generator=generator, noise=noise)
+        with mesh.sharded_rows():
+            metrics = self.model.val_metrics(batch, kl_beta, generator=generator, noise=noise)
         return {k: v for k, v in metrics.items() if v.dim() == 0}
 
     # ------------------------------------------------------------------
@@ -285,11 +377,12 @@ class Trainer:
 
     def validate(self, val_loader, max_batches: Optional[int] = None, kl_beta: Optional[float] = None) -> Dict[str, float]:
         """The mean val metrics over ``val_loader`` (at most ``max_batches``,
-        default ``tcfg.val_max_batches``), logged under ``val``."""
+        default ``tcfg.val_max_batches``), averaged over the ranks, logged
+        under ``val``."""
         if max_batches is None:
             max_batches = self.tcfg.val_max_batches or len(val_loader)
         if max_batches < len(val_loader):
-            print(f"[trainer] validation capped at {max_batches}/{len(val_loader)} batches")
+            _print(f"[trainer] validation capped at {max_batches}/{len(val_loader)} batches")
         if kl_beta is None:
             kl_beta = self.cfg.loss.kl_beta
         generator = torch.Generator(device=self.device).manual_seed(self.tcfg.seed + 2)
@@ -301,12 +394,14 @@ class Trainer:
                 for raw_batch in itertools.islice(self._device_batches(val_loader), max_batches):
                     metrics = self.val_step(raw_batch, kl_beta, generator=generator)
                     keys = list(metrics)
-                    rows.append(torch.stack([metrics[k].float() for k in keys]).cpu().numpy())
+                    rows.append(mesh.mean_across_ranks(torch.stack([metrics[k].float() for k in keys])).cpu().numpy())
         finally:
             self.model.train(was_training)
+            if self.tcfg.fsdp:
+                mesh.reshard(self.model)  # the root keeps its gathered parameters after a forward alone
         mean = {} if keys is None else dict(zip(keys, np.mean(np.stack(rows).astype(np.float64), axis=0).tolist()))
         self.logger.log(mean, self.step, "val")
-        print("[trainer] val:", {k: round(v, 4) for k, v in mean.items() if "act_loss" in k or "mae" in k or "sr" in k})
+        _print("[trainer] val:", {k: round(v, 4) for k, v in mean.items() if "act_loss" in k or "mae" in k or "sr" in k})
         return mean
 
     def fit(
@@ -334,11 +429,11 @@ class Trainer:
             if latest is not None:
                 self.restore(latest)
                 start_epoch = ckpt.checkpoint_epoch(latest) + 1
-                print(f"[trainer] resumed from {latest} (epoch {start_epoch})")
+                _print(f"[trainer] resumed from {latest} (epoch {start_epoch})")
 
         base_step = self.step
         if max_total_steps is not None and base_step >= max_total_steps:
-            print(f"[trainer] already at step {base_step} >= {max_total_steps}; nothing to do")
+            _print(f"[trainer] already at step {base_step} >= {max_total_steps}; nothing to do")
             return self.step
 
         def hit_cap(total_steps: int) -> bool:
@@ -347,6 +442,7 @@ class Trainer:
             return max_total_steps is not None and base_step + total_steps >= max_total_steps
 
         total_steps = 0
+        profiling = tcfg.profile_start is not None and mesh.rank() == 0  # rank 0's trace
         max_epochs = tcfg.max_epochs if max_epochs is None else max_epochs
         batches = self._device_batches(train_loader)
         losses = None
@@ -358,12 +454,12 @@ class Trainer:
                 seqs = 0
                 for i, batch in enumerate(batches):
                     for _ in range(max(1, tcfg.echo_factor)):
-                        if tcfg.profile_start is not None and total_steps == tcfg.profile_start:
+                        if profiling and total_steps == tcfg.profile_start:
                             self._profile_start()
                         losses = self.train_step(batch, kl_beta)
-                        seqs += sum(b.actions.shape[0] for b in batch.values())
+                        seqs += sum(b.actions.shape[0] for b in batch.values()) * mesh.world()
                         total_steps += 1
-                        if tcfg.profile_start is not None and total_steps == tcfg.profile_start + tcfg.profile_steps:
+                        if profiling and total_steps == tcfg.profile_start + tcfg.profile_steps:
                             self._profile_stop()
                         if (
                             tcfg.checkpoint_every_steps
@@ -374,10 +470,10 @@ class Trainer:
                         if hit_cap(total_steps):
                             break
                     if i % tcfg.log_every == 0:
-                        host = self._host_scalars(losses)
+                        host = self.host_scalars(losses)
                         host["lr"] = float(self.lr_schedule(self.step))
                         self.logger.log(host, self.step, "train")
-                        print(
+                        _print(
                             f"[trainer] epoch {epoch} step {i}/{steps_per_epoch} loss={host['total_loss']:.4f} "
                             f"act={host['action_loss']:.4f} kl={host['kl_loss']:.5f}"
                         )
@@ -393,7 +489,7 @@ class Trainer:
                 # what the monitored checkpointer sees this epoch: the last step's
                 # losses (train/), the val means (val/) and the callbacks' metrics
                 epoch_metrics: Dict[str, float] = (
-                    {} if losses is None else {f"train/{k}": v for k, v in self._host_scalars(losses).items()}
+                    {} if losses is None else {f"train/{k}": v for k, v in self.host_scalars(losses).items()}
                 )
                 hit_max_steps = hit_cap(total_steps)
                 # a capped or final epoch always validates, so the run ends with
@@ -414,3 +510,9 @@ class Trainer:
         finally:
             self._profile_stop()  # a window the run ended inside
         return self.step
+
+
+def _print(*args) -> None:
+    """Print on rank 0 only."""
+    if mesh.rank() == 0:
+        print(*args)

@@ -3,7 +3,8 @@ hulc_tpu/utils/loggers.py).
 
 ``MetricLogger`` appends one JSON line per call to ``<run_dir>/metrics.jsonl``
 (``step``, ``prefix`` and every value that converts to a float); the
-trainer always writes it. ``TensorBoardLogger`` mirrors the same calls to
+trainer always writes it (rank 0 of a process group; the other ranks hold a
+``NullLogger``). ``TensorBoardLogger`` mirrors the same calls to
 TensorBoard event files, ``MultiLogger`` fans out to several sinks. The
 wandb sink is not ported.
 """
@@ -37,6 +38,16 @@ class MetricLogger:
 
     def close(self) -> None:
         self._fh.close()
+
+
+class NullLogger:
+    """A sink that writes nothing: a trainer's on every rank but rank 0."""
+
+    def log(self, metrics: Dict[str, Any], step: int, prefix: str = "train") -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class TensorBoardLogger:

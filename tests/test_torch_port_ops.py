@@ -241,8 +241,8 @@ def test_port_sources_import_no_jax_and_no_hulc_tpu():
 
 
 def test_importing_port_loads_no_jax_and_no_hulc_tpu():
-    """Import every module of the port in a fresh interpreter and list the
-    forbidden modules that appeared."""
+    """Import every module of the port (``parallel`` among them) in a fresh
+    interpreter and list the forbidden modules that appeared."""
     code = (
         "import sys, pkgutil, importlib\n"
         "before = set(sys.modules)\n"
@@ -250,6 +250,7 @@ def test_importing_port_loads_no_jax_and_no_hulc_tpu():
         "for m in pkgutil.walk_packages(hulc_tpu_torch.__path__, 'hulc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "new = set(sys.modules) - before\n"
+        "assert {'hulc_tpu_torch.parallel.mesh', 'hulc_tpu_torch.parallel.dryrun'} <= new\n"
         "print(sorted(m for m in new if m.split('.')[0] in ('jax', 'hulc_tpu')))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
