@@ -172,9 +172,10 @@ it fails:
    card, over a few steps. Observations go to it, and actions and each
    step's launches come back, as files. The actions must agree with the
    live ``HulcPolicy`` / ``BatchedHulcPolicy`` from the same seed on the
-   same observations within ACTION_ATOL (bit-equal expected; the error
-   is printed), every served step must launch exactly what the live step
-   launches, the four serving kernels must launch and no other. Prints
+   same observations bit for bit, every served step must launch exactly
+   what the live step launches, the four serving kernels must launch and
+   no other (``run_serving_export``, which phases 14, 16, 17 and 21 call
+   for their artifacts too: one child serves all of a call's). Prints
    the export's seconds, the artifact's bytes, the served and live
    step's host ms at 1 and ``--lanes`` lanes, and each serving op's host
    microseconds per call through the dispatcher beside its kernel
@@ -341,11 +342,35 @@ it fails:
    what the copies cost, and the ``hulc_depth`` step's depth noise draw,
    which every rank makes whole. With one card the equal-loss check of N
    ranks against one is reported as needing a second card.
+21. GCBC, the deterministic decoder, the state-only family and hulc's
+   auxiliary losses at full width (``--seed`` weights, JAX's parameter
+   counts, VARIANT_PARAMS; GCBC has no plan proposal). First B.1', B.2 and
+   B.2' against their plain versions at ``fetch_vision``'s shapes (its
+   84 px static camera at the train step's frames, pad 4, and the 7 x 7
+   map its tower gives). Then for ``gcbc``, ``hulc_deterministic`` (relu
+   RNN), ``hulc_deterministic`` with ``action_decoder.rnn_cell=mlp`` and
+   ``hulc_state_only`` the main path, launch counts zeroed just before and
+   read just after: VARIANT_TRAIN_STEPS train steps, each kernel's launches
+   per step exactly ``variant_step_launches`` (B.1' per camera, B.2 / B.2'
+   per SpatialSoftmax camera, B.3' with the logistic decoder, B.4 with a
+   discrete plan, B.6 with the relu cell, B.5 and B.7; every other kernel
+   0), a val step, the policy at 1 and ``--lanes`` lanes, for ``gcbc`` a
+   short ``evaluate_policy_batched`` pass at ``--lanes`` lanes; over the
+   whole path every kernel of ``variant_path_kernels`` launched and no
+   other; the train step's ms by host clock and CUDA events. Then one
+   train step (as in phase 9), one val step (as in phase 12) and the policies' actions
+   (ACTION_ATOL) against the plain path. ``fetch_state``, ``fetch_vision``
+   and ``hulc`` with state reconstruction, BC-Z and MIA on (AUX_OVERRIDES):
+   one train step (its launches exact, the auxiliary losses positive) and
+   one policy step, each against the plain path. Last, ``gcbc`` and the
+   ``mlp`` decoder exported at ``--lanes`` lanes and served by one process
+   without model code (``run_serving_export``), bit-equal with the same
+   launches per step.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
 training, evaluator, training-loop, served, mcil, hulc_depth, gated
-decoder, bf16, CLI, B.13 and data-parallel paths, the last summed over the
-ranks) and, last, ``{"ok": true, "device": {...}}``.
+decoder, bf16, CLI, B.13, data-parallel (summed over the ranks) and
+variant paths) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -543,19 +568,19 @@ def bound(nbytes: float, flops: float):
 
 
 def make_obs(rng, cfg, n):
+    """``n`` env observations of the config's cameras (and scene state where
+    its proprio reads it)."""
     pe = cfg.perceptual_encoder
-    s, g = pe.rgb_static.input_size, pe.rgb_gripper.input_size
+    cams = [(k, getattr(pe, k).input_size) for k in ("rgb_static", "rgb_gripper") if getattr(pe, k) is not None]
+    scene = pe.proprio is not None and pe.proprio.include_scene
     out = []
     for _ in range(n):
         robot_obs = rng.normal(size=15).astype(np.float32)
         robot_obs[3:6] = rng.uniform(-1.0, 1.0, 3)
-        out.append({
-            "rgb_obs": {
-                "rgb_static": rng.integers(0, 256, (s, s, 3), np.uint8),
-                "rgb_gripper": rng.integers(0, 256, (g, g, 3), np.uint8),
-            },
-            "robot_obs": robot_obs,
-        })
+        obs = {"rgb_obs": {k: rng.integers(0, 256, (px, px, 3), np.uint8) for k, px in cams}, "robot_obs": robot_obs}
+        if scene:
+            obs["scene_obs"] = rng.normal(size=24).astype(np.float32)
+        out.append(obs)
     return out
 
 
@@ -723,8 +748,15 @@ def compare_plain(name, kern_actions, plain_actions, kern_plans, plain_plans, re
     differs is a tie within float noise of the static-camera encoder; the
     (step, lane) pairs it touches are counted and left out, and at most
     PLAN_TIE_BUDGET of the replanned categories may differ. A continuous
-    plan has no ties: the replanned plans must agree within ACTION_ATOL."""
+    plan has no ties: the replanned plans must agree within ACTION_ATOL.
+    GCBC's plan is empty: the actions alone."""
     d = cfg.distribution
+    if kern_plans.shape[-1] == 0:
+        err = float(np.abs(kern_actions - plain_actions).max())
+        if not err <= atol:
+            fail(f"{name}: kernel and plain actions differ by {err}")
+        print(f"[{name}] plain path on the card agrees: max abs action err {err:.3g} (atol {atol:.3g}); no plan")
+        return err
     if d.kind == "continuous":
         plan_err = float(np.abs(kern_plans - plain_plans)[replanned].max())
         err = float(np.abs(kern_actions - plain_actions).max())
@@ -2002,7 +2034,9 @@ def train_step_grads(cfg, seed, device, state_dict, batch, shifts, depth_noise, 
     trainer.model.load_state_dict(state_dict)
     trainer.generator.manual_seed(seed + 1)  # the same dropout masks on every path (phase 19)
     losses = trainer.train_step(batch, cfg.loss.kl_beta, shifts=shifts, depth_noise=depth_noise, **plan_noise)
-    grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+    # a parameter no loss reaches (GCBC's recognition head) has no gradient: zeros, as JAX's
+    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+             for k, p in trainer.model.named_parameters()}
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
     return losses, grads
 
@@ -2044,6 +2078,17 @@ def noisy(fn, seed, bf16_share=None):
     def wrapped(*args):
         out = fn(*args)
         return (move(out[0]), *out[1:]) if isinstance(out, tuple) else move(out)
+
+    return wrapped
+
+
+def noisy_input(fn, seed):
+    """``fn`` with its first argument moved one ulp up or down at random
+    (``noisy``'s move), its output as it is."""
+    move = noisy(lambda t: t, seed)
+
+    def wrapped(x, *rest):
+        return fn(move(x), *rest)
 
     return wrapped
 
@@ -2145,14 +2190,17 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     gradients per parameter must agree.
 
     Each gradient is held to STEP_GRAD_REL (relative L2), or to NOISE_FACTOR
-    times its own sensitivity to the SpatialSoftmax forward (and, in a
-    model with a BiRNN, to its layers' outputs), whichever is larger. The
+    times its own sensitivity to the SpatialSoftmax forward, to the relu
+    decoder recurrence (B.6) and, in a model with a BiRNN, to its layers'
+    outputs, whichever is larger. The
     kernel's keypoints differ from the plain ones by up to about an ulp (the
     BiRNN's outputs by a few), and relu units downstream that sit within an
     ulp of zero then switch: that moves some gradients by a few 1e-4 (the
     backward kernels alone move them by about 1e-5). The sensitivity is
     measured in the run, as the plain path's own gradient change when each
-    keypoint and each BiRNN output moves one ulp at random (``ulp_noise``),
+    keypoint, each input of the relu decoder recurrence (its input
+    projection) and each BiRNN output moves one ulp at random
+    (``ulp_noise``, ``noisy_input``),
     the largest over ULP_PATTERNS random patterns: which relu units switch,
     and so how far a gradient moves, depends on the pattern (on the mcil
     step, 8 of 10 patterns moved the camera towers' gradients by
@@ -2161,7 +2209,15 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     change over the patterns sets its limit. Each loss is held to
     STEP_LOSS_RTOL; with ``bf16_share`` (a bf16 model: the keypoints' noise,
     ``ulp_noise``) to the larger of that and NOISE_FACTOR x its own
-    sensitivity, measured the same way."""
+    sensitivity, measured the same way. The recurrence's inputs are moved
+    because B.6's kernel sums each pre-activation in another order than
+    the plain loop, so a relu unit within an ulp of zero can switch inside
+    the recurrence, forward and backward; moving its outputs instead misses
+    that (on ``hulc_state_only``, which has no keypoints to move, the
+    inputs' ulp moved the language goal's gradients by 2.1e-4, as the
+    kernel does, the outputs' by 3.9e-7). A model whose decoder runs no
+    relu recurrence (gru, lstm, mlp) calls no B.6 to move. Shifts are drawn for
+    the config's cameras; GCBC draws no plan noise."""
     from hulc_tpu_torch.models import layers, vision
     from hulc_tpu_torch.ops.image_ops import draw_shifts
     from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
@@ -2173,11 +2229,13 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     n, s = fused.actions.shape[:2]
     pe, d = cfg.perceptual_encoder, cfg.distribution
     shifts = {"fused": {cam: draw_shifts(n * s, getattr(pe, cam).shift_pad, gen, device)
-                        for cam in ("rgb_static", "rgb_gripper")}}
+                        for cam in ("rgb_static", "rgb_gripper") if getattr(pe, cam) is not None}}
     depth = {cam: torch.randn(getattr(fused, cam).shape, generator=gen, device=device)
              for cam in ("depth_static", "depth_gripper") if getattr(pe, cam) is not None}
     depth_noise = {"fused": depth} if depth else None
-    if d.kind == "discrete":
+    if cfg.model_kind == "gcbc":
+        plan_noise, ties, ties_txt = {}, 0, "GCBC: no plan"
+    elif d.kind == "discrete":
         gumbel, ties = separate_plan_ties(
             model, cfg, batch, shifts, depth_noise, gumbel_noise((n, d.category_size, d.class_size), gen, device)
         )
@@ -2206,7 +2264,8 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     plain.init_state(1)
     for i in range(ULP_PATTERNS):
         with ulp_noise(vision, "spatial_softmax_plain", seed + 13 + 2 * i, bf16_share), \
-                ulp_noise(layers, "birnn_layer_plain", seed + 14 + 2 * i):
+                ulp_noise(layers, "birnn_layer_plain", seed + 14 + 2 * i), \
+                plain_recurrence("rnn", functools.partial(noisy_input, seed=seed + 15 + 2 * i)):
             lu, gu = train_step_grads(*args, use_kernels=False, trainer=plain)
         sens = {k: max(v, rel_l2(gu[k], gp[k])) for k, v in sens.items()}
         loss_sens = {k: max(v, abs(float(lu[k]) - float(lp[k])) / max(abs(float(lp[k])), 1e-30))
@@ -2226,7 +2285,8 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     worst, closest = max(live, key=errs.get), max(live, key=lambda k: errs[k] / limits[k])
     if not errs[closest] <= limits[closest]:
         fail(f"train step: {closest}'s gradient differs from the plain path's by relative L2 {errs[closest]}, "
-             f"limit {limits[closest]} (its sensitivity to one ulp of the keypoints and BiRNN outputs "
+             f"limit {limits[closest]} (its sensitivity to one ulp of the keypoints, the decoder recurrence's "
+             f"inputs and the BiRNN outputs "
              f"{sens[closest]})")
     print(f"[{label}] one step agrees with use_kernels=False on the card ({ties_txt}): losses within relative "
           f"{loss_err:.3g} "
@@ -2235,7 +2295,7 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
           f"({worst}), {sum(e > STEP_GRAD_REL for e in errs.values())} above {STEP_GRAD_REL}; each tensor's "
           f"limit is the larger of {STEP_GRAD_REL} and {NOISE_FACTOR} x how far the plain path moves it when each "
           f"keypoint moves one ulp{'' if bf16_share is None else f' (a {bf16_share:.3g} share one bf16 ulp)'} (and each "
-          f"BiRNN output one ulp), over "
+          f"decoder recurrence input and BiRNN output one ulp), over "
           f"{ULP_PATTERNS} random patterns (up to "
           f"{max(sens.values()):.3g}); closest to its limit: {closest} at {errs[closest]:.3g} of "
           f"{limits[closest]:.3g}")
@@ -2336,20 +2396,25 @@ def val_noise(cfg, b, s, gen):
     """One modality's validation noise (``models.hulc.VAL_NOISE_KEYS``):
     Gumbel noise (a discrete plan) or a standard-normal draw (a continuous
     one) for both plans, mixture uniforms in (U_MIN, U_MAX) for both
-    decoded windows."""
+    decoded windows; only the draws the model makes (GCBC decodes one
+    window from its empty plan, the deterministic decoder samples nothing)."""
     from hulc_tpu_torch.ops.logistic_mixture import U_MIN, U_SPAN
     from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
 
     d, ad = cfg.distribution, cfg.action_decoder
     shape = (b, s, sampled_dims(cfg), ad.n_mixtures)
+    gcbc = cfg.model_kind == "gcbc"
     out = {}
-    for tag in ("pp", "pr"):
-        if d.kind == "discrete":
+    for tag in ("pp",) if gcbc else ("pp", "pr"):
+        if gcbc:
+            pass
+        elif d.kind == "discrete":
             out[f"gumbel_{tag}"] = gumbel_noise((b, d.category_size, d.class_size), gen, "cuda")
         else:
             out[f"normal_{tag}"] = torch.randn((b, d.plan_features), generator=gen, device="cuda")
-        out[f"u_mix_{tag}"] = U_MIN + U_SPAN * torch.rand(shape, generator=gen, device="cuda")
-        out[f"u_inv_{tag}"] = U_MIN + U_SPAN * torch.rand(shape[:-1], generator=gen, device="cuda")
+        if ad.kind == "logistic":
+            out[f"u_mix_{tag}"] = U_MIN + U_SPAN * torch.rand(shape, generator=gen, device="cuda")
+            out[f"u_inv_{tag}"] = U_MIN + U_SPAN * torch.rand(shape[:-1], generator=gen, device="cuda")
     return out
 
 
@@ -2376,12 +2441,18 @@ def separate_val_ties(model, batch, noise):
             n = noise[scope]
             emb, _ = model.encode(mod.rgb_obs(), mod.robot_obs, mod.depth_obs())
             goal = model.encode_language_goal(mod.lang) if "lang" in scope else model.encode_visual_goal(emb[:, -1])
-            states = {"pp": model.plan_proposal(emb[:, 0], goal), "pr": model.plan_recognition(emb)[0]}
+            if model.gcbc:
+                states = {"pp": None}
+            else:
+                states = {"pp": model.plan_proposal(emb[:, 0], goal), "pr": model.plan_recognition(emb)[0]}
             for tag, state in states.items():
                 if f"gumbel_{tag}" in n:
                     g = n[f"gumbel_{tag}"]
                     plan_ties += pull_apart(g, state.logit.reshape(g.shape))
-                plan = model.dist.sample(state, **plan_noise_of(n, tag))
+                if f"u_mix_{tag}" not in n:  # the deterministic decoder: no pick
+                    continue
+                plan = model.empty_plan(emb.shape[0]) if state is None else model.dist.sample(
+                    state, **plan_noise_of(n, tag))
                 logit_probs = model.action_decoder(plan, emb, goal).logit_probs
                 gm = -torch.log(-torch.log(n[f"u_mix_{tag}"]))
                 mix_ties += pull_apart(gm, logit_probs)
@@ -2493,7 +2564,9 @@ def compare_val_plain(cfg, trainer, seed, raw_batch, label="training loop", patt
     with torch.no_grad():
         prep_plain = preprocess_batch(cfg, raw_batch, train=False, use_kernels=False)
         ties, mix_ties = separate_val_ties(plain, prep_plain, noise)
-        window_errs = check_window_kernels(plain, prep_plain, noise, label)
+        # the window kernels' own check: the RNN decoders of the plan models (phase 12's path)
+        windows = cfg.model_kind != "gcbc" and cfg.action_decoder.kind == "logistic"
+        window_errs = check_window_kernels(plain, prep_plain, noise, label) if windows else None
         want = plain.val_metrics(prep_plain, cfg.loss.kl_beta, noise=noise)
         got = trainer.model.val_metrics(preprocess_batch(cfg, raw_batch, train=False), cfg.loss.kl_beta, noise=noise)
         sens = {}
@@ -2956,10 +3029,12 @@ def obs_list(arrays, prefix):
 
 
 def serve_child(work: pathlib.Path) -> int:
-    """The served side of phase 13, in a fresh process that imports only the
-    serving runtime: the artifacts in ``work`` driven over the observations
-    the parent wrote, with each step's launches, and the served steps'
-    host times; writes ``served.npz`` and ``served.json`` into ``work``."""
+    """The served side of a serving export, in a fresh process that imports
+    only the serving runtime: each artifact of ``inputs.json``'s
+    ``artifacts`` (and ``debug``, where it was exported) driven over the
+    observations the parent wrote, with each step's launches, and the
+    served steps' host times; writes ``served.npz`` and ``served.json``
+    into ``work``, keyed ``<artifact>_single`` / ``<artifact>_batched``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from hulc_tpu_torch import kernels
@@ -2971,21 +3046,23 @@ def serve_child(work: pathlib.Path) -> int:
     seed, freq = spec["seed"], spec["replan_freq"]
     kernels.build()
     kernels.library()
-    t0 = time.perf_counter()
-    single = ServedPolicy(work / "full", seed=seed)
-    batched = ServedBatchedPolicy(work / "full", seed=seed)
-    load_s = time.perf_counter() - t0
     goal = obs_list(arrays, "goal")[0]
-    out, report = {}, {"load_s": load_s}
-    out["single"], report["single"] = drive_episodes(
-        single, obs_list(arrays, "single"), arrays["lang"], obs_list(arrays, "visual"), goal)
-    out["batched"], report["batched"] = drive_lockstep(batched, obs_list(arrays, "batched"), arrays["langs"], freq)
+    single_obs, batched_obs = obs_list(arrays, "single"), obs_list(arrays, "batched")
+    out, report = {}, {"load_s": {}, "step_ms": {}}
+    for art in spec["artifacts"]:
+        t0 = time.perf_counter()
+        single = ServedPolicy(work / art, seed=seed)
+        batched = ServedBatchedPolicy(work / art, seed=seed)
+        report["load_s"][art] = time.perf_counter() - t0
+        out[f"{art}_single"], report[f"{art}_single"] = drive_episodes(
+            single, single_obs, arrays["lang"], obs_list(arrays, "visual"), goal)
+        out[f"{art}_batched"], report[f"{art}_batched"] = drive_lockstep(batched, batched_obs, arrays["langs"], freq)
+        report["step_ms"][art] = policy_step_ms(single, batched, single_obs[0], arrays["lang"], batched_obs[0],
+                                                arrays["langs"])
     if (work / "debug").exists():
         debug = ServedPolicy(work / "debug", seed=seed)
         out["debug"], report["debug"] = drive_episodes(debug, obs_list(arrays, "debug"), arrays["debug_lang"], [], None)
         report["debug_moved"] = debug.meta["device"] != str(debug.device)
-    report["step_ms"] = policy_step_ms(single, batched, obs_list(arrays, "single")[0], arrays["lang"],
-                                       obs_list(arrays, "batched")[0], arrays["langs"])
     report["loaded"] = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in SERVE_BANNED))
     np.savez(work / "served.npz", **out)
     (work / "served.json").write_text(json.dumps(report))
@@ -3038,16 +3115,17 @@ def dispatch_us(cfg, gen):
     return {name: {"op_us": per_call_us(op), "direct_us": per_call_us(direct)} for name, (op, direct) in pairs.items()}
 
 
-def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs, card, with_debug=True,
-                       serving_kernels=SERVING_KERNELS):
-    """Phase 13: export the full-width policy (``lanes`` lanes) and, with
-    ``with_debug``, a ``hulc_debug`` one exported on the CPU; serve them in
-    a fresh process that loads no model code; hold the served actions and
-    each step's launches against the live policies' on the same
-    observations and seed; with ``with_debug`` also each op's dispatcher
-    cost. ``serving_kernels``: the kernels each served path must launch,
-    and the only ones it may (the decoder cell's recurrence among them).
-    Returns (summary, {kernel symbol: served launches})."""
+def run_serving_export(models, seed, lanes, single_obs, lang, batched_obs, langs, card, with_debug=True):
+    """Phase 13: export each full-width policy of ``models`` ({artifact
+    name: (cfg, model, serving kernels)}, at ``lanes`` lanes, the cameras
+    of one config) and, with ``with_debug``, a ``hulc_debug`` one exported
+    on the CPU; serve them all in one fresh process that loads no model
+    code; hold each served step's actions bit-equal to the live policy's on
+    the same observations and seed, and its launches equal; with
+    ``with_debug`` also each op's dispatcher cost. An artifact's serving
+    kernels: the kernels its served path must launch, and the only ones it
+    may (the decoder cell's recurrence among them, or none). Returns
+    (summary by artifact, {kernel symbol: served launches})."""
     from hulc_tpu_torch.config import get_config
     from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
     from hulc_tpu_torch.evaluation.policy import HulcPolicy
@@ -3055,42 +3133,47 @@ def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, l
     from hulc_tpu_torch.serving import export_policy
 
     rng = np.random.default_rng(seed + 13)
-    visual_obs, goal_obs = make_obs(rng, cfg, VISUAL_STEPS), make_obs(rng, cfg, 1)
+    cfg0 = next(iter(models.values()))[0]
+    visual_obs, goal_obs = make_obs(rng, cfg0, VISUAL_STEPS), make_obs(rng, cfg0, 1)
     dbg_cfg = get_config("hulc_debug")
     dbg_obs = make_obs(rng, dbg_cfg, DEBUG_STEPS)
     dbg_lang = rng.normal(size=dbg_cfg.lang_dim).astype(np.float32)
+    summary, live = {"card": card}, {}
     with tempfile.TemporaryDirectory(prefix="hulc_serving_") as tmp:
         work = pathlib.Path(tmp)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        export_policy(cfg, model, work / "full", lanes=lanes)
-        export_s = time.perf_counter() - t0
-        art_bytes = sum(f.stat().st_size for f in (work / "full").iterdir())
-        dbg_bytes = None
+        for name, (cfg, model, _) in models.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            export_policy(cfg, model, work / name, lanes=lanes)
+            export_s = time.perf_counter() - t0
+            art_bytes = sum(f.stat().st_size for f in (work / name).iterdir())
+            meta = json.loads((work / name / "meta.json").read_text())
+            print(f"[serving export] {name}: the full-width policy at {lanes} lanes exported in {export_s:.3f} s on "
+                  f"the card, {art_bytes} bytes ({sorted(f.name for f in (work / name).iterdir())}; noise "
+                  f"{meta['noise']['order']}) ({card})")
+            live[f"{name}_single"] = drive_episodes(HulcPolicy(cfg, model, seed=seed), single_obs, lang, visual_obs,
+                                                    goal_obs[0])
+            live[f"{name}_batched"] = drive_lockstep(BatchedHulcPolicy(cfg, model, lanes, seed=seed), batched_obs,
+                                                     langs, cfg.replan_freq)
+            live_ms = policy_step_ms(HulcPolicy(cfg, model, seed=seed), BatchedHulcPolicy(cfg, model, lanes, seed=seed),
+                                     single_obs[0], lang, batched_obs[0], langs)
+            summary[name] = {"export_s": export_s, "artifact_bytes": art_bytes, "noise": meta["noise"]["order"],
+                             "step_ms": {"live": {"1": live_ms[0], str(lanes): live_ms[1]}}}
         if with_debug:
             dbg_model = make_model(dbg_cfg, "cpu", seed=seed)
             export_policy(dbg_cfg, dbg_model, work / "debug", device="cpu")
-            dbg_bytes = sum(f.stat().st_size for f in (work / "debug").iterdir())
-        print(f"[serving export] the full-width policy at {lanes} lanes exported in {export_s:.3f} s on the card, "
-              f"{art_bytes} bytes ({sorted(f.name for f in (work / 'full').iterdir())})"
-              + (f"; hulc_debug exported on the CPU, {dbg_bytes} bytes" if with_debug else "") + f" ({card})")
-
-        live = {}
-        live["single"] = drive_episodes(HulcPolicy(cfg, model, seed=seed), single_obs, lang, visual_obs, goal_obs[0])
-        live["batched"] = drive_lockstep(BatchedHulcPolicy(cfg, model, lanes, seed=seed), batched_obs, langs,
-                                         cfg.replan_freq)
-        if with_debug:
+            summary["debug_artifact_bytes"] = sum(f.stat().st_size for f in (work / "debug").iterdir())
+            print(f"[serving export] hulc_debug exported on the CPU, {summary['debug_artifact_bytes']} bytes")
             live["debug"] = drive_episodes(HulcPolicy(dbg_cfg, dbg_model.to("cuda"), seed=seed), dbg_obs, dbg_lang,
                                            [], None)
-        live_ms = policy_step_ms(HulcPolicy(cfg, model, seed=seed), BatchedHulcPolicy(cfg, model, lanes, seed=seed),
-                                 single_obs[0], lang, batched_obs[0], langs)
 
         arrays = {"lang": lang, "langs": langs, "debug_lang": dbg_lang}
-        for name, obs in (("single", single_obs), ("visual", visual_obs), ("goal", goal_obs), ("batched", batched_obs),
-                          ("debug", dbg_obs)):
-            arrays.update({f"{name}_{k}": v for k, v in obs_arrays(obs).items()})
+        for key, obs in (("single", single_obs), ("visual", visual_obs), ("goal", goal_obs), ("batched", batched_obs),
+                         ("debug", dbg_obs)):
+            arrays.update({f"{key}_{k}": v for k, v in obs_arrays(obs).items()})
         np.savez(work / "inputs.npz", **arrays)
-        (work / "inputs.json").write_text(json.dumps({"seed": seed, "replan_freq": cfg.replan_freq}))
+        (work / "inputs.json").write_text(json.dumps({"seed": seed, "replan_freq": cfg0.replan_freq,
+                                                      "artifacts": list(models)}))
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-child", str(work)],
                               capture_output=True, text=True, timeout=SERVE_CHILD_TIMEOUT)
@@ -3105,43 +3188,45 @@ def run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, l
         fail(f"the serving process loaded model code or JAX: {report['loaded']}")
     if with_debug and not report["debug_moved"]:
         fail("the hulc_debug artifact exported on the CPU was not moved to the card")
-    summary = {"export_s": export_s, "artifact_bytes": art_bytes, "debug_artifact_bytes": dbg_bytes,
-               "load_s": report["load_s"], "child_s": child_s, "card": card}
+    summary.update(load_s=report["load_s"], child_s=child_s)
     served_launches = collections.Counter()
-    for name, (live_actions, live_launches) in live.items():
-        got = served[name]
-        if got.shape != live_actions.shape:
-            fail(f"served {name}: actions of shape {got.shape}, live {live_actions.shape}")
-        err = float(np.abs(got - live_actions).max())
-        if not err <= ACTION_ATOL:
-            fail(f"served {name}: actions differ from the live policy's by {err} (atol {ACTION_ATOL})")
-        for t, (s_n, l_n) in enumerate(zip(report[name], live_launches)):
+    for key, (live_actions, live_launches) in live.items():
+        name, kind = ("debug", "single") if key == "debug" else key.rsplit("_", 1)
+        serving_kernels = models[name][2] if name in models else SERVING_KERNELS
+        got = served[key]
+        if got.shape != live_actions.shape or not np.array_equal(got, live_actions):
+            fail(f"served {key}: actions not bit-equal to the live policy's (max abs err "
+                 f"{float(np.abs(got - live_actions).max()) if got.shape == live_actions.shape else 'shape'})")
+        for t, (s_n, l_n) in enumerate(zip(report[key], live_launches)):
             if s_n != l_n:
-                fail(f"served {name} step {t}: launches {s_n}, the live step's {l_n}")
+                fail(f"served {key} step {t}: launches {s_n}, the live step's {l_n}")
         totals = collections.Counter()
-        for n in report[name]:
+        for n in report[key]:
             totals.update(n)
         if not all(totals[k] > 0 for k in serving_kernels):
-            fail(f"served {name}: a serving kernel was never launched: {dict(totals)}")
+            fail(f"served {key}: a serving kernel was never launched: {dict(totals)}")
         if any(v for k, v in totals.items() if k not in serving_kernels):
-            fail(f"served {name}: a kernel off the serving path was launched: {dict(totals)}")
-        if name != "debug":
+            fail(f"served {key}: a kernel off the serving path was launched: {dict(totals)}")
+        if key != "debug":
             served_launches.update(totals)
-        summary[name] = {"steps": len(got), "max_abs_err": err, "bit_equal": bool(np.array_equal(got, live_actions)),
-                         "launches": {k: totals[k] for k in serving_kernels}}
-        print(f"[serving export] served {name}: {len(got)} steps, max abs action err against the live policy "
-              f"{err:.3g} (atol {ACTION_ATOL}; bit-equal {summary[name]['bit_equal']}); every step's launches equal "
-              f"the live step's: {summary[name]['launches']}")
-    summary["step_ms"] = {"served": {"1": report["step_ms"][0], str(lanes): report["step_ms"][1]},
-                          "live": {"1": live_ms[0], str(lanes): live_ms[1]}}
+        summary.setdefault(name, {})[kind] = {"steps": len(got), "bit_equal": True,
+                                              "launches": {k: totals[k] for k in serving_kernels}}
+        print(f"[serving export] served {key}: {len(got)} steps bit-equal to the live policy; every step's launches "
+              f"equal the live step's: {summary[name][kind]['launches']}")
+    for name in models:
+        served_ms = report["step_ms"][name]
+        summary[name]["step_ms"]["served"] = {"1": served_ms[0], str(lanes): served_ms[1]}
+        live_ms = summary[name]["step_ms"]["live"]
+        print(f"[serving export] {name} step host ms (median), served / live: 1 lane {served_ms[0]:.4f} / "
+              f"{live_ms['1']:.4f}, {lanes} lanes {served_ms[1]:.4f} / {live_ms[str(lanes)]:.4f}; loaded in "
+              f"{report['load_s'][name]:.3f} s ({card})")
     if with_debug:
-        summary["dispatch_us"] = dispatch_us(cfg, torch.Generator(device="cuda").manual_seed(seed))
+        summary["dispatch_us"] = dispatch_us(cfg0, torch.Generator(device="cuda").manual_seed(seed))
         print("[serving export] host us per call through the hulc:: op / of the kernel function alone, one lane: "
               + ", ".join(f"{k} {v['op_us']:.2f} / {v['direct_us']:.2f}" for k, v in summary["dispatch_us"].items())
               + f" ({card})")
-    print(f"[serving export] step host ms (median), served / live: 1 lane {report['step_ms'][0]:.4f} / "
-          f"{live_ms[0]:.4f}, {lanes} lanes {report['step_ms'][1]:.4f} / {live_ms[1]:.4f}; the serving process "
-          f"loaded the artifact in {report['load_s']:.3f} s, ran {child_s:.3f} s, and loaded no model code ({card})")
+    print(f"[serving export] {', '.join(models)} served by one process in {child_s:.3f} s, which loaded no model "
+          f"code ({card})")
     return summary, served_launches
 
 
@@ -3532,8 +3617,9 @@ def run_mcil(seed, lanes, train_steps, card):
     del plain_model
 
     # 6. the serving export at --lanes lanes, served in a process without model code
-    export, served_launches = run_serving_export(cfg, model, seed, lanes, single_obs[:MCIL_STEPS_FIRST], lang,
-                                                 batched_obs, langs, card, with_debug=False)
+    export, served_launches = run_serving_export({"mcil": (cfg, model, SERVING_KERNELS)}, seed, lanes,
+                                                 single_obs[:MCIL_STEPS_FIRST], lang, batched_obs, langs, card,
+                                                 with_debug=False)
     del model
     torch.cuda.empty_cache()
     summary = {
@@ -4155,8 +4241,8 @@ def run_gated_cell(cell, seed, lanes, hulc_step_ms, card):
     export, served_launches = None, collections.Counter()
     if cell == "lstm":
         serving = tuple(k if k != "hulc_rnn_relu_fwd" else fwd_sym for k in SERVING_KERNELS)
-        export, served_launches = run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs,
-                                                     card, with_debug=False, serving_kernels=serving)
+        export, served_launches = run_serving_export({cell: (cfg, model, serving)}, seed, lanes, single_obs, lang,
+                                                     batched_obs, langs, card, with_debug=False)
         launches = {k: n + served_launches.get(k, 0) for k, n in launches.items()}
     del model
     torch.cuda.empty_cache()
@@ -4579,8 +4665,8 @@ def run_bf16(seed, lanes, train_steps, hulc_step_ms, hulc_peak_gb, card):
     del plain_model
 
     # 4. the serving export at --lanes lanes, served in a process without model code
-    export, served_launches = run_serving_export(cfg, model, seed, lanes, single_obs, lang, batched_obs, langs, card,
-                                                 with_debug=False, serving_kernels=BF16_SERVING)
+    export, served_launches = run_serving_export({"bf16": (cfg, model, BF16_SERVING)}, seed, lanes, single_obs, lang,
+                                                 batched_obs, langs, card, with_debug=False)
     launches = {k: n + served_launches.get(k, 0) for k, n in launches.items()}
     if not all(launches[k] > 0 for k in BF16_SYMBOLS):
         fail(f"a bf16 kernel was never launched on the bf16 main path: {launches}")
@@ -5742,6 +5828,262 @@ def run_parallel(seed, card):
 
 
 # --------------------------------------------------------------------------
+# phase 21: GCBC, the deterministic decoder, the state-only family and the
+# auxiliary losses at full width
+# --------------------------------------------------------------------------
+
+# hulc's BC-Z, MIA and state-reconstruction losses on (the state decoder
+# regresses a proprio input, which hulc takes only with these overrides)
+AUX_OVERRIDES = ("state_recons=true", "perceptual_encoder.use_state_decoder=true", "perceptual_encoder.proprio=default",
+                 "use_bc_z_auxiliary_loss=true", "use_mia_auxiliary_loss=true")
+# name: (preset, overrides); the first four take the whole path, the others a
+# train step and a policy step, each against the plain path
+VARIANTS = {
+    "gcbc": ("gcbc", ()),
+    "hulc_deterministic": ("hulc_deterministic", ()),
+    "hulc_deterministic_mlp": ("hulc_deterministic", ("action_decoder.rnn_cell=mlp",)),
+    "hulc_state_only": ("hulc_state_only", ()),
+    "fetch_state": ("fetch_state", ()),
+    "fetch_vision": ("fetch_vision", ()),
+    "hulc_aux": ("hulc", AUX_OVERRIDES),
+}
+VARIANTS_WHOLE_PATH = ("gcbc", "hulc_deterministic", "hulc_deterministic_mlp", "hulc_state_only")
+VARIANT_EXPORTS = ("gcbc", "hulc_deterministic_mlp")  # served by one process without model code
+# JAX's init's parameter counts (tests/test_torch_variants.py holds the port's to JAX's)
+VARIANT_PARAMS = {"gcbc": 29_939_447, "hulc_deterministic": 46_694_984, "hulc_deterministic_mlp": 42_498_632,
+                  "hulc_state_only": 43_547_910, "fetch_state": 26_792_086, "fetch_vision": 27_934_950,
+                  "hulc_aux": 49_537_504}
+VARIANT_TRAIN_STEPS = 3  # two warm-ups and one timed
+VARIANT_POLICY_STEPS = 4  # single-lane and lockstep steps held against the plain path
+VARIANT_EVAL_CHAINS, VARIANT_EVAL_EP_LEN = 64, 30  # gcbc's short evaluate_policy_batched pass
+VARIANT_SERVE_STEPS = 4  # the served language episode and lockstep steps
+
+
+def variant_config(name):
+    from hulc_tpu_torch.config import apply_overrides, get_config
+
+    preset, overrides = VARIANTS[name]
+    return apply_overrides(get_config(preset), list(overrides))
+
+
+def variant_step_launches(cfg):
+    """Each kernel's launches in one train step of ``cfg``: B.1' per camera,
+    B.2 and B.2' per SpatialSoftmax camera, B.3' with the logistic decoder,
+    B.4 with a discrete plan (GCBC has none), B.6 per layer of the relu RNN
+    cell (the mlp cell has no recurrence), B.5 and B.7 once; every other
+    kernel 0."""
+    from hulc_tpu_torch import kernels
+
+    pe, ad = cfg.perceptual_encoder, cfg.action_decoder
+    cams = [c for c in (pe.rgb_static, pe.rgb_gripper) if c is not None]
+    ss = sum(c.kind == "spatial_softmax" for c in cams)
+    logistic = int(ad.kind == "logistic")
+    plan = int(cfg.model_kind != "gcbc" and cfg.distribution.kind == "discrete")
+    rnn = ad.num_layers if ad.rnn_cell == "rnn" else 0
+    on = {"hulc_preprocess_rgb_shift": sum(c.shift_pad > 0 for c in cams), "hulc_spatial_softmax": ss,
+          "hulc_spatial_softmax_bwd": ss, "hulc_mixture_nll_fwd": logistic, "hulc_mixture_nll_bwd": logistic,
+          "hulc_plan_st_kl_fwd": plan, "hulc_plan_st_kl_bwd": plan, "hulc_rnn_relu_fwd": rnn,
+          "hulc_rnn_relu_bwd": rnn, "hulc_adam_lowp": 1, "hulc_grad_norm_finish": 1}
+    return {k.symbol: on.get(k.symbol, 0) for k in kernels.ALL_KERNELS}
+
+
+def variant_path_kernels(cfg):
+    """The kernels the variant's path (train, val and policy steps) must
+    launch; every other kernel must launch none: the train step's
+    (``variant_step_launches``) and the policy's, B.1 with a camera and B.3
+    with the logistic decoder."""
+    pe = cfg.perceptual_encoder
+    on = {k for k, n in variant_step_launches(cfg).items() if n}
+    if pe.rgb_static is not None or pe.rgb_gripper is not None:
+        on.add("hulc_preprocess_rgb")
+    if cfg.action_decoder.kind == "logistic":
+        on.add("hulc_logistic_mixture_sample")
+    return on
+
+
+def check_variant_launches(name, cfg, launches):
+    on = variant_path_kernels(cfg)
+    missing = sorted(k for k in on if not launches[k] > 0)
+    extra = sorted(k for k, n in launches.items() if n and k not in on)
+    if missing or extra:
+        fail(f"{name}: the path never launched {missing}, or launched {extra}, which it must not: {launches}")
+
+
+def check_fetch_vision_kernels(seed):
+    """B.1', B.2 and B.2' at fetch_vision's shapes (its 84 px static camera
+    at the train step's 2B x S frames, pad 4; the 7 x 7 map its tower gives
+    there), against their plain versions. Returns the largest errors."""
+    from hulc_tpu_torch.ops.image_ops import draw_shifts
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ
+
+    cfg = variant_config("fetch_vision")
+    enc = cfg.perceptual_encoder.rgb_static
+    gen = torch.Generator(device="cuda").manual_seed(seed + 71)
+    n = 2 * BATCH_PER_MOD * SEQ
+    imgs = torch.randint(0, 256, (2 * BATCH_PER_MOD, SEQ, enc.input_size, enc.input_size, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    check_shift(imgs, draw_shifts(n, enc.shift_pad, gen, "cuda"), enc.shift_pad, "fetch_vision's camera")
+    side = ((enc.input_size - 8) // 4 + 1 - 4) // 2 + 1 - 2  # the conv tower: 8x8 s4, 4x4 s2, 3x3 s1
+    conv_map = torch.randn((n, 64, side, side), generator=gen, device="cuda")
+    fwd = check_ss_fwd(conv_map, "fetch_vision's map")
+    dx, dt = check_ss_bwd(conv_map, torch.randn((n, 128), generator=gen, device="cuda"), "fetch_vision's map")
+    print(f"[variants] at fetch_vision's shapes: the shift kernel (B.1') bit-equal at {tuple(imgs.shape)}, pad "
+          f"{enc.shift_pad}; SpatialSoftmax forward (B.2) max abs err {fwd:.3g}, backward (B.2') dx {dx:.3g}, dT "
+          f"relative {dt:.3g} at {tuple(conv_map.shape)}")
+    return {"preprocess_rgb_shift": 0.0, "spatial_softmax": fwd, "spatial_softmax_bwd": dx}
+
+
+def run_variant(name, seed, lanes, card):
+    """One variant at full width: train steps with each kernel's launches per
+    step, and a policy at 1 lane (and, on the whole path, a val step, the
+    policy at ``lanes`` lanes and for GCBC a short evaluator pass), each
+    against the plain path. Returns (summary, launches, (cfg, model))."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
+    from hulc_tpu_torch.evaluation.eval_split import run_batched
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    whole = name in VARIANTS_WHOLE_PATH
+    cfg = variant_config(name)
+    pe, ad = cfg.perceptual_encoder, cfg.action_decoder
+    model = make_model(cfg, "cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != VARIANT_PARAMS[name]:
+        fail(f"{name}: {n_params} parameters, JAX's init has {VARIANT_PARAMS[name]}")
+    if (model.plan_proposal is None) != (cfg.model_kind == "gcbc"):
+        fail(f"{name}: a GCBC model has no plan proposal, any other one has")
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cuda")
+    rng = np.random.default_rng(seed + 61)
+    steps = VARIANT_POLICY_STEPS if whole else 1
+    lang = rng.normal(size=cfg.lang_dim).astype(np.float32)
+    single_obs = make_obs(rng, cfg, steps)
+    langs = rng.normal(size=(lanes, cfg.lang_dim)).astype(np.float32)
+    batched_obs = [make_obs(rng, cfg, lanes) for _ in range(steps)] if whole else None
+
+    # the main path
+    trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    trainer.model.load_state_dict(model.state_dict())
+    trainer.init_state(1)
+    train_steps = VARIANT_TRAIN_STEPS if whole else 1
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step_losses, host, events = drive_training(trainer, batch, cfg.loss.kl_beta, train_steps)
+    per_step = launch_counts()
+    want = {k: n * train_steps for k, n in variant_step_launches(cfg).items()}
+    if per_step != want:
+        fail(f"{name}: {train_steps} train steps launched {({k: v for k, v in per_step.items() if v})}, expected "
+             f"{({k: v for k, v in want.items() if v})} and no other kernel")
+    for i, losses in enumerate(step_losses):
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"{name} train step {i}: a loss is not finite: {losses}")
+    aux_keys = [k for on, k in ((cfg.state_recons, "proprio_loss"), (cfg.use_bc_z_auxiliary_loss, "lang_pred_loss"),
+                                (cfg.use_mia_auxiliary_loss, "lang_contrastive_loss")) if on]
+    if any(not step_losses[0][k] > 0.0 for k in aux_keys) or (cfg.model_kind == "gcbc") != (
+            step_losses[0]["kl_loss"] == 0.0):
+        fail(f"{name}: the auxiliary losses {aux_keys} must be positive, the KL zero exactly for GCBC: {step_losses[0]}")
+    val = None
+    if whole:
+        trainer.model.eval()
+        with torch.no_grad():
+            val = trainer.val_step(split_fused(batch), cfg.loss.kl_beta,
+                                   generator=torch.Generator(device="cuda").manual_seed(seed))
+        trainer.model.train()
+        if not all(np.isfinite(float(v)) for v in val.values()):
+            fail(f"{name} val step: a metric is not finite: {val}")
+    single_actions, single_states = drive_single(cfg, model, single_obs, lang, seed)
+    if whole:
+        batched_actions, batched_states = drive_batched(cfg, model, batched_obs, langs, seed)
+    evaluator = None
+    if name == "gcbc":
+        with tempfile.TemporaryDirectory() as tmp:
+            evaluator, _, _ = run_batched(cfg, BatchedHulcPolicy(cfg, model, lanes, seed=seed), VARIANT_EVAL_CHAINS,
+                                          VARIANT_EVAL_EP_LEN, seed, tmp)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_variant_launches(name, cfg, launches)
+    del trainer
+    sampled_gripper = ad.kind == "logistic" and ad.discrete_gripper
+    check_actions(f"{name} single lane", single_actions, 1, discrete_gripper=sampled_gripper)
+    if whole:
+        check_actions(f"{name} batched", batched_actions, lanes, discrete_gripper=sampled_gripper)
+    step_ms, event_ms_ = statistics.median(host[2:] or host), statistics.median(events[2:] or events)
+    print(f"[timing] {name} train step (2B={2 * BATCH_PER_MOD}, S={SEQ}, {'median after 2 warm-ups' if whole else 'the first'}): "
+          f"host clock {step_ms:.4f} ms, CUDA events {event_ms_:.4f} ms; all steps host {[round(t, 4) for t in host]} ms, "
+          f"events {[round(t, 4) for t in events]} ms ({card})")
+    if evaluator is not None:
+        print(f"[variants] gcbc evaluate_policy_batched: {evaluator['lanes']} lanes, {evaluator['chains']} chains, "
+              f"ep_len {evaluator['ep_len']}: {evaluator['lockstep_iters']} lockstep iterations, {evaluator['env_steps']} "
+              f"env steps in {evaluator['wall_s']:.4f} s, avg_seq_len {evaluator['results']['avg_seq_len']} ({card})")
+
+    # the main path against the plain path
+    train_check = compare_train_plain(cfg, model, batch, seed, label=f"{name} train plain path")
+    val_check = None
+    if whole:
+        val_trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+        val_trainer.model.load_state_dict(model.state_dict())
+        val_check = compare_val_plain(cfg, val_trainer, seed, split_fused(batch), label=name)
+        del val_trainer
+    plain_model = make_model(cfg, "cuda", seed=seed, use_kernels=False)
+    plain_model.load_state_dict(model.state_dict())
+    p_actions, p_plans = plain_single(cfg, plain_model, single_obs, lang, seed, single_states)
+    k_plans = np.stack([st.plan[0].cpu().numpy() for st in single_states[1:]])
+    replanned = np.array([t % cfg.replan_freq == 0 for t in range(steps)])
+    policy_err = {"1": compare_plain(f"{name} single lane", single_actions, p_actions, k_plans, p_plans, replanned,
+                                     cfg)}
+    if whole:
+        masks = [replan_mask(t, lanes, cfg.replan_freq) for t in range(steps)]
+        p_actions, p_plans = plain_batched(
+            cfg, plain_model, list(zip(batched_obs, [langs] * steps, batched_states, masks)), seed)
+        k_plans = np.stack([st[0].cpu().numpy() for st in batched_states[1:]])
+        policy_err[str(lanes)] = compare_plain(f"{name} batched, {lanes} lanes", batched_actions, p_actions, k_plans,
+                                               p_plans, np.stack(masks), cfg)
+    del plain_model
+    torch.cuda.empty_cache()
+    summary = {"parameters": n_params, "train_step": {"host_ms": step_ms, "event_ms": event_ms_, "steps_host_ms": host,
+                                                      "steps_event_ms": events, "plain_path": train_check},
+               "train_launches_per_step": {k: v for k, v in variant_step_launches(cfg).items() if v},
+               "losses": step_losses[-1], "val_step": val_check, "policy_plain_max_abs_err": policy_err,
+               "s": time.perf_counter() - t0}
+    if evaluator is not None:
+        summary["evaluator"] = {k: evaluator[k] for k in ("lanes", "chains", "ep_len", "lockstep_iters", "env_steps",
+                                                          "env_steps_per_s", "wall_s")}
+    print(f"[variants] {name}: {n_params} parameters (JAX's), the path in {summary['s']:.1f} s ({card})")
+    return summary, launches, (cfg, model)
+
+
+def run_phase21(seed, lanes, card):
+    """Phase 21. Returns (summary, {kernel symbol: launches on the phase's
+    main paths}, {row: max abs err})."""
+    t0 = time.perf_counter()
+    errs = check_fetch_vision_kernels(seed)
+    summary, launches, exports = {}, collections.Counter(), {}
+    for name in VARIANTS:
+        summary[name], n, (cfg, model) = run_variant(name, seed, lanes, card)
+        launches.update(n)
+        if name in VARIANT_EXPORTS:
+            exports[name] = (cfg, model, variant_path_kernels(cfg) & set(SERVING_KERNELS))
+        del model
+    rng = np.random.default_rng(seed + 67)
+    cfg = exports[VARIANT_EXPORTS[0]][0]
+    lang = rng.normal(size=cfg.lang_dim).astype(np.float32)
+    langs = rng.normal(size=(lanes, cfg.lang_dim)).astype(np.float32)
+    summary["served"], served = run_serving_export(
+        exports, seed, lanes, make_obs(rng, cfg, VARIANT_SERVE_STEPS), lang,
+        [make_obs(rng, cfg, lanes) for _ in range(VARIANT_SERVE_STEPS)], langs, card, with_debug=False)
+    launches.update(served)
+    del exports
+    torch.cuda.empty_cache()
+    summary["s"] = time.perf_counter() - t0
+    summary["card"] = card
+    print(f"[variants] phase 21 in {summary['s']:.1f} s: "
+          + ", ".join(f"{k} step {summary[k]['train_step']['host_ms']:.4f} ms" for k in VARIANTS) + f" ({card})")
+    return summary, launches, errs
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -6067,7 +6409,7 @@ def main(argv=None) -> int:
     # ---- 13. the serving export ----------------------------------------------
     model = make_model(cfg, "cuda", seed=args.seed)
     serving_export, served_launches = run_serving_export(
-        cfg, model, args.seed, args.lanes, single_obs, lang, batched_obs, langs, card
+        {"hulc": (cfg, model, SERVING_KERNELS)}, args.seed, args.lanes, single_obs, lang, batched_obs, langs, card
     )
     del model
     torch.cuda.empty_cache()
@@ -6118,6 +6460,11 @@ def main(argv=None) -> int:
     # ---- 20. data-parallel and ZeRO-3 training ---------------------------------
     parallel, parallel_launches = run_parallel(args.seed, card)
 
+    print(f"[time] phase 21 at {time.perf_counter() - t_start:.1f} s")
+    # ---- 21. GCBC, the deterministic decoder, state-only, the auxiliary losses
+    variants, variants_launches, variants_errs = run_phase21(args.seed, args.lanes, card)
+    errs.update({k: max(errs.get(k, 0.0), v) for k, v in variants_errs.items()})
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
@@ -6125,13 +6472,14 @@ def main(argv=None) -> int:
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
             + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol]
             + gated_launches[symbol] + bf16_launches[symbol] + clis_launches[symbol] + b13_launches[symbol]
-            + parallel_launches[symbol],
+            + parallel_launches[symbol] + variants_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
             "launches_depth": depth_launches[symbol], "launches_gated": gated_launches[symbol],
             "launches_bf16": bf16_launches[symbol], "launches_clis": clis_launches[symbol],
             "launches_b13": b13_launches[symbol], "launches_parallel": parallel_launches[symbol],
+            "launches_variants": variants_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -6146,6 +6494,7 @@ def main(argv=None) -> int:
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
         "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16, "clis": clis, "b13": b13, "parallel": parallel,
+        "variants": variants,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(f"[time] all phases in {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,6 @@
-"""Config dataclasses and the ``hulc``, ``mcil``, ``hulc_depth`` and ``*_debug`` presets.
+"""Config dataclasses and the presets the port builds: ``hulc``, ``mcil``,
+``gcbc``, ``hulc_depth``, ``hulc_deterministic``, ``hulc_state_only``,
+``fetch_state``, ``fetch_vision`` and the ``*_debug`` ones.
 
 A copy of the JAX package's config (hulc_tpu/config.py) for the port: the
 same frozen dataclasses, field names and defaults, the same ``resolve()``
@@ -10,11 +12,11 @@ reference's Hydra overrides, ``--set`` on the CLIs), copied: the same
 parsing, coercion and errors, then ``resolve()``; it is how a config
 reaches the decoder's gru and lstm cells
 (``action_decoder.rnn_cell=gru``). A field the JAX config has and this one
-lacks is refused as an unknown field, by name. The other presets (gcbc,
-tactile, CLIP, state-only) wait for the slices that port their modules.
-``hulc_depth`` has
-no debug preset, as in the JAX package: its ``_debug`` swaps in two RGB
-cameras, which would drop the depth towers.
+lacks is refused as an unknown field, by name. The tactile and CLIP
+presets wait for the slices that port their modules. ``hulc_depth``,
+``hulc_deterministic`` and ``fetch_vision`` have no debug preset, as in the
+JAX package: ``_debug`` swaps in two RGB cameras for every camera-based
+config (a camera-less one keeps its encoder).
 """
 
 from __future__ import annotations
@@ -255,9 +257,71 @@ def hulc_depth_config(**overrides) -> HulcConfig:
     return dataclasses.replace(base, **overrides).resolve()
 
 
+def gcbc_config(**overrides) -> HulcConfig:
+    """GCBC (conf/model/gcbc.yaml): ``hulc``'s cameras and decoder with an
+    empty plan; no plan proposal, no KL."""
+    return dataclasses.replace(HulcConfig(model_kind="gcbc"), **overrides).resolve()
+
+
+def hulc_state_only_config(**overrides) -> HulcConfig:
+    """Proprio-only ablation (conf/datamodule/observation_space/state_only.yaml):
+    no cameras, perceptual_emb the normalized 8-d proprio passthrough,
+    world-frame actions, no gripper-camera slice, no CLIP loss."""
+    base = HulcConfig(
+        perceptual_encoder=PerceptualEncoderConfig(rgb_static=None, rgb_gripper=None, proprio=ProprioConfig()),
+        action_decoder=ActionDecoderConfig(perceptual_emb_slice=None, gripper_control=False),
+        use_clip_auxiliary_loss=False,
+    )
+    return dataclasses.replace(base, **overrides).resolve()
+
+
+def fetch_state_config(**overrides) -> HulcConfig:
+    """State-based GCBC on the Fetch demo's state: robot_scene proprio
+    ([robot(15); scene(24)] sliced to grip xyz, width, last grip command,
+    object xyz, goal xyz), no cameras, no CLIP loss."""
+    base = HulcConfig(
+        model_kind="gcbc",
+        perceptual_encoder=PerceptualEncoderConfig(
+            rgb_static=None,
+            rgb_gripper=None,
+            proprio=ProprioConfig(
+                n_state_obs=11,
+                keep_indices=((0, 3), (6, 7), (14, 18), (21, 24)),
+                include_scene=True,
+            ),
+        ),
+        action_decoder=ActionDecoderConfig(perceptual_emb_slice=None, gripper_control=False),
+        use_clip_auxiliary_loss=False,
+    )
+    return dataclasses.replace(base, **overrides).resolve()
+
+
+def fetch_vision_config(**overrides) -> HulcConfig:
+    """GCBC from an 84 px static camera alone plus robot-only proprio (grip
+    xyz, width, last grip command); no gripper camera, no CLIP loss."""
+    base = HulcConfig(
+        model_kind="gcbc",
+        perceptual_encoder=PerceptualEncoderConfig(
+            rgb_static=VisionEncoderConfig(input_size=84, shift_pad=4),
+            rgb_gripper=None,
+            proprio=ProprioConfig(n_state_obs=5, keep_indices=((0, 3), (6, 7), (14, 15))),
+        ),
+        action_decoder=ActionDecoderConfig(perceptual_emb_slice=None, gripper_control=False),
+        use_clip_auxiliary_loss=False,
+    )
+    return dataclasses.replace(base, **overrides).resolve()
+
+
+def hulc_deterministic_config(**overrides) -> HulcConfig:
+    """Deterministic-decoder ablation (conf/model/action_decoder/deterministic.yaml):
+    a tanh head on the RNN, the Huber loss."""
+    base = HulcConfig(action_decoder=ActionDecoderConfig(kind="deterministic"))
+    return dataclasses.replace(base, **overrides).resolve()
+
+
 def _debug(cfg: HulcConfig) -> HulcConfig:
     """Tiny sizes for fast tests: small cams, small hidden dims (the JAX
-    package's ``_debug``, for the camera-based presets)."""
+    package's ``_debug``)."""
     cfg = dataclasses.replace(
         cfg,
         perceptual_encoder=PerceptualEncoderConfig(
@@ -265,7 +329,10 @@ def _debug(cfg: HulcConfig) -> HulcConfig:
             rgb_gripper=VisionEncoderConfig(
                 kind="nature_cnn", input_size=48, visual_features=16, shift_pad=2
             ),
-        ),
+        )
+        # camera-less (state_only) configs keep their perceptual encoder
+        if cfg.perceptual_encoder.rgb_static is not None
+        else cfg.perceptual_encoder,
         plan_proposal=PlanProposalConfig(hidden_size=64, latent_goal_features=8),
         plan_recognition=dataclasses.replace(
             cfg.plan_recognition,
@@ -281,7 +348,9 @@ def _debug(cfg: HulcConfig) -> HulcConfig:
             else DistributionConfig(kind="continuous", plan_features=8)
         ),
         visual_goal=GoalEncoderConfig(hidden_size=32, latent_goal_features=8),
-        language_goal=dataclasses.replace(cfg.language_goal, hidden_size=32, latent_goal_features=8),
+        language_goal=dataclasses.replace(cfg.language_goal, hidden_size=32, latent_goal_features=8)
+        if cfg.language_goal
+        else None,
         action_decoder=dataclasses.replace(
             cfg.action_decoder,
             hidden_size=64,
@@ -296,9 +365,17 @@ def _debug(cfg: HulcConfig) -> HulcConfig:
 CONFIGS: Dict[str, Callable[[], HulcConfig]] = {
     "hulc": hulc_config,
     "mcil": mcil_config,
+    "gcbc": gcbc_config,
     "hulc_depth": hulc_depth_config,
+    "hulc_deterministic": hulc_deterministic_config,
+    "hulc_state_only": hulc_state_only_config,
+    "fetch_state": fetch_state_config,
+    "fetch_state_debug": lambda: _debug(fetch_state_config()),
+    "fetch_vision": fetch_vision_config,
     "hulc_debug": lambda: _debug(hulc_config()),
+    "state_only_debug": lambda: _debug(hulc_state_only_config()),
     "mcil_debug": lambda: _debug(mcil_config()),
+    "gcbc_debug": lambda: _debug(gcbc_config()),
 }
 
 

@@ -21,9 +21,14 @@ The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
 
 Each camera tower the config names (RGB and depth, static and gripper) is
 carried by its encoder's kind; params without one of them are refused.
-Subtrees the port has no module for are returned as a list of unused
-'/'-joined paths, never dropped silently; for the ``hulc``, ``mcil`` and
-``hulc_depth`` presets the list is empty.
+A GCBC model has no plan proposal; the ``mlp`` decoder cell's layers are
+``rnn/dense_{i}``, the deterministic decoder's head ``action_fc``; the
+auxiliary heads (``proj_vis_lang`` with CLIP or MIA, ``logit_scale`` with
+CLIP, ``bc_z_lang_decoder``, ``mia_lang_discriminator``,
+``perceptual_encoder/state_decoder``) are carried where the config turns
+their loss on. Subtrees the port has no module for are returned as a list
+of unused '/'-joined paths, never dropped silently; for every preset the
+port builds the list is empty.
 """
 
 from __future__ import annotations
@@ -126,9 +131,14 @@ def params_from_jax(
         tower = {"spatial_softmax": static_tower, "nature_cnn": nature_cnn}[enc.kind]
         tower(src, f"perceptual_encoder.{cam}_encoder", enc)
 
-    for i in range(cfg.plan_proposal.num_layers):
-        linear(f"plan_proposal/fc_{i}", f"plan_proposal.fc_model.{2 * i}")
-    linear("plan_proposal/fc_state", "plan_proposal.fc_state.0")
+    if pe.proprio is not None and pe.use_state_decoder and cfg.state_recons:
+        for i in range(3):
+            linear(f"perceptual_encoder/state_decoder/mlp/dense_{i}", f"perceptual_encoder.state_decoder.mlp.{2 * i}")
+
+    if cfg.model_kind != "gcbc":
+        for i in range(cfg.plan_proposal.num_layers):
+            linear(f"plan_proposal/fc_{i}", f"plan_proposal.fc_model.{2 * i}")
+        linear("plan_proposal/fc_state", "plan_proposal.fc_state.0")
 
     for name, offset in (("visual_goal", 0), ("language_goal", 1)):
         if name == "language_goal" and cfg.language_goal is None:
@@ -153,9 +163,17 @@ def params_from_jax(
         sd[f"{dst}.bias_hh_l{k}{suffix}"] = r.get(f"{src}/bhh_{src_k}")
 
     ad = cfg.action_decoder
-    for k in range(ad.num_layers):
-        rnn_layer("action_decoder/rnn", "action_decoder.rnn", k, gates=GATE_MULTIPLE[ad.rnn_cell])
-    for head in ("mean_fc", "log_scale_fc", "prob_fc") + (("gripper_fc",) if ad.discrete_gripper else ()):
+    if ad.rnn_cell == "mlp":
+        for i in range(3):
+            linear(f"action_decoder/rnn/dense_{i}", f"action_decoder.rnn.{2 * i}")
+    else:
+        for k in range(ad.num_layers):
+            rnn_layer("action_decoder/rnn", "action_decoder.rnn", k, gates=GATE_MULTIPLE[ad.rnn_cell])
+    if ad.kind == "deterministic":
+        heads = ("action_fc",)
+    else:
+        heads = ("mean_fc", "log_scale_fc", "prob_fc") + (("gripper_fc",) if ad.discrete_gripper else ())
+    for head in heads:
         linear(f"action_decoder/{head}", f"action_decoder.{head}")
 
     pr = cfg.plan_recognition
@@ -191,11 +209,17 @@ def params_from_jax(
         linear("plan_recognition/fc", "plan_recognition.fc")
     linear("plan_recognition/fc_state", "plan_recognition.fc_state.0")
 
-    if cfg.use_clip_auxiliary_loss:
+    if cfg.use_clip_auxiliary_loss or cfg.use_mia_auxiliary_loss:
         for src, dst in (("im_fc0", "mlp_im.0"), ("im_fc1", "mlp_im.2"),
                          ("lang_fc0", "mlp_lang.0"), ("lang_fc1", "mlp_lang.2")):
             linear(f"proj_vis_lang/{src}", f"proj_vis_lang.{dst}")
+    if cfg.use_clip_auxiliary_loss:
         sd["logit_scale"] = r.get("logit_scale").reshape(())
+    for on, name in ((cfg.use_bc_z_auxiliary_loss, "bc_z_lang_decoder"),
+                     (cfg.use_mia_auxiliary_loss, "mia_lang_discriminator")):
+        if on:
+            for fc in ("fc0", "fc1"):
+                linear(f"{name}/{fc}", f"{name}.{fc}")
 
     unused = sorted(set(_leaf_paths(params_np)) - r.used)
     state_dict = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

@@ -2,7 +2,8 @@
 
 The validation embeddings' reader the export CLI needs and the task-pool
 restriction the evaluator needs are here; the embedding backends and the
-annotation tooling are not ported yet (ROADMAP A.9).
+annotation tooling are not ported yet (ROADMAP A.6, its first bullet: the
+data CLI).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 E environments advance through ONE (E, ...) policy step. Replanning is per
 lane: a new plan and goal are computed for every lane and merged in where
 ``replan_mask`` is set, and those lanes' decoder carries (lstm's h and c
-alike) restart from zero, so the step keeps one shape. ``evaluate_policy_batched`` drives E
+alike; the mlp cell has none) restart from zero, so the step keeps one
+shape. GCBC's plan is empty, (E, 0). ``evaluate_policy_batched`` drives E
 lanes through a queue of instruction chains with that step: each lane moves
 to the next instruction on success, aborts its chain on timeout, and pulls
 the next chain when done.
@@ -32,8 +33,11 @@ from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_
 def reset_carry(carry, replan_mask: torch.Tensor):
     """The decoder carry (a (L, E, H) tensor, or lstm's pair of them) with
     the lanes of ``replan_mask`` (E,) set to zero, each tensor alike (JAX's
-    ``jax.tree.map`` of the reset)."""
+    ``jax.tree.map`` of the reset); the mlp cell's stateless (0,) carry as
+    it is."""
     def reset(t):
+        if t.dim() < 2:
+            return t
         return torch.where(replan_mask[None, :, None], torch.zeros_like(t), t)
 
     return tuple(reset(t) for t in carry) if isinstance(carry, tuple) else reset(carry)
@@ -96,7 +100,7 @@ class BatchedHulcPolicy:
     def initial_state(self):
         e = self.num_envs
         return (
-            torch.zeros(e, self.cfg.distribution.plan_dim, device=self.device),
+            torch.zeros(e, 0 if self.cfg.model_kind == "gcbc" else self.cfg.distribution.plan_dim, device=self.device),
             torch.zeros(e, self.cfg.visual_goal.latent_goal_features, device=self.device),
             self.model.init_decoder_carry(e),
         )

@@ -15,7 +15,9 @@ replanning every ``replan_freq`` steps, with its state in an explicit
 the model's device, restarted from the seed by ``reset()``. Every random
 draw can instead be passed in (the plan's ``gumbel`` or ``normal`` noise,
 by the plan's kind, and ``u_mix``, ``u_inv``), which is how the tests feed
-the noise JAX drew. A config with a depth camera is refused
+the noise JAX drew. A model draws only the noise it uses: GCBC's plan is
+empty and draws nothing, the deterministic decoder draws no ``u_mix`` /
+``u_inv``. A config without a camera feeds the proprio alone. A config with a depth camera is refused
 (``refuse_depth``): the policies feed RGB frames only.
 """
 
@@ -51,7 +53,7 @@ def refuse_depth(cfg: HulcConfig, what: str) -> None:
 class PolicyState(NamedTuple):
     plan: torch.Tensor
     latent_goal: torch.Tensor
-    carry: Carry  # (L, 1, H), or lstm's pair (h, c) of that shape
+    carry: Carry  # (L, 1, H), lstm's pair (h, c) of that shape, or the mlp cell's (0,)
     step_count: int
 
 

@@ -33,9 +33,22 @@ Images arrive preprocessed, (B, S, C, H, W) fp32 or in the compute dtype,
 and depth frames (B, S, H, W) fp32 (``training.preprocess``);
 training and validation encode both (``hulc_depth``). The JAX package's
 policies feed no depth, so the port's refuse a depth config
-(``evaluation.policy.refuse_depth``). GCBC (plan-free), state
-reconstruction and the BC-Z and MIA auxiliary losses wait for later
-slices; a config that asks for one is refused.
+(``evaluation.policy.refuse_depth``).
+
+GCBC (``model_kind="gcbc"``) decodes an empty (B, 0) plan: it has no plan
+proposal (JAX's init never calls one, so it has no parameters), draws no
+plan noise and takes no KL; the recognition network still runs, for
+``seq_feat``. Its validation (``gcbc_val``) decodes once, with the
+``*_pp`` noise, and reports the same values under ``*_pp`` and ``*_pr``.
+The auxiliary losses on the language half: CLIP (``lang_clip_loss``),
+BC-Z (``lang_pred_loss``, the language embedding regressed from
+``seq_feat``) and MIA (``lang_contrastive_loss``, the discriminator's
+binary cross-entropy on matched pairs and on pairs whose language is
+rolled by one row); with ``state_recons`` the proprio regressed from the
+visual features (``proprio_loss``). Each enters ``total_loss`` scaled by
+its beta. Under a process group of more than one rank the CLIP, BC-Z and
+MIA losses see every rank's rows (``parallel.mesh.gather_rows``), so MIA's
+roll crosses ranks as it crosses the one-device batch.
 """
 
 from __future__ import annotations
@@ -48,8 +61,8 @@ import torch.nn as nn
 
 from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.device import resolve_device
-from hulc_tpu_torch.models.aux_heads import ProjVisLang
-from hulc_tpu_torch.models.decoders import LogisticPolicyDecoder
+from hulc_tpu_torch.models.aux_heads import BCZLangDecoder, MIALangDiscriminator, ProjVisLang
+from hulc_tpu_torch.models.decoders import decoder_carry, make_action_decoder
 from hulc_tpu_torch.models.goal_encoders import GoalEncoder, make_language_goal_encoder
 from hulc_tpu_torch.models.layers import Carry, MultiheadSelfAttention, ScanBiRNN, ScanRNN
 from hulc_tpu_torch.models.perceptual import ConcatEncoders
@@ -130,6 +143,45 @@ def masked_clip_loss(
     return torch.where(mask.any(), (loss_i + loss_t) / 2.0, zero)
 
 
+def masked_mia_loss(
+    discriminator: nn.Module, image_features: torch.Tensor, text_features: torch.Tensor, mask: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """MIA's binary cross-entropy of ``discriminator``'s match logits: label
+    1 on the matched pairs, label 0 on each row's image features with the
+    previous row's text features (rolled by one row), over the valid pairs
+    (``mask`` and ``mask & roll(mask)``); 0 where the mask is all false.
+    With more than one rank the rows are every rank's (``gather_rows``), so
+    the roll crosses ranks as it crosses the one-device batch."""
+    img, txt = mesh.gather_rows(image_features), mesh.gather_rows(text_features)
+    pred_pos = discriminator(img, txt)[..., 0]
+    pred_neg = discriminator(img, torch.roll(txt, 1, dims=0))[..., 0]
+    mask = (torch.ones(pred_pos.shape, dtype=torch.bool, device=pred_pos.device) if mask is None
+            else mesh.gather_rows(mask.bool()))
+    neg_mask = mask & torch.roll(mask, 1, dims=0)
+
+    def bce(logits, label):
+        return nn.functional.softplus(logits) - logits * label
+
+    losses = torch.cat([bce(pred_pos, 1.0) * mask, bce(pred_neg, 0.0) * neg_mask])
+    count = (mask.sum() + neg_mask.sum()).clamp_min(1)
+    return torch.where(mask.any(), losses.sum() / count, torch.zeros((), device=losses.device))
+
+
+def masked_bc_z_loss(lang_pred: torch.Tensor, gt_lang: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Cosine distance of the predicted to the true language embedding,
+    the mean over the masked rows (all rows without a mask; 0 where the
+    mask is all false), fp32. With more than one rank, over every rank's
+    rows (``gather_rows``)."""
+    pred, gt = mesh.gather_rows(lang_pred.float()), mesh.gather_rows(gt_lang.float())
+    cos = (pred * gt).sum(-1) / (torch.linalg.vector_norm(pred, dim=-1) * torch.linalg.vector_norm(gt, dim=-1) + 1e-8)
+    dist = 1.0 - cos
+    if mask is None:
+        return dist.mean()
+    mask = mesh.gather_rows(mask.bool())
+    zero = torch.zeros((), device=dist.device)
+    return torch.where(mask.any(), torch.where(mask, dist, zero).sum() / mask.sum().clamp_min(1), zero)
+
+
 # the noise of one modality's validation pass, as lmp_val takes it injected:
 # each plan's (B, category_size, class_size) Gumbel noise (a discrete plan)
 # or (B, plan_features) standard-normal draw (a continuous plan) and each
@@ -151,30 +203,41 @@ class HulcModel(nn.Module):
 
     def __init__(self, cfg: HulcConfig, use_kernels: bool = True):
         super().__init__()
-        if cfg.model_kind != "hulc":
-            raise ValueError(f"model_kind {cfg.model_kind!r} is not ported yet")
+        if cfg.model_kind not in ("hulc", "gcbc"):
+            raise ValueError(f"unknown model_kind {cfg.model_kind!r}; have 'hulc' and 'gcbc'")
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is neither 'float32' nor 'bfloat16'")
-        if cfg.state_recons or cfg.use_bc_z_auxiliary_loss or cfg.use_mia_auxiliary_loss:
-            raise ValueError("state_recons and the BC-Z / MIA auxiliary losses are not ported yet")
+        pe = cfg.perceptual_encoder
+        if cfg.state_recons and not (pe.use_state_decoder and pe.proprio is not None):
+            raise ValueError("state_recons needs perceptual_encoder.use_state_decoder and a proprio input: the "
+                             "state decoder regresses the proprio")
         self.cfg = cfg
         self.use_kernels = use_kernels
         dtype = cfg.dtype
-        self.perceptual_encoder = ConcatEncoders(cfg.perceptual_encoder, use_kernels, dtype)
+        self.perceptual_encoder = ConcatEncoders(pe, use_kernels, dtype, cfg.state_recons)
         self.dist = make_plan_distribution(cfg.distribution)
-        self.plan_proposal = PlanProposalNetwork(cfg.plan_proposal, self.dist, dtype)
+        # GCBC never consults a proposal: JAX's init creates none
+        self.plan_proposal = (
+            None if self.gcbc else PlanProposalNetwork(cfg.plan_proposal, self.dist, dtype)
+        )
         self.plan_recognition = make_plan_recognition(cfg.plan_recognition, self.dist, use_kernels, dtype)
         self.visual_goal = GoalEncoder(cfg.visual_goal, dtype=dtype)
         self.language_goal = (
             make_language_goal_encoder(cfg.language_goal, dtype) if cfg.language_goal else None
         )
-        self.action_decoder = LogisticPolicyDecoder(cfg.action_decoder, use_kernels, dtype)
-        if cfg.use_clip_auxiliary_loss:
+        self.action_decoder = make_action_decoder(cfg.action_decoder, use_kernels, dtype)
+        pr = cfg.plan_recognition
+        seq_feat = pr.fc_hidden_size if pr.kind == "transformer" else 2 * pr.birnn_hidden_size
+        if cfg.use_clip_auxiliary_loss or cfg.use_mia_auxiliary_loss:
             self.proj_vis_lang = ProjVisLang(
-                cfg.plan_recognition.fc_hidden_size, cfg.visual_goal.latent_goal_features, cfg.proj_vis_lang_dim,
-                dtype,
+                seq_feat, cfg.visual_goal.latent_goal_features, cfg.proj_vis_lang_dim, dtype,
             )
+        if cfg.use_clip_auxiliary_loss:
             self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+        if cfg.use_bc_z_auxiliary_loss:
+            self.bc_z_lang_decoder = BCZLangDecoder(seq_feat, cfg.lang_dim, dtype)
+        if cfg.use_mia_auxiliary_loss:
+            self.mia_lang_discriminator = MIALangDiscriminator(2 * cfg.proj_vis_lang_dim, dtype=dtype)
 
     # ------------------------------------------------------------------
     # inference
@@ -194,6 +257,14 @@ class HulcModel(nn.Module):
     def encode_language_goal(self, lang: torch.Tensor) -> torch.Tensor:
         return self.language_goal(lang)
 
+    @property
+    def gcbc(self) -> bool:
+        return self.cfg.model_kind == "gcbc"
+
+    def empty_plan(self, batch: int) -> torch.Tensor:
+        """GCBC's (B, 0) plan."""
+        return torch.zeros((batch, 0), device=self.device)
+
     def propose_plan(
         self,
         perceptual_emb: torch.Tensor,
@@ -205,7 +276,10 @@ class HulcModel(nn.Module):
     ) -> torch.Tensor:
         """Sample a plan from the proposal prior; gumbel (B, category_size,
         class_size) or normal (B, plan_features) is optional noise, by the
-        plan's kind."""
+        plan's kind. GCBC returns its empty plan and draws nothing."""
+        if self.gcbc:
+            _refuse_plan_noise(gumbel, normal)
+            return self.empty_plan(perceptual_emb.shape[0])
         state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
         return self.dist.sample(state, generator=generator, gumbel=gumbel, normal=normal)
 
@@ -229,9 +303,9 @@ class HulcModel(nn.Module):
 
     def init_decoder_carry(self, batch_size: int) -> Carry:
         """The decoder's zero carry for closed-loop inference: (num_layers,
-        B, H), or for lstm the pair (h, c) of that shape (JAX's
-        ``decoder_carry``)."""
-        return self.action_decoder.rnn.init_carry(batch_size, self.device)
+        B, H), lstm's pair (h, c) of that shape, or the mlp cell's (0,)
+        (JAX's ``decoder_carry``)."""
+        return decoder_carry(self.cfg.action_decoder, batch_size, self.device)
 
     @property
     def device(self) -> torch.device:
@@ -335,6 +409,40 @@ class HulcModel(nn.Module):
             "seq_feat": seq_feat,
         }
 
+    def gcbc_val(
+        self,
+        perceptual_emb: torch.Tensor,
+        latent_goal: torch.Tensor,
+        actions: torch.Tensor,
+        robot_obs: torch.Tensor,
+        *,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, Any]:
+        """GCBC's validation pass: the window decoded once from the empty
+        plan (its action noise ``u_mix_pp`` / ``u_inv_pp`` of ``noise``, or
+        from ``generator``), reported under the ``*_pp`` and ``*_pr`` names
+        alike, with a (B, 1) zero plan and a zero KL (JAX's schema)."""
+        noise = {} if noise is None else {k: mesh.local_rows(v) for k, v in noise.items()}
+        if not set(noise) <= {"u_mix_pp", "u_inv_pp"}:
+            raise ValueError(f"gcbc validation draws only the action noise, not {sorted(noise)}")
+        b = actions.shape[0]
+        action_loss, sample_act = self.action_decoder.loss_and_act(
+            self.empty_plan(b), perceptual_emb, latent_goal, actions, robot_obs, generator=generator,
+            u_mix=noise.get("u_mix_pp"), u_inv=noise.get("u_inv_pp"),
+        )
+        _, seq_feat = self.plan_recognition(perceptual_emb)
+        mae = (sample_act[..., :-1] - actions[..., :-1]).abs().mean(dim=1)
+        gripper_sr = (torch.where(sample_act[..., -1] > 0, 1.0, -1.0) == actions[..., -1]).float().mean()
+        zero_plan = torch.zeros((b, 1), device=actions.device)
+        return {
+            "sampled_plan_pp": zero_plan, "sampled_plan_pr": zero_plan,
+            "action_loss_pp": action_loss, "action_loss_pr": action_loss,
+            "kl_loss": torch.zeros((), device=actions.device),
+            "mae_pp": mae, "mae_pr": mae, "gripper_sr_pp": gripper_sr, "gripper_sr_pr": gripper_sr,
+            "seq_feat": seq_feat,
+        }
+
     def val_metrics(
         self,
         batch: Dict[str, ModalityBatch],
@@ -358,10 +466,13 @@ class HulcModel(nn.Module):
                 latent_goal = self.encode_language_goal(mod.lang)
             else:
                 latent_goal = self.encode_visual_goal(perceptual_emb[:, -1])
-            m = self.lmp_val(
-                perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs, kl_beta,
-                generator=generator, noise=None if noise is None else noise[scope],
-            )
+            scope_noise = None if noise is None else noise[scope]
+            if self.gcbc:
+                m = self.gcbc_val(perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs,
+                                  generator=generator, noise=scope_noise)
+            else:
+                m = self.lmp_val(perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs, kl_beta,
+                                 generator=generator, noise=scope_noise)
             if "lang" in scope and cfg.use_clip_auxiliary_loss:
                 out["val_pred_clip_loss"] = self.clip_loss(m["seq_feat"], latent_goal, mod.use_for_aux_lang_loss)
             total_pp = total_pp + m["action_loss_pp"]
@@ -377,13 +488,54 @@ class HulcModel(nn.Module):
         out["action_loss_pp"] = total_pp / float(len(batch))
         return out
 
+    # ------------------------------------------------------------------
+    # auxiliary losses (the language half only, masked)
+    # ------------------------------------------------------------------
+
     def clip_loss(self, seq_feat: torch.Tensor, latent_goal: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         img_f, txt_f = self.proj_vis_lang(seq_feat, latent_goal)
         return masked_clip_loss(img_f, txt_f, torch.exp(self.logit_scale), mask)
 
+    def bc_z_loss(self, seq_feat: torch.Tensor, gt_lang: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        return masked_bc_z_loss(self.bc_z_lang_decoder(seq_feat), gt_lang, mask)
+
+    def mia_loss(self, seq_feat: torch.Tensor, latent_goal: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """MIA's matching loss of the projections (``masked_mia_loss``)."""
+        img_f, txt_f = self.proj_vis_lang(seq_feat, latent_goal)
+        return masked_mia_loss(self.mia_lang_discriminator, img_f, txt_f, mask)
+
+    def _lang_aux(self, totals: Dict[str, torch.Tensor], seq_feat, latent_goal, lang_emb, mask) -> None:
+        """Add the language half's auxiliary losses to ``totals``."""
+        cfg = self.cfg
+        if cfg.use_bc_z_auxiliary_loss:
+            totals["lang_pred_loss"] = totals["lang_pred_loss"] + self.bc_z_loss(seq_feat, lang_emb, mask)
+        if cfg.use_clip_auxiliary_loss:
+            totals["lang_clip_loss"] = totals["lang_clip_loss"] + self.clip_loss(seq_feat, latent_goal, mask)
+        if cfg.use_mia_auxiliary_loss:
+            totals["lang_contrastive_loss"] = totals["lang_contrastive_loss"] + self.mia_loss(
+                seq_feat, latent_goal, mask)
+
     def _add_aux(self, totals: Dict[str, torch.Tensor]) -> None:
-        if self.cfg.use_clip_auxiliary_loss:
-            totals["total_loss"] = totals["total_loss"] + self.cfg.loss.clip_auxiliary_loss_beta * totals["lang_clip_loss"]
+        """Each auxiliary loss into ``total_loss`` with its beta, in JAX's order."""
+        cfg, beta = self.cfg, self.cfg.loss
+        for on, key, b in ((cfg.state_recons, "proprio_loss", beta.state_recon_beta),
+                           (cfg.use_bc_z_auxiliary_loss, "lang_pred_loss", beta.bc_z_auxiliary_loss_beta),
+                           (cfg.use_mia_auxiliary_loss, "lang_contrastive_loss", beta.mia_auxiliary_loss_beta),
+                           (cfg.use_clip_auxiliary_loss, "lang_clip_loss", beta.clip_auxiliary_loss_beta)):
+            if on:
+                totals["total_loss"] = totals["total_loss"] + b * totals[key]
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def _gcbc_action_loss(self, perceptual_emb, latent_goal, actions, robot_obs, per_sample=False):
+        """GCBC's action loss from the empty plan, and ``seq_feat`` (the
+        recognition still runs, for the auxiliary losses)."""
+        loss = self.action_decoder.loss(self.empty_plan(actions.shape[0]), perceptual_emb, latent_goal, actions,
+                                        robot_obs, per_sample=per_sample)
+        _, seq_feat = self.plan_recognition(perceptual_emb)
+        return loss, seq_feat
 
     def _fused_train_losses(
         self,
@@ -411,24 +563,33 @@ class HulcModel(nn.Module):
             fused = fuse_modalities(batch["vis"], batch["lang"])
             b = batch["vis"].actions.shape[0]
         lang_emb, aux_mask = fused.lang, fused.use_for_aux_lang_loss
-        perceptual_emb, _ = self.encode(fused.rgb_obs(), fused.robot_obs, fused.depth_obs())
+        perceptual_emb, visual_emb = self.encode(fused.rgb_obs(), fused.robot_obs, fused.depth_obs())
         with mesh.row_blocks(1):  # the goal encoders see one modality's rows
             latent_goal = torch.cat([
                 self.encode_visual_goal(perceptual_emb[:b, -1]), self.encode_language_goal(lang_emb)
             ], dim=0)
 
-        pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
-        pr_state, seq_feat = self.plan_recognition(perceptual_emb)
-        sampled_plan, kl_ps = self._plan_and_kl(pp_state, pr_state, generator, gumbel, normal)
-        act_ps = self.action_decoder.loss(
-            sampled_plan, perceptual_emb, latent_goal, fused.actions, fused.state_info_robot_obs, per_sample=True
-        )
-        kl_ps = kl_beta * kl_ps
-
-        zero = torch.zeros((), device=act_ps.device)
+        zero = torch.zeros((), device=perceptual_emb.device)
         totals = {k: zero for k in LOSS_KEYS}
-        if cfg.use_clip_auxiliary_loss:
-            totals["lang_clip_loss"] = self.clip_loss(seq_feat[b:], latent_goal[b:], aux_mask)
+        if cfg.state_recons:
+            # the fused mean is the mean of the halves' means (equal sizes)
+            totals["proprio_loss"] = self.perceptual_encoder.state_reconstruction_loss(visual_emb, fused.robot_obs)
+        if self.gcbc:
+            _refuse_plan_noise(gumbel, normal)
+            act_ps, seq_feat = self._gcbc_action_loss(
+                perceptual_emb, latent_goal, fused.actions, fused.state_info_robot_obs, per_sample=True)
+            kl_ps = torch.zeros((2 * b,), device=act_ps.device)
+        else:
+            pp_state = self.plan_proposal(perceptual_emb[:, 0], latent_goal)
+            pr_state, seq_feat = self.plan_recognition(perceptual_emb)
+            sampled_plan, kl_ps = self._plan_and_kl(pp_state, pr_state, generator, gumbel, normal)
+            act_ps = self.action_decoder.loss(
+                sampled_plan, perceptual_emb, latent_goal, fused.actions, fused.state_info_robot_obs,
+                per_sample=True,
+            )
+            kl_ps = kl_beta * kl_ps
+
+        self._lang_aux(totals, seq_feat[b:], latent_goal[b:], lang_emb, aux_mask)
         per_mod = {}
         for scope, sl in (("vis", slice(0, b)), ("lang", slice(b, None))):
             act, kl = act_ps[sl].mean(), kl_ps[sl].mean()
@@ -467,21 +628,28 @@ class HulcModel(nn.Module):
         totals = {k: zero for k in LOSS_KEYS}
         per_mod = {}
         for scope, mod in batch.items():
-            perceptual_emb, _ = self.encode(mod.rgb_obs(), mod.robot_obs, mod.depth_obs())
+            perceptual_emb, visual_emb = self.encode(mod.rgb_obs(), mod.robot_obs, mod.depth_obs())
+            if cfg.state_recons:
+                totals["proprio_loss"] = totals["proprio_loss"] + self.perceptual_encoder.state_reconstruction_loss(
+                    visual_emb, mod.robot_obs)
             if "lang" in scope:
                 latent_goal = self.encode_language_goal(mod.lang)
             else:
                 latent_goal = self.encode_visual_goal(perceptual_emb[:, -1])
-            out = self.lmp_train(
-                perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs,
-                generator=generator, gumbel=None if gumbel is None else mesh.local_rows(gumbel[scope]),
-                normal=None if normal is None else mesh.local_rows(normal[scope]),
-            )
-            act_loss, kl = out["action_loss"], out["kl_loss"] * kl_beta
-            if "lang" in scope and cfg.use_clip_auxiliary_loss:
-                totals["lang_clip_loss"] = totals["lang_clip_loss"] + self.clip_loss(
-                    out["seq_feat"], latent_goal, mod.use_for_aux_lang_loss
+            if self.gcbc:
+                _refuse_plan_noise(gumbel, normal)
+                act_loss, seq_feat = self._gcbc_action_loss(
+                    perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs)
+                kl = zero
+            else:
+                out = self.lmp_train(
+                    perceptual_emb, latent_goal, mod.actions, mod.state_info_robot_obs,
+                    generator=generator, gumbel=None if gumbel is None else mesh.local_rows(gumbel[scope]),
+                    normal=None if normal is None else mesh.local_rows(normal[scope]),
                 )
+                act_loss, kl, seq_feat = out["action_loss"], out["kl_loss"] * kl_beta, out["seq_feat"]
+            if "lang" in scope:
+                self._lang_aux(totals, seq_feat, latent_goal, mod.lang, mod.use_for_aux_lang_loss)
             totals["kl_loss"] = totals["kl_loss"] + kl
             totals["action_loss"] = totals["action_loss"] + act_loss
             totals["total_loss"] = totals["total_loss"] + act_loss + kl
@@ -489,11 +657,16 @@ class HulcModel(nn.Module):
             per_mod[f"kl_loss_scaled_{scope}"] = kl
             per_mod[f"total_loss_{scope}"] = act_loss + kl
         n = float(len(batch))
-        for key in ("kl_loss", "action_loss", "total_loss"):
+        for key in ("kl_loss", "action_loss", "total_loss") + (("proprio_loss",) if cfg.state_recons else ()):
             totals[key] = totals[key] / n
         self._add_aux(totals)
         totals.update(per_mod)
         return totals
+
+
+def _refuse_plan_noise(gumbel, normal) -> None:
+    if gumbel is not None or normal is not None:
+        raise ValueError("a gcbc model draws no plan noise: pass no gumbel / normal")
 
 
 def _same_shape(a, b) -> bool:

@@ -45,8 +45,10 @@ keeps flax's semantics: ``where(keep, x / keep_prob, 0)``, with a mask of
 ``x``'s shape unless ``broadcast_dims`` names axes that share it. Its masks
 can also be given as tensors, site by site (``feed_dropout_masks``: a
 module name and the masks of its calls, in order), so that a test can
-hand the port the masks JAX is given. The decoder's ``mlp`` cell and the
-bidirectional lstm cell wait for later slices.
+hand the port the masks JAX is given. The decoder's ``mlp`` cell is no
+RNN: ``ScanRNN`` refuses it, as JAX's does, and the decoder builds an
+``MLP`` for it (``models.decoders``). The bidirectional lstm cell waits
+for a later slice.
 """
 
 from __future__ import annotations
@@ -275,8 +277,8 @@ class ScanRNN(nn.Module):
     ``bias_ih_l{k}``, ``bias_hh_l{k}`` (G H), G the cell's gates: r z n,
     i f g o, JAX's order and torch's). ``use_kernels=False`` runs the plain
     loop on any device; it exists to hold the kernels against it on the
-    card. The decoder's ``mlp`` cell is refused: it belongs to a later
-    slice. The input projection runs in ``dtype`` and is cast to fp32
+    card. The decoder's ``mlp`` cell is refused, as JAX's ``ScanRNN``
+    refuses it: the decoder builds an ``MLP`` for it. The input projection runs in ``dtype`` and is cast to fp32
     before the recurrence, which is fp32 whatever ``dtype`` is. ``dropout``
     acts on each layer's output but the last (``dropouts.{k}``).
     """
@@ -286,6 +288,8 @@ class ScanRNN(nn.Module):
         dtype: torch.dtype = torch.float32, dropout: float = 0.0,
     ):
         super().__init__()
+        if cell == "mlp":
+            raise ValueError("use MLP module for the mlp decoder variant")
         if cell not in RECURRENCES:
             raise ValueError(f"rnn cell {cell!r} is not ported yet; only {sorted(RECURRENCES)} are")
         self.cell = cell

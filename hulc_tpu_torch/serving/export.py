@@ -20,7 +20,8 @@ Artifact layout (one directory):
     replan_vision.pt2    (params, 2-frame stacks, plan noise) -> (plan, latent_goal)
     act.pt2              (params, plan, goal, frames, rob_norm, rob_raw, carry,
                           u_mix, u_inv) -> (action, carry); the carry a
-                          tensor, or lstm's pair (h, c)
+                          tensor, lstm's pair (h, c), or the mlp cell's
+                          empty (0,) tensor
     step_batched.pt2     optional E-lane lockstep step (``lanes=E``)
     lang_embeddings.npy  optional instruction -> embedding table
 
@@ -29,8 +30,11 @@ plan's noise (a discrete plan's Gumbel noise, ``gumbel``; a continuous
 plan's standard-normal draw, ``normal``) and the mixture sampler's
 uniforms, already mapped into (U_MIN, U_MAX). The runtime draws them from its own generator in the
 live policy's order and shapes (``meta.json``'s ``noise``), so a served
-step gives the live step's action; no program holds a random node. Frames
-cross raw uint8: the preprocess is inside the programs.
+step gives the live step's action; no program holds a random node. A
+program takes only the draws its model makes: GCBC's replans take no plan
+noise (its plan is empty, (B, 0)), and the deterministic decoder's act
+takes no uniforms. Frames cross raw uint8: the preprocess is inside the
+programs; a config without cameras takes the proprio alone.
 
 The four serving kernels are the ``hulc::`` ops of ``ops.library``; each
 program must hold them as nodes (``expected_op_counts``), so loaded on the
@@ -133,13 +137,16 @@ def random_nodes(program: torch.export.ExportedProgram) -> list:
 def expected_op_counts(cfg: HulcConfig, name: str) -> Dict[str, int]:
     """The ``hulc::`` nodes program ``name`` must hold: one preprocess per
     camera (each camera's frame stack in one call), one SpatialSoftmax per
-    SpatialSoftmax encoder, and in a program that acts, one sample and one
-    recurrence a decoder layer."""
-    pe = cfg.perceptual_encoder
+    SpatialSoftmax encoder, and in a program that acts, one sample (the
+    logistic decoder's; the deterministic one samples nothing) and one
+    recurrence a decoder layer (the mlp cell has none)."""
+    pe, ad = cfg.perceptual_encoder, cfg.action_decoder
     cams = [c for c in (pe.rgb_static, pe.rgb_gripper) if c is not None]
     out = {"preprocess_rgb": len(cams), "spatial_softmax": sum(c.kind == "spatial_softmax" for c in cams)}
     if name in ("act", "step_batched"):
-        out.update(sample_action=1, **{RECURRENCE_OPS[cfg.action_decoder.rnn_cell]: cfg.action_decoder.num_layers})
+        out["sample_action"] = int(ad.kind == "logistic")
+        if ad.rnn_cell != "mlp":
+            out[RECURRENCE_OPS[ad.rnn_cell]] = ad.num_layers
     return {k: v for k, v in out.items() if v}
 
 
@@ -162,21 +169,22 @@ def _carry_spec(cfg: HulcConfig) -> Dict:
 
 
 def _noise_spec(cfg: HulcConfig) -> Dict:
-    """Per lane, the shape of each draw, in the order the live policy draws:
-    the plan's noise (on a replan step, every step in the lockstep step):
-    ``gumbel``, one ``torch.rand`` through ``gumbel_of_uniform``, or
-    ``normal``, one ``torch.randn``; then the sampler's two ``torch.rand``
-    draws, mapped as ``lo + span * u``."""
+    """Per lane, the shape of each draw the model makes, in the order the
+    live policy draws: the plan's noise (on a replan step, every step in
+    the lockstep step; GCBC draws none): ``gumbel``, one ``torch.rand``
+    through ``gumbel_of_uniform``, or ``normal``, one ``torch.randn``; then
+    the logistic decoder's two ``torch.rand`` draws, mapped as ``lo + span
+    * u`` (the deterministic decoder draws none)."""
     d, ad = cfg.distribution, cfg.action_decoder
-    a = ad.out_features - 1 if ad.discrete_gripper else ad.out_features
-    plan = {"gumbel": [d.category_size, d.class_size]} if d.kind == "discrete" else {"normal": [d.plan_features]}
-    return {
-        "order": [*plan, "u_mix", "u_inv"],
-        **plan,
-        "u_mix": [1, a, ad.n_mixtures],
-        "u_inv": [1, a],
-        "uniform_map": [U_MIN, U_SPAN],
-    }
+    plan = {}
+    if cfg.model_kind != "gcbc":
+        plan = {"gumbel": [d.category_size, d.class_size]} if d.kind == "discrete" else {"normal": [d.plan_features]}
+    spec = {"order": list(plan), **plan}
+    if ad.kind == "logistic":
+        a = ad.out_features - 1 if ad.discrete_gripper else ad.out_features
+        spec.update(order=[*plan, "u_mix", "u_inv"], u_mix=[1, a, ad.n_mixtures], u_inv=[1, a],
+                    uniform_map=[U_MIN, U_SPAN])
+    return spec
 
 
 def export_policy(
@@ -208,7 +216,7 @@ def export_policy(
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     norm = StateObsNormalizer(cfg, statistics)
-    pe, d = cfg.perceptual_encoder, cfg.distribution
+    pe = cfg.perceptual_encoder
     prop_dim = int(sum(b - a for a, b in norm.keep))
     noise = _noise_spec(cfg)
 
@@ -225,23 +233,25 @@ def export_policy(
         return frames(pe.rgb_static, e, s), frames(pe.rgb_gripper, e, s), zeros(e, s, prop_dim)
 
     replan_lang, replan_vision, act = build_policy_fns(model, cfg)
-    plan_noise, u_mix, u_inv = draws(1)
-    plan_name = noise["order"][0]
+    one = dict(zip(noise["order"], draws(1)))
+    plan_names = tuple(k for k in noise["order"] if k in ("gumbel", "normal"))
+    act_names = tuple(k for k in noise["order"] if k in ("u_mix", "u_inv"))
+    plan_noise = tuple(one[k] for k in plan_names)
     with torch.no_grad():
-        plan, goal = replan_lang(*lane_args(1), zeros(1, cfg.lang_dim), **{plan_name: plan_noise})
+        plan, goal = replan_lang(*lane_args(1), zeros(1, cfg.lang_dim), **{k: one[k] for k in plan_names})
     carry = model.init_decoder_carry(1)
     specs = {
-        "replan_lang": (replan_lang, (*lane_args(1), zeros(1, cfg.lang_dim), plan_noise), (plan_name,)),
-        "replan_vision": (replan_vision, (*lane_args(1, 2), plan_noise), (plan_name,)),
-        "act": (act, (plan, goal, *lane_args(1), zeros(1, 1, 15), carry, u_mix, u_inv), ("u_mix", "u_inv")),
+        "replan_lang": (replan_lang, (*lane_args(1), zeros(1, cfg.lang_dim), *plan_noise), plan_names),
+        "replan_vision": (replan_vision, (*lane_args(1, 2), *plan_noise), plan_names),
+        "act": (act, (plan, goal, *lane_args(1), zeros(1, 1, 15), carry, *(one[k] for k in act_names)), act_names),
     }
     if lanes > 0:
         e = lanes
         specs["step_batched"] = (build_batched_step(model, cfg), (
-            *lane_args(e), zeros(e, 1, 15), zeros(e, cfg.lang_dim), zeros(e, d.plan_dim),
+            *lane_args(e), zeros(e, 1, 15), zeros(e, cfg.lang_dim), zeros(e, plan.shape[-1]),
             zeros(e, cfg.visual_goal.latent_goal_features), model.init_decoder_carry(e),
             zeros(e, dtype=torch.bool), *draws(e),
-        ), noise["order"])
+        ), tuple(noise["order"]))
     for name, (fn, args, noise_names) in specs.items():
         program = _export_one(model, fn, state, args, noise_names, name, cfg)
         program.example_inputs = None  # saved with it otherwise: a copy of the weights in every program

@@ -9,8 +9,8 @@ programs alone, with torch, numpy and the port's kernel ops
 (``ops.library``, registered before a program is loaded): no models, no
 config, no evaluator. Everything shape- or semantics-bearing comes from
 ``meta.json``: the observation normalization, the replan cadence, the
-decoder carry (a tensor, or lstm's pair (h, c)), the cameras, and the
-noise.
+decoder carry (a tensor, lstm's pair (h, c), or the mlp cell's empty
+one), the cameras, and the noise.
 
 The programs take their noise as inputs. The runtime draws it from its own
 ``torch.Generator`` on the serving device, seeded as the live policy's, in
@@ -19,7 +19,9 @@ that plans, the plan's noise (a discrete plan's one ``torch.rand`` through
 ``gumbel_of_uniform``, a continuous plan's one ``torch.randn``); on every step
 the sampler's two ``torch.rand`` draws, mapped into (U_MIN, U_MAX) by
 ``map_uniforms`` (the map the sampler kernel applies to raw draws, rounded
-alike). So a served step gives the live step's action. ``step(...,
+alike). An artifact whose model makes no such draw (GCBC's empty plan, the
+deterministic decoder) lists none and its programs take none. So a served
+step gives the live step's action. ``step(...,
 noise=)`` takes injected noise instead, as ``HulcPolicy.step`` does.
 
 Programs exported on another device than the serving one are moved
@@ -46,15 +48,12 @@ from hulc_tpu_torch.serving.params_io import unflatten_params
 FORMAT_VERSION = 1
 
 
-CARRY_CELLS = ("rnn", "gru", "lstm")
-
-
 def _zero_carry(spec: Dict, batch: int, device):
-    """The decoder's zero carry from meta.json's ``carry``: (L, B, H), or for
-    lstm the pair (h, c) of that shape (JAX's runtime)."""
-    if spec["rnn_cell"] not in CARRY_CELLS:
-        raise ValueError(f"the artifact's decoder cell {spec['rnn_cell']!r} is not ported yet; only "
-                         f"{CARRY_CELLS} are")
+    """The decoder's zero carry from meta.json's ``carry``: (L, B, H), for
+    lstm the pair (h, c) of that shape, for the stateless mlp cell an empty
+    (0,) tensor (JAX's runtime)."""
+    if spec["rnn_cell"] == "mlp":
+        return torch.zeros((0,), device=device)
     h = torch.zeros((spec["num_layers"], batch, spec["hidden_size"]), device=device)
     return (h, torch.zeros_like(h)) if spec["rnn_cell"] == "lstm" else h
 
@@ -117,10 +116,23 @@ class _Artifact:
     def tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    @property
-    def plan_noise(self) -> str:
-        """The plan's noise: ``gumbel`` (a discrete plan) or ``normal``."""
-        return self.meta["noise"]["order"][0]
+    def plan_draws(self, noise: Dict, lanes: int, generator: torch.Generator) -> tuple:
+        """The replan's noise inputs: the injected or drawn plan noise
+        (``gumbel`` for a discrete plan, ``normal``), or none (GCBC's empty
+        plan draws none)."""
+        name = next((k for k in self.meta["noise"]["order"] if k in ("gumbel", "normal")), None)
+        if name is None:
+            return ()
+        return (self.tensor(noise[name]) if name in noise else self.draw(name, lanes, generator),)
+
+    def act_draws(self, noise: Dict, lanes: int, generator: torch.Generator) -> tuple:
+        """The act's noise inputs: the injected or drawn (u_mix, u_inv), or
+        none (the deterministic decoder)."""
+        if "u_mix" not in self.meta["noise"]["order"]:
+            return ()
+        if "u_mix" in noise:
+            return self.tensor(noise["u_mix"]), self.tensor(noise["u_inv"])
+        return self.mixture_uniforms(lanes, generator)
 
     def draw(self, name: str, lanes: int, generator: torch.Generator) -> torch.Tensor:
         """One draw of the live policy's noise ``name`` for ``lanes`` lanes,
@@ -220,13 +232,12 @@ class ServedPolicy:
         art, noise = self._art, noise or {}
         rgb_static, rgb_gripper, rob_norm, rob_raw = art.split_obs([obs])
         if self._plan is None or self._step_count % self.replan_freq == 0:
-            name = art.plan_noise
-            plan_noise = art.tensor(noise[name]) if name in noise else art.draw(name, 1, self.generator)
+            plan_noise = art.plan_draws(noise, 1, self.generator)
             if isinstance(goal, (str, np.ndarray, torch.Tensor)):
                 emb = self.lang_embeddings[goal] if isinstance(goal, str) else goal
                 emb = art.tensor(np.asarray(emb, np.float32).reshape(1, -1))
                 self._plan, self._goal = art.fn("replan_lang")(
-                    self.params, rgb_static, rgb_gripper, rob_norm, emb, plan_noise
+                    self.params, rgb_static, rgb_gripper, rob_norm, emb, *plan_noise
                 )
             else:
                 g_static, g_gripper, g_norm, _ = art.split_obs([goal])
@@ -236,16 +247,12 @@ class ServedPolicy:
 
                 self._plan, self._goal = art.fn("replan_vision")(
                     self.params, _cat(rgb_static, g_static), _cat(rgb_gripper, g_gripper),
-                    torch.cat([rob_norm, g_norm], dim=1), plan_noise,
+                    torch.cat([rob_norm, g_norm], dim=1), *plan_noise,
                 )
             self._carry = _zero_carry(self.meta["carry"], 1, self.device)
-        if "u_mix" in noise:
-            u_mix, u_inv = art.tensor(noise["u_mix"]), art.tensor(noise["u_inv"])
-        else:
-            u_mix, u_inv = art.mixture_uniforms(1, self.generator)
         action, self._carry = art.fn("act")(
             self.params, self._plan, self._goal, rgb_static, rgb_gripper, rob_norm, rob_raw, self._carry,
-            u_mix, u_inv,
+            *art.act_draws(noise, 1, self.generator),
         )
         self._step_count += 1
         return action[0].cpu().numpy()
@@ -312,16 +319,11 @@ class ServedBatchedPolicy:
             ])
             replan_mask = np.concatenate([np.asarray(replan_mask, bool), np.zeros((e - n,), bool)])
         rgb_static, rgb_gripper, rob_norm, rob_raw = art.split_obs(obs_batch)
-        name = art.plan_noise
-        plan_noise = art.tensor(noise[name]) if name in noise else art.draw(name, e, self.generator)
-        if "u_mix" in noise:
-            u_mix, u_inv = art.tensor(noise["u_mix"]), art.tensor(noise["u_inv"])
-        else:
-            u_mix, u_inv = art.mixture_uniforms(e, self.generator)
+        draws = art.plan_draws(noise, e, self.generator) + art.act_draws(noise, e, self.generator)
         plan, goal, carry = state
         actions, plan, goal, carry = self._step(
             self.params, rgb_static, rgb_gripper, rob_norm, rob_raw,
             art.tensor(np.asarray(lang_embs, np.float32)), plan, goal, carry,
-            art.tensor(np.asarray(replan_mask, bool)), plan_noise, u_mix, u_inv,
+            art.tensor(np.asarray(replan_mask, bool)), *draws,
         )
         return actions.cpu().numpy()[:n], (plan, goal, carry)

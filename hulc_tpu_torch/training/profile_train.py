@@ -67,7 +67,8 @@ def synthetic_fused_batch(
     as the JAX package's ``__graft_entry__._make_raw_batch``: uniform frames,
     ``tanh(normal)`` actions, normal 15-d ``state_info_robot_obs``, normal
     384-d language embeddings; every third language window is left out of
-    the auxiliary (CLIP) loss. A config with depth cameras also gets fp32
+    the auxiliary losses. A config draws frames only for its cameras and
+    proprio of its width (8 without one). A config with depth cameras also gets fp32
     depth frames, uniform in _make_raw_batch's ranges (drawn last, so the
     other fields do not change)."""
     rng = np.random.default_rng(seed)
@@ -81,9 +82,9 @@ def synthetic_fused_batch(
         return None if enc is None else rng.uniform(lo, hi, (n, seq_len, enc.input_size, enc.input_size)).astype(np.float32)
 
     batch = ModalityBatch(
-        rgb_static=frames(pe.rgb_static.input_size),
+        rgb_static=frames(pe.rgb_static.input_size) if pe.rgb_static is not None else None,
         rgb_gripper=frames(pe.rgb_gripper.input_size) if pe.rgb_gripper is not None else None,
-        robot_obs=rng.normal(size=(n, seq_len, 8)).astype(np.float32),
+        robot_obs=rng.normal(size=(n, seq_len, pe.proprio.n_state_obs if pe.proprio else 8)).astype(np.float32),
         actions=np.tanh(rng.normal(size=(n, seq_len, 7))).astype(np.float32),
         state_info_robot_obs=rng.normal(size=(n, seq_len, 15)).astype(np.float32),
         lang=rng.normal(size=(batch_per_mod, cfg.lang_dim)).astype(np.float32),

@@ -160,9 +160,11 @@ def test_scan_rnn_matches_jax_with_carry(cell, use_kernels):
 
 
 def test_scan_rnn_refuses_the_cells_still_to_port():
-    """The decoder's mlp cell, and the bidirectional lstm and mlp cells (the
-    relu and gru ones: tests/test_torch_birnn_cells.py)."""
-    with pytest.raises(ValueError, match="not ported yet"):
+    """The decoder's mlp cell, which is no RNN (JAX's ScanRNN refuses it
+    with this message; the decoder builds an MLP for it), and the
+    bidirectional lstm and mlp cells (the relu and gru ones:
+    tests/test_torch_birnn_cells.py)."""
+    with pytest.raises(ValueError, match="use MLP module for the mlp decoder variant"):
         ScanRNN(F_IN, 8, 1, "mlp")
     for cell in ("lstm", "mlp"):
         with pytest.raises(ValueError, match="not ported yet"):

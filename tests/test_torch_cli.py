@@ -129,7 +129,10 @@ def test_train_cli_runs_and_a_relaunch_trains_the_remainder(tmp_path, monkeypatc
 
 
 @pytest.mark.parametrize("flags,kind", [(("--optimizer", "adamw"), "adamw"), (("--optimizer", "sgd"), "sgd"),
-                                        (("--adam-mv-dtype", "float32"), "adam")])
+                                        (("--adam-mv-dtype", "float32"), "adam"),
+                                        # tests/test_config_overrides.py's gcbc_debug run (the last --config wins)
+                                        (("--config", "gcbc_debug", "--set", "action_decoder.hidden_size=48",
+                                          "--set", "loss.kl_beta=0.1"), "adam_lowp")])
 def test_train_cli_optimizers_resume(flags, kind, tmp_path, monkeypatch):
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     run = tmp_path / "run"

@@ -394,7 +394,11 @@ def test_profiles_count_the_gated_kernels_as_hand_kernels():
 
 @pytest.mark.parametrize("module,cell", [(ScanRNN, "mlp"), (ScanBiRNN, "mlp"), (ScanBiRNN, "lstm")])
 def test_cells_still_to_port_are_refused(module, cell):
-    with pytest.raises(ValueError, match="not ported yet"):
+    """ScanRNN refuses the decoder's mlp cell with JAX's message (the
+    decoder builds an MLP for it); ScanBiRNN's lstm and mlp cells are not
+    ported."""
+    match = "use MLP module for the mlp decoder variant" if module is ScanRNN else "not ported yet"
+    with pytest.raises(ValueError, match=match):
         module(F_IN, 8, 1, cell)
 
 
@@ -402,9 +406,8 @@ def test_cells_still_to_port_are_refused(module, cell):
 # apply_overrides
 # ---------------------------------------------------------------------------
 
-# tests/test_config_overrides.py's assignments, each list applied in turn
-# (its gcbc_debug and fetch_state_debug cases on hulc_debug: the port has
-# only the hulc and mcil presets)
+# tests/test_config_overrides.py's assignments, each list applied in turn,
+# on the preset that test applies them to (OVERRIDE_BASE; hulc_debug else)
 OVERRIDES = {
     "leaf_int": [["action_decoder.hidden_size=96"]],
     "distribution": [["distribution.category_size=8", "distribution.class_size=8"]],
@@ -421,6 +424,8 @@ OVERRIDES = {
     "train_cli": [["action_decoder.hidden_size=48", "loss.kl_beta=0.1"]],
     "kl_beta": [["loss.kl_beta=0.5"]],
 }
+OVERRIDE_BASE = {"none_then_default": "gcbc_debug", "into_none_optional": "gcbc_debug",
+                 "tuple_of_tuples": "fetch_state_debug", "gru_decoder": "gcbc_debug"}
 OVERRIDE_ERRORS = {
     "unknown_field": "action_decoder.hiden_size=96",
     "not_an_int": "action_decoder.hidden_size=big",
@@ -433,7 +438,8 @@ OVERRIDE_ERRORS = {
 
 @pytest.mark.parametrize("case", sorted(OVERRIDES))
 def test_apply_overrides_gives_jax_fields(case):
-    want, got = jax_config.get_config("hulc_debug"), port_config.get_config("hulc_debug")
+    base = OVERRIDE_BASE.get(case, "hulc_debug")
+    want, got = jax_config.get_config(base), port_config.get_config(base)
     for assignments in OVERRIDES[case]:
         want = jax_config.apply_overrides(want, assignments)
         got = port_config.apply_overrides(got, assignments)

@@ -7,10 +7,10 @@ rendezvous under the test's tmp_path) runs every check of
 ``tests/torch_parallel_workers.py`` while this process computes the
 references; ``dryrun_multichip(2, "cpu")`` spawns its own beside them.
 Tolerances: the
-CLIP loss and its gradients rtol 1e-6 (a gradient's
+CLIP, BC-Z and MIA losses and their gradients rtol 1e-6 (a gradient's
 entries also within 1e-6 of the tensor's largest: the ranks' products
 over fewer rows round otherwise); the two-rank steps against the
-one-process port: ``grad_norm`` rtol 1e-6 (1e-5 after the first step,
+one-process port: ``grad_norm`` rtol 1e-6 (1e-4 after the first step,
 ``_check_steps_against``), every
 parameter within 1e-5 of its largest entry (``_check_params``), each bf16
 moment's entries within one bf16
@@ -49,7 +49,7 @@ from hulc_tpu_torch.parallel import mesh
 from hulc_tpu_torch.parallel.dryrun import dryrun_multichip
 from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 from tests import torch_parallel_workers as workers
-from tests.torch_port_common import QUICK_COMPILE, jax_random_params
+from tests.torch_port_common import QUICK_COMPILE, jax_random_params, variant_setup
 
 torch.set_num_threads(1)
 
@@ -61,6 +61,9 @@ BF16_ULP = 2.0 ** -7  # a bf16 ulp, relative: the largest step between neighbour
 # noise (the attention's key bias, zero in exact arithmetic, among them)
 MOMENT_FLOOR = 1e-3
 CLIP_MASK = np.array([True, False, True, False, False, False])
+# the BC-Z and MIA rows: rank 1's first row is valid with rank 0's last, so
+# one of MIA's negative pairs crosses the ranks
+AUX_MASK = np.array([True, False, True, True, True, False])
 
 
 def _raw(seed):
@@ -110,13 +113,23 @@ def run(tmp_path_factory):
             torch.from_numpy(clip_rng.normal(size=(CLIP_ROWS, 12)).astype(np.float32)),
             torch.from_numpy(CLIP_MASK))
     fit_batches = [_raw(40), _raw(41)]
-    spec = {"clip": clip, "state": state, "raw": raw, "noise": noise, "data_root": str(data),
+    aux = variant_setup("aux")
+    aux_state = {k: v for k, v in aux["model"].state_dict().items()
+                 if k.split(".")[0] in ("proj_vis_lang", "bc_z_lang_decoder", "mia_lang_discriminator")}
+    acfg = aux["cfg"]
+    aux_shapes = (acfg.plan_recognition.fc_hidden_size, acfg.visual_goal.latent_goal_features, acfg.lang_dim,
+                  acfg.proj_vis_lang_dim)
+    aux_rng = np.random.default_rng(6)
+    aux_spec = (aux_state, aux_shapes, *(torch.from_numpy(aux_rng.normal(size=(len(AUX_MASK), n)).astype(np.float32))
+                                        for n in aux_shapes[:3]), torch.from_numpy(AUX_MASK))
+    spec = {"clip": clip, "aux": aux_spec, "state": state, "raw": raw, "noise": noise, "data_root": str(data),
             "fit_dir": str(tmp / "fit"), "fit_batches": fit_batches, "cli_dir": str(tmp / "cli")}
     ranks = mesh.Ranks(workers.rank_checks, RANKS, "cpu", (spec,), init_method=f"file://{tmp}/rendezvous")
 
     # the references, while the ranks run
     ref = {
         "clip": workers.clip_grads(*clip),
+        "aux": workers.aux_grads(*aux_spec),
         "steps": workers.train_steps("ddp", state, raw, noise),
         "dropout": workers.train_steps("ddp", None, raw, [None], workers.dropout_cfg(), seed=5),
         "loader": workers.first_batches(str(data), 4),
@@ -134,6 +147,10 @@ def run(tmp_path_factory):
         jstate, losses = step(jstate, fused, rng, kl_beta)
         jax_losses.append(jax.device_get(losses))
     ref["jax"] = {"losses": jax_losses, "params": jax.device_get(jstate.params)}
+    _, _, seq_feat, goal, lang, mask = aux_spec
+    ref["jax_aux"] = {name: float(aux["jax_model"].apply(
+        {"params": aux["params"]}, seq_feat.numpy(), other.numpy(), jnp.asarray(mask.numpy()),
+        method=getattr(aux["jax_model"], f"{name}_loss"))) for name, other in (("bc_z", lang), ("mia", goal))}
     results = ranks.results()
     dryrun_thread.join()
     return {"ranks": results, "ref": ref, "spec": spec, "tmp": tmp, "dryrun": dryrun}
@@ -182,6 +199,31 @@ def test_clip_loss_over_ranks_is_the_whole_batch_loss(run):
             want = ref["params"][name].numpy()
             np.testing.assert_allclose(g.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max(), err_msg=name)
     assert float(np.abs(ref["params"]["logit_scale"].numpy())) > 1e-4  # the comparison is not vacuous
+
+
+def test_bc_z_and_mia_losses_over_ranks_are_the_whole_batch_losses(run):
+    """(a') The BC-Z and MIA losses (``hulc_debug`` with both on: the heads
+    ``params_from_jax`` carries from JAX's weights) over 2 ranks, each with
+    3 of the 6 rows: on both ranks the one-process losses and JAX's on the
+    whole batch (MIA's negatives rolled over the global batch, one valid
+    pair across the ranks), the inputs' gradients (divided by the ranks)
+    and the heads' gradients after DDP's average the one-process ones."""
+    ref = run["ref"]["aux"]
+    for name in ("bc_z", "mia"):
+        np.testing.assert_allclose(float(ref[name]), run["ref"]["jax_aux"][name], rtol=1e-5, err_msg=name)
+    rows = len(AUX_MASK) // RANKS
+    for got in run["ranks"]:
+        r, aux = got["rank"], got["aux"]
+        for name in ("bc_z", "mia"):
+            np.testing.assert_allclose(float(aux[name]), float(ref[name]), rtol=1e-6, err_msg=name)
+        for name in ("seq_feat", "goal"):
+            want_rows = ref[name][r * rows:(r + 1) * rows].numpy()
+            np.testing.assert_allclose(aux[name].numpy() / RANKS, want_rows, rtol=1e-6,
+                                       atol=1e-6 * np.abs(ref[name].numpy()).max(), err_msg=name)
+        for name, g in aux["params"].items():
+            want = ref["params"][name].numpy()
+            np.testing.assert_allclose(g.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max(), err_msg=name)
+    assert np.abs(ref["params"]["mia_lang_discriminator.fc1.weight"].numpy()).max() > 1e-4  # not vacuous
 
 
 def _check_params(got, want, steps):

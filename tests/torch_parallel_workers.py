@@ -12,8 +12,8 @@ import torch
 import torch.nn as nn
 
 from hulc_tpu_torch import config as port_config
-from hulc_tpu_torch.models.aux_heads import ProjVisLang
-from hulc_tpu_torch.models.hulc import ModalityBatch, masked_clip_loss
+from hulc_tpu_torch.models.aux_heads import BCZLangDecoder, MIALangDiscriminator, ProjVisLang
+from hulc_tpu_torch.models.hulc import ModalityBatch, masked_bc_z_loss, masked_clip_loss, masked_mia_loss
 from hulc_tpu_torch.parallel import mesh
 
 KL_BETA, LR = 0.01, 2e-4
@@ -68,6 +68,35 @@ def clip_grads(state, seq_feat, goal, mask):
     loss = model(x, g, rows[2])
     loss.backward()
     return {"loss": loss.detach(), "seq_feat": x.grad, "goal": g.grad,
+            "params": {k: p.grad.clone() for k, p in head.named_parameters()}}
+
+
+class AuxHead(nn.Module):
+    """The BC-Z and MIA losses' trainable parts, under the port model's names."""
+
+    def __init__(self, seq_features, goal_features, lang_dim, proj_dim):
+        super().__init__()
+        self.proj_vis_lang = ProjVisLang(seq_features, goal_features, proj_dim)
+        self.bc_z_lang_decoder = BCZLangDecoder(seq_features, lang_dim)
+        self.mia_lang_discriminator = MIALangDiscriminator(2 * proj_dim)
+
+    def forward(self, seq_feat, goal, lang, mask):
+        bc_z = masked_bc_z_loss(self.bc_z_lang_decoder(seq_feat), lang, mask)
+        return bc_z, masked_mia_loss(self.mia_lang_discriminator, *self.proj_vis_lang(seq_feat, goal), mask)
+
+
+def aux_grads(state, shapes, seq_feat, goal, lang, mask):
+    """The BC-Z and MIA losses over this rank's rows of the global inputs,
+    under DDP: (both losses, the inputs' gradients of this rank's rows, the
+    parameters' gradients after DDP's average) of their sum."""
+    head = AuxHead(*shapes)
+    head.load_state_dict(state)
+    model = torch.nn.parallel.DistributedDataParallel(head) if mesh.world() > 1 else head
+    rows = [mesh.rows_of(t, 1, mesh.world(), mesh.rank()) for t in (seq_feat, goal, lang, mask)]
+    x, g = (t.clone().requires_grad_() for t in rows[:2])
+    bc_z, mia = model(x, g, rows[2], rows[3])
+    (bc_z + mia).backward()
+    return {"bc_z": bc_z.detach(), "mia": mia.detach(), "seq_feat": x.grad, "goal": g.grad,
             "params": {k: p.grad.clone() for k, p in head.named_parameters()}}
 
 
@@ -147,6 +176,7 @@ def rank_checks(spec):
     torch.set_num_threads(1)
     out = {"rank": mesh.rank(), "world": mesh.world()}
     out["clip"] = clip_grads(*spec["clip"])
+    out["aux"] = aux_grads(*spec["aux"])
     out["steps"] = {mode: train_steps(mode, spec["state"], spec["raw"], spec["noise"]) for mode in ("ddp", "fsdp")}
     out["dropout"] = {mode: train_steps(mode, None, spec["raw"], [None], dropout_cfg(), seed=5)
                       for mode in ("ddp", "fsdp")}
