@@ -266,8 +266,10 @@ it fails:
    and the policies' actions against the plain path: each loss, gradient,
    val loss and MAE within its fp32 limit or NOISE_FACTOR x its own
    sensitivity to keypoint noise (the share of keypoints whose bf16
-   rounding B.2's kernel moves, measured here, moved one bf16 ulp), success
-   rates and plans equal; the lockstep actions within ACTION_ATOL, the
+   rounding B.2's kernel moves, measured here, moved one bf16 ulp; with
+   it, as in every bf16 plain-path check, the recurrence's outputs at
+   B.6's own bf16 flip share and the plan KL's logit gradients one ulp,
+   B.4's backward), success rates and plans equal; the lockstep actions within ACTION_ATOL, the
    single lane's within ACTION_ATOL or NOISE_FACTOR x its sensitivity to
    that keypoint noise together with noise at the decoder recurrence's own
    share (of its layer-0 outputs, which the next layer's bf16 input
@@ -366,11 +368,37 @@ it fails:
    ``mlp`` decoder exported at ``--lanes`` lanes and served by one process
    without model code (``run_serving_export``), bit-equal with the same
    launches per step.
+22. the frozen CLIP and tactile encoders at full width (JAX's parameter
+   counts, ENCODER_PARAMS). First B.15 (``csrc/resize_preprocess.cu``)
+   against its plain version in every mode (the CLIP and tactile
+   branches, training and evaluation, fp32 and bf16 out, a 160 x 120
+   tactile frame's two launches, a resized CNN camera) at the training
+   step's and validation's frames: each output within the plain epilogue
+   of the plain resize -+ B15_TOL pixel values, the share that rounds to
+   another bf16 value at most B15_FLIP_SHARE; its times beside
+   ``F.interpolate(antialias=True)`` of the resize alone. Then for
+   ``hulc_clip_vision`` (RN50, fp32 and bf16; ViT-B/32 a train step
+   alone), ``hulc_tactile`` (CALVIN's 160 x 120 x 6 frames) and
+   ``hulc_clip_lang`` the main path, launch counts zeroed just before and
+   read just after: ENCODER_TRAIN_STEPS fused train steps, each kernel's
+   launches per step exactly ``encoder_step_launches`` (B.15 once for a
+   CLIP camera and twice for a tactile tower, 0 for ``hulc_clip_lang``),
+   a ``{vis, lang}`` step, the frozen backbones' gradients zero tensors,
+   a val step, for ``hulc_clip_lang`` the policy at 1 and ``--lanes``
+   lanes and a short ``evaluate_policy_batched`` pass; then one train
+   step (ENCODER_PATTERNS noise patterns for the long towers; the bf16
+   model's noise as phase 17's) and one val step against the plain path, and
+   ``hulc_clip_lang``'s policies (ACTION_ATOL). ``hulc_clip_vision``'s
+   ``fit`` on a 200 / 84 px fixture and ``train.py --config
+   hulc_clip_vision --fixture``; ``hulc_clip_lang``'s export served by one
+   process without model code, bit-equal; last, ``hulc_clip_lang``'s train
+   step timed beside ``hulc``'s, in turn in this process
+   (``time_beside_hulc``).
 
 Prints a ``{"kernels": [...]}`` JSON line (launches on the serving,
 training, evaluator, training-loop, served, mcil, hulc_depth, gated
-decoder, bf16, CLI, B.13, data-parallel (summed over the ranks) and
-variant paths) and, last, ``{"ok": true, "device": {...}}``.
+decoder, bf16, CLI, B.13, data-parallel (summed over the ranks), variant
+and encoder paths) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2163,6 +2191,48 @@ def recurrence_noise(cell, num_layers, seed, bf16_share):
         yield
 
 
+class _GradUlp(torch.autograd.Function):
+    """The identity, whose backward moves each entry of the incoming
+    gradient one ulp up or down at random (``seed``)."""
+
+    @staticmethod
+    def forward(ctx, x, seed):
+        ctx.seed = seed
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        gen = torch.Generator(device=g.device).manual_seed(ctx.seed)
+        up = torch.rand(g.shape, generator=gen, device=g.device) < 0.5
+        away = torch.where(up, torch.full_like(g, float("inf")), torch.full_like(g, float("-inf")))
+        return torch.nextafter(g, away), None
+
+
+@contextlib.contextmanager
+def kl_grad_noise(seed):
+    """The plain plan's balanced KL with the gradient into each logit, of
+    the posterior and of the prior, moved one ulp at random: B.4's backward
+    kernel sums each logit's gradient in another order than autograd
+    through the plain KL, and a bf16 model's proposal and recognition
+    networks round that gradient to bf16 on the way back."""
+    from hulc_tpu_torch.ops.plan_distributions import DiscretePlanState, PlanDistribution
+
+    plain = PlanDistribution.balanced_kl
+    calls = itertools.count()
+
+    def moved(self, posterior, prior, alpha, per_sample=False):
+        if isinstance(posterior, DiscretePlanState):
+            posterior = DiscretePlanState(_GradUlp.apply(posterior.logit, seed * 4096 + next(calls)))
+            prior = DiscretePlanState(_GradUlp.apply(prior.logit, seed * 4096 + next(calls)))
+        return plain(self, posterior, prior, alpha, per_sample)
+
+    PlanDistribution.balanced_kl = moved
+    try:
+        yield
+    finally:
+        PlanDistribution.balanced_kl = plain
+
+
 def separate_plan_ties(model, cfg, batch, shifts, depth_noise, gumbel):
     """The plan noise with every near tie of the posterior's pick pulled
     apart: where the top two of gumbel + logits are closer than
@@ -2183,7 +2253,8 @@ def separate_plan_ties(model, cfg, batch, shifts, depth_noise, gumbel):
     return gumbel, int(near.sum())
 
 
-def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train plain path", bf16_share=None):
+def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train plain path", bf16_share=None,
+                        patterns=ULP_PATTERNS):
     """One step from the same params, batch, shifts, depth noise and plan
     noise through the kernel path and the plain path (recognition dropout 0, cuDNN
     deterministic, a discrete plan's ties pulled apart); losses per key and
@@ -2217,10 +2288,21 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     inputs' ulp moved the language goal's gradients by 2.1e-4, as the
     kernel does, the outputs' by 3.9e-7). A model whose decoder runs no
     relu recurrence (gru, lstm, mlp) calls no B.6 to move. Shifts are drawn for
-    the config's cameras; GCBC draws no plan noise."""
+    the config's cameras (a tactile tower's with its branch's pad); GCBC
+    draws no plan noise. ``patterns`` (fewer for the frozen CLIP and
+    tactile towers, whose steps are long: the time the patterns took is
+    printed) sets how many noise patterns measure the sensitivity: fewer
+    can only lower a limit. In a bf16 model (``bf16_share`` given) each
+    pattern also moves the relu recurrence's outputs that a bf16 input
+    projection reads next by one bf16 ulp, at the share of them whose bf16
+    rounding B.6's kernel moves on this step (``recurrence_flips``,
+    measured in a plain step; ``recurrence_noise``), and the plan KL's
+    gradients into the logits by one ulp (``kl_grad_noise``: B.4's backward
+    kernel), as both kernels move them in every bf16 model."""
     from hulc_tpu_torch.models import layers, vision
     from hulc_tpu_torch.ops.image_ops import draw_shifts
     from hulc_tpu_torch.ops.plan_distributions import gumbel_noise
+    from hulc_tpu_torch.training.preprocess import CAMERAS, train_shift_pad
     from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
     cfg0 = dataclasses.replace(cfg, plan_recognition=dataclasses.replace(cfg.plan_recognition, dropout=0.0))
@@ -2228,8 +2310,9 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     fused = batch["fused"]
     n, s = fused.actions.shape[:2]
     pe, d = cfg.perceptual_encoder, cfg.distribution
-    shifts = {"fused": {cam: draw_shifts(n * s, getattr(pe, cam).shift_pad, gen, device)
-                        for cam in ("rgb_static", "rgb_gripper") if getattr(pe, cam) is not None}}
+    shifts = {"fused": {cam: draw_shifts(n * s, train_shift_pad(getattr(pe, field)), gen, device)
+                        for cam, field in CAMERAS
+                        if getattr(pe, field) is not None and getattr(fused, cam) is not None}}
     depth = {cam: torch.randn(getattr(fused, cam).shape, generator=gen, device=device)
              for cam in ("depth_static", "depth_gripper") if getattr(pe, cam) is not None}
     depth_noise = {"fused": depth} if depth else None
@@ -2247,7 +2330,16 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     state = {k: v.clone() for k, v in model.state_dict().items()}
     args = (cfg0, seed, device, state, batch, shifts, depth_noise, plan_noise)
     lk, gk = train_step_grads(*args, use_kernels=True)
-    lp, gp = train_step_grads(*args, use_kernels=False)
+    ad = cfg.action_decoder
+    share = None
+    if bf16_share is not None:
+        with recurrence_flips("rnn", ad.num_layers) as flips:
+            lp, gp = train_step_grads(*args, use_kernels=False)
+        share = flips["flipped"] / max(flips["outputs"], 1)
+        print(f"[{label}] B.6's kernel rounds {flips['flipped']} of {flips['outputs']} recurrence outputs to another "
+              f"bf16 value than the plain loop ({share:.3g})")
+    else:
+        lp, gp = train_step_grads(*args, use_kernels=False)
 
     total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gp.values())))
     live = []
@@ -2262,14 +2354,19 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
     sens, loss_sens = dict.fromkeys(live, 0.0), dict.fromkeys(lp, 0.0)
     plain = Trainer(cfg0, TrainerConfig(seed=seed), device, use_kernels=False)
     plain.init_state(1)
-    for i in range(ULP_PATTERNS):
+    t_patterns = time.perf_counter()
+    for i in range(patterns):
         with ulp_noise(vision, "spatial_softmax_plain", seed + 13 + 2 * i, bf16_share), \
                 ulp_noise(layers, "birnn_layer_plain", seed + 14 + 2 * i), \
-                plain_recurrence("rnn", functools.partial(noisy_input, seed=seed + 15 + 2 * i)):
+                plain_recurrence("rnn", functools.partial(noisy_input, seed=seed + 15 + 2 * i)), \
+                (recurrence_noise("rnn", ad.num_layers, seed + 16 + 2 * i, share) if share is not None
+                 else contextlib.nullcontext()), \
+                (kl_grad_noise(seed + 17 + 2 * i) if share is not None else contextlib.nullcontext()):
             lu, gu = train_step_grads(*args, use_kernels=False, trainer=plain)
         sens = {k: max(v, rel_l2(gu[k], gp[k])) for k, v in sens.items()}
         loss_sens = {k: max(v, abs(float(lu[k]) - float(lp[k])) / max(abs(float(lp[k])), 1e-30))
                      for k, v in loss_sens.items()}
+    pattern_s = time.perf_counter() - t_patterns
     del plain
     # each loss within STEP_LOSS_RTOL; in bf16, or NOISE_FACTOR x its own sensitivity (a keypoint
     # an ulp away can round the other way at the next layer's input and move a loss by ~1e-5)
@@ -2296,15 +2393,16 @@ def compare_train_plain(cfg, model, batch, seed, device="cuda", label="train pla
           f"limit is the larger of {STEP_GRAD_REL} and {NOISE_FACTOR} x how far the plain path moves it when each "
           f"keypoint moves one ulp{'' if bf16_share is None else f' (a {bf16_share:.3g} share one bf16 ulp)'} (and each "
           f"decoder recurrence input and BiRNN output one ulp), over "
-          f"{ULP_PATTERNS} random patterns (up to "
-          f"{max(sens.values()):.3g}); closest to its limit: {closest} at {errs[closest]:.3g} of "
+          f"{patterns} random patterns (up to "
+          f"{max(sens.values()):.3g}; the patterns took {pattern_s:.2f} s, {pattern_s / max(patterns, 1):.3f} s each); "
+          f"closest to its limit: {closest} at {errs[closest]:.3g} of "
           f"{limits[closest]:.3g}")
     if device == "cuda":
         torch.cuda.empty_cache()
     return {"loss_rel_err": loss_err, "loss_ulp_sensitivity": max(loss_sens.values()),
             "grad_rel_err": errs[worst], "ulp_sensitivity": max(sens.values()),
             "closest_to_limit": {"tensor": closest, "rel_err": errs[closest], "limit": limits[closest]},
-            "plan_ties": ties}
+            "plan_ties": ties, "patterns": patterns, "patterns_s": pattern_s}
 
 
 # --------------------------------------------------------------------------
@@ -2551,7 +2649,9 @@ def compare_val_plain(cfg, trainer, seed, raw_batch, label="training loop", patt
     bf16 model: a keypoint an ulp away can round the other way), each loss
     and MAE within the larger of VAL_REL and NOISE_FACTOR x the plain path's
     own change under ``ulp_noise`` of the keypoints (``bf16_share``; the
-    largest over ``patterns`` patterns); success rates and plans as above."""
+    largest over ``patterns`` patterns); success rates and plans as above.
+    In a bf16 model the patterns also move the recurrence's outputs at
+    B.6's own bf16 flip share, as ``compare_train_plain`` does."""
     from hulc_tpu_torch.models import make_model, vision
     from hulc_tpu_torch.training.preprocess import preprocess_batch
 
@@ -2567,11 +2667,17 @@ def compare_val_plain(cfg, trainer, seed, raw_batch, label="training loop", patt
         # the window kernels' own check: the RNN decoders of the plan models (phase 12's path)
         windows = cfg.model_kind != "gcbc" and cfg.action_decoder.kind == "logistic"
         window_errs = check_window_kernels(plain, prep_plain, noise, label) if windows else None
-        want = plain.val_metrics(prep_plain, cfg.loss.kl_beta, noise=noise)
+        layers_n = cfg.action_decoder.num_layers
+        bf16 = bf16_share is not None
+        with recurrence_flips("rnn", layers_n) if bf16 else contextlib.nullcontext({}) as flips:
+            want = plain.val_metrics(prep_plain, cfg.loss.kl_beta, noise=noise)
+        share = flips["flipped"] / max(flips["outputs"], 1) if bf16 else None
         got = trainer.model.val_metrics(preprocess_batch(cfg, raw_batch, train=False), cfg.loss.kl_beta, noise=noise)
         sens = {}
         for i in range(patterns):
-            with ulp_noise(vision, "spatial_softmax_plain", seed + 41 + i, bf16_share):
+            with ulp_noise(vision, "spatial_softmax_plain", seed + 41 + i, bf16_share), \
+                    (recurrence_noise("rnn", layers_n, seed + 43 + i, share) if share is not None
+                     else contextlib.nullcontext()):
                 noisy = plain.val_metrics(prep_plain, cfg.loss.kl_beta, noise=noise)
             for k, v in noisy.items():
                 if "sampled_plan" not in k and "gripper_sr" not in k:
@@ -6084,6 +6190,469 @@ def run_phase21(seed, lanes, card):
 
 
 # --------------------------------------------------------------------------
+# 22. the frozen CLIP and tactile encoders, the resize and B.15
+# --------------------------------------------------------------------------
+
+B15_TOL = 2e-4  # pixel values: the resize against its plain version (the CPU tests' tolerance against JAX)
+B15_FLIP_SHARE = 1e-3  # share of elements whose bf16 rounding may fall the other way
+B15_TIMED = 20  # launches a timing
+
+
+def b15_modes(n):
+    """(name, frames' (N, H, W, C), [(FramePrep or the raw resize size, shifted)], out dtype) of every mode
+    B.15 runs on a path: the CLIP and the tactile branches at ``n`` frames, training and evaluation, fp32
+    and bf16 out; the tactile 160 x 120 frame's two launches (the raw resize to 64, then the branch); a
+    resized CNN camera (84 -> 200, unrounded)."""
+    from hulc_tpu_torch.ops.image_ops import clip_prep, rgb_prep, tactile_prep
+
+    out = []
+    for train in (True, False):
+        tag = "train" if train else "val"
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = "fp32" if dtype == torch.float32 else "bf16"
+            out.append((f"clip_{tag}_{dt}", (n, 200, 200, 3), [clip_prep(224, (200, 200), 10, train)], dtype))
+            out.append((f"tactile_160x120_{tag}_{dt}", (n, 160, 120, 6), [(64, 64), tactile_prep(64, 6, train)],
+                        dtype))
+            out.append((f"tactile_64_{tag}_{dt}", (n, 64, 64, 6), [tactile_prep(64, 6, train)], dtype))
+        out.append((f"rgb_84_to_200_{tag}_fp32", (n // 8, 84, 84, 3), [rgb_prep(200, (84, 84), 3, 10, train)],
+                    torch.float32))
+    return out
+
+
+def b15_chain(frames, stages, shifts, dtype, kernel):
+    """The frames through a mode's stages: B.15's launches (``kernel``) or their plain versions."""
+    from hulc_tpu_torch.ops import image_ops
+
+    x = frames
+    for st in stages:
+        if isinstance(st, tuple):
+            x = (image_ops.resize_bilinear if kernel else image_ops.resize_bilinear_plain)(x, *st)
+        else:
+            x = (image_ops.resize_preprocess if kernel else image_ops.resize_preprocess_plain)(x, st, shifts, dtype)
+    return x
+
+
+def check_b15_mode(name, shape, stages, dtype, gen):
+    """One mode of B.15 against its plain version: each output within the
+    plain epilogue of the plain resize's value -+ B15_TOL pixel values (so a
+    bf16 rounding can fall the other way only at a rounding boundary, by one
+    bf16 step), and the share of elements that differ from the plain output
+    at most B15_FLIP_SHARE. Returns (largest |kernel - plain|, flip share)."""
+    from hulc_tpu_torch.ops import image_ops
+
+    frames = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+    prep = stages[-1]
+    shifts = None
+    if prep.pad:
+        shifts = torch.randint(0, 2 * prep.pad + 1, (shape[0], 2), generator=gen, device="cuda", dtype=torch.int32)
+    got = b15_chain(frames, stages, shifts, dtype, kernel=True)
+    torch.cuda.synchronize()
+    # the plain resized value at every place of the last stage's frame, and the plain epilogue around it
+    resized = b15_chain(frames, stages[:-1], None, dtype, kernel=False) if len(stages) > 1 else frames
+    value = image_ops.resize_bilinear_plain(resized, *prep.size)
+    ident = dataclasses.replace(prep, size=tuple(value.shape[1:3]))
+    want = image_ops.resize_preprocess_plain(value, ident, shifts, dtype)
+    lo = image_ops.resize_preprocess_plain(value - B15_TOL, ident, shifts, dtype)
+    hi = image_ops.resize_preprocess_plain(value + B15_TOL, ident, shifts, dtype)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"B.15 {name}: {tuple(got.shape)} {got.dtype}, the plain version {tuple(want.shape)} {want.dtype}")
+    outside = int(((got < lo) | (got > hi)).sum())
+    flips = float((got != want).float().mean())
+    err = max_abs(got, want)
+    if outside or not flips <= B15_FLIP_SHARE or not torch.isfinite(got.float()).all():
+        fail(f"B.15 {name}: {outside} outputs outside the plain epilogue of the plain resize -+ {B15_TOL}, flip "
+             f"share {flips:.3g} (at most {B15_FLIP_SHARE}), max abs err {err:.3g}")
+    if len(stages) > 1:  # the raw launch alone
+        raw = image_ops.resize_bilinear(frames, *stages[0])
+        raw_err = max_abs(raw, resized)
+        if not raw_err <= B15_TOL:
+            fail(f"B.15 {name}: the raw resize is {raw_err:.3g} off its plain version (at most {B15_TOL})")
+    return err, flips
+
+
+def b15_bytes(shape, stages, dtype):
+    """Bytes the mode must move: the uint8 frames read once and its output written once."""
+    n, h, w, c = shape
+    oh, ow = stages[-1].out_size
+    return n * h * w * c + n * c * oh * ow * (4 if dtype == torch.float32 else 2)
+
+
+def time_b15(name, shape, stages, dtype, gen):
+    """Device ms (CUDA events) of the mode's launches, of its plain version,
+    of ``F.interpolate(antialias=True)`` of the resize alone on the same
+    frames as float NCHW (the nearest library call: no one call computes the
+    whole function), and the mode's bound."""
+    import torch.nn.functional as F
+
+    frames = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+    prep = stages[-1]
+    shifts = None
+    if prep.pad:
+        shifts = torch.randint(0, 2 * prep.pad + 1, (shape[0], 2), generator=gen, device="cuda", dtype=torch.int32)
+    ms = time_events(lambda: b15_chain(frames, stages, shifts, dtype, kernel=True), B15_TIMED)
+    plain_ms = time_events(lambda: b15_chain(frames, stages, shifts, dtype, kernel=False), 3)
+    nchw = frames.permute(0, 3, 1, 2).float().contiguous()
+    size = stages[0] if isinstance(stages[0], tuple) else prep.size
+    library_ms = time_events(lambda: F.interpolate(nchw, size=size, mode="bilinear", antialias=True,
+                                                   align_corners=False), B15_TIMED)
+    del nchw
+    bound_ms, bound_by = bound(b15_bytes(shape, stages, dtype), 0.0)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library_call": "F.interpolate(antialias=True), "
+            "the resize alone", "bound_ms": bound_ms, "bound_by": bound_by, "shape": list(shape),
+            "launches_per_call": len(stages)}
+
+
+def check_b15(seed, card):
+    """B.15 against its plain version in every mode at the training step's
+    2B x S frames and validation's B x S, and its times at the training
+    shapes. Returns ({mode: (err, flips)}, {mode: timing})."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 221)
+    results, timing = {}, {}
+    for n, where in ((2 * BATCH_PER_MOD * SEQ, "train shape"), (BATCH_PER_MOD * SEQ, "val shape")):
+        for name, shape, stages, dtype in b15_modes(n):
+            before = kernels.RESIZE_PREPROCESS.launches
+            err, flips = check_b15_mode(f"{name} at the {where}", shape, stages, dtype, gen)
+            if kernels.RESIZE_PREPROCESS.launches - before != len(stages) + (len(stages) > 1):
+                fail(f"B.15 {name}: {kernels.RESIZE_PREPROCESS.launches - before} launches for {len(stages)} stages")
+            results[f"{name}@{n}"] = {"max_abs_err": err, "flip_share": flips}
+            print(f"[b15] {name} at {shape} ({where}): max abs err {err:.3g}, flip share {flips:.3g}")
+            torch.cuda.empty_cache()
+    n = 2 * BATCH_PER_MOD * SEQ
+    for name, shape, stages, dtype in b15_modes(n):
+        if name in ("clip_train_fp32", "clip_train_bf16", "clip_val_fp32", "tactile_160x120_train_fp32",
+                    "tactile_64_train_fp32"):
+            t = timing[name] = time_b15(name, shape, stages, dtype, gen)
+            print(f"[timing] B.15 {name} at {shape}: kernel {t['ms']:.6f} ms ({t['launches_per_call']} launch(es)), "
+                  f"plain {t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
+                  f"{100 * t['bound_ms'] / t['ms']:.1f}% of it), F.interpolate(antialias=True) of the resize alone "
+                  f"{t['library_ms']:.6f} ms ({card})")
+            torch.cuda.empty_cache()
+    return results, timing
+
+
+# JAX's init's parameter counts, the tactile frame and 1024-d language in its batch
+# (tests/test_torch_encoder_presets.py holds the port's to JAX's)
+ENCODER_PARAMS = {"hulc_clip_vision": 85_806_391, "hulc_clip_vision_bf16": 85_806_391,
+                  "hulc_clip_vision_vit": 134_875_607, "hulc_tactile": 58_351_895, "hulc_clip_lang": 48_364_279}
+ENCODERS = {  # name: (preset, overrides); the ViT takes a train step and nothing else
+    "hulc_clip_vision": ("hulc_clip_vision", ()),
+    "hulc_clip_vision_bf16": ("hulc_clip_vision", ("compute_dtype=bfloat16",)),
+    "hulc_clip_vision_vit": ("hulc_clip_vision", ("perceptual_encoder.rgb_static.clip_model=ViT-B/32",)),
+    "hulc_tactile": ("hulc_tactile", ()),
+    "hulc_clip_lang": ("hulc_clip_lang", ()),
+}
+ENCODER_TRAIN_STEPS = 3  # two warm-ups and one timed
+ENCODER_PATTERNS = 4  # noise patterns of the plain-path checks of the long CLIP / tactile steps
+ENCODER_POLICY_STEPS = 4
+ENCODER_EVAL_CHAINS, ENCODER_EVAL_EP_LEN = 64, 30  # hulc_clip_lang's short evaluate_policy_batched pass
+ENCODER_FIT_STEPS, ENCODER_FIT_EPOCHS, ENCODER_FIT_VAL_BATCHES = 2, 2, 1
+ENCODER_CLI_STEPS = 2
+ENCODER_BESIDE_WARMUPS, ENCODER_BESIDE_STEPS = 2, 5  # hulc_clip_lang's train step and hulc's, in turn
+
+
+def encoder_config(name):
+    from hulc_tpu_torch.config import apply_overrides, get_config
+
+    preset, overrides = ENCODERS[name]
+    return apply_overrides(get_config(preset), list(overrides))
+
+
+def encoder_step_launches(cfg):
+    """Each kernel's launches in one train step of ``cfg`` on synthetic frames
+    (a CLIP camera's at 200 px, a tactile tower's at 160 x 120): B.15 once
+    for a CLIP camera, twice for a tactile tower (the raw resize, then the
+    branch); B.1' per CNN camera and B.2 / B.2' per SpatialSoftmax camera
+    (their bf16 instances in a bf16 model); B.3', B.4, B.6 per layer, B.5
+    and B.7. Every other kernel 0."""
+    from hulc_tpu_torch import kernels
+
+    pe = cfg.perceptual_encoder
+    cams = [c for c in (pe.rgb_static, pe.rgb_gripper) if c is not None]
+    cnn = [c for c in cams if c.kind in ("spatial_softmax", "nature_cnn")]
+    ss = sum(c.kind == "spatial_softmax" for c in cams)
+    sfx = "_bf16" if cfg.compute_dtype == "bfloat16" else ""
+    on = {"hulc_resize_preprocess": sum(c.kind == "clip" for c in cams) + 2 * (pe.tactile is not None),
+          f"hulc_preprocess_rgb_shift{sfx}": sum(c.shift_pad > 0 for c in cnn), f"hulc_spatial_softmax{sfx}": ss,
+          f"hulc_spatial_softmax_bwd{sfx}": ss, "hulc_mixture_nll_fwd": 1, "hulc_mixture_nll_bwd": 1,
+          "hulc_plan_st_kl_fwd": 1, "hulc_plan_st_kl_bwd": 1, "hulc_rnn_relu_fwd": cfg.action_decoder.num_layers,
+          "hulc_rnn_relu_bwd": cfg.action_decoder.num_layers, "hulc_adam_lowp": 1, "hulc_grad_norm_finish": 1}
+    return {k.symbol: on.get(k.symbol, 0) for k in kernels.ALL_KERNELS}
+
+
+def encoder_path_kernels(cfg):
+    """The kernels a preset's path must launch, and the only ones it may:
+    the train step's, and in validation (and the policies) B.1 per CNN
+    camera, B.3 and the training kernels' forwards."""
+    sfx = "_bf16" if cfg.compute_dtype == "bfloat16" else ""
+    on = {k for k, n in encoder_step_launches(cfg).items() if n}
+    pe = cfg.perceptual_encoder
+    if any(c is not None and c.kind in ("spatial_softmax", "nature_cnn") for c in (pe.rgb_static, pe.rgb_gripper)):
+        on.add(f"hulc_preprocess_rgb{sfx}")
+    on.add("hulc_logistic_mixture_sample")
+    return on
+
+
+def check_encoder_launches(name, cfg, launches):
+    on = encoder_path_kernels(cfg)
+    missing = sorted(k for k in on if not launches[k] > 0)
+    extra = sorted(k for k, n in launches.items() if n and k not in on)
+    if missing or extra:
+        fail(f"{name}: the path never launched {missing}, or launched {extra}, which it must not: "
+             f"{({k: n for k, n in launches.items() if n})}")
+
+
+def run_encoder_fit(cfg, seed, card):
+    """``Trainer.fit`` of ``hulc_clip_vision`` on a 200 / 84 px fixture
+    (frames resized to 224 on the device): ENCODER_FIT_EPOCHS epochs of
+    ENCODER_FIT_STEPS steps with validation and checkpoints; then the train
+    CLI, ``--config hulc_clip_vision --fixture``, for ENCODER_CLI_STEPS steps.
+    Returns (report, {kernel symbol: launches})."""
+    from hulc_tpu_torch.data.fixtures import make_fixture_dataset
+    from hulc_tpu_torch.data.loader import make_loaders
+    from hulc_tpu_torch.training import train
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    before = collections.Counter(launch_counts())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        root = make_fixture_dataset(tmp / "data", num_episodes=FIT_EPISODES, episode_len=FIT_EPISODE_LEN,
+                                    small=False, seed=seed)
+        loader = make_loaders(cfg, root, batch_size=FIT_BATCH, fuse=True, seed=seed, num_workers=1)
+        val = make_loaders(cfg, root, split="validation", batch_size=FIT_BATCH, deterministic=True)
+        host = loader._make()["fused"]
+        if host.rgb_static.shape[2:] != (200, 200, 3):
+            fail(f"the clip fixture's static frames are {host.rgb_static.shape}, not the dataset's 200 px")
+        trainer = Trainer(cfg, TrainerConfig(run_dir=str(tmp / "run"), seed=seed, log_every=1,
+                                             val_max_batches=ENCODER_FIT_VAL_BATCHES), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = trainer.fit(FirstBatches(loader, ENCODER_FIT_STEPS), val, max_epochs=ENCODER_FIT_EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        records = [json.loads(line) for line in (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
+        if steps != ENCODER_FIT_STEPS * ENCODER_FIT_EPOCHS or {r["prefix"] for r in records} != {"train", "val",
+                                                                                                 "epoch"}:
+            fail(f"hulc_clip_vision fit: {steps} steps, prefixes {sorted({r['prefix'] for r in records})}")
+        if not all(np.isfinite(v) for r in records for k, v in r.items() if k != "prefix"):
+            fail("hulc_clip_vision fit: a value in metrics.jsonl is not finite")
+        del trainer, loader, val
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli = train.main(["--config", "hulc_clip_vision", "--fixture", "--run-dir", str(tmp / "cli"), "--seed",
+                          str(seed), "--steps", str(ENCODER_CLI_STEPS), "--batch-size", "8", "--val-max-batches", "1"])
+        cli_s = time.perf_counter() - t0
+        if cli.step != ENCODER_CLI_STEPS:
+            fail(f"train.py --config hulc_clip_vision took {cli.step} steps, not {ENCODER_CLI_STEPS}")
+        del cli
+    torch.cuda.empty_cache()
+    launches = collections.Counter(launch_counts())
+    launches.subtract(before)
+    report = {"fit_steps": steps, "fit_s": fit_s, "cli_steps": ENCODER_CLI_STEPS, "cli_s": cli_s}
+    print(f"[encoders] hulc_clip_vision fit on a 200 / 84 px fixture (2 x {FIT_BATCH} windows a step): {steps} steps "
+          f"with validation and checkpoints in {fit_s:.2f} s; train.py --config hulc_clip_vision --fixture "
+          f"--steps {ENCODER_CLI_STEPS} in {cli_s:.2f} s ({card})")
+    return report, dict(launches)
+
+
+def run_encoder(name, seed, lanes, card):
+    """One preset at full width: ENCODER_TRAIN_STEPS train steps on the fused
+    batch with each kernel's launches per step exact, one on the
+    {"vis", "lang"} batch, a val step, and (``hulc_clip_lang``)
+    the policies at 1 and ``lanes`` lanes and a short batched evaluator
+    pass; then each against the plain path (the ViT: one train step alone).
+    Returns (summary, launches, (cfg, model))."""
+    from hulc_tpu_torch import kernels
+    from hulc_tpu_torch.evaluation.batched_eval import BatchedHulcPolicy
+    from hulc_tpu_torch.evaluation.eval_split import run_batched
+    from hulc_tpu_torch.models import make_model
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = encoder_config(name)
+    whole, served = name != "hulc_clip_vision_vit", name == "hulc_clip_lang"
+    model = make_model(cfg, "cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != ENCODER_PARAMS[name]:
+        fail(f"{name}: {n_params} parameters, JAX's init has {ENCODER_PARAMS[name]}")
+    batch = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, seed, "cuda")
+
+    # the main path
+    trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+    trainer.model.load_state_dict(model.state_dict())
+    trainer.init_state(1)
+    steps = ENCODER_TRAIN_STEPS if whole else 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_losses, host, events = drive_training(trainer, batch, cfg.loss.kl_beta, steps)
+    per_step = launch_counts()
+    want = {k: n * steps for k, n in encoder_step_launches(cfg).items()}
+    if per_step != want:
+        fail(f"{name}: {steps} train steps launched {({k: v for k, v in per_step.items() if v})}, expected "
+             f"{({k: v for k, v in want.items() if v})} and no other kernel")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, losses in enumerate(step_losses):
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"{name} train step {i}: a loss is not finite: {losses}")
+    frozen = [p for p in trainer.model.frozen_parameters()]
+    if (cfg.perceptual_encoder.tactile is not None or cfg.perceptual_encoder.rgb_static.kind == "clip") != bool(frozen):
+        fail(f"{name}: {len(frozen)} frozen parameters")
+    if frozen and not all(p.grad is not None and not p.grad.any() for p in frozen):
+        fail(f"{name}: a frozen backbone parameter took a gradient that is not zero")
+    split = None
+    if whole:  # the per-modality schema: a {"vis", "lang"} batch, a pass each
+        split = {k: float(v) for k, v in trainer.train_step(split_fused(batch), cfg.loss.kl_beta).items()}
+        if not all(np.isfinite(v) for v in split.values()):
+            fail(f"{name} {{vis, lang}} train step: a loss is not finite: {split}")
+    val = None
+    rng = np.random.default_rng(seed + 227)
+    if whole:
+        trainer.model.eval()
+        with torch.no_grad():
+            val = trainer.val_step(split_fused(batch), cfg.loss.kl_beta,
+                                   generator=torch.Generator(device="cuda").manual_seed(seed))
+        trainer.model.train()
+        if not all(np.isfinite(float(v)) for v in val.values()):
+            fail(f"{name} val step: a metric is not finite: {val}")
+    if served:
+        lang = rng.normal(size=cfg.lang_dim).astype(np.float32)
+        langs = rng.normal(size=(lanes, cfg.lang_dim)).astype(np.float32)
+        single_obs = make_obs(rng, cfg, ENCODER_POLICY_STEPS)
+        batched_obs = [make_obs(rng, cfg, lanes) for _ in range(ENCODER_POLICY_STEPS)]
+        single_actions, single_states = drive_single(cfg, model, single_obs, lang, seed)
+        batched_actions, batched_states = drive_batched(cfg, model, batched_obs, langs, seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            evaluator, _, _ = run_batched(cfg, BatchedHulcPolicy(cfg, model, lanes, seed=seed), ENCODER_EVAL_CHAINS,
+                                          ENCODER_EVAL_EP_LEN, seed, tmp)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if whole:
+        check_encoder_launches(name, cfg, launches)
+    del trainer
+    step_ms, event_ms_ = statistics.median(host[2:] or host), statistics.median(events[2:] or events)
+    print(f"[timing] {name} train step (2B={2 * BATCH_PER_MOD}, S={SEQ}, "
+          f"{'median after 2 warm-ups' if whole else 'the first'}): host clock {step_ms:.4f} ms, CUDA events "
+          f"{event_ms_:.4f} ms; all steps host {[round(t, 4) for t in host]} ms, events {[round(t, 4) for t in events]} "
+          f"ms; peak memory {peak_gb:.2f} GB ({card})")
+    summary = {"parameters": n_params, "train_step": {"host_ms": step_ms, "event_ms": event_ms_, "steps_host_ms": host,
+                                                      "steps_event_ms": events, "peak_memory_gb": peak_gb},
+               "train_launches_per_step": {k: v for k, v in encoder_step_launches(cfg).items() if v},
+               "losses": step_losses[-1], "split_step_losses": split}
+    if served:
+        check_actions(f"{name} single lane", single_actions, 1)
+        check_actions(f"{name} batched", batched_actions, lanes)
+        summary["evaluator"] = {k: evaluator[k] for k in ("lanes", "chains", "ep_len", "lockstep_iters", "env_steps",
+                                                          "env_steps_per_s", "wall_s")}
+        print(f"[encoders] {name} evaluate_policy_batched: {evaluator['lanes']} lanes, {evaluator['chains']} chains, "
+              f"ep_len {evaluator['ep_len']}: {evaluator['env_steps']} env steps in {evaluator['wall_s']:.4f} s, "
+              f"avg_seq_len {evaluator['results']['avg_seq_len']} ({card})")
+
+    # the main path against the plain path (no SpatialSoftmax in a CLIP model: no keypoint share to move)
+    bf16 = cfg.compute_dtype == "bfloat16"
+    summary["train_step"]["plain_path"] = compare_train_plain(
+        cfg, model, batch, seed, label=f"{name} train plain path", bf16_share=0.0 if bf16 else None,
+        patterns=ENCODER_PATTERNS if name != "hulc_clip_lang" else ULP_PATTERNS)
+    if whole:
+        val_trainer = Trainer(cfg, TrainerConfig(seed=seed), "cuda")
+        val_trainer.model.load_state_dict(model.state_dict())
+        summary["val_step"] = compare_val_plain(cfg, val_trainer, seed, split_fused(batch), label=name,
+                                                patterns=BF16_VAL_PATTERNS if bf16 else 0, bf16_share=0.0 if bf16
+                                                else None)
+        del val_trainer
+    if served:
+        plain_model = make_model(cfg, "cuda", seed=seed, use_kernels=False)
+        plain_model.load_state_dict(model.state_dict())
+        p_actions, p_plans = plain_single(cfg, plain_model, single_obs, lang, seed, single_states)
+        k_plans = np.stack([st.plan[0].cpu().numpy() for st in single_states[1:]])
+        replanned = np.array([t % cfg.replan_freq == 0 for t in range(ENCODER_POLICY_STEPS)])
+        errs = {"1": compare_plain(f"{name} single lane", single_actions, p_actions, k_plans, p_plans, replanned,
+                                   cfg)}
+        masks = [replan_mask(t, lanes, cfg.replan_freq) for t in range(ENCODER_POLICY_STEPS)]
+        p_actions, p_plans = plain_batched(cfg, plain_model, list(zip(batched_obs, [langs] * ENCODER_POLICY_STEPS,
+                                                                      batched_states, masks)), seed)
+        k_plans = np.stack([st[0].cpu().numpy() for st in batched_states[1:]])
+        errs[str(lanes)] = compare_plain(f"{name} batched, {lanes} lanes", batched_actions, p_actions, k_plans,
+                                         p_plans, np.stack(masks), cfg)
+        summary["policy_plain_max_abs_err"] = errs
+        del plain_model
+    torch.cuda.empty_cache()
+    summary["s"] = time.perf_counter() - t0
+    print(f"[encoders] {name}: {n_params} parameters (JAX's), its path in {summary['s']:.1f} s ({card})")
+    return summary, launches, (cfg, model)
+
+
+def time_beside_hulc(cfg, seed, card):
+    """``hulc_clip_lang``'s train step (``cfg``) beside ``hulc``'s in this
+    process: a trainer each on its synthetic batch, ENCODER_BESIDE_WARMUPS
+    warm-up steps each, then ENCODER_BESIDE_STEPS steps each, the two
+    presets in turn, each step ended by a sync. Outside the main path: its
+    launches are not counted. Returns {preset: {"host_ms", "event_ms"
+    (medians), "steps_host_ms", "steps_event_ms"}}."""
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    runs = {}
+    for name, c in (("hulc_clip_lang", cfg), ("hulc", get_config("hulc"))):
+        trainer = Trainer(c, TrainerConfig(seed=seed), "cuda")
+        trainer.init_state(1)
+        runs[name] = (trainer, synthetic_fused_batch(c, BATCH_PER_MOD, SEQ, seed, "cuda"), c.loss.kl_beta)
+    times = {name: ([], []) for name in runs}
+    for i in range(ENCODER_BESIDE_WARMUPS + ENCODER_BESIDE_STEPS):
+        for name, (trainer, batch, kl_beta) in runs.items():
+            _, host, events = drive_training(trainer, batch, kl_beta, 1)
+            if i >= ENCODER_BESIDE_WARMUPS:
+                times[name][0].extend(host)
+                times[name][1].extend(events)
+    del runs
+    torch.cuda.empty_cache()
+    out = {name: {"host_ms": statistics.median(h), "event_ms": statistics.median(e), "steps_host_ms": h,
+                  "steps_event_ms": e} for name, (h, e) in times.items()}
+    print(f"[timing] hulc_clip_lang beside hulc (2B={2 * BATCH_PER_MOD}, S={SEQ}, one train step of each in turn, "
+          f"median of {ENCODER_BESIDE_STEPS} after {ENCODER_BESIDE_WARMUPS} warm-ups each): "
+          + "; ".join(f"{name} host clock {r['host_ms']:.4f} ms, CUDA events {r['event_ms']:.4f} ms, steps host "
+                      f"{[round(t, 4) for t in r['steps_host_ms']]}" for name, r in out.items())
+          + f"; hulc_clip_lang / hulc {out['hulc_clip_lang']['host_ms'] / out['hulc']['host_ms']:.4f} ({card})")
+    return out
+
+
+def run_phase22(seed, lanes, card):
+    """Phase 22. Returns (summary, {kernel symbol: launches on the phase's
+    main paths}, B.15's {mode: errors}, B.15's timings)."""
+    t0 = time.perf_counter()
+    b15, b15_timing = check_b15(seed, card)
+    summary, launches = {"b15": b15}, collections.Counter()
+    for name in ENCODERS:
+        summary[name], n, (cfg, model) = run_encoder(name, seed, lanes, card)
+        launches.update(n)
+        if name == "hulc_clip_vision":
+            summary["clip_vision_fit"], n = run_encoder_fit(cfg, seed, card)
+            launches.update(n)
+        elif name == "hulc_clip_lang":
+            rng = np.random.default_rng(seed + 229)
+            lang = rng.normal(size=cfg.lang_dim).astype(np.float32)
+            langs = rng.normal(size=(lanes, cfg.lang_dim)).astype(np.float32)
+            summary["served"], served = run_serving_export(
+                {name: (cfg, model, SERVING_KERNELS)}, seed, lanes, make_obs(rng, cfg, VARIANT_SERVE_STEPS), lang,
+                [make_obs(rng, cfg, lanes) for _ in range(VARIANT_SERVE_STEPS)], langs, card, with_debug=False)
+            launches.update(served)
+            summary["clip_lang_beside_hulc"] = time_beside_hulc(cfg, seed, card)
+        del model
+        torch.cuda.empty_cache()
+    if launches["hulc_resize_preprocess"] == 0:
+        fail("phase 22 never launched B.15 on its main paths")
+    summary["s"] = time.perf_counter() - t0
+    summary["card"] = card
+    print(f"[encoders] phase 22 in {summary['s']:.1f} s: "
+          + ", ".join(f"{k} step {summary[k]['train_step']['host_ms']:.4f} ms" for k in ENCODERS) + f" ({card})")
+    return summary, launches, b15, b15_timing
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -6150,6 +6719,10 @@ KERNEL_INFO = {
     # B.5': the other instances of B.5's template (phase 18)
     **{name: (symbol, "hulc_tpu_torch/csrc/adam_lowp.cu", replaces)
        for name, (_, symbol, _, _, _, replaces) in OPTIMIZER_INSTANCES.items() if name != "adam_lowp"},
+    # B.15: the resized cameras' preprocess, the CLIP and tactile branches of _prep_one (phase 22)
+    "resize_preprocess": (
+        "hulc_resize_preprocess", "hulc_tpu_torch/csrc/resize_preprocess.cu", "hulc_tpu/training/preprocess.py:21",
+    ),
 }
 
 
@@ -6176,6 +6749,9 @@ EXTRA_TIMINGS = {
     "preprocess_rgb_bf16": {"gripper": "preprocess_rgb_bf16_gripper_window"},
     "spatial_softmax_bf16": {"at_64_lanes": "spatial_softmax_bf16_64", "at_1_lane": "spatial_softmax_bf16_1"},
     "spatial_softmax_bwd_bf16": {"learnable_t": "spatial_softmax_bwd_bf16_learnable_t"},
+    "resize_preprocess": {"clip_train_bf16": "b15_clip_train_bf16", "clip_val_fp32": "b15_clip_val_fp32",
+                          "tactile_160x120_train_fp32": "b15_tactile_160x120_train_fp32",
+                          "tactile_64_train_fp32": "b15_tactile_64_train_fp32"},
 }
 
 
@@ -6382,7 +6958,8 @@ def main(argv=None) -> int:
                "rnn_bwd_kernel<false, true>", "gated_fwd_kernel<false, true>", "gated_bwd_kernel<false, true>",
                "logistic_mixture_sample_kernel",
                "plan_st_kl_fwd_kernel<true>", "plan_st_kl_fwd_kernel<false>", "plan_st_kl_bwd_kernel<true>",
-               "plan_st_kl_bwd_kernel<false>"):
+               "plan_st_kl_bwd_kernel<false>", "resize_preprocess_kernel<unsigned char, 0>",
+               "resize_preprocess_kernel<float, 2>"):
         r = resources[fn]
         print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
               f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")
@@ -6465,6 +7042,14 @@ def main(argv=None) -> int:
     variants, variants_launches, variants_errs = run_phase21(args.seed, args.lanes, card)
     errs.update({k: max(errs.get(k, 0.0), v) for k, v in variants_errs.items()})
 
+    print(f"[time] phase 22 at {time.perf_counter() - t_start:.1f} s")
+    # ---- 22. the frozen CLIP and tactile encoders, the resize and B.15 -------
+    encoders, encoders_launches, b15, b15_timing = run_phase22(args.seed, args.lanes, card)
+    errs["resize_preprocess"] = max(r["max_abs_err"] for r in b15.values())
+    timing["resize_preprocess"] = {**b15_timing["clip_train_fp32"],
+                                   "max_flip_share": max(r["flip_share"] for r in b15.values())}
+    timing.update({f"b15_{k}": v for k, v in b15_timing.items() if k != "clip_train_fp32"})
+
     rows = []
     for name, (symbol, source, replaces) in KERNEL_INFO.items():
         rows.append({
@@ -6472,14 +7057,14 @@ def main(argv=None) -> int:
             "launches": serve_launches[symbol] + train_launches[symbol] + eval_launches[symbol]
             + loop_launches[symbol] + served_launches[symbol] + mcil_launches[symbol] + depth_launches[symbol]
             + gated_launches[symbol] + bf16_launches[symbol] + clis_launches[symbol] + b13_launches[symbol]
-            + parallel_launches[symbol] + variants_launches[symbol],
+            + parallel_launches[symbol] + variants_launches[symbol] + encoders_launches[symbol],
             "launches_serving": serve_launches[symbol], "launches_training": train_launches[symbol],
             "launches_evaluator": eval_launches[symbol], "launches_training_loop": loop_launches[symbol],
             "launches_served": served_launches[symbol], "launches_mcil": mcil_launches[symbol],
             "launches_depth": depth_launches[symbol], "launches_gated": gated_launches[symbol],
             "launches_bf16": bf16_launches[symbol], "launches_clis": clis_launches[symbol],
             "launches_b13": b13_launches[symbol], "launches_parallel": parallel_launches[symbol],
-            "launches_variants": variants_launches[symbol],
+            "launches_variants": variants_launches[symbol], "launches_encoders": encoders_launches[symbol],
             "max_abs_err": errs[name], **timing[name], "launch_floor_ms": launch_floor_ms,
         })
         rows[-1].update({extra: timing[key] for extra, key in EXTRA_TIMINGS.get(name, {}).items()})
@@ -6494,7 +7079,7 @@ def main(argv=None) -> int:
                        "peak_memory_gb": peak_gb, "adam_table_builds": table_builds, "plain_path": train_check},
         "evaluator": evaluator, "training_loop": training_loop, "serving_export": serving_export, "mcil": mcil,
         "hulc_depth": depth, "gated_decoder": gated, "bf16": bf16, "clis": clis, "b13": b13, "parallel": parallel,
-        "variants": variants,
+        "variants": variants, "encoders": encoders,
         "launch_floor_ms": launch_floor_ms, "card": card,
     }))
     print(f"[time] all phases in {time.perf_counter() - t_start:.1f} s")

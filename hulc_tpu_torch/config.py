@@ -1,6 +1,8 @@
-"""Config dataclasses and the presets the port builds: ``hulc``, ``mcil``,
-``gcbc``, ``hulc_depth``, ``hulc_deterministic``, ``hulc_state_only``,
-``fetch_state``, ``fetch_vision`` and the ``*_debug`` ones.
+"""Config dataclasses and the presets the port builds: every preset of the
+JAX package's registry (``hulc``, ``mcil``, ``gcbc``, ``hulc_clip_vision``,
+``hulc_clip_lang``, ``hulc_depth``, ``hulc_tactile``, ``hulc_deterministic``,
+``hulc_state_only``, ``fetch_state``, ``fetch_vision`` and the ``*_debug``
+ones).
 
 A copy of the JAX package's config (hulc_tpu/config.py) for the port: the
 same frozen dataclasses, field names and defaults, the same ``resolve()``
@@ -12,10 +14,14 @@ reference's Hydra overrides, ``--set`` on the CLIs), copied: the same
 parsing, coercion and errors, then ``resolve()``; it is how a config
 reaches the decoder's gru and lstm cells
 (``action_decoder.rnn_cell=gru``). A field the JAX config has and this one
-lacks is refused as an unknown field, by name. The tactile and CLIP
-presets wait for the slices that port their modules. ``hulc_depth``,
-``hulc_deterministic`` and ``fetch_vision`` have no debug preset, as in the
-JAX package: ``_debug`` swaps in two RGB cameras for every camera-based
+lacks is refused as an unknown field, by name. ``hulc_clip_vision`` puts
+a frozen CLIP image tower (RN50, or ViT-B/32 through
+``perceptual_encoder.rgb_static.clip_model``) on the static camera,
+``hulc_tactile`` a frozen ResNet18 tactile tower beside a static camera
+alone, and ``hulc_clip_lang`` reads 1024-d language features; ``resolve()``
+counts the tactile tower's features in the latent. ``hulc_depth``,
+``hulc_deterministic``, ``fetch_vision`` and the CLIP and tactile presets
+have no debug preset, as in the JAX package: ``_debug`` swaps in two RGB cameras for every camera-based
 config (a camera-less one keeps its encoder).
 """
 
@@ -31,8 +37,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class VisionEncoderConfig:
-    """Per-camera CNN encoder: "spatial_softmax" (static cam) or
-    "nature_cnn" (gripper cam)."""
+    """Per-camera encoder: "spatial_softmax" (static cam), "nature_cnn"
+    (gripper cam), "clip" (a frozen CLIP image tower, ``clip_model``) or
+    "tactile" (a frozen ResNet18 on 6-channel tactile frames)."""
 
     kind: str = "spatial_softmax"  # | "nature_cnn" | "clip" | "tactile"
     input_size: int = 200
@@ -44,7 +51,7 @@ class VisionEncoderConfig:
     spatial_softmax_temp: Optional[float] = 1.0  # None -> learnable
     activation: str = "relu"
     shift_pad: int = 10  # random-shift augmentation padding (train only)
-    clip_model: str = "RN50"
+    clip_model: str = "RN50"  # kind == "clip": "RN50" | "ViT-B/32" | "ViT-B/16"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,6 +264,44 @@ def hulc_depth_config(**overrides) -> HulcConfig:
     return dataclasses.replace(base, **overrides).resolve()
 
 
+def hulc_clip_vision_config(**overrides) -> HulcConfig:
+    """Frozen-CLIP static camera (conf/model/perceptual_encoder/rgb_static/clip.yaml):
+    224 px frames (the dataset's 200 px resized on the device) into a
+    frozen RN50 and a trainable two-layer head; the 84 px gripper camera."""
+    base = HulcConfig(
+        perceptual_encoder=PerceptualEncoderConfig(
+            rgb_static=VisionEncoderConfig(kind="clip", input_size=224, clip_model="RN50"),
+            rgb_gripper=VisionEncoderConfig(kind="nature_cnn", input_size=84, shift_pad=4),
+        ),
+    )
+    return dataclasses.replace(base, **overrides).resolve()
+
+
+def hulc_clip_lang_config(**overrides) -> HulcConfig:
+    """CLIP text-encoder language path (conf/model/sbert/clip_lang.yaml):
+    ``hulc`` reading 1024-d CLIP RN50 language features."""
+    base = HulcConfig(
+        language_goal=GoalEncoderConfig(in_features=1024),
+        lang_dim=1024,
+    )
+    return dataclasses.replace(base, **overrides).resolve()
+
+
+def hulc_tactile_config(**overrides) -> HulcConfig:
+    """Tactile variant (conf/.../lang_rgb_static_tactile_abs_act.yaml): the
+    static camera and a frozen ResNet18 on the 6-channel tactile frames (64
+    px, randomly cropped from 70), no gripper camera, world-frame actions."""
+    base = HulcConfig(
+        perceptual_encoder=PerceptualEncoderConfig(
+            rgb_static=VisionEncoderConfig(),
+            rgb_gripper=None,
+            tactile=VisionEncoderConfig(kind="tactile", input_size=64, num_channels=6),
+        ),
+        action_decoder=ActionDecoderConfig(perceptual_emb_slice=None, gripper_control=False),
+    )
+    return dataclasses.replace(base, **overrides).resolve()
+
+
 def gcbc_config(**overrides) -> HulcConfig:
     """GCBC (conf/model/gcbc.yaml): ``hulc``'s cameras and decoder with an
     empty plan; no plan proposal, no KL."""
@@ -362,11 +407,23 @@ def _debug(cfg: HulcConfig) -> HulcConfig:
     return cfg.resolve()
 
 
+# why the loader, fit, the train CLI and the policies refuse a tactile tower
+TACTILE_REFUSAL = (
+    "the JAX package never loads a tactile frame: its dataset's OBS_KEYS and its loader's keys have no "
+    "rgb_tactile (hulc_tpu/data/dataset.py:30, data/loader.py:311-314), example_batch makes none and its "
+    "policy feeds none, so a hulc_tactile model trains and validates only on batches that carry rgb_tactile, "
+    "as the JAX package's tests build them"
+)
+
+
 CONFIGS: Dict[str, Callable[[], HulcConfig]] = {
     "hulc": hulc_config,
     "mcil": mcil_config,
     "gcbc": gcbc_config,
+    "hulc_clip_vision": hulc_clip_vision_config,
+    "hulc_clip_lang": hulc_clip_lang_config,
     "hulc_depth": hulc_depth_config,
+    "hulc_tactile": hulc_tactile_config,
     "hulc_deterministic": hulc_deterministic_config,
     "hulc_state_only": hulc_state_only_config,
     "fetch_state": fetch_state_config,

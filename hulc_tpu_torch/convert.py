@@ -19,8 +19,14 @@ The inverse of the layout changes in hulc_tpu/training/torch_convert.py:
   (d, heads, d / heads) and ``out`` kernel (heads, d / heads, d) become
   torch's ``in_proj_weight`` (3d, d), ``in_proj_bias`` and ``out_proj``.
 
-Each camera tower the config names (RGB and depth, static and gripper) is
-carried by its encoder's kind; params without one of them are refused.
+Each camera tower the config names (RGB and depth, static and gripper,
+tactile) is carried by its encoder's kind; params without one of them are
+refused. The frozen towers: ``VisionClip``'s RN50 or ViT under OpenAI
+CLIP's ``visual.*`` names (flax's ``FrozenBatchNorm`` ``scale`` / ``bias``
+/ ``mean`` / ``var`` become ``weight`` / ``bias`` / ``running_mean`` /
+``running_var``; the ViT attention's per-head ``DenseGeneral`` kernels the
+``in_proj_weight`` rows), ``TactileEncoder``'s ResNet18 under
+torchvision's, each with as many blocks as JAX's tree holds.
 A GCBC model has no plan proposal; the ``mlp`` decoder cell's layers are
 ``rnn/dense_{i}``, the deterministic decoder's head ``action_fc``; the
 auxiliary heads (``proj_vis_lang`` with CLIP or MIA, ``logit_scale`` with
@@ -73,6 +79,107 @@ def _leaf_paths(tree: Mapping[str, Any], prefix: str = "") -> List[str]:
     return out
 
 
+def _linear(r: _Reader, sd: Dict[str, np.ndarray], src: str, dst: str) -> None:
+    sd[f"{dst}.weight"] = r.get(f"{src}/kernel").T
+    sd[f"{dst}.bias"] = r.get(f"{src}/bias")
+
+
+def _layernorm(r: _Reader, sd: Dict[str, np.ndarray], src: str, dst: str) -> None:
+    sd[f"{dst}.weight"] = r.get(f"{src}/scale")
+    sd[f"{dst}.bias"] = r.get(f"{src}/bias")
+
+
+def _conv_nobias(r: _Reader, sd: Dict[str, np.ndarray], src: str, dst: str) -> None:
+    sd[f"{dst}.weight"] = r.get(f"{src}/kernel").transpose(3, 2, 0, 1)
+
+
+def _frozen_bn(r: _Reader, sd: Dict[str, np.ndarray], src: str, dst: str) -> None:
+    for jax_name, name in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"), ("var", "running_var")):
+        sd[f"{dst}.{name}"] = r.get(f"{src}/{jax_name}")
+
+
+def _res_blocks(r: _Reader, sd: Dict[str, np.ndarray], src: str, dst: str, convs: int) -> None:
+    """The four stages of a ResNet, as many blocks each as JAX's tree holds
+    (``layer{s}_{b}`` -> ``layer{s}.{b}``), ``convs`` convolutions a block."""
+    for stage in (1, 2, 3, 4):
+        bi = 0
+        while r.has(f"{src}/layer{stage}_{bi}"):
+            b, d = f"{src}/layer{stage}_{bi}", f"{dst}.layer{stage}.{bi}"
+            for i in range(1, convs + 1):
+                _conv_nobias(r, sd, f"{b}/conv{i}", f"{d}.conv{i}")
+                _frozen_bn(r, sd, f"{b}/bn{i}", f"{d}.bn{i}")
+            if r.has(f"{b}/downsample_conv"):
+                _conv_nobias(r, sd, f"{b}/downsample_conv", f"{d}.downsample.0")
+                _frozen_bn(r, sd, f"{b}/downsample_bn", f"{d}.downsample.1")
+            bi += 1
+
+
+def _clip_tower(r: _Reader, sd: Dict[str, np.ndarray], src: str, dst: str) -> None:
+    """``VisionClip``: the RN50 or ViT tower (flax's auto-named
+    ``ModifiedResNet_0`` / ``CLIPVisionTransformer_0``) under OpenAI's
+    ``visual.*`` names, then the head."""
+    v = f"{dst}.visual" if dst else "visual"
+    if r.has(f"{src}/ModifiedResNet_0"):
+        t = f"{src}/ModifiedResNet_0"
+        for i in (1, 2, 3):
+            _conv_nobias(r, sd, f"{t}/conv{i}", f"{v}.conv{i}")
+            _frozen_bn(r, sd, f"{t}/bn{i}", f"{v}.bn{i}")
+        _res_blocks(r, sd, t, v, 3)
+        sd[f"{v}.attnpool.positional_embedding"] = r.get(f"{t}/attnpool/positional_embedding")
+        for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            _linear(r, sd, f"{t}/attnpool/{name}", f"{v}.attnpool.{name}")
+    else:
+        t = f"{src}/CLIPVisionTransformer_0"
+        _conv_nobias(r, sd, f"{t}/conv1", f"{v}.conv1")
+        for name in ("class_embedding", "positional_embedding", "proj"):
+            sd[f"{v}.{name}"] = r.get(f"{t}/{name}")
+        _layernorm(r, sd, f"{t}/ln_pre", f"{v}.ln_pre")
+        _layernorm(r, sd, f"{t}/ln_post", f"{v}.ln_post")
+        i = 0
+        while r.has(f"{t}/transformer/resblock_{i}"):
+            b, d = f"{t}/transformer/resblock_{i}", f"{v}.transformer.resblocks.{i}"
+            _layernorm(r, sd, f"{b}/ln_1", f"{d}.ln_1")
+            _layernorm(r, sd, f"{b}/ln_2", f"{d}.ln_2")
+            attn = f"{b}/attn"
+            d_model = r.get(f"{attn}/query/kernel").shape[0]
+            sd[f"{d}.attn.in_proj_weight"] = np.concatenate(
+                [r.get(f"{attn}/{n}/kernel").reshape(d_model, d_model).T for n in ("query", "key", "value")])
+            sd[f"{d}.attn.in_proj_bias"] = np.concatenate(
+                [r.get(f"{attn}/{n}/bias").reshape(d_model) for n in ("query", "key", "value")])
+            sd[f"{d}.attn.out_proj.weight"] = r.get(f"{attn}/out/kernel").reshape(d_model, d_model).T
+            sd[f"{d}.attn.out_proj.bias"] = r.get(f"{attn}/out/bias")
+            _linear(r, sd, f"{b}/c_fc", f"{d}.mlp.c_fc")
+            _linear(r, sd, f"{b}/c_proj", f"{d}.mlp.c_proj")
+            i += 1
+    _linear(r, sd, f"{src}/fc1", f"{dst}.fc1.0" if dst else "fc1.0")
+    _linear(r, sd, f"{src}/fc2", f"{dst}.fc2" if dst else "fc2")
+
+
+def _tactile_tower(r: _Reader, sd: Dict[str, np.ndarray], src: str, dst: str) -> None:
+    """``TactileEncoder``: the ResNet18 under torchvision's names, then the head."""
+    t, b = f"{src}/backbone", f"{dst}.backbone" if dst else "backbone"
+    _conv_nobias(r, sd, f"{t}/conv1", f"{b}.conv1")
+    _frozen_bn(r, sd, f"{t}/bn1", f"{b}.bn1")
+    _res_blocks(r, sd, t, b, 2)
+    _linear(r, sd, f"{src}/fc1", f"{dst}.fc1.0" if dst else "fc1.0")
+    _linear(r, sd, f"{src}/fc2", f"{dst}.fc2" if dst else "fc2")
+
+
+# the frozen towers by encoder kind
+FROZEN_TOWERS = {"clip": _clip_tower, "tactile": _tactile_tower}
+
+
+def frozen_tower_from_jax(params_np: Mapping[str, Any], kind: str) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A JAX ``VisionClip`` (``kind="clip"``) or ``TactileEncoder``
+    (``"tactile"``) param tree -> (state_dict of the port's module, unused
+    JAX leaf paths)."""
+    r = _Reader({"tower": params_np})
+    sd: Dict[str, np.ndarray] = {}
+    FROZEN_TOWERS[kind](r, sd, "tower", "")
+    unused = sorted(set(_leaf_paths({"tower": params_np})) - r.used)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}, unused
+
+
 def params_from_jax(
     params_np: Mapping[str, Any], cfg: HulcConfig
 ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
@@ -80,16 +187,8 @@ def params_from_jax(
     r = _Reader(params_np)
     sd: Dict[str, np.ndarray] = {}
 
-    def linear(src: str, dst: str):
-        sd[f"{dst}.weight"] = r.get(f"{src}/kernel").T
-        sd[f"{dst}.bias"] = r.get(f"{src}/bias")
-
     def conv(src: str, dst: str):
-        sd[f"{dst}.weight"] = r.get(f"{src}/kernel").transpose(3, 2, 0, 1)
-        sd[f"{dst}.bias"] = r.get(f"{src}/bias")
-
-    def layernorm(src: str, dst: str):
-        sd[f"{dst}.weight"] = r.get(f"{src}/scale")
+        _conv_nobias(r, sd, src, dst)
         sd[f"{dst}.bias"] = r.get(f"{src}/bias")
 
     def conv_tower(src: str, dst: str):
@@ -100,9 +199,9 @@ def params_from_jax(
         conv_tower(src, dst)
         if enc.spatial_softmax_temp is None:
             sd[f"{dst}.spatial_softmax.temperature"] = r.get(f"{src}/spatial_softmax/temperature").reshape(1)
-        linear(f"{src}/fc1", f"{dst}.fc1.0")
-        linear(f"{src}/fc2", f"{dst}.fc2")
-        layernorm(f"{src}/ln", f"{dst}.ln")
+        _linear(r, sd, f"{src}/fc1", f"{dst}.fc1.0")
+        _linear(r, sd, f"{src}/fc2", f"{dst}.fc2")
+        _layernorm(r, sd, f"{src}/ln", f"{dst}.ln")
 
     def nature_cnn(src: str, dst: str, enc):
         conv_tower(src, dst)
@@ -113,12 +212,12 @@ def params_from_jax(
             k.reshape(side, side, c, -1).transpose(3, 2, 0, 1).reshape(k.shape[1], -1)
         )
         sd[f"{dst}.conv_model.7.bias"] = r.get(f"{src}/fc0/bias")
-        linear(f"{src}/fc1", f"{dst}.fc1.0")
-        linear(f"{src}/fc2", f"{dst}.fc2")
-        layernorm(f"{src}/ln", f"{dst}.ln")
+        _linear(r, sd, f"{src}/fc1", f"{dst}.fc1.0")
+        _linear(r, sd, f"{src}/fc2", f"{dst}.fc2")
+        _layernorm(r, sd, f"{src}/ln", f"{dst}.ln")
 
     pe = cfg.perceptual_encoder
-    for cam in ("rgb_static", "rgb_gripper", "depth_static", "depth_gripper"):
+    for cam in ("rgb_static", "rgb_gripper", "depth_static", "depth_gripper", "tactile"):
         enc = getattr(pe, cam)
         if enc is None:
             continue
@@ -128,25 +227,29 @@ def params_from_jax(
                 f"the JAX params have no {src} tower, which the config names (a JAX model initialized "
                 f"on a batch without {cam} frames builds none)"
             )
+        if enc.kind in FROZEN_TOWERS:
+            FROZEN_TOWERS[enc.kind](r, sd, src, f"perceptual_encoder.{cam}_encoder")
+            continue
         tower = {"spatial_softmax": static_tower, "nature_cnn": nature_cnn}[enc.kind]
         tower(src, f"perceptual_encoder.{cam}_encoder", enc)
 
     if pe.proprio is not None and pe.use_state_decoder and cfg.state_recons:
         for i in range(3):
-            linear(f"perceptual_encoder/state_decoder/mlp/dense_{i}", f"perceptual_encoder.state_decoder.mlp.{2 * i}")
+            _linear(r, sd, f"perceptual_encoder/state_decoder/mlp/dense_{i}",
+                    f"perceptual_encoder.state_decoder.mlp.{2 * i}")
 
     if cfg.model_kind != "gcbc":
         for i in range(cfg.plan_proposal.num_layers):
-            linear(f"plan_proposal/fc_{i}", f"plan_proposal.fc_model.{2 * i}")
-        linear("plan_proposal/fc_state", "plan_proposal.fc_state.0")
+            _linear(r, sd, f"plan_proposal/fc_{i}", f"plan_proposal.fc_model.{2 * i}")
+        _linear(r, sd, "plan_proposal/fc_state", "plan_proposal.fc_state.0")
 
     for name, offset in (("visual_goal", 0), ("language_goal", 1)):
         if name == "language_goal" and cfg.language_goal is None:
             continue
         for i in range(3):
-            linear(f"{name}/fc{i}", f"{name}.mlp.{offset + 2 * i}")
+            _linear(r, sd, f"{name}/fc{i}", f"{name}.mlp.{offset + 2 * i}")
         if r.has(f"{name}/ln"):
-            layernorm(f"{name}/ln", f"{name}.ln")
+            _layernorm(r, sd, f"{name}/ln", f"{name}.ln")
 
     def rnn_layer(src: str, dst: str, k: int, suffix: str = "", src_k: int | None = None, gates: int = 1):
         """ScanRNN layer ``src_k`` (default k) of ``src`` as torch nn.RNN's
@@ -165,7 +268,7 @@ def params_from_jax(
     ad = cfg.action_decoder
     if ad.rnn_cell == "mlp":
         for i in range(3):
-            linear(f"action_decoder/rnn/dense_{i}", f"action_decoder.rnn.{2 * i}")
+            _linear(r, sd, f"action_decoder/rnn/dense_{i}", f"action_decoder.rnn.{2 * i}")
     else:
         for k in range(ad.num_layers):
             rnn_layer("action_decoder/rnn", "action_decoder.rnn", k, gates=GATE_MULTIPLE[ad.rnn_cell])
@@ -174,7 +277,7 @@ def params_from_jax(
     else:
         heads = ("mean_fc", "log_scale_fc", "prob_fc") + (("gripper_fc",) if ad.discrete_gripper else ())
     for head in heads:
-        linear(f"action_decoder/{head}", f"action_decoder.{head}")
+        _linear(r, sd, f"action_decoder/{head}", f"action_decoder.{head}")
 
     pr = cfg.plan_recognition
     if pr.kind == "birnn":
@@ -187,7 +290,7 @@ def params_from_jax(
         if pr.position_embedding:
             sd["plan_recognition.position_embeddings.weight"] = r.get("plan_recognition/position_embeddings")
         if pr.positional_normalize:
-            layernorm("plan_recognition/positional_norm", "plan_recognition.positional_norm")
+            _layernorm(r, sd, "plan_recognition/positional_norm", "plan_recognition.positional_norm")
         for i in range(pr.num_layers):
             src, dst = f"plan_recognition/encoder/layer_{i}", f"plan_recognition.transformer_encoder.layers.{i}"
             attn = f"{src}/self_attn"
@@ -200,26 +303,26 @@ def params_from_jax(
             )
             sd[f"{dst}.self_attn.out_proj.weight"] = r.get(f"{attn}/out/kernel").reshape(d_model, d_model).T
             sd[f"{dst}.self_attn.out_proj.bias"] = r.get(f"{attn}/out/bias")
-            linear(f"{src}/linear1", f"{dst}.linear1")
-            linear(f"{src}/linear2", f"{dst}.linear2")
-            layernorm(f"{src}/norm1", f"{dst}.norm1")
-            layernorm(f"{src}/norm2", f"{dst}.norm2")
+            _linear(r, sd, f"{src}/linear1", f"{dst}.linear1")
+            _linear(r, sd, f"{src}/linear2", f"{dst}.linear2")
+            _layernorm(r, sd, f"{src}/norm1", f"{dst}.norm1")
+            _layernorm(r, sd, f"{src}/norm2", f"{dst}.norm2")
         if pr.encoder_normalize:
-            layernorm("plan_recognition/encoder/final_norm", "plan_recognition.transformer_encoder.final_norm")
-        linear("plan_recognition/fc", "plan_recognition.fc")
-    linear("plan_recognition/fc_state", "plan_recognition.fc_state.0")
+            _layernorm(r, sd, "plan_recognition/encoder/final_norm", "plan_recognition.transformer_encoder.final_norm")
+        _linear(r, sd, "plan_recognition/fc", "plan_recognition.fc")
+    _linear(r, sd, "plan_recognition/fc_state", "plan_recognition.fc_state.0")
 
     if cfg.use_clip_auxiliary_loss or cfg.use_mia_auxiliary_loss:
         for src, dst in (("im_fc0", "mlp_im.0"), ("im_fc1", "mlp_im.2"),
                          ("lang_fc0", "mlp_lang.0"), ("lang_fc1", "mlp_lang.2")):
-            linear(f"proj_vis_lang/{src}", f"proj_vis_lang.{dst}")
+            _linear(r, sd, f"proj_vis_lang/{src}", f"proj_vis_lang.{dst}")
     if cfg.use_clip_auxiliary_loss:
         sd["logit_scale"] = r.get("logit_scale").reshape(())
     for on, name in ((cfg.use_bc_z_auxiliary_loss, "bc_z_lang_decoder"),
                      (cfg.use_mia_auxiliary_loss, "mia_lang_discriminator")):
         if on:
             for fc in ("fc0", "fc1"):
-                linear(f"{name}/{fc}", f"{name}.{fc}")
+                _linear(r, sd, f"{name}/{fc}", f"{name}.{fc}")
 
     unused = sorted(set(_leaf_paths(params_np)) - r.used)
     state_dict = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

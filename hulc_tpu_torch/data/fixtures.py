@@ -123,8 +123,11 @@ def write_split(
     is_validation: bool = False,
     ann_len: int = 48,
     learnable: bool = False,
+    lang_dim: int = 384,
 ) -> None:
-    """Write one split (training/ or validation/) of a synthetic dataset."""
+    """Write one split (training/ or validation/) of a synthetic dataset,
+    its language embeddings ``lang_dim`` wide (384, as the JAX package's
+    fixture writes them always; 1024 for ``hulc_clip_lang``)."""
     split_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     ranges = []
@@ -168,7 +171,7 @@ def write_split(
                 a_end = min(a_start + ann_len, end)
                 anns.append(FIXTURE_ANNOTATIONS[task])
                 tasks.append(task)
-                embs.append(rng.normal(size=(1, 384)).astype(np.float32))
+                embs.append(rng.normal(size=(1, lang_dim)).astype(np.float32))
                 indxs.append((a_start, a_end))
         data = {
             "language": {"ann": anns, "task": tasks, "emb": np.stack(embs)},
@@ -180,7 +183,7 @@ def write_split(
             embeddings = {
                 task: {
                     "ann": [FIXTURE_ANNOTATIONS[task]],
-                    "emb": rng.normal(size=(1, 384)).astype(np.float32),
+                    "emb": rng.normal(size=(1, lang_dim)).astype(np.float32),
                 }
                 for task in FIXTURE_TASKS
             }
@@ -194,15 +197,19 @@ def make_fixture_dataset(
     small: bool = True,
     seed: int = 0,
     learnable: bool = False,
+    lang_dim: int = 384,
 ) -> pathlib.Path:
     """Create training/ + validation/ splits under root; returns root.
+    ``lang_dim`` is the language embeddings' width (the JAX package's
+    fixture writes 384 always, so its CLI cannot train ``hulc_clip_lang``
+    on it).
 
     learnable=True writes smooth-trajectory episodes whose actions are an
     observable function of the rendered state (convergence-evidence runs);
     the default writes i.i.d. noise frames (schema/shape tests)."""
     root = pathlib.Path(root)
     write_split(root / "training", num_episodes, episode_len, seed, small, True, False,
-                learnable=learnable)
+                learnable=learnable, lang_dim=lang_dim)
     write_split(root / "validation", max(1, num_episodes // 2), episode_len, seed + 1,
-                small, True, True, learnable=learnable)
+                small, True, True, learnable=learnable, lang_dim=lang_dim)
     return root

@@ -28,7 +28,7 @@ import numpy as np
 
 import torch
 
-from hulc_tpu_torch.config import HulcConfig
+from hulc_tpu_torch.config import TACTILE_REFUSAL, HulcConfig
 from hulc_tpu_torch.data.dataset import (
     EpisodeStore,
     LangWindowSampler,
@@ -329,6 +329,8 @@ def make_loaders(
     (``ModalityLoader``), fused as ``[vis_r; lang_r]``.
     """
 
+    if cfg.perceptual_encoder.tactile is not None:
+        raise ValueError(f"make_loaders refuses a config with a tactile tower: {TACTILE_REFUSAL}")
     split_dir = pathlib.Path(root_data_dir) / split
     keys = ["actions", "rel_actions", "robot_obs", "scene_obs"]
     if cfg.perceptual_encoder.rgb_static is not None:

@@ -24,7 +24,7 @@ from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.data.language import restrict_task_pool
 from hulc_tpu_torch.data.statistics import DatasetStatistics
 from hulc_tpu_torch.evaluation.lh_eval import CHAIN_LEN, build_results, get_sequences, save_video, write_results
-from hulc_tpu_torch.evaluation.policy import StateObsNormalizer, refuse_depth
+from hulc_tpu_torch.evaluation.policy import StateObsNormalizer, refuse_unserved
 from hulc_tpu_torch.evaluation.tasks import ALL_TASKS, SceneObsTasks
 from hulc_tpu_torch.models.hulc import HulcModel
 from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
@@ -45,8 +45,9 @@ def reset_carry(carry, replan_mask: torch.Tensor):
 
 def build_batched_step(model: HulcModel, cfg: HulcConfig):
     """The lockstep batched policy step as a function of device tensors; a
-    config with a depth camera is refused (``policy.refuse_depth``)."""
-    refuse_depth(cfg, "the batched policy")
+    config the JAX package's policies cannot serve (a depth or CLIP camera,
+    a tactile tower) is refused (``policy.refuse_unserved``)."""
+    refuse_unserved(cfg, "the batched policy")
     preprocess = preprocess_rgb_seq if model.use_kernels else preprocess_rgb_seq_plain
 
     @torch.no_grad()

@@ -145,12 +145,16 @@ def main(argv=None):
     from hulc_tpu_torch.evaluation.batched_eval import evaluate_policy_batched
     from hulc_tpu_torch.evaluation.fake_env import fake_env_for
     from hulc_tpu_torch.evaluation.lh_eval import evaluate_policy
-    from hulc_tpu_torch.evaluation.policy import HulcPolicy
+    from hulc_tpu_torch.evaluation.policy import HulcPolicy, refuse_unserved
     from hulc_tpu_torch.evaluation.tasks import SceneObsTasks
     from hulc_tpu_torch.models.hulc import make_model
     from hulc_tpu_torch.training import checkpoint as ckpt
 
     cfg = apply_overrides(get_config(args.config), args.overrides) if args.overrides else get_config(args.config)
+    try:
+        refuse_unserved(cfg, "the evaluate CLI")
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     run_dir = pathlib.Path(args.run_dir)
     paths = select_checkpoints(run_dir, args.checkpoint, args.monitor_preset)
     if not paths:

@@ -17,8 +17,9 @@ draw can instead be passed in (the plan's ``gumbel`` or ``normal`` noise,
 by the plan's kind, and ``u_mix``, ``u_inv``), which is how the tests feed
 the noise JAX drew. A model draws only the noise it uses: GCBC's plan is
 empty and draws nothing, the deterministic decoder draws no ``u_mix`` /
-``u_inv``. A config without a camera feeds the proprio alone. A config with a depth camera is refused
-(``refuse_depth``): the policies feed RGB frames only.
+``u_inv``. A config without a camera feeds the proprio alone. A config with a depth camera, a CLIP
+camera or a tactile tower is refused (``refuse_unserved``), as the JAX package's policies cannot serve
+it.
 """
 
 from __future__ import annotations
@@ -28,19 +29,26 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from hulc_tpu_torch.config import HulcConfig
+from hulc_tpu_torch.config import TACTILE_REFUSAL, HulcConfig
 from hulc_tpu_torch.data.statistics import DatasetStatistics
 from hulc_tpu_torch.models.hulc import HulcModel
 from hulc_tpu_torch.models.layers import Carry
 from hulc_tpu_torch.ops.image_ops import preprocess_rgb_seq, preprocess_rgb_seq_plain
 
 
-def refuse_depth(cfg: HulcConfig, what: str) -> None:
-    """Raise for a config with a depth camera: the policies feed the
-    encoder RGB frames only, as the JAX package's ``build_policy_fns`` does
-    (its fake env and gym adapter return no depth), so a depth model's
-    latent would miss its depth features and its plan proposal could not
-    apply."""
+def refuse_unserved(cfg: HulcConfig, what: str) -> None:
+    """Raise for a config the JAX package's policies cannot serve:
+
+    * a depth camera: the policies feed the encoder RGB frames only, as
+      JAX's ``build_policy_fns`` does (its fake env and gym adapter return
+      no depth), so the latent would miss the depth features;
+    * a CLIP camera: JAX's ``_prep`` sends every camera through
+      ``preprocess_rgb_seq``, with no resize and no CLIP normalize, and its
+      fake env gives a CLIP camera 200 px frames, on which the RN50's
+      attention pool fails ((1, 37, 2048) against a (1, 50, 2048)
+      position table);
+    * a tactile tower: JAX never loads a tactile frame
+      (``TACTILE_REFUSAL``)."""
     pe = cfg.perceptual_encoder
     cams = [c for c in ("depth_static", "depth_gripper") if getattr(pe, c) is not None]
     if cams:
@@ -48,6 +56,16 @@ def refuse_depth(cfg: HulcConfig, what: str) -> None:
             f"{what} refuses a config with depth cameras ({', '.join(cams)}): the policy feeds the encoder RGB "
             f"frames only, as the JAX package's build_policy_fns does, so the latent would lack the depth features"
         )
+    clip = [c for c in ("rgb_static", "rgb_gripper") if getattr(pe, c) is not None and getattr(pe, c).kind == "clip"]
+    if clip:
+        raise ValueError(
+            f"{what} refuses a config with a CLIP camera ({', '.join(clip)}): the JAX package's build_policy_fns "
+            f"preprocesses every camera with preprocess_rgb_seq, with no resize and no CLIP normalize, and its fake "
+            f"env gives a CLIP camera 200 px frames, on which its RN50's attention pool fails ('add got "
+            f"incompatible shapes for broadcasting: (1, 37, 2048), (1, 50, 2048)'); it serves CLIP at no size"
+        )
+    if pe.tactile is not None:
+        raise ValueError(f"{what} refuses a config with a tactile tower: {TACTILE_REFUSAL}")
 
 
 class PolicyState(NamedTuple):
@@ -104,9 +122,9 @@ def build_policy_fns(model: HulcModel, cfg: HulcConfig):
 
     Frames are (E, S, H, W, 3) uint8 on the model's device; embeddings,
     plans, goals and carries (lstm's a pair) are fp32 tensors there. A config with a depth
-    camera is refused (``refuse_depth``).
+    camera, a CLIP camera or a tactile tower is refused (``refuse_unserved``).
     """
-    refuse_depth(cfg, "the policy")
+    refuse_unserved(cfg, "the policy")
     preprocess = preprocess_rgb_seq if model.use_kernels else preprocess_rgb_seq_plain
 
     def _encode_frame(rgb_static, rgb_gripper, robot_obs_norm):

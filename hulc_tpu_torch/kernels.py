@@ -208,6 +208,10 @@ _SIGNATURES = {
     "hulc_rnn_gru_chain_bwd": (*(_P,) * 10, *(_I32,) * 12),
     # x, z, y, n, mode (0 gamma, 1 gaussian), then the mode's two fp32 constants
     "hulc_depth_noise": (_P, _P, _P, _I64, _I32, _F32, _F32),
+    # B.15: src, dst, the row and column tap tables, shifts, the normalize's constants, then n, the source's h,
+    # w, c, the resized rh, rw, the output's oh, ow, the taps of a row and of a column, pad, crop, the output's
+    # kind (0 fp32, 1 bf16, 2 the raw resize) and the flags (1 fp32 source, 2 bf16 rounding, 4 v / 255)
+    "hulc_resize_preprocess": (*(_P,) * 8, _I64, *(_I32,) * 13),
     "hulc_empty_launch": (),
 }
 
@@ -357,6 +361,7 @@ PREPROCESS_RGB_BF16 = Kernel("hulc_preprocess_rgb_bf16")
 PREPROCESS_RGB_SHIFT_BF16 = Kernel("hulc_preprocess_rgb_shift_bf16")
 SPATIAL_SOFTMAX_BF16 = Kernel("hulc_spatial_softmax_bf16")
 SPATIAL_SOFTMAX_BWD_BF16 = Kernel("hulc_spatial_softmax_bwd_bf16")
+RESIZE_PREPROCESS = Kernel("hulc_resize_preprocess")
 # no work: its device time is the floor under every kernel's (measured, never on a path)
 EMPTY_LAUNCH = Kernel("hulc_empty_launch")
 ALL_KERNELS = (
@@ -366,6 +371,7 @@ ALL_KERNELS = (
     BIRNN_TANH_FWD, BIRNN_TANH_BWD, DEPTH_NOISE, RNN_GRU_FWD, RNN_GRU_BWD, RNN_LSTM_FWD, RNN_LSTM_BWD,
     PREPROCESS_RGB_BF16, PREPROCESS_RGB_SHIFT_BF16, SPATIAL_SOFTMAX_BF16, SPATIAL_SOFTMAX_BWD_BF16,
     ADAM_FP32, ADAMW, SGD, RNN_RELU_CHAIN_FWD, RNN_RELU_CHAIN_BWD, RNN_GRU_CHAIN_FWD, RNN_GRU_CHAIN_BWD,
+    RESIZE_PREPROCESS,
 )
 
 

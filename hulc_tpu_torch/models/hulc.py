@@ -33,7 +33,9 @@ Images arrive preprocessed, (B, S, C, H, W) fp32 or in the compute dtype,
 and depth frames (B, S, H, W) fp32 (``training.preprocess``);
 training and validation encode both (``hulc_depth``). The JAX package's
 policies feed no depth, so the port's refuse a depth config
-(``evaluation.policy.refuse_depth``).
+(``evaluation.policy.refuse_unserved``, which also refuses a CLIP camera
+and a tactile tower, as the JAX package's policies cannot serve them;
+training and validation encode the tactile frames after every camera).
 
 GCBC (``model_kind="gcbc"``) decodes an empty (B, 0) plan: it has no plan
 proposal (JAX's init never calls one, so it has no parameters), draws no
@@ -92,7 +94,8 @@ class ModalityBatch(NamedTuple):
     LANG_ONLY_FIELDS = ("lang", "use_for_aux_lang_loss", "idx")
 
     def rgb_obs(self) -> Dict[str, torch.Tensor]:
-        return {k: getattr(self, k) for k in ("rgb_static", "rgb_gripper") if getattr(self, k) is not None}
+        return {k: getattr(self, k) for k in ("rgb_static", "rgb_gripper", "rgb_tactile")
+                if getattr(self, k) is not None}
 
     def depth_obs(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in ("depth_static", "depth_gripper") if getattr(self, k) is not None}
@@ -310,6 +313,13 @@ class HulcModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    def frozen_parameters(self) -> list:
+        """The frozen backbones' parameters (CLIP, tactile): they take no
+        gradient here; JAX's ``stop_gradient`` gives them zeros, which its
+        optimizer steps (``Trainer.train_step`` supplies the zeros)."""
+        return [p for m in self.modules() if m is not self and hasattr(m, "frozen_parameters")
+                for p in m.frozen_parameters()]
 
     # ------------------------------------------------------------------
     # training
@@ -678,12 +688,15 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """Random init from ``generator``, at torch's default scales: Linear and
     Conv2d U(+-1/sqrt(fan_in)), RNN U(+-1/sqrt(H)), attention in-projection
     U(+-1/sqrt(d)) with zero bias, position embeddings N(0, 0.02), LayerNorm
-    (1, 0), the CLIP logit scale log(1/0.07)."""
+    (1, 0), the CLIP logit scale log(1/0.07); a module's other parameters
+    by its ``init_params_`` (the frozen towers' BatchNorm statistics (1, 0,
+    0, 1), class and position embeddings N(0, 0.02) / N(0, 0.01))."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
-            m.bias.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
         elif isinstance(m, (ScanRNN, ScanBiRNN)):
             bound = 1.0 / math.sqrt(m.hidden_size)
             for p in m.parameters():
@@ -699,6 +712,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
             m.bias.fill_(0.0)
         elif isinstance(m, SpatialSoftmax) and m.fixed_temperature is None:
             m.temperature.fill_(1.0)
+        if hasattr(m, "init_params_"):  # the frozen towers' own parameters (models.clip, models.tactile)
+            m.init_params_(generator)
     if isinstance(model, HulcModel) and model.cfg.use_clip_auxiliary_loss:
         model.logit_scale.fill_(math.log(1 / 0.07))
 

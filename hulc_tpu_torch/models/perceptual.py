@@ -3,18 +3,19 @@
 Images arrive preprocessed as (B, S, C, H, W) fp32 or in the compute
 dtype (the encoders cast them), depth frames as (B, S, H, W) fp32 (they
 gain a one-channel axis here, as JAX appends one); batch and time are
-flattened into one convolution batch per camera. The features come out
-fp32 (each encoder ends in a LayerNorm). The port has
-the static and gripper RGB cameras (either may be absent: ``fetch_vision``
-has a static camera alone), their depth towers and the proprio
-passthrough. The features are concatenated in JAX's order: RGB static,
-depth static, RGB gripper, depth gripper, where the gripper depth is
-encoded only beside the RGB gripper camera (JAX :108-114). Without any
+flattened into one convolution batch per camera. The CNNs' features come
+out fp32 (each ends in a LayerNorm), the CLIP and tactile heads' in the
+compute dtype, and the concatenation promotes as JAX's does. The encoders
+are the static and gripper cameras (either may be absent: ``fetch_vision``
+has a static camera alone; the static one may be a frozen CLIP tower),
+their depth towers, the tactile tower and the proprio passthrough. The
+features are concatenated in JAX's order: RGB static, depth static, RGB
+gripper, depth gripper, tactile, where the gripper depth is encoded only
+beside the RGB gripper camera (JAX :108-116). Without any
 camera (the state-only presets) ``perceptual_emb`` is the proprio itself
 and ``visual_emb`` has width 0. ``use_state_decoder`` (with proprio and
 ``state_recons``) adds the ``StateDecoder`` that ``state_reconstruction_loss`` reads: the proprio
-regressed from ``visual_emb``. Tactile and CLIP encoders wait for later
-slices.
+regressed from ``visual_emb``.
 """
 
 from __future__ import annotations
@@ -47,11 +48,9 @@ class ConcatEncoders(nn.Module):
     def __init__(self, cfg: PerceptualEncoderConfig, use_kernels: bool = True, dtype: torch.dtype = torch.float32,
                  state_recons: bool = False):
         super().__init__()
-        if cfg.tactile is not None:
-            raise ValueError("perceptual encoder 'tactile' is not ported yet")
         self.cfg = cfg
         self.dtype = dtype
-        for name in ("rgb_static", "rgb_gripper", "depth_static", "depth_gripper"):
+        for name in ("rgb_static", "rgb_gripper", "depth_static", "depth_gripper", "tactile"):
             enc = getattr(cfg, name)
             setattr(self, f"{name}_encoder", make_vision_encoder(enc, use_kernels, dtype) if enc else None)
         visual = sum(enc.visual_features for enc in cfg.cameras if enc is not None)
@@ -79,8 +78,9 @@ class ConcatEncoders(nn.Module):
         robot_obs: Optional[torch.Tensor] = None,
         depth_obs: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """rgb_obs: {"rgb_static", "rgb_gripper"}, depth_obs: {"depth_static",
-        "depth_gripper"} -> (perceptual_emb, visual_emb), each (B, S, F)."""
+        """rgb_obs: {"rgb_static", "rgb_gripper", "rgb_tactile"}, depth_obs:
+        {"depth_static", "depth_gripper"} -> (perceptual_emb, visual_emb),
+        each (B, S, F)."""
         depth_obs = depth_obs or {}
         parts = []
         if self.rgb_static_encoder is not None and "rgb_static" in rgb_obs:
@@ -89,12 +89,16 @@ class ConcatEncoders(nn.Module):
         if self.rgb_gripper_encoder is not None and "rgb_gripper" in rgb_obs:
             parts.append(self._encode(self.rgb_gripper_encoder, rgb_obs["rgb_gripper"]))
             self._encode_depth("depth_gripper", depth_obs, parts)
+        if self.tactile_encoder is not None and "rgb_tactile" in rgb_obs:
+            parts.append(self._encode(self.tactile_encoder, rgb_obs["rgb_tactile"]))
         if not parts:
             # no camera: perceptual_emb is the proprio (JAX :118-125)
             if self.cfg.proprio is None or robot_obs is None:
                 raise ValueError("camera-less perceptual encoder needs proprio input")
             b, s = robot_obs.shape[:2]
             return robot_obs.to(self.dtype), robot_obs.new_zeros((b, s, 0), dtype=self.dtype)
+        # the CLIP and tactile heads end in the compute dtype, the CNNs in an
+        # fp32 LayerNorm: torch.cat promotes, as jnp.concatenate does
         visual_emb = torch.cat(parts, dim=-1)
         if self.cfg.proprio is not None and robot_obs is not None:
             return torch.cat([visual_emb, robot_obs.to(visual_emb.dtype)], dim=-1), visual_emb

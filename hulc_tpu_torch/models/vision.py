@@ -5,6 +5,8 @@
   LayerNorm.
 * ``NatureCNN`` (gripper camera): the same convolutions, an NCHW flatten,
   FC -> 128 -> 512 -> visual_features, LayerNorm.
+* the ``clip`` and ``tactile`` kinds: frozen backbones with a trainable
+  head (``models.clip``, ``models.tactile``).
 
 The JAX package's first convolution is a space-to-depth rewrite for the
 TPU's matrix unit; here it is a plain 8x8 stride-4 ``nn.Conv2d``, the same
@@ -140,8 +142,20 @@ class NatureCNN(nn.Module):
 
 def make_vision_encoder(cfg: VisionEncoderConfig, use_kernels: bool = True,
                         dtype: torch.dtype = torch.float32) -> nn.Module:
+    """The encoder of ``cfg.kind`` (JAX vision.py:194-210): the frozen CLIP
+    image tower of ``cfg.clip_model`` (``models.clip.VisionClip``) and the
+    frozen tactile ResNet18 (``models.tactile.TactileEncoder``) besides the
+    two CNNs."""
     if cfg.kind == "spatial_softmax":
         return VisionNetworkStatic(cfg, use_kernels, dtype)
     if cfg.kind == "nature_cnn":
         return NatureCNN(cfg, dtype)
-    raise ValueError(f"vision encoder kind {cfg.kind!r} is not ported yet")
+    if cfg.kind == "clip":
+        from hulc_tpu_torch.models.clip import VisionClip
+
+        return VisionClip(cfg.visual_features, cfg.clip_model, dtype)
+    if cfg.kind == "tactile":
+        from hulc_tpu_torch.models.tactile import TactileEncoder
+
+        return TactileEncoder(cfg.visual_features, dtype)
+    raise ValueError(f"unknown vision encoder kind {cfg.kind!r}")

@@ -1,4 +1,4 @@
-"""Camera-frame preprocessing (port of hulc_tpu/ops/image_ops.py:27-154).
+"""Camera-frame preprocessing (port of hulc_tpu/ops/image_ops.py:27-160).
 
 ``preprocess_rgb_seq`` turns a (B, S, H, W, C) uint8 batch into normalized
 ``(v / 255 - mean) / std`` in the layout ``nn.Conv2d`` reads,
@@ -20,12 +20,24 @@ result for each of the 256 byte values in the output's type, so they are
 bit-equal to it; each has an fp32 and a bf16 instance (B.14). The
 ``hulc::preprocess_rgb`` op is fp32 only: serving preprocesses to fp32, as
 JAX's policies do.
+
+``resize_bilinear`` is ``jax.image.resize(method="bilinear")``
+(antialiased; ``resize_weights``, H contracted before W, fp32), and
+``resize_preprocess`` a resized camera's whole preprocess as one launch of
+B.15 (``csrc/resize_preprocess.cu``): the resize, in training the bf16
+rounding and the shift, the crop and the normalize, in the operation
+sequence of each branch of JAX's ``_prep_one`` (``FramePrep``:
+``clip_prep``, ``tactile_prep``, ``rgb_prep``), written NCHW in fp32 or
+bf16. Its plain version, ``resize_preprocess_plain``, is those
+operations in JAX's order; ``resize_bilinear``'s raw mode on a CUDA tensor
+is a launch of B.15 too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -143,3 +155,222 @@ def preprocess_rgb_seq_shift(
         int(pad),
     )
     return out
+
+
+# --------------------------------------------------------------------------
+# the resize and the resized cameras' preprocess (B.15)
+# --------------------------------------------------------------------------
+
+# CLIP's image normalization (hulc_tpu/models/clip.py:269-271)
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+@functools.cache
+def resize_weights(in_size: int, out_size: int) -> torch.Tensor:
+    """(in_size, out_size) fp32 on the CPU: ``jax.image.resize``'s bilinear
+    weight matrix (``jax/_src/image/scale.py`` ``compute_weight_mat``, no
+    translation, antialiased): half-pixel centres, the triangle kernel
+    widened by the scale when downsampling, each output's column normalized
+    over the inputs it reaches, zero where the sample falls outside, with
+    the roundings of XLA's CPU build of those lines, so that the resized
+    frames agree with ``jax.image.resize``'s to a few fp32 ulp at the
+    presets' shapes (200 -> 224, 160 x 120 -> 64, 64 -> 70)."""
+    f32, f64 = torch.float32, torch.float64
+    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=f32)  # JAX: Python floats, then fp32
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    # XLA's CPU code for these fp32 lines: 1 - x as a fused multiply-add (an
+    # fp64 product, rounded once) with x / kernel_scale a product with its
+    # fp32 reciprocal, and the sample position a fused multiply-add where
+    # the output size is a multiple of 8 (its vectorized loop), else a
+    # product and a difference, each rounded
+    centres = torch.arange(out_size, dtype=f32) + 0.5
+    if out_size % 8 == 0:
+        sample_f = (centres.to(f64) * inv_scale.to(f64) - 0.5).to(f32)
+    else:
+        sample_f = centres * inv_scale - 0.5
+    dist = (sample_f[None, :] - torch.arange(in_size, dtype=f32)[:, None]).abs()
+    recip = (1.0 / kernel_scale.to(f64)).to(f32)
+    weights = torch.clamp((1.0 - dist.to(f64) * recip.to(f64)).to(f32), min=0.0)
+    total = weights.sum(dim=0, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * float(torch.finfo(f32).eps),
+                          weights / torch.where(total != 0, total, torch.ones((), dtype=f32)),
+                          torch.zeros((), dtype=f32))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros((), dtype=f32))
+
+
+def resize_bilinear_plain(imgs: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(..., H, W, C) -> (..., height, width, C) fp32, as ``jax.image.resize(
+    imgs.astype(float32), ..., "bilinear")``: a side whose size does not
+    change is left as it is; H is contracted first, then W, each with its
+    weight matrix in fp32."""
+    x = imgs.to(torch.float32)
+    h, w = x.shape[-3], x.shape[-2]
+    if h != height:
+        x = torch.einsum("...hwc,hy->...ywc", x, resize_weights(h, height).to(x.device))
+    if w != width:
+        x = torch.einsum("...ywc,wx->...yxc", x, resize_weights(w, width).to(x.device))
+    return x.contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class FramePrep:
+    """What B.15 makes of a frame (port of the branches of
+    hulc_tpu/training/preprocess.py:21-55): resize it to ``size`` (h, w),
+    round it to bf16 (``round_bf16``, the CLIP and tactile branches in
+    training), shift it with replicate padding ``pad`` (0: no shift), cut
+    ``crop`` rows and columns off each side, then normalize: ``v / 255``
+    (``divide``, CLIP's ``clip_preprocess``) or ``v * (1 / 255)``, then
+    ``(x - mean) / std`` per channel."""
+
+    size: Tuple[int, int]
+    pad: int
+    crop: int
+    round_bf16: bool
+    mean: Tuple[float, ...]
+    std: Tuple[float, ...]
+    divide: bool
+
+    @property
+    def out_size(self) -> Tuple[int, int]:
+        return self.size[0] - 2 * self.crop, self.size[1] - 2 * self.crop
+
+
+def clip_prep(input_size: int, frame: Tuple[int, int], shift_pad: int, train: bool) -> FramePrep:
+    """The CLIP branch (preprocess.py:27-35): frames whose H is not
+    ``input_size`` resized to it, then in training with a shift the bf16
+    rounding and the shift, then ``clip_preprocess``."""
+    shift = train and shift_pad > 0
+    size = frame if frame[0] == input_size else (input_size, input_size)
+    return FramePrep(size, shift_pad if shift else 0, 0, shift, CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, True)
+
+
+TACTILE_PAD = 3  # the tactile branch's crop, and the pad of its shift in training
+
+
+def tactile_prep(input_size: int, channels: int, train: bool) -> FramePrep:
+    """The tactile branch (preprocess.py:36-52), on a frame already at
+    ``input_size``: resize to ``input_size + 6``, in training the bf16
+    rounding and a shift with pad 3, the crop [3:-3], the normalize with
+    mean and std 0.5."""
+    half, p = (0.5,) * channels, TACTILE_PAD
+    return FramePrep((input_size + 2 * p, input_size + 2 * p), p if train else 0, p, train, half, half, False)
+
+
+def rgb_prep(input_size: int, frame: Tuple[int, int], channels: int, shift_pad: int, train: bool) -> FramePrep:
+    """A camera of another kind whose frames are resized (preprocess.py:25-26,
+    53-55): the resized fp32 frame shifted in training, then normalized with
+    mean and std 0.5, unrounded."""
+    size = frame if frame[0] == input_size else (input_size, input_size)
+    half = (0.5,) * channels
+    return FramePrep(size, shift_pad if train else 0, 0, False, half, half, False)
+
+
+def resize_preprocess_plain(frames: torch.Tensor, prep: FramePrep, shifts: Optional[torch.Tensor],
+                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of B.15: (N, H, W, C) uint8 or fp32 and (N, 2)
+    shifts (None without a shift) -> (N, C, h, w) ``out_dtype``, the JAX
+    package's operations in its order."""
+    x = resize_bilinear_plain(frames, *prep.size)
+    if prep.round_bf16:
+        x = x.to(torch.bfloat16)
+    if prep.pad:
+        x = random_shift_plain(x, shifts, prep.pad)
+    if prep.crop:
+        c = prep.crop
+        x = x[:, c:-c, c:-c]
+    x = x.to(torch.float32)
+    # a true divide on either device (CUDA divides by a CPU scalar as a multiply by its reciprocal)
+    x = x / torch.tensor(255.0, device=x.device) if prep.divide else x * (1.0 / 255.0)
+    mean = torch.tensor(prep.mean, dtype=torch.float32, device=x.device)
+    std = torch.tensor(prep.std, dtype=torch.float32, device=x.device)
+    return ((x - mean) / std).to(out_dtype).permute(0, 3, 1, 2).contiguous()
+
+
+@functools.cache
+def resize_taps(in_size: int, out_size: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``resize_weights`` as B.15 reads it, on ``device``: each output's first
+    input (int32, (out,)), its ``taps`` weights from there (fp32, (out,
+    taps), zero past the inputs it reaches), and ``taps``, the most inputs
+    any output reaches. A side that keeps its size is one tap of weight 1."""
+    if in_size == out_size:
+        start, weights, taps = torch.arange(out_size, dtype=torch.int32), torch.ones((out_size, 1)), 1
+    else:
+        w = resize_weights(in_size, out_size).T  # (out, in)
+        nonzero = w != 0
+        first = torch.where(nonzero.any(1), nonzero.int().argmax(1), torch.zeros((), dtype=torch.long))
+        last = in_size - 1 - nonzero.flip(1).int().argmax(1)
+        taps = int((last - first).max()) + 1
+        start = torch.clamp(first, max=in_size - taps)
+        cols = start[:, None] + torch.arange(taps)
+        weights = torch.gather(w, 1, cols)
+        start = start.to(torch.int32)
+    return start.to(device), weights.to(torch.float32).contiguous().to(device), taps
+
+
+@functools.cache
+def _norm_consts(mean: Tuple[float, ...], std: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """(2C + 1,) fp32: the means, the stds and 1 / 255, as the plain version rounds them."""
+    return torch.tensor([*mean, *std, 1.0 / 255.0], dtype=torch.float32).to(device)
+
+
+# B.15's output kinds (csrc/resize_preprocess.cu): normalized NCHW fp32 or bf16, the raw resize in NHWC fp32
+_OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
+_RAW = 2
+
+
+def _launch_resize(frames: torch.Tensor, size: Tuple[int, int], out: torch.Tensor, out_kind: int,
+                   prep: Optional[FramePrep], shifts: Optional[torch.Tensor]) -> torch.Tensor:
+    if frames.device.type != "cuda":
+        raise ValueError(f"frames must be a CUDA tensor, got {frames.device}")
+    if frames.dtype not in (torch.uint8, torch.float32) or frames.dim() != 4 or not frames.is_contiguous():
+        raise ValueError(f"B.15 takes contiguous (N, H, W, C) uint8 or float32 frames, got {frames.dtype} "
+                         f"{tuple(frames.shape)}")
+    n, h, w, c = frames.shape
+    rows, cols = resize_taps(h, size[0], frames.device), resize_taps(w, size[1], frames.device)
+    pad = crop = 0
+    flags = int(frames.dtype == torch.float32)
+    consts = shift_ptr = None
+    if prep is not None:
+        if len(prep.mean) != c or len(prep.std) != c:
+            raise ValueError(f"{c} channels, but {len(prep.mean)} means and {len(prep.std)} stds")
+        pad, crop = prep.pad, prep.crop
+        flags |= 2 * prep.round_bf16 | 4 * prep.divide
+        consts = _norm_consts(tuple(prep.mean), tuple(prep.std), frames.device)
+        if pad:
+            if shifts is None or tuple(shifts.shape) != (n, 2):
+                raise ValueError(f"a shift with pad {pad} needs (N, 2) = {(n, 2)} shifts")
+            shifts = shifts.to(device=frames.device, dtype=torch.int32).contiguous()
+            shift_ptr = shifts.data_ptr()
+    oh, ow = out.shape[-2:] if out_kind != _RAW else out.shape[1:3]
+    kernels.RESIZE_PREPROCESS(
+        frames.device, frames.data_ptr(), out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+        cols[0].data_ptr(), cols[1].data_ptr(), shift_ptr, None if consts is None else consts.data_ptr(),
+        n, h, w, c, size[0], size[1], oh, ow, rows[2], cols[2], pad, crop, out_kind, flags,
+    )
+    return out
+
+
+def resize_preprocess(frames: torch.Tensor, prep: FramePrep, shifts: Optional[torch.Tensor] = None,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(N, H, W, C) uint8 or fp32 frames -> (N, C, h, w) ``out_dtype``: one
+    launch of B.15 on a CUDA tensor, the plain version on a CPU tensor."""
+    if frames.device.type == "cpu":
+        return resize_preprocess_plain(frames, prep, shifts, out_dtype)
+    if out_dtype not in _OUT_KIND:
+        raise TypeError(f"B.15 writes float32 or bfloat16, not {out_dtype}")
+    n, _, _, c = frames.shape
+    out = torch.empty((n, c, *prep.out_size), dtype=out_dtype, device=frames.device)
+    return _launch_resize(frames, prep.size, out, _OUT_KIND[out_dtype], prep, shifts)
+
+
+def resize_bilinear(frames: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(N, H, W, C) uint8 or fp32 -> (N, height, width, C) fp32, the resize
+    alone: B.15's raw mode on a CUDA tensor (the tactile branch's first of
+    two resizes), the plain version on a CPU tensor."""
+    if frames.device.type == "cpu":
+        return resize_bilinear_plain(frames, height, width)
+    n, _, _, c = frames.shape
+    out = torch.empty((n, height, width, c), dtype=torch.float32, device=frames.device)
+    return _launch_resize(frames, (height, width), out, _RAW, None, None)

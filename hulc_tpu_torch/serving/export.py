@@ -68,7 +68,7 @@ import torch.nn as nn
 from hulc_tpu_torch.config import HulcConfig
 from hulc_tpu_torch.data.statistics import DatasetStatistics
 from hulc_tpu_torch.evaluation.batched_eval import build_batched_step
-from hulc_tpu_torch.evaluation.policy import StateObsNormalizer, build_policy_fns, refuse_depth
+from hulc_tpu_torch.evaluation.policy import StateObsNormalizer, build_policy_fns, refuse_unserved
 from hulc_tpu_torch.models.hulc import HulcModel, make_model
 from hulc_tpu_torch.ops.logistic_mixture import U_MIN, U_SPAN
 from hulc_tpu_torch.serving.params_io import flatten_params
@@ -200,9 +200,9 @@ def export_policy(
     port's state_dict, loaded into a model built on ``device`` (CUDA unless
     the caller asks for another), or a model, exported as it is (a model
     built with ``use_kernels=False`` is refused). ``lanes > 0`` also
-    exports the E-lane lockstep step. A config with a depth camera is
-    refused (``evaluation.policy.refuse_depth``)."""
-    refuse_depth(cfg, "export_policy")
+    exports the E-lane lockstep step. A config with a depth or CLIP camera
+    or a tactile tower is refused (``evaluation.policy.refuse_unserved``)."""
+    refuse_unserved(cfg, "export_policy")
     if isinstance(params, HulcModel):
         model = params.eval()
         if not model.use_kernels:

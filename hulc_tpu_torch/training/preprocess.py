@@ -1,23 +1,38 @@
-"""On-device batch preprocessing (port of hulc_tpu/training/preprocess.py:23-122).
+"""On-device batch preprocessing (port of hulc_tpu/training/preprocess.py:21-122).
 
-uint8 (B, S, H, W, 3) camera frames become normalized (B, S, 3, H, W) in
+uint8 (B, S, H, W, C) camera frames become normalized (B, S, C, H, W) in
 the model's compute dtype (fp32, or bf16: the fp32 normalize rounded once,
-as JAX's ``_prep_one(..., dtype)``), with the random shift when training
-(``ops.image_ops``). fp32 (B, S, H, W)
-depth frames pass through when evaluating and take their noise when
-training (``ops.depth_noise``: the gamma mode on the static camera, the
-gaussian one with std 0.01 on the gripper camera); depth is never shifted.
-Per modality the draws come from the caller's ``torch.Generator`` in a
-fixed order, the static camera's shifts, the gripper camera's, then the
-static depth's noise and the gripper depth's, unless the caller passes
-them (``shifts[scope][camera]``, (B*S, 2) each; ``depth_noise[scope]
-[camera]``, the raw standard-normal draw of the frames' shape), as the
-tests pass what JAX drew. A drawn noise tensor takes the noised frames;
-the raw batch is never written. With several ranks each draw is the
-global batch's, and a rank keeps its rows (``parallel.mesh.draw_rows``):
-the depth noise of a ``hulc_depth`` step is drawn whole on every rank. Tactile and CLIP cameras, and resizing a
-frame to the encoder's input size, are not ported yet: a batch or config
-that needs them is refused.
+as JAX's ``_prep_one(..., dtype)``), by the camera's encoder (JAX's
+``_prep_one``):
+
+* a CNN camera at its encoder's size: ``(v / 255 - 0.5) / 0.5``, with the
+  random shift when training (``ops.image_ops``, B.1 / B.1');
+* a frame whose H is not its encoder's ``input_size`` is resized to it
+  (``jax.image.resize``'s bilinear, antialiased), as JAX's size check does;
+* the CLIP branch: the resize (200 -> 224 for the dataset's frames), in
+  training with a shift the rounding to bf16 and the shift (pad
+  ``shift_pad``), then CLIP's normalize (``v / 255``, then per channel
+  ``(x - mean) / std``);
+* the tactile branch: a resize to ``input_size + 6``, in training the bf16
+  rounding and a shift with pad 3, the crop [3:-3], then ``(v * (1 / 255)
+  - 0.5) / 0.5``. A 160 x 120 frame is resized twice, to 64 and then to 70,
+  as JAX's size check and the branch do.
+
+Every resized camera is one launch of B.15 (``ops.image_ops.resize_preprocess``;
+the tactile double resize two: the raw resize, then the branch). fp32
+(B, S, H, W) depth frames pass through when evaluating and take their noise
+when training (``ops.depth_noise``: the gamma mode on the static camera,
+the gaussian one with std 0.01 on the gripper camera); depth is never
+shifted. Per modality the draws come from the caller's ``torch.Generator``
+in a fixed order, the static camera's shifts, the gripper camera's, the
+tactile camera's, then the static depth's noise and the gripper depth's,
+unless the caller passes them (``shifts[scope][camera]``, (B*S, 2) each;
+``depth_noise[scope][camera]``, the raw standard-normal draw of the
+frames' shape), as the tests pass what JAX drew. A drawn noise tensor
+takes the noised frames; the raw batch is never written. With several
+ranks each draw is the global batch's, and a rank keeps its rows
+(``parallel.mesh.draw_rows``): the depth noise of a ``hulc_depth`` step is
+drawn whole on every rank.
 """
 
 from __future__ import annotations
@@ -27,22 +42,30 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from hulc_tpu_torch.config import HulcConfig
+from hulc_tpu_torch.config import HulcConfig, VisionEncoderConfig
 from hulc_tpu_torch.models.hulc import ModalityBatch
 from hulc_tpu_torch.ops.depth_noise import prep_depth, prep_depth_plain
 from hulc_tpu_torch.ops.image_ops import (
+    TACTILE_PAD,
+    clip_prep,
     draw_shifts,
     preprocess_rgb_seq,
     preprocess_rgb_seq_plain,
     preprocess_rgb_seq_shift,
     preprocess_rgb_seq_shift_plain,
+    resize_bilinear,
+    resize_bilinear_plain,
+    resize_preprocess,
+    resize_preprocess_plain,
+    rgb_prep,
+    tactile_prep,
 )
 from hulc_tpu_torch.parallel import mesh
 
-CAMERAS = ("rgb_static", "rgb_gripper")
+# each camera's field of the batch and its encoder's field of the config
+CAMERAS = (("rgb_static", "rgb_static"), ("rgb_gripper", "rgb_gripper"), ("rgb_tactile", "tactile"))
 # each depth camera's training noise (JAX: _prep_depth's gamma_noise / gaussian_std)
 DEPTH_CAMERAS = (("depth_static", "gamma", 0.0), ("depth_gripper", "gaussian", 0.01))
-NOT_PORTED = (("rgb_tactile", "tactile"),)
 
 
 def batch_to_device(batch: Dict[str, ModalityBatch], device) -> Dict[str, ModalityBatch]:
@@ -64,6 +87,38 @@ def batch_to_device(batch: Dict[str, ModalityBatch], device) -> Dict[str, Modali
     return {scope: ModalityBatch(*(move(x) for x in mod)) for scope, mod in batch.items()}
 
 
+def train_shift_pad(enc: VisionEncoderConfig) -> int:
+    """The pad of the shift a camera of ``enc`` takes in training: the
+    tactile branch's own (3), else the encoder's ``shift_pad``."""
+    return TACTILE_PAD if enc.kind == "tactile" else enc.shift_pad
+
+
+def prep_camera(enc: VisionEncoderConfig, imgs: torch.Tensor, train: bool, dtype: torch.dtype,
+                draw_shifts_for=None, use_kernels: bool = True) -> torch.Tensor:
+    """One camera's (B, S, H, W, C) uint8 frames -> (B, S, C, h, w) ``dtype``
+    (JAX's ``_prep_one``). ``draw_shifts_for(n, pad)`` gives the (n, 2)
+    shifts where the branch shifts."""
+    b, s, h, w, c = imgs.shape
+    if enc.kind in ("spatial_softmax", "nature_cnn") and h == enc.input_size:
+        if train and enc.shift_pad > 0:
+            fn = preprocess_rgb_seq_shift if use_kernels else preprocess_rgb_seq_shift_plain
+            return fn(imgs, draw_shifts_for(b * s, enc.shift_pad), enc.shift_pad, out_dtype=dtype)
+        return (preprocess_rgb_seq if use_kernels else preprocess_rgb_seq_plain)(imgs, out_dtype=dtype)
+    frames = imgs.reshape(b * s, h, w, c)
+    size = enc.input_size
+    if enc.kind == "tactile":
+        if h != size:  # JAX's size check, then the branch's own resize
+            frames = (resize_bilinear if use_kernels else resize_bilinear_plain)(frames, size, size)
+        prep = tactile_prep(size, c, train)
+    elif enc.kind == "clip":
+        prep = clip_prep(size, (h, w), enc.shift_pad, train)
+    else:
+        prep = rgb_prep(size, (h, w), c, enc.shift_pad, train)
+    shifts = draw_shifts_for(b * s, prep.pad) if prep.pad else None
+    out = (resize_preprocess if use_kernels else resize_preprocess_plain)(frames, prep, shifts, dtype)
+    return out.reshape((b, s) + out.shape[1:])
+
+
 def preprocess_modality(
     cfg: HulcConfig,
     batch: ModalityBatch,
@@ -75,29 +130,18 @@ def preprocess_modality(
     use_kernels: bool = True,
 ) -> ModalityBatch:
     pe = cfg.perceptual_encoder
-    for field, enc in NOT_PORTED:
-        if getattr(batch, field) is not None and getattr(pe, enc) is not None:
-            raise NotImplementedError(f"preprocessing {field!r} is not ported yet")
     updates = {}
-    for cam in CAMERAS:
-        imgs, enc = getattr(batch, cam), getattr(pe, cam)
+    for cam, field in CAMERAS:
+        imgs, enc = getattr(batch, cam), getattr(pe, field)
         if imgs is None or enc is None:
             continue
-        if enc.kind not in ("spatial_softmax", "nature_cnn"):
-            raise NotImplementedError(f"preprocessing for the {enc.kind!r} encoder is not ported yet")
-        if imgs.shape[2] != enc.input_size:
-            raise NotImplementedError(
-                f"resizing {cam} from {imgs.shape[2]} px to {enc.input_size} px is not ported yet"
-            )
-        if train and enc.shift_pad > 0:
-            s = mesh.local_rows(shifts[cam]) if shifts is not None else mesh.draw_rows(
-                lambda shape: draw_shifts(shape[0], enc.shift_pad, generator, imgs.device),
-                (imgs.shape[0] * imgs.shape[1], 2),
-            )
-            fn = preprocess_rgb_seq_shift if use_kernels else preprocess_rgb_seq_shift_plain
-            updates[cam] = fn(imgs, s, enc.shift_pad, out_dtype=cfg.dtype)
-        else:
-            updates[cam] = (preprocess_rgb_seq if use_kernels else preprocess_rgb_seq_plain)(imgs, out_dtype=cfg.dtype)
+
+        def camera_shifts(n, pad, cam=cam, device=imgs.device):
+            if shifts is not None:
+                return mesh.local_rows(shifts[cam])
+            return mesh.draw_rows(lambda shape: draw_shifts(shape[0], pad, generator, device), (n, 2))
+
+        updates[cam] = prep_camera(enc, imgs, train, cfg.dtype, camera_shifts, use_kernels)
     for cam, mode, std in DEPTH_CAMERAS:
         frames = getattr(batch, cam)
         if frames is None or getattr(pe, cam) is None:

@@ -60,16 +60,22 @@ BATCH_PER_MOD, SEQ = 32, 32  # windows per modality, frames per window
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # a Chrome trace's device activity
 
 
+# CALVIN's tactile frames: 160 x 120, two 3-channel sensors
+TACTILE_FRAME = (160, 120, 6)
+
+
 def synthetic_fused_batch(
     cfg: HulcConfig, batch_per_mod: int, seq_len: int, seed: int, device
 ) -> Dict[str, ModalityBatch]:
     """A loader-fused ``{"fused": 2B}`` uint8 batch, [vis; lang] rows, built
     as the JAX package's ``__graft_entry__._make_raw_batch``: uniform frames,
     ``tanh(normal)`` actions, normal 15-d ``state_info_robot_obs``, normal
-    384-d language embeddings; every third language window is left out of
+    ``lang_dim``-d language embeddings; every third language window is left out of
     the auxiliary losses. A config draws frames only for its cameras and
-    proprio of its width (8 without one). A config with depth cameras also gets fp32
-    depth frames, uniform in _make_raw_batch's ranges (drawn last, so the
+    proprio of its width (8 without one); a CLIP camera draws the dataset's
+    200 px frames (resized to 224 on the device). A config with depth cameras also gets fp32
+    depth frames, uniform in _make_raw_batch's ranges, and one with a
+    tactile tower CALVIN's 160 x 120 x 6 tactile frames (drawn last, so the
     other fields do not change)."""
     rng = np.random.default_rng(seed)
     pe = cfg.perceptual_encoder
@@ -81,8 +87,9 @@ def synthetic_fused_batch(
     def depth(enc, lo, hi):
         return None if enc is None else rng.uniform(lo, hi, (n, seq_len, enc.input_size, enc.input_size)).astype(np.float32)
 
+    static_px = None if pe.rgb_static is None else 200 if pe.rgb_static.kind == "clip" else pe.rgb_static.input_size
     batch = ModalityBatch(
-        rgb_static=frames(pe.rgb_static.input_size) if pe.rgb_static is not None else None,
+        rgb_static=frames(static_px) if pe.rgb_static is not None else None,
         rgb_gripper=frames(pe.rgb_gripper.input_size) if pe.rgb_gripper is not None else None,
         robot_obs=rng.normal(size=(n, seq_len, pe.proprio.n_state_obs if pe.proprio else 8)).astype(np.float32),
         actions=np.tanh(rng.normal(size=(n, seq_len, 7))).astype(np.float32),
@@ -92,6 +99,7 @@ def synthetic_fused_batch(
         idx=np.arange(batch_per_mod),
         depth_static=depth(pe.depth_static, 0.1, 5.0),
         depth_gripper=depth(pe.depth_gripper, 0.01, 2.0),
+        rgb_tactile=None if pe.tactile is None else rng.integers(0, 255, (n, seq_len, *TACTILE_FRAME), dtype=np.uint8),
     )
     return {"fused": ModalityBatch(*(None if x is None else torch.as_tensor(x, device=device) for x in batch))}
 

@@ -145,7 +145,7 @@ class Run(NamedTuple):
 
 def build_run(args: argparse.Namespace) -> Run:
     """The config, data, trainer and callbacks of a parsed command line."""
-    from hulc_tpu_torch.config import apply_overrides, get_config
+    from hulc_tpu_torch.config import TACTILE_REFUSAL, apply_overrides, get_config
     from hulc_tpu_torch.data.fixtures import make_fixture_dataset
     from hulc_tpu_torch.data.loader import make_loaders
     from hulc_tpu_torch.parallel import mesh
@@ -166,6 +166,9 @@ def build_run(args: argparse.Namespace) -> Run:
     cfg = get_config(args.config, **({"compute_dtype": "bfloat16"} if args.bf16 else {}))
     if args.overrides:
         cfg = apply_overrides(cfg, args.overrides)
+    if cfg.perceptual_encoder.tactile is not None:
+        raise SystemExit(f"--config {args.config}: the train CLI refuses a config with a tactile tower: "
+                         f"{TACTILE_REFUSAL}")
 
     debug = args.config.endswith("_debug")
     min_w = args.min_window or (8 if debug else 20)
@@ -174,7 +177,7 @@ def build_run(args: argparse.Namespace) -> Run:
         root = None
         if rank == 0:  # one dataset for every rank
             root = pathlib.Path(tempfile.mkdtemp(prefix="hulc_fixture_"))
-            make_fixture_dataset(root, num_episodes=2, episode_len=48, small=debug)
+            make_fixture_dataset(root, num_episodes=2, episode_len=48, small=debug, lang_dim=cfg.lang_dim)
             print(f"[train] using synthetic fixture dataset at {root}")
         root = mesh.broadcast_object(root)
     else:

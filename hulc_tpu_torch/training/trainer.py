@@ -12,7 +12,9 @@ bf16 by default).
 * ``train_step(raw_batch, kl_beta)``: the random-shift preprocess and the
   depth noise (``training.preprocess``), ``HulcModel.train_losses``, the
   backward and the optimizer's update, which also returns the global
-  gradient norm (``grad_norm``). The losses stay on the device. Tests pass the
+  gradient norm (``grad_norm``). The frozen CLIP and tactile backbones'
+  parameters take zero gradients (``HulcModel.frozen_parameters``), as
+  JAX's optimizer sees them. The losses stay on the device. Tests pass the
   shifts, the depth noise and the plan noise JAX drew (``shifts=``,
   ``depth_noise=``, ``gumbel=`` or ``normal=``).
 * ``val_step(raw_batch, kl_beta)``: the eval preprocess and
@@ -67,7 +69,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from hulc_tpu_torch.config import HulcConfig
+from hulc_tpu_torch.config import TACTILE_REFUSAL, HulcConfig
 from hulc_tpu_torch.data.loader import DeviceLoader, StagingPool
 from hulc_tpu_torch.device import resolve_device
 from hulc_tpu_torch.models.hulc import HulcModel, ModalityBatch, init_weights_, make_model
@@ -165,6 +167,9 @@ class Trainer:
             )
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed + 1)
         set_dropout_generator(self.model, self.generator)
+        # the frozen backbones' parameters and their zero gradients (made at the first step)
+        self._frozen = self.model.frozen_parameters()
+        self._zeros: Optional[List[torch.Tensor]] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.epoch = 0
@@ -346,9 +351,20 @@ class Trainer:
             forward = self.model.train_losses if self._ddp is None else self._ddp
             losses = forward(batch, kl_beta, generator=self.generator, gumbel=gumbel, normal=normal)
             losses["total_loss"].backward()
+            for p, zero in zip(self._frozen, self._frozen_grads()):
+                p.grad = zero
         losses["grad_norm"] = self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in losses.items()}
+
+    def _frozen_grads(self) -> List[torch.Tensor]:
+        """Zeros for the frozen backbones' gradients: JAX's ``stop_gradient``
+        gives them zero gradients, which its optimizer steps (Adam leaves
+        them, AdamW decays them, the global norm counts them); the backward
+        here computes none. Made once; the optimizers only read them."""
+        if self._zeros is None:
+            self._zeros = [torch.zeros_like(p) for p in self._frozen]
+        return self._zeros
 
     def train_steps(self, n: int, batches: Sequence[Dict[str, ModalityBatch]], kl_beta: float) -> List[Dict[str, torch.Tensor]]:
         """``n`` steps, cycling over ``batches``."""
@@ -418,7 +434,11 @@ class Trainer:
         call (they add up across resumes), ``max_total_steps`` the run's step
         count (a relaunch trains only the remainder). A callback's
         ``on_epoch_end(trainer, epoch)`` runs at the validation cadence; a
-        dict it returns joins the epoch's metrics."""
+        dict it returns joins the epoch's metrics. A config with a tactile
+        tower is refused (``config.TACTILE_REFUSAL``): its train and val
+        steps take batches that carry ``rgb_tactile``, which no loader makes."""
+        if self.cfg.perceptual_encoder.tactile is not None:
+            raise ValueError(f"fit refuses a config with a tactile tower: {TACTILE_REFUSAL}")
         tcfg = self.tcfg
         steps_per_epoch = len(train_loader)
         self.reset_state(steps_per_epoch)

@@ -106,6 +106,12 @@ def test_cli_takes_jax_options_and_defaults(port_module, jax_module, monkeypatch
     assert got == want
 
 
+# hulc_clip_lang's widest layers, cut for a CPU run
+CLIP_LANG_CUTS = ("plan_proposal.hidden_size", "plan_recognition.encoder_hidden_size",
+                  "plan_recognition.fc_hidden_size", "action_decoder.hidden_size", "language_goal.hidden_size",
+                  "visual_goal.hidden_size")
+
+
 def _train_argv(run, *extra):
     return ["--config", "hulc_debug", "--fixture", "--batch-size", "2", "--cache", "none", "--device", "cpu",
             "--run-dir", str(run), "--val-max-batches", "1", *extra]
@@ -132,7 +138,11 @@ def test_train_cli_runs_and_a_relaunch_trains_the_remainder(tmp_path, monkeypatc
                                         (("--adam-mv-dtype", "float32"), "adam"),
                                         # tests/test_config_overrides.py's gcbc_debug run (the last --config wins)
                                         (("--config", "gcbc_debug", "--set", "action_decoder.hidden_size=48",
-                                          "--set", "loss.kl_beta=0.1"), "adam_lowp")])
+                                          "--set", "loss.kl_beta=0.1"), "adam_lowp"),
+                                        # hulc_clip_lang (1024-d language, the fixture's at the config's
+                                        # lang_dim) on the full-size fixture, its widest layers cut
+                                        (("--config", "hulc_clip_lang", "--min-window", "8", "--max-window", "8",
+                                          *(f"--set={k}=64" for k in CLIP_LANG_CUTS)), "adam_lowp")])
 def test_train_cli_optimizers_resume(flags, kind, tmp_path, monkeypatch):
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     run = tmp_path / "run"

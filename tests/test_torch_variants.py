@@ -42,7 +42,7 @@ torch.set_num_threads(1)
 
 NAMES = ("gcbc", "deterministic", "deterministic_mlp")
 PRESETS = ("gcbc", "gcbc_debug", "hulc_deterministic", "hulc_state_only", "state_only_debug", "fetch_state",
-           "fetch_state_debug", "fetch_vision")
+           "fetch_state_debug", "fetch_vision", "hulc_clip_vision", "hulc_clip_lang", "hulc_tactile")
 
 
 @pytest.mark.parametrize("name", PRESETS)
@@ -93,7 +93,7 @@ def test_policies_match_jax(name):
     check_variant_policies(name)
 
 
-@pytest.mark.parametrize("name", ["gcbc", "deterministic_mlp"])
+@pytest.mark.parametrize("name", ["gcbc", "deterministic_mlp", "clip_lang"])
 def test_export_served_bit_equal_to_live(name, tmp_path):
     check_variant_export(name, tmp_path)
     v = variant_setup(name)

@@ -39,8 +39,26 @@ def with_depth(cfg, batch, seed=1):
     return batch._replace(depth_static=depth(pe.depth_static), depth_gripper=depth(pe.depth_gripper))
 
 
+def with_tactile(cfg, batch, seed=2):
+    """``batch`` with (B, S, 64, 64, 6) preprocessed tactile frames where
+    ``cfg`` has a tactile tower (JAX's ``example_batch`` makes none, and a
+    model initialized without them builds no tactile tower), and its
+    language ``cfg.lang_dim`` wide (``example_batch`` draws 384, so JAX's
+    init builds ``hulc_clip_lang``'s language goal encoder 384 wide)."""
+    rng = np.random.default_rng(seed)
+    b, s = batch.actions.shape[:2]
+    tac = cfg.perceptual_encoder.tactile
+    if tac is not None:
+        batch = batch._replace(rgb_tactile=rng.normal(size=(b, s, tac.input_size, tac.input_size, tac.num_channels))
+                               .astype(np.float32))
+    if batch.lang is not None and batch.lang.shape[-1] != cfg.lang_dim:
+        batch = batch._replace(lang=rng.normal(size=(b, cfg.lang_dim)).astype(np.float32))
+    return batch
+
+
 def _example_batch(cfg):
-    return {"vis": with_depth(cfg, example_batch(cfg, 1, 2)), "lang": with_depth(cfg, example_batch(cfg, 1, 2, lang=True))}
+    return {"vis": with_tactile(cfg, with_depth(cfg, example_batch(cfg, 1, 2))),
+            "lang": with_tactile(cfg, with_depth(cfg, example_batch(cfg, 1, 2, lang=True)))}
 
 
 def jax_init(cfg):
@@ -189,6 +207,8 @@ VARIANTS = {
     "fetch_state": ("fetch_state_debug", []),
     "fetch_vision": ("fetch_vision", FETCH_VISION_SMALL),
     "aux": ("hulc_debug", AUX_OVERRIDES),
+    # hulc_clip_lang's one change to hulc (1024-d language) on hulc_debug: JAX has no debug preset of it
+    "clip_lang": ("hulc_debug", ["lang_dim=1024", "language_goal.in_features=1024"]),
 }
 
 
