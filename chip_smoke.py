@@ -206,22 +206,29 @@ it fails:
    bit-equal with the same launches per step (as in phase 13).
 
 15. hulc_depth: the RGB-D preset at full width (``--seed`` weights, JAX's
-   50,293,559 parameters): the depth noise (B.10) against its plain
-   version bit for bit in both modes at the train step's shapes (the static
-   camera's gamma noise at (64, 32, 200, 200), the gripper's gaussian
-   noise at (64, 32, 84, 84)), also written into the draw's buffer, and at
-   945 elements 4 bytes off alignment; its device time beside the plain
-   version's, its bound and, for the gaussian mode, ``torch.add(x, z,
-   alpha=0.01)``. Then the main path, launch counts zeroed just before and
-   read just after: ``--train-steps`` train steps at 2B = 64, S = 32 on a
-   device-resident batch with depth frames (each launches B.10 twice and
-   B.2 / B.2' twice, for both static towers), a val step (B.10 not at all),
-   and ``fit`` for 2 epochs of 2 steps on a 200 / 84 px fixture with depth
-   frames (one loader worker, the DeviceLoader, validation and
-   checkpoints) under torch.profiler for seq/s and the device's idle
-   share. Then one train step against ``use_kernels=False`` on the same
-   shifts, depth noise and plan noise (as in phase 9) and one val step (as
-   in phase 12).
+   50,293,559 parameters): the depth noise (B.10) at the train step's
+   shapes (the static camera's gamma noise at (64, 32, 200, 200), the
+   gripper's gaussian noise at (64, 32, 84, 84)). Its z mode against its
+   plain version bit for bit, also written into the draw's buffer, and at
+   945 elements 4 bytes off alignment. Its draw mode (the normals drawn in
+   the launch): the Philox words bit-equal to numpy's, the frames bit-equal
+   to the plain version on the normals it wrote, the normals within
+   DRAW_Z_ATOL of the plain Box-Muller, their moments over the step's
+   96.3 M draws, a two-rank split and a restored generator state bit-equal,
+   two calls apart. Its device time beside its plain version's, its bound,
+   ``torch.randn`` + the z mode (what the step ran before) and, for the
+   gaussian mode, ``torch.randn`` + ``torch.add(x, z, alpha=0.01)``. Then
+   the main path, launch counts zeroed just before and read just after:
+   ``--train-steps`` train steps at 2B = 64, S = 32 on a device-resident
+   batch with depth frames (each launches B.10 twice and B.2 / B.2' twice,
+   for both static towers, and draws no ``torch.randn`` of a depth frame's
+   shape), a val step (B.10 not at all), ``fit`` for 2 epochs of 2 steps on
+   a 200 / 84 px fixture with depth frames (one loader worker, the
+   DeviceLoader, validation and checkpoints) under torch.profiler for
+   seq/s and the device's idle share, and a run cut and resumed bit-equal
+   to an uninterrupted one. Then one train step against
+   ``use_kernels=False`` on the same shifts, depth noise and plan noise (as
+   in phase 9) and one val step (as in phase 12).
 
 16. gated decoder cells: ``hulc`` at full width with
    ``action_decoder.rnn_cell`` set to gru and then to lstm by
@@ -341,8 +348,8 @@ it fails:
    default algorithms, the batch on the device as in phase 8: their times
    (host clock) beside the one-device step's,
    the gradient shards the optimizer copied to their parameter's phase and
-   what the copies cost, and the ``hulc_depth`` step's depth noise draw,
-   which every rank makes whole. With one card the equal-loss check of N
+   what the copies cost, and the ``hulc_depth`` step's depth noise on one
+   of two ranks (B.10 draws only the rank's rows). With one card the equal-loss check of N
    ranks against one is reported as needing a second card.
 21. GCBC, the deterministic decoder, the state-only family and hulc's
    auxiliary losses at full width (``--seed`` weights, JAX's parameter
@@ -372,7 +379,7 @@ it fails:
    counts, ENCODER_PARAMS). First B.15 (``csrc/resize_preprocess.cu``)
    against its plain version in every mode (the CLIP and tactile
    branches, training and evaluation, fp32 and bf16 out, a 160 x 120
-   tactile frame's two launches, a resized CNN camera) at the training
+   tactile frame's one launch and the raw resize, a resized CNN camera) at the training
    step's and validation's frames: each output within the plain epilogue
    of the plain resize -+ B15_TOL pixel values, the share that rounds to
    another bf16 value at most B15_FLIP_SHARE; its times beside
@@ -382,7 +389,7 @@ it fails:
    ``hulc_clip_lang`` the main path, launch counts zeroed just before and
    read just after: ENCODER_TRAIN_STEPS fused train steps, each kernel's
    launches per step exactly ``encoder_step_launches`` (B.15 once for a
-   CLIP camera and twice for a tactile tower, 0 for ``hulc_clip_lang``),
+   CLIP camera and once for a tactile tower, 0 for ``hulc_clip_lang``),
    a ``{vis, lang}`` step, the frozen backbones' gradients zero tensors,
    a val step, for ``hulc_clip_lang`` the policy at 1 and ``--lanes``
    lanes and a short ``evaluate_policy_batched`` pass; then one train
@@ -3750,25 +3757,92 @@ DEPTH_MODES = (("depth_static", "gamma", 0.0), ("depth_gripper", "gaussian", 0.0
 # B.2 / B.2' (the RGB and the depth static towers)
 DEPTH_STEP_LAUNCHES = {"hulc_depth_noise": 2, "hulc_spatial_softmax": 2, "hulc_spatial_softmax_bwd": 2}
 DEPTH_FIT_EPOCHS, DEPTH_FIT_STEPS, DEPTH_FIT_VAL_BATCHES = 2, 2, 1
+DEPTH_RESUME_EPOCHS = 2  # the resume check's whole run: one step an epoch; the cut run one step, the resumed one
+DEPTH_RESUME_STEPS = 2 * DEPTH_RESUME_EPOCHS  # train steps of the three runs
+
+
+# B.10's draw mode: its normals within this of the plain Box-Muller on its
+# own words (PyTorch's and the card's log / sin / cos differ by an ulp or two,
+# times |z| up to 6.7), and the moments of the step's 96.3 M normals
+DRAW_Z_ATOL = 1e-5
+DRAW_MEAN_ATOL, DRAW_VAR_ATOL, DRAW_TAIL_SHARE = 1e-3, 2e-3, (2e-5, 2e-4)  # |z| > 4: 6.3e-5 for a normal
+DRAW_WORD_SAMPLE = 1 << 20  # the static camera's groups whose words numpy's Philox recomputes
+
+
+def check_depth_draw(x, mode, std, gen, shape):
+    """B.10's draw mode at the train step's shape: its debug launch's words
+    against numpy's Philox (every group at the gripper's size, DRAW_WORD_SAMPLE
+    random groups, the first and the last of the static camera's), its
+    frames bit-equal to ``prep_depth_plain`` on the normals it wrote, the
+    normals within DRAW_Z_ATOL of the plain Box-Muller of its words, each of
+    a two-rank split's blocks of rows (two row blocks, as a fused batch)
+    bit-equal to the global draw's rows, two consecutive
+    ``draw_depth_noise`` calls differing and a restored generator state
+    repeating. Returns (its normals, max |y - plain y|, max |z - plain z|)."""
+    from hulc_tpu_torch.ops.depth_noise import (DRAW_OFFSET_STEP, box_muller_plain, draw_depth_noise, draw_key,
+                                                draw_layout, philox4x32_10, prep_depth_draw, prep_depth_plain)
+    from hulc_tpu_torch.parallel.mesh import rows_of
+
+    seed, offset = gen.initial_seed(), gen.get_offset()
+    y, z, words = prep_depth_draw(x, mode, std, seed, offset, debug=True)
+    torch.cuda.synchronize()
+    layout = draw_layout(shape)
+    groups = layout.groups
+    if x.numel() > 4 * DRAW_WORD_SAMPLE:
+        pick = np.random.default_rng(0).choice(len(groups), DRAW_WORD_SAMPLE, replace=False)
+        pick = np.unique(np.concatenate([pick, [0, len(groups) - 1]]))
+    else:
+        pick = np.arange(len(groups))
+    g, off = groups[pick], np.uint64(offset)
+    mask = np.uint64(0xFFFFFFFF)
+    want = philox4x32_10((g & mask, g >> np.uint64(32), off & mask, off >> np.uint64(32)), draw_key(seed)).T
+    got = words.reshape(-1, 4)[torch.from_numpy(pick).cuda()].cpu().numpy().astype(np.uint32)
+    if not np.array_equal(got, want):
+        fail(f"B.10 draw ({mode}) at {shape}: {int((got != want).any(1).sum())} of {len(pick)} groups' Philox words "
+             f"differ from numpy's")
+    if not torch.equal(y, prep_depth_plain(x, z, mode, std)):
+        fail(f"B.10 draw ({mode}) at {shape}: the frames are not prep_depth_plain on its own normals")
+    plain_z = box_muller_plain(words.reshape(-1)).reshape(shape)
+    z_err = max_abs(z, plain_z)
+    y_err = max_abs(y, prep_depth_plain(x, plain_z, mode, std))
+    del plain_z, words
+    if not z_err <= DRAW_Z_ATOL:
+        fail(f"B.10 draw ({mode}) at {shape}: normals {z_err:.3g} from the plain Box-Muller (at most {DRAW_Z_ATOL})")
+    for r in range(2):
+        local = rows_of(x, 2, 2, r).contiguous()
+        if not torch.equal(prep_depth_draw(local, mode, std, seed, offset, (2, 2, r)), rows_of(y, 2, 2, r)):
+            fail(f"B.10 draw ({mode}) at {shape}: rank {r} of 2's rows differ from the global draw's")
+    state = gen.get_state()
+    first, second = (draw_depth_noise(x, mode, std, gen) for _ in range(2))
+    if gen.get_offset() != offset + 2 * DRAW_OFFSET_STEP or torch.equal(first, second):
+        fail(f"B.10 draw ({mode}): two calls moved the offset {offset} -> {gen.get_offset()} or drew the same noise")
+    gen.set_state(state)
+    if not torch.equal(draw_depth_noise(x, mode, std, gen), first):
+        fail(f"B.10 draw ({mode}): a restored generator state did not draw the same noise")
+    return z, y_err, z_err
 
 
 def check_depth_noise(cfg, seed, card):
-    """B.10 against its plain version bit for bit in both modes, at the
-    train step's shapes (also writing into the draw's buffer, as the train
-    step does) and at an odd size (945 elements, n % 4 = 1) on bases 4
-    bytes off 16-byte alignment; then its device time beside the plain
-    version's, its bound and, for the gaussian mode, the one PyTorch call
-    that computes it, ``torch.add(x, z, alpha=std)``, each by CUDA events
-    with the host's launch cost kept out (``kernel_times.event_ms``: late in
-    this process the profiler drops most of these launches). Returns ({row:
-    max abs err}, {row: timing})."""
+    """B.10 in both modes at the train step's shapes. The z mode (the
+    caller's draw) against its plain version bit for bit (also writing into
+    the draw's buffer, and at an odd size, 945 elements, n % 4 = 1, on bases
+    4 bytes off 16-byte alignment). The draw mode (``check_depth_draw``),
+    and the moments of its normals over both cameras' 96.3 M draws. Then
+    the device times by CUDA events with the host's launch cost kept out
+    (``kernel_times.event_ms``: late in this process the profiler drops
+    most of these launches): the draw mode, its plain version (one call,
+    host clock: numpy's Philox on the host), its bound (8 bytes an
+    element), and what the step ran before, ``torch.randn`` and the z mode's
+    launch; for the gaussian mode ``torch.randn`` + ``torch.add(x, z,
+    alpha=std)`` (its library call). Returns ({row: max abs err}, {row:
+    timing})."""
     from hulc_tpu_torch.evaluation.kernel_times import event_ms
-    from hulc_tpu_torch.ops.depth_noise import prep_depth, prep_depth_plain
+    from hulc_tpu_torch.ops.depth_noise import prep_depth, prep_depth_draw, prep_depth_draw_plain, prep_depth_plain
     from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 61)
     pe = cfg.perceptual_encoder
-    timing, library_err = {}, {}
+    timing, library_err, zs, errs = {}, {}, [], {}
     for cam, mode, std in DEPTH_MODES:
         px = getattr(pe, cam).input_size
         shape = (2 * BATCH_PER_MOD, SEQ, px, px)
@@ -3784,33 +3858,122 @@ def check_depth_noise(cfg, seed, card):
         xo, zo = (t.reshape(-1)[1:1 + 945].reshape(odd) for t in (x, z))
         if not (xo.data_ptr() % 16 and torch.equal(prep_depth(xo, zo, mode, std), prep_depth_plain(xo, zo, mode, std))):
             fail(f"depth noise kernel ({mode}) at {odd}, 4 bytes off alignment, differs from its plain version")
+        del zc, want
+        drawn, y_err, z_err = check_depth_draw(x, mode, std, gen, shape)
+        zs.append(drawn.reshape(-1))
+        errs[mode] = (y_err, z_err)
         out = torch.empty_like(x)
         n = x.numel()
-        t_bound, by = bound(3 * 4 * n, (5 if mode == "gamma" else 2) * n)
+        s0, off = gen.initial_seed(), gen.get_offset()
+        t_bound, by = bound(2 * 4 * n, (5 if mode == "gamma" else 2) * n)
+        t0 = time.perf_counter()
+        prep_depth_draw_plain(x, mode, std, s0, off)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         row = {
             "shape": list(shape), "mode": mode,
-            "ms": event_ms(lambda: prep_depth(x, z, mode, std, out=out)),
-            "plain_ms": event_ms(lambda: prep_depth_plain(x, z, mode, std)),
-            "call_ms": call_ms(lambda: prep_depth(x, z, mode, std, out=out), 20),
-            "plain_call_ms": call_ms(lambda: prep_depth_plain(x, z, mode, std), 20),
+            "ms": event_ms(lambda: prep_depth_draw(x, mode, std, s0, off, out=out)),
+            "plain_ms": plain_s * 1e3, "plain_how": "one call, host clock to a sync (numpy's Philox on the host)",
+            "call_ms": call_ms(lambda: prep_depth_draw(x, mode, std, s0, off, out=out), 20),
+            "z_mode_ms": event_ms(lambda: prep_depth(x, z, mode, std, out=out)),
+            "z_mode_plain_ms": event_ms(lambda: prep_depth_plain(x, z, mode, std)),
+            "randn_ms": event_ms(lambda: torch.randn(shape, generator=gen, device="cuda")),
+            "randn_z_mode_ms": event_ms(
+                lambda: prep_depth(x, torch.randn(shape, generator=gen, device="cuda"), mode, std, out=out)),
             "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+            "max_abs_err_y": y_err, "max_abs_err_z": z_err,
         }
         if mode == "gaussian":
-            row["library_ms"] = event_ms(lambda: torch.add(x, z, alpha=std))
-            library_err[mode] = max_abs(torch.add(x, z, alpha=std), want)
+            row["library_ms"] = event_ms(lambda: torch.add(x, torch.randn(shape, generator=gen, device="cuda"),
+                                                           alpha=std))
+            row["library_call"] = "torch.randn + torch.add(x, z, alpha=std)"
+            library_err[mode] = max_abs(torch.add(x, z, alpha=std), prep_depth_plain(x, z, mode, std))
         timing["depth_noise" if mode == "gamma" else "depth_noise_gaussian"] = row
-        del x, z, zc, want, out
+        del x, z, out, drawn
+        torch.cuda.empty_cache()
+    z = torch.cat(zs)
+    mean, var = float(z.double().mean()), float(z.double().var())
+    tail = float((z.abs() > 4).double().mean())
+    print(f"[depth] B.10 draw mode over the step's {z.numel()} normals: mean {mean:.3g}, variance {var:.6f}, share "
+          f"|z| > 4 {tail:.3g}")
+    if not (abs(mean) <= DRAW_MEAN_ATOL and abs(var - 1) <= DRAW_VAR_ATOL
+            and DRAW_TAIL_SHARE[0] <= tail <= DRAW_TAIL_SHARE[1]):
+        fail(f"B.10 draw's normals: mean {mean:.3g} (within {DRAW_MEAN_ATOL}), variance {var:.6f} (within "
+             f"{DRAW_VAR_ATOL} of 1), share |z| > 4 {tail:.3g} (in {DRAW_TAIL_SHARE})")
+    del z, zs
     torch.cuda.empty_cache()
     for name, t in timing.items():
         lib = "" if t["library_ms"] is None else (
-            f", torch.add(x, z, alpha={DEPTH_MODES[1][2]}) {t['library_ms']:.6f} ms (max abs err from the plain "
-            f"version {library_err['gaussian']:.3g}: it rounds x + alpha * z once)")
-        print(f"[depth] B.10 {t['mode']} at {tuple(t['shape'])}: bit-equal to its plain version (also in the draw's "
-              f"buffer, and at 945 elements 4 bytes off alignment); CUDA events: kernel {t['ms']:.6f} ms, plain "
-              f"{t['plain_ms']:.6f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
-              f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound{lib}; per call with the host's launch cost "
-              f"kernel {t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms ({card})")
-    return {"depth_noise": 0.0}, timing
+            f", torch.randn + torch.add(x, z, alpha={DEPTH_MODES[1][2]}) {t['library_ms']:.6f} ms (the add alone "
+            f"{library_err['gaussian']:.3g} from the plain version: it rounds x + alpha * z once)")
+        y_err, z_err = errs[t["mode"]]
+        print(f"[depth] B.10 {t['mode']} at {tuple(t['shape'])}: z mode bit-equal to its plain version (also in the "
+              f"draw's buffer, and at 945 elements 4 bytes off alignment); draw mode: numpy's Philox words, the frames "
+              f"bit-equal to prep_depth_plain on its normals, its normals {z_err:.3g} from the plain Box-Muller (its "
+              f"frames {y_err:.3g}), a 2-rank split and a restored state bit-equal; CUDA events: draw {t['ms']:.6f} ms "
+              f"(bound {t['bound_ms']:.6f} ms, {t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it), "
+              f"torch.randn {t['randn_ms']:.6f} + z mode {t['z_mode_ms']:.6f} ms, in turn "
+              f"{t['randn_z_mode_ms']:.6f} ms{lib}; the draw's plain version {t['plain_ms']:.3f} ms (one call), the z "
+              f"mode's {t['z_mode_plain_ms']:.6f} ms; per call with the host's launch cost {t['call_ms']:.5f} ms "
+              f"({card})")
+    return {"depth_noise": max(e[0] for e in errs.values())}, timing
+
+
+def check_depth_resume(cfg, seed, batches, root, tmp):
+    """``fit`` for DEPTH_RESUME_EPOCHS epochs of one step on ``batches`` (one
+    host batch an epoch), and the same run cut after its first step and
+    resumed by a new Trainer, both on cuDNN's deterministic algorithms: the
+    parameters, the Adam state, the step and the generator (its offset,
+    which B.10's draw moves) bit-equal. Returns the seconds it took."""
+    from hulc_tpu_torch.data.loader import make_loaders
+    from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    class Epochs:
+        """One batch an epoch: batch ``start`` + e in the e-th pass."""
+
+        def __init__(self, start=0):
+            self.next = start
+
+        def __len__(self):
+            return 1
+
+        def __iter__(self):
+            self.next += 1
+            return iter([batches[self.next - 1]])
+
+    def trainer(name):
+        return Trainer(cfg, TrainerConfig(run_dir=str(tmp / name), seed=seed, log_every=1, val_max_batches=1), "cuda")
+
+    def val():
+        return make_loaders(cfg, root, split="validation", batch_size=FIT_BATCH, deterministic=True)
+
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        whole = trainer("whole")
+        steps = [whole.fit(Epochs(), val(), max_epochs=DEPTH_RESUME_EPOCHS)]
+        steps.append(trainer("cut").fit(Epochs(), val(), max_epochs=DEPTH_RESUME_EPOCHS, max_steps=1))
+        torch.cuda.empty_cache()
+        resumed = trainer("cut")
+        steps.append(resumed.fit(Epochs(start=1), val(), max_epochs=DEPTH_RESUME_EPOCHS))
+    if steps != [DEPTH_RESUME_EPOCHS, 1, DEPTH_RESUME_EPOCHS]:
+        fail(f"hulc_depth resume: the whole, cut and resumed fits ended at steps {steps}")
+    for (k, a), (_, b) in zip(whole.model.state_dict().items(), resumed.model.state_dict().items()):
+        if not torch.equal(a, b):
+            fail(f"hulc_depth resume: parameter {k} differs between the whole run and the cut-and-resumed one")
+    opt_a, opt_b = whole.optimizer.checkpoint_state(), resumed.optimizer.checkpoint_state()
+    if opt_a["count"] != opt_b["count"] or not all(
+        torch.equal(x, y) for key in ("exp_avg", "exp_avg_sq") for x, y in zip(opt_a[key], opt_b[key])
+    ):
+        fail("hulc_depth resume: the Adam state differs between the whole run and the cut-and-resumed one")
+    if whole.step != resumed.step or not torch.equal(whole.generator.get_state(), resumed.generator.get_state()):
+        fail("hulc_depth resume: the step or the generator state differs")
+    took = time.perf_counter() - t0
+    print(f"[depth fit] {DEPTH_RESUME_EPOCHS} epochs of one step, and the same cut after one step and resumed by a "
+          f"new Trainer (cuDNN deterministic): parameters, Adam moments, step and generator (offset "
+          f"{resumed.generator.get_offset()}) bit-equal, in {took:.1f} s")
+    del whole, resumed
+    torch.cuda.empty_cache()
+    return took
 
 
 def run_depth_fit(cfg, seed, card):
@@ -3860,7 +4023,7 @@ def run_depth_fit(cfg, seed, card):
         events = device_events(prof)
         busy = events_ms([e for e in events if kind_of(e.key) != "copies and fills"])
         copies = events_ms([e for e in events if kind_of(e.key) == "copies and fills"])
-        recorded = sum(e.count for e in events if "depth_noise_kernel" in e.key)
+        recorded = sum(e.count for e in events if "depth_noise" in e.key)
         records = [json.loads(line) for line in (tmp / "run" / "metrics.jsonl").read_text().splitlines()]
         if {r["prefix"] for r in records} != {"train", "val", "epoch"}:
             fail(f"hulc_depth fit: metrics.jsonl has the prefixes {sorted({r['prefix'] for r in records})}")
@@ -3872,9 +4035,11 @@ def run_depth_fit(cfg, seed, card):
         epochs = [r for r in records if r["prefix"] == "epoch"]
         upload = check_upload(trainer, [train._make() for _ in range(3)], label="depth fit")
         del trainer
+        torch.cuda.empty_cache()
+        resume_s = check_depth_resume(cfg, seed, [train._make() for _ in range(DEPTH_RESUME_EPOCHS)], root, tmp)
     report = {"fixture_write_s": write_s, "batch_mb": batch_mb, "steps": steps, "wall_ms": wall_ms,
               "kernel_busy_ms": busy, "copy_ms": copies, "idle_share": 1.0 - busy / wall_ms,
-              "profiled_depth_noise_launches": recorded, "upload_check": upload,
+              "profiled_depth_noise_launches": recorded, "upload_check": upload, "resume_check_s": resume_s,
               "epochs": [{k: r[k] for k in ("epoch_time_s", "seq_per_sec")} for r in epochs]}
     print(f"[depth fit] fit on a 200 / 84 px fixture with depth frames ({FIT_EPISODES} episodes of {FIT_EPISODE_LEN} "
           f"frames written in {write_s:.2f} s; fused batches of 2x{FIT_BATCH} windows of 32 frames, {batch_mb:.1f} MB, "
@@ -3887,6 +4052,23 @@ def run_depth_fit(cfg, seed, card):
     return report, dict(val_launches)
 
 
+@contextlib.contextmanager
+def randn_shapes():
+    """Inside, every ``torch.randn`` call's shape is recorded in the yielded set."""
+    drawn, randn = set(), torch.randn
+
+    def recorded(*size, **kw):
+        shape = tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int) else tuple(size)
+        drawn.add(shape)
+        return randn(*size, **kw)
+
+    torch.randn = recorded
+    try:
+        yield drawn
+    finally:
+        torch.randn = randn
+
+
 def run_depth(seed, train_steps, card):
     """Phase 15: the ``hulc_depth`` model at full width. Returns (summary,
     {kernel symbol: launches on the main path}, {row: max abs err}, {row:
@@ -3897,6 +4079,7 @@ def run_depth(seed, train_steps, card):
     from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
     from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
+    t_phase = time.perf_counter()
     cfg = get_config("hulc_depth")
     model = make_model(cfg, "cuda", seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
@@ -3919,9 +4102,13 @@ def run_depth(seed, train_steps, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    step_losses, host, events = drive_training(trainer, batch, cfg.loss.kl_beta, train_steps)
+    with randn_shapes() as drawn:
+        step_losses, host, events = drive_training(trainer, batch, cfg.loss.kl_beta, train_steps)
     per_step = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    depth_shapes = {tuple(getattr(batch["fused"], cam).shape) for cam, _, _ in DEPTH_MODES}
+    if any(shape in depth_shapes for shape in drawn):
+        fail(f"the hulc_depth train steps drew torch.randn over the depth frames: {sorted(drawn)}")
     trainer.model.eval()
     with torch.no_grad():
         val = trainer.val_step(val_batch, cfg.loss.kl_beta, generator=torch.Generator(device="cuda").manual_seed(seed))
@@ -3941,7 +4128,7 @@ def run_depth(seed, train_steps, card):
     if val_launches["hulc_depth_noise"] or fit_val_launches.get("hulc_depth_noise", 0):
         fail(f"validation launched the depth noise kernel: the val step {val_launches['hulc_depth_noise']} times, "
              f"fit's validation {fit_val_launches.get('hulc_depth_noise', 0)} times")
-    if launches["hulc_depth_noise"] != 2 * (train_steps + DEPTH_FIT_EPOCHS * DEPTH_FIT_STEPS):
+    if launches["hulc_depth_noise"] != 2 * (train_steps + DEPTH_FIT_EPOCHS * DEPTH_FIT_STEPS + DEPTH_RESUME_STEPS):
         fail(f"the depth noise kernel launched {launches['hulc_depth_noise']} times on the hulc_depth path")
     for i, losses in enumerate(step_losses):
         if not all(np.isfinite(v) for v in losses.values()):
@@ -3955,7 +4142,8 @@ def run_depth(seed, train_steps, card):
     print(f"[timing] hulc_depth train step (2B={2 * BATCH_PER_MOD}, S={SEQ}, median of {len(host) - 2} after 2 "
           f"warm-ups): host clock {step_ms:.4f} ms, CUDA events {event_ms_:.4f} ms, "
           f"{2 * BATCH_PER_MOD / step_ms * 1e3:.2f} seq/s; all steps host {[round(t, 4) for t in host]} ms; peak "
-          f"memory {peak_gb:.2f} GB; the val step launched B.10 {val_launches['hulc_depth_noise']} times ({card})")
+          f"memory {peak_gb:.2f} GB; the val step launched B.10 {val_launches['hulc_depth_noise']} times; "
+          f"torch.randn over no depth frame (its shapes {sorted(drawn)}) ({card})")
 
     # the main path against the plain path
     train_check = compare_train_plain(cfg, model, batch, seed, label="hulc_depth train plain path")
@@ -3970,8 +4158,9 @@ def run_depth(seed, train_steps, card):
                        "seq_per_s": 2 * BATCH_PER_MOD / step_ms * 1e3, "peak_memory_gb": peak_gb,
                        "plain_path": train_check},
         "val_step": {**val_check, "depth_noise_launches": val_launches["hulc_depth_noise"]},
-        "fit": fit, "card": card,
+        "fit": fit, "card": card, "s": time.perf_counter() - t_phase,
     }
+    print(f"[depth] phase 15 in {summary['s']:.1f} s")
     return summary, launches, errs, timing
 
 
@@ -5849,12 +6038,16 @@ def run_parallel(seed, card):
         resume_losses, _ = parallel_steps(resumed, batch, cfg.loss.kl_beta, 1)
         torch.save(resumed.params(), tmp / "resumed.pt")
         del resumed
-        # the depth noise every rank of a hulc_depth step draws whole
+        # a hulc_depth step's depth noise on rank 0 of two: B.10 draws only the
+        # rank's rows of the global draw (of both halves of the fused batch)
+        from hulc_tpu_torch.ops.depth_noise import prep_depth_draw
+
         depth = get_config("hulc_depth").perceptual_encoder
-        shapes = [(2 * BATCH_PER_MOD, SEQ, e.input_size, e.input_size) for e in (depth.depth_static, depth.depth_gripper)]
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        depth_ms = time_events(lambda: [torch.randn(s, generator=gen, device="cuda") for s in shapes], 5)
-        depth_mb = sum(int(np.prod(s)) * 4 for s in shapes) / 1e6
+        frames = [torch.rand((BATCH_PER_MOD, SEQ, e.input_size, e.input_size), device="cuda")
+                  for e in (depth.depth_static, depth.depth_gripper)]
+        depth_ms = time_events(lambda: [prep_depth_draw(x, "gamma", 0.0, seed, 0, (2, 2, 0)) for x in frames], 5)
+        depth_mb = sum(8 * x.numel() for x in frames) / 1e6
+        del frames
         torch.cuda.empty_cache()
         # the ranks
         spec = {"batch": host_batch, "seed": seed, "reference": str(tmp / "reference.pt"), "resumed": str(tmp / "resumed.pt"),
@@ -5926,8 +6119,8 @@ def run_parallel(seed, card):
     print(f"[timing] FSDP2: {summary['grad_copies_per_step']:.1f} gradient shards a step copied to their parameter's "
           f"phase, {summary['grad_copy_mb_per_step']:.3f} MB, {summary['grad_copy_ms_per_step']:.6f} ms of device time "
           f"as one copy ({card})")
-    print(f"[timing] hulc_depth's depth noise, drawn whole on every rank: {depth_mb:.1f} MB a step, "
-          f"{depth_ms:.4f} ms to draw by CUDA events ({card})")
+    print(f"[timing] hulc_depth's depth noise on rank 0 of 2 (B.10 draws the rank's rows in its launch): "
+          f"{depth_mb:.1f} MB moved a step, {depth_ms:.4f} ms by CUDA events ({card})")
     summary["s"] = time.perf_counter() - t_phase
     print(f"[parallel] phase 20 in {summary['s']:.1f} s (the ranks {ranks_s:.1f} s)")
     return summary, launches
@@ -6199,10 +6392,10 @@ B15_TIMED = 20  # launches a timing
 
 
 def b15_modes(n):
-    """(name, frames' (N, H, W, C), [(FramePrep or the raw resize size, shifted)], out dtype) of every mode
-    B.15 runs on a path: the CLIP and the tactile branches at ``n`` frames, training and evaluation, fp32
-    and bf16 out; the tactile 160 x 120 frame's two launches (the raw resize to 64, then the branch); a
-    resized CNN camera (84 -> 200, unrounded)."""
+    """(name, frames' (N, H, W, C), [FramePrep], out dtype) of every mode B.15 runs on a path: the CLIP
+    and the tactile branches at ``n`` frames, training and evaluation, fp32 and bf16 out; the tactile
+    160 x 120 frame's one launch (its first resize to 64 in ``FramePrep.pre``); a resized CNN camera
+    (84 -> 200, unrounded)."""
     from hulc_tpu_torch.ops.image_ops import clip_prep, rgb_prep, tactile_prep
 
     out = []
@@ -6211,7 +6404,7 @@ def b15_modes(n):
         for dtype in (torch.float32, torch.bfloat16):
             dt = "fp32" if dtype == torch.float32 else "bf16"
             out.append((f"clip_{tag}_{dt}", (n, 200, 200, 3), [clip_prep(224, (200, 200), 10, train)], dtype))
-            out.append((f"tactile_160x120_{tag}_{dt}", (n, 160, 120, 6), [(64, 64), tactile_prep(64, 6, train)],
+            out.append((f"tactile_160x120_{tag}_{dt}", (n, 160, 120, 6), [tactile_prep(64, 6, train, (160, 120))],
                         dtype))
             out.append((f"tactile_64_{tag}_{dt}", (n, 64, 64, 6), [tactile_prep(64, 6, train)], dtype))
         out.append((f"rgb_84_to_200_{tag}_fp32", (n // 8, 84, 84, 3), [rgb_prep(200, (84, 84), 3, 10, train)],
@@ -6225,10 +6418,7 @@ def b15_chain(frames, stages, shifts, dtype, kernel):
 
     x = frames
     for st in stages:
-        if isinstance(st, tuple):
-            x = (image_ops.resize_bilinear if kernel else image_ops.resize_bilinear_plain)(x, *st)
-        else:
-            x = (image_ops.resize_preprocess if kernel else image_ops.resize_preprocess_plain)(x, st, shifts, dtype)
+        x = (image_ops.resize_preprocess if kernel else image_ops.resize_preprocess_plain)(x, st, shifts, dtype)
     return x
 
 
@@ -6237,7 +6427,9 @@ def check_b15_mode(name, shape, stages, dtype, gen):
     plain epilogue of the plain resize's value -+ B15_TOL pixel values (so a
     bf16 rounding can fall the other way only at a rounding boundary, by one
     bf16 step), and the share of elements that differ from the plain output
-    at most B15_FLIP_SHARE. Returns (largest |kernel - plain|, flip share)."""
+    at most B15_FLIP_SHARE; a mode with a first resize also checks B.15's
+    raw mode (``resize_bilinear``) on that resize, its other callers' path.
+    Returns (largest |kernel - plain|, flip share)."""
     from hulc_tpu_torch.ops import image_ops
 
     frames = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
@@ -6248,9 +6440,9 @@ def check_b15_mode(name, shape, stages, dtype, gen):
     got = b15_chain(frames, stages, shifts, dtype, kernel=True)
     torch.cuda.synchronize()
     # the plain resized value at every place of the last stage's frame, and the plain epilogue around it
-    resized = b15_chain(frames, stages[:-1], None, dtype, kernel=False) if len(stages) > 1 else frames
+    resized = frames if prep.pre is None else image_ops.resize_bilinear_plain(frames, *prep.pre)
     value = image_ops.resize_bilinear_plain(resized, *prep.size)
-    ident = dataclasses.replace(prep, size=tuple(value.shape[1:3]))
+    ident = dataclasses.replace(prep, size=tuple(value.shape[1:3]), pre=None)
     want = image_ops.resize_preprocess_plain(value, ident, shifts, dtype)
     lo = image_ops.resize_preprocess_plain(value - B15_TOL, ident, shifts, dtype)
     hi = image_ops.resize_preprocess_plain(value + B15_TOL, ident, shifts, dtype)
@@ -6262,8 +6454,8 @@ def check_b15_mode(name, shape, stages, dtype, gen):
     if outside or not flips <= B15_FLIP_SHARE or not torch.isfinite(got.float()).all():
         fail(f"B.15 {name}: {outside} outputs outside the plain epilogue of the plain resize -+ {B15_TOL}, flip "
              f"share {flips:.3g} (at most {B15_FLIP_SHARE}), max abs err {err:.3g}")
-    if len(stages) > 1:  # the raw launch alone
-        raw = image_ops.resize_bilinear(frames, *stages[0])
+    if prep.pre is not None:  # the raw launch alone
+        raw = image_ops.resize_bilinear(frames, *prep.pre)
         raw_err = max_abs(raw, resized)
         if not raw_err <= B15_TOL:
             fail(f"B.15 {name}: the raw resize is {raw_err:.3g} off its plain version (at most {B15_TOL})")
@@ -6292,7 +6484,7 @@ def time_b15(name, shape, stages, dtype, gen):
     ms = time_events(lambda: b15_chain(frames, stages, shifts, dtype, kernel=True), B15_TIMED)
     plain_ms = time_events(lambda: b15_chain(frames, stages, shifts, dtype, kernel=False), 3)
     nchw = frames.permute(0, 3, 1, 2).float().contiguous()
-    size = stages[0] if isinstance(stages[0], tuple) else prep.size
+    size = prep.pre or prep.size
     library_ms = time_events(lambda: F.interpolate(nchw, size=size, mode="bilinear", antialias=True,
                                                    align_corners=False), B15_TIMED)
     del nchw
@@ -6315,8 +6507,10 @@ def check_b15(seed, card):
         for name, shape, stages, dtype in b15_modes(n):
             before = kernels.RESIZE_PREPROCESS.launches
             err, flips = check_b15_mode(f"{name} at the {where}", shape, stages, dtype, gen)
-            if kernels.RESIZE_PREPROCESS.launches - before != len(stages) + (len(stages) > 1):
-                fail(f"B.15 {name}: {kernels.RESIZE_PREPROCESS.launches - before} launches for {len(stages)} stages")
+            raw_checks = sum(st.pre is not None for st in stages)
+            if kernels.RESIZE_PREPROCESS.launches - before != len(stages) + raw_checks:
+                fail(f"B.15 {name}: {kernels.RESIZE_PREPROCESS.launches - before} launches for {len(stages)} "
+                     f"stage(s) and {raw_checks} raw check(s)")
             results[f"{name}@{n}"] = {"max_abs_err": err, "flip_share": flips}
             print(f"[b15] {name} at {shape} ({where}): max abs err {err:.3g}, flip share {flips:.3g}")
             torch.cuda.empty_cache()
@@ -6363,8 +6557,8 @@ def encoder_config(name):
 def encoder_step_launches(cfg):
     """Each kernel's launches in one train step of ``cfg`` on synthetic frames
     (a CLIP camera's at 200 px, a tactile tower's at 160 x 120): B.15 once
-    for a CLIP camera, twice for a tactile tower (the raw resize, then the
-    branch); B.1' per CNN camera and B.2 / B.2' per SpatialSoftmax camera
+    for a CLIP camera and once for a tactile tower (its two resizes in one
+    launch); B.1' per CNN camera and B.2 / B.2' per SpatialSoftmax camera
     (their bf16 instances in a bf16 model); B.3', B.4, B.6 per layer, B.5
     and B.7. Every other kernel 0."""
     from hulc_tpu_torch import kernels
@@ -6374,7 +6568,7 @@ def encoder_step_launches(cfg):
     cnn = [c for c in cams if c.kind in ("spatial_softmax", "nature_cnn")]
     ss = sum(c.kind == "spatial_softmax" for c in cams)
     sfx = "_bf16" if cfg.compute_dtype == "bfloat16" else ""
-    on = {"hulc_resize_preprocess": sum(c.kind == "clip" for c in cams) + 2 * (pe.tactile is not None),
+    on = {"hulc_resize_preprocess": sum(c.kind == "clip" for c in cams) + (pe.tactile is not None),
           f"hulc_preprocess_rgb_shift{sfx}": sum(c.shift_pad > 0 for c in cnn), f"hulc_spatial_softmax{sfx}": ss,
           f"hulc_spatial_softmax_bwd{sfx}": ss, "hulc_mixture_nll_fwd": 1, "hulc_mixture_nll_bwd": 1,
           "hulc_plan_st_kl_fwd": 1, "hulc_plan_st_kl_bwd": 1, "hulc_rnn_relu_fwd": cfg.action_decoder.num_layers,
@@ -6958,8 +7152,10 @@ def main(argv=None) -> int:
                "rnn_bwd_kernel<false, true>", "gated_fwd_kernel<false, true>", "gated_bwd_kernel<false, true>",
                "logistic_mixture_sample_kernel",
                "plan_st_kl_fwd_kernel<true>", "plan_st_kl_fwd_kernel<false>", "plan_st_kl_bwd_kernel<true>",
-               "plan_st_kl_bwd_kernel<false>", "resize_preprocess_kernel<unsigned char, 0>",
-               "resize_preprocess_kernel<float, 2>"):
+               "plan_st_kl_bwd_kernel<false>", "resize_preprocess_kernel<unsigned char, 0, false>",
+               "resize_preprocess_kernel<unsigned char, 1, false>", "resize_preprocess_kernel<unsigned char, 0, true>",
+               "resize_preprocess_kernel<float, 2, false>", "depth_noise_draw_kernel<0, false>",
+               "depth_noise_draw_kernel<1, false>"):
         r = resources[fn]
         print(f"[timing] {fn}: {r['registers']} registers, {r['static_smem_bytes']} B static shared memory "
               f"(+ dynamic, set at launch), spills {r['spill_store_bytes']} / {r['spill_load_bytes']} B")

@@ -29,6 +29,8 @@ digest of each kernel's output on fixed inputs from seed 0 (equal digests:
 bit-equal results) and the full-width ``hulc`` policy step's median
 host-clock ms at 1 and 64 lanes.
 
+The ``hulc_depth`` train step (case ``depth_step``) the same way.
+
 The optimizer tail (B.5 and B.7), ``AdamLowp.step``, which returns the
 gradient norm, runs on the full model's 47,053,559 parameters with random
 gradients from seed 0. It is timed by CUDA events, by the profiler (with
@@ -55,6 +57,20 @@ and B.3 on uniforms already mapped (through ``sample_action``, with the
 gripper column; on a tree from before it, ``logistic_mixture_sample``).
 The backward tail is its kernel alone. The policy steps' device
 operations per step come with their host clock.
+
+The training preprocess, by CUDA events through the calls the train step
+makes, at the step's shapes (2B x S = 2048 frames): B.15 through
+``training.preprocess.prep_camera`` on ``hulc_clip_vision``'s CLIP camera
+(200 px frames to 224, training fp32 and bf16 out, validation fp32) and
+``hulc_tactile``'s tactile tower (160 x 120 x 6 frames, and frames at 64
+px), on fixed shifts, with digests; B.10 as the step calls it, depth frames
+and a CUDA generator seeded 0 through ``preprocess_modality``'s depth
+branch, one camera at a time (gamma: the static camera, gaussian: the
+gripper's): on a tree from before the draw mode ``torch.randn`` and the z
+mode's launch, on a later one the draw mode's one launch. B.10's digests
+(of one call on a fresh generator) differ between those trees by design:
+the draws are other numbers. Beside it, in any tree, ``torch.randn`` +
+``torch.add(x, z, alpha=0.01)`` at the gripper's shape.
 
 Prints one JSON line, with the card's name and power limit. Needs a CUDA
 device. ``--only NAME[,NAME...]`` times only the cases whose names start
@@ -210,9 +226,9 @@ def optimizer_tail(cfg, out: dict) -> None:
     out["eager_norm"] = {**op_counts(device_ops(eager_norm, ITERS), ITERS), "host_ms_to_sync": host_ms(eager_synced, 30)}
 
 
-def train_step_counts(cfg, out: dict) -> None:
+def train_step_counts(cfg, out: dict, key: str = "train_step") -> None:
     """Device operations, copies and device ms per train step under the
-    profiler, and the median host-clock step, into ``out``."""
+    profiler, and the median host-clock step, into ``out[key]``."""
     from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
     from hulc_tpu_torch.training.trainer import Trainer, TrainerConfig
 
@@ -227,7 +243,7 @@ def train_step_counts(cfg, out: dict) -> None:
         step()
         torch.cuda.synchronize()
 
-    out["train_step"] = {**op_counts(device_ops(step, 5), 5), "host_ms": host_ms(synced, 10)}
+    out[key] = {**op_counts(device_ops(step, 5), 5), "host_ms": host_ms(synced, 10)}
 
 
 def card() -> str:
@@ -390,6 +406,58 @@ def birnn_cases(hidden: int, gen) -> dict:
     return cases
 
 
+def preprocess_cases(gen) -> dict:
+    """{name: (call, digest of one call)} of B.15 and B.10 at the train
+    step's shapes (see the module's note)."""
+    from hulc_tpu_torch.config import get_config
+    from hulc_tpu_torch.training.preprocess import preprocess_modality, prep_camera
+    from hulc_tpu_torch.training.profile_train import BATCH_PER_MOD, SEQ, synthetic_fused_batch
+
+    b, s = 2 * BATCH_PER_MOD, SEQ
+    shifts = {pad: torch.randint(0, 2 * pad + 1, (b * s, 2), generator=gen, device="cuda", dtype=torch.int32)
+              for pad in (3, 10)}
+
+    def fixed(n, pad):
+        return shifts[pad]
+
+    clip, tactile = (get_config("hulc_clip_vision").perceptual_encoder.rgb_static,
+                     get_config("hulc_tactile").perceptual_encoder.tactile)
+    cases = {}
+    for name, enc, frame, train, dtype in (
+        ("clip_train_fp32", clip, (200, 200, 3), True, torch.float32),
+        ("clip_train_bf16", clip, (200, 200, 3), True, torch.bfloat16),
+        ("clip_val_fp32", clip, (200, 200, 3), False, torch.float32),
+        ("tactile_160x120_train_fp32", tactile, (160, 120, 6), True, torch.float32),
+        ("tactile_64_train_fp32", tactile, (64, 64, 6), True, torch.float32),
+    ):
+        imgs = torch.randint(0, 256, (b, s, *frame), generator=gen, device="cuda", dtype=torch.uint8)
+        call = functools.partial(prep_camera, enc, imgs, train, dtype, fixed)
+        cases[f"b15 {name}"] = (call, call)
+
+    cfg = get_config("hulc_depth")
+    fused = synthetic_fused_batch(cfg, BATCH_PER_MOD, SEQ, SEED, "cuda")["fused"]
+    for mode, keep in (("gamma", "depth_static"), ("gaussian", "depth_gripper")):
+        batch = fused._replace(rgb_static=None, rgb_gripper=None,
+                               **{cam: None for cam in ("depth_static", "depth_gripper") if cam != keep})
+        step_gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+        def call(batch=batch, g=step_gen, keep=keep):
+            return getattr(preprocess_modality(cfg, batch, True, generator=g), keep)
+
+        def fresh(batch=batch, keep=keep):
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            return getattr(preprocess_modality(cfg, batch, True, generator=g), keep)
+
+        cases[f"depth_noise {mode} step"] = (call, fresh)
+    x = fused.depth_gripper
+    add_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases["depth_noise gaussian randn_add"] = (
+        lambda: torch.add(x, torch.randn(x.shape, generator=add_gen, device="cuda"), alpha=0.01),
+        lambda: torch.add(x, torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                                         device="cuda"), alpha=0.01))
+    return cases
+
+
 def policy_times(cfg, seed: int, lanes: int) -> dict:
     """Median host-clock ms of an acting step at 1 lane and at ``lanes``,
     and the device operations per step under the profiler."""
@@ -510,6 +578,8 @@ def run(argv=None) -> dict:
         sampling_tails(cfg, out)
     if wanted("train_step"):
         train_step_counts(cfg, out)
+    if wanted("depth_step"):
+        train_step_counts(get_config("hulc_depth"), out, "depth_step")
     for name, fn in cases.items():
         if not wanted(name):
             continue
@@ -524,6 +594,14 @@ def run(argv=None) -> dict:
                 result = torch.cat([t.flatten() for t in result if t is not None])
             out["digest"][name] = digest(result)
     del train, shifts
+    if any(wanted(name) for name in ("b15", "depth_noise")):
+        for name, (fn, once) in preprocess_cases(gen).items():
+            if wanted(name):
+                out["event_ms"][name] = event_ms(fn)
+                out["digest"][name] = digest(once())
+        out["digest_note"] = ("depth_noise digests differ between a tree that draws with torch.randn and one "
+                              "that draws in B.10's launch: other numbers by design")
+        torch.cuda.empty_cache()
     if wanted("policy"):
         policy = policy_times(cfg, SEED, LANES)
         out["policy_step_host_ms"], out["policy_step_ops"] = policy["host_ms"], policy["ops_per_step"]

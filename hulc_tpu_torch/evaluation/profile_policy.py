@@ -101,7 +101,7 @@ HAND_KERNELS = (
     "rnn_fwd_kernel", "rnn_bwd_kernel", "rnn_step_kernel",  # csrc/rnn.cu, either cell
     "gated_fwd_kernel", "gated_bwd_kernel", "gated_step_kernel",  # csrc/rnn_gates.cu, gru and lstm
     "gated_transpose_kernel",  # csrc/rnn_gates.cu: W^T for the dh chain
-    "depth_noise_kernel",
+    "depth_noise_kernel", "depth_noise_draw_kernel", "resize_preprocess_kernel",
 )
 
 

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_U64 = ctypes.c_ulonglong
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 
@@ -206,12 +207,16 @@ _SIGNATURES = {
     # offset), the plan
     "hulc_rnn_gru_chain_fwd": (*(_P,) * 7, *(_I32,) * 12),
     "hulc_rnn_gru_chain_bwd": (*(_P,) * 10, *(_I32,) * 12),
-    # x, z, y, n, mode (0 gamma, 1 gaussian), then the mode's two fp32 constants
-    "hulc_depth_noise": (_P, _P, _P, _I64, _I32, _F32, _F32),
-    # B.15: src, dst, the row and column tap tables, shifts, the normalize's constants, then n, the source's h,
-    # w, c, the resized rh, rw, the output's oh, ow, the taps of a row and of a column, pad, crop, the output's
-    # kind (0 fp32, 1 bf16, 2 the raw resize) and the flags (1 fp32 source, 2 bf16 rounding, 4 v / 255)
-    "hulc_resize_preprocess": (*(_P,) * 8, _I64, *(_I32,) * 13),
+    # x, z, y, n, mode (0 gamma, 1 gaussian), the mode's two fp32 constants; then the draw mode's (z null):
+    # the blocks of rows, a block's stride and the first one's base in the global draw, the generator's seed and
+    # offset, and the debug outputs z and words (or null)
+    "hulc_depth_noise": (_P, _P, _P, _I64, _I32, _F32, _F32, _I32, _I64, _I64, _U64, _U64, _P, _P),
+    # B.15: src, dst, the row and column tap tables, the first resize's (or null), shifts, the normalize's
+    # constants, then n, the source's h, w, c, the first resize's ph, pw and its taps of a row and of a column,
+    # the resized rh, rw, the output's oh, ow, the taps of a row and of a column, pad, crop, the output's kind
+    # (0 fp32, 1 bf16, 2 the raw resize), the flags (1 fp32 source, 2 bf16 rounding, 4 v / 255), and
+    # image_ops.ResizePlan's band, source rows and intermediate rows
+    "hulc_resize_preprocess": (*(_P,) * 12, _I64, *(_I32,) * 20),
     "hulc_empty_launch": (),
 }
 

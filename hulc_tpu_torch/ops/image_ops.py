@@ -24,13 +24,16 @@ JAX's policies do.
 ``resize_bilinear`` is ``jax.image.resize(method="bilinear")``
 (antialiased; ``resize_weights``, H contracted before W, fp32), and
 ``resize_preprocess`` a resized camera's whole preprocess as one launch of
-B.15 (``csrc/resize_preprocess.cu``): the resize, in training the bf16
-rounding and the shift, the crop and the normalize, in the operation
-sequence of each branch of JAX's ``_prep_one`` (``FramePrep``:
-``clip_prep``, ``tactile_prep``, ``rgb_prep``), written NCHW in fp32 or
-bf16. Its plain version, ``resize_preprocess_plain``, is those
-operations in JAX's order; ``resize_bilinear``'s raw mode on a CUDA tensor
-is a launch of B.15 too.
+B.15 (``csrc/resize_preprocess.cu``): the resize (after a first one, the
+tactile 160 x 120 frame's to 64 px, ``FramePrep.pre``, kept in the
+launch's shared memory), in training the bf16 rounding and the shift, the
+crop and the normalize, in the operation sequence of each branch of JAX's
+``_prep_one`` (``FramePrep``: ``clip_prep``, ``tactile_prep``,
+``rgb_prep``), written NCHW in fp32 or bf16. Its plain version,
+``resize_preprocess_plain``, is those operations in JAX's order (the two
+resizes one after the other); ``resize_bilinear``'s raw mode on a CUDA
+tensor is a launch of B.15 too. ``resize_plan`` picks each launch's band of
+output rows a block.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from hulc_tpu_torch import kernels
+from hulc_tpu_torch.ops.spatial_softmax import _aligned
 
 
 def _normalize_plain(imgs: torch.Tensor, mean: float, std: float) -> torch.Tensor:
@@ -222,7 +226,9 @@ class FramePrep:
     training), shift it with replicate padding ``pad`` (0: no shift), cut
     ``crop`` rows and columns off each side, then normalize: ``v / 255``
     (``divide``, CLIP's ``clip_preprocess``) or ``v * (1 / 255)``, then
-    ``(x - mean) / std`` per channel."""
+    ``(x - mean) / std`` per channel. ``pre`` (h, w): a first resize, its
+    fp32 frame unrounded (the tactile 160 x 120 frame's, to 64 px by JAX's
+    size check), in the same launch."""
 
     size: Tuple[int, int]
     pad: int
@@ -231,6 +237,7 @@ class FramePrep:
     mean: Tuple[float, ...]
     std: Tuple[float, ...]
     divide: bool
+    pre: Optional[Tuple[int, int]] = None
 
     @property
     def out_size(self) -> Tuple[int, int]:
@@ -249,13 +256,15 @@ def clip_prep(input_size: int, frame: Tuple[int, int], shift_pad: int, train: bo
 TACTILE_PAD = 3  # the tactile branch's crop, and the pad of its shift in training
 
 
-def tactile_prep(input_size: int, channels: int, train: bool) -> FramePrep:
-    """The tactile branch (preprocess.py:36-52), on a frame already at
-    ``input_size``: resize to ``input_size + 6``, in training the bf16
-    rounding and a shift with pad 3, the crop [3:-3], the normalize with
-    mean and std 0.5."""
+def tactile_prep(input_size: int, channels: int, train: bool, frame: Optional[Tuple[int, int]] = None) -> FramePrep:
+    """The tactile branch (preprocess.py:36-52): a ``frame`` (h, w) whose h
+    is not ``input_size`` first resized to it (JAX's size check; None: the
+    frame is at ``input_size``), then the resize to ``input_size + 6``, in
+    training the bf16 rounding and a shift with pad 3, the crop [3:-3], the
+    normalize with mean and std 0.5."""
     half, p = (0.5,) * channels, TACTILE_PAD
-    return FramePrep((input_size + 2 * p, input_size + 2 * p), p if train else 0, p, train, half, half, False)
+    pre = (input_size, input_size) if frame is not None and frame[0] != input_size else None
+    return FramePrep((input_size + 2 * p, input_size + 2 * p), p if train else 0, p, train, half, half, False, pre)
 
 
 def rgb_prep(input_size: int, frame: Tuple[int, int], channels: int, shift_pad: int, train: bool) -> FramePrep:
@@ -272,7 +281,8 @@ def resize_preprocess_plain(frames: torch.Tensor, prep: FramePrep, shifts: Optio
     """Plain PyTorch version of B.15: (N, H, W, C) uint8 or fp32 and (N, 2)
     shifts (None without a shift) -> (N, C, h, w) ``out_dtype``, the JAX
     package's operations in its order."""
-    x = resize_bilinear_plain(frames, *prep.size)
+    x = frames if prep.pre is None else resize_bilinear_plain(frames, *prep.pre)
+    x = resize_bilinear_plain(x, *prep.size)
     if prep.round_bf16:
         x = x.to(torch.bfloat16)
     if prep.pad:
@@ -319,16 +329,109 @@ def _norm_consts(mean: Tuple[float, ...], std: Tuple[float, ...], device: torch.
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _RAW = 2
 
+# B.15's plan: a block's shared memory at most this, so that three blocks of
+# 256 threads fit on an H100 SM (228 KB, 1 KB of it the runtime's a block).
+# Measured (evaluation/resize_variants.py --budgets): CLIP's bf16 output at
+# 16 rows a band (63.8 KB) beats 8 rows by 9%; fp32's 16 rows (85 KB) and
+# every mode at half the bands lose
+B15_SMEM_BUDGET = 64 * 1024
+B15_BANDS = (32, 16, 8, 4, 2, 1)  # output rows a block, the tallest that fits
+B15_MAX_TAPS = 8  # the most taps of a row or a column the kernel takes (kMaxTaps)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResizePlan:
+    """A launch of B.15: ``band`` output rows a block, the most source rows
+    (``src_rows``) and first-resize rows (``inter_rows``, 0 without one) a
+    band reaches, and the block's shared memory (``smem_bytes``, the
+    kernel's layout)."""
+
+    band: int
+    src_rows: int
+    inter_rows: int
+    smem_bytes: int
+
+
+def _window_rows(start: torch.Tensor, taps: int, rows: int) -> int:
+    """The most input rows that ``rows`` consecutive outputs of a tap table
+    (each output's first input ``start``, ``taps`` from there) reach."""
+    rows = min(rows, len(start))
+    s = start.long()
+    return int((s[rows - 1:] - s[:len(s) - rows + 1]).max()) + taps
+
+
+def _entry_words(taps: int) -> int:
+    return 4 if taps <= 3 else (taps + 4) // 4 * 4
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@functools.cache
+def resize_plan(h: int, w: int, c: int, in_bytes: int, size: Tuple[int, int], out_size: Tuple[int, int],
+                pre: Optional[Tuple[int, int]], out_kind: int) -> ResizePlan:
+    """The band height of a B.15 launch from (h, w, c) frames of
+    ``in_bytes``-byte elements (through the first resize ``pre``, if any)
+    resized to ``size`` and cut to ``out_size``: the tallest of
+    ``B15_BANDS`` whose shared memory (``csrc/resize_preprocess.cu``'s
+    layout) stays within ``B15_SMEM_BUDGET``. Raises where none does, or
+    where a row or a column takes more than ``B15_MAX_TAPS`` taps."""
+    cpu = torch.device("cpu")
+    ph, pw = pre if pre is not None else (h, w)
+    rows, cols = resize_taps(ph, size[0], cpu), resize_taps(pw, size[1], cpu)
+    pre_rows = pre_cols = None
+    if pre is not None:
+        pre_rows, pre_cols = resize_taps(h, ph, cpu), resize_taps(w, pw, cpu)
+    taps = (rows[2], cols[2]) + ((pre_rows[2], pre_cols[2]) if pre is not None else ())
+    if max(taps) > B15_MAX_TAPS:
+        raise ValueError(f"B.15 takes at most {B15_MAX_TAPS} taps a row or column, not {max(taps)}")
+    oh, ow = out_size
+    out_bytes = 2 if out_kind == 1 else 4
+    wc = w * c
+    for band in B15_BANDS:
+        band = min(band, oh)
+        if pre is None:
+            inter, src = 0, _window_rows(rows[0], rows[2], band)
+            s_bytes, t_bytes = src * wc * in_bytes + 32, 4 * c * band * w
+        else:
+            inter = _window_rows(rows[0], rows[2], band)
+            src = _window_rows(pre_rows[0], pre_rows[2], inter)
+            s_bytes = max(src * wc * in_bytes + 32, 4 * c * inter * pw)
+            t_bytes = 4 * c * max(inter * w, band * pw)
+        s_bytes = max(s_bytes, out_bytes * c * band * ow)  # the output tile, over the staged rows
+        tables = 4 * size[1] * _entry_words(cols[2]) + 4 * band * _entry_words(rows[2])
+        if pre is not None:
+            tables += 4 * pw * _entry_words(pre_cols[2]) + 4 * inter * _entry_words(pre_rows[2])
+        smem = _round16(s_bytes) + _round16(t_bytes) + tables + _round16(4 * (2 * c + 1))
+        if smem <= B15_SMEM_BUDGET:
+            return ResizePlan(band, src, inter, smem)
+    raise ValueError(f"B.15 cannot stage ({h}, {w}, {c}) frames resized to {size}: a one-row band needs {smem} B "
+                     f"of shared memory (at most {B15_SMEM_BUDGET})")
+
 
 def _launch_resize(frames: torch.Tensor, size: Tuple[int, int], out: torch.Tensor, out_kind: int,
-                   prep: Optional[FramePrep], shifts: Optional[torch.Tensor]) -> torch.Tensor:
+                   prep: Optional[FramePrep], shifts: Optional[torch.Tensor], launch=None) -> torch.Tensor:
+    """B.15's launch into ``out``; ``launch`` (device, *args) calls the entry
+    point, ``kernels.RESIZE_PREPROCESS`` unless a variant's is given
+    (``evaluation/resize_variants.py``)."""
     if frames.device.type != "cuda":
         raise ValueError(f"frames must be a CUDA tensor, got {frames.device}")
     if frames.dtype not in (torch.uint8, torch.float32) or frames.dim() != 4 or not frames.is_contiguous():
         raise ValueError(f"B.15 takes contiguous (N, H, W, C) uint8 or float32 frames, got {frames.dtype} "
                          f"{tuple(frames.shape)}")
     n, h, w, c = frames.shape
-    rows, cols = resize_taps(h, size[0], frames.device), resize_taps(w, size[1], frames.device)
+    pre = None if prep is None else prep.pre
+    if pre is not None and frames.dtype != torch.uint8:
+        raise ValueError("B.15's first resize takes uint8 frames")
+    frames = _aligned(frames)  # the kernel's 16-byte copies
+    ph, pw = pre if pre is not None else (h, w)
+    rows, cols = resize_taps(ph, size[0], frames.device), resize_taps(pw, size[1], frames.device)
+    pre_ptrs, pre_taps = (None,) * 4, (0, 0)
+    if pre is not None:
+        pre_rows, pre_cols = resize_taps(h, ph, frames.device), resize_taps(w, pw, frames.device)
+        pre_ptrs = (pre_rows[0].data_ptr(), pre_rows[1].data_ptr(), pre_cols[0].data_ptr(), pre_cols[1].data_ptr())
+        pre_taps = (pre_rows[2], pre_cols[2])
     pad = crop = 0
     flags = int(frames.dtype == torch.float32)
     consts = shift_ptr = None
@@ -344,10 +447,12 @@ def _launch_resize(frames: torch.Tensor, size: Tuple[int, int], out: torch.Tenso
             shifts = shifts.to(device=frames.device, dtype=torch.int32).contiguous()
             shift_ptr = shifts.data_ptr()
     oh, ow = out.shape[-2:] if out_kind != _RAW else out.shape[1:3]
-    kernels.RESIZE_PREPROCESS(
+    plan = resize_plan(h, w, c, frames.element_size(), tuple(size), (oh, ow), pre, out_kind)
+    (launch or kernels.RESIZE_PREPROCESS)(
         frames.device, frames.data_ptr(), out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-        cols[0].data_ptr(), cols[1].data_ptr(), shift_ptr, None if consts is None else consts.data_ptr(),
-        n, h, w, c, size[0], size[1], oh, ow, rows[2], cols[2], pad, crop, out_kind, flags,
+        cols[0].data_ptr(), cols[1].data_ptr(), *pre_ptrs, shift_ptr, None if consts is None else consts.data_ptr(),
+        n, h, w, c, ph, pw, *pre_taps, size[0], size[1], oh, ow, rows[2], cols[2], pad, crop, out_kind, flags,
+        plan.band, plan.src_rows, plan.inter_rows,
     )
     return out
 

@@ -10,7 +10,7 @@ mixes rows or draws noise is made to give the one-device result:
 * ``gather_rows``: the rows of every rank, in rank order (the CLIP loss's
   logit matrix needs them); its backward sums the ranks' gradients of this
   rank's rows, since every rank computes the whole loss.
-* ``draw_rows`` / ``local_rows``: inside ``sharded_rows()`` (the trainer's
+* ``draw_rows`` / ``local_rows`` / ``row_placement``: inside ``sharded_rows()`` (the trainer's
   steps enter it when a group of more than one rank exists), a draw is made
   at the global batch's shape from the shared generator state and this
   rank's rows are kept, and an injected global tensor is cut to them. A
@@ -34,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -214,6 +214,16 @@ def local_rows(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     if x is None or not _Rows.on:
         return x
     return rows_of(x, _Rows.blocks, world(), rank())
+
+
+def row_placement() -> Tuple[int, int, int]:
+    """(blocks, ranks, rank): inside ``sharded_rows`` this rank's rows of a
+    batch are its share of each of ``blocks`` equal blocks of the global
+    batch over ``ranks`` ranks (as ``rows_of`` cuts them); (1, 1, 0)
+    elsewhere. A draw made in a kernel places its rows with it."""
+    if not _Rows.on:
+        return 1, 1, 0
+    return _Rows.blocks, world(), rank()
 
 
 def draw_rows(draw: Callable[[Sequence[int]], torch.Tensor], shape: Sequence[int]) -> torch.Tensor:

@@ -19,7 +19,8 @@ as JAX's ``_prep_one(..., dtype)``), by the camera's encoder (JAX's
   as JAX's size check and the branch do.
 
 Every resized camera is one launch of B.15 (``ops.image_ops.resize_preprocess``;
-the tactile double resize two: the raw resize, then the branch). fp32
+the tactile double resize too: its fp32 64 px intermediate stays in the
+launch's shared memory, ``FramePrep.pre``). fp32
 (B, S, H, W) depth frames pass through when evaluating and take their noise
 when training (``ops.depth_noise``: the gamma mode on the static camera,
 the gaussian one with std 0.01 on the gripper camera); depth is never
@@ -28,11 +29,15 @@ in a fixed order, the static camera's shifts, the gripper camera's, the
 tactile camera's, then the static depth's noise and the gripper depth's,
 unless the caller passes them (``shifts[scope][camera]``, (B*S, 2) each;
 ``depth_noise[scope][camera]``, the raw standard-normal draw of the
-frames' shape), as the tests pass what JAX drew. A drawn noise tensor
-takes the noised frames; the raw batch is never written. With several
-ranks each draw is the global batch's, and a rank keeps its rows
-(``parallel.mesh.draw_rows``): the depth noise of a ``hulc_depth`` step is
-drawn whole on every rank.
+frames' shape), as the tests pass what JAX drew. On CUDA frames the depth
+noise is drawn inside B.10's launch from the CUDA generator's seed and
+offset (``ops.depth_noise.draw_depth_noise``; a generator on another
+device is refused); on CPU frames it is a ``torch.randn`` tensor, which
+then takes the noised frames. The raw batch is never written. With
+several ranks each draw is the global batch's, and a rank keeps its rows
+(``parallel.mesh.draw_rows``; B.10 computes only its rows of the global
+draw, ``mesh.row_placement``), so every generator moves as the
+one-device step's does.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import torch
 
 from hulc_tpu_torch.config import HulcConfig, VisionEncoderConfig
 from hulc_tpu_torch.models.hulc import ModalityBatch
-from hulc_tpu_torch.ops.depth_noise import prep_depth, prep_depth_plain
+from hulc_tpu_torch.ops.depth_noise import draw_depth_noise, prep_depth, prep_depth_plain
 from hulc_tpu_torch.ops.image_ops import (
     TACTILE_PAD,
     clip_prep,
@@ -53,8 +58,6 @@ from hulc_tpu_torch.ops.image_ops import (
     preprocess_rgb_seq_plain,
     preprocess_rgb_seq_shift,
     preprocess_rgb_seq_shift_plain,
-    resize_bilinear,
-    resize_bilinear_plain,
     resize_preprocess,
     resize_preprocess_plain,
     rgb_prep,
@@ -106,10 +109,8 @@ def prep_camera(enc: VisionEncoderConfig, imgs: torch.Tensor, train: bool, dtype
         return (preprocess_rgb_seq if use_kernels else preprocess_rgb_seq_plain)(imgs, out_dtype=dtype)
     frames = imgs.reshape(b * s, h, w, c)
     size = enc.input_size
-    if enc.kind == "tactile":
-        if h != size:  # JAX's size check, then the branch's own resize
-            frames = (resize_bilinear if use_kernels else resize_bilinear_plain)(frames, size, size)
-        prep = tactile_prep(size, c, train)
+    if enc.kind == "tactile":  # JAX's size check, then the branch's own resize, in one launch
+        prep = tactile_prep(size, c, train, (h, w))
     elif enc.kind == "clip":
         prep = clip_prep(size, (h, w), enc.shift_pad, train)
     else:
@@ -151,6 +152,8 @@ def preprocess_modality(
         elif depth_noise is not None:
             fn = prep_depth if use_kernels else prep_depth_plain
             updates[cam] = fn(frames, mesh.local_rows(depth_noise[cam]), mode, std)
+        elif frames.device.type == "cuda":
+            updates[cam] = draw_depth_noise(frames, mode, std, generator, mesh.row_placement(), use_kernels)
         else:
             z = mesh.draw_rows(
                 lambda shape: torch.randn(shape, generator=generator, device=frames.device, dtype=torch.float32),

@@ -12,7 +12,10 @@ CPU.
   normalize) of JAX's resized value -+ 2e-4 pixel values, so a bf16
   rounding falls the other way only at a rounding boundary, by one bf16
   step; the share of such elements is printed and at most 1e-3. On a CPU
-  tensor the wrapper is B.15's plain version.
+  tensor the wrapper is B.15's plain version; the tactile 160 x 120
+  frame's one launch (a first resize in ``FramePrep``) is the two-step
+  plain chain bit for bit, and ``resize_plan``'s bands cover every row a
+  band reaches at every shift.
 * ``VisionClip`` (a narrow ``ModifiedResNet`` and ``CLIPVisionTransformer``,
   swapped in for both packages' ``make_image_encoder``), its tower alone,
   ``ResNet18Features`` and ``TactileEncoder`` with JAX's weights (their
@@ -192,6 +195,61 @@ def test_b15_wrapper_is_its_plain_version_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         image_ops._launch_resize(frames, prep.size, torch.empty(0), 0, prep, shifts)
     assert prep.out_size == (224, 224) and image_ops.tactile_prep(64, 6, False).out_size == (64, 64)
+
+
+@pytest.mark.parametrize("train,dtype", [(True, "float32"), (True, "bfloat16"), (False, "float32")])
+def test_tactile_one_launch_plain_is_the_two_step_chain(train, dtype):
+    """The tactile 160 x 120 frame's one launch (``tactile_prep`` with its
+    first resize): its plain version, the CPU wrapper and ``prep_camera``
+    are bit for bit the two-step plain chain, the resize to 64 px and then
+    the branch on it."""
+    frames = torch.randint(0, 256, (4, 160, 120, 6), generator=torch.Generator().manual_seed(5), dtype=torch.uint8)
+    shifts = torch.randint(0, 7, (4, 2), generator=torch.Generator().manual_seed(6), dtype=torch.int32)
+    out_dtype = getattr(torch, dtype)
+    prep = image_ops.tactile_prep(64, 6, train, (160, 120))
+    assert prep.pre == (64, 64) and image_ops.tactile_prep(64, 6, train, (64, 64)).pre is None
+    chain = image_ops.resize_preprocess_plain(image_ops.resize_bilinear_plain(frames, 64, 64),
+                                              image_ops.tactile_prep(64, 6, train), shifts, out_dtype)
+    assert torch.equal(image_ops.resize_preprocess_plain(frames, prep, shifts, out_dtype), chain)
+    assert torch.equal(image_ops.resize_preprocess(frames, prep, shifts, out_dtype), chain)
+    enc = port_config.VisionEncoderConfig(kind="tactile", input_size=64, num_channels=6)
+    got = prep_camera(enc, frames[None], train, out_dtype, lambda n, pad: shifts)
+    assert torch.equal(got[0], chain)
+
+
+# the modes a path launches B.15 in: (frames' (H, W, C), FramePrep)
+PLAN_MODES = {
+    "clip_train": ((200, 200, 3), image_ops.clip_prep(224, (200, 200), 10, True)),
+    "clip_val": ((200, 200, 3), image_ops.clip_prep(224, (200, 200), 10, False)),
+    "tactile_160x120_train": ((160, 120, 6), image_ops.tactile_prep(64, 6, True, (160, 120))),
+    "tactile_64_train": ((64, 64, 6), image_ops.tactile_prep(64, 6, True)),
+    "rgb_84_to_200_train": ((84, 84, 3), image_ops.rgb_prep(200, (84, 84), 3, 10, True)),
+}
+
+
+@pytest.mark.parametrize("out_kind", [0, 1])
+@pytest.mark.parametrize("mode", sorted(PLAN_MODES))
+def test_resize_plan_covers_every_band(mode, out_kind):
+    """``resize_plan``: the band fits the shared-memory budget, and its
+    source (and first-resize) row counts cover the rows every band reaches
+    at every shift (the kernel traps past them)."""
+    (h, w, c), prep = PLAN_MODES[mode]
+    plan = image_ops.resize_plan(h, w, c, 1, prep.size, prep.out_size, prep.pre, out_kind)
+    assert plan.smem_bytes <= image_ops.B15_SMEM_BUDGET and plan.band in image_ops.B15_BANDS
+    cpu = torch.device("cpu")
+    ph = prep.pre[0] if prep.pre else h
+    rows = image_ops.resize_taps(ph, prep.size[0], cpu)
+    pre_rows = image_ops.resize_taps(h, ph, cpu) if prep.pre else None
+    oh, rh = prep.out_size[0], prep.size[0]
+    for y0 in range(0, oh, plan.band):
+        rb = min(plan.band, oh - y0)
+        for dy in range(prep.crop - prep.pad, prep.crop + prep.pad + 1):
+            lo, hi = (min(max(y + dy, 0), rh - 1) for y in (y0, y0 + rb - 1))
+            r_lo, r_hi = int(rows[0][lo]), int(rows[0][hi]) + rows[2] - 1
+            if pre_rows is not None:
+                assert r_hi - r_lo + 1 <= plan.inter_rows
+                r_lo, r_hi = int(pre_rows[0][r_lo]), int(pre_rows[0][r_hi]) + pre_rows[2] - 1
+            assert r_hi - r_lo + 1 <= plan.src_rows and 0 <= r_lo and r_hi < h
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,10 @@ keys. The recognition network's dropout is 0 on both sides.
 * The depth noise (B.10's plain version): bit-equal to JAX's ``_prep_depth``
   run op by op, and within rtol 1e-6 of it jitted (XLA's CPU code contracts
   the multiply-adds into FMAs, about an ulp apart); eval is the identity.
+* B.10's draw mode: Random123's known answers for the numpy Philox, the
+  counter layout (a rank's rows of the global draw, no counter repeated
+  across consecutive offsets, a key apart from torch's), the plain version
+  (the frames noised with its own Box-Muller normals) and the refusals.
 * The kernel's C entry point and binding; the preset and its full-width
   parameter count; ``ConcatEncoders`` with depth (the feature order, the
   gripper depth dropped without an RGB gripper camera); the converter.
@@ -60,7 +64,25 @@ from hulc_tpu_torch.evaluation.policy import HulcPolicy
 from hulc_tpu_torch.models import make_model
 from hulc_tpu_torch.models.hulc import LOSS_KEYS, HulcModel, ModalityBatch
 from hulc_tpu_torch.models.perceptual import ConcatEncoders
-from hulc_tpu_torch.ops.depth_noise import GAMMA_SCALE, GAMMA_SHIFT, prep_depth, prep_depth_plain
+from hulc_tpu_torch.ops.depth_noise import (
+    DRAW_DOMAIN,
+    DRAW_OFFSET_STEP,
+    GAMMA_SCALE,
+    GAMMA_SHIFT,
+    PHILOX_M,
+    PHILOX_W,
+    box_muller_plain,
+    draw_depth_noise,
+    draw_key,
+    draw_layout,
+    draw_words,
+    philox4x32_10,
+    prep_depth,
+    prep_depth_draw,
+    prep_depth_draw_plain,
+    prep_depth_plain,
+)
+from hulc_tpu_torch.parallel.mesh import rows_of
 from hulc_tpu_torch.serving import export_policy
 from hulc_tpu_torch.training import checkpoint as ckpt
 from hulc_tpu_torch.training.preprocess import batch_to_device, preprocess_batch
@@ -176,17 +198,112 @@ def test_depth_noise_constants_and_refusals():
 
 def test_depth_noise_binding():
     """B.10's C entry point: x, z, y, the count, the mode, its two fp32
-    constants, then the stream; the wrapper's launches count in
-    ``ALL_KERNELS``."""
+    constants, the draw mode's blocks of rows, block stride, base, seed,
+    offset and debug outputs, then the stream; the wrapper's launches count
+    in ``ALL_KERNELS``."""
     src = (kernels.CSRC_DIR / "depth_noise.cu").read_text()
     params = re.search(r'extern "C" int hulc_depth_noise\(([^)]*)\)', src).group(1)
     params = [re.sub(r"\s+", " ", p.strip()) for p in params.split(",")]
     assert params == ["const void* x", "const void* z", "void* y", "long long n", "int mode", "float a", "float b",
-                      "void* stream"]
-    assert kernels._SIGNATURES["hulc_depth_noise"] == (
-        kernels._P, kernels._P, kernels._P, kernels._I64, kernels._I32, kernels._F32, kernels._F32)
+                      "int row_blocks", "long long block_stride", "long long base", "unsigned long long seed",
+                      "unsigned long long offset", "void* z_out", "void* words_out", "void* stream"]
+    k = kernels
+    assert k._SIGNATURES["hulc_depth_noise"] == (
+        k._P, k._P, k._P, k._I64, k._I32, k._F32, k._F32, k._I32, k._I64, k._I64, k._U64, k._U64, k._P, k._P)
     assert kernels.DEPTH_NOISE in kernels.ALL_KERNELS
     assert "__fadd_rn" in src and "__fmul_rn" in src
+    # the kernel's Philox constants and key domain are the plain version's
+    for value in (*PHILOX_M, *PHILOX_W, DRAW_DOMAIN):
+        assert f"0x{value:08X}u" in src
+
+
+# ---------------------------------------------------------------------------
+# B.10's draw mode: the counter layout, the plain version, the refusals
+# ---------------------------------------------------------------------------
+
+# Random123's known answers for Philox4x32-10: (counter, key, output)
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+DRAW_SEED = 2**40 + 12345  # a seed with a high word, as torch's default seeds have
+
+
+@pytest.mark.parametrize("case", range(len(PHILOX_KAT)))
+def test_philox_known_answers(case):
+    counter, key, want = PHILOX_KAT[case]
+    assert tuple(int(v) for v in philox4x32_10(counter, key)) == want
+
+
+@pytest.mark.parametrize("blocks", [1, 2])
+def test_draw_rank_split_is_the_global_draw(blocks):
+    """Each of two ranks' rows (its share of each of ``blocks`` blocks, as
+    ``mesh.rows_of`` cuts them) draws its rows of the one-device draw bit
+    for bit: words, normals and noised frames."""
+    x = 0.1 + 4.9 * torch.rand((4 * blocks, 3, 6, 5), generator=torch.Generator().manual_seed(80))
+    y, z, words = prep_depth_draw_plain(x, "gamma", 0.0, DRAW_SEED, 12)
+    for r in range(2):
+        local = rows_of(x, blocks, 2, r)
+        yl, zl, wl = prep_depth_draw(local, "gamma", 0.0, DRAW_SEED, 12, (blocks, 2, r), debug=True)
+        for got, want in ((yl, y), (zl, z), (wl, words)):
+            assert torch.equal(got, rows_of(want, blocks, 2, r))
+
+
+def test_draw_counters_never_repeat():
+    """Counter (group index, offset), key (seed, high word xor the domain):
+    within a draw every group has its own counter, consecutive offsets (the
+    generator moved on by ``DRAW_OFFSET_STEP``) share none, a restored
+    offset repeats the draw, and the key is not torch's (the seed's)."""
+    layout = draw_layout((8, 2, 3, 4), (2, 2, 1))
+    groups = layout.groups
+    assert len(set(groups.tolist())) == len(groups) == layout.blocks * layout.block_n // 4
+    assert layout.block_stride == 2 * layout.block_n and layout.base == layout.block_n
+    first = {(int(g), 40) for g in groups}
+    second = {(int(g), 40 + DRAW_OFFSET_STEP) for g in groups}
+    assert not first & second
+    a, b = draw_words(layout, DRAW_SEED, 40), draw_words(layout, DRAW_SEED, 40 + DRAW_OFFSET_STEP)
+    assert np.mean(a == b) < 1e-2 and np.array_equal(a, draw_words(layout, DRAW_SEED, 40))
+    assert draw_key(DRAW_SEED) == (DRAW_SEED & 0xFFFFFFFF, (DRAW_SEED >> 32) ^ DRAW_DOMAIN)
+    assert draw_key(DRAW_SEED) != (DRAW_SEED & 0xFFFFFFFF, DRAW_SEED >> 32)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_draw_mode_plain_version(mode):
+    """The CPU wrapper is the plain version; its frames are
+    ``prep_depth_plain`` on its own normals, which are the Box-Muller of its
+    words and standard normal in their moments (2^16 draws)."""
+    x = 0.1 + 4.9 * torch.rand((4, 4, 64, 64), generator=torch.Generator().manual_seed(81))
+    y, z, words = prep_depth_draw(x, mode, 0.01, DRAW_SEED, 0, debug=True)
+    assert torch.equal(y, prep_depth_plain(x, z, mode, 0.01))
+    assert torch.equal(z.reshape(-1), box_muller_plain(words.reshape(-1)))
+    assert torch.equal(prep_depth_draw(x, mode, 0.01, DRAW_SEED, 0), y)
+    assert int(words.min()) >= 0 and int(words.max()) < 2**32
+    assert abs(float(z.mean())) < 0.02 and abs(float(z.var()) - 1.0) < 0.03
+    out = torch.empty_like(x)
+    assert prep_depth_draw(x, mode, 0.01, DRAW_SEED, 0, out=out) is out and torch.equal(out, y)
+
+
+def test_draw_mode_refusals():
+    """The draw mode refuses CUDA frames with a CPU generator (the frames
+    faked on the CPU), a misaligned base (a rank's block of rows not a
+    multiple of four elements) and an output over the frames."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        frames = torch.empty((2, 3, 4, 4), device="cuda")
+    with pytest.raises(ValueError, match="generator"):
+        draw_depth_noise(frames, "gamma", 0.0, torch.Generator())
+    with pytest.raises(ValueError, match="CUDA frames"):
+        draw_depth_noise(torch.rand(2, 3, 4, 4), "gamma", 0.0, torch.Generator())
+    with pytest.raises(ValueError, match="misaligned base"):
+        prep_depth_draw(torch.rand(2, 3, 1, 1), "gamma", 0.0, DRAW_SEED, 0, (2, 2, 1))
+    x = torch.rand(2, 3, 4, 4)
+    with pytest.raises(ValueError, match="write over"):
+        prep_depth_draw(x, "gamma", 0.0, DRAW_SEED, 0, out=x)
+    with pytest.raises(ValueError, match="std"):
+        prep_depth_draw(x, "gaussian", 0.0, DRAW_SEED, 0)
 
 
 # ---------------------------------------------------------------------------

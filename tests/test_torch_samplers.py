@@ -226,7 +226,7 @@ def test_cpu_sampler_wrappers_launch_nothing():
 # the ctypes bindings against the C entry points
 # ---------------------------------------------------------------------------
 
-_C_TYPES = {"long long": kernels._I64, "int": kernels._I32, "float": kernels._F32}
+_C_TYPES = {"long long": kernels._I64, "unsigned long long": kernels._U64, "int": kernels._I32, "float": kernels._F32}
 
 
 def test_every_binding_matches_its_c_entry_point():
